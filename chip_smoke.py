@@ -1,0 +1,592 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch + CUDA port (cloudberry_tpu_torch).
+
+Run from the repository root on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py            # TPC-H SF1, seed 1
+
+Phases (any failure exits non-zero, and nothing is caught and passed over):
+
+1. device: the card's name and power limit (nvidia-smi), TF32 off;
+2. build: nvcc compiles the kernels of cloudberry_tpu_torch/csrc (one
+   process per source, in parallel) into cloudberry_tpu_torch/build/;
+3. main path: TPC-H Q1, Q3 and Q5 through ``Session()`` on CUDA. Each
+   query runs once to warm up (and to record the inputs each kernel gets),
+   then once more with the kernel launch counts set to 0 just before and
+   read just after; the counts must show dense_agg on Q1 and Q5,
+   sorted_seg on Q3 and probe_join on Q5. Each result must equal, exactly,
+   a numpy oracle written here and the same query run by a
+   ``Session(device="cpu")`` of the port (the kernels' plain versions);
+4. kernels: each kernel, on the inputs the main path gave it and on
+   synthetic inputs at the main path's shapes plus edge cases (empty
+   selection, ragged N, int64 wraparound, duplicate build keys), must equal
+   its plain version on the card; then its median time over 20 cold-cache
+   runs (CUDA events) beside its plain version's, one PyTorch library call
+   computing the same function, and its bound (bytes over 3.35 TB/s or
+   operations over 67 T/s, whichever is larger);
+5. report: the card line, one JSON line of kernels, and last the JSON line
+   ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
+SCALAR_OPS_PER_S = 67e12      # H100 SXM non-tensor float32 peak
+REPLACES = {
+    "dense_agg": "cloudberry_tpu/exec/pallas_kernels.py:84",
+    "probe_join": "cloudberry_tpu/exec/pallas_kernels.py:150",
+    "sorted_seg": "cloudberry_tpu/exec/pallas_kernels.py:332",
+}
+SEED = 1          # TPC-H data and the synthetic kernel inputs
+REPS = 20         # timed launches per kernel
+EXPECTED = {"q1": {"dense_agg"}, "q3": {"sorted_seg"},
+            "q5": {"dense_agg", "probe_join"}}
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def check(cond, msg):
+    if not cond:
+        raise AssertionError(msg)
+
+
+# ------------------------------------------------------------ numpy oracle
+
+def _cents(x):
+    return np.rint(np.asarray(x, dtype=np.float64) * 100).astype(np.int64)
+
+
+def _lookup(keys, probe):
+    """Row index of each probe key in a unique key column."""
+    order = np.argsort(keys, kind="stable")
+    pos = np.searchsorted(keys[order], probe)
+    pos = np.clip(pos, 0, len(keys) - 1)
+    check(np.array_equal(keys[order][pos], probe), "oracle: dangling key")
+    return order[pos]
+
+
+def oracle(raw, q, D):
+    """Independent numpy answers, physical form: strings as str, DECIMAL
+    as int64 fixed-point, DATE as day numbers, avg as float64."""
+    li = raw["lineitem"]
+    ep, disc = _cents(li["l_extendedprice"]), _cents(li["l_discount"])
+    if q == "q1":
+        m = li["l_shipdate"] <= D("1998-12-01") - 90
+        rf, ls = li["l_returnflag"][m], li["l_linestatus"][m]
+        qty, tax = _cents(li["l_quantity"])[m], _cents(li["l_tax"])[m]
+        e, d = ep[m], disc[m]
+        out = {k: [] for k in ("l_returnflag", "l_linestatus", "sum_qty",
+                               "sum_base_price", "sum_disc_price",
+                               "sum_charge", "avg_qty", "avg_price",
+                               "avg_disc", "count_order")}
+        for a, b in sorted(set(zip(rf.tolist(), ls.tolist()))):
+            g = (rf == a) & (ls == b)
+            c = np.int64(g.sum())
+            out["l_returnflag"].append(a)
+            out["l_linestatus"].append(b)
+            out["sum_qty"].append(qty[g].sum())
+            out["sum_base_price"].append(e[g].sum())
+            out["sum_disc_price"].append((e[g] * (100 - d[g])).sum())
+            out["sum_charge"].append(
+                (e[g] * (100 - d[g]) * (100 + tax[g])).sum())
+            for name, v in (("avg_qty", qty), ("avg_price", e),
+                            ("avg_disc", d)):
+                out[name].append(np.float64(v[g].sum()) / np.float64(c)
+                                 / 100.0)
+            out["count_order"].append(c)
+        return out
+    if q == "q3":
+        cu, od = raw["customer"], raw["orders"]
+        cust_ok = cu["c_mktsegment"] == "BUILDING"
+        o_ok = (od["o_orderdate"] < D("1995-03-15")) \
+            & cust_ok[_lookup(cu["c_custkey"], od["o_custkey"])]
+        orow = _lookup(od["o_orderkey"], li["l_orderkey"])
+        m = (li["l_shipdate"] > D("1995-03-15")) & o_ok[orow]
+        keys, inv = np.unique(li["l_orderkey"][m], return_inverse=True)
+        rev = np.zeros(len(keys), dtype=np.int64)
+        np.add.at(rev, inv, (ep * (100 - disc))[m])
+        first = _lookup(od["o_orderkey"], keys)
+        odate = od["o_orderdate"][first].astype(np.int32)
+        prio = od["o_shippriority"][first].astype(np.int32)
+        top = np.lexsort((keys, odate, -rev))[:10]
+        return {"l_orderkey": keys[top], "revenue": rev[top],
+                "o_orderdate": odate[top], "o_shippriority": prio[top]}
+    if q == "q5":
+        cu, od, su = raw["customer"], raw["orders"], raw["supplier"]
+        na, rg = raw["nation"], raw["region"]
+        asia = rg["r_regionkey"][rg["r_name"] == "ASIA"]
+        orow = _lookup(od["o_orderkey"], li["l_orderkey"])
+        odate = od["o_orderdate"][orow]
+        crow = _lookup(cu["c_custkey"], od["o_custkey"][orow])
+        srow = _lookup(su["s_suppkey"], li["l_suppkey"])
+        c_nat, s_nat = cu["c_nationkey"][crow], su["s_nationkey"][srow]
+        nrow = _lookup(na["n_nationkey"], s_nat)
+        m = (odate >= D("1994-01-01")) & (odate < D("1995-01-01")) \
+            & (c_nat == s_nat) & np.isin(na["n_regionkey"][nrow], asia)
+        names = na["n_name"][nrow][m]
+        rev = (ep * (100 - disc))[m]
+        out = {}
+        for nm in sorted(set(names.tolist())):
+            out[nm] = rev[names == nm].sum()
+        order = sorted(out, key=lambda k: -out[k])
+        return {"n_name": order,
+                "revenue": [out[k] for k in order]}
+    raise KeyError(q)
+
+
+def physical(batch):
+    """A result batch's selected rows, physical form (strings decoded)."""
+    sel = np.asarray(batch.sel)
+    out = {}
+    for f in batch.schema.fields:
+        arr = np.asarray(batch.columns[f.name])[sel]
+        d = batch.dicts.get(f.name)
+        out[f.name] = d.decode(arr) if d is not None else arr
+    return out
+
+
+def same(got: dict, want: dict, what: str):
+    check(list(got) == list(want), f"{what}: columns {list(got)} vs "
+          f"{list(want)}")
+    for k in want:
+        g, w = np.asarray(got[k]), np.asarray(want[k])
+        if w.dtype == object or g.dtype == object:
+            ok = g.shape == w.shape and all(
+                a == b for a, b in zip(g.tolist(), w.tolist()))
+        elif w.dtype.kind == "f" or g.dtype.kind == "f":
+            ok = g.shape == w.shape and np.array_equal(
+                g.astype(np.float64).view(np.int64),
+                w.astype(np.float64).view(np.int64))
+        else:
+            ok = g.shape == w.shape and np.array_equal(g.astype(np.int64),
+                                                       w.astype(np.int64))
+        check(ok, f"{what}: column {k} differs:\n got  {g[:10]}\n want "
+              f"{w[:10]}")
+
+
+# ------------------------------------------------------------------ timing
+
+def cold_ms(torch, fn, reps, flush):
+    """Median ms of ``fn`` over ``reps`` launches, each after an L2 flush
+    (the main path finds its inputs cold)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def max_abs_err(torch, got, want):
+    err = 0.0
+    for g, w in zip(got, want):
+        g, w = torch.as_tensor(g), torch.as_tensor(w)
+        check(g.shape == w.shape and g.dtype == w.dtype,
+              f"shape/dtype {g.shape} {g.dtype} vs {w.shape} {w.dtype}")
+        if g.numel() == 0:
+            continue
+        if g.dtype.is_floating_point:
+            err = max(err, float((g - w).abs().max()))
+        else:  # exact types: the number of differing elements
+            err = max(err, float((g != w).sum()))
+    return err
+
+
+def profile_queries(torch, session, queries):
+    """Trace Q1/Q3/Q5 once each (tables already on the card): device time
+    by operator, and the device's busy share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs("chiprun_out", exist_ok=True)
+    for q in ("q1", "q3", "q5"):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            session.sql(queries[q])
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        table = prof.key_averages().table(sort_by="self_cuda_time_total",
+                                          row_limit=25)
+        kernels = [e for e in prof.events()
+                   if e.device_type.name == "CUDA"]
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in kernels)
+        busy, end = 0.0, float("-inf")
+        for a, b in spans:      # union of kernel intervals
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        with open(f"chiprun_out/profile_{q}.txt", "w") as f:
+            f.write(table)
+        log(f"[profile] {q}: wall {wall_us / 1e3:.3f} ms, device busy "
+            f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}% of wall), "
+            f"{len(kernels)} device kernels")
+        log(table)
+
+
+# ------------------------------------------------------------- the phases
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--sf", type=float, default=1.0)
+    ap.add_argument("--profile", action="store_true",
+                    help="also trace each query with torch.profiler and "
+                    "write its device-time table under chiprun_out/")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import cloudberry_tpu_torch as ct
+    from cloudberry_tpu_torch import tpch
+    from cloudberry_tpu_torch.catalog import carry
+    from cloudberry_tpu_torch.exec import cuda_kernels as CK
+    from cloudberry_tpu_torch.types import date_to_days
+
+    # ---------------------------------------------------------- 1. device
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    log(f"[device] {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
+        f"cuda {torch.version.cuda}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+
+    # ----------------------------------------------------------- 2. build
+    t0 = time.perf_counter()
+    CK.build(verbose=True)
+    log(f"[build] kernels built in {time.perf_counter() - t0:.2f} s")
+
+    # ------------------------------------------------------- 3. main path
+    t0 = time.perf_counter()
+    raw = tpch.generate(args.sf, SEED)
+    names = ["region", "nation", "supplier", "customer", "orders",
+             "lineitem"]
+    gpu = ct.Session()
+    tpch.load_tables(gpu, tpch.SCHEMAS, tpch.DIST_KEYS, raw, names)
+    cpu = ct.Session(device="cpu")
+    for n in names:
+        t = gpu.catalog.table(n)
+        carry.load_encoded(cpu, n, t.schema.fields, t.data, t.validity,
+                           {c: d.values for c, d in t.dicts.items()},
+                           t.policy)
+    log(f"[data] TPC-H sf={args.sf} seed={SEED}: "
+        f"{gpu.catalog.table('lineitem').num_rows} lineitem rows, "
+        f"{time.perf_counter() - t0:.1f} s to generate and load")
+
+    # record the inputs every kernel call of the warm-up runs receives
+    recorded: dict[str, list] = {k: [] for k in CK.LAUNCHES}
+    current = [None]
+    originals = {k: getattr(CK, k) for k in CK.LAUNCHES}
+
+    def recorder(name):
+        def wrapped(*a):
+            if a[0].device.type == "cuda":
+                recorded[name].append(
+                    (current[0], [x.clone() if torch.is_tensor(x) else x
+                                  for x in a]))
+            return originals[name](*a)
+        return wrapped
+
+    launches = {k: 0 for k in CK.LAUNCHES}
+    query_ms = {}
+    for q in ("q1", "q3", "q5"):
+        sql = tpch.QUERIES[q]
+        for k in CK.LAUNCHES:
+            setattr(CK, k, recorder(k))
+        current[0] = q
+        t0 = time.perf_counter()
+        gpu.sql(sql)
+        warm_ms = (time.perf_counter() - t0) * 1e3
+        for k, fn in originals.items():
+            setattr(CK, k, fn)
+        torch.cuda.synchronize()
+        for k in CK.LAUNCHES:
+            CK.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        res = gpu.sql(sql)
+        torch.cuda.synchronize()
+        query_ms[q] = (time.perf_counter() - t0) * 1e3
+        counts = dict(CK.LAUNCHES)
+        fired = {k for k, v in counts.items() if v > 0}
+        check(EXPECTED[q] <= fired,
+              f"{q}: kernels {sorted(EXPECTED[q])} expected, launches "
+              f"{counts}")
+        for k, v in counts.items():
+            launches[k] += v
+        got = physical(res)
+        same(got, oracle(raw, q, date_to_days), f"{q} vs numpy oracle")
+        same(got, physical(cpu.sql(sql)), f"{q} vs the port on the CPU")
+        log(f"[query] {q}: {query_ms[q]:.3f} ms (first run, tables "
+            f"uploaded: {warm_ms:.1f} ms), {len(next(iter(got.values())))} "
+            f"rows, launches {counts}, equal to the numpy oracle and the "
+            f"CPU run")
+
+    if args.profile:
+        profile_queries(torch, gpu, tpch.QUERIES)
+
+    # --------------------------------------------------------- 4. kernels
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    report = {}
+
+    def rand_int(lo, hi, shape, dtype=torch.int64):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=dtype)
+
+    def rand_sel(n, p=0.9):
+        return torch.rand(n, generator=gen, device=dev) < p
+
+    def compare(name, what, args_, kernel, plain):
+        got = kernel(*args_)
+        want = plain(*args_)
+        torch.cuda.synchronize()
+        err = max_abs_err(torch, got, want)
+        tol = 0.0
+        if name == "dense_agg" and args_[2].shape[0] > 0:
+            # float sums: atomics add in another order than index_add_
+            tol = 1e-9 * max(1.0, float(want[2].abs().max()))
+        check(err <= tol, f"{name} {what}: kernel differs from plain "
+              f"(max abs err {err})")
+        log(f"[kernel] {name} {what}: equal to the plain version "
+            f"(max abs err {err})")
+        report.setdefault(name, {"max_abs_err": 0.0})
+        report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
+
+    # dense_agg -----------------------------------------------------------
+    N = 6_001_215
+    for q, a in recorded["dense_agg"]:
+        compare("dense_agg", f"{q} main-path input (N={a[0].shape[0]}, "
+                f"K={a[1].shape[0]}, cells={a[4]})", a, CK.dense_agg,
+                CK.dense_agg_plain)
+    for cells in (6, 25, 4096):
+        a = (rand_int(0, cells, (N,), torch.int32),
+             rand_int(0, 10_000_000, (7, N)),
+             torch.zeros((0, N), dtype=torch.float64, device=dev),
+             rand_sel(N), cells)
+        compare("dense_agg", f"N={N} K=7 cells={cells}", a, CK.dense_agg,
+                CK.dense_agg_plain)
+    big = (1 << 62) + 12345
+    edge_n = 1001
+    edges = {
+        "empty selection": (rand_int(0, 6, (edge_n,), torch.int32),
+                            rand_int(-5, 5, (3, edge_n)),
+                            torch.zeros((0, edge_n), dtype=torch.float64,
+                                        device=dev),
+                            torch.zeros(edge_n, dtype=torch.bool,
+                                        device=dev), 6),
+        "ragged N, near-overflow values (wraparound)": (
+            rand_int(-1, 8, (edge_n,), torch.int32),
+            torch.stack([torch.full((edge_n,), big, device=dev),
+                         torch.full((edge_n,), -big, device=dev),
+                         rand_int(-(1 << 62), 1 << 62, (edge_n,))]),
+            torch.zeros((0, edge_n), dtype=torch.float64, device=dev),
+            rand_sel(edge_n), 6),
+        "count only (no value rows)": (
+            rand_int(0, 5, (edge_n,), torch.int32),
+            torch.zeros((0, edge_n), dtype=torch.int64, device=dev),
+            torch.zeros((0, edge_n), dtype=torch.float64, device=dev),
+            rand_sel(edge_n), 5),
+        "float values": (rand_int(0, 25, (edge_n,), torch.int32),
+                         rand_int(-100, 100, (1, edge_n)),
+                         torch.randn((2, edge_n), generator=gen,
+                                     device=dev, dtype=torch.float64),
+                         rand_sel(edge_n), 25),
+    }
+    for what, a in edges.items():
+        compare("dense_agg", what, a, CK.dense_agg, CK.dense_agg_plain)
+
+    # probe_join ----------------------------------------------------------
+    for q, a in recorded["probe_join"]:
+        compare("probe_join", f"{q} main-path input (B={a[0].shape[0]}, "
+                f"N={a[2].shape[0]}, P={a[4].shape[0]})", a, CK.probe_join,
+                CK.probe_join_plain)
+    PN = 1_500_000
+    for b in (5, 25, 2048):
+        bk = torch.randperm(4 * b, generator=gen, device=dev)[:b] \
+            .to(torch.int32)
+        a = (bk, rand_sel(b), rand_int(0, 4 * b, (PN,), torch.int32),
+             rand_sel(PN), rand_int(-(1 << 62), 1 << 62, (2, b)))
+        compare("probe_join", f"B={b} N={PN} P=2", a, CK.probe_join,
+                CK.probe_join_plain)
+    dup = torch.tensor([3, 7, 3, 9], dtype=torch.int32, device=dev)
+    pk = rand_int(0, 12, (edge_n,), torch.int32)
+    a = (dup, torch.ones(4, dtype=torch.bool, device=dev), pk,
+         torch.ones(edge_n, dtype=torch.bool, device=dev),
+         rand_int(-99, 99, (1, 4)))
+    compare("probe_join", "duplicate build key", a, CK.probe_join,
+            CK.probe_join_plain)
+    check(bool(CK.probe_join(*a)[2]) == bool((pk == 3).any()),
+          "probe_join: duplicate flag not set")
+    a = (dup, torch.ones(4, dtype=torch.bool, device=dev), pk,
+         torch.zeros(edge_n, dtype=torch.bool, device=dev),
+         rand_int(-99, 99, (1, 4)))
+    compare("probe_join", "empty probe selection", a, CK.probe_join,
+            CK.probe_join_plain)
+    check(not bool(CK.probe_join(*a)[2]),
+          "probe_join: duplicate flag set without a probe hit")
+
+    # sorted_seg ----------------------------------------------------------
+    for q, a in recorded["sorted_seg"]:
+        compare("sorted_seg", f"{q} main-path input (R={a[0].shape[0]}, "
+                f"N={a[0].shape[1]}, groups={int(a[3])}, cap={a[4]})", a,
+                CK.sorted_seg, CK.sorted_seg_plain)
+
+    def seg_case(n_rows, n_groups, cap, vals):
+        cuts = torch.sort(torch.randperm(n_rows - 1, generator=gen,
+                                         device=dev)[:n_groups - 1] + 1
+                          ).values if n_groups > 1 else \
+            torch.zeros(0, dtype=torch.int64, device=dev)
+        starts = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                            cuts]) if n_groups else cuts
+        ends = torch.cat([cuts - 1, torch.tensor([n_rows - 1], device=dev)]
+                         ) if n_groups else cuts
+        pad = cap - starts.shape[0]
+        z = torch.zeros(pad, dtype=torch.int64, device=dev)
+        return (vals, torch.cat([starts, z]), torch.cat([ends, z]),
+                torch.tensor(n_groups, device=dev), cap)
+
+    q3 = recorded["sorted_seg"][0][1]
+    n_q3 = int(q3[3])
+    seg_edges = {
+        f"N={N} groups={n_q3} (Q3's group count)":
+            seg_case(N, n_q3, q3[4], rand_int(-(1 << 40), 1 << 40, (1, N))),
+        "zero groups": seg_case(edge_n, 0, 64,
+                                torch.zeros((2, edge_n), dtype=torch.int64,
+                                            device=dev)),
+        "ragged N, near-overflow values (wraparound)":
+            seg_case(edge_n, 7, 13,
+                     torch.stack([torch.full((edge_n,), big, device=dev),
+                                  rand_int(-(1 << 62), 1 << 62,
+                                           (edge_n,))])),
+    }
+    for what, a in seg_edges.items():
+        compare("sorted_seg", what, a, CK.sorted_seg, CK.sorted_seg_plain)
+
+    # timings at the main path's largest input per kernel ----------------
+    def largest(name, size):
+        return max((a for _, a in recorded[name]), key=size)
+
+    a = largest("dense_agg", lambda a: a[1].numel())
+    gid, iv, fv, sel, cells = a
+    n, k = gid.shape[0], iv.shape[0] + fv.shape[0]
+    keep = sel & (gid >= 0) & (gid < cells)
+    g64 = torch.where(keep, gid, cells).to(torch.int64)
+    mat = torch.cat([keep.to(torch.int64)[None], iv]).t().contiguous()
+    acc = torch.zeros((cells + 1, mat.shape[1]), dtype=torch.int64,
+                      device=dev)
+    report["dense_agg"].update(
+        shape=f"N={n} K={k} cells={cells}",
+        ms=cold_ms(torch, lambda: CK.dense_agg(*a), REPS, flush),
+        plain_ms=cold_ms(torch, lambda: CK.dense_agg_plain(*a), REPS,
+                         flush),
+        library_ms=cold_ms(torch, lambda: acc.index_add_(0, g64, mat),
+                           REPS, flush),
+        bytes=n * (4 + 1 + 8 * k) + 8 * (1 + k) * cells,
+        ops=int(keep.sum()) * (1 + k))
+
+    a = largest("probe_join", lambda a: a[0].shape[0] * a[2].shape[0])
+    bk, bs, pk, ps, pay = a
+    b, n, p = bk.shape[0], pk.shape[0], pay.shape[0]
+    bidx = torch.nonzero(bs).flatten()
+    order = torch.sort(bk[bidx].to(torch.int64), stable=True).indices
+    sk, src = bk[bidx][order].contiguous(), bidx[order]
+    pays = pay[:, src].contiguous()
+    top = max(sk.shape[0] - 1, 0)
+    report["probe_join"].update(
+        shape=f"B={b} N={n} P={p}",
+        ms=cold_ms(torch, lambda: CK.probe_join(*a), REPS, flush),
+        plain_ms=cold_ms(torch, lambda: CK.probe_join_plain(*a), REPS,
+                         flush),
+        library_ms=cold_ms(
+            torch, lambda: pays[:, torch.searchsorted(sk, pk).clamp(
+                max=top)], REPS, flush),
+        bytes=n * (4 + 1 + 1 + 8 * p) + b * (4 + 1 + 8 * p) + 4,
+        ops=int(ps.sum()) * b)
+
+    a = largest("sorted_seg", lambda a: a[0].numel())
+    vals, starts, ends, ng, cap = a
+    r, n = vals.shape
+    n_groups = int(ng)
+    sizes = (ends - starts + 1)[:n_groups]
+    n_rows = int(sizes.sum())
+    rowgid = torch.repeat_interleave(
+        torch.arange(n_groups, device=dev), sizes)
+    # the library call's output contract is the kernel's: a count and the
+    # sums for every one of the cap slots, zero past n_groups
+    seg_src = torch.cat([torch.ones((1, n_rows), dtype=torch.int64,
+                                    device=dev), vals[:, :n_rows]]
+                        ).t().contiguous()
+    report["sorted_seg"].update(
+        shape=f"R={r} N={n} groups={n_groups} cap={cap}",
+        ms=cold_ms(torch, lambda: CK.sorted_seg(*a), REPS, flush),
+        plain_ms=cold_ms(torch, lambda: CK.sorted_seg_plain(*a), REPS,
+                         flush),
+        library_ms=cold_ms(
+            torch, lambda: torch.zeros((cap, 1 + r), dtype=torch.int64,
+                                       device=dev).index_add_(0, rowgid,
+                                                              seg_src),
+            REPS, flush),
+        # rows read once, 16 B of boundaries per group (the kernel reads
+        # none past n_groups), n_groups, and the cap-slot outputs written
+        bytes=8 * r * n_rows + 16 * n_groups + 8 + 8 * (1 + r) * cap,
+        ops=r * n_rows)
+
+    # ---------------------------------------------------------- 5. report
+    kernels = []
+    for name in CK.LAUNCHES:
+        rep = report[name]
+        t_bytes = rep["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = rep["ops"] / SCALAR_OPS_PER_S * 1e3
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"cloudberry_tpu_torch/csrc/{CK.SOURCES[name]}",
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
+            "plain_ms": rep["plain_ms"], "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": rep["library_ms"], "shape": rep["shape"]})
+        log(f"[time] {name} at {rep['shape']}: kernel {rep['ms']:.4f} ms, "
+            f"plain {rep['plain_ms']:.4f} ms, library call "
+            f"{rep['library_ms']:.4f} ms, bound {max(t_bytes, t_ops):.4f} "
+            f"ms ({'bytes' if t_bytes >= t_ops else 'operations'})")
+    for q, ms in query_ms.items():
+        log(f"[time] {q} wall {ms:.3f} ms on {kind} ({smi})")
+    check(all(launches[k] > 0 for k in launches),
+          f"a kernel never launched on the main path: {launches}")
+    print(smi)
+    print(json.dumps({"kernels": kernels,
+                      "queries_ms": query_ms, "sf": args.sf}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,643 @@
+"""Single-segment executor: plan tree → eager PyTorch operators.
+
+The reference pulls tuples through a process-per-slice Volcano tree
+(ExecProcNode, src/backend/executor/execProcnode.c); the JAX package traces
+the whole plan into one XLA program. Here the same Lowerer walks the plan
+eagerly over fixed-capacity column tensors on one device: scans are table
+inputs, operators are exec/kernels.py and the hand-written CUDA kernels of
+exec/cuda_kernels.py. Runtime "can't happen" conditions (agg capacity
+overflow, duplicate build keys in a PK join) stay device tensors until the
+statement ends, and are read on the host ONCE (``raise_checks``) — the
+shape-world analog of ereport().
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from cloudberry_tpu_torch.columnar.batch import ColumnBatch
+from cloudberry_tpu_torch.exec import cuda_kernels as CK
+from cloudberry_tpu_torch.exec import kernels as K
+from cloudberry_tpu_torch.exec.expr_compile import compile_expr
+from cloudberry_tpu_torch.plan import expr as ex
+from cloudberry_tpu_torch.plan import nodes as N
+from cloudberry_tpu_torch.types import DType, Field, Schema
+
+
+class ExecError(RuntimeError):
+    pass
+
+
+class DuplicateBuildKeyError(ExecError):
+    """The planner assumed a unique (PK) build side but the data holds
+    duplicate build keys — a semantic error (results would be wrong, so
+    the statement aborts; never retryable)."""
+
+
+# The dense cell-domain cap. The JAX package caps it at 4096 on the CPU
+# and 64 elsewhere (an unrolled-reduction limit of XLA); the port uses
+# 4096 everywhere so the CPU tests and the card take the same path.
+DENSE_MAX_CELLS = 4096
+
+
+@dataclass
+class Executable:
+    plan: N.PlanNode
+    fn: Callable  # (tables) -> (cols dict, sel, checks dict)
+    table_names: list[str]
+
+
+def execute(plan: N.PlanNode, session) -> ColumnBatch:
+    exe = compile_plan(plan, session)
+    return run_executable(exe, prepare_tables(exe.table_names, session))
+
+
+def compile_plan(plan: N.PlanNode, session) -> Executable:
+    """Eager: the 'program' is the Lowerer walk itself (no jit)."""
+    table_names = sorted({s.table_name for s in scans_of(plan)})
+    device = session.device
+
+    def run(tables):
+        low = Lowerer(tables, device)
+        cols, sel = low.lower(plan)
+        out = {f.name: cols[f.name] for f in plan.fields}
+        return out, sel, low.checks
+
+    return Executable(plan, run, table_names)
+
+
+def prepare_tables(table_names: list[str], session) -> dict:
+    """Whole RAM tables as device tensors, by name (validity masks under
+    ``$nn:<col>``) — from the session's per-version device copies."""
+    return {name: session.device_table(name) for name in table_names}
+
+
+def run_executable(exe: Executable, tables: dict) -> ColumnBatch:
+    cols, sel, checks = exe.fn(tables)
+    raise_checks(checks)
+    return make_batch(exe.plan, cols, sel)
+
+
+def raise_checks(checks: dict) -> None:
+    """Read every runtime check in ONE device→host transfer and raise the
+    first that fired."""
+    if not checks:
+        return
+    flags = torch.stack([torch.as_tensor(v).reshape(-1).any()
+                         for v in checks.values()]).cpu().numpy()
+    for msg, bad in zip(checks, flags):
+        if bad:
+            if "duplicate keys" in msg:
+                raise DuplicateBuildKeyError(msg)
+            raise ExecError(msg)
+
+
+def make_batch(plan: N.PlanNode, cols, sel) -> ColumnBatch:
+    """The result as a host ColumnBatch of the SELECTED rows only: they
+    are gathered on the device first, so a result at a large capacity
+    (an aggregation sized by its input) does not cross to the host
+    padded. The reference returns the padded arrays; the selected rows,
+    in order, are the same."""
+    keep = torch.nonzero(sel).flatten()
+
+    def host(t: torch.Tensor) -> np.ndarray:
+        return t[keep].cpu().numpy()
+
+    shown = [f for f in plan.fields if not f.name.startswith("$vm")]
+    fields = tuple(Field(f.name, f.type) for f in shown)
+    dicts = {f.name: f.sdict for f in shown if f.sdict is not None}
+    validity = {}
+    for f in shown:
+        ms = f.masks
+        if ms and all(m in cols for m in ms):
+            v = host(cols[ms[0]]).astype(bool)
+            for m in ms[1:]:
+                v = v & host(cols[m]).astype(bool)
+            validity[f.name] = v
+    return ColumnBatch(Schema(fields),
+                       {f.name: host(cols[f.name]) for f in shown},
+                       np.ones(keep.shape[0], dtype=np.bool_), dicts,
+                       validity=validity)
+
+
+def _as_column(v: torch.Tensor, cap: int) -> torch.Tensor:
+    """Broadcast a 0-d (constant) value to column shape."""
+    return v.expand(cap) if v.ndim == 0 else v
+
+
+def all_nodes(plan: N.PlanNode):
+    """Every node in the plan, including scalar-subquery plans."""
+    yield plan
+    for e in N.node_exprs(plan):
+        for sub in ex.walk(e):
+            if isinstance(sub, ex.SubqueryScalar):
+                yield from all_nodes(sub.plan)
+    for c in plan.children():
+        yield from all_nodes(c)
+
+
+def scans_of(plan: N.PlanNode):
+    if isinstance(plan, N.PScan) and plan.table_name != "$dual":
+        yield plan
+    # scalar subqueries ride inside expressions, not children
+    for e in N.node_exprs(plan):
+        for sub in ex.walk(e):
+            if isinstance(sub, ex.SubqueryScalar):
+                yield from scans_of(sub.plan)
+    for c in plan.children():
+        yield from scans_of(c)
+
+
+# ------------------------------------------------------------- plan lowering
+
+
+class Lowerer:
+    """Walks a plan into torch ops on one device."""
+
+    def __init__(self, tables, device):
+        self.tables = tables
+        self.device = torch.device(device)
+        self.checks: dict[str, torch.Tensor] = {}
+        self._subcache: dict[int, torch.Tensor] = {}
+        # shared-subplan (PShare) results, keyed by child object identity
+        self._sharecache: dict[int, tuple] = {}
+
+    def lower(self, node: N.PlanNode) -> tuple[dict, torch.Tensor]:
+        if isinstance(node, N.PScan):
+            return self.scan(node)
+        if isinstance(node, N.PFilter):
+            cols, sel = self.lower(node.child)
+            mask = self.expr(node.predicate, cols)
+            return cols, sel & mask
+        if isinstance(node, N.PProject):
+            cols, sel = self.lower(node.child)
+            out = {}
+            for name, e in node.exprs:
+                out[name] = _as_column(self.expr(e, cols), sel.shape[0])
+            return out, sel
+        if isinstance(node, N.PJoin):
+            return self.join(node)
+        if isinstance(node, N.PAgg):
+            return self.agg(node)
+        if isinstance(node, N.PSort):
+            cols, sel = self.lower(node.child)
+            keys, desc = [], []
+            for e, asc in node.keys:
+                keys.append(_as_column(
+                    _sortable(e, node.child, cols, self.device),
+                    sel.shape[0]))
+                desc.append(not asc)
+            perm = K.sort_indices(keys, sel, descending=desc)
+            return {n: c[perm] for n, c in cols.items()}, sel[perm]
+        if isinstance(node, N.PLimit):
+            cols, sel = self.lower(node.child)
+            return cols, K.limit_mask(sel, node.limit, node.offset)
+        if isinstance(node, N.PMotion):
+            # single segment: loopback motion is the identity
+            return self.lower_shared(node.child)
+        if isinstance(node, N.PWindow):
+            raise NotImplementedError(
+                "window functions are not yet ported to "
+                "cloudberry_tpu_torch")
+        if isinstance(node, N.PShare):
+            return self.lower_shared(node.child)
+        if isinstance(node, N.PRuntimeFilter):
+            # single segment: the filter would only duplicate the join's
+            # own matching — pass through
+            return self.lower(node.child)
+        if isinstance(node, N.PConcat):
+            outs = [self.lower(c) for c in node.inputs]
+            cols = {f.name: torch.cat([o[0][f.name] for o in outs])
+                    for f in node.fields}
+            sel = torch.cat([o[1] for o in outs])
+            return cols, sel
+        raise ExecError(f"cannot execute node {type(node).__name__}")
+
+    def scan(self, node: N.PScan):
+        if node.table_name == "$dual":
+            return {}, torch.ones((1,), dtype=torch.bool, device=self.device)
+        data = self.tables[node.table_name]
+        cols = {}
+        for phys, out in node.column_map.items():
+            arr = data[phys]
+            if arr.shape[0] < node.capacity:  # empty table: 0 rows, cap 1
+                arr = torch.zeros((node.capacity,), dtype=arr.dtype,
+                                  device=self.device)
+            cols[out] = arr
+        for phys, out in node.mask_map.items():
+            arr = data[f"$nn:{phys}"]
+            if arr.shape[0] < node.capacity:
+                arr = torch.zeros((node.capacity,), dtype=torch.bool,
+                                  device=self.device)
+            cols[out] = arr
+        n = node.num_rows if node.num_rows >= 0 else node.capacity
+        sel = torch.arange(node.capacity, device=self.device) < n
+        return cols, sel
+
+    def lower_shared(self, node: N.PlanNode):
+        """Lower a subtree at most once (PShare / runtime-filter build
+        sharing) — the materialize-once contract."""
+        key = id(node)
+        if key not in self._sharecache:
+            self._sharecache[key] = self.lower(node)
+        return self._sharecache[key]
+
+    # ----------------------------------------------------------- expressions
+
+    def expr(self, e: ex.Expr, cols) -> torch.Tensor:
+        """Evaluate an expression; uncorrelated scalar subqueries (InitPlan
+        analog) are lowered once and broadcast."""
+        subs = [n for n in ex.walk(e) if isinstance(n, ex.SubqueryScalar)]
+        if not subs:
+            return compile_expr(e, self.device)(cols)
+        aug = dict(cols)
+        mapping = {}
+        for sq in subs:
+            key = id(sq)
+            if key not in self._subcache:
+                scols, ssel = self.lower(sq.plan)
+                n = ssel.sum(dtype=torch.int64)
+                if sq.mode == "exists":
+                    self._subcache[key] = n > 0
+                else:
+                    arr = scols[sq.plan.fields[0].name]
+                    self.checks[
+                        f"scalar subquery returned more than one row "
+                        f"(node {key})"] = n > 1
+                    # 0 selected rows: row 0's arbitrary value is masked
+                    # NULL by the binder's presence term
+                    idx = torch.argmax(ssel.to(torch.uint8))
+                    self._subcache[key] = arr[idx]
+            name = f"$sqv{key}"
+            mapping[key] = name
+            aug[name] = self._subcache[key]
+        return compile_expr(_substitute_subqueries(e, mapping),
+                            self.device)(aug)
+
+    # ------------------------------------------------------------ operators
+
+    def join(self, node: N.PJoin):
+        bcols, bsel = self.lower_shared(node.build)
+        pcols, psel = self.lower(node.probe)
+        bkeys = [self.expr(k, bcols) for k in node.build_keys]
+        pkeys = [self.expr(k, pcols) for k in node.probe_keys]
+
+        # SQL NULL-key semantics: a NULL key matches nothing. NULL-key build
+        # rows leave the build set; NULL-key probe rows become unmatched
+        # (they still flow through left/anti via the ORIGINAL psel).
+        bkv = self.expr(node.build_key_valid, bcols) \
+            if node.build_key_valid is not None else None
+        pkv = self.expr(node.probe_key_valid, pcols) \
+            if node.probe_key_valid is not None else None
+        bselm = bsel & bkv if bkv is not None else bsel
+        pselm = psel & pkv if pkv is not None else psel
+
+        if node.kind in ("semi", "anti") and node.residual is not None:
+            return self._join_semi_residual(node, bcols, bselm, bkeys,
+                                            pcols, psel, pselm, pkeys)
+        if not node.unique_build:
+            return self._join_expand(node, bcols, bsel, bselm, bkeys,
+                                     pcols, psel, pselm, pkeys)
+
+        fused = self._probe_join_kernel(node, bcols, bselm, bkeys,
+                                        pselm, pkeys)
+        if fused is not None:
+            matched, payload, has_dup = fused
+        else:
+            idx, matched, has_dup = K.join_lookup(
+                bkeys, bselm, pkeys, pselm, bits=node.pack_bits)
+            payload = K.gather_payload(
+                {n: bcols[n] for n in node.build_payload}, idx, matched)
+        if node.kind in ("inner", "left"):
+            # semi/anti only test membership; inner/left rely on the
+            # planner's uniqueness proof — verify it at runtime. The sorted
+            # path checks the build side itself (adjacent-equal on its
+            # sorted keys); the kernel's match count > 1 is weaker — it
+            # fires only when a selected probe row HITS the duplicated key,
+            # i.e. exactly when results would be wrong (the reference's
+            # fused-path contract)
+            self.checks[
+                f"join build side has duplicate keys (node {id(node)}) but "
+                "the planner assumed a unique (PK) build side"] = has_dup
+        cols = {**pcols, **payload}
+        if node.match_name:
+            cols[node.match_name] = matched
+        if node.kind in ("inner", "semi"):
+            sel = matched
+        elif node.kind == "left":
+            sel = psel
+        elif node.kind == "anti":
+            sel = psel & ~matched
+            if node.null_aware:
+                # x NOT IN (...): never TRUE if x is NULL or ANY subquery
+                # key is NULL
+                if pkv is not None:
+                    sel = sel & pkv
+                if bkv is not None:
+                    sel = sel & ~(bsel & ~bkv).any()
+        else:
+            raise ExecError(f"join kind {node.kind}")
+        return cols, sel
+
+    def _probe_join_kernel(self, node: N.PJoin, bcols, bselm, bkeys,
+                           pselm, pkeys):
+        """The probe-join kernel's gate (the reference's fused-path rules):
+        a unique build of at most CK.PROBE_MAX_BUILD rows whose keys pack to
+        32 bits, with integer or bool payload. Returns (matched, payload
+        cols, has_dup) or None → sorted lookup."""
+        if node.pack_bits != 32:
+            return None
+        b = int(bselm.shape[0])
+        if b > CK.PROBE_MAX_BUILD:
+            return None
+        for nm in node.build_payload:
+            if bcols[nm].dtype.is_floating_point:
+                return None  # float payload keeps the sorted path
+        ranges = K.key_ranges(bkeys, bselm)
+        bp = K.downcast32(K.pack_with_ranges(bkeys, ranges))
+        pp = K.downcast32(K.pack_with_ranges(pkeys, ranges))
+        rows = [bcols[nm].to(torch.int64) for nm in node.build_payload]
+        pay = torch.stack(rows) if rows else \
+            torch.zeros((0, b), dtype=torch.int64, device=self.device)
+        matched, gathered, has_dup = CK.probe_join(bp, bselm, pp, pselm, pay)
+        payload = {nm: gathered[i].to(bcols[nm].dtype)
+                   for i, nm in enumerate(node.build_payload)}
+        return matched, payload, has_dup
+
+    def _join_semi_residual(self, node: N.PJoin, bcols, bselm, bkeys,
+                            pcols, psel, pselm, pkeys):
+        """Correlated EXISTS with extra non-equi conditions (Q21 shape):
+        expand equi-match pairs, evaluate the residual per pair, then
+        OR-reduce back onto probe rows."""
+        cap = node.out_capacity
+        pi, bi, osel, _matched, total = K.join_expand(
+            bkeys, bselm, pkeys, pselm, cap, bits=node.pack_bits)
+        self.checks[
+            f"semi-join expansion overflow: match pairs exceed capacity "
+            f"{cap} (node {id(node)})"] = total > cap
+        pi, bi = pi.to(torch.int64), bi.to(torch.int64)
+        paircols = {name: c[pi] for name, c in pcols.items()}
+        for name in node.build_payload:
+            paircols[name] = bcols[name][bi]
+        rmask = self.expr(node.residual, paircols) & osel
+        hit = torch.zeros(psel.shape, dtype=torch.uint8, device=self.device)
+        hit = hit.scatter_reduce(0, pi, rmask.to(torch.uint8), "amax")
+        hit = hit.to(torch.bool)
+        sel = psel & hit if node.kind == "semi" else psel & ~hit
+        return dict(pcols), sel
+
+    def _join_expand(self, node: N.PJoin, bcols, bsel, bselm, bkeys,
+                     pcols, psel, pselm, pkeys):
+        """Many-to-many expansion: one output row per match pair; LEFT joins
+        append unmatched (preserved) probe rows after the pairs; FULL joins
+        append unmatched rows from BOTH sides."""
+        cap = node.out_capacity
+        pi, bi, osel, matched, total = K.join_expand(
+            bkeys, bselm, pkeys, pselm, cap, bits=node.pack_bits)
+        pi, bi = pi.to(torch.int64), bi.to(torch.int64)
+        need = total
+        is_pair = osel
+        j = torch.arange(cap, dtype=torch.int64, device=self.device)
+        probe_valid = osel  # rows whose probe columns are real
+        if node.kind in ("left", "full"):
+            um = psel & ~matched
+            um_rank = torch.cumsum(um.to(torch.int64), 0) - 1
+            n_um = um.sum(dtype=torch.int64)
+            pi = _scatter_drop(pi, total + um_rank, um, cap)
+            osel = j < (total + n_um)
+            is_pair = j < total
+            probe_valid = osel
+            need = total + n_um
+            if node.kind == "full":
+                bmatched = torch.zeros(bsel.shape, dtype=torch.uint8,
+                                       device=self.device)
+                bmatched = bmatched.scatter_reduce(
+                    0, bi, is_pair.to(torch.uint8), "amax").to(torch.bool)
+                um_b = bsel & ~bmatched
+                umb_rank = torch.cumsum(um_b.to(torch.int64), 0) - 1
+                n_umb = um_b.sum(dtype=torch.int64)
+                bi = _scatter_drop(bi, total + n_um + umb_rank, um_b, cap)
+                osel = j < (total + n_um + n_umb)
+                # build columns are real for pairs AND the build-only region
+                is_pair = (j < total) | (j >= total + n_um)
+                probe_valid = j < (total + n_um)
+                need = total + n_um + n_umb
+        elif node.kind != "inner":
+            raise ExecError(f"expansion join does not support {node.kind}")
+        self.checks[
+            f"join expansion overflow: match pairs exceed capacity {cap} "
+            f"(node {id(node)})"] = need > cap
+
+        cols = {}
+        for name, c in pcols.items():
+            g = c[pi]
+            if node.kind == "full":
+                g = torch.where(probe_valid, g, torch.zeros_like(g))
+            cols[name] = g
+        for name in node.build_payload:
+            g = bcols[name][bi]
+            cols[name] = torch.where(is_pair, g, torch.zeros_like(g))
+        if node.match_name:
+            cols[node.match_name] = is_pair
+        if node.probe_match_name:
+            cols[node.probe_match_name] = probe_valid
+        return cols, osel
+
+    def agg(self, node: N.PAgg):
+        cols, sel = self.lower(node.child)
+        agg_specs = []
+        agg_values: dict[str, Any] = {}
+        post_scale: dict[str, float] = {}
+        for name, call in node.aggs:
+            # NULL semantics are compiled away by the binder: nullable args
+            # arrive identity-filled with companion valid-count aggregates
+            func = call.func
+            if func in ("sum", "min", "max", "avg", "count"):
+                agg_values[name] = _as_column(
+                    self.expr(call.arg, cols), sel.shape[0]) \
+                    if call.arg is not None else None
+            else:
+                raise ExecError(f"aggregate {func} not implemented yet")
+            if func == "avg" and call.arg is not None \
+                    and call.arg.dtype.base == DType.DECIMAL:
+                post_scale[name] = 10.0 ** call.arg.dtype.scale
+            agg_specs.append(K.AggSpec(func, name))
+
+        if not node.group_keys:
+            out = K.global_aggregate(agg_values, agg_specs, sel)
+            for name, div in post_scale.items():
+                out[name] = _div(out[name], div)
+            return out, torch.ones((1,), dtype=torch.bool,
+                                   device=self.device)
+
+        dense = self._dense_agg(node, cols, sel, agg_specs, agg_values,
+                                post_scale)
+        if dense is not None:
+            return dense
+
+        key_cols = {name: _as_column(self.expr(e, cols), sel.shape[0])
+                    for name, e in node.group_keys}
+        out_keys, out_aggs, out_sel, n_groups = merge_group_aggregate(
+            key_cols, agg_values, agg_specs, sel, node.capacity)
+        self.checks[
+            f"aggregation overflow: more groups than capacity "
+            f"{node.capacity} (node {id(node)})"] = n_groups > node.capacity
+        for name, div in post_scale.items():
+            out_aggs[name] = _div(out_aggs[name], div)
+        return {**out_keys, **out_aggs}, out_sel
+
+    def _dense_agg_kernel(self, gid, n_cells, agg_specs, agg_values, sel):
+        """The dense-agg kernel for sum/count/avg over a small cell domain
+        (the reference's fused-path gate). Integer-carried values (BIGINT,
+        DECIMAL cents) sum exactly in int64; float values in float64.
+        Returns None when ineligible (min/max) → scatter formulation."""
+        if any(s.func not in ("sum", "count", "avg") for s in agg_specs):
+            return None
+        layout = []  # (spec, row, is_int, value dtype)
+        irows, frows = [], []
+        for s in agg_specs:
+            if s.func not in ("sum", "avg"):
+                continue
+            v = agg_values[s.out_name]
+            if K._is_int(v):
+                layout.append((s, len(irows), True, v.dtype))
+                irows.append(v.to(torch.int64))
+            else:
+                layout.append((s, len(frows), False, v.dtype))
+                frows.append(v.to(torch.float64))
+        n = sel.shape[0]
+        ivals = torch.stack(irows) if irows else \
+            torch.zeros((0, n), dtype=torch.int64, device=self.device)
+        fvals = torch.stack(frows) if frows else \
+            torch.zeros((0, n), dtype=torch.float64, device=self.device)
+        counts, isums, fsums = CK.dense_agg(gid.to(torch.int32), ivals,
+                                            fvals, sel, n_cells)
+        out = {}
+        for s, row, is_int, dt in layout:
+            ssum = isums[row] if is_int else fsums[row]
+            if s.func == "avg":
+                out[s.out_name] = ssum.to(torch.float64) \
+                    / counts.clamp_min(1)
+            else:
+                out[s.out_name] = ssum.to(dt)
+        for s in agg_specs:
+            if s.func == "count":
+                out[s.out_name] = counts
+        return out, counts > 0
+
+    def _dense_agg(self, node: N.PAgg, cols, sel, agg_specs, agg_values,
+                   post_scale):
+        """Perfect-hash aggregation when ALL group keys are dictionary-coded
+        strings with a small static domain (nodeAgg's hashed strategy with a
+        compile-time-perfect hash) — skips the sort entirely."""
+        sizes = []
+        for name, e in node.group_keys:
+            f = node.field(name)
+            if f.type.base != DType.STRING or f.sdict is None \
+                    or len(f.sdict) == 0:
+                return None
+            sizes.append(len(f.sdict))
+        prod = 1
+        for s in sizes:
+            prod *= s
+        if prod > min(node.capacity, DENSE_MAX_CELLS):
+            return None
+
+        strides = []
+        acc = 1
+        for s in reversed(sizes):
+            strides.append(acc)
+            acc *= s
+        strides.reverse()
+
+        gid = torch.zeros(sel.shape, dtype=torch.int32, device=self.device)
+        for (name, e), stride in zip(node.group_keys, strides):
+            gid = gid + self.expr(e, cols).to(torch.int32) * stride
+        fused = self._dense_agg_kernel(gid, prod, agg_specs, agg_values, sel)
+        if fused is not None:
+            out_aggs, occupied = fused
+        else:
+            out_aggs, occupied = K.group_aggregate_dense(
+                gid, prod, agg_values, agg_specs, sel)
+        for name, div in post_scale.items():
+            out_aggs[name] = _div(out_aggs[name], div)
+
+        cell = torch.arange(prod, dtype=torch.int32, device=self.device)
+        out_keys = {}
+        for (name, _), stride, size in zip(node.group_keys, strides, sizes):
+            out_keys[name] = torch.remainder(
+                torch.div(cell, stride, rounding_mode="floor"), size)
+
+        cap = node.capacity
+        if cap > prod:
+            pad = cap - prod
+            out_keys = {n: _pad(c, pad) for n, c in out_keys.items()}
+            out_aggs = {n: _pad(c, pad) for n, c in out_aggs.items()}
+            occupied = _pad(occupied, pad)
+        return {**out_keys, **out_aggs}, occupied
+
+
+def merge_group_aggregate(key_cols, agg_values, specs, sel, capacity: int):
+    """Grouped-aggregation dispatch: the sorted-segment kernel when
+    eligible (sum/avg over integer-carried values + count, at most
+    MAX_SEG_ROWS rows — the reference's gate), else the sort path. The two
+    produce BIT-IDENTICAL results for eligible aggs."""
+    if CK.sorted_segment_eligible(specs, agg_values, int(sel.shape[0])):
+        return CK.sorted_segment_aggregate(key_cols, agg_values, specs, sel,
+                                           capacity)
+    return K.group_aggregate(key_cols, agg_values, specs, sel, capacity)
+
+
+def _sortable(e: ex.Expr, child: N.PlanNode, cols, device) -> torch.Tensor:
+    """ORDER BY key array; string columns sort by host rank, not code."""
+    arr = compile_expr(e, device)(cols)
+    if e.dtype.base == DType.STRING:
+        sdict = None
+        if isinstance(e, ex.ColumnRef):
+            try:
+                sdict = child.field(e.name).sdict
+            except KeyError:
+                sdict = getattr(e, "_sdict", None)
+        else:
+            sdict = getattr(e, "_sdict", None) or getattr(e, "_out_dict", None)
+        if sdict is not None and len(sdict):
+            rank = torch.as_tensor(sdict.rank_table(), device=device)
+            safe = arr.clamp(0, rank.shape[0] - 1).to(torch.int64)
+            return torch.where(arr >= 0, rank[safe],
+                               torch.full((), -1, dtype=rank.dtype,
+                                          device=device))
+    return arr
+
+
+def _div(t: torch.Tensor, div: float) -> torch.Tensor:
+    """t / div as an IEEE division: PyTorch's CUDA kernel turns division
+    by a Python scalar into multiplication by its reciprocal, which can
+    differ in the last bit from the reference's (and the CPU's) quotient."""
+    return t / torch.full((), div, dtype=torch.float64, device=t.device)
+
+
+def _pad(a: torch.Tensor, pad: int) -> torch.Tensor:
+    return torch.cat([a, torch.zeros(pad, dtype=a.dtype, device=a.device)])
+
+
+def _scatter_drop(dst: torch.Tensor, slot: torch.Tensor, mask: torch.Tensor,
+                  cap: int) -> torch.Tensor:
+    """dst[slot[i]] = i where mask[i] and slot[i] < cap (JAX's
+    ``.at[slot].set(..., mode='drop')``)."""
+    keep = mask & (slot < cap)
+    src = torch.arange(mask.shape[0], dtype=dst.dtype, device=dst.device)
+    out = dst.clone()
+    out[slot[keep]] = src[keep]
+    return out
+
+
+def _substitute_subqueries(e: ex.Expr, mapping: dict[int, str]) -> ex.Expr:
+    """Replace SubqueryScalar nodes with ColumnRefs into the augmented
+    column dict."""
+    return ex.rewrite(
+        e, lambda n: ex.ColumnRef(mapping[id(n)], n.dtype)
+        if isinstance(n, ex.SubqueryScalar) else None)

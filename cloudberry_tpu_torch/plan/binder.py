@@ -1,0 +1,3262 @@
+"""Binder: unbound AST → typed plan tree.
+
+The reference's analog is parse analysis + planning
+(src/backend/parser/analyze.c + optimizer); this binder does both name/type
+resolution and logical planning:
+
+- names resolve to alias-qualified output columns (``alias.col``) so
+  self-joins (TPC-H Q21's three lineitem aliases) stay unambiguous;
+- decimal scale arithmetic (int64 fixed-point, see types.SqlType);
+- string predicates fold into host-side dictionary lookup tables
+  (columnar/dictionary.py) at bind time;
+- implicit FROM-list joins are assembled from WHERE equi-conjuncts into a
+  left-deep tree, dimension side as build — the spirit of
+  cdbpath_motion_for_join's colocation reasoning, with cost stats to come;
+- aggregates are extracted from select/having/order expressions into a PAgg
+  node, outer expressions rewritten over its outputs (the reference's
+  TargetEntry/Aggref split).
+"""
+
+from __future__ import annotations
+
+import copy
+import datetime
+import decimal
+from dataclasses import dataclass, field as dc_field
+from typing import Optional
+
+import numpy as np
+
+from cloudberry_tpu_torch import types as T
+from cloudberry_tpu_torch.catalog.catalog import Catalog, Table
+from cloudberry_tpu_torch.columnar.dictionary import StringDictionary
+from cloudberry_tpu_torch.plan import expr as ex
+from cloudberry_tpu_torch.plan import nodes as N
+from cloudberry_tpu_torch.sql import ast
+from cloudberry_tpu_torch.types import DType, SqlType
+
+AGG_FUNCS = {"sum", "count", "min", "max", "avg", "stddev_samp"}
+MAX_DECIMAL_SCALE = 6
+
+
+class BindError(ValueError):
+    pass
+
+
+@dataclass
+class RangeEntry:
+    """One FROM item in scope: alias → its plan's output fields."""
+    alias: str
+    plan: N.PlanNode
+
+
+@dataclass
+class Scope:
+    entries: list[RangeEntry] = dc_field(default_factory=list)
+
+    def resolve(self, parts: tuple[str, ...]) -> tuple[RangeEntry, N.PlanField]:
+        if len(parts) == 2:
+            for e in self.entries:
+                if e.alias == parts[0]:
+                    for f in e.plan.fields:
+                        if f.name == f"{parts[0]}.{parts[1]}":
+                            return e, f
+            raise BindError(f"unknown column {'.'.join(parts)!r}")
+        # exact physical-name match first (generated names like "$agg1" or
+        # rewritten qualified names), then unqualified suffix match
+        for e in self.entries:
+            for f in e.plan.fields:
+                if f.name == parts[0]:
+                    return e, f
+        hits = []
+        seen = set()
+        for e in self.entries:
+            for f in e.plan.fields:
+                if f.name.split(".")[-1] == parts[0]:
+                    # entries rebound to one merged join plan are one source
+                    key = (id(e.plan), f.name)
+                    if key not in seen:
+                        seen.add(key)
+                        hits.append((e, f))
+        if not hits:
+            raise BindError(f"unknown column {parts[0]!r}")
+        if len(hits) > 1:
+            raise BindError(f"ambiguous column {parts[0]!r}")
+        return hits[0]
+
+    def aliases_of(self, node: ast.ExprNode) -> set[str]:
+        """Aliases referenced by an unbound expression (for conjunct
+        classification)."""
+        out: set[str] = set()
+
+        def walk(n):
+            if isinstance(n, ast.Name):
+                e, _ = self.resolve(n.parts)
+                out.add(e.alias)
+            for v in vars(n).values() if isinstance(n, ast.Node) else ():
+                if isinstance(v, ast.Node):
+                    walk(v)
+                elif isinstance(v, (list, tuple)):
+                    for x in v:
+                        if isinstance(x, ast.Node):
+                            walk(x)
+                        elif isinstance(x, tuple):
+                            for y in x:
+                                if isinstance(y, ast.Node):
+                                    walk(y)
+
+        walk(node)
+        return out
+
+
+def _unique_sets(plan: N.PlanNode, catalog: Catalog) -> list[frozenset[str]]:
+    """Column sets guaranteed unique in a plan's output (PK propagation):
+    scans expose unique base columns, joins preserve the PROBE side's
+    uniqueness (each probe row matches ≤1 build row), aggs are unique on
+    their group keys."""
+    cached = getattr(plan, "_unique_sets", None)
+    if cached is not None:
+        return cached
+    out: list[frozenset[str]] = []
+    if isinstance(plan, N.PScan) and plan.table_name != "$dual":
+        t = catalog.table(plan.table_name)
+        for phys, name in plan.column_map.items():
+            if t.is_unique(phys):
+                out.append(frozenset([name]))
+    elif isinstance(plan, (N.PFilter, N.PSort, N.PLimit, N.PMotion,
+                           N.PShare)):
+        out = _unique_sets(plan.children()[0], catalog)
+    elif isinstance(plan, N.PJoin):
+        # probe uniqueness survives ONLY when each probe row emits at most
+        # one output row: semi/anti always; inner/left with a unique build.
+        # Expansion (many-to-many) and full joins duplicate probe rows.
+        if plan.kind in ("semi", "anti") or (
+                plan.unique_build and plan.kind in ("inner", "left")):
+            out = _unique_sets(plan.probe, catalog)
+    elif isinstance(plan, N.PAgg):
+        if plan.group_keys:
+            out = [frozenset(n for n, _ in plan.group_keys)]
+    elif isinstance(plan, N.PProject):
+        renames = {}
+        for name, e in plan.exprs:
+            if isinstance(e, ex.ColumnRef):
+                renames[e.name] = name
+        for s in _unique_sets(plan.child, catalog):
+            if all(c in renames for c in s):
+                out.append(frozenset(renames[c] for c in s))
+    plan._unique_sets = out
+    return out
+
+
+def _build_is_unique(plan: N.PlanNode, keys: list[ex.Expr],
+                     catalog: Catalog) -> bool:
+    names = {k.name for k in keys if isinstance(k, ex.ColumnRef)}
+    if any(s <= names for s in _unique_sets(plan, catalog)):
+        return True
+    # composite PK on a (possibly filtered) base scan, e.g. partsupp's
+    # (ps_partkey, ps_suppkey)
+    p = plan
+    while isinstance(p, (N.PFilter, N.PSort, N.PLimit, N.PMotion)):
+        p = p.children()[0]
+    if isinstance(p, N.PScan) and p.table_name != "$dual" and names:
+        rev = {v: k for k, v in p.column_map.items()}
+        phys = [rev.get(n) for n in names]
+        if all(x is not None for x in phys):
+            return catalog.table(p.table_name).is_unique_cols(tuple(phys))
+    return False
+
+
+class Binder:
+    def __init__(self, catalog: Catalog):
+        self.catalog = catalog
+        self._counter = 0
+        # CTE name -> bound plan; references share the plan via PShare
+        self._ctes: dict[str, N.PlanNode] = {}
+
+    def gensym(self, prefix: str) -> str:
+        self._counter += 1
+        return f"${prefix}{self._counter}"
+
+    # ------------------------------------------------------------ statements
+
+    def bind_query(self, node: ast.Node) -> N.PlanNode:
+        if isinstance(node, ast.WithQuery):
+            saved = dict(self._ctes)
+            try:
+                for name, q in node.ctes:
+                    # earlier CTEs are visible to later ones (non-recursive)
+                    self._ctes[name.lower()] = self.bind_query(q)
+                return self.bind_query(node.query)
+            finally:
+                self._ctes = saved
+        if isinstance(node, ast.SetOp):
+            return self.bind_setop(node)
+        return self.bind_select(node)
+
+    def bind_setop(self, node: ast.SetOp) -> N.PlanNode:
+        """UNION/INTERSECT/EXCEPT (the cdbsetop.c flow): align both sides
+        to common types/dictionaries, then Append(+distinct) / semi / anti."""
+        left = self.bind_query(node.left)
+        right = self.bind_query(node.right)
+        lvis = _user_fields(left)
+        rvis = _user_fields(right)
+        if len(lvis) != len(rvis):
+            raise BindError(
+                f"set operation arity mismatch: {len(lvis)} vs "
+                f"{len(rvis)} columns")
+        left, right, out_fields = self._align_setop_sides(
+            left, right, lvis, rvis)
+
+        if node.op == "union":
+            plan: N.PlanNode = N.PConcat([left, right])
+            plan.fields = out_fields
+            if not node.all:
+                plan = self._distinct_on_all(plan)
+        elif node.op in ("intersect", "except"):
+            kind = "semi" if node.op == "intersect" else "anti"
+            if node.all:
+                # Bag semantics via occurrence numbering: number duplicate
+                # copies 1..n on each side (row_number partitioned on every
+                # column), then semi/anti join on (columns…, occurrence) —
+                # the i-th left copy survives INTERSECT ALL iff the right
+                # has an i-th copy too (min of the counts); EXCEPT ALL is
+                # the anti join (max(l_count − r_count, 0) copies). The
+                # textbook reduction the reference executes via SetOp's
+                # per-group counters (nodeSetOp.c SETOP_HASHED ALL modes).
+                lw, locc = self._occurrence_numbered(left)
+                rw, rocc = self._occurrence_numbered(right)
+                keys_p = [_canonical_ref(f) for f in left.fields] \
+                    + [ex.ColumnRef(locc, T.INT64)]
+                keys_b = [_canonical_ref(f) for f in right.fields] \
+                    + [ex.ColumnRef(rocc, T.INT64)]
+                j = N.PJoin(kind, rw, lw, keys_b, keys_p, [],
+                            self.gensym("match"))
+                j.fields = list(left.fields)
+                plan = j
+            else:
+                # distinct(left) filtered by membership in right; set ops
+                # treat NULLs as equal ("not distinct"), so keys are
+                # canonical-zero values plus the mask columns — no
+                # key-validity exclusion
+                probe = self._distinct_on_all(left)
+                keys_b = [_canonical_ref(f) for f in right.fields]
+                keys_p = [_canonical_ref(f) for f in probe.fields]
+                j = N.PJoin(kind, right, probe, keys_b, keys_p, [],
+                            self.gensym("match"))
+                j.fields = list(probe.fields)
+                plan = j
+        else:
+            raise BindError(f"unknown set operation {node.op!r}")
+
+        if node.order_by:
+            keys = []
+            out_scope = Scope([RangeEntry("$set", plan)])
+            for oi in node.order_by:
+                _append_sort_key(keys, self.bind_scalar(oi.expr, out_scope),
+                                 oi.ascending)
+            srt = N.PSort(plan, keys)
+            srt.fields = list(plan.fields)
+            plan = srt
+        if node.limit is not None or node.offset:
+            lim = N.PLimit(plan, node.limit if node.limit is not None
+                           else (1 << 62), node.offset)
+            lim.fields = list(plan.fields)
+            plan = lim
+        return plan
+
+    def _occurrence_numbered(self, plan: N.PlanNode):
+        """Append a 1..n occurrence column within each duplicate group
+        (row_number window partitioned on every column, order immaterial)
+        — the multiplicity bookkeeping for INTERSECT/EXCEPT ALL."""
+        occ = self.gensym("occ")
+        w = N.PWindow(plan, [_canonical_ref(f) for f in plan.fields], [],
+                      [(occ, "row_number", None)], [None])
+        w.fields = list(plan.fields) + [N.PlanField(occ, T.INT64, None)]
+        return w, occ
+
+    def _distinct_on_all(self, plan: N.PlanNode) -> N.PAgg:
+        # Nullable columns group by (canonical-zero value, validity mask):
+        # mask columns are among plan.fields, so they participate as keys —
+        # SQL DISTINCT treats NULLs as equal, which this reproduces exactly.
+        agg = N.PAgg(plan,
+                     [(f.name, _canonical_ref(f)) for f in plan.fields], [],
+                     capacity=_plan_capacity(plan))
+        agg.fields = [N.PlanField(f.name, f.type, f.sdict,
+                                  null_mask=f.null_mask,
+                                  _is_null_col=f._is_null_col)
+                      for f in plan.fields]
+        return agg
+
+    def _align_setop_sides(self, left: N.PlanNode, right: N.PlanNode,
+                           lvis=None, rvis=None):
+        """Project both sides to common types under the LEFT side's column
+        names; string columns re-code into the left dictionary (extended).
+        Only user-visible fields align; hidden validity columns re-emerge
+        as SHARED "$vmu<i>" mask columns on both sides."""
+        lvis = _user_fields(left) if lvis is None else lvis
+        rvis = _user_fields(right) if rvis is None else rvis
+        lex, rex, lfields, rfields = [], [], [], []
+        changed_l = changed_r = False
+        for lf, rf in zip(lvis, rvis):
+            le: ex.Expr = _colref(lf)
+            re_: ex.Expr = _colref(rf)
+            if lf.type.base == DType.STRING or rf.type.base == DType.STRING:
+                if lf.type.base != rf.type.base:
+                    # a NULL-literal column takes the string side's type:
+                    # code 0 under an always-False mask (grouping-set
+                    # branches project NULL for omitted keys)
+                    if (getattr(rf, "_is_null_col", False)
+                            and lf.type.base == DType.STRING):
+                        lex.append((lf.name, le))
+                        rex.append((lf.name, ex.Literal(0, lf.type)))
+                        lfields.append(N.PlanField(lf.name, lf.type,
+                                                   lf.sdict))
+                        rfields.append(N.PlanField(lf.name, lf.type,
+                                                   lf.sdict))
+                        changed_r = True
+                        continue
+                    if (getattr(lf, "_is_null_col", False)
+                            and rf.type.base == DType.STRING):
+                        lex.append((lf.name, ex.Literal(0, rf.type)))
+                        rex.append((lf.name, re_))
+                        lfields.append(N.PlanField(lf.name, rf.type,
+                                                   rf.sdict))
+                        rfields.append(N.PlanField(lf.name, rf.type,
+                                                   rf.sdict))
+                        changed_l = True
+                        continue
+                    raise BindError("set operation mixes string and "
+                                    "non-string columns")
+                ld, rd = lf.sdict, rf.sdict
+                if ld is None or rd is None:
+                    raise BindError("set operation requires dictionary-"
+                                    "encoded string columns")
+                if ld is not rd:
+                    # fresh output dictionary: left codes stay valid (prefix
+                    # copy), right codes translate — binding must NOT mutate
+                    # the catalog's dictionary (EXPLAIN would bloat tables)
+                    out_d = StringDictionary(ld.values)
+                    xlat = np.fromiter((out_d.add(v) for v in rd.values),
+                                       dtype=np.int32, count=len(rd))
+                    re_ = ex.DictLookup(re_, xlat, T.STRING)
+                    object.__setattr__(re_, "_out_dict", out_d)
+                    changed_r = True
+                    sdict = out_d
+                else:
+                    sdict = ld
+                out_t = lf.type
+            else:
+                out_t = _common_type([lf.type, rf.type])
+                if le.dtype != out_t:
+                    le = self._coerce(le, out_t)
+                    changed_l = True
+                if re_.dtype != out_t:
+                    re_ = self._coerce(re_, out_t)
+                    changed_r = True
+                sdict = None
+            lex.append((lf.name, le))
+            rex.append((lf.name, re_))
+            lfields.append(N.PlanField(lf.name, out_t, sdict))
+            rfields.append(N.PlanField(lf.name, out_t, sdict))
+        # nullable columns: materialize a SHARED hidden validity column on
+        # both sides (same name → PConcat aligns them; set-op joins and
+        # DISTINCT then treat NULLs as equal via the mask key)
+        n_vis = len(lvis)
+        for i, (lf, rf) in enumerate(zip(lvis, rvis)):
+            lm, rm = lf.masks, rf.masks
+            if not lm and not rm:
+                continue
+            hidden = f"$vmu{i}"
+            true_lit = ex.Literal(True, T.BOOL)
+            lex.append((hidden, ex.IsValid(lm) if lm else true_lit))
+            rex.append((hidden, ex.IsValid(rm) if rm else true_lit))
+            f0 = lfields[i]
+            lfields[i] = N.PlanField(f0.name, f0.type, f0.sdict,
+                                     null_mask=(hidden,))
+            changed_l = changed_r = True
+        lfields = lfields + [N.PlanField(n, T.BOOL, None)
+                             for n, _ in lex[n_vis:]]
+        rfields = [N.PlanField(f.name, f.type, f.sdict, null_mask=f.null_mask)
+                   for f in lfields]
+        if changed_l or [n for n, _ in lex] != [f.name for f in lvis] \
+                or len(lvis) != len(left.fields):
+            p = N.PProject(left, lex)
+            p.fields = lfields
+            left = p
+        out_r = N.PProject(right, rex)
+        out_r.fields = rfields
+        right = out_r
+        del changed_r
+        return left, right, lfields
+
+    def bind_select(self, sel: ast.Select) -> N.PlanNode:
+        if getattr(sel, "grouping_sets", None):
+            return self.bind_query(_expand_grouping_sets(sel))
+        if any(_contains_grouping(i.expr) for i in sel.items) \
+                or (sel.having is not None
+                    and _contains_grouping(sel.having)) \
+                or any(_contains_grouping(o.expr) for o in sel.order_by):
+            sel = _fold_plain_grouping(sel)
+        scope = Scope()
+        plans: dict[str, N.PlanNode] = {}
+        post_join_filters: list[ast.ExprNode] = []
+
+        for ref in sel.from_refs:
+            alias, plan = self.bind_table_ref(ref, scope, post_join_filters)
+            plans[alias] = plan
+
+        if not plans:
+            # FROM-less SELECT (select 1): one-row dummy
+            plan = _const_row()
+        else:
+            all_conjuncts = _split_conjuncts(sel.where) if sel.where else []
+            conjuncts = [c for c in all_conjuncts if not _contains_subquery(c)]
+            subq_preds = [c for c in all_conjuncts if _contains_subquery(c)]
+            edges, per_alias, residual = self._classify(conjuncts, scope)
+            for alias, preds in per_alias.items():
+                if alias not in plans:
+                    # alias buried in an explicit JOIN tree: filter post-join
+                    residual.extend(preds)
+                    continue
+                p = plans[alias]
+                old = p
+                for pred in preds:
+                    p = self._filter(p, self.bind_scalar(pred, scope))
+                plans[alias] = p
+                # rebind EVERY entry (and plan) that shared the old
+                # object: an explicit JOIN's aliases all point at one
+                # merged plan, and a stale sibling would make suffix
+                # resolution see two distinct sources for one column
+                for e in scope.entries:
+                    if e.alias == alias or e.plan is old:
+                        e.plan = p
+                for a2, pv in list(plans.items()):
+                    if pv is old:
+                        plans[a2] = p
+            plan = self._join_tree(plans, edges, scope)
+            for pred in residual:
+                plan = self._filter(plan, self.bind_scalar(pred, scope))
+            for pred in subq_preds:
+                plan = self._apply_subquery_pred(pred, plan, scope)
+            # every range entry now resolves against the final joined plan —
+            # stale pointers would defeat resolve()'s same-source dedupe
+            for e in scope.entries:
+                if _plan_contains(plan, e.plan):
+                    e.plan = plan
+
+        # -------- aggregation
+        has_agg = (bool(sel.group_by) or sel.having is not None
+                   or any(_has_agg(i.expr) for i in sel.items)
+                   or any(_has_agg(o.expr) for o in sel.order_by))
+
+        if has_agg:
+            plan, out_scope = self._bind_agg(sel, plan, scope)
+        else:
+            out_scope = scope
+            plan = self._bind_projection(sel, plan, scope)
+
+        # -------- DISTINCT
+        if sel.distinct:
+            plan = self._distinct_on_all(plan)
+
+        # -------- ORDER BY / LIMIT
+        visible = list(plan.fields)  # includes hidden $vm validity columns
+        if sel.order_by:
+            keys = []
+            for oi in sel.order_by:
+                bound = self._bind_output_expr(oi.expr, plan, out_scope)
+                missing = ex.columns_used(bound) - set(plan.names)
+                if missing:
+                    # ORDER BY references non-output columns: carry them as a
+                    # hidden sort column through the projection, drop after
+                    if isinstance(plan, N.PProject):
+                        nm = None
+                        v = _valid_of(bound)
+                        if v is not None:
+                            # carry the validity too, or NULL ordering breaks
+                            vmname = self.gensym("vm")
+                            plan.exprs.append((vmname, v))
+                            plan.fields.append(
+                                N.PlanField(vmname, T.BOOL, None))
+                            nm = (vmname,)
+                        name = self.gensym("sort")
+                        plan.exprs.append((name, bound))
+                        f = N.PlanField(name, bound.dtype, _expr_dict(bound),
+                                        null_mask=nm)
+                        plan.fields.append(f)
+                        bound = _colref(f)
+                    else:
+                        raise BindError(
+                            "ORDER BY expression references columns outside "
+                            "the select list")
+                _append_sort_key(keys, bound, oi.ascending)
+            s = N.PSort(plan, keys)
+            s.fields = list(plan.fields)
+            plan = s
+        if sel.limit is not None or sel.offset:
+            limit = sel.limit if sel.limit is not None else (1 << 62)
+            l = N.PLimit(plan, limit, sel.offset)
+            l.fields = list(plan.fields)
+            plan = l
+        if len(visible) != len(plan.fields):
+            drop = N.PProject(plan, [(f.name, _colref(f)) for f in visible])
+            drop.fields = visible
+            plan = drop
+        return plan
+
+    # ------------------------------------------------------------ FROM refs
+
+    def bind_table_ref(self, ref: ast.TableRefNode, scope: Scope,
+                       post_filters: list[ast.ExprNode]) -> tuple[str, N.PlanNode]:
+        if isinstance(ref, ast.TableName):
+            cte = self._ctes.get(ref.name.lower())
+            if cte is not None:
+                # CTE reference: every reference shares the SAME bound plan
+                # (materialize-once, the ShareInputScan analog)
+                share = N.PShare(cte)
+                share.fields = list(cte.fields)
+                alias = ref.alias or ref.name
+                proj = self._requalify(share, alias)
+                scope.entries.append(RangeEntry(alias, proj))
+                return alias, proj
+            view = self.catalog.views.get(ref.name.lower())
+            if view is not None:
+                # view expansion: re-bind the stored query as a derived
+                # table — with the caller's CTEs HIDDEN (a view's references
+                # are fixed at creation; PostgreSQL semantics)
+                saved = self._ctes
+                self._ctes = {}
+                try:
+                    return self.bind_table_ref(
+                        ast.DerivedTable(view, ref.alias or ref.name),
+                        scope, post_filters)
+                finally:
+                    self._ctes = saved
+            table = self._lookup_table(ref.name)
+            alias = ref.alias or ref.name
+            plan = _scan_node(table, alias)
+            scope.entries.append(RangeEntry(alias, plan))
+            return alias, plan
+        if isinstance(ref, ast.DerivedTable):
+            sub = self.bind_query(ref.select)
+            proj = self._requalify(sub, ref.alias)
+            scope.entries.append(RangeEntry(ref.alias, proj))
+            return ref.alias, proj
+        if isinstance(ref, ast.FuncTable):
+            return self._bind_func_table(ref, scope)
+        if isinstance(ref, ast.JoinRef):
+            return self._bind_join_ref(ref, scope, post_filters)
+        raise BindError(f"unsupported FROM item {type(ref).__name__}")
+
+    def _bind_func_table(self, ref: ast.FuncTable,
+                         scope: Scope) -> tuple[str, N.PlanNode]:
+        raise NotImplementedError(
+            f"table function {ref.name!r}: function scans are not yet "
+            "ported to cloudberry_tpu_torch")
+
+    def _requalify(self, sub: N.PlanNode, alias: str) -> N.PProject:
+        """Re-qualify a subplan's output names under a derived/CTE alias
+        (mask column references remap with their fields)."""
+        proj = N.PProject(sub, [(f"{alias}.{f.name.split('.')[-1]}",
+                                 ex.ColumnRef(f.name, f.type))
+                                for f in sub.fields])
+
+        def _remap_mask(nm):
+            if nm is None:
+                return None
+            masks = (nm,) if isinstance(nm, str) else nm
+            return tuple(f"{alias}.{m.split('.')[-1]}" for m in masks)
+
+        proj.fields = [N.PlanField(f"{alias}.{f.name.split('.')[-1]}",
+                                   f.type, f.sdict,
+                                   null_mask=_remap_mask(f.null_mask))
+                       for f in sub.fields]
+        return proj
+
+    def _bind_join_ref(self, ref: ast.JoinRef, scope: Scope,
+                       post_filters: list[ast.ExprNode]) -> tuple[str, N.PlanNode]:
+        lalias, lplan = self.bind_table_ref(ref.left, scope, post_filters)
+        ralias, rplan = self.bind_table_ref(ref.right, scope, post_filters)
+        if ref.kind == "cross":
+            raise BindError("CROSS JOIN not supported yet")
+        conjs = _split_conjuncts(ref.on)
+        lkeys, rkeys, residual = [], [], []
+        for c in conjs:
+            if isinstance(c, ast.BinOp) and c.op == "=":
+                sides = (scope.aliases_of(c.left), scope.aliases_of(c.right))
+                lset = {e.alias for e in scope.entries
+                        if _plan_contains(lplan, e.plan) or e.alias == lalias}
+                if sides[0] <= lset and not (sides[1] & lset):
+                    lkeys.append(self.bind_scalar(c.left, scope))
+                    rkeys.append(self.bind_scalar(c.right, scope))
+                    continue
+                if sides[1] <= lset and not (sides[0] & lset):
+                    lkeys.append(self.bind_scalar(c.right, scope))
+                    rkeys.append(self.bind_scalar(c.left, scope))
+                    continue
+            residual.append(c)
+        if not lkeys:
+            raise BindError("JOIN requires at least one equi-condition")
+        if ref.kind == "full" and residual:
+            raise BindError("FULL JOIN with non-equi ON conditions is not "
+                            "supported yet")
+        if ref.kind in ("left", "right"):
+            # ON-clause extras must filter the NON-preserved side BEFORE the
+            # join (post-join filtering would drop preserved rows)
+            inner_alias = ralias if ref.kind == "left" else lalias
+            inner_plan = rplan if ref.kind == "left" else lplan
+            inner_aliases = {e.alias for e in scope.entries
+                             if e.plan is inner_plan}
+            keep = []
+            for c in residual:
+                if scope.aliases_of(c) <= inner_aliases:
+                    inner_plan = self._filter(
+                        inner_plan, self.bind_scalar(c, scope))
+                else:
+                    keep.append(c)
+            if keep:
+                raise BindError("OUTER JOIN ON condition referencing the "
+                                "preserved side is not supported yet")
+            residual = []
+            _rebind_scope(scope, inner_alias, inner_plan)
+            if ref.kind == "left":
+                rplan = inner_plan
+            else:
+                lplan = inner_plan
+        if ref.kind == "inner":
+            # build side must be unique on its keys; prefer the smaller side
+            l_uniq = _build_is_unique(lplan, lkeys, self.catalog)
+            r_uniq = _build_is_unique(rplan, rkeys, self.catalog)
+            l_small = _plan_capacity(lplan) <= _plan_capacity(rplan)
+            if l_uniq and (not r_uniq or l_small):
+                plan = self._make_join("inner", lplan, rplan, lkeys, rkeys)
+            else:
+                plan = self._make_join("inner", rplan, lplan, rkeys, lkeys)
+        elif ref.kind == "left":
+            plan = self._make_join("left", rplan, lplan, rkeys, lkeys)
+        elif ref.kind == "right":
+            plan = self._make_join("left", lplan, rplan, lkeys, rkeys)
+        elif ref.kind == "full":
+            if _plan_capacity(lplan) <= _plan_capacity(rplan):
+                plan = self._make_join("full", lplan, rplan, lkeys, rkeys)
+            else:
+                plan = self._make_join("full", rplan, lplan, rkeys, lkeys)
+        else:
+            raise BindError(f"{ref.kind} join not supported yet")
+        for c in residual:
+            plan = self._filter(plan, self.bind_scalar(c, scope))
+        # merge the two range entries into one compound entry set; rebind all
+        for e in scope.entries:
+            if e.alias in (lalias, ralias) or _plan_contains(plan, e.plan):
+                e.plan = plan
+        return lalias, plan
+
+    def _lookup_table(self, name: str) -> Table:
+        return self.catalog.table(name)
+
+    # --------------------------------------------------------- join assembly
+
+    def _classify(self, conjuncts: list[ast.ExprNode], scope: Scope):
+        """Split WHERE conjuncts into join edges / single-rel filters /
+        residual (multi-rel non-equi) — the planner's qual distribution."""
+        edges = []        # (alias_a, expr_a, alias_b, expr_b)
+        per_alias: dict[str, list[ast.ExprNode]] = {}
+        residual = []
+        for c in conjuncts:
+            aliases = scope.aliases_of(c)
+            if len(aliases) == 1:
+                per_alias.setdefault(next(iter(aliases)), []).append(c)
+            elif (len(aliases) == 2 and isinstance(c, ast.BinOp)
+                  and c.op == "="):
+                la = scope.aliases_of(c.left)
+                ra = scope.aliases_of(c.right)
+                if len(la) == 1 and len(ra) == 1 and la != ra:
+                    edges.append((next(iter(la)), c.left,
+                                  next(iter(ra)), c.right))
+                else:
+                    residual.append(c)
+            elif len(aliases) >= 2 and isinstance(c, ast.BinOp) and c.op == "or":
+                # Q19 pattern: OR whose every branch repeats the same
+                # equi-join condition — hoist the common conjuncts as join
+                # edges, keep the full OR as a residual filter.
+                for cc in _common_branch_conjuncts(c):
+                    if isinstance(cc, ast.BinOp) and cc.op == "=":
+                        la = scope.aliases_of(cc.left)
+                        ra = scope.aliases_of(cc.right)
+                        if len(la) == 1 and len(ra) == 1 and la != ra:
+                            edges.append((next(iter(la)), cc.left,
+                                          next(iter(ra)), cc.right))
+                residual.append(c)
+            elif len(aliases) == 0:
+                residual.append(c)
+            else:
+                residual.append(c)
+        return edges, per_alias, residual
+
+    def _join_tree(self, plans: dict[str, N.PlanNode], edges, scope: Scope
+                   ) -> N.PlanNode:
+        # group aliases by current plan object (explicit joins may share)
+        groups: dict[int, set[str]] = {}
+        plan_of: dict[int, N.PlanNode] = {}
+        for a, p in plans.items():
+            groups.setdefault(id(p), set()).add(a)
+            plan_of[id(p)] = p
+        # aliases buried inside explicit JOIN trees resolve through scope
+        # entries — they belong to the group containing their plan
+        for se in scope.entries:
+            for gid, p in plan_of.items():
+                if p is se.plan or _plan_contains(p, se.plan):
+                    groups[gid].add(se.alias)
+        # equi-conjuncts between aliases INSIDE one group are plain filters
+        # (their join already happened in the explicit JOIN tree) — they
+        # must never be dropped as unusable edges
+        alias_group = {a: gid for gid, aliases in groups.items()
+                       for a in aliases}
+        cross = []
+        for e in edges:
+            ga, gb = alias_group.get(e[0]), alias_group.get(e[2])
+            if ga is not None and ga == gb:
+                p = plan_of[ga]
+                pred = self.bind_scalar(ast.BinOp("=", e[1], e[3]), scope)
+                p2 = self._filter(p, pred)
+                plan_of[ga] = p2
+                for se in scope.entries:
+                    if se.alias in groups[ga]:
+                        se.plan = p2
+                for a2, p_old in list(plans.items()):
+                    if a2 in groups[ga]:
+                        plans[a2] = p2
+            else:
+                cross.append(e)
+        edges = cross
+        if len(plan_of) == 1:
+            return next(iter(plan_of.values()))
+        gids = list(plan_of)
+        if len(gids) <= 10:
+            return self._join_tree_dp(groups, plan_of, gids, edges, scope)
+        return self._join_tree_greedy(groups, plan_of, edges, scope)
+
+    def _join_tree_dp(self, groups, plan_of, gids, edges, scope: Scope
+                      ) -> N.PlanNode:
+        """Bushy dynamic-programming join-order search over connected
+        subsets (the CJoinOrderDP.cpp move): cost = Σ estimated intermediate
+        result sizes; per pair, build/probe orientation prefers a provably
+        unique (PK) build side, then the smaller estimate."""
+        from cloudberry_tpu_torch.plan import cost as C
+
+        cat = self.catalog
+        base = [(1 << i, g) for i, g in enumerate(gids)]
+        best: dict[int, tuple[float, N.PlanNode, frozenset]] = {}
+        for bit, g in base:
+            p = plan_of[g]
+            best[bit] = (0.0, p, frozenset(groups[g]))
+        full = (1 << len(gids)) - 1
+        by_size: dict[int, list[int]] = {}
+        for m in range(1, full + 1):
+            by_size.setdefault(bin(m).count("1"), []).append(m)
+        for size in range(2, len(gids) + 1):
+            for m in by_size.get(size, ()):
+                s = (m - 1) & m
+                while s:
+                    o = m ^ s
+                    if s > o and s in best and o in best:
+                        cand = self._dp_join(best[s], best[o], edges,
+                                             scope, cat)
+                        if cand is not None and (
+                                m not in best or cand[0] < best[m][0]):
+                            best[m] = cand
+                    s = (s - 1) & m
+        if full not in best:
+            raise BindError("cross join between FROM items not supported "
+                            "(no join condition found)")
+        final = best[full][1]
+        for e in scope.entries:
+            if e.alias in alias_set_of(groups):
+                e.plan = final
+        return final
+
+    def _dp_join(self, left, right, edges, scope: Scope, cat):
+        cost_l, pl, al = left
+        cost_r, pr, ar = right
+        used = [e for e in edges
+                if (e[0] in al and e[2] in ar)
+                or (e[2] in al and e[0] in ar)]
+        if not used:
+            return None  # disconnected: no cross joins
+        from cloudberry_tpu_torch.plan import cost as C
+
+        lkeys, rkeys = [], []
+        for (a, lx, b, rx) in used:
+            if a in al:
+                lkeys.append(self.bind_scalar(lx, scope))
+                rkeys.append(self.bind_scalar(rx, scope))
+            else:
+                lkeys.append(self.bind_scalar(rx, scope))
+                rkeys.append(self.bind_scalar(lx, scope))
+        l_uniq = _build_is_unique(pl, lkeys, cat)
+        r_uniq = _build_is_unique(pr, rkeys, cat)
+        el = C.estimate_rows(pl, cat)
+        er = C.estimate_rows(pr, cat)
+        if r_uniq and (not l_uniq or er <= el):
+            j = self._make_join("inner", pr, pl, rkeys, lkeys)
+        elif l_uniq:
+            j = self._make_join("inner", pl, pr, lkeys, rkeys)
+        elif er <= el:
+            j = self._make_join("inner", pr, pl, rkeys, lkeys)
+        else:
+            j = self._make_join("inner", pl, pr, lkeys, rkeys)
+        est = C.estimate_rows(j, cat)
+        return (cost_l + cost_r + est, j, al | ar)
+
+    def _join_tree_greedy(self, groups, plan_of, edges, scope: Scope
+                          ) -> N.PlanNode:
+        # start from the largest capacity group (the fact side)
+        order = sorted(plan_of, key=lambda i: _plan_capacity(plan_of[i]),
+                       reverse=True)
+        joined_aliases = set(groups[order[0]])
+        current = plan_of[order[0]]
+        remaining = {i for i in order[1:]}
+        edges = list(edges)
+        while remaining:
+            # connectable groups, with bound keys for both orientations
+            candidates = []
+            for gid in remaining:
+                galiases = groups[gid]
+                used = [e for e in edges
+                        if (e[0] in joined_aliases and e[2] in galiases)
+                        or (e[2] in joined_aliases and e[0] in galiases)]
+                if not used:
+                    continue
+                cur_keys, new_keys = [], []
+                for (a, lx, b, rx) in used:
+                    if a in joined_aliases:
+                        cur_keys.append(self.bind_scalar(lx, scope))
+                        new_keys.append(self.bind_scalar(rx, scope))
+                    else:
+                        cur_keys.append(self.bind_scalar(rx, scope))
+                        new_keys.append(self.bind_scalar(lx, scope))
+                candidates.append((gid, used, cur_keys, new_keys))
+            if not candidates:
+                raise BindError("cross join between FROM items not supported "
+                                "(no join condition found)")
+            # Prefer candidates whose build side is provably unique on the
+            # join keys (PK side — join_lookup's contract); among those, the
+            # smallest build. Non-unique edges (e.g. Q5's c_nationkey =
+            # s_nationkey) are deferred until more edges make them unique.
+            def rank(c):
+                gid, used, cur_keys, new_keys = c
+                other = plan_of[gid]
+                uniq = _build_is_unique(other, new_keys, self.catalog)
+                return (0 if uniq else 1, _plan_capacity(other))
+
+            candidates.sort(key=rank)
+            gid, used, cur_keys, new_keys = candidates[0]
+            other = plan_of[gid]
+            new_unique = _build_is_unique(other, new_keys, self.catalog)
+            cur_unique = _build_is_unique(current, cur_keys, self.catalog)
+            for e in used:
+                edges.remove(e)
+            # orientation: prefer a unique build side (lookup join); with
+            # neither unique (expansion join) build the smaller side
+            new_smaller = _plan_capacity(other) <= _plan_capacity(current)
+            if new_unique and (not cur_unique or new_smaller):
+                current = self._make_join("inner", other, current,
+                                          new_keys, cur_keys)
+            elif cur_unique or not new_smaller:
+                current = self._make_join("inner", current, other,
+                                          cur_keys, new_keys)
+            else:
+                current = self._make_join("inner", other, current,
+                                          new_keys, cur_keys)
+            joined_aliases |= groups[gid]
+            remaining.discard(gid)
+            for e in scope.entries:
+                if e.alias in joined_aliases:
+                    e.plan = current
+        return current
+
+    def _make_join(self, kind: str, build: N.PlanNode, probe: N.PlanNode,
+                   build_keys: list[ex.Expr], probe_keys: list[ex.Expr]
+                   ) -> N.PJoin:
+        # semi/anti only filter the probe side: no build columns in output
+        payload = [f.name for f in build.fields] \
+            if kind in ("inner", "left", "full") else []
+        match_name = self.gensym("match")
+        j = N.PJoin(kind, build, probe, build_keys, probe_keys,
+                    payload, match_name)
+        # semi/anti joins only test membership — build duplicates are fine;
+        # inner/left joins with a non-unique build need pair expansion;
+        # FULL joins always expand (both-side unmatched regions)
+        if kind == "full" or (kind in ("inner", "left")
+                              and not _build_is_unique(build, build_keys,
+                                                       self.catalog)):
+            j.unique_build = False
+            # bcap+pcap is NOT an upper bound for many-to-many fanout; take
+            # the NDV-based pair estimate with 2× headroom as a floor
+            # (overflow stays a detected error, and the session grows the
+            # buffer and retries — nodeHash.c's increase-nbatch discipline)
+            from cloudberry_tpu_torch.plan.cost import estimate_rows
+
+            est = estimate_rows(j, self.catalog)
+            j._est_pairs = est  # distribution/tiling re-derive from this
+            j.out_capacity = max(
+                _plan_capacity(build) + _plan_capacity(probe),
+                int(2 * est) + 8)
+        nm = match_name if kind in ("left", "full") else None
+        pm = self.gensym("pmatch") if kind == "full" else None
+        j.probe_match_name = pm
+
+        def _merge_mask(new_mask, f):
+            # a column nullable through BOTH this join and an earlier source
+            # simply carries both mask names (validity = their conjunction)
+            masks = ((new_mask,) if new_mask else ()) + f.masks
+            return masks or None
+
+        j.fields = [
+            N.PlanField(f.name, f.type, f.sdict,
+                        null_mask=_merge_mask(pm, f))
+            for f in probe.fields] + [
+            N.PlanField(f.name, f.type, f.sdict,
+                        null_mask=_merge_mask(nm, f))
+            for f in build.fields if kind in ("inner", "left", "full")]
+        # expose the validity masks as (hidden, $-prefixed) columns so
+        # downstream projections can carry them to the result surface
+        if nm is not None:
+            j.fields.append(N.PlanField(nm, T.BOOL, None))
+        if pm is not None:
+            j.fields.append(N.PlanField(pm, T.BOOL, None))
+        _attach_key_validity(j)
+        return j
+
+    def _filter(self, child: N.PlanNode, pred: ex.Expr) -> N.PFilter:
+        f = N.PFilter(child, pred)
+        f.fields = list(child.fields)
+        return f
+
+    # ---------------------------------------------------------- aggregation
+
+    def _bind_agg(self, sel: ast.Select, plan: N.PlanNode, scope: Scope
+                  ) -> tuple[N.PlanNode, Scope]:
+        group_keys: list[tuple[str, ex.Expr]] = []
+        key_mask: dict[str, str] = {}   # key output name -> validity key name
+        key_name_by_ast: dict[str, str] = {}
+        alias_map = {i.alias: i.expr for i in sel.items if i.alias}
+        for g in sel.group_by:
+            if isinstance(g, ast.Name) and len(g.parts) == 1 \
+                    and g.parts[0] in alias_map:
+                g = alias_map[g.parts[0]]
+            bound = self.bind_scalar(g, scope)
+            name = (bound.name if isinstance(bound, ex.ColumnRef)
+                    else self.gensym("k"))
+            v = _valid_of(bound)
+            if v is not None:
+                # NULL group keys: group by (canonical-zero value, validity)
+                # — all NULLs form ONE group, distinct from any real value
+                # (SQL GROUP BY treats NULLs as equal)
+                kv = self.gensym("vmk")
+                bound = _masked_key(bound, v)
+                group_keys.append((name, bound))
+                group_keys.append((kv, ex.Cast(v, T.INT32)))
+                key_mask[name] = kv
+            else:
+                group_keys.append((name, bound))
+            key_name_by_ast[_ast_key(g)] = name
+
+        aggs: list[tuple[str, ex.AggCall]] = []
+        agg_names: dict[str, str] = {}
+
+        def extract(node: ast.ExprNode) -> ast.ExprNode:
+            """Replace aggregate calls with references to agg outputs."""
+            if isinstance(node, (ast.ScalarSubquery, ast.InSubquery,
+                                 ast.Exists)):
+                return node
+            if isinstance(node, ast.FuncCall) \
+                    and node.name == "stddev_samp":
+                # sample stddev via the sum/sum-of-squares/count identity:
+                # sqrt((Σx² − (Σx)²/n) / (n−1)); n ≤ 1 yields 0 (SQL: NULL)
+                if node.distinct:
+                    raise BindError(
+                        "stddev_samp(DISTINCT ...) is not supported yet")
+                if node.star or not node.args:
+                    raise BindError("stddev_samp() requires an argument")
+                key = _ast_key(node)
+                if key not in agg_names:
+                    # accumulate Σx and Σx² in FLOAT64: the integer dtypes
+                    # of the column would overflow on the square / its sum
+                    arg = self._coerce(
+                        self.bind_scalar(node.args[0], scope), T.FLOAT64)
+                    sq = ex.BinOp("*", arg, arg, T.FLOAT64)
+                    names3 = (self.gensym("agg"), self.gensym("agg"),
+                              self.gensym("agg"))
+                    aggs.append((names3[0], ex.AggCall("sum", arg)))
+                    aggs.append((names3[1], ex.AggCall("sum", sq)))
+                    aggs.append((names3[2], ex.AggCall("count", arg)))
+                    agg_names[key] = names3
+                s_, q_, c_ = agg_names[key]
+                sn, qn, cn = (ast.Name((s_,)), ast.Name((q_,)),
+                              ast.Name((c_,)))
+                var = ast.BinOp(
+                    "/",
+                    ast.BinOp("-", qn,
+                              ast.BinOp("/", ast.BinOp("*", sn, sn), cn)),
+                    ast.BinOp("-", cn, ast.NumberLit("1")))
+                return ast.FuncCall("sqrt", [var])
+            if isinstance(node, ast.FuncCall) and node.name in AGG_FUNCS:
+                key = _ast_key(node)
+                if key not in agg_names:
+                    if node.star:
+                        call = ex.AggCall("count", None)
+                        agg_names[key] = self.gensym("agg")
+                        aggs.append((agg_names[key], call))
+                    else:
+                        arg = self.bind_scalar(node.args[0], scope)
+                        func = node.name
+                        # DISTINCT is a no-op for min/max; for count it
+                        # renames the func; for sum/avg the flag survives
+                        # on the AggCall and _plan_dqa splits it (the
+                        # TupleSplit-analog rewrite)
+                        distinct = node.distinct and func not in ("min",
+                                                                  "max")
+                        if func == "count" and distinct:
+                            func, distinct = "count_distinct", False
+                        if func == "avg" and _valid_of(arg) is not None:
+                            # avg over a nullable arg: sum(valid)/count(valid)
+                            # — NULL when no valid rows (mask rides on the
+                            # sum's companion). avg(DISTINCT x) = sum over
+                            # the distinct set / count of the distinct set:
+                            # both halves carry the flag into the DQA split
+                            s = self.gensym("agg")
+                            c2 = self.gensym("agg")
+                            aggs.append((s, ex.AggCall(
+                                "sum", arg, distinct=distinct)))
+                            aggs.append((c2, ex.AggCall(
+                                "count", arg, distinct=distinct)))
+                            agg_names[key] = ("avg2", s, c2)
+                        else:
+                            agg_names[key] = self.gensym("agg")
+                            aggs.append((agg_names[key], ex.AggCall(
+                                func, arg, distinct=distinct)))
+                entry = agg_names[key]
+                if isinstance(entry, tuple) and entry[0] == "avg2":
+                    return ast.BinOp("/", ast.Name((entry[1],)),
+                                     ast.Name((entry[2],)))
+                return ast.Name((entry,))
+            if _ast_key(node) in key_name_by_ast:
+                return ast.Name((key_name_by_ast[_ast_key(node)],))
+            out = node.__class__(**vars(node))
+            for fname, v in vars(node).items():
+                if isinstance(v, ast.ExprNode):
+                    setattr(out, fname, extract(v))
+                elif isinstance(v, list):
+                    # OrderItem is a Node, not an ExprNode: recurse into
+                    # its expr too, or aggregates inside a window's
+                    # OVER(ORDER BY sum(x)) never fold to $agg refs
+                    setattr(out, fname, [
+                        extract(x) if isinstance(x, ast.ExprNode) else
+                        ast.OrderItem(extract(x.expr), x.ascending)
+                        if isinstance(x, ast.OrderItem) else
+                        tuple(extract(y) if isinstance(y, ast.ExprNode) else y
+                              for y in x) if isinstance(x, tuple) else x
+                        for x in v])
+            return out
+
+        rewritten_items = [(i, extract(i.expr)) for i in sel.items]
+        rewritten_having = extract(sel.having) if sel.having else None
+        rewritten_order = [(extract(o.expr), o.ascending)
+                           for o in sel.order_by]
+
+        if any(c.distinct or c.func == "count_distinct" for _, c in aggs):
+            agg = self._plan_dqa(plan, group_keys, key_mask, aggs)
+        else:
+            aggs, agg_masks = self._mask_nullable_aggs(
+                aggs, global_agg=not group_keys)
+            agg = N.PAgg(plan, group_keys, aggs,
+                         capacity=_agg_capacity(plan, group_keys))
+            agg.fields = [
+                N.PlanField(n, e.dtype, _expr_dict(e),
+                            null_mask=((key_mask[n],)
+                                       if n in key_mask else None))
+                for n, e in group_keys
+            ] + [N.PlanField(n, c.dtype, None,
+                             null_mask=((agg_masks[n],)
+                                        if n in agg_masks else None))
+                 for n, c in aggs]
+        plan = agg
+
+        agg_scope = Scope([RangeEntry("$agg", agg)])
+
+        if rewritten_having is not None:
+            plan = self._filter(plan, self.bind_scalar(rewritten_having,
+                                                       agg_scope))
+
+        if any(_has_window(rw) for _, rw in rewritten_items):
+            # windows OVER aggregate outputs (the TPC-DS q98 ratio shape:
+            # sum(x) * 100 / sum(sum(x)) over (partition by cls)) — the
+            # agg rewrite above already folded inner aggregates to $agg
+            # column refs, so the standard extraction runs on top of the
+            # aggregation plan with the agg scope
+            wsel = ast.Select(items=[ast.SelectItem(rw, i.alias)
+                                     for i, rw in rewritten_items])
+            plan, wsel = self._extract_windows(wsel, plan, agg_scope)
+            agg_scope = self._win_scope
+            rewritten_items = [(orig, wi.expr)
+                               for (orig, _), wi in zip(rewritten_items,
+                                                        wsel.items)]
+
+        exprs: list[tuple[str, ex.Expr]] = []
+        fields: list[N.PlanField] = []
+        taken: set[str] = set()
+        for (item, rw) in rewritten_items:
+            bound = self.bind_scalar(rw, agg_scope)
+            name = item.alias or _default_name(item.expr) or self.gensym("col")
+            name = _uniquify(name, taken)
+            exprs.append((name, bound))
+            fields.append(_field_for(name, bound))
+        exprs, fields = _attach_validity_outputs(self, exprs, fields)
+        proj = N.PProject(plan, exprs)
+        proj.fields = fields
+        # stash rewritten order-by for _bind_output_expr
+        self._rewritten_order = {id(o.expr): r
+                                 for o, (r, _) in zip(sel.order_by,
+                                                      rewritten_order)}
+        self._agg_scope = agg_scope
+        return proj, agg_scope
+
+    def _bind_projection(self, sel: ast.Select, plan: N.PlanNode,
+                         scope: Scope) -> N.PlanNode:
+        if any(_has_window(i.expr) for i in sel.items):
+            plan, sel = self._extract_windows(sel, plan, scope)
+            scope = self._win_scope
+        exprs: list[tuple[str, ex.Expr]] = []
+        fields: list[N.PlanField] = []
+        taken: set[str] = set()
+        seen_sources: set[str] = set()
+        for item in sel.items:
+            if isinstance(item.expr, ast.Star):
+                for e in scope.entries:
+                    if item.expr.table and e.alias != item.expr.table:
+                        continue
+                    for f in e.plan.fields:
+                        if f.name in seen_sources \
+                                or f.name.split(".")[-1].startswith("$"):
+                            # merged-plan dupes / masks / internal columns
+                            continue
+                        seen_sources.add(f.name)
+                        name = _uniquify(f.name.split(".")[-1], taken)
+                        exprs.append((name, _colref(f)))
+                        fields.append(N.PlanField(
+                            name, f.type, f.sdict,
+                            null_mask=f.null_mask))
+                continue
+            bound = self.bind_scalar(item.expr, scope)
+            name = item.alias or _default_name(item.expr) or self.gensym("col")
+            name = _uniquify(name, taken)
+            exprs.append((name, bound))
+            fields.append(_field_for(name, bound))
+        # nullable outputs: project their validity masks as hidden columns
+        # ("$vm..."), so NULLs render correctly at the result surface
+        exprs, fields = _attach_validity_outputs(self, exprs, fields)
+        proj = N.PProject(plan, exprs)
+        proj.fields = fields
+        self._rewritten_order = {}
+        self._agg_scope = None
+        return proj
+
+    WINDOW_FUNCS = {"row_number", "rank", "dense_rank", "sum", "count",
+                    "avg", "min", "max", "ntile", "lead", "lag",
+                    "first_value", "last_value"}
+    # positional window funcs read another row of the partition; their
+    # NULL story is per-row (source row missing or invalid), not
+    # frame-aggregate, so they get '<func>@mask' companion calls
+    POSITIONAL_WINDOW_FUNCS = {"lead", "lag", "first_value", "last_value"}
+
+    def _extract_windows(self, sel: ast.Select, plan: N.PlanNode,
+                         scope: Scope):
+        """Pull WindowExpr nodes out of the select list into PWindow nodes
+        (one per distinct OVER spec), rewriting items to reference the new
+        columns (the WindowAgg planning step)."""
+        specs: dict[str, tuple] = {}
+
+        def replace(node):
+            if isinstance(node, ast.WindowExpr):
+                if node.func not in self.WINDOW_FUNCS:
+                    raise BindError(f"unknown window function {node.func!r}")
+                frame = _normalize_frame(node.frame)
+                key = _ast_key(ast.Select(
+                    items=[], group_by=list(node.partition_by),
+                    order_by=list(node.order_by))) + f"|{frame}"
+                if key not in specs:
+                    specs[key] = (node.partition_by, node.order_by, [],
+                                  frame)
+                name = self.gensym("win")
+                specs[key][2].append((name, node.func, list(node.args)))
+                return ast.Name((name,))
+            if not isinstance(node, ast.Node) or isinstance(
+                    node, (ast.ScalarSubquery, ast.InSubquery, ast.Exists)):
+                return node
+            out = node.__class__(**vars(node))
+            for k, v in vars(node).items():
+                if isinstance(v, ast.ExprNode):
+                    setattr(out, k, replace(v))
+                elif isinstance(v, list):
+                    setattr(out, k, [
+                        replace(x) if isinstance(x, ast.ExprNode) else
+                        tuple(replace(y) if isinstance(y, ast.ExprNode)
+                              else y for y in x) if isinstance(x, tuple)
+                        else x for x in v])
+            return out
+
+        new_items = [ast.SelectItem(replace(i.expr), i.alias)
+                     for i in sel.items]
+        for part_asts, order_asts, calls, frame in specs.values():
+            pk = []
+            for a in part_asts:
+                bound = self.bind_scalar(a, scope)
+                v = _valid_of(bound)
+                if v is not None:
+                    # NULL partition keys form ONE partition, distinct from
+                    # any real value: (canonical-zero value, validity) pair
+                    # — same discipline as GROUP BY (_masked_key)
+                    pk.append(_masked_key(bound, v))
+                    pk.append(ex.Cast(v, T.INT32))
+                else:
+                    pk.append(bound)
+            okeys = []
+            for o in order_asts:
+                bound = self.bind_scalar(o.expr, scope)
+                v = _valid_of(bound)
+                if v is not None:
+                    # NULLs order as largest (same rule as PSort keys)
+                    okeys.append((ex.Cast(ex.UnaryOp("not", v, T.BOOL),
+                                          T.INT32), o.ascending))
+                    okeys.append((_masked_key(bound, v), o.ascending))
+                else:
+                    okeys.append((bound, o.ascending))
+            if frame is not None and frame[0] == "rangeoff":
+                frame = _check_rangeoff(frame, order_asts, okeys)
+            bound_calls = []
+            call_valids = []
+            call_params = []
+            new_fields = []
+            mask_by_valid: dict[str, str] = {}
+            # a ROWS/RANGE-offset frame that can exclude the current row
+            # can be EMPTY: aggregates over it are NULL, so their
+            # outputs need masks even over non-null arguments. A
+            # ("months", n) calendar offset unwraps to its signed month
+            # count for this test (shifting by +n months excludes the
+            # current row exactly when n > 0).
+            def _off_sign(o):
+                return o[1] if isinstance(o, tuple) else o
+
+            frame_may_empty = (frame is not None
+                               and frame[0] in ("rows", "rangeoff")
+                               and ((frame[1] is not None
+                                     and _off_sign(frame[1]) > 0)
+                                    or (frame[2] is not None
+                                        and _off_sign(frame[2]) < 0)))
+            for name, func, arg_asts in calls:
+                params = None
+                if func == "ntile":
+                    if len(arg_asts) != 1:
+                        raise BindError("ntile(n) takes exactly one "
+                                        "argument")
+                    nb = self.bind_scalar(arg_asts[0], scope)
+                    if not isinstance(nb, ex.Literal) \
+                            or not isinstance(nb.value, int) \
+                            or isinstance(nb.value, bool) or nb.value <= 0:
+                        raise BindError("ntile(n): n must be a positive "
+                                        "integer constant")
+                    params = {"n": int(nb.value)}
+                    arg = None
+                elif func in ("lead", "lag"):
+                    if not 1 <= len(arg_asts) <= 3:
+                        raise BindError(
+                            f"{func}(value [, offset [, default]])")
+                    arg = self.bind_scalar(arg_asts[0], scope)
+                    off = 1
+                    if len(arg_asts) >= 2:
+                        ob = self.bind_scalar(arg_asts[1], scope)
+                        if not isinstance(ob, ex.Literal) \
+                                or not isinstance(ob.value, int) \
+                                or isinstance(ob.value, bool) \
+                                or ob.value < 0:
+                            raise BindError(
+                                f"{func}: offset must be a non-negative "
+                                "integer constant")
+                        off = int(ob.value)
+                    dflt = None
+                    if len(arg_asts) == 3:
+                        db = self.bind_scalar(arg_asts[2], scope)
+                        # an explicit NULL default IS the no-default case
+                        # (out-of-range -> NULL via the '@mask' companion)
+                        if _is_null_literal(db):
+                            db = None
+                        elif not isinstance(db, ex.Literal):
+                            raise BindError(
+                                f"{func}: default must be a constant")
+                        elif _expr_dict(arg) is not None:
+                            if db.dtype.base != DType.STRING \
+                                    or not isinstance(db.value, str):
+                                raise BindError(
+                                    f"{func}: default for a string "
+                                    "argument must be a string")
+                            # encode into the argument's dictionary
+                            # (append-only: existing codes unchanged)
+                            db = ex.Literal(
+                                _expr_dict(arg).add(db.value), T.STRING)
+                        elif db.dtype.base != arg.dtype.base:
+                            db = ex.Cast(db, arg.dtype)
+                        dflt = db
+                    params = {"offset": off, "default": dflt}
+                elif func in ("first_value", "last_value") \
+                        and len(arg_asts) != 1:
+                    raise BindError(f"{func}(value) takes exactly one "
+                                    "argument")
+                else:
+                    arg = self.bind_scalar(arg_asts[0], scope) \
+                        if arg_asts else None
+                valid = _valid_of(arg) if arg is not None else None
+                if valid is not None:
+                    # NULL args never contribute: sum/avg zero-fill the
+                    # value (the executor additionally restricts sums to
+                    # valid lanes and divides avg by the valid count);
+                    # min/max exclude invalid lanes executor-side by
+                    # worst-rank substitution — a value-space identity
+                    # fill would be unsound for strings, whose sort order
+                    # is collation rank, not code order
+                    if func in ("sum", "avg"):
+                        z = 0.0 if arg.dtype.base == DType.FLOAT64 else 0
+                        arg = ex.CaseWhen(((valid, arg),),
+                                          ex.Literal(z, arg.dtype), arg.dtype)
+                if func in ("row_number", "rank", "dense_rank", "count",
+                            "ntile"):
+                    t = T.INT64
+                elif func == "avg":
+                    t = T.FLOAT64
+                else:
+                    assert arg is not None, f"{func}() needs an argument"
+                    t = arg.dtype
+                sd = _expr_dict(arg) if func in (
+                    "min", "max", "lead", "lag", "first_value",
+                    "last_value") and arg is not None else None
+                bound_calls.append((name, func, arg))
+                call_valids.append(valid)
+                call_params.append(params)
+                if func in self.POSITIONAL_WINDOW_FUNCS and (
+                        valid is not None
+                        or (func in ("lead", "lag")
+                            and params["default"] is None)
+                        or (func in ("first_value", "last_value")
+                            and frame_may_empty)):
+                    # per-row null mask: the source row may fall outside
+                    # the partition (lead/lag without a default) or hold
+                    # an invalid value — both positional facts only the
+                    # executor can see, so a '<func>@mask' pseudo-call
+                    # computes the bool mask alongside the value
+                    mname = self.gensym("vmw")
+                    bound_calls.append((mname, func + "@mask", None))
+                    call_valids.append(valid)
+                    call_params.append(params)
+                    new_fields.append(N.PlanField(mname, T.BOOL, None))
+                    new_fields.append(
+                        N.PlanField(name, t, sd, null_mask=(mname,)))
+                elif (valid is not None or frame_may_empty) \
+                        and func in ("sum", "min", "max", "avg"):
+                    # agg over an all-NULL frame is NULL — materialize the
+                    # frame's any-valid as this output's hidden null mask
+                    # (one mask per distinct validity expr, shared by every
+                    # call over the same argument)
+                    vkey = repr(valid)
+                    mname = mask_by_valid.get(vkey)
+                    if mname is None:
+                        mname = mask_by_valid[vkey] = self.gensym("vmw")
+                        bound_calls.append((mname, "anyvalid", None))
+                        call_valids.append(valid)
+                        call_params.append(None)
+                        new_fields.append(N.PlanField(mname, T.BOOL, None))
+                    new_fields.append(
+                        N.PlanField(name, t, sd, null_mask=(mname,)))
+                else:
+                    new_fields.append(N.PlanField(name, t, sd))
+            w = N.PWindow(plan, pk, okeys, bound_calls, call_valids,
+                          call_params, frame)
+            w.fields = list(plan.fields) + new_fields
+            plan = w
+        # window outputs resolve by exact generated name; rebind existing
+        # entries onto the window plan so resolve()'s dedupe sees one source
+        for e in scope.entries:
+            if _plan_contains(plan, e.plan):
+                e.plan = plan
+        scope = Scope(list(scope.entries) + [RangeEntry("$win", plan)])
+        sel2 = ast.Select(items=new_items, from_refs=sel.from_refs,
+                          order_by=sel.order_by, limit=sel.limit,
+                          offset=sel.offset, distinct=sel.distinct)
+        self._win_scope = scope
+        return plan, sel2
+
+    def _bind_output_expr(self, e: ast.ExprNode, plan: N.PlanNode,
+                          scope: Scope) -> ex.Expr:
+        """Bind an ORDER BY expr: select aliases/outputs first, then scope."""
+        if isinstance(e, ast.Name) and len(e.parts) == 1:
+            for f in plan.fields:
+                if f.name == e.parts[0]:
+                    return _colref(f)  # keeps dictionary + null mask
+        rw = getattr(self, "_rewritten_order", {}).get(id(e))
+        if rw is not None and self._agg_scope is not None:
+            try:
+                return self.bind_scalar(rw, self._agg_scope)
+            except BindError:
+                pass
+        out_scope = Scope([RangeEntry("$out",
+                                      _fields_only_plan(plan.fields))])
+        try:
+            return self.bind_scalar(e, out_scope)
+        except BindError:
+            return self.bind_scalar(e, scope)
+
+    # ----------------------------------------------------------- expressions
+
+    def bind_scalar(self, node: ast.ExprNode, scope: Scope) -> ex.Expr:
+        b = lambda n: self.bind_scalar(n, scope)
+
+        if isinstance(node, ast.Name):
+            _, f = scope.resolve(node.parts)
+            return _colref(f)
+
+        if isinstance(node, ast.NumberLit):
+            return _bind_number(node.text)
+
+        if isinstance(node, ast.StringLit):
+            # bare string literal: binds to a code only in comparison context;
+            # keep as python-string literal for the comparison rewriter
+            return ex.Literal(node.value, T.STRING)
+
+        if isinstance(node, ast.BoolLit):
+            return ex.Literal(node.value, T.BOOL)
+
+        if isinstance(node, ast.DateLit):
+            return ex.Literal(T.date_to_days(node.value), T.DATE)
+
+        if isinstance(node, ast.IntervalLit):
+            raise BindError("interval literal only valid in date arithmetic")
+
+        if isinstance(node, ast.NullLit):
+            return _null_literal(T.INT64)
+
+        if isinstance(node, ast.UnaryOp):
+            if node.op == "not":
+                return self._not_expr(b(node.operand))
+            operand = b(node.operand)
+            if node.op == "+":
+                return operand
+            if isinstance(operand, ex.Literal):
+                out: ex.Expr = ex.Literal(-operand.value, operand.dtype)
+            else:
+                out = ex.UnaryOp("-", operand, operand.dtype)
+            return _set_valid(out, _valid_of(operand))
+
+        if isinstance(node, ast.BinOp):
+            return self._bind_binop(node, scope)
+
+        if isinstance(node, ast.Between):
+            lo = ast.BinOp(">=", node.expr, node.low)
+            hi = ast.BinOp("<=", node.expr, node.high)
+            both = ast.BinOp("and", lo, hi)
+            out = self.bind_scalar(both, scope)
+            if node.negated:
+                return self._not_expr(out)
+            return out
+
+        if isinstance(node, ast.InList):
+            e = b(node.expr)
+            if e.dtype.base == DType.STRING and all(
+                    isinstance(it, ast.StringLit) for it in node.items):
+                sdict = _require_dict(e)
+                values = {it.value for it in node.items}
+                table = sdict.predicate_table(lambda v: v in values)
+                out: ex.Expr = ex.DictLookup(e, table)
+                v = _valid_of(e)
+                if v is not None:
+                    out = _set_valid(ex.BinOp("and", out, v, T.BOOL), v)
+            else:
+                cmps = [self._bind_binop(ast.BinOp("=", node.expr, it), scope)
+                        for it in node.items]
+                out = cmps[0]
+                for c in cmps[1:]:
+                    out = self._logic("or", out, c)
+            if node.negated:
+                return self._not_expr(out)
+            return out
+
+        if isinstance(node, ast.Like):
+            e = b(node.expr)
+            sdict = _require_dict(e)
+            out = ex.DictLookup(e, sdict.like_table(node.pattern))
+            v = _valid_of(e)
+            if v is not None:
+                out = _set_valid(ex.BinOp("and", out, v, T.BOOL), v)
+            if node.negated:
+                return self._not_expr(out)
+            return out
+
+        if isinstance(node, ast.IsNull):
+            e = b(node.operand)
+            v = _valid_of(e)
+            if v is None:
+                # provably non-null: IS NULL is constant false
+                return ex.Literal(bool(node.negated), T.BOOL)
+            # v itself is never NULL, so no is-true wrapping needed
+            return v if node.negated else ex.UnaryOp("not", v, T.BOOL)
+
+        if isinstance(node, ast.CaseExpr):
+            whens = [(b(c), b(v)) for c, v in node.whens]
+            otherwise = b(node.otherwise) if node.otherwise else None
+            return self._bind_case(whens, otherwise)
+
+        if isinstance(node, ast.ExtractExpr):
+            e = b(node.operand)
+            if e.dtype.base != DType.DATE:
+                raise BindError("EXTRACT requires a date operand")
+            return _set_valid(ex.Func(f"extract_{node.part}", (e,), T.INT32),
+                              _valid_of(e))
+
+        if isinstance(node, ast.CastExpr):
+            e = b(node.operand)
+            t = T.SQL_TYPE_MAP.get(node.type_name)
+            if t is None:
+                raise BindError(f"unknown type {node.type_name!r}")
+            if t.base == DType.DECIMAL and node.scale is not None:
+                t = T.DECIMAL(node.scale)
+            if _is_null_literal(e):
+                return _null_literal(t)
+            return _set_valid(ex.Cast(e, t), _valid_of(e))
+
+        if isinstance(node, ast.SubstringExpr):
+            return self._bind_substring(node, scope)
+
+        if isinstance(node, ast.ScalarSubquery):
+            return self._bind_uncorrelated_scalar(node)
+
+        if isinstance(node, ast.FuncCall):
+            if node.name == "coalesce":
+                return self._bind_coalesce(node, scope)
+            if node.name == "sqrt":
+                arg = self._coerce(b(node.args[0]), T.FLOAT64)
+                return _set_valid(ex.Func("sqrt", (arg,), T.FLOAT64),
+                                  _valid_of(arg))
+            if node.name in AGG_FUNCS:
+                raise BindError(f"aggregate {node.name}() not allowed here")
+            raise NotImplementedError(
+                f"unknown function {node.name!r}: scalar UDFs are not yet "
+                "ported to cloudberry_tpu_torch")
+
+        raise BindError(f"unsupported expression {type(node).__name__}")
+
+    def _not_expr(self, e: ex.Expr) -> ex.Expr:
+        """NOT under 3VL, is-true normalized: NOT x is TRUE iff x is valid
+        and false; NULL stays NULL (excluded by filters)."""
+        v = _valid_of(e)
+        out: ex.Expr = ex.UnaryOp("not", e, T.BOOL)
+        if v is not None:
+            out = ex.BinOp("and", out, v, T.BOOL)
+        return _set_valid(out, v)
+
+    def _logic(self, op: str, l: ex.Expr, r: ex.Expr) -> ex.Expr:
+        """AND/OR under Kleene 3VL over is-true normalized operands: the
+        plain BinOp value is already the correct is-TRUE; validity records
+        when the 3VL result is non-NULL (e.g. FALSE AND NULL is known)."""
+        out: ex.Expr = ex.BinOp(op, l, r, T.BOOL)
+        vl, vr = _valid_of(l), _valid_of(r)
+        if vl is None and vr is None:
+            return out
+        both = _and_valid(vl, vr) or ex.Literal(True, T.BOOL)
+        if op == "and":
+            def known_false(x, vx):
+                nx = ex.UnaryOp("not", x, T.BOOL)
+                return nx if vx is None else ex.BinOp("and", vx, nx, T.BOOL)
+
+            valid = ex.BinOp(
+                "or", ex.BinOp("or", both, known_false(l, vl), T.BOOL),
+                known_false(r, vr), T.BOOL)
+        else:
+            # OR known if both sides known, or either is TRUE (is-true
+            # normalized values already imply validity)
+            valid = ex.BinOp("or", ex.BinOp("or", both, l, T.BOOL), r,
+                             T.BOOL)
+        return _set_valid(out, valid)
+
+    def _bind_case(self, whens, otherwise) -> ex.Expr:
+        """CASE under 3VL: NULL conditions fall through (automatic with
+        is-true normalized conditions); a missing ELSE is an implicit NULL;
+        result validity mirrors the CASE over branch validities."""
+        result_exprs = [v for _, v in whens] + (
+            [otherwise] if otherwise is not None else [])
+        non_null = [e for e in result_exprs if not _is_null_literal(e)]
+        if any(e.dtype.base == DType.STRING for e in non_null):
+            out = self._bind_string_case(whens, otherwise, non_null)
+        else:
+            rtype = _common_type([e.dtype for e in non_null]) if non_null \
+                else T.INT64
+            cw = tuple(
+                (c, _null_literal(rtype) if _is_null_literal(v)
+                 else self._coerce(v, rtype)) for c, v in whens)
+            other = None if otherwise is None else (
+                _null_literal(rtype) if _is_null_literal(otherwise)
+                else self._coerce(otherwise, rtype))
+            out = ex.CaseWhen(cw, other, rtype)
+        branch_vs = [_valid_of(v) for _, v in out.whens]
+        vo = _valid_of(out.otherwise) if out.otherwise is not None else None
+        if out.otherwise is not None and not getattr(
+                out, "_implicit_null_else", False) \
+                and vo is None and all(v is None for v in branch_vs):
+            return out  # no branch can produce NULL
+        true_lit = ex.Literal(True, T.BOOL)
+        vwhens = tuple((c, v if v is not None else true_lit)
+                       for (c, _), v in zip(out.whens, branch_vs))
+        if out.otherwise is None or getattr(out, "_implicit_null_else",
+                                            False):
+            votherwise: ex.Expr = ex.Literal(False, T.BOOL)
+        else:
+            votherwise = vo if vo is not None else true_lit
+        return _set_valid(out, ex.CaseWhen(vwhens, votherwise, T.BOOL))
+
+    def _bind_string_case(self, whens, otherwise, result_exprs) -> ex.Expr:
+        """CASE yielding strings: literal results get codes in an output
+        dictionary; non-literal results must share ONE dictionary, which the
+        output dictionary extends (so their codes pass through unchanged —
+        the UPDATE col = CASE WHEN … THEN 'lit' ELSE col END shape)."""
+        col_dicts = {id(_expr_dict(e)): _expr_dict(e)
+                     for e in result_exprs
+                     if not isinstance(e, ex.Literal)
+                     and _expr_dict(e) is not None}
+        if any(not isinstance(e, ex.Literal) and _expr_dict(e) is None
+               for e in result_exprs):
+            raise BindError("string CASE branch has no dictionary")
+        if len(col_dicts) > 1:
+            raise BindError("string CASE mixing columns from different "
+                            "dictionaries is not supported yet")
+        base = next(iter(col_dicts.values()), None)
+        out_dict = StringDictionary(base.values if base else ())
+
+        def enc(e):
+            if _is_null_literal(e):
+                lit = ex.Literal(-1, T.STRING)  # code -1: masked at render
+                object.__setattr__(lit, "_is_null_lit", True)
+                object.__setattr__(lit, "_null_expr",
+                                   ex.Literal(False, T.BOOL))
+                return lit
+            if isinstance(e, ex.Literal):
+                return ex.Literal(out_dict.add(e.value), T.STRING)
+            return e  # column codes valid: out_dict extends its dictionary
+
+        whens = tuple((c, enc(v)) for c, v in whens)
+        implicit_null = otherwise is None
+        otherwise_e = enc(otherwise) if otherwise is not None else \
+            ex.Literal(-1, T.STRING)
+        out = ex.CaseWhen(whens, otherwise_e, T.STRING)
+        object.__setattr__(out, "_out_dict", out_dict)
+        if implicit_null:
+            object.__setattr__(out, "_implicit_null_else", True)
+        return out
+
+    def _mask_nullable_aggs(self, aggs, global_agg: bool):
+        """Make aggregates NULL-correct:
+        - count(x) over a nullable x counts only valid rows (sum of 0/1);
+        - sum/min/max over a nullable x aggregate identity-filled values and
+          gain a hidden companion counting valid rows — zero valid rows
+          means the SQL result is NULL (the companion is the output's mask);
+        - with no GROUP BY, sum/min/max/avg over an EMPTY input are NULL,
+          so they gain a row-count companion even for non-null args.
+        Only standard funcs come out, so the distributed partial/final agg
+        split (plan/distribute.py) needs no NULL knowledge at all."""
+        out: list[tuple[str, ex.AggCall]] = []
+        masks: dict[str, str] = {}
+        one = ex.Literal(1, T.INT64)
+        zero = ex.Literal(0, T.INT64)
+        for name, call in aggs:
+            v = _valid_of(call.arg) if call.arg is not None else None
+            if call.func == "count" and call.arg is not None \
+                    and v is not None:
+                out.append((name, ex.AggCall(
+                    "sum", ex.CaseWhen(((v, one),), zero, T.INT64))))
+                continue
+            if call.func in ("sum", "min", "max") \
+                    and (v is not None or global_agg):
+                arg = call.arg
+                if v is not None:
+                    if call.func == "sum":
+                        ident = 0.0 if arg.dtype.base == DType.FLOAT64 else 0
+                    else:
+                        ident = _dtype_extreme(arg.dtype,
+                                               want_max=(call.func == "min"))
+                    arg = ex.CaseWhen(((v, arg),),
+                                      ex.Literal(ident, arg.dtype), arg.dtype)
+                out.append((name, ex.AggCall(call.func, arg)))
+                comp = self.gensym("vma")
+                if v is not None:
+                    out.append((comp, ex.AggCall(
+                        "sum", ex.CaseWhen(((v, one),), zero, T.INT64))))
+                else:
+                    out.append((comp, ex.AggCall("count", None)))
+                masks[name] = comp
+                continue
+            if call.func == "avg" and global_agg and v is None:
+                comp = self.gensym("vma")
+                out.append((name, call))
+                out.append((comp, ex.AggCall("count", None)))
+                masks[name] = comp
+                continue
+            out.append((name, call))
+        return out, masks
+
+    def _plan_dqa(self, plan, group_keys, key_mask, aggs):
+        """Distinct-qualified aggregates — the TupleSplit / multi-DQA
+        analog (reference: src/backend/executor/nodeTupleSplit.c:1-281
+        tuple routing, src/backend/cdb/cdbgroupingpaths.c 2/3-stage DQA
+        plans). The reference replicates every input tuple once per DQA
+        and routes each copy through its own distinct-ification; the
+        one-XLA-program redesign instead plans one aggregation subplan
+        per distinct ARGUMENT class — inner distinct-on-(group keys,
+        arg), then the outer aggregate over the deduplicated rows —
+        plus one subplan for the plain aggregates, all over a
+        materialize-once shared input (PShare), and zips the
+        per-subplan results with 1:1 unique-build joins on the
+        canonicalized group keys. Every subplan emits exactly one row
+        per group (and global aggregates exactly one row total), so the
+        zip is loss-free; NULL group keys join exactly because keys
+        ride as (canonical value, validity) pairs — the discipline
+        GROUP BY itself uses. A nullable DQA argument becomes a
+        (canonical value, validity) inner key pair; the outer aggregate
+        then NULL-masks through the standard _mask_nullable_aggs path
+        (count skips the NULL group, sum/avg identity-fill it)."""
+        def _is_dqa(c: ex.AggCall) -> bool:
+            return c.distinct or c.func == "count_distinct"
+
+        plain = [(n, c) for n, c in aggs if not _is_dqa(c)]
+        classes: dict[str, list] = {}
+        for n, c in aggs:
+            if _is_dqa(c):
+                if c.arg is None:
+                    raise BindError("DISTINCT aggregate requires an "
+                                    "argument")
+                classes.setdefault(repr(c.arg), []).append((n, c))
+        nsub = len(classes) + (1 if plain else 0)
+
+        def _src() -> N.PlanNode:
+            if nsub == 1:
+                return plan
+            sh = N.PShare(plan)  # scan once, feed every subplan
+            sh.fields = list(plan.fields)
+            return sh
+
+        def _key_fields(keys) -> list:
+            return [N.PlanField(n, e.dtype, _expr_dict(e),
+                                null_mask=((key_mask[n],)
+                                           if n in key_mask else None))
+                    for n, e in keys]
+
+        subs: list[N.PlanNode] = []
+        if plain:
+            p_aggs, p_masks = self._mask_nullable_aggs(
+                plain, global_agg=not group_keys)
+            src = _src()
+            sub = N.PAgg(src, list(group_keys), p_aggs,
+                         capacity=_agg_capacity(src, group_keys))
+            sub.fields = _key_fields(group_keys) + [
+                N.PlanField(n, c.dtype, None,
+                            null_mask=((p_masks[n],)
+                                       if n in p_masks else None))
+                for n, c in p_aggs]
+            subs.append(sub)
+        for members in classes.values():
+            arg = members[0][1].arg
+            src = _src()
+            aname = self.gensym("darg")
+            inner_keys = list(group_keys)
+            mask_of: dict[str, tuple] = {}
+            v = _valid_of(arg)
+            if v is None:
+                inner_keys.append((aname, arg))
+            else:
+                avname = self.gensym("vmk")
+                inner_keys.append((aname, _masked_key(arg, v)))
+                inner_keys.append((avname, ex.Cast(v, T.INT32)))
+                mask_of[aname] = (avname,)
+            inner = N.PAgg(src, inner_keys, [],
+                           capacity=_agg_capacity(src, inner_keys))
+            inner.fields = [N.PlanField(n, e.dtype, _expr_dict(e),
+                                        null_mask=mask_of.get(n))
+                            for n, e in inner_keys]
+            new_group = [(n, _colref(inner.field(n)))
+                         for n, _ in group_keys]
+            out_aggs = []
+            for name, c in members:
+                of = "count" if c.func == "count_distinct" else c.func
+                out_aggs.append((name, ex.AggCall(
+                    of, _colref(inner.field(aname)))))
+            out_aggs, o_masks = self._mask_nullable_aggs(
+                out_aggs, global_agg=not group_keys)
+            outer = N.PAgg(inner, new_group, out_aggs,
+                           capacity=_agg_capacity(inner, new_group))
+            outer.fields = _key_fields(new_group) + [
+                N.PlanField(n, c.dtype, None,
+                            null_mask=((o_masks[n],)
+                                       if n in o_masks else None))
+                for n, c in out_aggs]
+            subs.append(outer)
+
+        if len(subs) == 1:
+            return subs[0]
+        key_names = [n for n, _ in group_keys]
+        if not group_keys:
+            # global aggregates: each subplan emits exactly ONE row —
+            # zip them on a projected constant key
+            key_names = ["$dqaone"]
+            zipped = []
+            for sub in subs:
+                pr = N.PProject(sub, [(f.name,
+                                       ex.ColumnRef(f.name, f.type))
+                                      for f in sub.fields]
+                                + [("$dqaone", ex.Literal(1, T.INT64))])
+                pr.fields = list(sub.fields) + [
+                    N.PlanField("$dqaone", T.INT64, None)]
+                zipped.append(pr)
+            subs = zipped
+        acc = subs[0]
+        for nxt in subs[1:]:
+            bkeys = [ex.ColumnRef(n, nxt.field(n).type)
+                     for n in key_names]
+            pkeys = [ex.ColumnRef(n, acc.field(n).type)
+                     for n in key_names]
+            payload = [f.name for f in nxt.fields
+                       if f.name not in key_names]
+            j = N.PJoin("inner", nxt, acc, bkeys, pkeys, payload, None,
+                        unique_build=True)
+            j.fields = list(acc.fields) + [f for f in nxt.fields
+                                           if f.name not in key_names]
+            acc = j
+        return acc
+
+    # -------------------------------------------------- subquery predicates
+    # The cdbsubselect.c analog: EXISTS/IN/scalar subqueries in WHERE become
+    # semi/anti/inner joins against a (possibly grouped) subplan.
+
+    def _apply_subquery_pred(self, pred: ast.ExprNode, plan: N.PlanNode,
+                             scope: Scope) -> N.PlanNode:
+        negated = False
+        node = pred
+        if isinstance(node, ast.UnaryOp) and node.op == "not":
+            negated = True
+            node = node.operand
+        if isinstance(node, ast.Exists):
+            return self._apply_exists(node.select, plan, scope,
+                                      negated or node.negated)
+        if isinstance(node, ast.InSubquery):
+            return self._apply_in_subquery(node, plan, scope,
+                                           negated != node.negated)
+        if isinstance(node, ast.BinOp) and node.op in (
+                "=", "<>", "<", "<=", ">", ">="):
+            out = self._apply_scalar_comparison(node, plan, scope, negated)
+            if out is not None:
+                return out
+        # fallback: bind as a plain filter (uncorrelated scalar subqueries
+        # inside arbitrary expressions)
+        return self._filter(plan, self.bind_scalar(pred, scope))
+
+    def _bind_uncorrelated_scalar(self, node: ast.ScalarSubquery) -> ex.Expr:
+        sub = Binder(self.catalog)
+        sub._counter = self._counter + 1000
+        sub._ctes = self._ctes
+        plan = sub.bind_select(node.select)
+        ufs = _user_fields(plan)  # hidden $vm mask outputs don't count
+        if len(ufs) != 1:
+            raise BindError("scalar subquery must return one column")
+        f = ufs[0]
+        one_row = _one_row_guaranteed(node.select)
+        if not f.masks and one_row:
+            e = ex.SubqueryScalar(plan, f.type)
+            if f.sdict is not None:
+                object.__setattr__(e, "_sdict", f.sdict)
+            return e
+        # nullable scalar: the value and its validity terms are separate
+        # scalar subqueries over ONE shared subplan (PShare → computed
+        # once); validity then composes like any other expression's.
+        # Validity terms: presence (0 rows → NULL, unless the subquery is
+        # an ungrouped aggregate, which always yields exactly one row) AND
+        # the value's own mask (the single row's value may be NULL).
+        share_v = N.PShare(plan)
+        share_v.fields = list(plan.fields)
+        vproj = N.PProject(share_v, [(f.name, ex.ColumnRef(f.name, f.type))])
+        vproj.fields = [N.PlanField(f.name, f.type, f.sdict)]
+        e = ex.SubqueryScalar(vproj, f.type)
+        if f.sdict is not None:
+            object.__setattr__(e, "_sdict", f.sdict)
+        vterms = []
+        if not one_row:
+            share_p = N.PShare(plan)
+            share_p.fields = list(plan.fields)
+            vterms.append(ex.SubqueryScalar(share_p, T.BOOL, "exists"))
+        if f.masks:
+            share_m = N.PShare(plan)
+            share_m.fields = list(plan.fields)
+            mname = self.gensym("sqv")
+            mproj = N.PProject(share_m, [(mname, ex.IsValid(f.masks))])
+            mproj.fields = [N.PlanField(mname, T.BOOL, None)]
+            vterms.append(ex.SubqueryScalar(mproj, T.BOOL))
+        return _set_valid(e, _and_valid(*vterms))
+
+    def _scratch_inner_scope(self, sub: ast.Select) -> Scope:
+        inner = Scope()
+        sb = Binder(self.catalog)
+        sb._counter = self._counter + 2000
+        sb._ctes = self._ctes
+        dump: list = []
+        for ref in sub.from_refs:
+            sb.bind_table_ref(ref, inner, dump)
+        return inner
+
+    def _split_correlation(self, sub: ast.Select, outer: Scope):
+        """Partition the subquery's WHERE into (corr_pairs, inner_conjs,
+        residual_conjs): corr_pairs are inner=outer equi conditions,
+        residuals reference both sides non-equi."""
+        inner = self._scratch_inner_scope(sub)
+
+        def owner(e: ast.ExprNode) -> str:
+            owners = set()
+
+            def walk(n):
+                if isinstance(n, ast.Select):
+                    return  # nested subquery: resolved when it is bound
+                if isinstance(n, ast.Name):
+                    try:
+                        inner.resolve(n.parts)
+                        owners.add("inner")
+                        return
+                    except BindError:
+                        pass
+                    outer.resolve(n.parts)  # raises if unknown anywhere
+                    owners.add("outer")
+                for v in vars(n).values() if isinstance(n, ast.Node) else ():
+                    if isinstance(v, ast.Node):
+                        walk(v)
+                    elif isinstance(v, (list, tuple)):
+                        for x in v:
+                            if isinstance(x, ast.Node):
+                                walk(x)
+                            elif isinstance(x, tuple):
+                                for y in x:
+                                    if isinstance(y, ast.Node):
+                                        walk(y)
+
+            walk(e)
+            if not owners:
+                return "none"
+            if owners == {"inner"}:
+                return "inner"
+            if owners == {"outer"}:
+                return "outer"
+            return "mixed"
+
+        corr_pairs: list[tuple[ast.ExprNode, ast.ExprNode]] = []  # (outer, inner)
+        inner_conjs: list[ast.ExprNode] = []
+        residual: list[ast.ExprNode] = []
+        for c in _split_conjuncts(sub.where):
+            o = owner(c)
+            if o in ("inner", "none"):
+                inner_conjs.append(c)
+            elif o == "outer":
+                residual.append(c)
+            elif isinstance(c, ast.BinOp) and c.op == "=" \
+                    and owner(c.left) in ("inner", "outer") \
+                    and owner(c.right) in ("inner", "outer") \
+                    and owner(c.left) != owner(c.right):
+                if owner(c.left) == "outer":
+                    corr_pairs.append((c.left, c.right))
+                else:
+                    corr_pairs.append((c.right, c.left))
+            else:
+                residual.append(c)
+        return inner, corr_pairs, inner_conjs, residual
+
+    def _mangle_inner(self, nodes_: list[ast.ExprNode], inner: Scope):
+        """Collect inner column references in ``nodes_`` → (select items
+        materializing them, rewrite fn replacing them with mangled names)."""
+        tag = self.gensym("sq").strip("$")
+        mapping: dict[str, str] = {}   # inner physical name -> mangled
+        items: list[ast.SelectItem] = []
+
+        def mangle_of(parts) -> Optional[str]:
+            try:
+                _, f = inner.resolve(parts)
+            except BindError:
+                return None
+            if f.name not in mapping:
+                m = f"${tag}_{len(mapping)}"
+                mapping[f.name] = m
+                items.append(ast.SelectItem(ast.Name(parts), m))
+            return mapping[f.name]
+
+        def rewrite(n):
+            if isinstance(n, ast.Name):
+                m = mangle_of(n.parts)
+                return ast.Name((m,)) if m is not None else n
+            if not isinstance(n, ast.Node):
+                return n
+            out = n.__class__(**vars(n))
+            for k, v in vars(n).items():
+                if isinstance(v, ast.Node):
+                    setattr(out, k, rewrite(v))
+                elif isinstance(v, list):
+                    setattr(out, k, [
+                        rewrite(x) if isinstance(x, ast.Node) else
+                        tuple(rewrite(y) for y in x) if isinstance(x, tuple)
+                        else x for x in v])
+            return out
+
+        rewritten = [rewrite(n) for n in nodes_]
+        return items, rewritten
+
+    def _corr_items(self, corr) -> list[ast.SelectItem]:
+        tag = self.gensym("ck").strip("$")
+        return [ast.SelectItem(iexpr, f"${tag}_{i}")
+                for i, (_, iexpr) in enumerate(corr)]
+
+    def _apply_exists(self, sub: ast.Select, plan: N.PlanNode, scope: Scope,
+                      negated: bool) -> N.PlanNode:
+        inner, corr, inner_conjs, residual = self._split_correlation(sub, scope)
+        if not corr:
+            raise BindError("uncorrelated EXISTS not supported yet")
+        corr_items = self._corr_items(corr)
+        res_items, res_rw = self._mangle_inner(residual, inner)
+        items = corr_items + res_items
+        sub2 = ast.Select(items=items, from_refs=sub.from_refs,
+                          where=_and_all(inner_conjs))
+        subplan = self.bind_select(sub2)
+        probe_keys = [self.bind_scalar(o, scope) for o, _ in corr]
+        build_keys = [self.bind_scalar(ast.Name((it.alias,)),
+                                       Scope([RangeEntry("$sq", subplan)]))
+                      for it in corr_items]
+        kind = "anti" if negated else "semi"
+        j = N.PJoin(kind, subplan, plan, build_keys, probe_keys, [],
+                    self.gensym("match"))
+        j.fields = list(plan.fields)
+        _attach_key_validity(j)
+        if res_rw:
+            # residual references outer names + mangled subplan names
+            combined = Scope(list(scope.entries)
+                             + [RangeEntry("$sq", subplan)])
+            j.residual = self.bind_scalar(_and_all(res_rw), combined)
+            j.build_payload = [f.name for f in subplan.fields]
+            # pair buffer: equi-match PAIRS expand internally before the
+            # residual filters them — size from the inner-join estimate
+            # with headroom, not just bcap+pcap (see _make_join)
+            from cloudberry_tpu_torch.plan.cost import estimate_rows
+
+            pairs = N.PJoin("inner", subplan, plan,
+                            list(build_keys), list(probe_keys), [])
+            est = estimate_rows(pairs, self.catalog)
+            j._est_pairs = est  # distribution/tiling re-derive from this
+            j.out_capacity = max(
+                _plan_capacity(subplan) + _plan_capacity(plan),
+                int(2 * est) + 8)
+        return j
+
+    def _apply_in_subquery(self, node: ast.InSubquery, plan: N.PlanNode,
+                           scope: Scope, negated: bool) -> N.PlanNode:
+        sub = node.select
+        inner, corr, inner_conjs, residual = self._split_correlation(sub, scope)
+        if residual:
+            raise BindError("IN subquery with non-equi correlation "
+                            "not supported yet")
+        if len(sub.items) != 1:
+            raise BindError("IN subquery must return one column")
+        del inner
+        key_alias = self.gensym("inkey").strip("$")
+        items = [ast.SelectItem(sub.items[0].expr, f"${key_alias}")]
+        corr_items = self._corr_items(corr)
+        items += corr_items
+        # keep the subquery's own grouping if it has one (Q18 pattern:
+        # IN (select o_orderkey ... group by o_orderkey having ...))
+        sub2 = ast.Select(items=items, from_refs=sub.from_refs,
+                          where=_and_all(inner_conjs),
+                          group_by=sub.group_by, having=sub.having)
+        subplan = self.bind_select(sub2)
+        sq_scope = Scope([RangeEntry("$sq", subplan)])
+        build_keys = [self.bind_scalar(ast.Name((f"${key_alias}",)), sq_scope)]
+        probe_keys = [self.bind_scalar(node.expr, scope)]
+        for (o, _), it in zip(corr, corr_items):
+            probe_keys.append(self.bind_scalar(o, scope))
+            build_keys.append(self.bind_scalar(ast.Name((it.alias,)), sq_scope))
+        kind = "anti" if negated else "semi"
+        j = N.PJoin(kind, subplan, plan, build_keys, probe_keys, [],
+                    self.gensym("match"))
+        j.fields = list(plan.fields)
+        _attach_key_validity(j)
+        # x NOT IN (subquery): if the subquery yields ANY NULL key, the
+        # predicate is never TRUE — null-aware anti join
+        j.null_aware = negated
+        return j
+
+    def _apply_scalar_comparison(self, node: ast.BinOp, plan: N.PlanNode,
+                                 scope: Scope, negated: bool
+                                 ) -> Optional[N.PlanNode]:
+        """lhs op (select agg(...) from ... where corr) → decorrelate into a
+        grouped subplan + lookup join + filter. Returns None if the pattern
+        doesn't apply (caller falls back to expression binding)."""
+        lhs, rhs, op = node.left, node.right, node.op
+        if isinstance(lhs, ast.ScalarSubquery) and not isinstance(
+                rhs, ast.ScalarSubquery):
+            lhs, rhs = rhs, lhs
+            op = _flip_op(op)
+        if not isinstance(rhs, ast.ScalarSubquery) or _contains_subquery(lhs):
+            return None
+        sub = rhs.select
+        if len(sub.items) != 1 or not _has_agg(sub.items[0].expr):
+            return None
+        inner, corr, inner_conjs, residual = self._split_correlation(sub, scope)
+        if residual:
+            return None
+        if not corr:
+            return None  # uncorrelated → expression path handles it
+        del inner
+        corr_items = self._corr_items(corr)
+        val_name = self.gensym("sval").strip("$")
+        items = [ast.SelectItem(sub.items[0].expr, f"${val_name}")]
+        sub2 = ast.Select(items=corr_items + items, from_refs=sub.from_refs,
+                          where=_and_all(inner_conjs),
+                          group_by=[it.expr for it in corr_items])
+        subplan = self.bind_select(sub2)
+        sq_scope = Scope([RangeEntry("$sq", subplan)])
+        build_keys = [self.bind_scalar(ast.Name((it.alias,)), sq_scope)
+                      for it in corr_items]
+        probe_keys = [self.bind_scalar(o, scope) for o, _ in corr]
+        j = N.PJoin("inner", subplan, plan, build_keys, probe_keys,
+                    [f.name for f in subplan.fields], self.gensym("match"))
+        j.fields = list(plan.fields) + [
+            N.PlanField(f.name, f.type, f.sdict) for f in subplan.fields]
+        _attach_key_validity(j)
+        cmp_scope = Scope(list(scope.entries) + [RangeEntry("$sq", j)])
+        cmp = self._bind_comparison(
+            op, self.bind_scalar(lhs, scope),
+            self.bind_scalar(ast.Name((f"${val_name}",)), cmp_scope))
+        if negated:
+            cmp = ex.UnaryOp("not", cmp, T.BOOL)
+        out = self._filter(j, cmp)
+        out.fields = list(plan.fields)  # drop subplan columns from output
+        return out
+
+    def _bind_coalesce(self, node: ast.FuncCall, scope: Scope) -> ex.Expr:
+        """COALESCE: first non-NULL value wins; result is NULL only when
+        every operand is. Operands without validity are never null, so
+        anything after the first such operand is dead."""
+        if not node.args:
+            raise BindError("coalesce() requires at least one argument")
+        bound = [self.bind_scalar(a, scope) for a in node.args]
+        non_null = [b for b in bound if not _is_null_literal(b)]
+        if not non_null:
+            return _null_literal(T.INT64)
+        rtype = _common_type([b.dtype for b in non_null])
+        out_dict = None
+        if any(b.dtype.base == DType.STRING for b in non_null):
+            if not all(b.dtype.base == DType.STRING for b in non_null):
+                raise BindError("coalesce mixes string and non-string "
+                                "operands")
+            rtype = T.STRING
+            # reconcile dictionaries: codes re-based onto one output dict
+            base = next((_expr_dict(b) for b in non_null
+                         if _expr_dict(b) is not None), None)
+            out_dict = StringDictionary(base.values if base else ())
+            rebased = []
+            for b in bound:
+                if _is_null_literal(b):
+                    b2: ex.Expr = _null_literal(T.STRING)
+                elif isinstance(b, ex.Literal) and isinstance(b.value, str):
+                    b2 = ex.Literal(out_dict.add(b.value), T.STRING)
+                else:
+                    d = _expr_dict(b)
+                    if d is None:
+                        raise BindError("string coalesce operand has no "
+                                        "dictionary")
+                    if d.values == out_dict.values[:len(d)]:
+                        b2 = b  # prefix-compatible: codes already valid
+                    else:
+                        xlat = np.fromiter((out_dict.add(v)
+                                            for v in d.values),
+                                           dtype=np.int32, count=len(d))
+                        b2 = ex.DictLookup(b, xlat, T.STRING)
+                        _set_valid(b2, _valid_of(b))
+                rebased.append(b2)
+            coerced = rebased
+        else:
+            coerced = [
+                _null_literal(rtype) if _is_null_literal(b)
+                else (self._coerce(b, rtype) if b.dtype != rtype else b)
+                for b in bound]
+
+        out = None
+        all_masked = True
+        vexprs = []
+        for b in reversed(coerced):
+            v = _valid_of(b)
+            if v is None:
+                all_masked = False
+                out = b  # never-null operand: later fallbacks are dead
+                continue
+            vexprs.append(v)
+            out = b if out is None else \
+                ex.CaseWhen(((v, b),), out, rtype)
+        if all_masked and vexprs:
+            # result is NULL only when EVERY operand is: validity = OR of
+            # the operand validities, carried for the output surface
+            valid = vexprs[0]
+            for v in vexprs[1:]:
+                valid = ex.BinOp("or", valid, v, T.BOOL)
+            out2 = ex.CaseWhen(tuple(), out, rtype) if isinstance(
+                out, (ex.ColumnRef, ex.Literal)) else out
+            _set_valid(out2, valid)
+            out = out2
+        if out_dict is not None:
+            out3 = out if not isinstance(out, (ex.ColumnRef, ex.Literal)) \
+                else _set_valid(ex.CaseWhen(tuple(), out, rtype),
+                                _valid_of(out))
+            object.__setattr__(out3, "_out_dict", out_dict)
+            out = out3
+        return out
+
+    def _bind_substring(self, node: ast.SubstringExpr, scope: Scope) -> ex.Expr:
+        e = self.bind_scalar(node.operand, scope)
+        sdict = _require_dict(e)
+        if not (isinstance(node.start, ast.NumberLit)
+                and (node.length is None
+                     or isinstance(node.length, ast.NumberLit))):
+            raise BindError("SUBSTRING bounds must be literals")
+        start = int(node.start.text)
+        length = int(node.length.text) if node.length else None
+        out_dict = StringDictionary()
+        table = np.empty(len(sdict), dtype=np.int32)
+        for code, v in enumerate(sdict.values):
+            sub = v[start - 1:] if length is None else v[start - 1:start - 1 + length]
+            table[code] = out_dict.add(sub)
+        col = ex.DictLookup(e, table, T.STRING)
+        object.__setattr__(col, "_out_dict", out_dict)
+        return _set_valid(col, _valid_of(e))
+
+    def _bind_binop(self, node: ast.BinOp, scope: Scope) -> ex.Expr:
+        op = node.op
+        if op in ("and", "or"):
+            return self._logic(op, self.bind_scalar(node.left, scope),
+                               self.bind_scalar(node.right, scope))
+
+        # date ± interval folding (literal side only, TPC-H style)
+        if op in ("+", "-"):
+            folded = self._fold_date_interval(node, scope)
+            if folded is not None:
+                return folded
+
+        left = self.bind_scalar(node.left, scope)
+        right = self.bind_scalar(node.right, scope)
+
+        if op in ("=", "<>", "<", "<=", ">", ">="):
+            if _is_null_literal(left) or _is_null_literal(right):
+                return _null_bool()  # cmp with NULL is NULL (never TRUE)
+            v = _and_valid(_valid_of(left), _valid_of(right))
+            out = self._bind_comparison(op, left, right)
+            if v is not None:
+                out = ex.BinOp("and", out, v, T.BOOL)  # is-true normalize
+            return _set_valid(out, v)
+
+        # arithmetic — strict: NULL in, NULL out
+        v = _and_valid(_valid_of(left), _valid_of(right))
+        return _set_valid(self._bind_arith(op, left, right), v)
+
+    def _bind_arith(self, op: str, left: ex.Expr, right: ex.Expr) -> ex.Expr:
+        lt, rt = left.dtype, right.dtype
+        if lt.base == DType.DATE or rt.base == DType.DATE:
+            if op == "-" and lt.base == DType.DATE and rt.base == DType.DATE:
+                return ex.BinOp("-", left, right, T.INT32)
+            if lt.base == DType.DATE and rt.base in (DType.INT32, DType.INT64):
+                return ex.BinOp(op, left, self._coerce(right, T.INT32), T.DATE)
+            raise BindError("unsupported date arithmetic")
+        if op == "/":
+            lf = self._coerce(left, T.FLOAT64)
+            rf = self._coerce(right, T.FLOAT64)
+            return ex.BinOp("/", lf, rf, T.FLOAT64)
+        if DType.FLOAT64 in (lt.base, rt.base):
+            return ex.BinOp(op, self._coerce(left, T.FLOAT64),
+                            self._coerce(right, T.FLOAT64), T.FLOAT64)
+        if DType.DECIMAL in (lt.base, rt.base):
+            if op == "*":
+                l = self._as_decimal(left)
+                r = self._as_decimal(right)
+                scale = l.dtype.scale + r.dtype.scale
+                out = ex.BinOp("*", l, r, T.DECIMAL(scale))
+                if scale > MAX_DECIMAL_SCALE:
+                    out = ex.Func(
+                        "scale_down",
+                        (out, ex.Literal(scale - MAX_DECIMAL_SCALE, T.INT32)),
+                        T.DECIMAL(MAX_DECIMAL_SCALE))
+                return out
+            # + / -: align scales
+            l = self._as_decimal(left)
+            r = self._as_decimal(right)
+            scale = max(l.dtype.scale, r.dtype.scale)
+            return ex.BinOp(op, self._coerce(l, T.DECIMAL(scale)),
+                            self._coerce(r, T.DECIMAL(scale)),
+                            T.DECIMAL(scale))
+        # pure integer
+        rtype = T.INT64 if DType.INT64 in (lt.base, rt.base) else T.INT32
+        return ex.BinOp(op, self._coerce(left, rtype),
+                        self._coerce(right, rtype), rtype)
+
+    def _bind_comparison(self, op: str, left: ex.Expr, right: ex.Expr) -> ex.Expr:
+        lt, rt = left.dtype, right.dtype
+        # string comparisons fold through the dictionary
+        if lt.base == DType.STRING or rt.base == DType.STRING:
+            if lt.base != DType.STRING:
+                left, right = right, left
+                op = _flip_op(op)
+                lt, rt = left.dtype, right.dtype
+            if isinstance(right, ex.Literal) and rt.base == DType.STRING:
+                sdict = _require_dict(left)
+                lit = right.value
+                if op == "=":
+                    code = sdict.code_of(lit)
+                    return ex.BinOp("=", left,
+                                    ex.Literal(code, T.STRING), T.BOOL)
+                if op == "<>":
+                    code = sdict.code_of(lit)
+                    return ex.BinOp("<>", left,
+                                    ex.Literal(code, T.STRING), T.BOOL)
+                table = sdict.predicate_table(
+                    lambda v: _str_cmp(op, v, lit))
+                return ex.DictLookup(left, table)
+            if rt.base == DType.STRING:
+                ldict, rdict = _expr_dict(left), _expr_dict(right)
+                if ldict is None or rdict is None:
+                    raise BindError("string comparison requires "
+                                    "dictionary-encoded operands")
+                if ldict is rdict:
+                    if op in ("=", "<>"):
+                        return ex.BinOp(op, left, right, T.BOOL)
+                    r = ldict.rank_table()
+                    return ex.BinOp(op, ex.DictLookup(left, r, T.INT32),
+                                    ex.DictLookup(right, r, T.INT32), T.BOOL)
+                if op in ("=", "<>"):
+                    # translate right codes into left's dictionary; absent → -1
+                    # (never equals a valid left code, and -1==-1 cannot arise
+                    # because left codes are always ≥ 0 for selected rows)
+                    xlat = np.fromiter(
+                        (ldict.code_of(v) for v in rdict.values),
+                        dtype=np.int32, count=len(rdict))
+                    rx = ex.DictLookup(right, xlat, T.STRING)
+                    eq = ex.BinOp("=", left, rx, T.BOOL)
+                    if op == "=":
+                        return eq
+                    return ex.UnaryOp("not", eq, T.BOOL)
+                # ordering across dictionaries: rank both against the union
+                union = sorted(set(ldict.values) | set(rdict.values))
+                pos = {v: i for i, v in enumerate(union)}
+                lr = np.fromiter((pos[v] for v in ldict.values),
+                                 dtype=np.int32, count=len(ldict))
+                rr = np.fromiter((pos[v] for v in rdict.values),
+                                 dtype=np.int32, count=len(rdict))
+                return ex.BinOp(op, ex.DictLookup(left, lr, T.INT32),
+                                ex.DictLookup(right, rr, T.INT32), T.BOOL)
+            raise BindError("string comparison requires a literal or column")
+        if lt.base == DType.FLOAT64 or rt.base == DType.FLOAT64:
+            return ex.BinOp(op, self._coerce(left, T.FLOAT64),
+                            self._coerce(right, T.FLOAT64), T.BOOL)
+        if lt.base == DType.DECIMAL or rt.base == DType.DECIMAL:
+            l = self._as_decimal(left)
+            r = self._as_decimal(right)
+            scale = max(l.dtype.scale, r.dtype.scale)
+            return ex.BinOp(op, self._coerce(l, T.DECIMAL(scale)),
+                            self._coerce(r, T.DECIMAL(scale)), T.BOOL)
+        return ex.BinOp(op, left, right, T.BOOL)
+
+    def _fold_date_interval(self, node: ast.BinOp, scope: Scope
+                            ) -> Optional[ex.Expr]:
+        if not isinstance(node.right, ast.IntervalLit):
+            return None
+        base = self.bind_scalar(node.left, scope)
+        iv = node.right
+        sign = 1 if node.op == "+" else -1
+        if isinstance(base, ex.Literal) and base.dtype.base == DType.DATE:
+            d = T.days_to_date(base.value)
+            d2 = _shift_date(d, sign * iv.n, iv.unit)
+            return ex.Literal(T.date_to_days(d2), T.DATE)
+        if iv.unit == "day":
+            return ex.BinOp("+" if sign > 0 else "-", base,
+                            ex.Literal(iv.n, T.INT32), T.DATE)
+        raise BindError("year/month interval arithmetic requires a literal date")
+
+    def _as_decimal(self, e: ex.Expr) -> ex.Expr:
+        if e.dtype.base == DType.DECIMAL:
+            return e
+        if e.dtype.base in (DType.INT32, DType.INT64):
+            if isinstance(e, ex.Literal):
+                return _literal_cast(e, T.DECIMAL(0))
+            return ex.Cast(e, T.DECIMAL(0))
+        if isinstance(e, ex.Literal) and e.dtype.base == DType.FLOAT64:
+            # float literal in decimal context: give it a scale from its text
+            return ex.Cast(e, T.DECIMAL(2))
+        raise BindError(f"cannot treat {e.dtype} as decimal")
+
+    def _coerce(self, e: ex.Expr, t: SqlType) -> ex.Expr:
+        if e.dtype == t:
+            return e
+        out = _literal_cast(e, t) if isinstance(e, ex.Literal) else ex.Cast(e, t)
+        _set_valid(out, _valid_of(e))  # casts are validity-preserving
+        if _is_null_literal(e):
+            object.__setattr__(out, "_is_null_lit", True)
+        return out
+
+
+# ------------------------------------------------------------------ helpers
+
+
+def _colref(f: N.PlanField) -> ex.ColumnRef:
+    """ColumnRef carrying the field's dictionary (string ops need it) and
+    its validity (NULL) mask."""
+    c = ex.ColumnRef(f.name, f.type)
+    if f.sdict is not None:
+        object.__setattr__(c, "_sdict", f.sdict)
+    if f.null_mask is not None:
+        object.__setattr__(c, "_null_expr", ex.IsValid(f.masks))
+    return c
+
+
+# ----------------------------------------------- validity (NULL) propagation
+# The binder tracks, for every bound expression, a bool "validity" expression
+# (True = value present, False = SQL NULL) via the ``_null_expr`` attribute;
+# None means provably non-null. Boolean expressions are kept "is-TRUE
+# normalized": their compiled VALUE is the three-valued-logic is-TRUE (NULL
+# evaluates as False), which makes WHERE/join/HAVING filtering correct with
+# no executor knowledge of 3VL; the validity expr rides alongside for IS
+# NULL, COALESCE, and NULL rendering. At plan boundaries (projections, agg
+# outputs, scans) validity is materialized as hidden bool columns and
+# recorded in PlanField.null_mask — ordinary columns that flow through
+# motions/joins like any other. The reference gets all of this from
+# per-datum null flags in every Datum slot; here it is compiled structure.
+
+
+def _valid_of(e: ex.Expr):
+    """Validity expr of a bound expression (None = never NULL)."""
+    return getattr(e, "_null_expr", None)
+
+
+def _set_valid(e: ex.Expr, v) -> ex.Expr:
+    if v is not None:
+        object.__setattr__(e, "_null_expr", v)
+    return e
+
+
+def _and_valid(*vs):
+    out = None
+    for v in vs:
+        if v is None:
+            continue
+        out = v if out is None else ex.BinOp("and", out, v, T.BOOL)
+    return out
+
+
+def _field_for(name: str, bound: ex.Expr) -> N.PlanField:
+    """Projection output field; NULL-literal columns carry a marker so
+    set-op alignment can type them from the OTHER side (grouping-set
+    branches project NULL for omitted string keys)."""
+    return N.PlanField(name, bound.dtype, _expr_dict(bound),
+                       _is_null_col=_is_null_literal(bound))
+
+
+def _is_null_literal(e: ex.Expr) -> bool:
+    return bool(getattr(e, "_is_null_lit", False))
+
+
+def _null_literal(t: SqlType) -> ex.Expr:
+    """A typed NULL: zero value + always-False validity."""
+    z = 0.0 if t.base == DType.FLOAT64 else \
+        (False if t.base == DType.BOOL else 0)
+    lit = ex.Literal(z, t)
+    object.__setattr__(lit, "_is_null_lit", True)
+    object.__setattr__(lit, "_null_expr", ex.Literal(False, T.BOOL))
+    return lit
+
+
+def _null_bool() -> ex.Expr:
+    """The NULL boolean, is-TRUE normalized: value False, validity False."""
+    return _null_literal(T.BOOL)
+
+
+_HIDDEN_PREFIXES = ("$vm", "$nn:", "$match", "$pmatch")
+
+
+def _is_hidden_name(name: str) -> bool:
+    return name.split(".")[-1].startswith(_HIDDEN_PREFIXES)
+
+
+def _user_fields(plan: N.PlanNode) -> list[N.PlanField]:
+    return [f for f in plan.fields if not _is_hidden_name(f.name)]
+
+
+def _canonical_ref(f: N.PlanField) -> ex.Expr:
+    """Reference a field with NULL lanes canonicalized to zero — safe as a
+    grouping/set-op key where the validity mask rides as its own column.
+    Deliberately carries NO validity (the mask column is the key's partner)."""
+    c = ex.ColumnRef(f.name, f.type)
+    if f.sdict is not None:
+        object.__setattr__(c, "_sdict", f.sdict)
+    if not f.masks:
+        return c
+    z = 0.0 if f.type.base == DType.FLOAT64 else \
+        (False if f.type.base == DType.BOOL else 0)
+    out = ex.CaseWhen(((ex.IsValid(f.masks), c),),
+                      ex.Literal(z, f.type), f.type)
+    if f.sdict is not None:
+        object.__setattr__(out, "_out_dict", f.sdict)
+    return out
+
+
+def _attach_key_validity(j: N.PJoin) -> None:
+    """SQL equi-join NULL semantics: a NULL key matches nothing. The
+    executor ANDs these into the build/probe selection for matching."""
+    j.build_key_valid = _and_valid(*[_valid_of(k) for k in j.build_keys])
+    j.probe_key_valid = _and_valid(*[_valid_of(k) for k in j.probe_keys])
+
+
+def _dtype_extreme(t: SqlType, want_max: bool):
+    if t.base == DType.FLOAT64:
+        return float("inf") if want_max else float("-inf")
+    bits = 31 if t.np_dtype == np.int32 else 63
+    return (1 << bits) - 1 if want_max else -(1 << bits)
+
+
+def _scan_node(table: Table, alias: str) -> N.PScan:
+    cmap = {f.name: f"{alias}.{f.name}" for f in table.schema.fields}
+    validity = getattr(table, "validity", {})
+    # mask output names keep the "<alias>.$..." shape so the hidden-column
+    # convention (last dotted component starts with "$") holds
+    mask_map = {f.name: f"{alias}.$nn:{f.name}"
+                for f in table.schema.fields if f.name in validity}
+    scan = N.PScan(table.name, cmap, capacity=max(table.num_rows, 1),
+                   num_rows=table.num_rows, mask_map=mask_map)
+    scan.fields = [
+        N.PlanField(f"{alias}.{f.name}", f.type, table.dicts.get(f.name),
+                    null_mask=((mask_map[f.name],)
+                               if f.name in mask_map else None))
+        for f in table.schema.fields
+    ] + [N.PlanField(m, T.BOOL, None) for m in mask_map.values()]
+    return scan
+
+
+def _fields_only_plan(fields: list[N.PlanField]) -> N.PlanNode:
+    p = N.PlanNode()
+    p.fields = [N.PlanField(f.name, f.type, f.sdict, null_mask=f.null_mask)
+                for f in fields]
+    return p
+
+
+def _append_sort_key(keys: list, bound: ex.Expr, ascending: bool) -> None:
+    """ORDER BY with SQL NULL ordering: NULLs sort as larger than every
+    value (NULLS LAST when ascending, FIRST when descending) — an is-null
+    flag becomes the preceding sort key with the same direction."""
+    v = _valid_of(bound)
+    if v is not None:
+        keys.append((ex.Cast(ex.UnaryOp("not", v, T.BOOL), T.INT32),
+                     ascending))
+    keys.append((bound, ascending))
+
+
+def _const_row() -> N.PlanNode:
+    p = N.PScan("$dual", {}, capacity=1)
+    p.fields = []
+    return p
+
+
+def _rebind_scope(scope: Scope, alias: str, plan: N.PlanNode) -> None:
+    for e in scope.entries:
+        if e.alias == alias:
+            e.plan = plan
+
+
+def alias_set_of(groups) -> set:
+    out: set = set()
+    for aliases in groups.values():
+        out |= aliases
+    return out
+
+
+def _plan_contains(root: N.PlanNode, target: N.PlanNode) -> bool:
+    if root is target:
+        return True
+    return any(_plan_contains(c, target) for c in root.children())
+
+
+def _plan_capacity(p: N.PlanNode) -> int:
+    if isinstance(p, N.PScan):
+        return p.capacity
+    if isinstance(p, (N.PAgg,)):
+        return p.capacity
+    if isinstance(p, N.PConcat):
+        return sum(_plan_capacity(c) for c in p.inputs)
+    if isinstance(p, N.PWindow):
+        return _plan_capacity(p.child)
+    if isinstance(p, N.PMotion):
+        return p.out_capacity or _plan_capacity(p.child)
+    kids = p.children()
+    if not kids:
+        return 1
+    if isinstance(p, N.PJoin):
+        if not p.unique_build:
+            return p.out_capacity
+        return _plan_capacity(p.probe)
+    return max(_plan_capacity(c) for c in kids)
+
+
+def _agg_capacity(child: N.PlanNode, group_keys) -> int:
+    if not group_keys:
+        return 1
+    # product of dictionary sizes when ALL keys are low-cardinality strings
+    prod = 1
+    for _, e in group_keys:
+        d = _expr_dict(e)
+        if d is None or len(d) > 10_000:
+            prod = None
+            break
+        prod *= max(len(d), 1)
+    cap = _plan_capacity(child)
+    if prod is not None:
+        return min(max(prod, 8), cap)
+    return cap
+
+
+def _contains_subquery(node: ast.Node) -> bool:
+    if isinstance(node, (ast.ScalarSubquery, ast.InSubquery, ast.Exists)):
+        return True
+    for v in vars(node).values() if isinstance(node, ast.Node) else ():
+        if isinstance(v, ast.Node) and not isinstance(v, ast.Select):
+            if _contains_subquery(v):
+                return True
+        elif isinstance(v, (list, tuple)):
+            for x in v:
+                if isinstance(x, ast.Node) and not isinstance(x, ast.Select) \
+                        and _contains_subquery(x):
+                    return True
+                if isinstance(x, tuple) and any(
+                        isinstance(y, ast.Node)
+                        and not isinstance(y, ast.Select)
+                        and _contains_subquery(y) for y in x):
+                    return True
+    return False
+
+
+def _and_all(conjs: list[ast.ExprNode]):
+    if not conjs:
+        return None
+    out = conjs[0]
+    for c in conjs[1:]:
+        out = ast.BinOp("and", out, c)
+    return out
+
+
+def _or_branches(e: ast.ExprNode) -> list[ast.ExprNode]:
+    if isinstance(e, ast.BinOp) and e.op == "or":
+        return _or_branches(e.left) + _or_branches(e.right)
+    return [e]
+
+
+def _common_branch_conjuncts(or_expr: ast.ExprNode) -> list[ast.ExprNode]:
+    """Conjuncts present (structurally) in EVERY branch of an OR."""
+    branches = _or_branches(or_expr)
+    sets = []
+    for b in branches:
+        sets.append({_ast_key(c): c for c in _split_conjuncts(b)})
+    common_keys = set(sets[0])
+    for s in sets[1:]:
+        common_keys &= set(s)
+    return [sets[0][k] for k in common_keys]
+
+
+def _split_conjuncts(e: Optional[ast.ExprNode]) -> list[ast.ExprNode]:
+    if e is None:
+        return []
+    if isinstance(e, ast.BinOp) and e.op == "and":
+        return _split_conjuncts(e.left) + _split_conjuncts(e.right)
+    return [e]
+
+
+def _has_window(node: ast.ExprNode) -> bool:
+    if isinstance(node, ast.WindowExpr):
+        return True
+    for v in vars(node).values() if isinstance(node, ast.Node) else ():
+        if isinstance(v, ast.ExprNode) and _has_window(v):
+            return True
+        if isinstance(v, (list, tuple)):
+            for x in v:
+                if isinstance(x, ast.ExprNode) and _has_window(x):
+                    return True
+    return False
+
+
+def _same_key(a, b) -> bool:
+    # qualified and bare references to one column are the same key
+    # (group by rollup(t.region) with a bare 'region' item — binding
+    # would have rejected an ambiguous bare name anyway)
+    if repr(a) == repr(b):
+        return True
+    if isinstance(a, ast.Name) and isinstance(b, ast.Name):
+        return a.parts[-1] == b.parts[-1] \
+            and (len(a.parts) == 1 or len(b.parts) == 1)
+    return False
+
+
+def _rewrite_ast(e, leaf):
+    """Generic expression rewriter: leaf(e) returns a replacement node
+    (possibly e itself, stopping descent) or None to recurse into
+    children. Subqueries are opaque — their grouping context is their
+    own. Shared by the grouping-sets expansion and the plain-GROUP-BY
+    grouping() fold so the child dispatch cannot diverge."""
+    r = leaf(e)
+    if r is not None:
+        return r
+    if not isinstance(e, ast.Node) or isinstance(
+            e, (ast.ScalarSubquery, ast.InSubquery, ast.Exists)):
+        return e
+    out = e.__class__(**vars(e))
+    for k, v in vars(e).items():
+        if isinstance(v, ast.ExprNode):
+            setattr(out, k, _rewrite_ast(v, leaf))
+        elif isinstance(v, list):
+            # tuples inside lists = CaseExpr.whens pairs
+            setattr(out, k, [
+                _rewrite_ast(x, leaf) if isinstance(x, ast.ExprNode)
+                else ast.OrderItem(_rewrite_ast(x.expr, leaf),
+                                   x.ascending)
+                if isinstance(x, ast.OrderItem)
+                else tuple(_rewrite_ast(y, leaf)
+                           if isinstance(y, ast.ExprNode) else y
+                           for y in x)
+                if isinstance(x, tuple) else x
+                for x in v])
+    return out
+
+
+def _grouping_key_set(sel: ast.Select) -> list:
+    """The query's grouping expressions: GROUP BY keys plus their
+    select-alias resolutions (GROUP BY r where r aliases region makes
+    region a grouping expression too — the alias path _bind_agg takes)."""
+    alias_map = {i.alias: i.expr for i in sel.items if i.alias}
+    keys = list(sel.group_by)
+    for k in sel.group_by:
+        if isinstance(k, ast.Name) and len(k.parts) == 1 \
+                and k.parts[0] in alias_map:
+            keys.append(alias_map[k.parts[0]])
+    return keys
+
+
+def _check_grouping_args(call, keys):
+    for a in call.args:
+        if not any(_same_key(a, k) for k in keys):
+            raise BindError("arguments to grouping() must be grouping "
+                            "expressions of the query")
+
+
+def _contains_grouping(e) -> bool:
+    if isinstance(e, ast.FuncCall) and e.name == "grouping":
+        return True
+    if not isinstance(e, ast.Node) or isinstance(
+            e, (ast.ScalarSubquery, ast.InSubquery, ast.Exists)):
+        return False
+    for v in vars(e).values():
+        if isinstance(v, ast.ExprNode) and _contains_grouping(v):
+            return True
+        if isinstance(v, (list, tuple)):
+            for x in v:
+                if isinstance(x, ast.ExprNode) and _contains_grouping(x):
+                    return True
+                if isinstance(x, ast.OrderItem) \
+                        and _contains_grouping(x.expr):
+                    return True
+                if isinstance(x, tuple) and any(
+                        isinstance(y, ast.ExprNode)
+                        and _contains_grouping(y) for y in x):
+                    return True
+    return False
+
+
+def _fold_plain_grouping(sel: ast.Select) -> ast.Select:
+    """grouping() outside GROUPING SETS: in a plain GROUP BY query every
+    reported key is grouped, so each call folds to the constant 0 after
+    validating its arguments are grouping expressions (PG: "arguments to
+    GROUPING must be grouping expressions of the associated query
+    level", parse_agg.c check_ungrouped_columns role)."""
+    keys = _grouping_key_set(sel)
+
+    def leaf(e):
+        if isinstance(e, ast.FuncCall) and e.name == "grouping":
+            _check_grouping_args(e, keys)
+            return ast.NumberLit("0")
+        return None
+
+    def repl(e):
+        return _rewrite_ast(e, leaf)
+
+    out = copy.copy(sel)  # keeps post-init attrs (e.g. _sql_text)
+    out.items = [ast.SelectItem(repl(i.expr), i.alias) for i in sel.items]
+    if sel.having is not None:
+        out.having = repl(sel.having)
+    out.order_by = []
+    for o in sel.order_by:
+        folded = repl(o.expr)
+        if _contains_grouping(o.expr) and isinstance(folded, ast.NumberLit):
+            # a constant key cannot affect the order — and a bare number
+            # would re-parse as a positional column reference
+            continue
+        out.order_by.append(ast.OrderItem(folded, o.ascending))
+    return out
+
+
+def _const_num(e) -> Optional[float]:
+    """Constant-fold the arithmetic a folded grouping() call produces
+    (number literals, +/-/*); None = not a constant."""
+    if isinstance(e, ast.NumberLit):
+        try:
+            return float(e.text)
+        except ValueError:
+            return None
+    if isinstance(e, ast.UnaryOp) and e.op == "-":
+        v = _const_num(e.operand)
+        return -v if v is not None else None
+    if isinstance(e, ast.BinOp) and e.op in ("+", "-", "*"):
+        l, r = _const_num(e.left), _const_num(e.right)
+        if l is None or r is None:
+            return None
+        return l + r if e.op == "+" else l - r if e.op == "-" else l * r
+    return None
+
+
+def _windows_of(sel: ast.Select) -> list:
+    out = []
+
+    def walk(e):
+        if isinstance(e, ast.WindowExpr):
+            out.append(e)
+            return
+        if not isinstance(e, ast.Node) or isinstance(
+                e, (ast.ScalarSubquery, ast.InSubquery, ast.Exists)):
+            return
+        for v in vars(e).values():
+            if isinstance(v, ast.ExprNode):
+                walk(v)
+            elif isinstance(v, (list, tuple)):
+                for x in v:
+                    if isinstance(x, ast.ExprNode):
+                        walk(x)
+                    elif isinstance(x, ast.OrderItem):
+                        walk(x.expr)
+                    elif isinstance(x, tuple):
+                        for y in x:
+                            if isinstance(y, ast.ExprNode):
+                                walk(y)
+
+    for i in sel.items:
+        walk(i.expr)
+    return out
+
+
+def _check_branch_windows(branches: list) -> None:
+    """Windows inside a grouping-sets query execute per UNION-ALL branch;
+    that is sound only when the PARTITION BY pins every branch's rows to
+    their own partitions — i.e. the constant-folded partition keys (the
+    grouping() bitmasks this rewrite produced) take pairwise-distinct
+    values across branches. Anything else would silently rank over one
+    branch where SQL ranks over the combined result (nodeWindowAgg runs
+    over nodeAgg's full grouping-sets output), so reject it loudly."""
+    sels = [b for b in branches if isinstance(b, ast.Select)]
+    wins = [_windows_of(b) for b in sels]
+    if len(wins) <= 1 or not wins[0]:
+        return
+    for i in range(len(wins[0])):
+        sigs = [tuple(_const_num(pk) for pk in bw[i].partition_by)
+                for bw in wins]
+        for a in range(len(sigs)):
+            for b in range(a + 1, len(sigs)):
+                if not any(x is not None and y is not None and x != y
+                           for x, y in zip(sigs[a], sigs[b])):
+                    raise BindError(
+                        "window function partitions may span grouping "
+                        "sets; PARTITION BY needs a grouping() "
+                        "expression that distinguishes every set "
+                        "(e.g. the full grouping(k1, ..., kn) bitmask)")
+
+
+def _expand_grouping_sets(sel: ast.Select) -> ast.Node:
+    """GROUPING SETS / ROLLUP / CUBE → UNION ALL of per-set aggregations
+    (the nodeAgg.c grouping-sets role translated to plan algebra): each
+    set aggregates with its own GROUP BY, keys a set omits project as
+    NULL (the set-op column alignment coerces them to the key's type),
+    and ORDER BY/LIMIT apply to the whole union. Re-aggregating the base
+    per set matches the reference's multi-phase grouping-sets plan shape;
+    the shared scan dedups through the statement-level plan, not here."""
+    all_keys = list(sel.group_by)
+    grouping_keys = _grouping_key_set(sel)
+    branches = []
+    for gset in sel.grouping_sets:
+        omitted = [k for k in all_keys
+                   if not any(_same_key(k, g) for g in gset)]
+
+        def leaf(e, omitted=omitted):
+            if any(_same_key(e, o) for o in omitted):
+                return ast.NullLit()
+            if isinstance(e, ast.FuncCall) and e.name == "grouping":
+                # grouping(a, b) -> bitmask: bit i set where arg i is
+                # NOT part of this branch's grouping set — a per-branch
+                # CONSTANT, which is the whole point of the rewrite
+                _check_grouping_args(e, grouping_keys)
+                bits = 0
+                for a in e.args:
+                    bits = (bits << 1) | int(
+                        any(_same_key(a, o) for o in omitted))
+                return ast.NumberLit(str(bits))
+            if isinstance(e, ast.FuncCall) and e.name in AGG_FUNCS:
+                # aggregate ARGUMENTS stay intact: count(region) in the
+                # grand-total row counts all non-NULL regions — the key
+                # is NULL only as a GROUP LABEL, never inside aggregation
+                return e
+            return None
+
+        def repl(e, leaf=leaf):
+            return _rewrite_ast(e, leaf)
+
+        items = [ast.SelectItem(repl(i.expr),
+                                i.alias or _default_name(i.expr))
+                 for i in sel.items]
+        having = repl(sel.having) if sel.having is not None else None
+        b = ast.Select(
+            # keep the ORIGINAL output name on NULL-replaced items (the
+            # union's column names come from the left branch, and ORDER
+            # BY must resolve them)
+            items=items,
+            from_refs=sel.from_refs,
+            where=sel.where,
+            group_by=list(gset),
+            having=having)
+        if not gset and not any(_has_agg(i.expr) for i in items) \
+                and (having is None or not _has_agg(having)):
+            # the () branch with no aggregates selected: every item is a
+            # constant label — GROUP BY () means ONE group, which
+            # DISTINCT over constants reproduces
+            b.distinct = True
+        branches.append(b)
+    _check_branch_windows(branches)
+    out: ast.Node = branches[0]
+    if len(branches) == 1:
+        # never CLEAR the one-group distinct a constant () branch set
+        out.distinct = out.distinct or sel.distinct
+    for b in branches[1:]:
+        # SELECT DISTINCT over grouping sets dedups the COMBINED result:
+        # plain UNION (not ALL) chains do exactly that
+        out = ast.SetOp("union", not sel.distinct, out, b)
+    out.order_by = list(sel.order_by)
+    out.limit = sel.limit
+    out.offset = sel.offset
+    return out
+
+
+def _normalize_frame(frame):
+    """Validate + canonicalize a frame clause.
+
+    Returns None (the SQL default), ("whole",) (the whole partition),
+    ("rows", lo, hi) with row offsets, or ("rangeoff", lo, hi) with
+    value-distance offsets (None = unbounded on that side; CURRENT ROW
+    in RANGE mode is exactly offset 0 — the search lands on the peer
+    group's boundary either way). The key-count/type checks rangeoff
+    needs happen at PWindow construction where the ORDER BY is bound."""
+    if frame is None:
+        return None
+    kind, lo, hi = frame
+    if lo == ("unbounded", 1):
+        raise BindError("frame cannot start at UNBOUNDED FOLLOWING")
+    if hi == ("unbounded", -1):
+        raise BindError("frame cannot end at UNBOUNDED PRECEDING")
+    if lo == ("unbounded", -1) and hi == ("unbounded", 1):
+        return ("whole",)
+    if kind == "range":
+        if lo == ("unbounded", -1) and hi == ("current", 0):
+            return None  # exactly the SQL default frame
+        if lo[0] != "offset" and hi[0] != "offset":
+            # positional shapes: CURRENT ROW bounds are peer-group
+            # edges, needing no key search — PG restricts RANGE to one
+            # numeric ORDER BY key only when an offset bound appears.
+            # lo is always CURRENT ROW here (the UNBOUNDED-lo shapes
+            # reduced to None/whole above)
+            return ("rangepos", "peer",
+                    "peer" if hi[0] == "current" else "end")
+        lo_off = None if lo[0] == "unbounded" else lo[1]
+        hi_off = None if hi[0] == "unbounded" else hi[1]
+        # calendar ("months", n) offsets skip the static ordering check
+        # (mixed-unit bounds have no static comparison; an inverted
+        # frame just produces empty frames at runtime, PG semantics)
+        if isinstance(lo_off, (int, float)) \
+                and isinstance(hi_off, (int, float)) and lo_off > hi_off:
+            raise BindError("frame start is after frame end")
+        return ("rangeoff", lo_off, hi_off)
+    for b in (lo, hi):
+        if b[0] != "unbounded" and b[1] != int(b[1]):
+            raise BindError("ROWS frame offsets must be integers")
+    lo_off = None if lo[0] == "unbounded" else int(lo[1])
+    hi_off = None if hi[0] == "unbounded" else int(hi[1])
+    if lo_off is not None and hi_off is not None and lo_off > hi_off:
+        raise BindError("frame start is after frame end")
+    return ("rows", lo_off, hi_off)
+
+
+def _check_rangeoff(frame, order_asts, okeys):
+    """RANGE offset frames need exactly one numeric ORDER BY key (PG:
+    "RANGE with offset PRECEDING/FOLLOWING requires exactly one ORDER BY
+    column", nodeWindowAgg.c frame validation). DECIMAL keys scale the
+    offset into their fixed-point representation; integer/date keys
+    require integral offsets (a fractional distance on a discrete domain
+    would silently truncate). Returns the executable 4-tuple
+    ("rangeoff", lo, hi, key_is_nullable) — the nullable flag tells the
+    executor the ORDER BY lowered to a (validity, masked-value) pair."""
+    if len(order_asts) != 1:
+        raise BindError(
+            "RANGE with offset PRECEDING/FOLLOWING requires exactly "
+            "one ORDER BY column")
+    kb = okeys[-1][0]
+    if _expr_dict(kb) is not None or kb.dtype.base not in (
+            DType.INT32, DType.INT64, DType.FLOAT64, DType.DECIMAL,
+            DType.DATE):
+        raise BindError(
+            "RANGE offsets need a numeric or date ORDER BY key")
+
+    def scale(o):
+        if o is None:
+            return None
+        if isinstance(o, tuple):  # ("months", n): calendar distance
+            if kb.dtype.base != DType.DATE:
+                raise BindError(
+                    "INTERVAL MONTH/YEAR frame offsets need a date "
+                    "ORDER BY key")
+            return o
+        raw = o
+        if kb.dtype.base == DType.DECIMAL:
+            # exact fixed-point scaling: 0.07 on a scale-2 key must
+            # become 7, not 7.000000000000001 (binary float multiply)
+            o = decimal.Decimal(str(o)).scaleb(kb.dtype.scale)
+            if o != int(o):
+                raise BindError(
+                    f"RANGE offset {raw} is not representable at "
+                    f"scale {kb.dtype.scale} of the decimal ORDER BY "
+                    "key")
+            return int(o)
+        if kb.dtype.base != DType.FLOAT64:
+            if o != int(o):
+                raise BindError(
+                    f"RANGE offset {raw} must be an integer for "
+                    f"{kb.dtype.base.value} ORDER BY keys")
+            return int(o)
+        return float(o)
+
+    return ("rangeoff", scale(frame[1]), scale(frame[2]),
+            len(okeys) == 2)
+
+
+def _one_row_guaranteed(sel: ast.Select) -> bool:
+    """An ungrouped aggregate SELECT always returns exactly one row (no
+    GROUP BY, no HAVING — which could filter that row away — and no
+    LIMIT/OFFSET games): the common TPC shape ``(SELECT avg(x) FROM t)``,
+    which needs no presence-validity subquery."""
+    return (not sel.group_by and sel.having is None
+            and sel.limit is None and not sel.offset
+            and any(not isinstance(i.expr, ast.Star)
+                    and _has_agg(i.expr) for i in sel.items))
+
+
+def _has_agg(node: ast.ExprNode) -> bool:
+    if isinstance(node, (ast.ScalarSubquery, ast.InSubquery, ast.Exists)):
+        return False  # subquery aggregates belong to the subquery
+    if isinstance(node, ast.FuncCall) and node.name in AGG_FUNCS:
+        return True
+    for v in vars(node).values():
+        if isinstance(v, ast.ExprNode) and _has_agg(v):
+            return True
+        if isinstance(v, (list, tuple)):
+            for x in v:
+                # OrderItem wraps an expr (OVER(ORDER BY sum(x)) must
+                # route through the aggregation path — same recursion
+                # the agg extract() applies)
+                if isinstance(x, ast.OrderItem) and _has_agg(x.expr):
+                    return True
+                if isinstance(x, ast.ExprNode) and _has_agg(x):
+                    return True
+                if isinstance(x, tuple) and any(
+                        isinstance(y, ast.ExprNode) and _has_agg(y) for y in x):
+                    return True
+    return False
+
+
+def _ast_key(node: ast.Node) -> str:
+    parts = [type(node).__name__]
+    for k, v in sorted(vars(node).items()):
+        if isinstance(v, ast.Node):
+            parts.append(f"{k}={_ast_key(v)}")
+        elif isinstance(v, list):
+            parts.append(f"{k}=[" + ",".join(
+                _ast_key(x) if isinstance(x, ast.Node) else repr(x)
+                for x in v) + "]")
+        else:
+            parts.append(f"{k}={v!r}")
+    return "(" + " ".join(parts) + ")"
+
+
+def _masked_key(bound: ex.Expr, v: ex.Expr) -> ex.Expr:
+    """Canonicalize a nullable grouping key's NULL lanes to zero (its
+    validity rides as a separate key column)."""
+    z = 0.0 if bound.dtype.base == DType.FLOAT64 else \
+        (False if bound.dtype.base == DType.BOOL else 0)
+    masked = ex.CaseWhen(((v, bound),), ex.Literal(z, bound.dtype),
+                         bound.dtype)
+    d = _expr_dict(bound)
+    if d is not None:
+        object.__setattr__(masked, "_out_dict", d)
+    return masked
+
+
+def _attach_validity_outputs(binder, exprs, fields):
+    """For output exprs that can be NULL, materialize the validity as a
+    hidden bool output ("$vm…") and point the field's null_mask at it —
+    the plan-boundary form of expression-level validity."""
+    mask_out: dict = {}   # dedup key -> hidden column name
+    new_fields = []
+    for (name, bound), f in zip(list(exprs), fields):
+        v = _valid_of(bound)
+        if v is None:
+            new_fields.append(N.PlanField(f.name, f.type, f.sdict,
+                                          _is_null_col=f._is_null_col))
+            continue
+        key = (("iv", v.mask_names, v.negate)
+               if isinstance(v, ex.IsValid) else id(v))
+        hidden = mask_out.get(key)
+        if hidden is None:
+            hidden = binder.gensym("vm")
+            mask_out[key] = hidden
+            exprs.append((hidden, v))
+        new_fields.append(N.PlanField(f.name, f.type, f.sdict,
+                                      null_mask=(hidden,),
+                                      _is_null_col=f._is_null_col))
+    for hidden in mask_out.values():
+        new_fields.append(N.PlanField(hidden, T.BOOL, None))
+    return exprs, new_fields
+
+
+def _uniquify(name: str, taken: set[str]) -> str:
+    out = name
+    i = 1
+    while out in taken:
+        out = f"{name}_{i}"
+        i += 1
+    taken.add(out)
+    return out
+
+
+def _default_name(node: ast.ExprNode) -> Optional[str]:
+    if isinstance(node, ast.Name):
+        return node.parts[-1]
+    if isinstance(node, ast.FuncCall):
+        return node.name
+    return None
+
+
+def _bind_number(text: str) -> ex.Literal:
+    if "e" in text.lower():
+        return ex.Literal(float(text), T.FLOAT64)
+    if "." in text:
+        frac = text.split(".")[1]
+        scale = len(frac)
+        return ex.Literal(int(text.replace(".", "")), T.DECIMAL(scale))
+    return ex.Literal(int(text), T.INT64)
+
+
+def _literal_cast(e: ex.Literal, t: SqlType) -> ex.Literal:
+    v = e.value
+    if t.base == DType.DECIMAL:
+        if e.dtype.base == DType.DECIMAL:
+            diff = t.scale - e.dtype.scale
+            return ex.Literal(int(v) * 10 ** diff if diff >= 0
+                              else int(round(v / 10 ** (-diff))), t)
+        if e.dtype.base in (DType.INT32, DType.INT64):
+            return ex.Literal(int(v) * 10 ** t.scale, t)
+        if e.dtype.base == DType.FLOAT64:
+            return ex.Literal(int(round(v * 10 ** t.scale)), t)
+    if t.base == DType.FLOAT64:
+        if e.dtype.base == DType.DECIMAL:
+            return ex.Literal(v / 10 ** e.dtype.scale, t)
+        return ex.Literal(float(v), t)
+    if t.base in (DType.INT32, DType.INT64):
+        return ex.Literal(int(v), t)
+    return ex.Literal(v, t)
+
+
+def _common_type(ts: list[SqlType]) -> SqlType:
+    if any(t.base == DType.FLOAT64 for t in ts):
+        return T.FLOAT64
+    if any(t.base == DType.DECIMAL for t in ts):
+        scale = max(t.scale for t in ts if t.base == DType.DECIMAL)
+        return T.DECIMAL(scale)
+    if any(t.base == DType.INT64 for t in ts):
+        return T.INT64
+    return ts[0]
+
+
+def _flip_op(op: str) -> str:
+    return {"=": "=", "<>": "<>", "<": ">", "<=": ">=",
+            ">": "<", ">=": "<="}[op]
+
+
+def _str_cmp(op: str, a: str, b: str) -> bool:
+    return {"<": a < b, "<=": a <= b, ">": a > b, ">=": a >= b,
+            "=": a == b, "<>": a != b}[op]
+
+
+def _require_dict(e: ex.Expr) -> StringDictionary:
+    d = _expr_dict(e)
+    if d is None:
+        raise BindError("string operation requires a dictionary-encoded column")
+    return d
+
+
+def _expr_dict(e: ex.Expr) -> Optional[StringDictionary]:
+    """The dictionary governing a STRING-typed expression's codes."""
+    if e.dtype.base != DType.STRING:
+        return None
+    if hasattr(e, "_out_dict"):
+        return e._out_dict  # substring-produced dictionary
+    if isinstance(e, ex.ColumnRef):
+        return getattr(e, "_sdict", None)
+    if isinstance(e, ex.CaseWhen):
+        for _, v in e.whens:
+            d = _expr_dict(v)
+            if d is not None:
+                return d
+    return None
+
+
+def _shift_date(d: datetime.date, n: int, unit: str) -> datetime.date:
+    if unit == "day":
+        return d + datetime.timedelta(days=n)
+    if unit == "month":
+        m = d.month - 1 + n
+        y = d.year + m // 12
+        m = m % 12 + 1
+        day = min(d.day, _days_in_month(y, m))
+        return datetime.date(y, m, day)
+    if unit == "year":
+        return _shift_date(d, 12 * n, "month")
+    raise BindError(f"unsupported interval unit {unit}")
+
+
+def _days_in_month(y: int, m: int) -> int:
+    if m == 12:
+        return 31
+    return (datetime.date(y, m + 1, 1) - datetime.date(y, m, 1)).days

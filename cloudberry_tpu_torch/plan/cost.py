@@ -1,0 +1,304 @@
+"""Cardinality estimation — the libgpdbcost / clauselist_selectivity analog.
+
+Estimates row counts for bound plan subtrees from table statistics (row
+counts, NDV, min/max — catalog.TableStats, filled lazily or by ANALYZE).
+Drives the DP join-order search (plan/binder.py) and the distribution
+pass's broadcast-vs-redistribute choice (plan/distribute.py) — the two
+decisions ORCA spends its cost model on for TPC-H-class plans.
+
+Estimates memoize on the node (attr ``_est_rows``); plans are per-statement
+so the memo's lifetime is right by construction.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from cloudberry_tpu_torch.plan import expr as ex
+from cloudberry_tpu_torch.plan import nodes as N
+
+DEFAULT_EQ_SEL = 0.1
+DEFAULT_RANGE_SEL = 1.0 / 3.0
+DEFAULT_SEL = 0.25
+
+
+def estimate_rows(node: N.PlanNode, catalog) -> float:
+    cached = getattr(node, "_est_rows", None)
+    if cached is not None:
+        return cached
+    est = max(_estimate(node, catalog), 0.0)
+    node._est_rows = est
+    return est
+
+
+def _estimate(node: N.PlanNode, catalog) -> float:
+    if isinstance(node, N.PScan):
+        if node.table_name == "$dual":
+            return 1.0
+        return float(node.num_rows if node.num_rows >= 0 else node.capacity)
+    if isinstance(node, N.PFilter):
+        return estimate_rows(node.child, catalog) * \
+            selectivity(node.predicate, node.child, catalog)
+    if isinstance(node, (N.PProject, N.PSort, N.PWindow, N.PShare,
+                         N.PMotion)):
+        return estimate_rows(node.children()[0], catalog)
+    if isinstance(node, N.PLimit):
+        return min(estimate_rows(node.child, catalog), float(node.limit))
+    if isinstance(node, N.PConcat):
+        return sum(estimate_rows(c, catalog) for c in node.inputs)
+    if isinstance(node, N.PAgg):
+        child = estimate_rows(node.child, catalog)
+        if not node.group_keys:
+            return 1.0
+        prod = 1.0
+        for _, e in node.group_keys:
+            nd = _expr_ndv(node.child, e, catalog)
+            prod *= nd if nd is not None else max(child ** 0.5, 1.0)
+            if prod >= child:
+                prod = child
+                break
+        est = min(prod, child)
+        return est
+    if isinstance(node, N.PJoin):
+        return _estimate_join(node, catalog)
+    return 1.0
+
+
+def _estimate_join(node: N.PJoin, catalog) -> float:
+    b = estimate_rows(node.build, catalog)
+    p = estimate_rows(node.probe, catalog)
+    nd_b = _keys_ndv(node.build, node.build_keys, catalog)
+    nd_p = _keys_ndv(node.probe, node.probe_keys, catalog)
+    # |B ⋈ P| = |B||P| / max(ndv_B, ndv_P)  (System R equi-join formula)
+    denom = max(nd_b or 1.0, nd_p or 1.0,
+                1.0 if (nd_b or nd_p) else max(b, p, 1.0))
+    inner = b * p / max(denom, 1.0)
+    if node.kind == "inner":
+        return inner
+    if node.kind == "left":
+        return max(inner, p)
+    if node.kind == "full":
+        return max(inner, p) + max(b - inner, 0.0)
+    if node.kind == "semi":
+        # fraction of probe rows with a partner
+        if nd_p:
+            return p * min(1.0, (nd_b or b) / nd_p)
+        return p * 0.5
+    if node.kind == "anti":
+        if nd_p:
+            return p * (1.0 - min(1.0, (nd_b or b) / nd_p))
+        return p * 0.5
+    return inner
+
+
+def semi_estimate(build: N.PlanNode, probe: N.PlanNode, build_keys,
+                  probe_keys, catalog) -> float:
+    """Rows of ``probe`` surviving a semi filter on the join keys (runtime-
+    filter sizing)."""
+    j = N.PJoin("semi", build, probe, list(build_keys), list(probe_keys), [])
+    return _estimate_join(j, catalog)
+
+
+def _keys_ndv(plan: N.PlanNode, keys, catalog) -> Optional[float]:
+    """Combined NDV of a key tuple (product, capped by subtree rows)."""
+    prod = 1.0
+    any_known = False
+    for k in keys:
+        nd = _expr_ndv(plan, k, catalog)
+        if nd is not None:
+            any_known = True
+            prod *= nd
+    if not any_known:
+        return None
+    return min(prod, max(estimate_rows(plan, catalog), 1.0))
+
+
+def _expr_ndv(plan: N.PlanNode, e: ex.Expr, catalog) -> Optional[int]:
+    if not isinstance(e, ex.ColumnRef):
+        return None
+    src = _col_source(plan, e.name)
+    if src is None:
+        return None
+    table, phys = src
+    try:
+        return catalog.table(table).ndv(phys)
+    except KeyError:
+        return None
+
+
+def _col_source(plan: N.PlanNode, name: str):
+    """Trace an output column back to (table, physical column) through
+    renames; None when it crosses a computation."""
+    if isinstance(plan, N.PScan):
+        for phys, out in plan.column_map.items():
+            if out == name:
+                return (plan.table_name, phys)
+        return None
+    if isinstance(plan, (N.PFilter, N.PRuntimeFilter, N.PSort, N.PLimit,
+                         N.PMotion, N.PWindow, N.PShare)):
+        return _col_source(plan.children()[0], name)
+    if isinstance(plan, N.PProject):
+        for out, e in plan.exprs:
+            if out == name:
+                if isinstance(e, ex.ColumnRef):
+                    return _col_source(plan.child, e.name)
+                return None
+        return None
+    if isinstance(plan, N.PJoin):
+        if name in set(plan.probe.names):
+            return _col_source(plan.probe, name)
+        if name in set(plan.build.names):
+            return _col_source(plan.build, name)
+        return None
+    if isinstance(plan, N.PAgg):
+        for out, e in plan.group_keys:
+            if out == name and isinstance(e, ex.ColumnRef):
+                return _col_source(plan.child, e.name)
+        return None
+    if isinstance(plan, N.PConcat) and plan.inputs:
+        return _col_source(plan.inputs[0], name)
+    return None
+
+
+def annotate_pack_bits(plan: N.PlanNode, catalog) -> None:
+    """Prove 32-bit packed join keys from build-side column statistics.
+
+    The kernels pack key tuples into one order-preserving integer using the
+    BUILD side's runtime ranges (kernels.pack_with_ranges); probe values
+    outside those ranges hit the sentinel. The runtime build range is a
+    subset of the build column's table min/max, so if the product of
+    stats-proven spans fits 32 bits (minus the sentinel), every in-range
+    pack does too — and the sort/search/collective lanes halve. TPC-H keys
+    stay 32-bit provable through SF100 (orderkey max 6e9·0.1 < 2^31)."""
+    from cloudberry_tpu_torch.types import DType
+
+    # value-space spans only translate to pack-space for types whose
+    # sort_key_u64 mapping is affine: integers, dates, scaled decimals,
+    # and dictionary codes. FLOATS pack by IEEE bit pattern — a tiny value
+    # span can cover ~2^52 bit patterns, so they are never narrowable.
+    _AFFINE = (DType.INT32, DType.INT64, DType.DATE, DType.DECIMAL,
+               DType.STRING)
+
+    def bits_of(build: N.PlanNode, keys) -> int:
+        prod = 1
+        for k in keys:
+            if not isinstance(k, ex.ColumnRef) \
+                    or k.dtype.base not in _AFFINE:
+                return 64
+            src = _col_source(build, k.name)
+            if src is None:
+                return 64
+            try:
+                mm = catalog.table(src[0]).stats.min_max.get(src[1])
+            except KeyError:
+                return 64
+            if mm is None:
+                return 64
+            # stats store float64 min/max: beyond 2^53 the rounding could
+            # understate a span that straddles the 32-bit threshold
+            if abs(mm[0]) >= 2 ** 53 or abs(mm[1]) >= 2 ** 53:
+                return 64
+            span = int(mm[1]) - int(mm[0]) + 1
+            if span <= 0:
+                return 64
+            prod *= span
+            if prod > (1 << 32) - 2:
+                return 64
+        return 32
+
+    def walk(n: N.PlanNode):
+        if isinstance(n, (N.PJoin, N.PRuntimeFilter)):
+            n.pack_bits = bits_of(n.build, n.build_keys)
+        for e in N.node_exprs(n):
+            for sub in ex.walk(e):
+                if isinstance(sub, ex.SubqueryScalar):
+                    walk(sub.plan)
+        for c in n.children():
+            walk(c)
+
+    walk(plan)
+
+
+def selectivity(pred: ex.Expr, child: N.PlanNode, catalog) -> float:
+    s = _sel(pred, child, catalog)
+    return min(max(s, 1e-6), 1.0)
+
+
+def _sel(e: ex.Expr, child: N.PlanNode, catalog) -> float:
+    if isinstance(e, ex.BinOp):
+        if e.op == "and":
+            return _sel(e.left, child, catalog) * \
+                _sel(e.right, child, catalog)
+        if e.op == "or":
+            a = _sel(e.left, child, catalog)
+            b = _sel(e.right, child, catalog)
+            return a + b - a * b
+        if e.op in ("=", "<>", "<", "<=", ">", ">="):
+            return _cmp_sel(e, child, catalog)
+    if isinstance(e, ex.UnaryOp) and e.op == "not":
+        return 1.0 - _sel(e.operand, child, catalog)
+    if isinstance(e, ex.DictLookup) and e.table.dtype == bool:
+        # LIKE/IN over a dictionary: fraction of codes selected (frequency-
+        # blind, but exact over the value domain)
+        n = len(e.table)
+        return float(e.table.sum()) / n if n else DEFAULT_SEL
+    if isinstance(e, ex.IsValid):
+        return 0.9
+    if isinstance(e, ex.Literal):
+        return 1.0 if bool(e.value) else 0.0
+    return DEFAULT_SEL
+
+
+def _cmp_sel(e: ex.BinOp, child: N.PlanNode, catalog) -> float:
+    l, r = e.left, e.right
+    op = e.op
+    if isinstance(r, ex.ColumnRef) and isinstance(l, ex.Literal):
+        l, r = r, l
+        op = {"=": "=", "<>": "<>", "<": ">", "<=": ">=",
+              ">": "<", ">=": "<="}[op]
+    if not (isinstance(l, ex.ColumnRef) and isinstance(r, ex.Literal)):
+        return DEFAULT_RANGE_SEL if op not in ("=", "<>") else DEFAULT_EQ_SEL
+    src = _col_source(child, l.name)
+    if src is None:
+        return DEFAULT_RANGE_SEL if op not in ("=", "<>") else DEFAULT_EQ_SEL
+    try:
+        t = catalog.table(src[0])
+    except KeyError:
+        return DEFAULT_SEL
+    if op in ("=", "<>"):
+        nd = t.ndv(src[1])
+        s = 1.0 / nd if nd else DEFAULT_EQ_SEL
+        return s if op == "=" else 1.0 - s
+    if not isinstance(r.value, (int, float)) or isinstance(r.value, bool):
+        return DEFAULT_RANGE_SEL
+    hist = t.stats.hist.get(src[1])
+    if hist and len(hist) >= 3:
+        # equi-depth histogram (ANALYZE output, pg_statistic
+        # histogram_bounds role): each bucket holds 1/N of the rows, so
+        # P(col <= v) = full buckets below v + linear interpolation
+        # inside the containing bucket — skew-proof where uniform
+        # [min,max] interpolation is wildly wrong
+        frac = _hist_le_frac(hist, float(r.value))
+        return frac if op in ("<", "<=") else 1.0 - frac
+    mm = t.stats.min_max.get(src[1])
+    if mm is None or mm[1] <= mm[0]:
+        return DEFAULT_RANGE_SEL
+    lo, hi = mm
+    frac = (float(r.value) - lo) / (hi - lo)
+    frac = min(max(frac, 0.0), 1.0)
+    return frac if op in ("<", "<=") else 1.0 - frac
+
+
+def _hist_le_frac(bounds: list, v: float) -> float:
+    """P(col <= v) from equi-depth bounds (N+1 ascending values)."""
+    import bisect
+
+    n = len(bounds) - 1
+    if v < bounds[0]:
+        return 0.0
+    if v >= bounds[-1]:
+        return 1.0
+    i = bisect.bisect_right(bounds, v) - 1  # bucket containing v
+    lo, hi = bounds[i], bounds[i + 1]
+    inner = (v - lo) / (hi - lo) if hi > lo else 1.0
+    return (i + inner) / n

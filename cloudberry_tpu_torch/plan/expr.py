@@ -1,0 +1,241 @@
+"""Bound scalar-expression IR.
+
+The binder turns parsed SQL expressions into this typed IR; the executor
+compiles it to jax.numpy ops (exec/expr_compile.py). This is the analog of
+PG's ExprState evaluation (src/backend/executor/execExpr.c) — except the
+"interpreter" is XLA, so an expression evaluates over a whole column batch in
+one fused kernel rather than per tuple.
+
+String predicates never touch device strings: the binder pre-computes a
+boolean lookup table over the column's host dictionary and emits
+``DictLookup`` (gather by code). Ordering comparisons on strings gather a
+host-computed rank table (see columnar/dictionary.py).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Optional
+
+import numpy as np
+
+from cloudberry_tpu_torch.types import BOOL, DType, SqlType
+
+
+class Expr:
+    dtype: SqlType
+
+    def children(self) -> tuple["Expr", ...]:
+        return ()
+
+
+@dataclass(frozen=True)
+class ColumnRef(Expr):
+    name: str
+    dtype: SqlType
+
+
+@dataclass(frozen=True)
+class Literal(Expr):
+    value: Any
+    dtype: SqlType
+
+
+@dataclass(frozen=True)
+class Param(Expr):
+    """Runtime-bound scalar literal — the PARAM_EXTERN analog.
+
+    A generic plan (sched/paramplan.py) hoists constant literals out of
+    filter/project expressions into numbered parameter slots; the compiled
+    program reads slot values from a ``$prm<slot>`` entry that
+    ``prepare_inputs``-time binding injects next to the table columns. Same-
+    shape statements then share ONE compiled executable with literals fed
+    as device inputs instead of baked constants.
+
+    ``value`` keeps the build-time literal: a program traced WITHOUT a
+    binding input (a rewritten plan on the non-generic path) bakes it as a
+    constant — semantically the
+    original statement — and re-analysis of a rewritten plan recovers its
+    binding vector from it."""
+    slot: int
+    dtype: SqlType
+    value: Any = None
+
+    @property
+    def input_name(self) -> str:
+        return f"$prm{self.slot}"
+
+
+@dataclass(frozen=True)
+class BinOp(Expr):
+    """op ∈ {+,-,*,/,=,<>,<,<=,>,>=,and,or}"""
+    op: str
+    left: Expr
+    right: Expr
+    dtype: SqlType
+
+    def children(self):
+        return (self.left, self.right)
+
+
+@dataclass(frozen=True)
+class UnaryOp(Expr):
+    """op ∈ {not,-}"""
+    op: str
+    operand: Expr
+    dtype: SqlType
+
+    def children(self):
+        return (self.operand,)
+
+
+@dataclass(frozen=True)
+class Cast(Expr):
+    operand: Expr
+    dtype: SqlType
+
+    def children(self):
+        return (self.operand,)
+
+
+@dataclass(frozen=True)
+class Func(Expr):
+    """Scalar functions: extract_year/extract_month, abs, substring-class
+    functions are rewritten to DictLookup by the binder."""
+    name: str
+    args: tuple[Expr, ...]
+    dtype: SqlType
+
+    def children(self):
+        return self.args
+
+
+@dataclass(frozen=True)
+class CaseWhen(Expr):
+    whens: tuple[tuple[Expr, Expr], ...]
+    otherwise: Optional[Expr]
+    dtype: SqlType
+
+    def children(self):
+        out = []
+        for c, v in self.whens:
+            out += [c, v]
+        if self.otherwise is not None:
+            out.append(self.otherwise)
+        return tuple(out)
+
+
+@dataclass(frozen=True, eq=False)
+class DictLookup(Expr):
+    """Gather host-computed per-code table by a string column's codes.
+
+    table dtype bool → predicate (LIKE/IN/=); int32 → rank/ordering.
+    """
+    column: Expr
+    table: np.ndarray = field(hash=False, compare=False)
+    dtype: SqlType = BOOL
+
+    def children(self):
+        return (self.column,)
+
+
+@dataclass(eq=False)
+class SubqueryScalar(Expr):
+    """Uncorrelated scalar subquery: a full plan whose single-row, single-
+    column result is broadcast into the enclosing expression (the InitPlan
+    analog). The executor lowers ``plan`` inside the same XLA program;
+    the distribution pass walks into it.
+
+    mode "value" broadcasts the single row's value (>1 rows is a runtime
+    error; 0 rows yields an arbitrary value that the binder masks NULL
+    via a companion mode="exists" validity term — SQL: a scalar subquery
+    over zero rows is NULL). mode "exists" broadcasts a bool: did the
+    subplan select ≥1 row."""
+
+    plan: object  # N.PlanNode (untyped to avoid the import cycle)
+    dtype: "SqlType" = None  # type: ignore[assignment]
+    mode: str = "value"
+
+
+@dataclass(frozen=True)
+class IsValid(Expr):
+    """True where every named validity column is True (a column is valid /
+    IS NOT NULL where the conjunction of its mask columns holds; a column
+    nullable through several outer joins carries one mask name per join)."""
+    mask_names: tuple[str, ...]
+    negate: bool = False
+    dtype: SqlType = BOOL
+
+    def __post_init__(self):
+        if isinstance(self.mask_names, str):  # tolerate single-name callers
+            object.__setattr__(self, "mask_names", (self.mask_names,))
+
+
+@dataclass(frozen=True)
+class AggCall:
+    """Aggregate call — lives in Agg plan nodes, not inside scalar exprs.
+
+    func ∈ {sum, count, count_star, min, max, avg, count_distinct}.
+    """
+    func: str
+    arg: Optional[Expr]
+    distinct: bool = False
+    filter: Optional[Expr] = None
+
+    @property
+    def dtype(self) -> SqlType:
+        from cloudberry_tpu_torch.types import FLOAT64, INT64
+
+        if self.func in ("count", "count_star", "count_distinct"):
+            return INT64
+        if self.func == "avg":
+            return FLOAT64
+        assert self.arg is not None
+        return self.arg.dtype
+
+
+def rewrite(e: Expr, fn) -> Expr:
+    """Top-down structural rewrite: ``fn(node)`` returns a replacement or
+    None to recurse. THE one place that knows how to rebuild each node —
+    substitution passes must use this instead of hand-rolled per-class
+    copies (which silently skip newly added node types)."""
+    out = fn(e)
+    if out is not None:
+        return out
+    if isinstance(e, BinOp):
+        return BinOp(e.op, rewrite(e.left, fn), rewrite(e.right, fn), e.dtype)
+    if isinstance(e, UnaryOp):
+        return UnaryOp(e.op, rewrite(e.operand, fn), e.dtype)
+    if isinstance(e, Cast):
+        return Cast(rewrite(e.operand, fn), e.dtype)
+    if isinstance(e, Func):
+        return Func(e.name, tuple(rewrite(a, fn) for a in e.args), e.dtype)
+    if isinstance(e, CaseWhen):
+        return CaseWhen(
+            tuple((rewrite(c, fn), rewrite(v, fn)) for c, v in e.whens),
+            rewrite(e.otherwise, fn) if e.otherwise is not None else None,
+            e.dtype)
+    if isinstance(e, DictLookup):
+        out = DictLookup(rewrite(e.column, fn), e.table, e.dtype)
+        d = getattr(e, "_out_dict", None)
+        if d is not None:
+            object.__setattr__(out, "_out_dict", d)
+        return out
+    # leaves (ColumnRef, Literal, Param, IsValid, SubqueryScalar) pass
+    return e
+
+
+def walk(e: Expr):
+    yield e
+    for c in e.children():
+        yield from walk(c)
+
+
+def columns_used(e: Expr) -> set[str]:
+    out = set()
+    for node in walk(e):
+        if isinstance(node, ColumnRef):
+            out.add(node.name)
+        if isinstance(node, IsValid):
+            out.update(node.mask_names)
+    return out

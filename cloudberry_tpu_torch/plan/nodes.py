@@ -1,0 +1,458 @@
+"""Plan IR — one node family used logically and physically.
+
+The reference has separate Path→Plan layers (src/backend/optimizer,
+src/backend/nodes/plannodes.h); here a single tree serves both: the binder
+produces it, the distribution pass (plan/distribute.py) rewrites it by
+inserting Motion nodes and annotating Sharding (the CdbPathLocus analog,
+cdbpathlocus.h:41-68), and the executor lowers it to one jitted function.
+
+Every node carries an output schema: a list of PlanField (unique name, type,
+host-side dictionary for strings). Row capacity is static per node — the
+XLA shape discipline.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field as dc_field
+from typing import Optional
+
+from cloudberry_tpu_torch.columnar.dictionary import StringDictionary
+from cloudberry_tpu_torch.plan import expr as ex
+from cloudberry_tpu_torch.plan.sharding import Sharding
+from cloudberry_tpu_torch.types import SqlType
+
+
+@dataclass(frozen=True)
+class PlanField:
+    name: str
+    type: SqlType
+    sdict: Optional[StringDictionary] = None  # for STRING columns
+    # validity mask column name(s): the column is valid (NOT NULL) where ALL
+    # named bool columns are True. A column nullable through several outer
+    # joins / a nullable base column carries one name per source.
+    null_mask: Optional[str | tuple[str, ...]] = None
+    # the column is a NULL literal (a grouping-set branch's omitted-key
+    # label): set-op alignment may type it from the OTHER side — a real
+    # field so every copy site propagates it by construction
+    _is_null_col: bool = False
+
+    @property
+    def masks(self) -> tuple[str, ...]:
+        if self.null_mask is None:
+            return ()
+        if isinstance(self.null_mask, str):
+            return (self.null_mask,)
+        return self.null_mask
+
+
+def _feedback_suffix(node) -> str:
+    """`` feedback: ...`` plan-text tags for estimates learned from live
+    telemetry (plan/feedback.py) — absent on purely static plans, so
+    golden corpora planned in sketch-free sessions are unchanged."""
+    tags = []
+    seed = getattr(node, "_feedback_seed", None)
+    if seed is not None:
+        tags.append(f"rung {seed['rung']} "
+                    f"(demand {seed['demand']}, static {seed['static']})")
+    ndv = getattr(node, "_feedback_ndv", None)
+    if ndv is not None:
+        tags.append(f"ndv {ndv[0]}..{ndv[1]}")
+    if getattr(node, "_jf_frac_src", None) == "feedback":
+        tags.append("jf-frac observed")
+    if getattr(node, "_feedback_skew", False):
+        tags.append("skew alarmed")
+    if not tags:
+        return ""
+    return "  feedback: " + ", ".join(tags)
+
+
+@dataclass
+class PlanNode:
+    fields: list[PlanField] = dc_field(default_factory=list, init=False)
+    sharding: Sharding = dc_field(default=None, init=False)  # set by distribute
+
+    @property
+    def names(self) -> list[str]:
+        return [f.name for f in self.fields]
+
+    def field(self, name: str) -> PlanField:
+        for f in self.fields:
+            if f.name == name:
+                return f
+        raise KeyError(name)
+
+    def children(self) -> list["PlanNode"]:
+        return []
+
+    def title(self) -> str:
+        return type(self).__name__.removeprefix("P")
+
+    def explain(self, indent: int = 0) -> str:
+        lines = []
+        seg = getattr(self, "_direct_segment", None)
+        if seg is not None and indent == 0:
+            lines.append(f"Direct dispatch: segment {seg} "
+                         "(point predicate on distribution key)")
+        mv = getattr(self, "_aqumv", None)
+        if mv is not None and indent == 0:
+            lines.append(f"AQUMV: answered from materialized view {mv}")
+        # the verifier's DERIVED distribution (plan/verify.py
+        # annotate_derived) — printed NEXT TO the stamped locus so plan
+        # reviews and golden diffs show sharding explicitly, and a
+        # derivation change is a visible diff even when the stamp
+        # agrees
+        vd = getattr(self, "_vdist", None)
+        lines.append(" " * indent + "-> " + self.title()
+                     + (f"  [{self.sharding}]" if self.sharding else "")
+                     + (f"  dist:{vd}" if vd is not None else "")
+                     # memo exploration abstained on this region root —
+                     # its joins fell back to the greedy cdbpath rules
+                     # (plan/memo.py annotate_distribution); pinned in
+                     # plan text so golden tests catch regressions
+                     + (" memo: abstained"
+                        if getattr(self, "_memo_abstained", False) else "")
+                     # learned-vs-guessed provenance (plan/feedback.py):
+                     # estimates taken from live-telemetry sketches are
+                     # marked so EXPLAIN and the flight recorder show
+                     # which numbers the planner LEARNED
+                     + _feedback_suffix(self))
+        for c in self.children():
+            lines.append(c.explain(indent + 3))
+        return "\n".join(lines)
+
+
+@dataclass
+class PScan(PlanNode):
+    table_name: str
+    # physical column name in storage → output (aliased) field name
+    column_map: dict[str, str]
+    capacity: int          # static array capacity (≥1 even when empty)
+    num_rows: int = -1     # actual rows; -1 means == capacity
+    # physical column name → output validity-mask field name, for base
+    # columns that contain NULLs (storage keys them "$nn:<phys>")
+    mask_map: dict[str, str] = dc_field(default_factory=dict)
+
+    def title(self):
+        base = f"Scan {self.table_name} [{self.capacity}]"
+        pc = getattr(self, "_point_col", None)
+        if pc is not None:
+            # sorted-sidecar point lookup (plan/pointlookup.py): the
+            # scan reads only the matched rows
+            base += f" point-lookup({pc})"
+        rep = getattr(self, "_prune_report", None)
+        if rep is not None:
+            kept = len(getattr(self, "_store_parts", ()))
+            base += f" parts {kept}/{rep['candidates']}"
+            skips = rep["skipped_minmax"] + rep["skipped_bloom"]
+            if skips:
+                base += (f" (minmax-skip {rep['skipped_minmax']}, "
+                         f"bloom-skip {rep['skipped_bloom']})")
+            if rep.get("skipped_dynamic"):
+                base += f" (partition-selector-skip {rep['skipped_dynamic']})"
+        return base
+
+
+@dataclass
+class PFilter(PlanNode):
+    child: PlanNode
+    predicate: ex.Expr
+
+    def children(self):
+        return [self.child]
+
+
+@dataclass
+class PProject(PlanNode):
+    child: PlanNode
+    exprs: list[tuple[str, ex.Expr]]  # output name -> expr
+
+    def children(self):
+        return [self.child]
+
+
+@dataclass
+class PJoin(PlanNode):
+    """Join (nodeHashjoin analog). Two execution shapes:
+    - unique_build=True: sorted-build lookup, output rides the probe's
+      capacity; build uniqueness verified at runtime (dup detection);
+    - unique_build=False: many-to-many expansion (one output row per match
+      pair) at ``out_capacity`` with overflow detection."""
+
+    kind: str  # 'inner' | 'left' | 'full' | 'semi' | 'anti'
+    build: PlanNode
+    probe: PlanNode
+    build_keys: list[ex.Expr]
+    probe_keys: list[ex.Expr]
+    # columns of build to carry into output (gathered); probe cols pass through
+    build_payload: list[str] = dc_field(default_factory=list)
+    # name of the bool match-mask output column (left join null tests)
+    match_name: Optional[str] = None
+    # FULL joins: validity mask for the probe side (rows synthesized from
+    # unmatched build rows have NULL probe columns)
+    probe_match_name: Optional[str] = None
+    unique_build: bool = True
+    out_capacity: int = 0  # expansion joins only
+    # semi/anti residual predicate over (probe cols + build cols) — the
+    # correlated-EXISTS extra conditions (e.g. Q21's l2.l_suppkey <>
+    # l1.l_suppkey); forces pair-expansion evaluation
+    residual: Optional[ex.Expr] = None
+    # SQL NULL join-key semantics: a NULL key matches nothing. These bool
+    # exprs (over build/probe columns) are True where every key is valid;
+    # None = keys provably non-null.
+    build_key_valid: Optional[ex.Expr] = None
+    probe_key_valid: Optional[ex.Expr] = None
+    # NOT IN (subquery) null-awareness: if ANY build key is NULL, the anti
+    # join yields no rows at all (x NOT IN (..., NULL) is never TRUE)
+    null_aware: bool = False
+    # packed-key width: 32 when build-side column stats PROVE every
+    # in-range pack fits u32 (cost.annotate_pack_bits) — TPU sorts and
+    # searches run ~2× faster on 32-bit lanes
+    pack_bits: int = 64
+
+    def children(self):
+        return [self.build, self.probe]
+
+    def title(self):
+        return f"Join {self.kind}"
+
+
+@dataclass
+class PAgg(PlanNode):
+    """mode: 'single' | 'partial' | 'final' (multi-stage agg,
+    cdbgroupingpaths.c analog)."""
+
+    child: PlanNode
+    group_keys: list[tuple[str, ex.Expr]]   # output key name -> expr
+    aggs: list[tuple[str, ex.AggCall]]      # output agg name -> call
+    capacity: int                            # max groups (static)
+    mode: str = "single"
+
+    def children(self):
+        return [self.child]
+
+    def title(self):
+        kind = "GroupAgg" if self.group_keys else "Agg"
+        return f"{kind} {self.mode} [{self.capacity}]"
+
+
+@dataclass
+class PSort(PlanNode):
+    child: PlanNode
+    keys: list[tuple[ex.Expr, bool]]  # (expr, ascending)
+
+    def children(self):
+        return [self.child]
+
+
+@dataclass
+class PLimit(PlanNode):
+    child: PlanNode
+    limit: int
+    offset: int = 0
+
+    def children(self):
+        return [self.child]
+
+    def title(self):
+        return f"Limit {self.limit}" + (f" offset {self.offset}" if self.offset else "")
+
+
+@dataclass
+class PWindow(PlanNode):
+    """Window computation over one (PARTITION BY, ORDER BY) spec; appends
+    one output column per call. funcs: row_number | rank | dense_rank |
+    ntile | lead | lag | first_value | last_value | sum | count | avg |
+    min | max (aggregates are running when ordered — RANGE UNBOUNDED
+    PRECEDING TO CURRENT ROW, peers included — else whole-partition;
+    positional funcs follow src/backend/executor/nodeWindowAgg.c frame
+    rules: first_value = partition head, last_value = current peer-group
+    tail under the default frame)."""
+
+    child: PlanNode
+    partition_keys: list[ex.Expr]
+    order_keys: list[tuple[ex.Expr, bool]]
+    calls: list[tuple[str, str, Optional[ex.Expr]]]  # (out, func, arg)
+    # per-call argument-validity exprs (parallel to ``calls``; None entry =
+    # arg provably non-NULL). count() counts only valid rows; avg divides
+    # by the valid count; the pseudo-func 'anyvalid' emits a bool column
+    # that is True where the frame holds ≥1 valid arg — the null_mask for
+    # nullable sum/min/max/avg outputs (SQL: agg over an all-NULL frame is
+    # NULL, src/backend/executor/nodeWindowAgg.c semantics). Positional
+    # funcs carry a companion '<func>@mask' pseudo-call instead: its bool
+    # output is True where the source row exists in-partition AND (when
+    # the arg is nullable) holds a valid value.
+    valids: Optional[list] = None
+    # per-call static parameters (parallel to ``calls``; None or a dict):
+    # lead/lag: {"offset": int, "default": ex.Literal|None}; ntile:
+    # {"n": int}. Static by design — XLA traces one program per plan, so
+    # data-dependent offsets would force recompiles per row; the reference
+    # accepts expressions but constant offsets are the only common case.
+    params: Optional[list] = None
+    # explicit frame (binder._normalize_frame): None = SQL default;
+    # ("whole",) = whole partition; ("rows", lo, hi) = row offsets;
+    # ("rangepos", lo, hi) = positional RANGE with only CURRENT ROW /
+    # UNBOUNDED bounds (lo: "peer"|"start", hi: "peer"|"end");
+    # ("rangeoff", lo, hi, key_nullable) = value-distance offsets over
+    # the single numeric ORDER BY key (offsets pre-scaled for DECIMAL
+    # keys; key_nullable marks the (validity, masked-value) lowering).
+    # None means unbounded on that side. Applies to aggregates and
+    # first_value/last_value; positional lead/lag and ranks ignore frames
+    # (SQL semantics).
+    frame: Optional[tuple] = None
+
+    def children(self):
+        return [self.child]
+
+    def title(self):
+        return f"Window [{', '.join(f for _, f, _ in self.calls)}]"
+
+
+@dataclass
+class PShare(PlanNode):
+    """Materialize-once reference to a shared subplan — the ShareInputScan
+    analog (nodeShareInputScan.c:31-45). Every reference to one CTE holds
+    the SAME child object; pushdown, pruning, distribution and lowering all
+    memoize on that object's identity, so the subplan computes once per
+    statement (here: once per XLA program — XLA CSE would usually do this
+    anyway, but the memoization guarantees it and keeps plan rewrites from
+    mutating the shared subtree twice)."""
+
+    child: PlanNode
+
+    def children(self):
+        return [self.child]
+
+    def title(self):
+        return "ShareInputScan"
+
+
+@dataclass
+class PConcat(PlanNode):
+    """Append inputs (UNION ALL / the setop flow's Append, cdbsetop.c
+    analog); output capacity = Σ child capacities."""
+
+    inputs: list[PlanNode]
+
+    def children(self):
+        return list(self.inputs)
+
+    def title(self):
+        return f"Append x{len(self.inputs)}"
+
+
+@dataclass
+class PRuntimeFilter(PlanNode):
+    """Semi-join pushdown before a probe-side motion (nodeRuntimeFilter.c
+    analog): drop probe rows whose join key provably has no build partner
+    BEFORE the shuffle. The build reference is the SAME object the join
+    lowers (memoized, traced once). Two modes:
+
+    - ``exact``: all-gather ONLY the packed u64 build keys — the cheapest
+      complete collective — and sorted-membership-test the probes. No
+      false positives, so the planner may shrink downstream motion
+      buffers on its semi estimate. Preferred for small builds
+      (planner.runtime_filter_threshold).
+    - ``digest``: build sides too big to ship whole broadcast a COMPACT
+      digest instead — per-key u64 min/max plus a fixed-size bloom
+      bitmap (config.join_filter) in one tiny all_gather. Bloom false
+      positives only let extra rows through; results stay bit-identical
+      with the filter on or off, and a survivor overflow just promotes
+      the motion one capacity rung."""
+
+    child: PlanNode                  # probe subtree (pre-motion)
+    build: PlanNode                  # shared with the join's build input
+    build_keys: list[ex.Expr] = dc_field(default_factory=list)
+    probe_keys: list[ex.Expr] = dc_field(default_factory=list)
+    pack_bits: int = 64              # see PJoin.pack_bits
+    mode: str = "exact"              # 'exact' | 'digest'
+    bloom_bits: int = 0              # digest bitmap size (power of two)
+    bloom_k: int = 3                 # digest hash probes per key
+
+    def children(self):
+        return [self.child]          # build is walked under the join
+
+    def title(self):
+        if self.mode == "digest":
+            return f"RuntimeFilter digest(bloom={self.bloom_bits})"
+        return "RuntimeFilter"
+
+
+@dataclass
+class PMotion(PlanNode):
+    """The Motion node (nodeMotion.c analog). kind:
+    'gather'       — all segments → singleton (GATHER_MOTION)
+    'redistribute' — hash on keys (HASH_MOTION → all_to_all)
+    'broadcast'    — every row to every segment (BROADCAST → all_gather)
+    """
+
+    child: PlanNode
+    kind: str
+    hash_keys: list[ex.Expr] = dc_field(default_factory=list)
+    # set by the distribution pass:
+    out_capacity: int = 0   # receive-side array capacity
+    bucket_cap: int = 0     # per-destination bucket capacity (redistribute)
+    # compact selected rows to this capacity BEFORE the collective (top-N
+    # pushdown: gather k·nseg rows instead of whole shards); 0 = off
+    pre_compact: int = 0
+    # two-level motion stamps (ISSUE 14; redistribute only, stamped when
+    # the session's topology gate selects the hierarchical transport):
+    # host_bucket_cap is the per-(source host -> destination host) block
+    # capacity of the aggregated DCN exchange (a power-of-two rung on
+    # the same ladder as bucket_cap; overflow promotes and retries), and
+    # hier_hosts pins the host count the caps were derived for — a
+    # program compiled at a different host grouping must not reuse them.
+    host_bucket_cap: int = 0
+    hier_hosts: int = 0
+    # host-local combine (pre-aggregable motions): between the two hops,
+    # each host merges its segments' agg PARTIALS so DCN carries one
+    # partial per (host, group) instead of one per (segment, group).
+    # combine_spec = (group key names, ((agg out name, merge func), ...))
+    # — stamped ONLY when every merge func is order-insensitive-exact
+    # (count/int-sum/min/max), so results stay bit-identical to flat.
+    host_combine: bool = False
+    combine_spec: Optional[tuple] = None
+
+    def children(self):
+        return [self.child]
+
+    def title(self):
+        return f"Motion {self.kind}"
+
+
+def node_exprs(node: PlanNode):
+    """Every expression a node evaluates (the JAX package keeps this walk
+    in plan/distribute.py, which this port does not carry)."""
+    if isinstance(node, PFilter):
+        yield node.predicate
+    elif isinstance(node, PProject):
+        for _, e in node.exprs:
+            yield e
+    elif isinstance(node, PAgg):
+        for _, e in node.group_keys:
+            yield e
+        for _, c in node.aggs:
+            if c.arg is not None:
+                yield c.arg
+    elif isinstance(node, PSort):
+        for e, _ in node.keys:
+            yield e
+    elif isinstance(node, PJoin):
+        yield from node.build_keys
+        yield from node.probe_keys
+        if node.residual is not None:
+            yield node.residual
+    elif isinstance(node, PWindow):
+        yield from node.partition_keys
+        for e, _ in node.order_keys:
+            yield e
+        for _, _, arg in node.calls:
+            if arg is not None:
+                yield arg
+        for vexpr in (node.valids or ()):
+            if vexpr is not None:
+                yield vexpr
+    elif isinstance(node, PRuntimeFilter):
+        yield from node.build_keys
+        yield from node.probe_keys
+    elif isinstance(node, PMotion):
+        yield from node.hash_keys

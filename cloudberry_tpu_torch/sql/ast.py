@@ -1,0 +1,473 @@
+"""Unbound SQL AST — what the parser produces.
+
+The reference's analog is PG's raw parse tree (src/backend/parser/gram.y,
+with Cloudberry additions like DISTRIBUTED BY at gram.y's CREATE TABLE
+productions). This AST covers the analytical SQL surface TPC-H/TPC-DS-class
+workloads need; the binder (plan/binder.py) resolves names and types.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Optional
+
+
+class Node:
+    pass
+
+
+# ---------------------------------------------------------------- expressions
+
+
+class ExprNode(Node):
+    pass
+
+
+@dataclass
+class Name(ExprNode):
+    parts: tuple[str, ...]  # ("t", "col") or ("col",)
+
+    @property
+    def text(self) -> str:
+        return ".".join(self.parts)
+
+
+@dataclass
+class Star(ExprNode):
+    table: Optional[str] = None  # t.* if set
+
+
+@dataclass
+class NumberLit(ExprNode):
+    text: str  # keep literal text; binder decides int vs decimal + scale
+
+
+@dataclass
+class StringLit(ExprNode):
+    value: str
+
+
+@dataclass
+class DateLit(ExprNode):
+    value: str  # ISO yyyy-mm-dd
+
+
+@dataclass
+class IntervalLit(ExprNode):
+    n: int
+    unit: str  # 'year' | 'month' | 'day'
+
+
+@dataclass
+class BoolLit(ExprNode):
+    value: bool
+
+
+@dataclass
+class NullLit(ExprNode):
+    pass
+
+
+@dataclass
+class BinOp(ExprNode):
+    op: str
+    left: ExprNode
+    right: ExprNode
+
+
+@dataclass
+class UnaryOp(ExprNode):
+    op: str  # 'not' | '-' | '+'
+    operand: ExprNode
+
+
+@dataclass
+class IsNull(ExprNode):
+    operand: ExprNode
+    negated: bool = False
+
+
+@dataclass
+class Between(ExprNode):
+    expr: ExprNode
+    low: ExprNode
+    high: ExprNode
+    negated: bool = False
+
+
+@dataclass
+class InList(ExprNode):
+    expr: ExprNode
+    items: list[ExprNode]
+    negated: bool = False
+
+
+@dataclass
+class Like(ExprNode):
+    expr: ExprNode
+    pattern: str
+    negated: bool = False
+
+
+@dataclass
+class FuncCall(ExprNode):
+    name: str
+    args: list[ExprNode]
+    distinct: bool = False
+    star: bool = False  # count(*)
+
+
+@dataclass
+class ExtractExpr(ExprNode):
+    part: str  # 'year' | 'month' | 'day'
+    operand: ExprNode
+
+
+@dataclass
+class SubstringExpr(ExprNode):
+    operand: ExprNode
+    start: ExprNode
+    length: Optional[ExprNode]
+
+
+@dataclass
+class CaseExpr(ExprNode):
+    whens: list[tuple[ExprNode, ExprNode]]
+    otherwise: Optional[ExprNode]
+
+
+@dataclass
+class CastExpr(ExprNode):
+    operand: ExprNode
+    type_name: str
+    scale: Optional[int] = None
+
+
+@dataclass
+class WindowExpr(ExprNode):
+    func: str
+    args: list[ExprNode]
+    partition_by: list[ExprNode]
+    order_by: list["OrderItem"]
+    # frame clause: (kind, lo, hi) where kind is 'rows'|'range' and each
+    # bound is ('unbounded'|'offset'|'current', signed row/peer offset);
+    # None = the SQL default frame
+    frame: Optional[tuple] = None
+
+
+@dataclass
+class ScalarSubquery(ExprNode):
+    select: "Select"
+
+
+@dataclass
+class InSubquery(ExprNode):
+    expr: ExprNode
+    select: "Select"
+    negated: bool = False
+
+
+@dataclass
+class Exists(ExprNode):
+    select: "Select"
+    negated: bool = False
+
+
+# ---------------------------------------------------------------- table refs
+
+
+class TableRefNode(Node):
+    pass
+
+
+@dataclass
+class TableName(TableRefNode):
+    name: str
+    alias: Optional[str] = None
+
+
+@dataclass
+class DerivedTable(TableRefNode):
+    select: "Select"
+    alias: str
+
+
+@dataclass
+class FuncTable(TableRefNode):
+    """Set-returning function in FROM (Function Scan analog):
+    name(args) [AS] alias."""
+
+    name: str
+    args: list[ExprNode]
+    alias: Optional[str] = None
+
+
+@dataclass
+class JoinRef(TableRefNode):
+    kind: str  # 'inner' | 'left' | 'right' | 'full' | 'cross'
+    left: TableRefNode
+    right: TableRefNode
+    on: Optional[ExprNode]
+
+
+# ---------------------------------------------------------------- statements
+
+
+@dataclass
+class SelectItem(Node):
+    expr: ExprNode
+    alias: Optional[str] = None
+
+
+@dataclass
+class OrderItem(Node):
+    expr: ExprNode
+    ascending: bool = True
+
+
+@dataclass
+class Select(Node):
+    items: list[SelectItem]
+    from_refs: list[TableRefNode] = field(default_factory=list)
+    where: Optional[ExprNode] = None
+    group_by: list[ExprNode] = field(default_factory=list)
+    having: Optional[ExprNode] = None
+    order_by: list[OrderItem] = field(default_factory=list)
+    limit: Optional[int] = None
+    offset: int = 0
+    distinct: bool = False
+    # GROUPING SETS / ROLLUP / CUBE: list of grouping-key subsets; the
+    # binder rewrites to a UNION ALL of per-set aggregations with NULLs
+    # for the keys a set omits (nodeAgg.c grouping-sets role)
+    grouping_sets: Optional[list] = None
+
+
+@dataclass
+class WithQuery(Node):
+    """WITH name AS (query), ... body — non-recursive CTEs; each name is
+    bound once and shared across references (ShareInputScan analog)."""
+    ctes: list[tuple[str, Node]]   # (name, Select | SetOp | WithQuery)
+    query: Node                    # Select | SetOp
+
+
+@dataclass
+class SetOp(Node):
+    """UNION/INTERSECT/EXCEPT chain; ORDER BY/LIMIT apply to the whole."""
+    op: str                      # 'union' | 'intersect' | 'except'
+    all: bool
+    left: Node                   # Select or SetOp
+    right: Node
+    order_by: list[OrderItem] = field(default_factory=list)
+    limit: Optional[int] = None
+    offset: int = 0
+
+
+@dataclass
+class ColumnDef(Node):
+    name: str
+    type_name: str
+    scale: Optional[int] = None
+    not_null: bool = False
+
+
+@dataclass
+class CreateTable(Node):
+    name: str
+    columns: list[ColumnDef]
+    distribution: str = "random"  # 'hash' | 'random' | 'replicated'
+    dist_keys: tuple[str, ...] = ()
+    if_not_exists: bool = False
+    # PARTITION BY clause (gram.y partition grammar analog):
+    # ('range', col, start, end, every) | ('list', col) | None
+    partition: Optional[tuple] = None
+
+
+@dataclass
+class CreateDirectoryTable(Node):
+    """CREATE DIRECTORY TABLE name — files as catalog objects
+    (storage/dirtable.py; the dirtable analog)."""
+
+    name: str
+
+
+@dataclass
+class CreateForeignTable(Node):
+    """CREATE FOREIGN TABLE name (cols) SERVER srv OPTIONS (k 'v', ...)
+    — the FDW surface; servers resolve through storage/fdw.py's
+    registry (built-ins: sqlite; register_fdw adds more)."""
+
+    name: str
+    columns: list["ColumnDef"]
+    server: str
+    options: dict
+
+
+@dataclass
+class CreateExternalTable(Node):
+    """CREATE EXTERNAL TABLE ... LOCATION('cbfdist://h:p/f' | 'file://p')
+    FORMAT 'csv' [DELIMITER 'c'] [SEGMENT REJECT LIMIT ...] — readable
+    external tables (access/external, gpfdist URLs)."""
+
+    name: str
+    columns: list[ColumnDef]
+    url: str
+    delimiter: str = "|"
+    header: bool = False
+    reject_limit: Optional[int] = None
+    reject_percent: bool = False
+    log_errors: bool = False
+
+
+@dataclass
+class CreateTableAs(Node):
+    name: str
+    query: Node
+    distribution: str = "random"
+    dist_keys: tuple[str, ...] = ()
+    if_not_exists: bool = False
+
+
+@dataclass
+class CreateSequence(Node):
+    name: str
+    start: int = 1
+    increment: int = 1
+    if_not_exists: bool = False
+
+
+@dataclass
+class DropSequence(Node):
+    name: str
+    if_exists: bool = False
+
+
+@dataclass
+class CreateResourceQueue(Node):
+    name: str
+    options: dict  # active_statements, max_cost, priority
+
+
+@dataclass
+class DropResourceQueue(Node):
+    name: str
+    if_exists: bool = False
+
+
+@dataclass
+class DeclareParallelCursor(Node):
+    name: str
+    query: Node
+
+
+@dataclass
+class CloseCursor(Node):
+    name: str
+
+
+@dataclass
+class CreateMatView(Node):
+    name: str
+    query: Node
+    incremental: bool = False
+
+
+@dataclass
+class DropMatView(Node):
+    name: str
+    if_exists: bool = False
+
+
+@dataclass
+class RefreshMatView(Node):
+    name: str
+
+
+@dataclass
+class CreateView(Node):
+    name: str
+    query: Node  # Select or SetOp
+
+
+@dataclass
+class DropView(Node):
+    name: str
+    if_exists: bool = False
+
+
+@dataclass
+class DropTable(Node):
+    name: str
+    if_exists: bool = False
+
+
+@dataclass
+class InsertValues(Node):
+    table: str
+    columns: list[str]
+    rows: list[list[ExprNode]]
+
+
+@dataclass
+class InsertSelect(Node):
+    table: str
+    columns: list[str]
+    query: Node  # Select or SetOp
+
+
+@dataclass
+class Update(Node):
+    table: str
+    sets: list[tuple[str, ExprNode]]
+    where: Optional[ExprNode] = None
+
+
+@dataclass
+class Delete(Node):
+    table: str
+    where: Optional[ExprNode] = None
+
+
+@dataclass
+class CopyFrom(Node):
+    table: str
+    path: str
+    delimiter: str = "|"
+    header: bool = False
+    # single-row error handling (cdbsreh.c): tolerate up to this many
+    # malformed rows (or percent of rows when reject_percent) instead of
+    # aborting the load; rejected rows land in the error log
+    reject_limit: Optional[int] = None
+    reject_percent: bool = False
+    log_errors: bool = False
+
+
+@dataclass
+class CopyTo(Node):
+    table: str
+    path: str
+    delimiter: str = "|"
+    header: bool = False
+
+
+@dataclass
+class TxnStmt(Node):
+    kind: str  # 'begin' | 'commit' | 'rollback'
+
+
+@dataclass
+class Explain(Node):
+    stmt: Select
+    analyze: bool = False
+
+
+@dataclass
+class Analyze(Node):
+    """ANALYZE <table> — collect column statistics (NDV)."""
+    table: str
+
+
+@dataclass
+class Cluster(Node):
+    """CLUSTER <table> BY (cols) — z-order rewrite for pruning locality."""
+    table: str
+    columns: list[str]

@@ -1,0 +1,1050 @@
+"""Recursive-descent SQL parser for the TPC-H/TPC-DS-class surface.
+
+The reference's grammar is bison (src/backend/parser/gram.y) with MPP
+additions — DISTRIBUTED BY / REPLICATED / RANDOMLY on CREATE TABLE is the one
+reproduced here (gram.y OptDistributedBy). Statements supported: SELECT
+(joins, subqueries, CASE, EXTRACT, SUBSTRING, BETWEEN/IN/LIKE/EXISTS,
+GROUP BY/HAVING/ORDER BY/LIMIT), CREATE/DROP TABLE, INSERT … VALUES, EXPLAIN.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+from cloudberry_tpu_torch.sql import ast
+from cloudberry_tpu_torch.sql.lexer import Token, tokenize
+
+
+class ParseError(ValueError):
+    pass
+
+
+def parse_sql(sql: str) -> ast.Node:
+    p = Parser(tokenize(sql))
+    stmt = p.parse_statement()
+    p.accept_op(";")
+    p.expect_eof()
+    # original text rides along for DDL that persists its definition
+    # (materialized views re-parse it on load)
+    stmt._sql_text = sql
+    return stmt
+
+
+class Parser:
+    def __init__(self, tokens: list[Token]):
+        self.toks = tokens
+        self.i = 0
+
+    # ------------------------------------------------------------- plumbing
+
+    @property
+    def cur(self) -> Token:
+        return self.toks[self.i]
+
+    def advance(self) -> Token:
+        t = self.cur
+        self.i += 1
+        return t
+
+    def at_kw(self, *kws: str) -> bool:
+        return self.cur.kind == "ident" and self.cur.text in kws
+
+    def accept_kw(self, *kws: str) -> Optional[str]:
+        if self.at_kw(*kws):
+            return self.advance().text
+        return None
+
+    def expect_kw(self, kw: str) -> None:
+        if not self.accept_kw(kw):
+            raise ParseError(f"expected {kw.upper()} at {self.cur.text!r} "
+                             f"(pos {self.cur.pos})")
+
+    def at_op(self, *ops: str) -> bool:
+        return self.cur.kind == "op" and self.cur.text in ops
+
+    def accept_op(self, *ops: str) -> Optional[str]:
+        if self.at_op(*ops):
+            return self.advance().text
+        return None
+
+    def expect_op(self, op: str) -> None:
+        if not self.accept_op(op):
+            raise ParseError(f"expected {op!r} at {self.cur.text!r} "
+                             f"(pos {self.cur.pos})")
+
+    def expect_ident(self) -> str:
+        if self.cur.kind != "ident":
+            raise ParseError(f"expected identifier at {self.cur.text!r} "
+                             f"(pos {self.cur.pos})")
+        return self.advance().text
+
+    def expect_eof(self) -> None:
+        if self.cur.kind != "eof":
+            raise ParseError(f"unexpected trailing input at {self.cur.text!r} "
+                             f"(pos {self.cur.pos})")
+
+    # ----------------------------------------------------------- statements
+
+    def parse_statement(self) -> ast.Node:
+        if self.at_kw("select", "with") or self.at_op("("):
+            return self.parse_query()
+        if self.at_kw("explain"):
+            self.advance()
+            analyze = bool(self.accept_kw("analyze"))
+            return ast.Explain(self.parse_query(), analyze)
+        if self.at_kw("create"):
+            return self.parse_create_table()
+        if self.at_kw("drop"):
+            self.advance()
+            kind = "table"
+            if self.accept_kw("materialized"):
+                self.expect_kw("view")
+                kind = "matview"
+            elif self.accept_kw("view"):
+                kind = "view"
+            elif self.accept_kw("sequence"):
+                kind = "sequence"
+            elif self.accept_kw("resource"):
+                self.expect_kw("queue")
+                kind = "resqueue"
+            else:
+                self.expect_kw("table")
+            if_exists = False
+            if self.accept_kw("if"):
+                self.expect_kw("exists")
+                if_exists = True
+            name = self.expect_ident()
+            if kind == "view":
+                return ast.DropView(name, if_exists)
+            if kind == "matview":
+                return ast.DropMatView(name, if_exists)
+            if kind == "sequence":
+                return ast.DropSequence(name, if_exists)
+            if kind == "resqueue":
+                return ast.DropResourceQueue(name, if_exists)
+            return ast.DropTable(name, if_exists)
+        if self.at_kw("refresh"):
+            self.advance()
+            self.expect_kw("materialized")
+            self.expect_kw("view")
+            return ast.RefreshMatView(self.expect_ident())
+        if self.at_kw("declare"):
+            self.advance()
+            name = self.expect_ident()
+            self.expect_kw("parallel")
+            self.expect_kw("retrieve")
+            self.expect_kw("cursor")
+            self.expect_kw("for")
+            return ast.DeclareParallelCursor(name, self.parse_query())
+        if self.at_kw("close"):
+            self.advance()
+            return ast.CloseCursor(self.expect_ident())
+        if self.at_kw("insert"):
+            return self.parse_insert()
+        if self.at_kw("begin", "commit", "rollback", "abort", "start", "end"):
+            w = self.advance().text
+            if w == "start":
+                self.expect_kw("transaction")
+                w = "begin"
+            else:
+                self.accept_kw("transaction", "work")
+                w = {"abort": "rollback", "end": "commit"}.get(w, w)
+            return ast.TxnStmt(w)
+        if self.at_kw("analyze"):
+            self.advance()
+            return ast.Analyze(self.expect_ident())
+        if self.at_kw("cluster"):
+            # CLUSTER t BY (a, b) — z-order write clustering
+            self.advance()
+            table = self.expect_ident()
+            self.expect_kw("by")
+            self.expect_op("(")
+            cols = [self.expect_ident()]
+            while self.accept_op(","):
+                cols.append(self.expect_ident())
+            self.expect_op(")")
+            return ast.Cluster(table, cols)
+        if self.at_kw("copy"):
+            return self.parse_copy()
+        if self.at_kw("update"):
+            return self.parse_update()
+        if self.at_kw("delete"):
+            self.advance()
+            self.expect_kw("from")
+            table = self.expect_ident()
+            where = self.parse_expr() if self.accept_kw("where") else None
+            return ast.Delete(table, where)
+        raise ParseError(f"unsupported statement start {self.cur.text!r}")
+
+    def parse_create_table(self):
+        self.expect_kw("create")
+        if self.at_kw("materialized", "incremental"):
+            incremental = bool(self.accept_kw("incremental"))
+            self.expect_kw("materialized")
+            self.expect_kw("view")
+            name = self.expect_ident()
+            self.expect_kw("as")
+            return ast.CreateMatView(name, self.parse_query(), incremental)
+        if self.accept_kw("view"):
+            name = self.expect_ident()
+            self.expect_kw("as")
+            return ast.CreateView(name, self.parse_query())
+        if self.accept_kw("resource"):
+            self.expect_kw("queue")
+            name = self.expect_ident()
+            opts = {}
+            if self.accept_kw("with"):
+                self.expect_op("(")
+                while True:
+                    key = self.expect_ident()
+                    self.expect_op("=")
+                    if self.cur.kind == "string":
+                        opts[key] = self.advance().text
+                    else:
+                        opts[key] = self._signed_int()
+                    if not self.accept_op(","):
+                        break
+                self.expect_op(")")
+            return ast.CreateResourceQueue(name, opts)
+        if self.accept_kw("sequence"):
+            if_not_exists = False
+            if self.accept_kw("if"):
+                self.expect_kw("not")
+                self.expect_kw("exists")
+                if_not_exists = True
+            name = self.expect_ident()
+            start, inc = 1, 1
+            while True:
+                if self.accept_kw("start"):
+                    self.accept_kw("with")
+                    start = self._signed_int()
+                elif self.accept_kw("increment"):
+                    self.accept_kw("by")
+                    inc = self._signed_int()
+                else:
+                    break
+            return ast.CreateSequence(name, start, inc, if_not_exists)
+        if self.accept_kw("external"):
+            return self._parse_create_external()
+        if self.accept_kw("directory"):
+            self.expect_kw("table")
+            return ast.CreateDirectoryTable(self.expect_ident())
+        if self.accept_kw("foreign"):
+            # CREATE FOREIGN TABLE name (cols) SERVER srv
+            # OPTIONS (key 'value', ...) — the FDW surface
+            self.expect_kw("table")
+            name = self.expect_ident()
+            cols = self._parse_column_defs()
+            self.expect_kw("server")
+            server = self.expect_ident()
+            options: dict = {}
+            if self.accept_kw("options"):
+                self.expect_op("(")
+                while True:
+                    k = self.expect_ident()
+                    if self.cur.kind != "string":
+                        raise ParseError(
+                            "OPTIONS values must be quoted strings")
+                    options[k] = self.advance().text
+                    if not self.accept_op(","):
+                        break
+                self.expect_op(")")
+            return ast.CreateForeignTable(name, cols, server, options)
+        self.expect_kw("table")
+        if_not_exists = False
+        if self.accept_kw("if"):
+            self.expect_kw("not")
+            self.expect_kw("exists")
+            if_not_exists = True
+        name = self.expect_ident()
+        if self.at_kw("as") or self.at_kw("distributed"):
+            # CREATE TABLE name [DISTRIBUTED ...] AS query  /  name AS query
+            distribution, keys = self._parse_distribution()
+            self.expect_kw("as")
+            q = self.parse_query()
+            if distribution is None:
+                distribution, keys = self._parse_distribution()
+            return ast.CreateTableAs(name, q, distribution or "random",
+                                     keys or (), if_not_exists)
+        cols = self._parse_column_defs()
+        distribution, keys = self._parse_distribution()
+        partition = self._parse_partition()
+        if distribution is None:
+            # DISTRIBUTED may follow PARTITION too (order is free)
+            distribution, keys = self._parse_distribution()
+        return ast.CreateTable(name, cols, distribution or "random",
+                               keys or (), if_not_exists, partition)
+
+    def _parse_column_defs(self) -> list:
+        self.expect_op("(")
+        cols = []
+        while True:
+            cname = self.expect_ident()
+            tname = self.expect_ident()
+            scale = None
+            if self.accept_op("("):
+                self.advance()  # precision (ignored)
+                if self.accept_op(","):
+                    scale = int(self.advance().text)
+                self.expect_op(")")
+            not_null = False
+            if self.accept_kw("not"):
+                self.expect_kw("null")
+                not_null = True
+            self.accept_kw("primary") and self.expect_kw("key")
+            cols.append(ast.ColumnDef(cname, tname, scale, not_null))
+            if not self.accept_op(","):
+                break
+        self.expect_op(")")
+        return cols
+
+    def _parse_create_external(self):
+        """CREATE EXTERNAL TABLE name (cols) LOCATION('url')
+        [FORMAT 'csv'] [DELIMITER 'c'] [HEADER]
+        [SEGMENT REJECT LIMIT n [ROWS|PERCENT]] [LOG ERRORS]"""
+        self.expect_kw("table")
+        name = self.expect_ident()
+        cols = self._parse_column_defs()
+        self.expect_kw("location")
+        self.expect_op("(")
+        if self.cur.kind != "string":
+            raise ParseError("LOCATION takes a quoted URL")
+        url = self.advance().text
+        self.expect_op(")")
+        delim, header = "|", False
+        reject_limit, reject_percent, log_errors = None, False, False
+        while True:
+            if self.accept_kw("format"):
+                if self.cur.kind != "string":
+                    raise ParseError("FORMAT takes a quoted name")
+                fmt = self.advance().text.lower()
+                if fmt not in ("csv", "text"):
+                    raise ParseError(f"unsupported FORMAT {fmt!r}")
+            elif self.accept_kw("delimiter"):
+                if self.cur.kind != "string" or len(self.cur.text) != 1:
+                    raise ParseError("DELIMITER must be a 1-char string")
+                delim = self.advance().text
+            elif self.accept_kw("header"):
+                header = True
+            elif self.accept_kw("log"):
+                self.expect_kw("errors")
+                log_errors = True
+            elif self.accept_kw("segment"):
+                self.expect_kw("reject")
+                self.expect_kw("limit")
+                reject_limit = self._signed_int()
+                if self.accept_kw("percent"):
+                    reject_percent = True
+                else:
+                    self.accept_kw("rows")
+            else:
+                break
+        return ast.CreateExternalTable(name, cols, url, delim, header,
+                                       reject_limit, reject_percent,
+                                       log_errors)
+
+    def _parse_partition(self):
+        """PARTITION BY RANGE (col) (START a END b EVERY s) | LIST (col)
+        — the gram.y partition-clause analog, numeric bounds only."""
+        if not self.at_kw("partition"):
+            return None
+        self.advance()
+        self.expect_kw("by")
+        if self.accept_kw("range"):
+            self.expect_op("(")
+            col = self.expect_ident()
+            self.expect_op(")")
+            self.expect_op("(")
+            self.expect_kw("start")
+            start = self._signed_int()
+            self.expect_kw("end")
+            end = self._signed_int()
+            self.expect_kw("every")
+            every = self._signed_int()
+            self.expect_op(")")
+            if every <= 0 or end <= start:
+                raise ParseError("PARTITION BY RANGE needs END > START "
+                                 "and EVERY > 0")
+            return ("range", col, start, end, every)
+        if self.accept_kw("list"):
+            self.expect_op("(")
+            col = self.expect_ident()
+            self.expect_op(")")
+            return ("list", col)
+        raise ParseError("PARTITION BY expects RANGE or LIST")
+
+    def _signed_int(self) -> int:
+        neg = bool(self.accept_op("-"))
+        tok = self.advance()
+        try:
+            v = int(tok.text)
+        except ValueError:
+            raise ParseError(
+                f"expected an integer, got {tok.text!r}")
+        return -v if neg else v
+
+    def _parse_interval_literal(self) -> tuple:
+        """INTERVAL '<n>' <unit> (cursor on the INTERVAL keyword):
+        returns (n, singular unit)."""
+        self.advance()
+        tok = self.advance()
+        try:
+            n = int(tok.text)
+        except ValueError:
+            raise ParseError(
+                f"expected an integer interval value, got {tok.text!r} "
+                "(write the unit outside the string: interval '2' day)")
+        return n, self.expect_ident().rstrip("s")
+
+    def _signed_number(self):
+        """int when the literal is integral, float otherwise (RANGE frame
+        offsets may be fractional on float ORDER BY keys)."""
+        neg = bool(self.accept_op("-"))
+        tok = self.advance()
+        try:
+            v = int(tok.text)
+        except ValueError:
+            try:
+                v = float(tok.text)
+            except ValueError:
+                raise ParseError(f"expected a number, got {tok.text!r}")
+            if not math.isfinite(v):
+                # float() happily parses 'nan'/'inf'/1e400 — as a frame
+                # offset NaN would silently make every comparison False
+                raise ParseError(f"expected a number, got {tok.text!r}")
+        return -v if neg else v
+
+    def _parse_distribution(self):
+        if not self.accept_kw("distributed"):
+            return None, None
+        if self.accept_kw("by"):
+            self.expect_op("(")
+            ks = [self.expect_ident()]
+            while self.accept_op(","):
+                ks.append(self.expect_ident())
+            self.expect_op(")")
+            return "hash", tuple(ks)
+        if self.accept_kw("replicated"):
+            return "replicated", ()
+        if self.accept_kw("randomly"):
+            return "random", ()
+        raise ParseError("expected BY/REPLICATED/RANDOMLY after DISTRIBUTED")
+
+    def parse_insert(self):
+        self.expect_kw("insert")
+        self.expect_kw("into")
+        table = self.expect_ident()
+        columns: list[str] = []
+        if self.accept_op("("):
+            columns.append(self.expect_ident())
+            while self.accept_op(","):
+                columns.append(self.expect_ident())
+            self.expect_op(")")
+        if self.at_kw("select") or self.at_op("("):
+            return ast.InsertSelect(table, columns, self.parse_query())
+        self.expect_kw("values")
+        rows = []
+        while True:
+            self.expect_op("(")
+            row = [self.parse_expr()]
+            while self.accept_op(","):
+                row.append(self.parse_expr())
+            self.expect_op(")")
+            rows.append(row)
+            if not self.accept_op(","):
+                break
+        return ast.InsertValues(table, columns, rows)
+
+    def parse_copy(self):
+        self.expect_kw("copy")
+        table = self.expect_ident()
+        direction = self.accept_kw("from", "to")
+        if direction is None:
+            raise ParseError("expected FROM or TO after COPY <table>")
+        if self.cur.kind != "string":
+            raise ParseError("COPY path must be a string literal")
+        path = self.advance().text
+        delim, header = "|", False
+        reject_limit, reject_percent, log_errors = None, False, False
+        self.accept_kw("with")
+        while True:
+            if self.accept_kw("delimiter"):
+                if self.cur.kind != "string" or len(self.cur.text) != 1:
+                    raise ParseError("DELIMITER must be a 1-char string")
+                delim = self.advance().text
+            elif self.accept_kw("header"):
+                header = True
+            elif self.accept_kw("log"):
+                self.expect_kw("errors")
+                log_errors = True
+            elif self.accept_kw("segment"):
+                # SEGMENT REJECT LIMIT n [ROWS | PERCENT] (gram.y sreh)
+                self.expect_kw("reject")
+                self.expect_kw("limit")
+                reject_limit = self._signed_int()
+                if self.accept_kw("percent"):
+                    reject_percent = True
+                else:
+                    self.accept_kw("rows")
+            else:
+                break
+        if direction == "to":
+            return ast.CopyTo(table, path, delim, header)
+        return ast.CopyFrom(table, path, delim, header,
+                            reject_limit, reject_percent, log_errors)
+
+    def parse_update(self) -> ast.Update:
+        self.expect_kw("update")
+        table = self.expect_ident()
+        self.expect_kw("set")
+        sets = []
+        while True:
+            col = self.expect_ident()
+            self.expect_op("=")
+            sets.append((col, self.parse_expr()))
+            if not self.accept_op(","):
+                break
+        where = self.parse_expr() if self.accept_kw("where") else None
+        return ast.Update(table, sets, where)
+
+    # --------------------------------------------------------------- SELECT
+
+    def parse_query(self) -> ast.Node:
+        """[WITH ctes] select-core (UNION|INTERSECT|EXCEPT select-core)*
+        [ORDER BY] [LIMIT]; set operations own the trailing ORDER BY/LIMIT."""
+        if self.at_kw("with"):
+            self.advance()
+            if self.accept_kw("recursive"):
+                raise ParseError("WITH RECURSIVE is not supported yet")
+            ctes = []
+            while True:
+                name = self.expect_ident()
+                self.expect_kw("as")
+                self.expect_op("(")
+                q = self.parse_query()
+                self.expect_op(")")
+                ctes.append((name, q))
+                if not self.accept_op(","):
+                    break
+            return ast.WithQuery(ctes, self.parse_query())
+        node: ast.Node = self._parse_intersect_chain()
+        while self.at_kw("union", "except"):
+            op = self.advance().text
+            all_ = bool(self.accept_kw("all"))
+            self.accept_kw("distinct")
+            right = self._parse_intersect_chain()
+            node = ast.SetOp(op, all_, node, right)
+        if isinstance(node, ast.SetOp):
+            if self.accept_kw("order"):
+                self.expect_kw("by")
+                node.order_by = [self.parse_order_item()]
+                while self.accept_op(","):
+                    node.order_by.append(self.parse_order_item())
+            if self.accept_kw("limit"):
+                node.limit = int(self.advance().text)
+            if self.accept_kw("offset"):
+                node.offset = int(self.advance().text)
+        else:
+            node = self._parse_select_tail(node)
+        return node
+
+    def _parse_intersect_chain(self) -> ast.Node:
+        # INTERSECT binds tighter than UNION/EXCEPT (SQL precedence)
+        node: ast.Node = self._parse_core()
+        while self.at_kw("intersect"):
+            self.advance()
+            all_ = bool(self.accept_kw("all"))
+            self.accept_kw("distinct")
+            node = ast.SetOp("intersect", all_, node, self._parse_core())
+        return node
+
+    def _parse_core(self) -> ast.Node:
+        if self.at_op("("):
+            self.advance()
+            inner = self.parse_query()
+            self.expect_op(")")
+            return inner
+        return self.parse_select(allow_tail=False)
+
+    def _parse_select_tail(self, sel: ast.Select) -> ast.Select:
+        if self.accept_kw("order"):
+            self.expect_kw("by")
+            sel.order_by = [self.parse_order_item()]
+            while self.accept_op(","):
+                sel.order_by.append(self.parse_order_item())
+        if self.accept_kw("limit"):
+            sel.limit = int(self.advance().text)
+        if self.accept_kw("offset"):
+            sel.offset = int(self.advance().text)
+        return sel
+
+    def parse_select(self, allow_tail: bool = True) -> ast.Select:
+        self.expect_kw("select")
+        distinct = bool(self.accept_kw("distinct"))
+        self.accept_kw("all")
+        items = [self.parse_select_item()]
+        while self.accept_op(","):
+            items.append(self.parse_select_item())
+        sel = ast.Select(items=items, distinct=distinct)
+        if self.accept_kw("from"):
+            sel.from_refs = [self.parse_table_ref()]
+            while self.accept_op(","):
+                sel.from_refs.append(self.parse_table_ref())
+        if self.accept_kw("where"):
+            sel.where = self.parse_expr()
+        if self.accept_kw("group"):
+            self.expect_kw("by")
+            nxt = self.toks[self.i + 1] \
+                if self.i + 1 < len(self.toks) else self.cur
+            # lookahead: a column literally named rollup/cube/grouping
+            # must still parse as a plain GROUP BY key
+            kind = self.accept_kw("rollup", "cube") \
+                if nxt.kind == "op" and nxt.text == "(" else None
+            if kind:
+                # ROLLUP(a,b) / CUBE(a,b) — expanded to grouping sets
+                self.expect_op("(")
+                cols = [self.parse_expr()]
+                while self.accept_op(","):
+                    cols.append(self.parse_expr())
+                self.expect_op(")")
+                sel.group_by = list(cols)
+                if kind == "rollup":
+                    sel.grouping_sets = [cols[:k]
+                                         for k in range(len(cols), -1, -1)]
+                else:
+                    import itertools as _it
+
+                    sel.grouping_sets = [
+                        [c for i, c in enumerate(cols) if mask[i]]
+                        for mask in _it.product(
+                            (True, False), repeat=len(cols))]
+            elif self.at_kw("grouping") and nxt.kind == "ident" \
+                    and nxt.text == "sets":
+                self.advance()
+                self.expect_kw("sets")
+                self.expect_op("(")
+                sets = []
+                while True:
+                    if self.accept_op("("):
+                        g = []
+                        if not self.at_op(")"):
+                            g.append(self.parse_expr())
+                            while self.accept_op(","):
+                                g.append(self.parse_expr())
+                        self.expect_op(")")
+                    else:
+                        # bare expression = a one-column grouping set
+                        g = [self.parse_expr()]
+                    sets.append(g)
+                    if not self.accept_op(","):
+                        break
+                self.expect_op(")")
+                seen: list = []
+                for g in sets:
+                    for e in g:
+                        if not any(repr(e) == repr(s) for s in seen):
+                            seen.append(e)
+                sel.group_by = seen
+                sel.grouping_sets = sets
+            else:
+                sel.group_by = [self.parse_expr()]
+                while self.accept_op(","):
+                    sel.group_by.append(self.parse_expr())
+        if self.accept_kw("having"):
+            sel.having = self.parse_expr()
+        if allow_tail:
+            sel = self._parse_select_tail(sel)
+        return sel
+
+    def parse_select_item(self) -> ast.SelectItem:
+        if self.at_op("*"):
+            self.advance()
+            return ast.SelectItem(ast.Star())
+        # t.* pattern
+        if (self.cur.kind == "ident"
+                and self.toks[self.i + 1].kind == "op"
+                and self.toks[self.i + 1].text == "."
+                and self.toks[self.i + 2].kind == "op"
+                and self.toks[self.i + 2].text == "*"):
+            t = self.advance().text
+            self.advance()
+            self.advance()
+            return ast.SelectItem(ast.Star(table=t))
+        e = self.parse_expr()
+        alias = None
+        if self.accept_kw("as"):
+            alias = self.expect_ident()
+        elif self.cur.kind == "ident" and self.cur.text not in _RESERVED:
+            alias = self.advance().text
+        return ast.SelectItem(e, alias)
+
+    def parse_order_item(self) -> ast.OrderItem:
+        e = self.parse_expr()
+        asc = True
+        if self.accept_kw("desc"):
+            asc = False
+        else:
+            self.accept_kw("asc")
+        return ast.OrderItem(e, asc)
+
+    # ----------------------------------------------------------- table refs
+
+    def parse_table_ref(self) -> ast.TableRefNode:
+        left = self.parse_table_primary()
+        while True:
+            if self.accept_kw("cross"):
+                self.expect_kw("join")
+                right = self.parse_table_primary()
+                left = ast.JoinRef("cross", left, right, None)
+                continue
+            kind = None
+            if self.at_kw("inner", "join"):
+                self.accept_kw("inner")
+                kind = "inner"
+            elif self.at_kw("left", "right", "full"):
+                kind = self.advance().text
+                self.accept_kw("outer")
+            else:
+                return left
+            self.expect_kw("join")
+            right = self.parse_table_primary()
+            self.expect_kw("on")
+            on = self.parse_expr()
+            left = ast.JoinRef(kind, left, right, on)
+
+    def parse_table_primary(self) -> ast.TableRefNode:
+        if self.accept_op("("):
+            # a derived table holds a full QUERY expression: plain
+            # SELECT, WITH, or a set-op chain whose operands may
+            # themselves be parenthesized ("(sel) intersect (sel)" —
+            # the q38-class shape). The lookahead alone cannot separate
+            # that from a parenthesized JOIN whose first element is a
+            # derived table ("((select ...) a join b on ...)"), so try
+            # the query parse and BACKTRACK to the join-ref grammar
+            # unless it consumed exactly up to the closing paren.
+            if self.at_kw("select", "with") \
+                    or (self.at_op("(")
+                        and self.toks[self.i + 1].kind == "ident"
+                        and self.toks[self.i + 1].text
+                        in ("select", "with")):
+                save = self.i
+                try:
+                    sub = self.parse_query()
+                    done = self.at_op(")")
+                except ParseError:
+                    done = False
+                if done:
+                    self.advance()
+                    self.accept_kw("as")
+                    alias = self.expect_ident()
+                    return ast.DerivedTable(sub, alias)
+                self.i = save
+            ref = self.parse_table_ref()
+            self.expect_op(")")
+            return ref
+        name = self.expect_ident()
+        if self.at_op("("):
+            # set-returning function in FROM: name(args) [AS] alias
+            self.advance()
+            args: list[ast.ExprNode] = []
+            if not self.accept_op(")"):
+                args.append(self.parse_expr())
+                while self.accept_op(","):
+                    args.append(self.parse_expr())
+                self.expect_op(")")
+            return ast.FuncTable(name, args, self._parse_alias())
+        return ast.TableName(name, self._parse_alias())
+
+    def _parse_alias(self):
+        if self.accept_kw("as"):
+            return self.expect_ident()
+        if self.cur.kind == "ident" and self.cur.text not in _RESERVED:
+            return self.advance().text
+        return None
+
+    # ---------------------------------------------------------- expressions
+
+    def parse_expr(self) -> ast.ExprNode:
+        return self.parse_or()
+
+    def parse_or(self) -> ast.ExprNode:
+        e = self.parse_and()
+        while self.accept_kw("or"):
+            e = ast.BinOp("or", e, self.parse_and())
+        return e
+
+    def parse_and(self) -> ast.ExprNode:
+        e = self.parse_not()
+        while self.accept_kw("and"):
+            e = ast.BinOp("and", e, self.parse_not())
+        return e
+
+    def parse_not(self) -> ast.ExprNode:
+        if self.accept_kw("not"):
+            return ast.UnaryOp("not", self.parse_not())
+        return self.parse_comparison()
+
+    def parse_comparison(self) -> ast.ExprNode:
+        if self.at_kw("exists"):
+            self.advance()
+            self.expect_op("(")
+            sub = self.parse_select()
+            self.expect_op(")")
+            return ast.Exists(sub)
+        e = self.parse_additive()
+        negated = bool(self.accept_kw("not"))
+        if self.accept_kw("between"):
+            low = self.parse_additive()
+            self.expect_kw("and")
+            high = self.parse_additive()
+            return ast.Between(e, low, high, negated)
+        if self.accept_kw("in"):
+            self.expect_op("(")
+            if self.at_kw("select"):
+                sub = self.parse_select()
+                self.expect_op(")")
+                return ast.InSubquery(e, sub, negated)
+            items = [self.parse_expr()]
+            while self.accept_op(","):
+                items.append(self.parse_expr())
+            self.expect_op(")")
+            return ast.InList(e, items, negated)
+        if self.accept_kw("like"):
+            pat = self.advance()
+            if pat.kind != "string":
+                raise ParseError("LIKE pattern must be a string literal")
+            return ast.Like(e, pat.text, negated)
+        if self.accept_kw("is"):
+            neg = bool(self.accept_kw("not"))
+            self.expect_kw("null")
+            return ast.IsNull(e, neg)
+        if negated:
+            raise ParseError("expected BETWEEN/IN/LIKE after NOT")
+        op = self.accept_op("=", "<>", "!=", "<", "<=", ">", ">=")
+        if op:
+            if op == "!=":
+                op = "<>"
+            rhs = self.parse_additive()
+            return ast.BinOp(op, e, rhs)
+        return e
+
+    def parse_additive(self) -> ast.ExprNode:
+        e = self.parse_multiplicative()
+        while True:
+            op = self.accept_op("+", "-", "||")
+            if not op:
+                return e
+            e = ast.BinOp(op, e, self.parse_multiplicative())
+
+    def parse_multiplicative(self) -> ast.ExprNode:
+        e = self.parse_unary()
+        while True:
+            op = self.accept_op("*", "/", "%")
+            if not op:
+                return e
+            e = ast.BinOp(op, e, self.parse_unary())
+
+    def parse_unary(self) -> ast.ExprNode:
+        op = self.accept_op("-", "+")
+        if op:
+            return ast.UnaryOp(op, self.parse_unary())
+        return self.parse_primary()
+
+    def parse_primary(self) -> ast.ExprNode:
+        t = self.cur
+        if t.kind == "number":
+            self.advance()
+            return ast.NumberLit(t.text)
+        if t.kind == "string":
+            self.advance()
+            return ast.StringLit(t.text)
+        if self.at_op("("):
+            self.advance()
+            if self.at_kw("select"):
+                sub = self.parse_select()
+                self.expect_op(")")
+                return ast.ScalarSubquery(sub)
+            e = self.parse_expr()
+            self.expect_op(")")
+            return e
+        if t.kind == "ident":
+            return self.parse_ident_expr()
+        raise ParseError(f"unexpected token {t.text!r} (pos {t.pos})")
+
+    def parse_ident_expr(self) -> ast.ExprNode:
+        word = self.cur.text
+        if word == "date" and self.toks[self.i + 1].kind == "string":
+            self.advance()
+            return ast.DateLit(self.advance().text)
+        if word == "interval" and self.toks[self.i + 1].kind == "string":
+            n, unit = self._parse_interval_literal()
+            if unit not in ("year", "month", "day"):
+                raise ParseError(f"unsupported interval unit {unit!r}")
+            return ast.IntervalLit(n, unit)
+        if word == "case":
+            return self.parse_case()
+        if word == "cast":
+            self.advance()
+            self.expect_op("(")
+            e = self.parse_expr()
+            self.expect_kw("as")
+            tname = self.expect_ident()
+            scale = None
+            if self.accept_op("("):
+                self.advance()
+                if self.accept_op(","):
+                    scale = int(self.advance().text)
+                self.expect_op(")")
+            self.expect_op(")")
+            return ast.CastExpr(e, tname, scale)
+        if word == "extract":
+            self.advance()
+            self.expect_op("(")
+            part = self.expect_ident()
+            self.expect_kw("from")
+            e = self.parse_expr()
+            self.expect_op(")")
+            return ast.ExtractExpr(part, e)
+        if word == "substring":
+            self.advance()
+            self.expect_op("(")
+            e = self.parse_expr()
+            if self.accept_kw("from"):
+                start = self.parse_expr()
+                length = self.parse_expr() if self.accept_kw("for") else None
+            else:
+                self.expect_op(",")
+                start = self.parse_expr()
+                length = self.parse_expr() if self.accept_op(",") else None
+            self.expect_op(")")
+            return ast.SubstringExpr(e, start, length)
+        if word in ("true", "false"):
+            self.advance()
+            return ast.BoolLit(word == "true")
+        if word == "null":
+            self.advance()
+            return ast.NullLit()
+        if word in _RESERVED:
+            raise ParseError(f"unexpected keyword {word.upper()!r} "
+                             f"(pos {self.cur.pos})")
+        # function call or (qualified) column name
+        if (self.toks[self.i + 1].kind == "op"
+                and self.toks[self.i + 1].text == "("):
+            fname = self.advance().text
+            self.advance()  # (
+            if self.accept_op("*"):
+                self.expect_op(")")
+                if self.at_kw("over"):
+                    return self._parse_over(fname, [])
+                return ast.FuncCall(fname, [], star=True)
+            distinct = bool(self.accept_kw("distinct"))
+            args: list[ast.ExprNode] = []
+            if not self.at_op(")"):
+                args.append(self.parse_expr())
+                while self.accept_op(","):
+                    args.append(self.parse_expr())
+            self.expect_op(")")
+            if self.at_kw("over"):
+                return self._parse_over(fname, args)
+            return ast.FuncCall(fname, args, distinct=distinct)
+        parts = [self.advance().text]
+        while self.at_op(".") and self.toks[self.i + 1].kind == "ident":
+            self.advance()
+            parts.append(self.advance().text)
+        return ast.Name(tuple(parts))
+
+    def _parse_over(self, fname: str, args) -> ast.WindowExpr:
+        self.expect_kw("over")
+        self.expect_op("(")
+        partition: list[ast.ExprNode] = []
+        order: list[ast.OrderItem] = []
+        if self.accept_kw("partition"):
+            self.expect_kw("by")
+            partition.append(self.parse_expr())
+            while self.accept_op(","):
+                partition.append(self.parse_expr())
+        if self.accept_kw("order"):
+            self.expect_kw("by")
+            order.append(self.parse_order_item())
+            while self.accept_op(","):
+                order.append(self.parse_order_item())
+        frame = None
+        kind = self.accept_kw("rows", "range")
+        if kind:
+            if self.accept_kw("between"):
+                lo = self._parse_frame_bound(kind)
+                self.expect_kw("and")
+                hi = self._parse_frame_bound(kind)
+            else:
+                lo, hi = self._parse_frame_bound(kind), ("current", 0)
+            frame = (kind, lo, hi)
+        self.expect_op(")")
+        return ast.WindowExpr(fname, args, partition, order, frame)
+
+    def _parse_frame_bound(self, kind: str):
+        """UNBOUNDED PRECEDING|FOLLOWING | <n> PRECEDING|FOLLOWING |
+        CURRENT ROW -> ('unbounded'|'offset'|'current', signed rows)"""
+        if self.accept_kw("unbounded"):
+            d = self.accept_kw("preceding", "following")
+            if not d:
+                raise ParseError("UNBOUNDED needs PRECEDING or FOLLOWING")
+            return ("unbounded", -1 if d == "preceding" else 1)
+        if self.accept_kw("current"):
+            self.expect_kw("row")
+            return ("current", 0)
+        if self.at_kw("interval") and self.toks[self.i + 1].kind == "string":
+            if kind != "range":
+                # PG rejects intervals in ROWS mode — silently reading
+                # one as a row count would answer a different question
+                raise ParseError("interval frame offsets need RANGE mode")
+            # INTERVAL 'n' DAY on a date ORDER BY key: days are the
+            # key's integer domain, so the offset is just n.
+            # MONTH/YEAR are calendar distances — they ride as a
+            # ("months", n) marker and the executor shifts each row's
+            # civil date in-program (timestamp.c interval_pl semantics:
+            # month shift, day-of-month clamped).
+            n, unit = self._parse_interval_literal()
+            if unit in ("month", "year"):
+                n = ("months", n * (12 if unit == "year" else 1))
+            elif unit != "day":
+                raise ParseError(
+                    "RANGE frame intervals support DAY, MONTH and YEAR")
+        else:
+            n = self._signed_number()
+        months = isinstance(n, tuple)
+        nv = n[1] if months else n
+        if nv < 0:
+            # PG: "frame starting offset must not be negative" — a
+            # negative n would silently flip PRECEDING into FOLLOWING
+            raise ParseError("frame offset must not be negative")
+        d = self.accept_kw("preceding", "following")
+        if not d:
+            raise ParseError("frame offset needs PRECEDING or FOLLOWING")
+        signed = -nv if d == "preceding" else nv
+        return ("offset", ("months", signed) if months else signed)
+
+    def parse_case(self) -> ast.CaseExpr:
+        self.expect_kw("case")
+        whens: list[tuple[ast.ExprNode, ast.ExprNode]] = []
+        while self.accept_kw("when"):
+            c = self.parse_expr()
+            self.expect_kw("then")
+            v = self.parse_expr()
+            whens.append((c, v))
+        otherwise = self.parse_expr() if self.accept_kw("else") else None
+        self.expect_kw("end")
+        return ast.CaseExpr(whens, otherwise)
+
+
+_CLAUSE_KWS = ("from", "where", "group", "having", "order", "limit", "offset",
+               "union", "intersect", "except", "as", "and", "or", "not",
+               "when", "then", "else", "end", "desc", "asc", "between", "in",
+               "like", "is")
+
+# words that can never start a primary expression (bare column name)
+_RESERVED = frozenset(_CLAUSE_KWS) | {
+    "select", "by", "on", "join", "inner", "left", "right", "full", "cross",
+    "distinct", "exists", "create", "drop", "insert", "into", "values",
+    "table", "distributed", "with",
+}
