@@ -16,14 +16,18 @@ Phases (any failure exits non-zero, and nothing is caught and passed over):
    read just after; the counts must show dense_agg on Q1 and Q5,
    sorted_seg on Q3 and probe_join on Q5. Each result must equal, exactly,
    a numpy oracle written here and the same query run by a
-   ``Session(device="cpu")`` of the port (the kernels' plain versions);
+   ``Session(device="cpu")`` of the port (the kernels' plain versions).
+   Four more runs of each query give the spread of its wall time;
 4. kernels: each kernel, on the inputs the main path gave it and on
    synthetic inputs at the main path's shapes plus edge cases (empty
-   selection, ragged N, int64 wraparound, duplicate build keys), must equal
+   selection, ragged N, int64 wraparound, duplicate build keys, one hot
+   cell, cell domains for each of dense_agg's modes, a skewed group, odd
+   capacities), must equal
    its plain version on the card; then its median time over 20 cold-cache
-   runs (CUDA events) beside its plain version's, one PyTorch library call
-   computing the same function, and its bound (bytes over 3.35 TB/s or
-   operations over 67 T/s, whichever is larger);
+   runs on the device alone (``Timer.device``) and with the wrapper's host
+   work (``wrapper_ms``), beside its plain version's, one PyTorch library
+   call computing the same function, and its bound (bytes over 3.35 TB/s
+   or operations over 67 T/s, whichever is larger);
 5. report: the card line, one JSON line of kernels, and last the JSON line
    ``{"ok": true, "device": {...}}``.
 """
@@ -48,6 +52,7 @@ REPLACES = {
 }
 SEED = 1          # TPC-H data and the synthetic kernel inputs
 REPS = 20         # timed launches per kernel
+QUERY_RUNS = 5    # timed runs per query, tables already on the card
 EXPECTED = {"q1": {"dense_agg"}, "q3": {"sorted_seg"},
             "q5": {"dense_agg", "probe_join"}}
 
@@ -177,22 +182,85 @@ def same(got: dict, want: dict, what: str):
 
 # ------------------------------------------------------------------ timing
 
-def cold_ms(torch, fn, reps, flush):
-    """Median ms of ``fn`` over ``reps`` launches, each after an L2 flush
-    (the main path finds its inputs cold)."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        flush.zero_()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
+class Timer:
+    """Median ms of a function over ``reps`` runs, each after an L2 flush
+    (the main path finds its inputs cold), taken two ways:
+
+    - ``device``: a spin kernel (``torch.cuda._sleep``) is queued after the
+      flush and before the start event, and outlasts the host's enqueue of
+      ``fn``, so the events bracket only ``fn``'s device work. Every run
+      checks this against the host clock; a function that blocks the host
+      (a device-to-host read) fails the check and has no device time.
+    - ``wrapper``: the start event follows the flush directly, so the time
+      includes the host's work in the wrapper before the launch (argument
+      checks, allocations, the ctypes call).
+    """
+
+    def __init__(self, torch, flush, reps):
+        self.torch, self.flush, self.reps = torch, flush, reps
+        cycles = 10_000_000
+        torch.cuda._sleep(cycles)              # warm the spin kernel
+        a, b = self._events()
         a.record()
-        fn()
+        torch.cuda._sleep(cycles)
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+        self.cycles_per_ms = cycles / a.elapsed_time(b)
+
+    def _events(self):
+        ev = self.torch.cuda.Event
+        return ev(enable_timing=True), ev(enable_timing=True)
+
+    def wrapper(self, fn):
+        fn()
+        self.torch.cuda.synchronize()
+        times = []
+        for _ in range(self.reps):
+            self.flush.zero_()
+            a, b = self._events()
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return float(np.median(times))
+
+    def device(self, fn):
+        """Device ms, or None when the host's enqueue of ``fn`` outlasted
+        the spin kernel even with a 64x longer lead (then the gap between
+        the events would count host time)."""
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        lead_ms = max(0.5, 4 * enqueue_ms)
+        for _ in range(4):
+            times = self._device_runs(fn, lead_ms)
+            if times is not None:
+                return float(np.median(times))
+            lead_ms *= 4
+        return None
+
+    def _device_runs(self, fn, lead_ms):
+        torch = self.torch
+        times = []
+        for _ in range(self.reps):
+            self.flush.zero_()
+            a, b = self._events()
+            h0 = time.perf_counter()
+            torch.cuda._sleep(int(lead_ms * self.cycles_per_ms))
+            a.record()
+            fn()
+            b.record()
+            host_ms = (time.perf_counter() - h0) * 1e3
+            b.synchronize()
+            if host_ms >= 0.5 * lead_ms:   # margin for clock drift
+                return None
+            times.append(a.elapsed_time(b))
+        return times
 
 
 def max_abs_err(torch, got, want):
@@ -331,7 +399,7 @@ def main() -> int:
         t0 = time.perf_counter()
         res = gpu.sql(sql)
         torch.cuda.synchronize()
-        query_ms[q] = (time.perf_counter() - t0) * 1e3
+        query_ms[q] = [(time.perf_counter() - t0) * 1e3]
         counts = dict(CK.LAUNCHES)
         fired = {k for k, v in counts.items() if v > 0}
         check(EXPECTED[q] <= fired,
@@ -342,10 +410,16 @@ def main() -> int:
         got = physical(res)
         same(got, oracle(raw, q, date_to_days), f"{q} vs numpy oracle")
         same(got, physical(cpu.sql(sql)), f"{q} vs the port on the CPU")
-        log(f"[query] {q}: {query_ms[q]:.3f} ms (first run, tables "
-            f"uploaded: {warm_ms:.1f} ms), {len(next(iter(got.values())))} "
-            f"rows, launches {counts}, equal to the numpy oracle and the "
-            f"CPU run")
+        for _ in range(QUERY_RUNS - 1):    # more runs for the spread
+            t0 = time.perf_counter()
+            gpu.sql(sql)
+            torch.cuda.synchronize()
+            query_ms[q].append((time.perf_counter() - t0) * 1e3)
+        log(f"[query] {q}: {np.median(query_ms[q]):.3f} ms median of "
+            f"{QUERY_RUNS} runs ({min(query_ms[q]):.3f}-"
+            f"{max(query_ms[q]):.3f}; first run, tables uploaded: "
+            f"{warm_ms:.1f} ms), {len(next(iter(got.values())))} rows, "
+            f"launches {counts}, equal to the numpy oracle and the CPU run")
 
     if args.profile:
         profile_queries(torch, gpu, tpch.QUERIES)
@@ -366,13 +440,18 @@ def main() -> int:
         got = kernel(*args_)
         want = plain(*args_)
         torch.cuda.synchronize()
-        err = max_abs_err(torch, got, want)
-        tol = 0.0
-        if name == "dense_agg" and args_[2].shape[0] > 0:
-            # float sums: atomics add in another order than index_add_
-            tol = 1e-9 * max(1.0, float(want[2].abs().max()))
-        check(err <= tol, f"{name} {what}: kernel differs from plain "
-              f"(max abs err {err})")
+        exact = [(g, w) for g, w in zip(got, want)
+                 if not w.dtype.is_floating_point]
+        floats = [(g, w) for g, w in zip(got, want)
+                  if w.dtype.is_floating_point]
+        check(max_abs_err(torch, *zip(*exact)) == 0,
+              f"{name} {what}: integer outputs differ from plain")
+        err = max_abs_err(torch, *zip(*floats)) if floats else 0.0
+        # float sums: the kernel adds in another order than index_add_
+        tol = 1e-9 * max([1.0] + [float(w.abs().max()) for _, w in floats
+                                  if w.numel()])
+        check(err <= tol, f"{name} {what}: float outputs differ from plain "
+              f"(max abs err {err}, tolerance {tol})")
         log(f"[kernel] {name} {what}: equal to the plain version "
             f"(max abs err {err})")
         report.setdefault(name, {"max_abs_err": 0.0})
@@ -384,13 +463,27 @@ def main() -> int:
         compare("dense_agg", f"{q} main-path input (N={a[0].shape[0]}, "
                 f"K={a[1].shape[0]}, cells={a[4]})", a, CK.dense_agg,
                 CK.dense_agg_plain)
-    for cells in (6, 25, 4096):
-        a = (rand_int(0, cells, (N,), torch.int32),
-             rand_int(0, 10_000_000, (7, N)),
-             torch.zeros((0, N), dtype=torch.float64, device=dev),
-             rand_sel(N), cells)
-        compare("dense_agg", f"N={N} K=7 cells={cells}", a, CK.dense_agg,
-                CK.dense_agg_plain)
+
+    def no_floats(n):
+        return torch.zeros((0, n), dtype=torch.float64, device=dev)
+
+    dense_cases = {
+        f"N={N} K={k} cells={cells}": (
+            rand_int(0, cells, (N,), torch.int32),
+            rand_int(0, 10_000_000, (k, N)), no_floats(N), rand_sel(N),
+            cells)
+        for cells, k in ((6, 7), (25, 1), (300, 1), (4096, 7))}
+    one_cell = f"N={N} K=7 cells=6, every row in cell 2"
+    dense_cases[one_cell] = (
+        torch.full((N,), 2, dtype=torch.int32, device=dev),
+        rand_int(0, 10_000_000, (7, N)), no_floats(N),
+        torch.ones(N, dtype=torch.bool, device=dev), 6)
+    dense_cases[f"N={N} Ki=1 Kf=2 cells=25 (float sums)"] = (
+        rand_int(0, 25, (N,), torch.int32), rand_int(0, 10_000, (1, N)),
+        torch.randn((2, N), generator=gen, device=dev, dtype=torch.float64),
+        rand_sel(N), 25)
+    for what, a in dense_cases.items():
+        compare("dense_agg", what, a, CK.dense_agg, CK.dense_agg_plain)
     big = (1 << 62) + 12345
     edge_n = 1001
     edges = {
@@ -457,25 +550,44 @@ def main() -> int:
                 f"N={a[0].shape[1]}, groups={int(a[3])}, cap={a[4]})", a,
                 CK.sorted_seg, CK.sorted_seg_plain)
 
+    def seg_sized(sizes, cap, vals):
+        """Groups of the given row counts, back to back from row 0."""
+        ends = torch.cumsum(sizes, 0) - 1
+        starts = ends - sizes + 1
+        z = torch.zeros(cap - sizes.shape[0], dtype=torch.int64, device=dev)
+        return (vals, torch.cat([starts, z]), torch.cat([ends, z]),
+                torch.tensor(sizes.shape[0], device=dev), cap)
+
     def seg_case(n_rows, n_groups, cap, vals):
+        if n_groups == 0:
+            return seg_sized(torch.zeros(0, dtype=torch.int64, device=dev),
+                             cap, vals)
         cuts = torch.sort(torch.randperm(n_rows - 1, generator=gen,
                                          device=dev)[:n_groups - 1] + 1
-                          ).values if n_groups > 1 else \
-            torch.zeros(0, dtype=torch.int64, device=dev)
-        starts = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
-                            cuts]) if n_groups else cuts
-        ends = torch.cat([cuts - 1, torch.tensor([n_rows - 1], device=dev)]
-                         ) if n_groups else cuts
-        pad = cap - starts.shape[0]
-        z = torch.zeros(pad, dtype=torch.int64, device=dev)
-        return (vals, torch.cat([starts, z]), torch.cat([ends, z]),
-                torch.tensor(n_groups, device=dev), cap)
+                          ).values
+        bounds = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                            cuts, torch.tensor([n_rows], device=dev)])
+        return seg_sized(bounds[1:] - bounds[:-1], cap, vals)
 
     q3 = recorded["sorted_seg"][0][1]
     n_q3 = int(q3[3])
+    SN, singles = 6_000_000, 60_000
+    skewed = (f"skewed: N={SN}, one group of {SN - singles} rows + "
+              f"{singles} singletons, cap={SN}")
     seg_edges = {
         f"N={N} groups={n_q3} (Q3's group count)":
             seg_case(N, n_q3, q3[4], rand_int(-(1 << 40), 1 << 40, (1, N))),
+        skewed: seg_sized(
+            torch.cat([torch.tensor([SN - singles], device=dev),
+                       torch.ones(singles, dtype=torch.int64, device=dev)]),
+            SN, rand_int(-(1 << 40), 1 << 40, (1, SN))),
+        "cap >> groups: N=1000000, 3 groups, cap=4000000":
+            seg_case(1_000_000, 3, 4_000_000,
+                     rand_int(-(1 << 40), 1 << 40, (2, 1_000_000))),
+        "odd cap (unaligned row tails): N=1000003, 1001 groups, "
+        "cap=1000003": seg_case(1_000_003, 1001, 1_000_003,
+                                rand_int(-(1 << 40), 1 << 40,
+                                         (3, 1_000_003))),
         "zero groups": seg_case(edge_n, 0, 64,
                                 torch.zeros((2, edge_n), dtype=torch.int64,
                                             device=dev)),
@@ -488,100 +600,128 @@ def main() -> int:
     for what, a in seg_edges.items():
         compare("sorted_seg", what, a, CK.sorted_seg, CK.sorted_seg_plain)
 
-    # timings at the main path's largest input per kernel ----------------
-    def largest(name, size):
-        return max((a for _, a in recorded[name]), key=size)
+    # timings: each kernel at the main path's largest input for it, then
+    # the extra shapes -----------------------------------------------------
+    timer = Timer(torch, flush, REPS)
 
-    a = largest("dense_agg", lambda a: a[1].numel())
-    gid, iv, fv, sel, cells = a
-    n, k = gid.shape[0], iv.shape[0] + fv.shape[0]
-    keep = sel & (gid >= 0) & (gid < cells)
-    g64 = torch.where(keep, gid, cells).to(torch.int64)
-    mat = torch.cat([keep.to(torch.int64)[None], iv]).t().contiguous()
-    acc = torch.zeros((cells + 1, mat.shape[1]), dtype=torch.int64,
-                      device=dev)
-    report["dense_agg"].update(
-        shape=f"N={n} K={k} cells={cells}",
-        ms=cold_ms(torch, lambda: CK.dense_agg(*a), REPS, flush),
-        plain_ms=cold_ms(torch, lambda: CK.dense_agg_plain(*a), REPS,
-                         flush),
-        library_ms=cold_ms(torch, lambda: acc.index_add_(0, g64, mat),
-                           REPS, flush),
-        bytes=n * (4 + 1 + 8 * k) + 8 * (1 + k) * cells,
-        ops=int(keep.sum()) * (1 + k))
+    def timing(shape, kernel, plain, library, bytes_, ops):
+        ms = timer.device(kernel)
+        check(ms is not None, f"{shape}: the wrapper blocks the host")
+        plain_ms = timer.device(plain)
+        plain_timing = "device"
+        if plain_ms is None:    # the plain version reads the device
+            plain_ms, plain_timing = timer.wrapper(plain), "host-inclusive"
+        library_ms = timer.device(library)
+        check(library_ms is not None, f"{shape}: library call blocks")
+        t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / SCALAR_OPS_PER_S * 1e3
+        out = {"shape": shape, "ms": ms, "wrapper_ms": timer.wrapper(kernel),
+               "plain_ms": plain_ms, "plain_timing": plain_timing,
+               "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        log(f"[time] {shape}: kernel {ms:.4f} ms on the device, "
+            f"{out['wrapper_ms']:.4f} ms with the wrapper; plain "
+            f"{plain_ms:.4f} ms ({plain_timing}), library call "
+            f"{library_ms:.4f} ms, bound {out['bound_ms']:.4f} ms "
+            f"({out['bound_by']})")
+        return out
 
-    a = largest("probe_join", lambda a: a[0].shape[0] * a[2].shape[0])
-    bk, bs, pk, ps, pay = a
-    b, n, p = bk.shape[0], pk.shape[0], pay.shape[0]
-    bidx = torch.nonzero(bs).flatten()
-    order = torch.sort(bk[bidx].to(torch.int64), stable=True).indices
-    sk, src = bk[bidx][order].contiguous(), bidx[order]
-    pays = pay[:, src].contiguous()
-    top = max(sk.shape[0] - 1, 0)
-    report["probe_join"].update(
-        shape=f"B={b} N={n} P={p}",
-        ms=cold_ms(torch, lambda: CK.probe_join(*a), REPS, flush),
-        plain_ms=cold_ms(torch, lambda: CK.probe_join_plain(*a), REPS,
-                         flush),
-        library_ms=cold_ms(
-            torch, lambda: pays[:, torch.searchsorted(sk, pk).clamp(
-                max=top)], REPS, flush),
-        bytes=n * (4 + 1 + 1 + 8 * p) + b * (4 + 1 + 8 * p) + 4,
-        ops=int(ps.sum()) * b)
+    def dense_timing(shape, a):
+        gid, iv, fv, sel, cells = a
+        n, k = gid.shape[0], iv.shape[0] + fv.shape[0]
+        keep = sel & (gid >= 0) & (gid < cells)
+        g64 = torch.where(keep, gid, cells).to(torch.int64)
+        mat = torch.cat([keep.to(torch.int64)[None], iv]).t().contiguous()
+        acc = torch.zeros((cells + 1, mat.shape[1]), dtype=torch.int64,
+                          device=dev)
+        kept = int(keep.sum())
+        return timing(
+            f"dense_agg {shape}", lambda: CK.dense_agg(*a),
+            lambda: CK.dense_agg_plain(*a),
+            lambda: acc.index_add_(0, g64, mat),
+            # gid and sel of every row, the values of the kept rows only
+            # (no other row's values are needed), and the output
+            n * (4 + 1) + 8 * k * kept + 8 * (1 + k) * cells,
+            kept * (1 + k))
 
-    a = largest("sorted_seg", lambda a: a[0].numel())
-    vals, starts, ends, ng, cap = a
-    r, n = vals.shape
-    n_groups = int(ng)
-    sizes = (ends - starts + 1)[:n_groups]
-    n_rows = int(sizes.sum())
-    rowgid = torch.repeat_interleave(
-        torch.arange(n_groups, device=dev), sizes)
-    # the library call's output contract is the kernel's: a count and the
-    # sums for every one of the cap slots, zero past n_groups
-    seg_src = torch.cat([torch.ones((1, n_rows), dtype=torch.int64,
-                                    device=dev), vals[:, :n_rows]]
-                        ).t().contiguous()
-    report["sorted_seg"].update(
-        shape=f"R={r} N={n} groups={n_groups} cap={cap}",
-        ms=cold_ms(torch, lambda: CK.sorted_seg(*a), REPS, flush),
-        plain_ms=cold_ms(torch, lambda: CK.sorted_seg_plain(*a), REPS,
-                         flush),
-        library_ms=cold_ms(
-            torch, lambda: torch.zeros((cap, 1 + r), dtype=torch.int64,
-                                       device=dev).index_add_(0, rowgid,
-                                                              seg_src),
-            REPS, flush),
-        # rows read once, 16 B of boundaries per group (the kernel reads
-        # none past n_groups), n_groups, and the cap-slot outputs written
-        bytes=8 * r * n_rows + 16 * n_groups + 8 + 8 * (1 + r) * cap,
-        ops=r * n_rows)
+    def seg_timing(shape, a):
+        vals, starts, ends, ng, cap = a
+        r = vals.shape[0]
+        n_groups = int(ng)
+        sizes = (ends - starts + 1)[:n_groups]
+        n_rows = int(sizes.sum())
+        rowgid = torch.repeat_interleave(
+            torch.arange(n_groups, device=dev), sizes)
+        # the library call's output contract is the kernel's: a count and
+        # the sums for every one of the cap slots, zero past n_groups
+        seg_src = torch.cat([torch.ones((1, n_rows), dtype=torch.int64,
+                                        device=dev), vals[:, :n_rows]]
+                            ).t().contiguous()
+        return timing(
+            f"sorted_seg {shape}", lambda: CK.sorted_seg(*a),
+            lambda: CK.sorted_seg_plain(*a),
+            lambda: torch.zeros((cap, 1 + r), dtype=torch.int64,
+                                device=dev).index_add_(0, rowgid, seg_src),
+            # rows read once, 16 B of boundaries per group (the kernel
+            # reads none past n_groups), n_groups, the cap-slot outputs
+            8 * r * n_rows + 16 * n_groups + 8 + 8 * (1 + r) * cap,
+            r * n_rows)
+
+    def probe_timing(shape, a):
+        bk, bs, pk, ps, pay = a
+        b, n, p = bk.shape[0], pk.shape[0], pay.shape[0]
+        bidx = torch.nonzero(bs).flatten()
+        order = torch.sort(bk[bidx].to(torch.int64), stable=True).indices
+        sk, src = bk[bidx][order].contiguous(), bidx[order]
+        pays = pay[:, src].contiguous()
+        top = max(sk.shape[0] - 1, 0)
+        return timing(
+            f"probe_join {shape}", lambda: CK.probe_join(*a),
+            lambda: CK.probe_join_plain(*a),
+            lambda: pays[:, torch.searchsorted(sk, pk).clamp(max=top)],
+            n * (4 + 1 + 1 + 8 * p) + b * (4 + 1 + 8 * p) + 4,
+            int(ps.sum()) * b)
+
+    def main_input(name, q, size):
+        """The largest input the kernel got on query q's main path."""
+        return max((a for qq, a in recorded[name] if qq == q), key=size)
+
+    def dense_size(a):
+        return a[1].numel() + a[2].numel()
+
+    a = main_input("dense_agg", "q1", dense_size)
+    report["dense_agg"].update(dense_timing(
+        f"Q1: N={a[0].shape[0]} K={a[1].shape[0] + a[2].shape[0]} "
+        f"cells={a[4]}", a))
+    a = main_input("dense_agg", "q5", dense_size)
+    report["dense_agg"]["cases"] = [
+        dense_timing(f"Q5: N={a[0].shape[0]} "
+                     f"K={a[1].shape[0] + a[2].shape[0]} cells={a[4]}", a),
+        dense_timing(one_cell, dense_cases[one_cell])]
+    a = main_input("probe_join", "q5",
+                   lambda a: a[0].shape[0] * a[2].shape[0])
+    report["probe_join"].update(probe_timing(
+        f"Q5: B={a[0].shape[0]} N={a[2].shape[0]} P={a[4].shape[0]}", a))
+    a = main_input("sorted_seg", "q3", lambda a: a[0].numel())
+    report["sorted_seg"].update(seg_timing(
+        f"Q3: R={a[0].shape[0]} N={a[0].shape[1]} groups={int(a[3])} "
+        f"cap={a[4]}", a))
+    report["sorted_seg"]["cases"] = [seg_timing(skewed, seg_edges[skewed])]
 
     # ---------------------------------------------------------- 5. report
-    kernels = []
-    for name in CK.LAUNCHES:
-        rep = report[name]
-        t_bytes = rep["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = rep["ops"] / SCALAR_OPS_PER_S * 1e3
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"cloudberry_tpu_torch/csrc/{CK.SOURCES[name]}",
-            "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
-            "plain_ms": rep["plain_ms"], "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": rep["library_ms"], "shape": rep["shape"]})
-        log(f"[time] {name} at {rep['shape']}: kernel {rep['ms']:.4f} ms, "
-            f"plain {rep['plain_ms']:.4f} ms, library call "
-            f"{rep['library_ms']:.4f} ms, bound {max(t_bytes, t_ops):.4f} "
-            f"ms ({'bytes' if t_bytes >= t_ops else 'operations'})")
+    kernels = [{
+        "name": name, "route": "cuda",
+        "source": f"cloudberry_tpu_torch/csrc/{CK.SOURCES[name]}",
+        "replaces": REPLACES[name], "launches": launches[name],
+        **report[name]} for name in CK.LAUNCHES]
     for q, ms in query_ms.items():
-        log(f"[time] {q} wall {ms:.3f} ms on {kind} ({smi})")
+        log(f"[time] {q} wall ms {[round(x, 3) for x in ms]} on {kind} "
+            f"({smi})")
     check(all(launches[k] > 0 for k in launches),
           f"a kernel never launched on the main path: {launches}")
     print(smi)
-    print(json.dumps({"kernels": kernels,
-                      "queries_ms": query_ms, "sf": args.sf}))
+    print(json.dumps({"kernels": kernels, "queries_ms": query_ms,
+                      "sf": args.sf}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -48,17 +48,29 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 PROBE_MAX_BUILD = 2048
 MAX_SEG_ROWS = 1 << 23
 
+# the H100's shared memory a block may opt into (dense_agg.cu kSmemMax)
+SMEM_MAX = 232_448
+# dense_agg modes, in the order of cb_dense_agg's `mode` argument
+DENSE_MODES = ("private4", "private16", "shared", "global")
+# sorted_seg: a lane sums a group of at most SEG_SHORT_ROWS rows; longer
+# groups are cut into chunks of SEG_CHUNK_ROWS rows dealt out over the grid
+# (sorted_seg.cu's header note says why)
+SEG_SHORT_ROWS = 32
+SEG_CHUNK_ROWS = 1 << 10
+SEG_CHUNK_BLOCKS = 2    # chunk-pass blocks an SM, resident beside seg_main
+SEG_MAX_CAP = 1 << 27   # the queue's entry count field (sorted_seg.cu)
+
 _P = ctypes.c_void_p
+_I, _I64 = ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
     "dense_agg": ("cb_dense_agg",
-                  [_P, _P, _P, _P, ctypes.c_int64, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, _P, _P, _P]),
+                  [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _P, _P,
+                   _P]),
     "probe_join": ("cb_probe_join",
-                   [_P, _P, ctypes.c_int, _P, _P, ctypes.c_int64, _P,
-                    ctypes.c_int, _P, _P, _P, _P]),
+                   [_P, _P, _I, _P, _P, _I64, _P, _I, _P, _P, _P, _P]),
     "sorted_seg": ("cb_sorted_seg",
-                   [_P, ctypes.c_int, ctypes.c_int64, _P, _P, _P,
-                    ctypes.c_int64, _P, _P, _P]),
+                   [_P, _I, _I64, _P, _P, _P, _I64, _I64, _I64, _P, _P, _P,
+                    _P, _I64, _I, _P]),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -165,18 +177,46 @@ def dense_agg(gid: torch.Tensor, ivals: torch.Tensor, fvals: torch.Tensor,
     ivals = _check(ivals, torch.int64, "dense_agg ivals")
     fvals = _check(fvals, torch.float64, "dense_agg fvals")
     sel = _check(sel, torch.bool, "dense_agg sel")
+    n = gid.shape[0]
+    if ivals.shape[1:] != (n,) or fvals.shape[1:] != (n,) or \
+            sel.shape != (n,):
+        raise ValueError(f"dense_agg: shapes {tuple(gid.shape)}, "
+                         f"{tuple(ivals.shape)}, {tuple(fvals.shape)}, "
+                         f"{tuple(sel.shape)} do not agree")
     if not _on_cuda(gid, ivals, fvals, sel):
         return dense_agg_plain(gid, ivals, fvals, sel, n_cells)
-    n, ki, kf = gid.shape[0], ivals.shape[0], fvals.shape[0]
+    ki, kf = ivals.shape[0], fvals.shape[0]
+    mode, threads, smem = dense_agg_plan(ki, kf, n_cells)
     # accumulation targets start at zero (the kernel adds into them)
     out_int = torch.zeros((1 + ki, n_cells), dtype=torch.int64,
                           device=gid.device)
     out_flt = torch.zeros((kf, n_cells), dtype=torch.float64,
                           device=gid.device)
     _launch("dense_agg", gid.data_ptr(), ivals.data_ptr(), fvals.data_ptr(),
-            sel.data_ptr(), n, ki, kf, n_cells, out_int.data_ptr(),
-            out_flt.data_ptr(), _stream(gid))
+            sel.data_ptr(), n, ki, kf, n_cells, DENSE_MODES.index(mode),
+            threads, smem, out_int.data_ptr(), out_flt.data_ptr(),
+            _stream(gid))
     return out_int[0], out_int[1:], out_flt
+
+
+def dense_agg_plan(ki: int, kf: int, n_cells: int) -> tuple[str, int, int]:
+    """(mode, threads a block, dynamic shared bytes) of the dense_agg
+    kernel for Ki int and Kf float value rows over n_cells cells.
+
+    "private4"/"private16" give every thread its own column of
+    (1 + Ki + Kf) * cells 8-byte accumulators, at 256 threads a block or as
+    few as 64, and take 4 rows a step (16 when there are at most two value
+    rows, to keep as many bytes in flight); "shared" gives the block one
+    copy of them, added with shared-memory atomics; "global" adds into the
+    output with global atomics."""
+    slots = (1 + ki + kf) * n_cells
+    for threads in (256, 128, 64):
+        if threads * slots * 8 <= SMEM_MAX:
+            mode = "private16" if ki + kf <= 2 else "private4"
+            return mode, threads, threads * slots * 8
+    if slots * 8 <= SMEM_MAX:
+        return "shared", 256, slots * 8
+    return "global", 256, 0
 
 
 def dense_agg_plain(gid, ivals, fvals, sel, n_cells: int):
@@ -262,16 +302,60 @@ def sorted_seg(vals: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
     starts = _check(starts, torch.int64, "sorted_seg starts")
     ends = _check(ends, torch.int64, "sorted_seg ends")
     n_groups = _check(n_groups.reshape(1), torch.int64, "sorted_seg n_groups")
+    if vals.dim() != 2 or starts.shape != (cap,) or ends.shape != (cap,):
+        raise ValueError(f"sorted_seg: vals {tuple(vals.shape)}, starts "
+                         f"{tuple(starts.shape)}, ends {tuple(ends.shape)} "
+                         f"for {cap} slots")
     if not _on_cuda(vals, starts, ends, n_groups):
         return sorted_seg_plain(vals, starts, ends, n_groups[0], cap)
     r, n = vals.shape
+    if cap >= SEG_MAX_CAP:
+        raise ValueError(f"sorted_seg: {cap} slots exceed {SEG_MAX_CAP - 1}")
     dev = vals.device
-    counts = torch.empty((cap,), dtype=torch.int64, device=dev)
-    sums = torch.empty((r, cap), dtype=torch.int64, device=dev)
-    _launch("sorted_seg", vals.data_ptr(), r, n, starts.data_ptr(),
-            ends.data_ptr(), n_groups.data_ptr(), cap, counts.data_ptr(),
-            sums.data_ptr(), _stream(vals))
-    return counts, sums
+    short_rows, chunk_rows, queue_cap, chunk_blocks = sorted_seg_plan(n, cap)
+    out = torch.empty((1 + r, cap), dtype=torch.int64, device=dev)
+    entries = torch.empty((2 * queue_cap,), dtype=torch.int64, device=dev)
+    stream = _stream(vals)
+    header, spare = _seg_headers(dev, stream)
+    try:
+        _launch("sorted_seg", vals.data_ptr(), r, n, starts.data_ptr(),
+                ends.data_ptr(), n_groups.data_ptr(), cap, short_rows,
+                chunk_rows, out.data_ptr(), header.data_ptr(),
+                spare.data_ptr(), entries.data_ptr(), queue_cap,
+                chunk_blocks, stream)
+    except RuntimeError:
+        del _SEG_HEADERS[(dev.index, stream)]  # a set may be left dirty
+        raise
+    return out[0], out[1:]
+
+
+def sorted_seg_plan(n_rows: int, cap: int) -> tuple[int, int, int, int]:
+    """(short_rows, chunk_rows, queue_cap, chunk_blocks_per_sm) of the
+    sorted_seg kernel over n_rows input rows and cap output slots. Groups
+    longer than short_rows rows are queued for the chunk pass; disjoint row
+    ranges hold at most n_rows // (short_rows + 1) of them and there are at
+    most cap groups, so the queue never overflows on group_layout's
+    boundaries."""
+    return (SEG_SHORT_ROWS, SEG_CHUNK_ROWS,
+            min(cap, n_rows // (SEG_SHORT_ROWS + 1)) + 1, SEG_CHUNK_BLOCKS)
+
+
+# per (device, stream): two header sets and the number of calls so far
+_SEG_HEADERS: dict[tuple[int, int], list] = {}
+
+
+def _seg_headers(dev: torch.device, stream: int):
+    """The sorted_seg kernel's header words (queue, padding chunks taken)
+    for this call, and the spare set it zeroes for the next call. The two
+    sets alternate, so no call pays a memset (sorted_seg.cu)."""
+    key = (dev.index, stream)
+    if key not in _SEG_HEADERS:
+        _SEG_HEADERS[key] = [torch.zeros((2, 2), dtype=torch.int64,
+                                         device=dev), 0]
+    state = _SEG_HEADERS[key]
+    sets, calls = state
+    state[1] = calls + 1
+    return sets[calls % 2], sets[(calls + 1) % 2]
 
 
 def sorted_seg_plain(vals, starts, ends, n_groups, cap: int):

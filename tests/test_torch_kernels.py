@@ -82,8 +82,11 @@ def T(a):
 
 # ------------------------------------------------------------- dense_agg
 
-def _dense_case(rng, n, cells, ki, kf, sel_p=0.8, lo=-10**9, hi=10**9):
+def _dense_case(rng, n, cells, ki, kf, sel_p=0.8, lo=-10**9, hi=10**9,
+                hot=None):
     gid = rng.integers(-1, cells + 1, n).astype(np.int32)
+    if hot is not None:  # every row in one cell
+        gid[:] = hot
     ivals = rng.integers(lo, hi, (ki, n), dtype=np.int64)
     fvals = rng.normal(size=(kf, n)) * 100.0
     sel = rng.random(n) < sel_p
@@ -99,6 +102,7 @@ DENSE_CASES = {
                             hi=0),
     "wraparound": dict(n=4100, cells=4, ki=2, kf=0, lo=BIG, hi=BIG + 9),
     "many_cells": dict(n=2048, cells=300, ki=1, kf=0),
+    "one_cell": dict(n=5000, cells=6, ki=7, kf=0, hot=2),
 }
 
 
@@ -186,6 +190,11 @@ SEG_CASES = {
     "wraparound": dict(groups=30, lo=BIG, hi=BIG + 9),
     "negative_values": dict(groups=300, lo=-10**15, hi=0),
     "one_group": dict(groups=1),
+    # Q3's shape: the capacity is the input's row count, far above the
+    # group count, so most output slots are padding
+    "cap_much_larger": dict(groups=40, cap=SEG_N),
+    # one key holds most rows beside many small groups
+    "skewed": dict(groups=300, hot=0.9),
 }
 
 
@@ -196,6 +205,8 @@ def test_sorted_segment_plain_matches_pallas(case):
     rng = np.random.default_rng(len(case) + 7)
     n = SEG_N
     k1 = rng.integers(0, cfg["groups"], n).astype(np.int64)
+    if "hot" in cfg:
+        k1[rng.random(n) < cfg["hot"]] = 0
     k2 = (k1 % 3).astype(np.int32)
     sel = rng.random(n) < cfg["sel_p"]
     vals = {"s0": rng.integers(cfg["lo"], cfg["hi"], n, dtype=np.int64)}
@@ -203,7 +214,7 @@ def test_sorted_segment_plain_matches_pallas(case):
     specs_j = [JK.AggSpec("sum", nm) for nm in vals if nm[0] == "s"] + \
         [JK.AggSpec("avg", "a0"), JK.AggSpec("count", "c")]
     specs_t = [TK.AggSpec(s.func, s.out_name) for s in specs_j]
-    cap = cfg["groups"] + 5
+    cap = cfg.get("cap", cfg["groups"] + 5)
     jk, ja, jsel, jn = PK.sorted_segment_aggregate(
         {"k1": jnp.asarray(k1), "k2": jnp.asarray(k2)},
         {k: jnp.asarray(v) for k, v in vals.items()}, specs_j,
@@ -219,6 +230,63 @@ def test_sorted_segment_plain_matches_pallas(case):
     for k in ja:
         assert ta[k].numpy().dtype == np.asarray(ja[k]).dtype, k
         np.testing.assert_array_equal(ta[k].numpy(), np.asarray(ja[k]))
+
+
+def test_dense_agg_plan():
+    """The host's choice of the dense kernel's mode, block and shared
+    memory: Q1 and Q5 take per-thread private accumulators, a wide domain
+    the block-shared copy, Q1's keys at 4096 cells global atomics."""
+    assert CK.dense_agg_plan(7, 0, 6) == ("private4", 256, 256 * 48 * 8)
+    assert CK.dense_agg_plan(1, 0, 25) == ("private16", 256, 256 * 50 * 8)
+    assert CK.dense_agg_plan(1, 2, 25) == ("private4", 256, 256 * 100 * 8)
+    assert CK.dense_agg_plan(1, 0, 300) == ("shared", 256, 600 * 8)
+    assert CK.dense_agg_plan(7, 0, 4096) == ("global", 256, 0)
+    order = {"private4": 0, "private16": 0, "shared": 1, "global": 2}
+    for ki, kf in ((0, 0), (1, 0), (0, 2), (7, 0), (3, 5), (12, 1)):
+        last = 0
+        for cells in (1, 2, 6, 25, 100, 300, 1000, 4096, 20000):
+            mode, threads, smem = CK.dense_agg_plan(ki, kf, cells)
+            slots = (1 + ki + kf) * cells
+            assert order[mode] >= last  # a wider domain never goes back
+            last = order[mode]
+            assert smem <= CK.SMEM_MAX and threads % 32 == 0
+            if mode.startswith("private"):
+                assert threads >= 64 and smem == threads * slots * 8
+                assert (mode == "private16") == (ki + kf <= 2)
+            elif mode == "shared":
+                assert smem == slots * 8
+                assert 64 * slots * 8 > CK.SMEM_MAX
+            else:
+                assert smem == 0 and slots * 8 > CK.SMEM_MAX
+
+
+@pytest.mark.parametrize("n,cap", [(0, 1), (1, 1), (32, 64), (33, 64),
+                                   (2049, 2049), (5_997_925, 5_997_925),
+                                   (5_997_925, 20)])
+def test_sorted_seg_plan(n, cap):
+    """The queue holds every group longer than short_rows that disjoint
+    row ranges can hold: n // (short_rows + 1) of them, at most cap."""
+    short_rows, chunk_rows, queue_cap, blocks = CK.sorted_seg_plan(n, cap)
+    assert short_rows == CK.SEG_SHORT_ROWS and chunk_rows >= 32
+    assert blocks >= 1
+    assert queue_cap >= min(cap, n // (short_rows + 1))
+    assert queue_cap <= cap + 1
+    # the queue's entry count and first-chunk index share one word
+    assert cap < CK.SEG_MAX_CAP and n // chunk_rows + cap < 1 << 36
+
+
+def test_sorted_seg_header_sets_alternate():
+    """Calls on one device and stream use the two header sets in turn, and
+    each is handed the other to zero for the next call."""
+    CK._SEG_HEADERS.pop((None, 12345), None)
+    dev = torch.device("cpu")
+    first, spare = CK._seg_headers(dev, 12345)
+    second, spare2 = CK._seg_headers(dev, 12345)
+    third, _ = CK._seg_headers(dev, 12345)
+    assert first.data_ptr() == spare2.data_ptr() == third.data_ptr()
+    assert second.data_ptr() == spare.data_ptr() != first.data_ptr()
+    assert first.shape == (2,) and not first.any()
+    CK._SEG_HEADERS.pop((None, 12345))
 
 
 def test_sorted_segment_gate_matches_reference():
@@ -248,6 +316,16 @@ def test_wrapper_refuses_other_devices():
                      torch.zeros((0, 8), dtype=torch.int64),
                      torch.zeros((0, 8), dtype=torch.float64),
                      torch.zeros(8, dtype=torch.bool), 4)
+    with pytest.raises(ValueError):  # value rows shorter than gid
+        CK.dense_agg(torch.zeros(8, dtype=torch.int32),
+                     torch.zeros((2, 7), dtype=torch.int64),
+                     torch.zeros((0, 8), dtype=torch.float64),
+                     torch.zeros(8, dtype=torch.bool), 4)
+    with pytest.raises(ValueError):  # fewer boundaries than slots
+        CK.sorted_seg(torch.zeros((1, 8), dtype=torch.int64),
+                      torch.zeros(3, dtype=torch.int64),
+                      torch.zeros(3, dtype=torch.int64),
+                      torch.tensor(2), 4)
     with pytest.raises(ValueError):
         CK.probe_join(torch.zeros(2049, dtype=torch.int32),
                       torch.zeros(2049, dtype=torch.bool),

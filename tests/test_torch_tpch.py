@@ -85,6 +85,55 @@ def test_count_only_dense_group_by(sessions, monkeypatch):
     _assert_equal(got, want.sql(QUERIES["q4"]))
 
 
+# GROUP BY shapes around the dense path: dictionary keys, a string CASE,
+# keys made nullable by an outer join (NULL groups), COALESCE over them,
+# a derived dictionary (SUBSTRING), a COUNT-only aggregate
+DENSE_SQL = {
+    "q1": QUERIES["q1"],
+    "q4": QUERIES["q4"],
+    "q5": QUERIES["q5"],
+    "string_case": "select case when l_quantity > 25 then 'big' else "
+                   "'small' end as sz, count(*) as c, sum(l_quantity) as q "
+                   "from lineitem group by sz",
+    "null_key": "select n_name, count(*) as c from customer left join "
+                "nation on c_nationkey = n_nationkey + 20 group by n_name",
+    "coalesce_null_key": "select coalesce(n_name, 'none') as nm, count(*) "
+                         "as c from customer left join nation on "
+                         "c_nationkey = n_nationkey + 20 "
+                         "group by coalesce(n_name, 'none')",
+    "substring_key": "select substring(c_phone from 1 for 2) as cc, "
+                     "count(*) as c, sum(c_acctbal) as b from customer "
+                     "group by substring(c_phone from 1 for 2)",
+}
+
+
+@pytest.mark.parametrize("name", sorted(DENSE_SQL))
+def test_dense_cells_stay_in_domain(sessions, name, monkeypatch):
+    """The port's dense kernel drops a selected row whose cell id lies
+    outside [0, cells); the reference's default path clamps it into an edge
+    cell. No SQL hands the kernel such a row: dictionary codes index their
+    dictionary, and a NULL key (outer join) rides a separate validity key,
+    which is not a string, so that GROUP BY takes the sort path. Every
+    dense call here sees only in-domain cells, and each result equals the
+    reference's default (non-Pallas) session."""
+    js, ts = sessions
+    calls = []
+    real = CK.dense_agg
+
+    def spy(gid, ivals, fvals, sel, n_cells):
+        g = gid[sel]
+        calls.append(bool(((g >= 0) & (g < n_cells)).all()))
+        return real(gid, ivals, fvals, sel, n_cells)
+
+    monkeypatch.setattr(CK, "dense_agg", spy)
+    want = cb.Session(js.config.with_overrides(**{"exec.use_pallas": False}))
+    want.catalog = js.catalog
+    got = ts.sql(DENSE_SQL[name])
+    assert all(calls)
+    assert bool(calls) == (name != "null_key"), calls
+    _assert_equal(got, want.sql(DENSE_SQL[name]))
+
+
 def _assert_equal(got, want):
     assert [f.name for f in got.schema.fields] == \
         [f.name for f in want.schema.fields]
