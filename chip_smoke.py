@@ -22,12 +22,17 @@ Phases (any failure exits non-zero, and nothing is caught and passed over):
    synthetic inputs at the main path's shapes plus edge cases (empty
    selection, ragged N, int64 wraparound, duplicate build keys, one hot
    cell, cell domains for each of dense_agg's modes, a skewed group, odd
-   capacities), must equal
-   its plain version on the card; then its median time over 20 cold-cache
-   runs on the device alone (``Timer.device``) and with the wrapper's host
-   work (``wrapper_ms``), beside its plain version's, one PyTorch library
-   call computing the same function, and its bound (bytes over 3.35 TB/s
-   or operations over 67 T/s, whichever is larger);
+   capacities; for probe_join multi-column, out-of-range, negative, bool,
+   int32 and float keys, mixed payload dtypes, an empty build selection,
+   key spans whose product is 2^32), must equal its plain version on the
+   card; then its median time over 20 cold-cache runs on the device alone
+   (``Timer.device``) and with the wrapper's host work (``wrapper_ms``),
+   beside its plain version's, one PyTorch library call computing the same
+   function, and its bound (bytes over 3.35 TB/s or operations over 67
+   T/s, whichever is larger). The probe-join operator is also timed as it
+   was before its fused kernel (key packing in PyTorch around the kernel)
+   and as the executor's sorted lookup, and each Q5 probe join is traced
+   with torch.profiler: it must be one device kernel;
 5. report: the card line, one JSON line of kernels, and last the JSON line
    ``{"ok": true, "device": {...}}``.
 """
@@ -331,6 +336,8 @@ def main() -> int:
     from cloudberry_tpu_torch import tpch
     from cloudberry_tpu_torch.catalog import carry
     from cloudberry_tpu_torch.exec import cuda_kernels as CK
+    from cloudberry_tpu_torch.exec import executor as X
+    from cloudberry_tpu_torch.exec import kernels as K
     from cloudberry_tpu_torch.types import date_to_days
 
     # ---------------------------------------------------------- 1. device
@@ -372,14 +379,28 @@ def main() -> int:
     current = [None]
     originals = {k: getattr(CK, k) for k in CK.LAUNCHES}
 
+    def snap(x):
+        if torch.is_tensor(x):
+            return x.clone()
+        return [snap(y) for y in x] if isinstance(x, list) else x
+
     def recorder(name):
         def wrapped(*a):
-            if a[0].device.type == "cuda":
-                recorded[name].append(
-                    (current[0], [x.clone() if torch.is_tensor(x) else x
-                                  for x in a]))
+            if a[1].device.type == "cuda":
+                recorded[name].append((current[0], [snap(x) for x in a]))
             return originals[name](*a)
         return wrapped
+
+    # the probe-join operator as the Lowerer calls it on Q5, to count its
+    # device kernels later
+    operator_calls = []
+    real_gate = X.Lowerer._probe_join_kernel
+
+    def gate_recorder(self, *a):
+        out = real_gate(self, *a)
+        if out is not None:     # the join took the probe-join kernel
+            operator_calls.append((self, a))
+        return out
 
     launches = {k: 0 for k in CK.LAUNCHES}
     query_ms = {}
@@ -387,12 +408,15 @@ def main() -> int:
         sql = tpch.QUERIES[q]
         for k in CK.LAUNCHES:
             setattr(CK, k, recorder(k))
+        if q == "q5":
+            X.Lowerer._probe_join_kernel = gate_recorder
         current[0] = q
         t0 = time.perf_counter()
         gpu.sql(sql)
         warm_ms = (time.perf_counter() - t0) * 1e3
         for k, fn in originals.items():
             setattr(CK, k, fn)
+        X.Lowerer._probe_join_kernel = real_gate
         torch.cuda.synchronize()
         for k in CK.LAUNCHES:
             CK.LAUNCHES[k] = 0
@@ -515,34 +539,103 @@ def main() -> int:
         compare("dense_agg", what, a, CK.dense_agg, CK.dense_agg_plain)
 
     # probe_join ----------------------------------------------------------
+    def probe_outputs(fn, a):
+        """(matched, *payload columns, duplicate flag) of one probe-join
+        call on a fresh zeroed flag slot."""
+        flag = torch.zeros(1, dtype=torch.int32, device=dev)
+        matched, out = fn(*a[:5], flag)
+        return (matched, *out, flag)
+
+    def probe_compare(what, a):
+        compare("probe_join", what, a,
+                lambda *x: probe_outputs(CK.probe_join, x),
+                lambda *x: probe_outputs(CK.probe_join_plain, x))
+        return probe_outputs(CK.probe_join, a)
+
     for q, a in recorded["probe_join"]:
-        compare("probe_join", f"{q} main-path input (B={a[0].shape[0]}, "
-                f"N={a[2].shape[0]}, P={a[4].shape[0]})", a, CK.probe_join,
-                CK.probe_join_plain)
+        probe_compare(f"{q} main-path input (B={a[1].shape[0]}, "
+                      f"N={a[3].shape[0]}, keys={len(a[0])}, "
+                      f"P={len(a[4])})", a)
+
+    def probe_case(b, n, kind="int64", pay=(torch.int64, torch.int32),
+                   bsel_p=0.9, psel_p=0.9, dup=False):
+        """Raw key columns of a kind (unique build keys, probe keys drawn
+        from four times their range), selections, payload columns."""
+        span = 4 * b
+        ids = torch.randperm(span, generator=gen, device=dev)[:b]
+        pids = rand_int(0, span, (n,))
+        if kind == "int64":
+            bk, pk = [ids], [pids]
+        elif kind == "int32":
+            bk, pk = [ids.to(torch.int32)], [pids.to(torch.int32)]
+        elif kind == "two_column":
+            bk = [ids // 7, (ids % 7).to(torch.int32)]
+            pk = [pids // 7, (pids % 7).to(torch.int32)]
+        elif kind == "out_of_range":
+            bk, pk = [ids], [rand_int(-span, 2 * span, (n,))]
+        elif kind == "negative_int64":
+            bk, pk = [ids * -(10 ** 12 + 7919)], [pids * -(10 ** 12 + 7919)]
+        elif kind == "bool":
+            bk = [torch.tensor([True, False], device=dev)[:b]]
+            pk = [rand_sel(n, 0.5)]
+        elif kind == "float64":
+            bk = [1.0 + ids.to(torch.float64) * 2.0 ** -52]
+            pk = [1.0 + pids.to(torch.float64) * 2.0 ** -52]
+        elif kind == "span_2_32":   # spans 2^16 x 2^16: product 2^32
+            bk = [rand_int(0, 1 << 16, (b,), torch.int32) for _ in "12"]
+            pk = [rand_int(-5, (1 << 16) + 5, (n,), torch.int32)
+                  for _ in "12"]
+            for bc, pc in zip(bk, pk):
+                bc[0], bc[1] = 0, 65535
+                pc[:b] = bc
+        else:
+            raise KeyError(kind)
+        bsel, psel = rand_sel(b, bsel_p), rand_sel(n, psel_p)
+        if dup:
+            for bc, pc in zip(bk, pk):
+                bc[1] = bc[0]
+                pc[:5] = bc[0]
+            bsel[:2] = True
+            psel[:5] = True
+        payload = [rand_sel(b, 0.5) if dt == torch.bool else
+                   rand_int(-(1 << 30), 1 << 30, (b,), dt) if
+                   dt == torch.int32 else
+                   rand_int(-(1 << 62), 1 << 62, (b,)) for dt in pay]
+        return bk, bsel, pk, psel, payload
+
     PN = 1_500_000
-    for b in (5, 25, 2048):
-        bk = torch.randperm(4 * b, generator=gen, device=dev)[:b] \
-            .to(torch.int32)
-        a = (bk, rand_sel(b), rand_int(0, 4 * b, (PN,), torch.int32),
-             rand_sel(PN), rand_int(-(1 << 62), 1 << 62, (2, b)))
-        compare("probe_join", f"B={b} N={PN} P=2", a, CK.probe_join,
-                CK.probe_join_plain)
-    dup = torch.tensor([3, 7, 3, 9], dtype=torch.int32, device=dev)
-    pk = rand_int(0, 12, (edge_n,), torch.int32)
-    a = (dup, torch.ones(4, dtype=torch.bool, device=dev), pk,
-         torch.ones(edge_n, dtype=torch.bool, device=dev),
-         rand_int(-99, 99, (1, 4)))
-    compare("probe_join", "duplicate build key", a, CK.probe_join,
-            CK.probe_join_plain)
-    check(bool(CK.probe_join(*a)[2]) == bool((pk == 3).any()),
-          "probe_join: duplicate flag not set")
-    a = (dup, torch.ones(4, dtype=torch.bool, device=dev), pk,
-         torch.zeros(edge_n, dtype=torch.bool, device=dev),
-         rand_int(-99, 99, (1, 4)))
-    compare("probe_join", "empty probe selection", a, CK.probe_join,
-            CK.probe_join_plain)
-    check(not bool(CK.probe_join(*a)[2]),
-          "probe_join: duplicate flag set without a probe hit")
+    LN = gpu.catalog.table("lineitem").num_rows
+    probe_large = f"B=2048 N={LN} P=2 (int64 key; int64, int32 payload)"
+    probe_cases = {f"B={b} N={PN} P=2": probe_case(b, PN)
+                   for b in (5, 25, 2048)}
+    probe_cases[probe_large] = probe_case(2048, LN)
+    edge_probe = {
+        "two-column key": probe_case(300, edge_n, "two_column"),
+        "probe keys below and above the build's range":
+            probe_case(100, edge_n, "out_of_range"),
+        "negative int64 keys": probe_case(200, edge_n, "negative_int64"),
+        "int32 key": probe_case(700, edge_n, "int32"),
+        "bool key": probe_case(2, edge_n, "bool", bsel_p=1.0),
+        "float64 key (sort_key_u64 in the wrapper)":
+            probe_case(50, edge_n, "float64"),
+        "int32 + int64 + bool payload":
+            probe_case(25, edge_n, pay=(torch.int32, torch.int64,
+                                        torch.bool)),
+        "membership only (no payload)": probe_case(25, edge_n, pay=()),
+        "empty build selection": probe_case(25, edge_n, bsel_p=0.0),
+        "key spans whose product is 2^32":
+            probe_case(64, edge_n, "span_2_32", bsel_p=1.0),
+        "duplicate build key": probe_case(25, edge_n, dup=True),
+        "duplicate build key, empty probe selection":
+            probe_case(25, edge_n, dup=True, psel_p=0.0),
+    }
+    edge_probe["duplicate build key, empty probe selection"][3].zero_()
+    for what, a in {**probe_cases, **edge_probe}.items():
+        flag = probe_compare(what, a)[-1]
+        want_dup = what.startswith("duplicate build key") and \
+            "empty probe" not in what
+        check(int(flag) == int(want_dup),
+              f"probe_join {what}: duplicate flag {int(flag)}")
 
     # sorted_seg ----------------------------------------------------------
     for q, a in recorded["sorted_seg"]:
@@ -668,19 +761,96 @@ def main() -> int:
             r * n_rows)
 
     def probe_timing(shape, a):
-        bk, bs, pk, ps, pay = a
-        b, n, p = bk.shape[0], pk.shape[0], pay.shape[0]
+        bk, bs, pk, ps, pay = a[:5]
+        b, n = bs.shape[0], ps.shape[0]
+        flag = torch.zeros(1, dtype=torch.int32, device=dev)
+        key_bytes = sum(k.element_size() for k in bk)
+        pay_bytes = sum(c.element_size() for c in pay)
+        n_sel = int(ps.sum())
+        # the library call: searchsorted of the raw one-column probe key
+        # in the sorted selected build keys, then a gather per column
         bidx = torch.nonzero(bs).flatten()
-        order = torch.sort(bk[bidx].to(torch.int64), stable=True).indices
-        sk, src = bk[bidx][order].contiguous(), bidx[order]
-        pays = pay[:, src].contiguous()
+        order = torch.sort(bk[0][bidx], stable=True).indices
+        sk, src = bk[0][bidx][order].contiguous(), bidx[order]
+        spay = [c[src].contiguous() for c in pay]
         top = max(sk.shape[0] - 1, 0)
-        return timing(
-            f"probe_join {shape}", lambda: CK.probe_join(*a),
-            lambda: CK.probe_join_plain(*a),
-            lambda: pays[:, torch.searchsorted(sk, pk).clamp(max=top)],
-            n * (4 + 1 + 1 + 8 * p) + b * (4 + 1 + 8 * p) + 4,
-            int(ps.sum()) * b)
+
+        def library():
+            i = torch.searchsorted(sk, pk[0]).clamp(max=top)
+            return [c[i] for c in spay]
+
+        # every probe row's selection, match flag and payload values, the
+        # key columns of the selected probe rows, the build side
+        bytes_ = n * (1 + 1 + pay_bytes) + n_sel * key_bytes \
+            + b * (key_bytes + 1 + pay_bytes) + 4
+        out = timing(
+            f"probe_join {shape}", lambda: CK.probe_join(*a[:5], flag),
+            lambda: CK.probe_join_plain(*a[:5], flag), library, bytes_,
+            n_sel)   # one table lookup per selected probe row
+        # a yardstick: a device copy moving as many bytes (half of them
+        # read, half written) under the same timer
+        src = torch.empty(bytes_ // 2, dtype=torch.uint8, device=dev)
+        dst = torch.empty_like(src)
+        out["copy_ms"] = timer.device(lambda: dst.copy_(src))
+        log(f"[time] probe_join {shape}, a copy of as many bytes: "
+            f"{out['copy_ms']:.4f} ms")
+        # the operator as it was before the fused kernel (key packing in
+        # PyTorch, a zeroed flag, stacked int64 payload, casts back, the
+        # flag's compare), with the fused kernel on the prepacked keys,
+        # and the executor's sorted lookup (K.join_lookup +
+        # K.gather_payload) on the same raw inputs
+        names = [f"c{i}" for i in range(len(pay))]
+
+        def old_route():
+            ranges = K.key_ranges(bk, bs)
+            bp = K.downcast32(K.pack_with_ranges(bk, ranges))
+            pp = K.downcast32(K.pack_with_ranges(pk, ranges))
+            rows = [c.to(torch.int64) for c in pay]
+            stacked = torch.stack(rows) if rows else \
+                torch.zeros((0, b), dtype=torch.int64, device=dev)
+            has_dup = torch.zeros((1,), dtype=torch.int32, device=dev)
+            matched, got = CK.probe_join([bp], bs, [pp], ps, list(stacked),
+                                         has_dup)
+            return matched, [g.to(c.dtype) for g, c in zip(got, pay)], \
+                has_dup[0] != 0
+
+        def sorted_lookup():
+            idx, matched, has_dup = K.join_lookup(bk, bs, pk, ps, bits=32)
+            return matched, K.gather_payload(dict(zip(names, pay)), idx,
+                                              matched), has_dup
+
+        for label, fn in (("old_route", old_route),
+                          ("sorted_lookup", sorted_lookup)):
+            out[f"{label}_ms"] = timer.device(fn)
+            out[f"{label}_wrapper_ms"] = timer.wrapper(fn)
+            log(f"[time] probe_join {shape}, {label.replace('_', ' ')}: "
+                f"{out[f'{label}_ms']} ms on the device, "
+                f"{out[f'{label}_wrapper_ms']:.4f} ms with the host work")
+        return out
+
+    def kernels_per_probe_join():
+        """Device operations (kernels, fills, copies) of each Q5 probe join
+        of the warm-up run, called again on its Lowerer and inputs under
+        torch.profiler."""
+        from torch.profiler import ProfilerActivity, profile
+
+        counts = []
+        for low, args in operator_calls:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                check(low._probe_join_kernel(*args) is not None,
+                      "a Q5 join left the probe-join kernel")
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events()
+                     if e.device_type.name == "CUDA"]
+            counts.append(len(names))
+            log(f"[profile] Q5 probe join (B={args[2].shape[0]}, "
+                f"N={args[4].shape[0]}): {len(names)} device "
+                f"operation(s): {names}")
+        check(counts and all(c == 1 for c in counts),
+              f"Q5 probe joins are not one device kernel each: {counts}")
+        return counts
 
     def main_input(name, q, size):
         """The largest input the kernel got on query q's main path."""
@@ -689,6 +859,12 @@ def main() -> int:
     def dense_size(a):
         return a[1].numel() + a[2].numel()
 
+    # the timer's floor: one tiny op after the L2 flush (the flush leaves
+    # dirty lines in L2 that the next op's misses write back)
+    one = torch.zeros(1, device=dev)
+    timer_floor_ms = timer.device(lambda: one.add_(1))
+    log(f"[time] timer floor, one tiny op after the flush: "
+        f"{timer_floor_ms:.4f} ms")
     a = main_input("dense_agg", "q1", dense_size)
     report["dense_agg"].update(dense_timing(
         f"Q1: N={a[0].shape[0]} K={a[1].shape[0] + a[2].shape[0]} "
@@ -699,9 +875,12 @@ def main() -> int:
                      f"K={a[1].shape[0] + a[2].shape[0]} cells={a[4]}", a),
         dense_timing(one_cell, dense_cases[one_cell])]
     a = main_input("probe_join", "q5",
-                   lambda a: a[0].shape[0] * a[2].shape[0])
+                   lambda a: a[1].shape[0] * a[3].shape[0])
     report["probe_join"].update(probe_timing(
-        f"Q5: B={a[0].shape[0]} N={a[2].shape[0]} P={a[4].shape[0]}", a))
+        f"Q5: B={a[1].shape[0]} N={a[3].shape[0]} P={len(a[4])}", a))
+    report["probe_join"]["cases"] = [
+        probe_timing(probe_large, probe_cases[probe_large])]
+    report["probe_join"]["kernels_per_q5_join"] = kernels_per_probe_join()
     a = main_input("sorted_seg", "q3", lambda a: a[0].numel())
     report["sorted_seg"].update(seg_timing(
         f"Q3: R={a[0].shape[0]} N={a[0].shape[1]} groups={int(a[3])} "
@@ -721,7 +900,7 @@ def main() -> int:
           f"a kernel never launched on the main path: {launches}")
     print(smi)
     print(json.dumps({"kernels": kernels, "queries_ms": query_ms,
-                      "sf": args.sf}))
+                      "timer_floor_ms": timer_floor_ms, "sf": args.sf}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -29,6 +29,7 @@ import ctypes
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 from pathlib import Path
 
@@ -46,6 +47,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # the reference's gates, kept so the port takes the same path per plan
 PROBE_MAX_BUILD = 2048
+# the probe-join kernel's argument block (probe_join.cu kMaxKeys,
+# kMaxPayload); a join with more columns keeps the sorted lookup
+PROBE_MAX_KEYS = 4
+PROBE_MAX_PAYLOAD = 16
 MAX_SEG_ROWS = 1 << 23
 
 # the H100's shared memory a block may opt into (dense_agg.cu kSmemMax)
@@ -66,8 +71,7 @@ _SIGNATURES = {
     "dense_agg": ("cb_dense_agg",
                   [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _P, _P,
                    _P]),
-    "probe_join": ("cb_probe_join",
-                   [_P, _P, _I, _P, _P, _I64, _P, _I, _P, _P, _P, _P]),
+    "probe_join": ("cb_probe_join", [ctypes.c_char_p, _P]),
     "sorted_seg": ("cb_sorted_seg",
                    [_P, _I, _I64, _P, _P, _P, _I64, _I64, _I64, _P, _P, _P,
                     _P, _I64, _I, _P]),
@@ -236,57 +240,108 @@ def dense_agg_plain(gid, ivals, fvals, sel, n_cells: int):
 
 # -------------------------------------------------------------- probe_join
 
+# the argument block of cb_probe_join (probe_join.cu ProbeJoinArgs): key,
+# payload and output pointers, bsel, psel, matched, dup, n, b, the key and
+# payload counts, the key column types and the payload widths
+_PROBE_ARGS = struct.Struct(
+    f"<{2 * PROBE_MAX_KEYS + 2 * PROBE_MAX_PAYLOAD + 4}Qq3i"
+    f"{2 * PROBE_MAX_KEYS + PROBE_MAX_PAYLOAD}b4x")
+# probe_join.cu's key column types
+_KEY_TYPES = {torch.bool: 0, torch.int32: 1, torch.int64: 2}
 
-def probe_join(bkeys: torch.Tensor, bsel: torch.Tensor, pkeys: torch.Tensor,
-               psel: torch.Tensor, payload: torch.Tensor):
-    """Probe join against a small build: bkeys int32[B ≤ 2048] and pkeys
-    int32[N] are packed u32 keys (compared for equality only), payload
-    int64[P, B]. Returns (matched bool[N], gathered int64[P, N] — the first
-    matching selected build row's payload, 0 where unmatched, has_dup bool
-    scalar — a selected probe row hit two or more selected build rows)."""
-    bkeys = _check(bkeys, torch.int32, "probe_join bkeys")
-    bsel = _check(bsel, torch.bool, "probe_join bsel")
-    pkeys = _check(pkeys, torch.int32, "probe_join pkeys")
-    psel = _check(psel, torch.bool, "probe_join psel")
-    payload = _check(payload, torch.int64, "probe_join payload")
-    b, n, p = bkeys.shape[0], pkeys.shape[0], payload.shape[0]
+
+def _probe_key(k: torch.Tensor, n: int, what: str) -> torch.Tensor:
+    """A key column as the kernel reads it: bool, int32 and int64 as they
+    are, any other dtype as its sort_key_u64 (one op)."""
+    if k.shape != (n,):
+        raise ValueError(f"probe_join: {what} key of shape "
+                         f"{tuple(k.shape)}, expected ({n},)")
+    if k.dtype not in _KEY_TYPES:
+        k = K.sort_key_u64(k)
+    return k.contiguous()
+
+
+def probe_join(bkeys, bsel: torch.Tensor, pkeys, psel: torch.Tensor,
+               payload, dup: torch.Tensor):
+    """The probe-join operator against a small build, from the raw key
+    columns: bkeys/pkeys are lists of 1 to PROBE_MAX_KEYS key columns
+    ([B ≤ 2048] and [N], any dtype), packed as the reference packs them
+    (key_ranges over the selected build rows, pack_with_ranges, downcast32)
+    and compared as u32; payload is a list of at most PROBE_MAX_PAYLOAD
+    non-float columns [B]. Returns (matched bool[N], the payload columns
+    gathered to probe rows in their own dtypes: the lowest-index matching
+    selected build row's value, 0 where unmatched). A selected probe row
+    that hits two or more selected build rows sets dup (int32[1], the
+    caller's zeroed slot) to 1; dup is never cleared."""
+    b, n = bsel.shape[0], psel.shape[0]
     if b > PROBE_MAX_BUILD:
         raise ValueError(f"probe_join: build of {b} rows exceeds "
                          f"{PROBE_MAX_BUILD}")
-    if not _on_cuda(bkeys, bsel, pkeys, psel, payload):
-        return probe_join_plain(bkeys, bsel, pkeys, psel, payload)
-    dev = pkeys.device
+    if not 1 <= len(bkeys) == len(pkeys) <= PROBE_MAX_KEYS or \
+            len(payload) > PROBE_MAX_PAYLOAD:
+        raise ValueError(f"probe_join: {len(bkeys)}/{len(pkeys)} key and "
+                         f"{len(payload)} payload columns (at most "
+                         f"{PROBE_MAX_KEYS} and {PROBE_MAX_PAYLOAD})")
+    bsel = _check(bsel, torch.bool, "probe_join bsel")
+    psel = _check(psel, torch.bool, "probe_join psel")
+    dup = _check(dup, torch.int32, "probe_join dup")
+    if bsel.dim() != 1 or psel.dim() != 1 or dup.shape != (1,):
+        raise ValueError("probe_join: selections must be vectors and dup "
+                         "one int32")
+    bkeys = [_probe_key(k, b, "build") for k in bkeys]
+    pkeys = [_probe_key(k, n, "probe") for k in pkeys]
+    for c in payload:
+        if c.shape != (b,) or c.dtype.is_floating_point or \
+                c.dtype.is_complex:
+            raise TypeError(f"probe_join: payload column {c.dtype} "
+                            f"{tuple(c.shape)} is not an integer or bool "
+                            f"column of {b} rows")
+    payload = [c.contiguous() for c in payload]
+    if not _on_cuda(bsel, psel, dup, *bkeys, *pkeys, *payload):
+        return probe_join_plain(bkeys, bsel, pkeys, psel, payload, dup)
+    dev = psel.device
     matched = torch.empty((n,), dtype=torch.bool, device=dev)
-    out = torch.empty((p, n), dtype=torch.int64, device=dev)
-    has_dup = torch.zeros((1,), dtype=torch.int32, device=dev)
-    _launch("probe_join", bkeys.data_ptr(), bsel.data_ptr(), b,
-            pkeys.data_ptr(), psel.data_ptr(), n, payload.data_ptr(), p,
-            matched.data_ptr(), out.data_ptr(), has_dup.data_ptr(),
-            _stream(pkeys))
-    return matched, out, has_dup[0] != 0
+    out = [torch.empty((n,), dtype=c.dtype, device=dev) for c in payload]
+    nk, np_ = len(bkeys), len(payload)
+    zk, zp = [0] * (PROBE_MAX_KEYS - nk), [0] * (PROBE_MAX_PAYLOAD - np_)
+    block = _PROBE_ARGS.pack(
+        *[k.data_ptr() for k in bkeys], *zk,
+        *[k.data_ptr() for k in pkeys], *zk,
+        *[c.data_ptr() for c in payload], *zp,
+        *[c.data_ptr() for c in out], *zp,
+        bsel.data_ptr(), psel.data_ptr(), matched.data_ptr(),
+        dup.data_ptr(), n, b, nk, np_,
+        *[_KEY_TYPES[k.dtype] for k in bkeys], *zk,
+        *[_KEY_TYPES[k.dtype] for k in pkeys], *zk,
+        *[c.element_size() for c in payload], *zp)
+    _launch("probe_join", block, _stream(psel))
+    return matched, out
 
 
-def probe_join_plain(bkeys, bsel, pkeys, psel, payload):
-    """The plain version: sort the selected build keys, binary-search
-    each probe key, count matches from the equal range."""
+def probe_join_plain(bkeys, bsel, pkeys, psel, payload, dup):
+    """The plain version: the port's key_ranges, pack_with_ranges and
+    downcast32, then sort the selected build keys, binary-search each
+    probe key and count matches from the equal range."""
+    ranges = K.key_ranges(bkeys, bsel)
+    bp = K.downcast32(K.pack_with_ranges(bkeys, ranges))
+    pp = K.downcast32(K.pack_with_ranges(pkeys, ranges))
     bidx = torch.nonzero(bsel).flatten()
-    keys = bkeys[bidx].to(torch.int64)
+    keys = bp[bidx].to(torch.int64)
     order = torch.sort(keys, stable=True).indices
     sk, src = keys[order], bidx[order]
-    pk = pkeys.to(torch.int64)
+    pk = pp.to(torch.int64)
     lo = torch.searchsorted(sk, pk, right=False)
     hi = torch.searchsorted(sk, pk, right=True)
     cnt = torch.where(psel, hi - lo, torch.zeros_like(lo))
     matched = cnt > 0
-    if sk.shape[0] == 0:
-        out = torch.zeros((payload.shape[0], pk.shape[0]),
-                          dtype=torch.int64, device=pk.device)
-    else:
+    if sk.shape[0]:
         first = src[lo.clamp(max=sk.shape[0] - 1)]
-        out = torch.where(matched, payload[:, first],
-                          torch.zeros((), dtype=torch.int64,
-                                      device=pk.device))
-    return matched, out, (cnt > 1).any()
+        out = [torch.where(matched, c[first], K._full(c, 0))
+               for c in payload]
+    else:
+        out = [torch.zeros_like(pk, dtype=c.dtype) for c in payload]
+    dup.bitwise_or_((cnt > 1).any().to(torch.int32))
+    return matched, out
 
 
 # -------------------------------------------------------------- sorted_seg

@@ -165,6 +165,9 @@ class Lowerer:
         self._subcache: dict[int, torch.Tensor] = {}
         # shared-subplan (PShare) results, keyed by child object identity
         self._sharecache: dict[int, tuple] = {}
+        # probe joins' duplicate flags (_dup_slot), allocated at first use
+        self._dup_flags: torch.Tensor | None = None
+        self._dup_used = 0
 
     def lower(self, node: N.PlanNode) -> tuple[dict, torch.Tensor]:
         if isinstance(node, N.PScan):
@@ -347,26 +350,35 @@ class Lowerer:
                            pselm, pkeys):
         """The probe-join kernel's gate (the reference's fused-path rules):
         a unique build of at most CK.PROBE_MAX_BUILD rows whose keys pack to
-        32 bits, with integer or bool payload. Returns (matched, payload
-        cols, has_dup) or None → sorted lookup."""
+        32 bits, with integer or bool payload; and, the port's own limit,
+        at most CK.PROBE_MAX_KEYS key and CK.PROBE_MAX_PAYLOAD payload
+        columns. Returns (matched, payload cols, duplicate flag) or None →
+        sorted lookup."""
         if node.pack_bits != 32:
             return None
-        b = int(bselm.shape[0])
-        if b > CK.PROBE_MAX_BUILD:
+        if int(bselm.shape[0]) > CK.PROBE_MAX_BUILD:
             return None
-        for nm in node.build_payload:
-            if bcols[nm].dtype.is_floating_point:
-                return None  # float payload keeps the sorted path
-        ranges = K.key_ranges(bkeys, bselm)
-        bp = K.downcast32(K.pack_with_ranges(bkeys, ranges))
-        pp = K.downcast32(K.pack_with_ranges(pkeys, ranges))
-        rows = [bcols[nm].to(torch.int64) for nm in node.build_payload]
-        pay = torch.stack(rows) if rows else \
-            torch.zeros((0, b), dtype=torch.int64, device=self.device)
-        matched, gathered, has_dup = CK.probe_join(bp, bselm, pp, pselm, pay)
-        payload = {nm: gathered[i].to(bcols[nm].dtype)
-                   for i, nm in enumerate(node.build_payload)}
-        return matched, payload, has_dup
+        if len(bkeys) > CK.PROBE_MAX_KEYS or \
+                len(node.build_payload) > CK.PROBE_MAX_PAYLOAD:
+            return None
+        pay = [bcols[nm] for nm in node.build_payload]
+        if any(c.dtype.is_floating_point for c in pay):
+            return None  # float payload keeps the sorted path
+        dup = self._dup_slot()
+        matched, gathered = CK.probe_join(bkeys, bselm, pkeys, pselm, pay,
+                                          dup)
+        return matched, dict(zip(node.build_payload, gathered)), dup
+
+    def _dup_slot(self) -> torch.Tensor:
+        """A zeroed int32[1] slot for one probe join's duplicate flag: the
+        statement's joins share one buffer, filled with zeros once."""
+        if self._dup_flags is None or \
+                self._dup_used == self._dup_flags.shape[0]:
+            self._dup_flags = torch.zeros((64,), dtype=torch.int32,
+                                          device=self.device)
+            self._dup_used = 0
+        self._dup_used += 1
+        return self._dup_flags[self._dup_used - 1:self._dup_used]
 
     def _join_semi_residual(self, node: N.PJoin, bcols, bselm, bkeys,
                             pcols, psel, pselm, pkeys):

@@ -3,7 +3,8 @@
 Each Pallas kernel runs as the JAX package's own tests run it on the CPU
 (``interpret=True``), with the executor's limb split and recombination
 reproduced as its call sites do (executor.py ``_dense_agg_pallas`` and
-``_probe_join_pallas``; ``sorted_segment_aggregate`` directly). The port's
+``_probe_join_pallas``, the latter with the key packing of the reference's
+kernels.py; ``sorted_segment_aggregate`` directly). The port's
 wrappers get CPU tensors, so they run their plain versions. Integer results
 must be EXACT; float sums agree to rtol 1e-6, because the reference carries
 a float value as one f32 row through the MXU.
@@ -56,23 +57,30 @@ def jax_dense(gid, ivals, fvals, sel, cells):
 
 
 def jax_probe(bkeys, bsel, pkeys, psel, payload):
-    """executor.py _probe_join_pallas: u32 keys, 21/21/22-bit limbs."""
-    b, n = len(bkeys), len(pkeys)
+    """executor.py _probe_join_pallas: the key packing of the reference's
+    kernels.py (key_ranges over the selected build rows, pack_with_ranges,
+    downcast32), the Pallas kernel on u32 keys, 21/21/22-bit limbs."""
+    bk = [jnp.asarray(k) for k in bkeys]
+    ranges = JK.key_ranges(bk, jnp.asarray(bsel))
+    bp = JK.downcast32(JK.pack_with_ranges(bk, ranges))
+    pp = JK.downcast32(JK.pack_with_ranges([jnp.asarray(k) for k in pkeys],
+                                           ranges))
+    b, n = len(bsel), len(psel)
     rows = []
     for v in payload:
         rows.extend(PK.int64_to_limbs(jnp.asarray(v)))
     if not rows:
         rows = [jnp.zeros((b,), jnp.float32)]
     match_f, gathered = PK.probe_join_pallas(
-        _pad(jnp.asarray(bkeys), 256), _pad(jnp.asarray(bsel), 256),
-        _pad(jnp.asarray(pkeys), 1024), _pad(jnp.asarray(psel), 1024),
+        _pad(bp, 256), _pad(jnp.asarray(bsel), 256),
+        _pad(pp, 1024), _pad(jnp.asarray(psel), 1024),
         _pad(jnp.stack(rows), 256), tile=1024, interpret=True)
     out = [np.asarray(PK.limbs_to_int64(gathered[3 * i, :n],
                                         gathered[3 * i + 1, :n],
-                                        gathered[3 * i + 2, :n]))
-           for i in range(len(payload))]
-    return (np.asarray(match_f[:n] > 0.5),
-            np.asarray(out).reshape(len(payload), n),
+                                        gathered[3 * i + 2, :n])
+                      .astype(jnp.asarray(v).dtype))
+           for i, v in enumerate(payload)]
+    return (np.asarray(match_f[:n] > 0.5), out,
             bool(jnp.any(match_f > 1.5)), np.asarray(match_f[:n]))
 
 
@@ -132,22 +140,75 @@ def test_dense_agg_float_sums():
 
 # ------------------------------------------------------------ probe_join
 
-def _probe_case(rng, b, n, p, dup=False, sel_p=0.9, key_span=None):
-    span = key_span or 4 * b
-    bk = rng.permutation(span)[:b].astype(np.uint32)
-    if dup:
-        bk[1] = bk[0]
-    bsel = rng.random(b) < 0.9
-    if dup:
-        bsel[:2] = True
-    pk = rng.integers(0, span, n).astype(np.uint32)
-    if dup:
-        pk[:5] = bk[0]
+def _probe_keys(rng, kind, b, n):
+    """Unique build keys ([B] per column) and probe keys ([N]) of a kind;
+    probe keys are drawn from about four times the build's key range."""
+    span = 4 * b
+    ids = rng.permutation(span)[:b]
+    pids = rng.integers(0, span, n)
+    if kind == "int64":
+        return [ids.astype(np.int64)], [pids.astype(np.int64)]
+    if kind == "int32":
+        return [ids.astype(np.int32)], [pids.astype(np.int32)]
+    if kind == "two_column":  # (id // 7 int64, id % 7 int32)
+        return ([(ids // 7).astype(np.int64), (ids % 7).astype(np.int32)],
+                [(pids // 7).astype(np.int64), (pids % 7).astype(np.int32)])
+    if kind == "out_of_range":  # probes below and above the build's range
+        pk = rng.integers(-span, 2 * span, n)
+        pk[:4] = [-1, ids.min() - 1, ids.max() + 1, 10 * span]
+        return [ids.astype(np.int64)], [pk.astype(np.int64)]
+    if kind == "negative_int64":
+        scale = -(10 ** 12) - 7919
+        return ([(ids * scale).astype(np.int64)],
+                [(pids * scale).astype(np.int64)])
+    if kind == "bool":
+        return [np.array([True, False])[:b]], [rng.random(n) < 0.5]
+    if kind == "float64":  # packed by sort_key_u64 in the wrapper;
+        # neighbouring doubles, so the bit patterns' span fits 32 bits
+        return [1.0 + ids * 2.0 ** -52], [1.0 + pids * 2.0 ** -52]
+    if kind == "span_2_32":
+        # two int32 columns of span 2^16 each: the product of spans is
+        # exactly 2^32, so the build row (65535, 65535) packs to 2^32 - 1,
+        # which the u32 narrowing makes the sentinel of an out-of-range
+        # probe key (the executor's gate keeps such keys off this path)
+        k1 = rng.integers(0, 1 << 16, b)
+        k2 = rng.integers(0, 1 << 16, b)
+        k1[:2], k2[:2] = [0, 65535], [0, 65535]
+        _, first = np.unique(k1 * 65536 + k2, return_index=True)
+        k1 = np.where(np.isin(np.arange(b), first), k1, 1)
+        k2 = np.where(np.isin(np.arange(b), first), k2,
+                      np.arange(b) + 2)
+        p1 = rng.integers(-5, 1 << 16 + 1, n)
+        p2 = rng.integers(-5, 1 << 16 + 1, n)
+        p1[:b], p2[:b] = k1, k2
+        return ([k1.astype(np.int32), k2.astype(np.int32)],
+                [p1.astype(np.int32), p2.astype(np.int32)])
+    raise KeyError(kind)
+
+
+def _probe_case(rng, b, n, p=1, key="int64", dup=False, sel_p=0.9,
+                bsel_p=0.9, pay=None):
+    bk, pk = _probe_keys(rng, key, b, n)
+    bsel = rng.random(b) < bsel_p
     psel = rng.random(n) < sel_p
     if dup:
+        for col in bk:
+            col[1] = col[0]
+        bsel[:2] = True
+        for pc, bc in zip(pk, bk):
+            pc[:5] = bc[0]
         psel[:5] = True
-    pay = rng.integers(-BIG, BIG, (p, b), dtype=np.int64)
-    return bk, bsel, pk, psel, pay
+    dtypes = pay or [np.int64] * p
+    payload = []
+    for dt in dtypes:
+        if dt == np.bool_:
+            payload.append(rng.random(b) < 0.5)
+        elif dt == np.int32:
+            payload.append(rng.integers(-2 ** 31, 2 ** 31, b)
+                           .astype(np.int32))
+        else:
+            payload.append(rng.integers(-BIG, BIG, b, dtype=np.int64))
+    return bk, bsel, pk, psel, payload
 
 
 PROBE_CASES = {
@@ -158,25 +219,112 @@ PROBE_CASES = {
     "empty_selection": dict(b=25, n=2000, p=1, sel_p=0.0),
     "membership_only": dict(b=25, n=2000, p=0),
     "duplicate_key": dict(b=25, n=2000, p=2, dup=True),
+    "two_column_key": dict(b=300, n=2000, p=1, key="two_column"),
+    "two_column_duplicate": dict(b=60, n=1500, p=1, key="two_column",
+                                 dup=True),
+    "out_of_range_probe": dict(b=100, n=2000, p=1, key="out_of_range"),
+    "negative_int64_key": dict(b=200, n=2000, p=1, key="negative_int64"),
+    "int32_key": dict(b=700, n=2000, p=1, key="int32"),
+    "bool_key": dict(b=2, n=2000, p=1, key="bool", bsel_p=1.0),
+    "float64_key": dict(b=50, n=2000, p=1, key="float64"),
+    "mixed_payload": dict(b=25, n=2000,
+                          pay=[np.int32, np.int64, np.bool_]),
+    "empty_build_selection": dict(b=25, n=2000, p=2, bsel_p=0.0),
+    "span_2_32": dict(b=64, n=3000, p=1, key="span_2_32", bsel_p=1.0),
 }
 
 
 @pytest.mark.parametrize("case", sorted(PROBE_CASES))
 def test_probe_join_plain_matches_pallas(case):
+    """The port's fused operator, from the raw key columns, against the
+    reference's packing + probe_join_pallas: the match mask, the duplicate
+    flag, and the payload of single-match rows must be exact."""
+    cfg = PROBE_CASES[case]
     rng = np.random.default_rng(len(case) + 100)
-    bk, bsel, pk, psel, pay = _probe_case(rng, **PROBE_CASES[case])
-    # the port compares packed u32 keys as int32 storage
-    matched, out, has_dup = CK.probe_join(
-        T(bk.view(np.int32)), T(bsel), T(pk.view(np.int32)), T(psel),
-        T(pay))
+    bk, bsel, pk, psel, pay = _probe_case(rng, **cfg)
+    dup = torch.zeros(1, dtype=torch.int32)
+    matched, out = CK.probe_join([T(k) for k in bk], T(bsel),
+                                 [T(k) for k in pk], T(psel),
+                                 [T(c) for c in pay], dup)
     jm, jo, jdup, match_f = jax_probe(bk, bsel, pk, psel, pay)
+    assert matched.dtype == torch.bool
     np.testing.assert_array_equal(matched.numpy(), jm)
-    assert bool(has_dup) == jdup == PROBE_CASES[case].get("dup", False)
+    assert int(dup[0]) == int(jdup) == int(cfg.get("dup", False))
     # a duplicate hit's payload is unspecified (the reference sums the
     # matching rows' limbs): compare single-match rows only
     single = match_f == 1.0
-    np.testing.assert_array_equal(out.numpy()[:, single], jo[:, single])
-    np.testing.assert_array_equal(out.numpy()[:, ~jm], 0)
+    assert len(out) == len(jo)
+    for got, want in zip(out, jo):
+        assert got.numpy().dtype == want.dtype
+        np.testing.assert_array_equal(got.numpy()[single], want[single])
+        np.testing.assert_array_equal(got.numpy()[~jm], 0)
+    if case == "span_2_32":  # out-of-range probes hit the (65535, 65535) row
+        oob = ((pk[0] < 0) | (pk[0] > 65535) | (pk[1] < 0) | (pk[1] > 65535))
+        assert (jm & oob & psel).any()
+    if case == "empty_selection" or case == "empty_build_selection":
+        assert not jm.any()
+
+
+def test_probe_join_flag_is_sticky():
+    """dup is the caller's slot: a join without duplicates leaves a set
+    flag set, and a second duplicate hit keeps it at 1."""
+    rng = np.random.default_rng(9)
+    bk, bsel, pk, psel, pay = _probe_case(rng, 25, 500, 1)
+    dup = torch.ones(1, dtype=torch.int32)
+    CK.probe_join([T(k) for k in bk], T(bsel), [T(k) for k in pk], T(psel),
+                  [T(c) for c in pay], dup)
+    assert int(dup[0]) == 1
+    bk, bsel, pk, psel, pay = _probe_case(rng, 25, 500, 1, dup=True)
+    CK.probe_join([T(k) for k in bk], T(bsel), [T(k) for k in pk], T(psel),
+                  [T(c) for c in pay], dup)
+    assert int(dup[0]) == 1
+
+
+def test_probe_join_argument_block_matches_source():
+    """The wrapper's argument block has the layout of probe_join.cu's
+    ProbeJoinArgs, and its column limits are the kernel's."""
+    src = (CK.CSRC / "probe_join.cu").read_text()
+    assert f"constexpr int kMaxKeys = {CK.PROBE_MAX_KEYS};" in src
+    assert f"constexpr int kMaxPayload = {CK.PROBE_MAX_PAYLOAD};" in src
+    assert f"constexpr int kMaxBuild = {CK.PROBE_MAX_BUILD};" in src
+    assert f"sizeof(ProbeJoinArgs) == {CK._PROBE_ARGS.size}" in src
+    assert CK._PROBE_ARGS.size == 400
+
+
+_BOOL8, _I32_8 = torch.zeros(8, dtype=torch.bool), \
+    torch.zeros(8, dtype=torch.int32)
+PROBE_REFUSALS = {
+    "build_above_2048": lambda: ([torch.zeros(2049, dtype=torch.int32)],
+                                 torch.zeros(2049, dtype=torch.bool),
+                                 [_I32_8], _BOOL8, []),
+    "five_key_columns": lambda: ([_I32_8] * 5, _BOOL8, [_I32_8] * 5,
+                                 _BOOL8, []),
+    "key_counts_differ": lambda: ([_I32_8] * 2, _BOOL8, [_I32_8], _BOOL8,
+                                 []),
+    "no_key_column": lambda: ([], _BOOL8, [], _BOOL8, []),
+    "seventeen_payload_columns": lambda: ([_I32_8], _BOOL8, [_I32_8],
+                                          _BOOL8, [_I32_8] * 17),
+    "short_probe_key": lambda: ([_I32_8], _BOOL8,
+                                [torch.zeros(7, dtype=torch.int32)],
+                                _BOOL8, []),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PROBE_REFUSALS))
+def test_probe_join_refuses_what_the_kernel_cannot_take(case):
+    with pytest.raises(ValueError):
+        CK.probe_join(*PROBE_REFUSALS[case](),
+                      torch.zeros(1, dtype=torch.int32))
+
+
+def test_probe_join_refuses_float_payload_and_bad_flag():
+    with pytest.raises(TypeError):
+        CK.probe_join([_I32_8], _BOOL8, [_I32_8], _BOOL8,
+                      [torch.zeros(8, dtype=torch.float64)],
+                      torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(TypeError):
+        CK.probe_join([_I32_8], _BOOL8, [_I32_8], _BOOL8, [],
+                      torch.zeros(1, dtype=torch.bool))
 
 
 # ------------------------------------------------------------ sorted_seg
@@ -327,11 +475,11 @@ def test_wrapper_refuses_other_devices():
                       torch.zeros(3, dtype=torch.int64),
                       torch.tensor(2), 4)
     with pytest.raises(ValueError):
-        CK.probe_join(torch.zeros(2049, dtype=torch.int32),
-                      torch.zeros(2049, dtype=torch.bool),
-                      torch.zeros(4, dtype=torch.int32),
-                      torch.zeros(4, dtype=torch.bool),
-                      torch.zeros((0, 2049), dtype=torch.int64))
+        CK.probe_join([torch.zeros(4, dtype=torch.int32, device="meta")],
+                      torch.zeros(4, dtype=torch.bool, device="meta"),
+                      [torch.zeros(8, dtype=torch.int32, device="meta")],
+                      torch.zeros(8, dtype=torch.bool, device="meta"), [],
+                      torch.zeros(1, dtype=torch.int32, device="meta"))
 
 
 def test_jax_runs_on_cpu():

@@ -18,6 +18,7 @@ from cloudberry_tpu_torch import Session as TorchSession
 from cloudberry_tpu_torch.catalog import carry
 from cloudberry_tpu_torch.catalog.catalog import DistributionPolicy
 from cloudberry_tpu_torch.exec import cuda_kernels as CK
+from cloudberry_tpu_torch.exec import executor as X
 from tools.tpch_queries import QUERIES
 from tools.tpchgen import load_tpch
 
@@ -132,6 +133,107 @@ def test_dense_cells_stay_in_domain(sessions, name, monkeypatch):
     assert all(calls)
     assert bool(calls) == (name != "null_key"), calls
     _assert_equal(got, want.sql(DENSE_SQL[name]))
+
+
+@pytest.mark.parametrize("qname", ["q5", "q7", "q8", "q10"])
+def test_probe_join_one_call_per_eligible_join(sessions, qname,
+                                               monkeypatch):
+    """Every join that passes the probe-join gate is ONE call of the fused
+    operator (CK.probe_join, one kernel launch on the card) from the raw
+    key columns; a join the gate refuses makes none. Both engines fuse the
+    same joins, and the results are equal."""
+    js, ts = sessions
+    per_join = []
+    real_gate = X.Lowerer._probe_join_kernel
+    real_call = CK.probe_join
+    calls = [0]
+
+    def gate(self, node, bcols, bselm, bkeys, pselm, pkeys):
+        before = calls[0]
+        out = real_gate(self, node, bcols, bselm, bkeys, pselm, pkeys)
+        per_join.append((out is not None, calls[0] - before))
+        return out
+
+    def call(*a):
+        calls[0] += 1
+        return real_call(*a)
+
+    monkeypatch.setattr(X.Lowerer, "_probe_join_kernel", gate)
+    monkeypatch.setattr(CK, "probe_join", call)
+    jcalls = _count_calls(monkeypatch, PK, {"probe_join": "probe_join_pallas"})
+    js._stmt_cache.clear()  # trace the statement again, as in a fresh run
+    want = js.sql(QUERIES[qname])
+    got = ts.sql(QUERIES[qname])
+    fused = [n for ok, n in per_join if ok]
+    assert fused and all(n == 1 for n in fused), per_join
+    assert all(n == 0 for ok, n in per_join if not ok), per_join
+    assert calls[0] == len(fused) == jcalls["probe_join"]
+    _assert_equal(got, want)
+
+
+def test_duplicate_build_key_raises_on_both_engines(monkeypatch):
+    """A SQL join whose dimension table holds a duplicate key, planned as
+    a unique (PK) build: both engines take their fused probe join, and
+    both raise DuplicateBuildKeyError after the statement — the port from
+    the flag slot the kernel sets."""
+    from cloudberry_tpu.exec.executor import DuplicateBuildKeyError as JDup
+    from cloudberry_tpu_torch.exec.executor import DuplicateBuildKeyError
+
+    js = cb.Session(cb.get_config().with_overrides(
+        **{"exec.use_pallas": True, "sched.generic_plans": False}))
+    ts = TorchSession(device="cpu")
+    fact = ",".join(f"({i}, {i % 50})" for i in range(400))
+    dim = ",".join(f"({d}, {d * 3})" for d in [*range(50), 7])
+    for s in (js, ts):
+        s.sql("create table fact (k bigint, grp bigint) distributed by (k)")
+        s.sql("create table dim (d bigint, p bigint) distributed by (d)")
+        s.sql(f"insert into fact values {fact}")
+        s.sql(f"insert into dim values {dim}")
+        # the stale-inference scenario: the planner takes dim.d as unique
+        monkeypatch.setattr(type(s.catalog.table("dim")), "is_unique_cols",
+                            lambda self, cols: True)
+    jcalls = _count_calls(monkeypatch, PK, {"probe_join": "probe_join_pallas"})
+    tcalls = _count_calls(monkeypatch, CK, {"probe_join": "probe_join"})
+    q = "select k, p from fact, dim where grp = d"
+    with pytest.raises(JDup):
+        js.sql(q)
+    with pytest.raises(DuplicateBuildKeyError):
+        ts.sql(q)
+    assert jcalls["probe_join"] == tcalls["probe_join"] == 1
+    # a probe that never hits the duplicated key is not an error
+    ok = "select k, p from fact, dim where grp = d and grp <> 7"
+    _assert_equal(ts.sql(ok), js.sql(ok))
+
+
+def test_wide_join_key_keeps_the_sorted_lookup(monkeypatch):
+    """The port's own gate (ROADMAP Queue C): a join on more key columns
+    than the kernel takes (CK.PROBE_MAX_KEYS) keeps the sorted lookup,
+    where the reference fuses it; the results are equal."""
+    js = cb.Session(cb.get_config().with_overrides(
+        **{"exec.use_pallas": True, "sched.generic_plans": False}))
+    ts = TorchSession(device="cpu")
+    cols = ["a", "b", "c", "d", "e"]
+    dim = ",".join("(" + ", ".join(str((i >> s) & 1) for s in range(5))
+                   + f", {i})" for i in range(32))
+    fact = ",".join("(" + ", ".join(str((i * 7 >> s) & 1)
+                                    for s in range(5)) + f", {i})"
+                    for i in range(200))
+    for s in (js, ts):
+        s.sql("create table dim5 (" + ", ".join(f"{c} int" for c in cols)
+              + ", v bigint) distributed by (v)")
+        s.sql("create table fact5 (" + ", ".join(f"f{c} int" for c in cols)
+              + ", k bigint) distributed by (k)")
+        s.sql(f"insert into dim5 values {dim}")
+        s.sql(f"insert into fact5 values {fact}")
+    jcalls = _count_calls(monkeypatch, PK, {"probe_join": "probe_join_pallas"})
+    tcalls = _count_calls(monkeypatch, CK, {"probe_join": "probe_join"})
+    q = ("select k, v from fact5, dim5 where "
+         + " and ".join(f"f{c} = {c}" for c in cols))
+    want = js.sql(q)
+    got = ts.sql(q)
+    assert len(cols) > CK.PROBE_MAX_KEYS
+    assert jcalls["probe_join"] == 1 and tcalls["probe_join"] == 0
+    _assert_equal(got, want)
 
 
 def _assert_equal(got, want):
