@@ -13,6 +13,7 @@ shape-world analog of ereport().
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass
 from typing import Any, Callable
 
@@ -152,6 +153,59 @@ def scans_of(plan: N.PlanNode):
         yield from scans_of(c)
 
 
+def find_expansion_node(plan: N.PlanNode, message: str):
+    """The join a detected expansion-overflow check message points at
+    (messages embed the node id), or None."""
+    m = re.search(r"\(node (\d+)\)", message)
+    if m is None or "expansion overflow" not in message:
+        return None
+    nid = int(m.group(1))
+    for node in all_nodes(plan):
+        if id(node) == nid and isinstance(node, N.PJoin):
+            return node
+    return None
+
+
+def _dedupe_nodes(nodes) -> list:
+    """Unique by identity, preserving order — all_nodes re-walks shared
+    (PShare) subtrees once per reference, and a buffer must be grown
+    exactly once per retry."""
+    seen: set[int] = set()
+    out = []
+    for nd in nodes:
+        if id(nd) not in seen:
+            seen.add(id(nd))
+            out.append(nd)
+    return out
+
+
+def grow_expansion(plan: N.PlanNode, message: str, factor: int = 4,
+                   allow_fallback: bool = False) -> bool:
+    """Adaptive recovery from a detected join-expansion overflow (the
+    increase-nbatch-and-retry discipline of nodeHash.c): grow the named
+    join's pair buffer by ``factor`` and report success. The caller
+    re-runs — results are never truncated.
+
+    ``allow_fallback``: when the message names no join of ``plan``, grow
+    every expansion join's buffer instead of giving up (padding at worst,
+    progress guaranteed); the statement retry loop sets it.
+
+    The reference also recovers redistribute and host-bucket overflows of
+    a multi-segment plan by promoting the motion's capacity rung. One
+    segment has no motion buffers (distributed execution is not ported),
+    so such a message returns False here."""
+    node = find_expansion_node(plan, message)
+    hits = [node] if node is not None else []
+    if not hits and allow_fallback and "expansion overflow" in message:
+        hits = _dedupe_nodes(
+            nd for nd in all_nodes(plan)
+            if isinstance(nd, N.PJoin)
+            and (not nd.unique_build or nd.residual is not None))
+    for nd in hits:
+        nd.out_capacity = max(nd.out_capacity * factor, 64)
+    return bool(hits)
+
+
 # ------------------------------------------------------------- plan lowering
 
 
@@ -203,9 +257,7 @@ class Lowerer:
             # single segment: loopback motion is the identity
             return self.lower_shared(node.child)
         if isinstance(node, N.PWindow):
-            raise NotImplementedError(
-                "window functions are not yet ported to "
-                "cloudberry_tpu_torch")
+            return self.window(node)
         if isinstance(node, N.PShare):
             return self.lower_shared(node.child)
         if isinstance(node, N.PRuntimeFilter):
@@ -459,6 +511,286 @@ class Lowerer:
             cols[node.probe_match_name] = probe_valid
         return cols, osel
 
+    def window(self, node: N.PWindow):
+        """Windows over sorted partitions — scatter-free: boundary flags,
+        compacted starts, cumulative-sum differences (nodeWindowAgg analog;
+        with ORDER BY the frame is RANGE UNBOUNDED PRECEDING..CURRENT ROW,
+        peers included, per the SQL default). The reference's lowering op
+        for op; row counts (n_sel, n_segs, n_runs) stay device tensors, so
+        the host never waits on the device here. Every gather index is
+        clamped into range where the reference relies on JAX's silent
+        clamping (PyTorch raises or asserts instead)."""
+        cols, sel = self.lower(node.child)
+        cap = sel.shape[0]
+        dev = self.device
+        pk = [_as_column(self.expr(e, cols), cap)
+              for e in node.partition_keys]
+        # ORDER BY on strings sorts by collation rank, not dictionary code
+        # (same rule PSort applies via _sortable)
+        ok = [_as_column(_sortable(e, node.child, cols, dev), cap)
+              for e, _ in node.order_keys]
+        desc = [not asc for _, asc in node.order_keys]
+        perm = K.sort_indices(pk + ok, sel,
+                              descending=[False] * len(pk) + desc)
+        idx = torch.arange(cap, device=dev)
+        inv = torch.empty_like(perm).scatter_(0, perm, idx)
+        s_sel = sel[perm]
+        n_sel = s_sel.sum(dtype=torch.int64)
+        last = cap - 1
+
+        def flags(keys):
+            f = torch.zeros(cap, dtype=torch.bool, device=dev)
+            for k in keys:
+                ks = k[perm]
+                f = f | (ks != torch.roll(ks, 1))
+            f[0] = True
+            return f & s_sel
+
+        seg_flag = flags(pk)    # without PARTITION BY: row 0 only
+        run_flag = (seg_flag | flags(ok)) if ok else seg_flag
+
+        def bounds(flag):
+            """Per row: the 0-based id of its segment (run), its first and
+            last sorted position, and the cumulative flag count."""
+            starts_c = _compacted_starts(flag)
+            cum = torch.cumsum(flag.to(torch.int64), 0)
+            id0 = (cum - 1).clamp(0, last)
+            n = flag.sum(dtype=torch.int64)
+            start = starts_c[id0]
+            nxt = starts_c[(id0 + 1).clamp(0, last)]
+            end = torch.where(id0 + 1 < n, nxt - 1, n_sel - 1)
+            return start, end, cum
+
+        seg_start, seg_end, _ = bounds(seg_flag)
+        run_start, run_end, run_cum = bounds(run_flag)
+
+        # explicit frame (node.frame): per-row [flo, fhi] bounds in sorted
+        # coordinates. The SQL default keeps the peer-inclusive RANGE
+        # semantics (run_end); ROWS frames are purely positional and can
+        # be EMPTY at partition edges (fempty)
+        fempty = None
+        if node.frame is None:
+            flo = seg_start
+            fhi = run_end if node.order_keys else seg_end
+        elif node.frame[0] == "whole":
+            flo, fhi = seg_start, seg_end
+        elif node.frame[0] == "rangepos":
+            # positional RANGE (CURRENT ROW / UNBOUNDED bounds only):
+            # peer-group or partition edges, never empty. Without ORDER BY
+            # every row is a peer (run_* == seg_*), the SQL rule.
+            flo = run_start
+            fhi = run_end if node.frame[2] == "peer" else seg_end
+        elif node.frame[0] == "rangeoff":
+            flo, fhi = self._range_offset_frame(
+                node, ok, perm, s_sel, seg_start, seg_end, run_start,
+                run_end)
+            fempty = flo > fhi
+        else:
+            _, lo_off, hi_off = node.frame
+            flo = seg_start if lo_off is None \
+                else torch.maximum(idx + lo_off, seg_start)
+            fhi = seg_end if hi_off is None \
+                else torch.minimum(idx + hi_off, seg_end)
+            fempty = flo > fhi
+
+        def zero_where(mask, o):
+            return torch.where(mask, torch.zeros((), dtype=o.dtype,
+                                                 device=dev), o)
+
+        out_cols = dict(cols)
+        valids = node.valids or [None] * len(node.calls)
+        params_list = node.params or [None] * len(node.calls)
+        for (name, func, arg), valid, params in zip(node.calls, valids,
+                                                    params_list):
+            # per-call argument validity in sorted row order: count counts
+            # only valid rows, avg divides by the valid count, 'anyvalid'
+            # is the null mask for nullable agg outputs
+            va = (s_sel & _as_column(self.expr(valid, cols), cap)[perm]) \
+                if valid is not None else s_sel
+            base = func.split("@", 1)[0]
+            if func == "row_number":
+                o = idx - seg_start + 1
+            elif func == "ntile":
+                # SQL ntile: larger buckets first — with s rows and n
+                # buckets, the first s%n buckets get s//n+1 rows
+                n = params["n"]
+                rip = idx - seg_start
+                psize = seg_end - seg_start + 1
+                base_sz = _floordiv(psize, n)
+                rem = torch.remainder(psize, n)
+                thresh = rem * (base_sz + 1)
+                o = torch.where(
+                    rip < thresh,
+                    _floordiv(rip, (base_sz + 1).clamp_min(1)),
+                    rem + _floordiv(rip - thresh, base_sz.clamp_min(1))) + 1
+            elif base in ("lead", "lag", "first_value", "last_value"):
+                # positional reads within the sorted partition. The source
+                # row index is computed per row; '<func>@mask' re-runs the
+                # same gather over the argument's validity (plus the
+                # in-partition range test) to produce the output null mask
+                if base in ("lead", "lag"):
+                    k = params["offset"]
+                    src = idx + k if base == "lead" else idx - k
+                    inrange = (src >= seg_start) & (src <= seg_end)
+                elif base == "first_value":
+                    # frame start (the partition head under the default)
+                    src = flo
+                    inrange = None if fempty is None else ~fempty
+                else:
+                    # last_value: frame end — under the default frame the
+                    # current row's peer group, not the partition tail
+                    src = fhi
+                    inrange = None if fempty is None else ~fempty
+                srcc = src.clamp(0, last)
+                dflt = (params or {}).get("default")
+                if func.endswith("@mask"):
+                    o = va[srcc]
+                    if inrange is not None:
+                        # out-of-range rows take the (non-NULL) default
+                        o = (o | ~inrange) if dflt is not None \
+                            else inrange & o
+                else:
+                    v = _as_column(self.expr(arg, cols), cap)[perm]
+                    o = v[srcc]
+                    if inrange is not None:
+                        fill = self.expr(dflt, cols).to(v.dtype) \
+                            if dflt is not None \
+                            else torch.zeros((), dtype=v.dtype, device=dev)
+                        o = torch.where(inrange, o, fill)
+            elif func == "rank":
+                o = run_start - seg_start + 1
+            elif func == "dense_rank":
+                o = run_cum - run_cum[seg_start] + 1
+            elif func in ("sum", "count", "avg", "anyvalid"):
+                if func in ("count", "anyvalid") or arg is None:
+                    v = va.to(torch.int64)
+                else:
+                    x = _as_column(self.expr(arg, cols), cap)[perm]
+                    v = torch.where(va, x, torch.zeros((), dtype=x.dtype,
+                                                       device=dev))
+                S = _prefix(v)
+                hip = (fhi + 1).clamp(0, cap)
+                lop = flo.clamp(0, cap)
+                o = S[hip] - S[lop]
+                if fempty is not None:
+                    o = zero_where(fempty, o)
+                if func == "avg":
+                    C = _prefix(va.to(torch.int64))
+                    cnt = C[hip] - C[lop]
+                    if fempty is not None:
+                        cnt = zero_where(fempty, cnt)
+                    o = o.to(torch.float64) / cnt.clamp_min(1)
+                    if arg is not None and arg.dtype.base == DType.DECIMAL:
+                        o = _div(o, 10.0 ** arg.dtype.scale)
+                elif func == "anyvalid":
+                    o = o > 0
+            elif func in ("min", "max") and node.frame is not None \
+                    and node.frame[0] in ("rows", "rangeoff", "rangepos"):
+                # ROWS/RANGE-offset-frame extreme: sparse-table range
+                # query over [flo, fhi] — the prefix-sum trick does not
+                # invert for min/max, and the running scan only covers
+                # suffix-anchored frames
+                ks = _as_column(_sortable(arg, node.child, cols, dev),
+                                cap)[perm]
+                cs = _as_column(self.expr(arg, cols), cap)[perm]
+                o = _rmq_extreme(ks, cs, va, flo, fhi, cap,
+                                 mx=(func == "max"))
+                if fempty is not None:
+                    o = zero_where(fempty, o)
+            elif func in ("min", "max") and node.frame is None \
+                    and node.order_keys:
+                # running extreme (RANGE UNBOUNDED PRECEDING..CURRENT ROW,
+                # peers included via run_end): segmented scan over sorted
+                # rows. The combine is the standard segmented-scan operator
+                # (reset flag ? right : extreme(left, right)) with the
+                # extreme taken lexicographically over (validity desc,
+                # sort rank, code) so it stays associative on ties and an
+                # invalid (NULL) lane can NEVER beat a valid one — not
+                # even when a valid value equals the dtype extreme (an
+                # all-NULL prefix is nullified by the 'anyvalid' mask).
+                ks = _as_column(_sortable(arg, node.child, cols, dev),
+                                cap)[perm]
+                cs = _as_column(self.expr(arg, cols), cap)[perm]
+                _, _, _, runext = _doubling_scan(
+                    _segmented_extreme(func == "max"),
+                    (seg_flag, va, ks, cs))
+                o = runext[run_end.clamp(0, last)]
+            elif func in ("min", "max"):
+                # whole-partition extreme: re-sort with the value last; the
+                # extreme lands on each partition's boundary row (strings
+                # order by collation rank, output keeps the code). Invalid
+                # (NULL) lanes sort behind every valid row in their
+                # partition, so they reach the boundary only for all-NULL
+                # partitions — which the 'anyvalid' mask nullifies.
+                v = _as_column(self.expr(arg, cols), cap)
+                vkey = _as_column(_sortable(arg, node.child, cols, dev), cap)
+                extra = [] if valid is None else \
+                    [(~_as_column(self.expr(valid, cols), cap))
+                     .to(torch.int32)]
+                p2 = K.sort_indices(pk + extra + [vkey], sel,
+                                    descending=[False] * (len(pk)
+                                                          + len(extra))
+                                    + [func == "max"])
+                o = v[p2][seg_start]
+            else:
+                raise ExecError(f"window function {func}")
+            o = torch.where(s_sel, o, torch.zeros((), dtype=o.dtype,
+                                                  device=dev))
+            out_cols[name] = o[inv]  # back to the child's row order
+        return out_cols, sel
+
+    def _range_offset_frame(self, node: N.PWindow, ok, perm, s_sel,
+                            seg_start, seg_end, run_start, run_end):
+        """Value-distance RANGE frame: per-row binary search for the key
+        interval [k+lo, k+hi] inside the partition's non-NULL span.
+        NULL-key rows frame exactly their peer group (the SQL rule: NULL ±
+        offset stays NULL, NULLs are peers of NULLs), while UNBOUNDED sides
+        keep the positional partition edge — which includes NULL rows,
+        matching nodeWindowAgg.c. Returns (flo, fhi)."""
+        cap = s_sel.shape[0]
+        _, lo_off, hi_off, knull = node.frame
+        asc = node.order_keys[-1][1]
+        kv_s = ok[-1][perm]
+        if knull:
+            keyvalid = (ok[0][perm] == 0) & s_sel
+            # NULLs sort last ASC / first DESC (PSort's rule), so valid
+            # keys are a prefix (asc) or suffix (desc) of the partition
+            C = _prefix(keyvalid.to(torch.int64))
+            nv = C[(seg_end + 1).clamp(0, cap)] - C[seg_start.clamp(0, cap)]
+            vlo = seg_start if asc else seg_end - nv + 1
+            vhi = seg_start + nv - 1 if asc else seg_end
+        else:
+            keyvalid = s_sel
+            vlo, vhi = seg_start, seg_end
+        # search in frame direction: DESC negates so "PRECEDING" stays the
+        # -offset side of a nondecreasing array
+        s = kv_s if asc else -kv_s
+        knullrow = s_sel & ~keyvalid
+
+        def target(off):
+            # numeric offsets are same-domain distances; a ("months", n)
+            # offset is a CALENDAR shift of each row's civil date
+            # (timestamp.c interval_pl: month arithmetic with the day of
+            # month clamped). DESC negates the search domain, so the month
+            # count flips too (s + off ≡ -(v - off) there): PRECEDING under
+            # DESC reaches LATER dates.
+            if isinstance(off, tuple):
+                sh = _shift_months_days(kv_s, off[1] if asc else -off[1])
+                return sh if asc else -sh
+            return s + off
+
+        if lo_off is None:
+            flo = seg_start
+        else:
+            f = _vsearch(s, target(lo_off), vlo, vhi, cap, lower=True)
+            flo = torch.where(knullrow, run_start, f)
+        if hi_off is None:
+            fhi = seg_end
+        else:
+            f = _vsearch(s, target(hi_off), vlo, vhi, cap, lower=False) - 1
+            fhi = torch.where(knullrow, run_end, f)
+        return flo, fhi
+
     def agg(self, node: N.PAgg):
         cols, sel = self.lower(node.child)
         agg_specs = []
@@ -630,6 +962,170 @@ def _div(t: torch.Tensor, div: float) -> torch.Tensor:
     by a Python scalar into multiplication by its reciprocal, which can
     differ in the last bit from the reference's (and the CPU's) quotient."""
     return t / torch.full((), div, dtype=torch.float64, device=t.device)
+
+
+def _floordiv(a: torch.Tensor, b) -> torch.Tensor:
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def _prefix(vals: torch.Tensor) -> torch.Tensor:
+    """[0, cumsum(vals)...] in the values' dtype (the reference's cumsum
+    keeps an int32 input int32, wrapping the same way)."""
+    csum = torch.cumsum(vals, 0).to(vals.dtype)
+    return torch.cat([torch.zeros((1,), dtype=csum.dtype,
+                                  device=csum.device), csum])
+
+
+def _compacted_starts(flag: torch.Tensor) -> torch.Tensor:
+    """The flagged positions in order, then the others in order — the
+    reference's ``argsort(~flag, stable=True)`` (sorted as int8, since a
+    bool sort key is not portable)."""
+    return torch.argsort((~flag).to(torch.int8), stable=True)
+
+
+def _rank_better(mx: bool, v1, r1, c1, v2, r2, c2):
+    """True where lane 2 beats lane 1 by (valid desc, sort rank, code) —
+    THE extreme comparator: an invalid (NULL) lane never beats a valid
+    one, strings compare by collation rank with code as the associativity
+    tie-break. Shared by the running-extreme segmented scan and the
+    ROWS-frame sparse-table query so the two min/max paths cannot
+    diverge."""
+    if mx:
+        by_rank = (r2 > r1) | ((r2 == r1) & (c2 > c1))
+    else:
+        by_rank = (r2 < r1) | ((r2 == r1) & (c2 < c1))
+    return (v2 & ~v1) | ((v2 == v1) & by_rank)
+
+
+def _better(mx: bool, a, b):
+    """The extreme of two (valid, rank, code) lanes, elementwise."""
+    v1, r1, c1 = a
+    v2, r2, c2 = b
+    take2 = _rank_better(mx, v1, r1, c1, v2, r2, c2)
+    return (v1 | v2, torch.where(take2, r2, r1), torch.where(take2, c2, c1))
+
+
+def _segmented_extreme(mx: bool):
+    """The running-extreme combine over (reset flag, valid, rank, code):
+    segment reset flag ? right : extreme(left, right)."""
+    def comb(a, b):
+        f1, w1, r1, c1 = a
+        f2, w2, r2, c2 = b
+        take2 = f2 | _rank_better(mx, w1, r1, c1, w2, r2, c2)
+        return (f1 | f2, torch.where(take2, w2, w1),
+                torch.where(take2, r2, r1), torch.where(take2, c2, c1))
+    return comb
+
+
+def _doubling_scan(comb, xs: tuple) -> tuple:
+    """Inclusive scan of an associative ``comb`` over a tuple of equally
+    long lanes: Hillis–Steele doubling, ceil(log2 n) rounds in which
+    element i takes comb(element i-d, element i). For an associative,
+    exact combine this equals ``jax.lax.associative_scan``'s result."""
+    n = xs[0].shape[0]
+    d = 1
+    while d < n:
+        new = comb(tuple(x[:-d] for x in xs), tuple(x[d:] for x in xs))
+        xs = tuple(torch.cat([x[:d], y]) for x, y in zip(xs, new))
+        d *= 2
+    return xs
+
+
+def _floor_log2(w: torch.Tensor) -> torch.Tensor:
+    """floor(log2 w) of positive int64 values, exactly (a bit search, where
+    the reference takes 31 - clz)."""
+    k = torch.zeros_like(w)
+    for b in (32, 16, 8, 4, 2, 1):
+        t = w >> b
+        hit = t > 0
+        k = torch.where(hit, k + b, k)
+        w = torch.where(hit, t, w)
+    return k
+
+
+def _vsearch(s, target, lo, hi, cap: int, lower: bool):
+    """Vectorized per-row binary search over the (partition-wise sorted)
+    array s restricted to per-row inclusive bounds [lo, hi]: returns the
+    insertion point — first index j with s[j] >= target (lower) or
+    s[j] > target (upper); hi+1 when every bounded element is smaller.
+    O(log cap) lock-step halvings, no data-dependent trip count."""
+    l = lo
+    h = hi + 1
+    for _ in range(max(1, int(cap).bit_length()) + 1):
+        active = l < h
+        m = _floordiv(l + h, 2)
+        mv = s[m.clamp(0, cap - 1)]
+        go_right = (mv < target) if lower else (mv <= target)
+        l = torch.where(active & go_right, m + 1, l)
+        h = torch.where(active & ~go_right, m, h)
+    return l
+
+
+def _rmq_extreme(ks, cs, va, lo, hi, cap: int, mx: bool):
+    """Per-row range extreme over [lo, hi] via a sparse table: O(n log n)
+    build, two gathers per query. Lanes compare by (valid desc, sort rank,
+    code): an invalid (NULL) lane never beats a valid one, and string ranks
+    follow collation, not code order. Empty/all-NULL frames return an
+    arbitrary code — the caller's masks nullify them. The table holds
+    bit_length(cap) levels of (bool, rank, code): at 3M int64 rows, 22
+    levels of 17 bytes a row, about 1.1 GB."""
+    n_levels = max(1, int(cap).bit_length())
+    dev = va.device
+    V = torch.empty((n_levels, cap), dtype=torch.bool, device=dev)
+    R = torch.empty((n_levels, cap), dtype=ks.dtype, device=dev)
+    C = torch.empty((n_levels, cap), dtype=cs.dtype, device=dev)
+    V[0], R[0], C[0] = va, ks, cs
+    pos = torch.arange(cap, device=dev)
+    step = 1
+    for lvl in range(1, n_levels):
+        j2 = (pos + step).clamp(max=cap - 1)
+        prev = (V[lvl - 1], R[lvl - 1], C[lvl - 1])
+        V[lvl], R[lvl], C[lvl] = _better(mx, prev,
+                                         tuple(t[j2] for t in prev))
+        step *= 2
+    w = (hi - lo + 1).clamp_min(1)
+    k = _floor_log2(w).clamp(max=n_levels - 1)
+    p1 = lo.clamp(0, cap - 1)
+    p2 = (hi - torch.bitwise_left_shift(torch.ones_like(k), k) + 1) \
+        .clamp(0, cap - 1)
+    _, _, out = _better(mx, (V[k, p1], R[k, p1], C[k, p1]),
+                        (V[k, p2], R[k, p2], C[k, p2]))
+    return out
+
+
+def _days_from_civil(y, m, d):
+    """(year, month, day) → days since 1970-01-01; Howard Hinnant's
+    branchless days-from-civil (the inverse of
+    expr_compile._civil_from_days)."""
+    m = m.to(torch.int64)
+    y = y.to(torch.int64) - (m <= 2).to(torch.int64)
+    era = _floordiv(y, 400)
+    yoe = y - era * 400
+    doy = _floordiv(153 * (m + torch.where(m > 2, -3, 9)) + 2, 5) + d - 1
+    doe = yoe * 365 + _floordiv(yoe, 4) - _floordiv(yoe, 100) + doy
+    return era * 146097 + doe - 719468
+
+
+def _shift_months_days(days, n_months: int):
+    """Shift day-numbers by n calendar months, clamping the day of month
+    (Mar 31 - 1 month = Feb 28) — PG's date + interval 'n months'
+    semantics (src/backend/utils/adt/timestamp.c interval_pl role),
+    vectorized for the RANGE frame search. Divisions floor, as jnp's do,
+    so days before 1970 shift correctly."""
+    from cloudberry_tpu_torch.exec.expr_compile import _civil_from_days
+
+    y, m, d = _civil_from_days(days)
+    mm = m.to(torch.int64) - 1 + n_months
+    y2 = y.to(torch.int64) + _floordiv(mm, 12)
+    m2 = torch.remainder(mm, 12) + 1
+    leap = (torch.remainder(y2, 4) == 0) & (
+        (torch.remainder(y2, 100) != 0) | (torch.remainder(y2, 400) == 0))
+    # days in month m2 without a host-built table: 31 for odd months up
+    # to July and even ones from August, else 30; February 28 or 29
+    dim = 30 + torch.remainder(m2 + (m2 >= 8).to(torch.int64), 2)
+    dim = torch.where(m2 == 2, 28 + leap.to(torch.int64), dim)
+    d2 = torch.minimum(d.to(torch.int64), dim)
+    return _days_from_civil(y2, m2, d2)
 
 
 def _pad(a: torch.Tensor, pad: int) -> torch.Tensor:

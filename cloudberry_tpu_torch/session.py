@@ -5,11 +5,16 @@ device. A Session with no device runs on CUDA and raises when no CUDA
 device is available; it never moves to the CPU by itself. The tests ask
 for ``device="cpu"``, which runs the kernels' plain versions.
 
+A join-expansion overflow (more match pairs than the planner's estimate)
+grows the join's pair buffer and runs the statement again
+(``growth_events`` counts the growths). The reference also re-checks
+admission and may fall back to tiled execution there; the port has
+neither yet, so it only grows and retries.
+
 Not ported yet: more than one segment, UPDATE/DELETE (each raises
 ``NotImplementedError`` where reached), generic plans, transactions,
-durable storage, tiled (out-of-core) execution, serving and the metrics
-plane. A join-expansion overflow raises ``ExecError``: the JAX package's
-capacity-growth retry is not ported, since TPC-H Q1/Q3/Q5 never need it.
+durable storage, tiled (out-of-core) execution, admission control,
+serving and the metrics plane.
 """
 
 from __future__ import annotations
@@ -40,18 +45,48 @@ class Session:
         self.catalog = Catalog()
         # device copies of RAM tables: name -> (table version, columns)
         self._device_tables: dict[str, tuple[int, dict]] = {}
+        # join-expansion buffers grown by statement retries
+        self.growth_events = 0
 
     def sql(self, query: str, **params: Any):
         """Run one statement: DDL/DML returns its status string, a SELECT
         its ColumnBatch."""
-        from cloudberry_tpu_torch.exec.executor import execute
         from cloudberry_tpu_torch.plan.planner import plan_statement
         from cloudberry_tpu_torch.sql.parser import parse_sql
 
         result = plan_statement(parse_sql(query), self, params)
         if result.is_ddl:
             return result.ddl_result
-        return execute(result.plan, self)
+        return self._run_with_growth(result.plan)
+
+    def _run_with_growth(self, plan):
+        """Execute; on a detected join-expansion overflow, grow the pair
+        buffer and retry — adaptive capacity, never truncation
+        (exec/executor.py:grow_expansion). Six growths at most (4x each),
+        then a last run whose error surfaces."""
+        from cloudberry_tpu_torch.exec.executor import (ExecError, execute,
+                                                        grow_expansion)
+
+        for _ in range(6):
+            try:
+                return execute(plan, self)
+            except ExecError as e:
+                if not grow_expansion(plan, str(e), allow_fallback=True):
+                    raise
+                self.growth_events += 1
+        return execute(plan, self)
+
+    def explain(self, query: str) -> str:
+        """The plan text of a statement, without running it (one
+        segment: no distribution annotation)."""
+        from cloudberry_tpu_torch.plan.planner import plan_statement
+        from cloudberry_tpu_torch.sql.parser import parse_sql
+
+        result = plan_statement(parse_sql(query), self, {},
+                                explain_only=True)
+        if result.is_ddl:
+            return str(result.ddl_result)
+        return result.plan.explain()
 
     def device_table(self, name: str) -> dict:
         """A table's columns (and ``$nn:<col>`` validity masks) as tensors

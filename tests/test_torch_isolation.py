@@ -25,6 +25,7 @@ def test_import_pulls_in_no_jax():
             "import cloudberry_tpu_torch.plan.planner\n"
             "import cloudberry_tpu_torch.catalog.carry\n"
             "import cloudberry_tpu_torch.tpch\n"
+            "import cloudberry_tpu_torch.tpcds\n"
             "print('\\n'.join(sorted(sys.modules)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, check=True,
@@ -71,10 +72,14 @@ def test_unported_paths_raise():
     s.sql("create table t (a int, b text)")
     s.sql("insert into t values (1, 'x'), (2, 'y')")
     with pytest.raises(NotImplementedError):
-        s.sql("select a, row_number() over (order by a) from t")
+        s.sql("update t set a = 1")
     with pytest.raises(NotImplementedError):
         s.sql("select nosuchfunc(a) from t")
     with pytest.raises(NotImplementedError):
         s.sql("delete from t where a = 1")
     out = s.sql("select b, sum(a) as s from t group by b order by b")
     assert out.decoded_columns()["s"].tolist() == [1, 2]
+    # window functions run in the port
+    out = s.sql("select a, row_number() over (order by a desc) as r from t "
+                "order by a")
+    assert out.decoded_columns()["r"].tolist() == [2, 1]
