@@ -34,7 +34,37 @@ Phases (any failure exits non-zero, and nothing is caught and passed over):
    build holds 12 times) whose true pair count exceeds the planner's
    estimate: the join's buffer must grow (``growth_events``), and the
    count and sum must equal numpy's;
-7. kernels: each kernel, on the inputs the TPC-H path gave it and on
+7. storage: the host packages that import (zstandard, cryptography,
+   pandas) and the native codec, which must have built with g++ and
+   loaded. All eight TPC-H tables written through a store-backed
+   ``Session`` into a fresh ``storage.root`` in a temporary directory
+   (removed at the end), lineitem once more with PARTITION BY RANGE
+   (l_shipdate), one 365-day range a year from 1992-01-01 in days since
+   1970, and customer's key, nation, balance and segment columns in a
+   seeded random row order in 512-row micro-partitions; each table's
+   manifest size and read time. Q1, Q3 and Q5 then run from fresh
+   sessions, every table cold, in four tiers each: a cleared cache scope
+   (host read, decode, upload), a second session (the buffer pool
+   admits), a third (pool-served), and that session again (the
+   store-scan cache where an entry fits beside the pool in
+   ``bufferpool.max_bytes``, else the pool). Every tier must equal the
+   numpy oracle and phase 3 exactly, launch the kernels phase 3 launched
+   and keep the pool and the scan cache within ``bufferpool.max_bytes``;
+   one more run holds every kernel call against its plain version. Per
+   tier: wall ms, partitions read and decoded, read-and-decode MB/s,
+   manifest and footer reads and their host ms, pool hits, misses,
+   admits, evictions, refusals and resident bytes, scan-cache hits,
+   refusals and bytes. Pruning: Q1 and Q3 on the partitioned lineitem
+   (prune reports and kernel input sizes; equal to the unpartitioned
+   run) and a c_custkey point lookup that the footer blooms prune. Join
+   index: Q3 and Q5 twice in a RAM session; the second run must use the
+   cached index, which must equal ``kernels.build_sort`` on the device,
+   whose time is printed. DML last, each against numpy: COPY FROM of the
+   SF1 orders as a '|'-delimited file, COPY TO (the same bytes) and back,
+   COPY with SEGMENT REJECT LIMIT and LOG ERRORS over four bad lines,
+   CREATE TABLE AS of Q3's join, INSERT ... SELECT, UPDATE orders and
+   DELETE FROM lineitem; a fresh session must see every change;
+8. kernels: each kernel, on the inputs the TPC-H path gave it and on
    synthetic inputs at the main path's shapes plus edge cases (empty
    selection, ragged N, int64 wraparound, duplicate build keys, one hot
    cell, cell domains for each of dense_agg's modes, a skewed group, odd
@@ -49,8 +79,8 @@ Phases (any failure exits non-zero, and nothing is caught and passed over):
    was before its fused kernel (key packing in PyTorch around the kernel)
    and as the executor's sorted lookup, and each Q5 probe join is traced
    with torch.profiler: it must be one device kernel;
-8. report: the card line, one JSON line of kernels (launches summed over
-   the counted runs of phases 3 to 6), and last the JSON line
+9. report: the card line, one JSON line of kernels (launches summed over
+   the counted runs of phases 3 to 7), and last the JSON line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -62,6 +92,7 @@ import os
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -421,6 +452,602 @@ def profile_queries(torch, session, queries):
         log(table)
 
 
+# ---------------------------------------------------------- storage phase
+
+STORE_QUERIES = ("q1", "q3", "q5")
+STORE_TIERS = ("cold", "pool admits", "pool-served", "scan cache")
+PART_START, PART_END, PART_EVERY = "1992-01-01", "1999-01-01", 365
+BLOOM_RPP = 512       # rows per micro-partition of the point-lookup table
+SREH_ROWS = 100_000   # orders lines of the reject-limit load
+_DDL_TYPE = {"bool": "boolean", "int32": "integer", "int64": "bigint",
+             "float64": "double", "date": "date", "string": "text"}
+
+
+def ddl_columns(schema) -> str:
+    """A schema as the column list of CREATE TABLE."""
+    out = []
+    for f in schema.fields:
+        base = f.type.base.value
+        out.append(f"{f.name} " + (f"decimal(15,{f.type.scale})"
+                                   if base == "decimal" else _DDL_TYPE[base]))
+    return ", ".join(out)
+
+
+def tbl_lines(cols: dict, schema) -> list[str]:
+    """A generator table's rows as '|'-delimited lines, in the text form
+    COPY TO writes (ISO dates, DECIMALs from their integer units)."""
+    out = []
+    for f in schema.fields:
+        v = np.asarray(cols[f.name])
+        base = f.type.base.value
+        if base == "decimal":
+            s = f.type.scale
+            units = np.rint(v.astype(np.float64) * 10 ** s).astype(np.int64)
+            out.append([f"{'-' if x < 0 else ''}{abs(x) // 10 ** s}."
+                        f"{abs(x) % 10 ** s:0{s}d}" for x in units.tolist()])
+        elif base == "date":
+            out.append((np.datetime64("1970-01-01")
+                        + v.astype("timedelta64[D]")).astype(str).tolist())
+        else:
+            out.append([str(x) for x in v.tolist()])
+    return ["|".join(r) for r in zip(*out)]
+
+
+def physical_of(cols: dict, fields, rows=None) -> dict:
+    """Some columns (``fields``) of a generator table, optionally some rows,
+    in the physical form ``physical`` gives a result: DECIMALs as integer
+    units."""
+    out = {}
+    for f in fields:
+        v = np.asarray(cols[f.name])
+        v = v if rows is None else v[rows]
+        if f.type.base.value == "decimal":
+            v = np.rint(v.astype(np.float64) * 10 ** f.type.scale
+                        ).astype(np.int64)
+        out[f.name] = v
+    return out
+
+
+def store_scan_reports(session, sql) -> list[dict]:
+    """The prune report, partitions kept and capacity of every store scan
+    of a statement's optimized plan."""
+    from cloudberry_tpu_torch.exec.executor import scans_of
+    from cloudberry_tpu_torch.plan.binder import Binder
+    from cloudberry_tpu_torch.plan.planner import _optimize
+    from cloudberry_tpu_torch.sql.parser import parse_sql
+
+    plan = _optimize(Binder(session.catalog).bind_query(parse_sql(sql)),
+                     session)
+    return [{"table": s.table_name, **s._prune_report,
+             "parts": len(s._store_parts), "capacity": s.capacity}
+            for s in scans_of(plan) if hasattr(s, "_store_parts")]
+
+
+def q3_groups(raw, D):
+    """Every (l_orderkey, revenue, o_orderdate, o_shippriority) group of
+    TPC-H Q3's join and filters, by key (the oracle's q3 without the
+    top 10)."""
+    li, cu, od = raw["lineitem"], raw["customer"], raw["orders"]
+    ep, disc = _cents(li["l_extendedprice"]), _cents(li["l_discount"])
+    cust_ok = cu["c_mktsegment"] == "BUILDING"
+    o_ok = (od["o_orderdate"] < D("1995-03-15")) \
+        & cust_ok[_lookup(cu["c_custkey"], od["o_custkey"])]
+    m = (li["l_shipdate"] > D("1995-03-15")) \
+        & o_ok[_lookup(od["o_orderkey"], li["l_orderkey"])]
+    keys, inv = np.unique(li["l_orderkey"][m], return_inverse=True)
+    rev = np.zeros(len(keys), dtype=np.int64)
+    np.add.at(rev, inv, (ep * (100 - disc))[m])
+    first = _lookup(od["o_orderkey"], keys)
+    return {"l_orderkey": keys, "revenue": rev,
+            "o_orderdate": od["o_orderdate"][first],
+            "o_shippriority": od["o_shippriority"][first]}
+
+
+def storage_phase(kit, raw, ram, ram_session, names) -> dict:
+    """Phase 7 (module docstring). ``ram``: {query: (physical result,
+    kernels launched)} of phase 3; ``ram_session``: phase 3's session,
+    whose tables the join-index runs copy. Returns the phase's report."""
+    import shutil
+    import tempfile
+
+    from cloudberry_tpu_torch import native
+    from cloudberry_tpu_torch.storage import micropartition as MP
+    from cloudberry_tpu_torch.storage.table_store import TableStore
+
+    def importable(name):
+        try:
+            __import__(name)
+            return True
+        except ImportError:
+            return False
+
+    host = {n: importable(n) for n in ("zstandard", "cryptography",
+                                       "pandas")}
+    lib = native.load_native()
+    host["codec"] = "zstd" if MP._zstd is not None else "zlib"
+    host["native_codec_loaded"] = lib is not None
+    log(f"[store] host packages importable: zstandard {host['zstandard']}, "
+        f"cryptography {host['cryptography']}, pandas {host['pandas']}; "
+        f"micro-partitions compress with {host['codec']}; native codec "
+        f"({os.path.relpath(native.SOURCE)}, g++ into "
+        f"{os.path.relpath(native.BUILD_DIR)}/) "
+        f"{'loaded' if lib is not None else 'NOT loaded'}")
+    check(lib is not None, "the native codec did not build or load: the "
+          "store path must run on it")
+
+    # every partition read and decode, and every manifest and footer read
+    # (JSON parses), counted and timed where they happen
+    reads = {"calls": 0, "parts": 0, "bytes": 0, "s": 0.0,
+             "manifests": 0, "manifest_s": 0.0, "footers": 0,
+             "footer_s": 0.0}
+    real_read = TableStore.read_partitions
+    real_manifest = TableStore.read_manifest
+    real_footer = MP.read_footer
+
+    def counting_read(self, table, parts, *a, **kw):
+        t0 = time.perf_counter()
+        cols, validity = real_read(self, table, parts, *a, **kw)
+        reads["s"] += time.perf_counter() - t0
+        reads["calls"] += 1
+        reads["parts"] += len(parts)
+        reads["bytes"] += sum(v.nbytes for v in (*cols.values(),
+                                                 *validity.values()))
+        return cols, validity
+
+    def timed(fn, what):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                reads[f"{what}_s"] += time.perf_counter() - t0
+                reads[f"{what}s"] += 1
+        return call
+
+    TableStore.read_partitions = counting_read
+    TableStore.read_manifest = timed(real_manifest, "manifest")
+    MP.read_footer = timed(real_footer, "footer")
+    tmp = tempfile.mkdtemp(prefix="cb_store_")
+    try:
+        out = _storage_runs(kit, raw, ram, ram_session, names, reads,
+                            os.path.join(tmp, "tpch"))
+    finally:
+        TableStore.read_partitions = real_read
+        TableStore.read_manifest = real_manifest
+        MP.read_footer = real_footer
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["host"] = host
+    return out
+
+
+def _storage_runs(kit, raw, ram, ram_session, names, reads, root) -> dict:
+    import re
+
+    import cloudberry_tpu_torch as ct
+    from cloudberry_tpu_torch import tpch
+    from cloudberry_tpu_torch.columnar.batch import encode_column
+    from cloudberry_tpu_torch.exec import bufferpool as BUF
+    from cloudberry_tpu_torch.exec import cuda_kernels as CK
+    from cloudberry_tpu_torch.exec import executor as X
+    from cloudberry_tpu_torch.exec import joinindex as JI
+    from cloudberry_tpu_torch.exec import kernels as K
+    from cloudberry_tpu_torch.exec.executor import all_nodes
+    from cloudberry_tpu_torch.plan.binder import Binder
+    from cloudberry_tpu_torch.plan.planner import _optimize
+    from cloudberry_tpu_torch.sched import sharedcache
+    from cloudberry_tpu_torch.sql.parser import parse_sql
+    from cloudberry_tpu_torch.types import date_to_days as D
+
+    torch = kit.torch
+    report = {}
+    cfg = ct.Config().with_overrides(**{"storage.root": root})
+
+    def held(name_of_run, fn, sizes=None):
+        """Run fn with every kernel call held against its plain version."""
+        for k in CK.LAUNCHES:
+            setattr(CK, k, kit.holding(k, name_of_run, sizes))
+        try:
+            return fn()
+        finally:
+            for k, fn_ in kit.originals.items():
+                setattr(CK, k, fn_)
+
+    # --------------------------------------------------------- the write
+    t0 = time.perf_counter()
+    w = ct.Session(cfg)
+    tpch.load_tables(w, tpch.SCHEMAS, tpch.DIST_KEYS, raw)
+    write_s = time.perf_counter() - t0
+    disk = w.store.disk_usage(fresh=True)
+    li_parts = len(w.store.read_manifest("lineitem")["partitions"])
+    n_li = len(raw["lineitem"]["l_orderkey"])
+    check(li_parts == -(-n_li // w.store.rows_per_partition),
+          f"lineitem: {li_parts} micro-partitions")
+    report["write"] = {"s": write_s, "bytes_on_disk": disk,
+                       "lineitem_partitions": li_parts}
+    log(f"[store] wrote the eight TPC-H tables ({n_li} lineitem rows, "
+        f"{li_parts} lineitem micro-partitions of at most "
+        f"{w.store.rows_per_partition} rows) through a store-backed "
+        f"Session in {write_s:.2f} s: {disk} bytes on disk")
+
+    # partitioned lineitem: one RANGE partition per 365 days of l_shipdate,
+    # bounds in days since 1970
+    schema = tpch.SCHEMAS["lineitem"]
+    lo, hi = D(PART_START), D(PART_END)
+    t0 = time.perf_counter()
+    w.sql(f"create table lineitem_p ({ddl_columns(schema)}) partition by "
+          f"range (l_shipdate) (start {lo} end {hi} every {PART_EVERY})")
+    t = w.catalog.table("lineitem_p")
+    t.set_data({f.name: encode_column(raw["lineitem"][f.name], f, t.dicts)
+                for f in schema.fields}, t.dicts)
+    pkeys = [p["pkey"] for p in
+             w.store.read_manifest("lineitem_p")["partitions"]]
+    part_s = time.perf_counter() - t0
+    report["write"].update(partitioned_s=part_s, partitioned_pkeys=pkeys)
+    log(f"[store] lineitem_p: PARTITION BY RANGE (l_shipdate) (START {lo} "
+        f"END {hi} EVERY {PART_EVERY}) — {PART_START} to {PART_END} in "
+        f"days since 1970 — written in {part_s:.2f} s as {len(pkeys)} "
+        f"micro-partitions {pkeys}")
+
+    # point-lookup table: customer's key, nation, balance and segment in a
+    # seeded random row order, in small micro-partitions, so min/max cannot
+    # prune a c_custkey point and the footer blooms must. (Every footer
+    # carries the table's whole string dictionaries, so the wide text
+    # columns would make each of the 293 footer reads megabytes of JSON.)
+    rng = np.random.default_rng(SEED)
+    cu = raw["customer"]
+    perm = rng.permutation(len(cu["c_custkey"]))
+    b_fields = [f for f in tpch.SCHEMAS["customer"].fields if f.name in
+                ("c_custkey", "c_nationkey", "c_acctbal", "c_mktsegment")]
+    t0 = time.perf_counter()
+    wb = ct.Session(cfg.with_overrides(
+        **{"storage.rows_per_partition": BLOOM_RPP}))
+    wb.sql("create table customer_b (" + ddl_columns(
+        SimpleNamespace(fields=b_fields)) + ")")
+    t = wb.catalog.table("customer_b")
+    t.set_data({f.name: encode_column(cu[f.name][perm], f, t.dicts)
+                for f in b_fields}, t.dicts)
+    n_b = len(wb.store.read_manifest("customer_b")["partitions"])
+    log(f"[store] customer_b: {n_b} micro-partitions of at most "
+        f"{BLOOM_RPP} rows, written in {time.perf_counter() - t0:.2f} s")
+
+    # what every statement on a store pays before any scan: manifest reads
+    # (JSON holding the partition list, statistics and the table's
+    # string dictionaries)
+    manifests = {}
+    for name in tpch.SCHEMAS:
+        mpath = os.path.join(root, name, "_manifests",
+                             f"v{w.store.current_version(name)}.json")
+        t0 = time.perf_counter()
+        w.store.read_manifest(name)
+        manifests[name] = {"bytes": os.path.getsize(mpath),
+                           "parse_ms": (time.perf_counter() - t0) * 1e3}
+    report["manifests"] = manifests
+    log(f"[store] manifest bytes and one read's ms per table: {manifests}")
+    del w, wb
+
+    # ---------------------------------------- cold, pool and cache tiers
+    tiers, store_res = {}, {}
+    for q in STORE_QUERIES:
+        sql = tpch.QUERIES[q]
+        want, ram_fired = ram[q]
+        sharedcache.drop_store_scope(root)
+        rows = []
+        s = None
+        for tier in STORE_TIERS:
+            if tier != "scan cache":
+                s = ct.Session(cfg)
+                check(all(t.cold for t in s.catalog.tables.values()),
+                      "a fresh session registered a table warm")
+            pool = BUF.pool_for(s)
+            r0, p0, c0 = dict(reads), pool.snapshot(), s.counters.snapshot()
+            res, ms, counts = kit.counted_run(s, sql)
+            r1, p1, c1 = dict(reads), pool.snapshot(), s.counters.snapshot()
+            got = physical(res)
+            same(got, oracle(raw, q, D), f"{q} from the store ({tier}) vs "
+                 "the numpy oracle")
+            same(got, want, f"{q} from the store ({tier}) vs the RAM path")
+            fired = {k for k, v in counts.items() if v}
+            check(fired == ram_fired, f"{q} from the store ({tier}): "
+                  f"launches {counts}, the RAM path launched "
+                  f"{sorted(ram_fired)}")
+            nbytes, secs = r1["bytes"] - r0["bytes"], r1["s"] - r0["s"]
+            scan_bytes = sum(X._nbytes(v)
+                             for v in s._store_scan_cache.values())
+            row = {"tier": tier, "ms": ms, "launches": counts,
+                   "partitions_read": r1["parts"] - r0["parts"],
+                   "decoded_bytes": nbytes, "read_decode_s": secs,
+                   "decode_mb_s": nbytes / 1e6 / secs if secs else None,
+                   "manifest_reads": r1["manifests"] - r0["manifests"],
+                   "manifest_ms": (r1["manifest_s"] - r0["manifest_s"]) * 1e3,
+                   "footer_reads": r1["footers"] - r0["footers"],
+                   "footer_ms": (r1["footer_s"] - r0["footer_s"]) * 1e3,
+                   **{f"pool_{k}": p1[k] - p0[k] for k in
+                      ("hits", "misses", "admits", "evictions",
+                       "refusals")},
+                   "pool_resident_bytes": p1["bytes"],
+                   "scan_cache_bytes": scan_bytes,
+                   **{f"scan_cache_{k}":
+                      c1.get(f"store_scan_cache_{k}", 0)
+                      - c0.get(f"store_scan_cache_{k}", 0)
+                      for k in ("hits", "refusals")}}
+            rows.append(row)
+            log(f"[store] {q} {tier}: {ms:.3f} ms, {row['partitions_read']} "
+                f"partition(s) read and decoded ({nbytes} bytes in "
+                f"{secs:.3f} s"
+                + (f", {row['decode_mb_s']:.1f} MB/s" if secs else "")
+                + f"), {row['manifest_reads']} manifest read(s) in "
+                f"{row['manifest_ms']:.3f} ms, {row['footer_reads']} footer "
+                f"read(s) in {row['footer_ms']:.3f} ms, pool hits "
+                f"{row['pool_hits']} misses "
+                f"{row['pool_misses']} admits {row['pool_admits']} "
+                f"evictions {row['pool_evictions']} refusals "
+                f"{row['pool_refusals']}, resident {p1['bytes']} bytes, "
+                f"scan-cache hits {row['scan_cache_hits']} refusals "
+                f"{row['scan_cache_refusals']} holding {scan_bytes} bytes, "
+                f"launches {counts}; equal to the numpy oracle and the RAM "
+                "path")
+            check(p1["bytes"] + scan_bytes <= cfg.bufferpool.max_bytes,
+                  f"{q} {tier}: pool and scan cache hold "
+                  f"{p1['bytes'] + scan_bytes} device bytes, over "
+                  f"bufferpool.max_bytes {cfg.bufferpool.max_bytes}")
+        cold, admit, served, cached = rows
+        check(cold["partitions_read"] > 0 and cold["pool_admits"] == 0,
+              f"{q} cold tier: {cold}")
+        check(admit["pool_admits"] > 0, f"{q}: the pool admitted nothing")
+        check(served["pool_hits"] > 0, f"{q}: the pool served nothing")
+        # the repeat is served from device memory: the scan cache where
+        # its entry fits beside the pool in max_bytes, else the pool
+        check(cached["partitions_read"] == 0
+              and cached["scan_cache_hits"] + cached["pool_hits"] > 0,
+              f"{q} scan-cache tier: {cached}")
+        # every kernel call of one more run, held against its plain version
+        held(f"{q} from the store", lambda: s.sql(sql))
+        tiers[q] = rows
+        store_res[q] = got
+        del s
+    report["tiers"] = tiers
+
+    # ------------------------------------------------------------ pruning
+    s = ct.Session(cfg)
+    prune = {}
+    for q in ("q1", "q3"):
+        sql = re.sub(r"\blineitem\b", "lineitem_p", tpch.QUERIES[q])
+        reps = store_scan_reports(s, sql)
+        sizes = []
+        res = held(f"{q} on lineitem_p", lambda: s.sql(sql), sizes)
+        got = physical(res)
+        same(got, store_res[q], f"{q} on lineitem_p vs unpartitioned")
+        res, ms, counts = kit.counted_run(s, sql)
+        same(physical(res), store_res[q], f"{q} on lineitem_p (counted run)")
+        prune[q] = {"scans": reps, "kernel_inputs": sizes, "ms": ms,
+                    "launches": counts}
+        log(f"[prune] {q} on lineitem_p: {ms:.3f} ms, scans {reps}, kernel "
+            f"inputs {sizes}, launches {counts}; equal to the "
+            f"unpartitioned store run")
+    li_p = next(r for r in prune["q3"]["scans"] if r["table"] == "lineitem_p")
+    check(li_p["skipped_minmax"] > 0, f"Q3 on lineitem_p pruned nothing: "
+          f"{li_p}")
+    key = int(cu["c_custkey"][len(cu["c_custkey"]) // 3])
+    sql = (f"select c_custkey, c_acctbal, c_mktsegment from customer_b "
+           f"where c_custkey = {key}")
+    reps = store_scan_reports(s, sql)
+    res, ms, counts = kit.counted_run(s, sql)
+    same(physical(res), physical_of(
+        cu, [f for f in b_fields if f.name != "c_nationkey"],
+        rows=np.nonzero(cu["c_custkey"] == key)[0]),
+        "point lookup on customer_b vs numpy")
+    check(reps[0]["skipped_bloom"] > 0, f"the bloom pruned nothing: {reps}")
+    prune["point"] = {"sql": sql, "scans": reps, "ms": ms}
+    log(f"[prune] {sql}: {ms:.3f} ms, scans {reps}; equal to numpy")
+    report["prune"] = prune
+    del s
+
+    # --------------------------------------------------------- join index
+    jx = ct.Session()
+    copy_tables(ram_session, jx, names)
+    for n in names:
+        jx.device_table(n)
+    jix = {}
+    for q in ("q3", "q5"):
+        sql = tpch.QUERIES[q]
+        plan = _optimize(Binder(jx.catalog).bind_query(parse_sql(sql)), jx)
+        specs = JI.jix_specs_of(plan)
+        runs = []
+        for i in range(2):
+            c0 = jx.counters.snapshot()
+            res, ms, counts = kit.counted_run(jx, sql)
+            c1 = jx.counters.snapshot()
+            same(physical(res), ram[q][0], f"{q} join-index run {i + 1}")
+            runs.append({"ms": ms, "launches": counts, **{
+                k: c1.get(f"join_index_{k}", 0) - c0.get(f"join_index_{k}", 0)
+                for k in ("builds", "hits")}})
+        if specs:
+            check(runs[1]["hits"] == len(specs) and runs[1]["builds"] == 0,
+                  f"{q}: the second run did not use the cached index: "
+                  f"{runs}")
+        sorts = []
+        for spec in specs:
+            # the build sort the cached index stands in for, on the device,
+            # and the cached index held equal to it
+            cols = jx.device_table(spec.table)
+            rows_ = jx.catalog.table(spec.table).num_rows
+            keys = [cols[p] for p in spec.phys]
+            bsel = torch.arange(keys[0].shape[0], device=kit.dev) < rows_
+            order, skeys, _ = K.build_sort(keys, bsel, spec.bits)
+            idx = JI._cached_index(jx, spec)
+            check(torch.equal(idx["order"], order)
+                  and torch.equal(idx["skeys"], skeys),
+                  f"{q}: the cached index of {spec.key} differs from "
+                  "build_sort")
+            ms = kit.timer.device(lambda: K.build_sort(keys, bsel, spec.bits))
+            sorts.append({"index": spec.key, "rows": rows_,
+                          "build_sort_device_ms": ms})
+        eligible = sum(1 for n in all_nodes(plan)
+                       if getattr(n, "_jix", None) is not None)
+        jix[q] = {"runs": runs, "indexed_joins": eligible,
+                  "build_sorts": sorts}
+        log(f"[joinindex] {q}: {eligible} join(s) annotated with a cached index "
+            f"(build: a bare scan of a whole RAM table); "
+            f"run 1 {runs[0]['ms']:.3f} ms ({runs[0]['builds']} index "
+            f"build(s)), run 2 {runs[1]['ms']:.3f} ms ({runs[1]['hits']} "
+            f"cached index hit(s)); build sorts the index removes: {sorts}")
+    check(jix["q5"]["indexed_joins"] > 0, "Q5 has no join-index join")
+    report["join_index"] = jix
+    del jx
+
+    # ----------------------------------------------------------- DML last
+    report["dml"] = _storage_dml(kit, raw, cfg, root)
+    return report
+
+
+def _storage_dml(kit, raw, cfg, root) -> dict:
+    """DML at scale against numpy on the same data; then a fresh session
+    must see every change."""
+    import cloudberry_tpu_torch as ct
+    from cloudberry_tpu_torch import tpch
+    from cloudberry_tpu_torch.types import date_to_days as D
+
+    od, li = raw["orders"], raw["lineitem"]
+    oschema = tpch.SCHEMAS["orders"]
+    n_ord = len(od["o_orderkey"])
+    s = ct.Session(cfg)
+    walls = {}
+
+    def run(sql, want_status=None):
+        kit.sync()
+        t0 = time.perf_counter()
+        res = s.sql(sql)
+        kit.sync()
+        walls[sql] = (time.perf_counter() - t0) * 1e3
+        if want_status is not None:
+            check(res == want_status, f"{sql!r}: {res!r}, numpy says "
+                  f"{want_status!r}")
+        log(f"[dml] {walls[sql]:.1f} ms: {sql} -> {res}")
+        return res
+
+    def agg(sql):
+        got = physical(s.sql(sql))
+        return {k: v.tolist()[0] for k, v in got.items()}
+
+    tmp = os.path.dirname(root)
+    lines = tbl_lines(od, oschema)
+    path_in = os.path.join(tmp, "orders.tbl")
+    with open(path_in, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    cols = ddl_columns(oschema)
+    every = ", ".join(f.name for f in oschema.fields)
+    want_orders = physical_of(od, oschema.fields)
+
+    # COPY FROM, COPY TO, and back
+    run(f"create table orders_load ({cols})")
+    run(f"copy orders_load from '{path_in}' with delimiter '|'",
+        f"COPY {n_ord}")
+    same(physical(s.sql(f"select {every} from orders_load")), want_orders,
+         "orders_load after COPY FROM vs numpy")
+    path_out = os.path.join(tmp, "orders_out.tbl")
+    run(f"copy orders_load to '{path_out}' with delimiter '|'",
+        f"COPY {n_ord}")
+    with open(path_in, "rb") as a, open(path_out, "rb") as b:
+        check(a.read() == b.read(), "COPY TO wrote other bytes than the "
+              "loaded file")
+    run(f"create table orders_back ({cols})")
+    run(f"copy orders_back from '{path_out}' with delimiter '|'",
+        f"COPY {n_ord}")
+    same(physical(s.sql(f"select {every} from orders_back")), want_orders,
+         "orders_back after COPY TO and FROM vs numpy")
+
+    # single-row error handling: four bad lines among SREH_ROWS good ones
+    bad = ["oops|" + lines[0].split("|", 1)[1],                # bad bigint
+           "|".join(lines[1].split("|")[:3] + ["12x.5"]
+                    + lines[1].split("|")[4:]),               # bad decimal
+           "|".join(lines[2].split("|")[:-1]),                 # short row
+           "|".join(lines[3].split("|")[:4] + ["1995-13-45"]
+                    + lines[3].split("|")[5:])]               # bad date
+    n_sreh = min(SREH_ROWS, n_ord // 2)
+    sreh = lines[:n_sreh // 2] + bad[:2] + lines[n_sreh // 2:n_sreh] \
+        + bad[2:]
+    bad_lines = {n_sreh // 2 + 1, n_sreh // 2 + 2, n_sreh + 3, n_sreh + 4}
+    path_rej = os.path.join(tmp, "orders_rej.tbl")
+    with open(path_rej, "w") as fh:
+        fh.write("\n".join(sreh) + "\n")
+    run(f"create table orders_rej ({cols})")
+    run(f"copy orders_rej from '{path_rej}' with delimiter '|' segment "
+        "reject limit 10 log errors",
+        f"COPY {n_sreh} (rejected {len(bad)} rows)")
+    check({e["line"] for e in s.copy_errors["orders_rej"]} == bad_lines,
+          f"rejected lines {s.copy_errors['orders_rej']}")
+    same(physical(s.sql(f"select {every} from orders_rej")),
+         physical_of(od, oschema.fields, rows=np.arange(n_sreh)),
+         "orders_rej vs numpy")
+
+    # CREATE TABLE AS of Q3's join, INSERT ... SELECT
+    want_q3 = q3_groups(raw, D)
+    run("create table q3_all as select l_orderkey, sum(l_extendedprice * "
+        "(1 - l_discount)) as revenue, o_orderdate, o_shippriority from "
+        "customer, orders, lineitem where c_mktsegment = 'BUILDING' and "
+        "c_custkey = o_custkey and l_orderkey = o_orderkey and o_orderdate "
+        "< date '1995-03-15' and l_shipdate > date '1995-03-15' group by "
+        "l_orderkey, o_orderdate, o_shippriority",
+        f"SELECT {len(want_q3['l_orderkey'])}")
+    same(physical(s.sql("select l_orderkey, revenue, o_orderdate, "
+                        "o_shippriority from q3_all order by l_orderkey")),
+         want_q3, "q3_all vs numpy")
+    late = li["l_shipdate"] > D("1998-06-01")
+    run("create table li_late (l_orderkey bigint, l_extendedprice "
+        "decimal(15,2), l_shipdate date)")
+    run("insert into li_late select l_orderkey, l_extendedprice, l_shipdate "
+        "from lineitem where l_shipdate > date '1998-06-01'",
+        f"INSERT {int(late.sum())}")
+    same(physical(s.sql("select l_orderkey, l_extendedprice, l_shipdate "
+                        "from li_late")),
+         {"l_orderkey": li["l_orderkey"][late],
+          "l_extendedprice": _cents(li["l_extendedprice"])[late],
+          "l_shipdate": li["l_shipdate"][late]}, "li_late vs numpy")
+
+    # UPDATE and DELETE of the store's own tables
+    upd = od["o_orderdate"] < D("1995-01-01")
+    price = want_orders["o_totalprice"]
+    new_price = np.where(upd, price * 2, price)
+    run("update orders set o_totalprice = o_totalprice * 2 where "
+        "o_orderdate < date '1995-01-01'", f"UPDATE {int(upd.sum())}")
+    same(physical(s.sql("select o_orderkey, o_totalprice from orders")),
+         {"o_orderkey": od["o_orderkey"], "o_totalprice": new_price},
+         "orders after UPDATE vs numpy")
+    gone = li["l_shipdate"] > D("1998-08-01")
+    keep_cents = _cents(li["l_extendedprice"])[~gone]
+    run("delete from lineitem where l_shipdate > date '1998-08-01'",
+        f"DELETE {int(gone.sum())}")
+    want_li = {"c": int((~gone).sum()), "s": int(keep_cents.sum())}
+    check(agg("select count(*) as c, sum(l_extendedprice) as s from "
+              "lineitem") == want_li, "lineitem after DELETE vs numpy")
+
+    # a fresh session sees every change
+    del s
+    s = ct.Session(cfg)
+    check(all(t.cold for t in s.catalog.tables.values()),
+          "a fresh session registered a table warm")
+    want_after = {
+        "orders": {"c": n_ord, "s": int(new_price.sum())},
+        "lineitem": want_li,
+        "orders_load": {"c": n_ord, "s": int(price.sum())},
+        "orders_back": {"c": n_ord, "s": int(price.sum())},
+        "orders_rej": {"c": n_sreh, "s": int(price[:n_sreh].sum())},
+        "q3_all": {"c": len(want_q3["l_orderkey"]),
+                   "s": int(want_q3["revenue"].sum())},
+        "li_late": {"c": int(late.sum()),
+                    "s": int(_cents(li["l_extendedprice"])[late].sum())},
+    }
+    value = {"lineitem": "l_extendedprice", "q3_all": "revenue",
+             "li_late": "l_extendedprice"}
+    for table, want in want_after.items():
+        got = agg(f"select count(*) as c, sum({value.get(table, 'o_totalprice')}"
+                  f") as s from {table}")
+        check(got == want, f"{table} in a fresh session: {got}, numpy "
+              f"{want}")
+    log(f"[dml] a fresh session sees every change: {want_after}")
+    return {"walls_ms": walls, "after": want_after}
+
+
 # ------------------------------------------------------------- the phases
 
 def main() -> int:
@@ -506,10 +1133,13 @@ def main() -> int:
               "sorted_seg": CK.sorted_seg_plain}
     held = {k: 0 for k in CK.LAUNCHES}   # calls held against plain
 
-    def holding(name, what):
+    def holding(name, what, sizes=None):
         """A kernel wrapper that also holds each call against the plain
-        version on the same inputs (a warm-up run's calls)."""
+        version on the same inputs (a warm-up run's calls); ``sizes``, if
+        given, collects each call's input sizes."""
         def wrapped(*a):
+            if sizes is not None:
+                sizes.append(f"{name} {input_sizes(name, a)}")
             out = originals[name](*a)
             if name == "probe_join":
                 compare(name, what, a,
@@ -520,6 +1150,13 @@ def main() -> int:
             held[name] += 1
             return out
         return wrapped
+
+    def input_sizes(name, a):
+        if name == "dense_agg":
+            return f"N={a[0].shape[0]} cells={a[4]}"
+        if name == "probe_join":
+            return f"B={a[1].shape[0]} N={a[3].shape[0]}"
+        return f"N={a[0].shape[1]} groups={int(a[3])} cap={a[4]}"
 
     def counted_run(session, sql):
         """One run with the launch counts zeroed just before and read just
@@ -595,6 +1232,7 @@ def main() -> int:
         return out
 
     query_ms = {}
+    ram = {}    # per query: (physical result, kernels launched)
     for q in ("q1", "q3", "q5"):
         sql = tpch.QUERIES[q]
         for k in CK.LAUNCHES:
@@ -615,6 +1253,7 @@ def main() -> int:
               f"{q}: kernels {sorted(EXPECTED[q])} expected, launches "
               f"{counts}")
         got = physical(res)
+        ram[q] = (got, fired)
         same(got, oracle(raw, q, date_to_days), f"{q} vs numpy oracle")
         same(got, physical(cpu.sql(sql)), f"{q} vs the port on the CPU")
         for _ in range(QUERY_RUNS - 1):    # more runs for the spread
@@ -737,10 +1376,23 @@ def main() -> int:
         f"{gsk.growth_events} growth(s) of the pair buffer, {ms:.1f} ms "
         f"with the retries, launches {counts}, equal to numpy")
     del gsk
-
-    # --------------------------------------------------------- 7. kernels
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    timer = Timer(torch, flush, REPS)
+
+    # --------------------------------------------------------- 7. storage
+    t0 = time.perf_counter()
+    held_before = dict(held)
+    store = storage_phase(SimpleNamespace(
+        torch=torch, dev=dev, sync=torch.cuda.synchronize,
+        counted_run=counted_run, holding=holding, originals=originals,
+        timer=timer), raw, ram, gpu, names)
+    store["s"] = time.perf_counter() - t0
+    store["held"] = {k: held[k] - held_before[k] for k in held}
+    log(f"[store] kernel calls of the store path held against their plain "
+        f"versions: {store['held']}; storage phase: {store['s']:.1f} s")
+
+    # --------------------------------------------------------- 8. kernels
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     def rand_int(lo, hi, shape, dtype=torch.int64):
         return torch.randint(lo, hi, shape, generator=gen, device=dev,
@@ -956,7 +1608,6 @@ def main() -> int:
 
     # timings: each kernel at the main path's largest input for it, then
     # the extra shapes -----------------------------------------------------
-    timer = Timer(torch, flush, REPS)
 
     def timing(shape, kernel, plain, library, bytes_, ops):
         ms = timer.device(kernel)
@@ -1158,7 +1809,7 @@ def main() -> int:
             "window_query": tpcds.WINDOW_QUERY.format(
                 where="d_year >= 1998")})
 
-    # ---------------------------------------------------------- 8. report
+    # ---------------------------------------------------------- 9. report
     kernels = [{
         "name": name, "route": "cuda",
         "source": f"cloudberry_tpu_torch/csrc/{CK.SOURCES[name]}",
@@ -1173,7 +1824,7 @@ def main() -> int:
     print(smi)
     print(json.dumps({"kernels": kernels, "queries_ms": query_ms,
                       "tpcds_ms": ds_ms, "tpcds_launches": ds_launches,
-                      "window": window, "growth": growth,
+                      "window": window, "growth": growth, "store": store,
                       "timer_floor_ms": timer_floor_ms, "sf": args.sf,
                       "tpcds_scale": args.ds_scale}))
     print(json.dumps({"ok": True, "device": {

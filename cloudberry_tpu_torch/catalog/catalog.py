@@ -75,14 +75,59 @@ class Table:
     # hashing/placement/grouping see a stable representative.
     validity: dict[str, np.ndarray] = field(default_factory=dict)
 
+    # durable storage binding (storage/table_store.py). cold=True means the
+    # data lives ONLY in micro-partition files: scans read pruned partitions
+    # per query; ensure_loaded() materializes for paths that need RAM arrays
+    backing: object = None
+    cold: bool = False
+    # PARTITION BY spec (gp_partition_template analog): stored writes route
+    # rows into partition-pure micro-partition files so manifest min/max
+    # stats become exact partition bounds — elimination needs no separate
+    # partition catalog. ('range', col, start, end, every) | ('list', col)
+    partition_spec: tuple | None = None
+
     @property
     def num_rows(self) -> int:
         return self.stats.row_count
+
+    def ensure_loaded(self) -> None:
+        """Materialize a cold stored table into RAM (DML paths and
+        distributed placement need whole arrays)."""
+        if not self.cold or self.backing is None:
+            return
+        cols, _, dicts = self.backing.scan(self.name)
+        validity = {k[4:]: v for k, v in cols.items()
+                    if k.startswith("$nn:")}
+        data = {k: v for k, v in cols.items() if not k.startswith("$nn:")}
+        self._loading = True
+        try:
+            self.set_data(data, dicts, validity=validity)
+        finally:
+            self._loading = False
+        self.cold = False
 
     def set_data(self, data: dict[str, np.ndarray],
                  dicts: dict[str, StringDictionary] | None = None,
                  validity: dict[str, np.ndarray] | None = None,
                  appended: int | None = None) -> None:
+        # a refused persist (disk quota, full disk) must not leave RAM
+        # ahead of the store — capture enough to restore on failure
+        import copy as _copy
+
+        _prev = (self.data, self.dicts, self.validity,
+                 _copy.deepcopy(self.stats), getattr(self, "_version", 0),
+                 self.cold)
+        try:
+            self._set_data_inner(data, dicts, validity, appended)
+        except Exception:
+            (self.data, self.dicts, self.validity, self.stats,
+             self._version, self.cold) = _prev
+            raise
+
+    def _set_data_inner(self, data: dict[str, np.ndarray],
+                        dicts: dict[str, StringDictionary] | None = None,
+                        validity: dict[str, np.ndarray] | None = None,
+                        appended: int | None = None) -> None:
         self.data = data
         self.dicts = dicts or {}
         n = len(next(iter(data.values()))) if data else 0
@@ -90,6 +135,9 @@ class Table:
         self.stats.unique = {}
         self.stats.ndv = {}
         self.validity = {}
+        no_change = appended == 0  # zero-row append: skip persistence
+        if no_change:
+            appended = None
         for c, v in (validity or {}).items():
             v = np.asarray(v, dtype=np.bool_)
             if c in data and not v.all():
@@ -108,13 +156,50 @@ class Table:
                 if len(vals):
                     self.stats.min_max[f.name] = (float(vals.min()),
                                                   float(vals.max()))
+        # durable tables: every data change is a new atomic snapshot; an
+        # append-only change persists just the new tail partitions (the
+        # port runs the store in autocommit mode: no transactions yet)
+        if self.backing is not None and not getattr(self, "_loading", False) \
+                and not no_change:
+            if appended is not None and appended < n:
+                k = appended
+                # refresh persisted uniqueness incrementally: a previously
+                # unique column stays unique iff the appended tail has no
+                # internal dups and no overlap with the head (O(N) isin,
+                # not a full O(N log N) re-sort per statement)
+                prev = self.backing.read_manifest(self.name) \
+                    .get("unique", {})
+                unique = dict(prev)
+                for c, flag in prev.items():
+                    arr = data.get(c)
+                    if arr is None or not flag:
+                        continue
+                    tail, head = arr[n - k:], arr[:n - k]
+                    unique[c] = bool(
+                        len(np.unique(tail)) == len(tail)
+                        and not np.isin(tail, head).any())
+                self._store_version = self.backing.append(
+                    self.name, {c: v[-k:] for c, v in data.items()},
+                    self.schema, self.dicts,
+                    validity={c: v[-k:] for c, v in self.validity.items()},
+                    unique=unique,
+                    policy=self.policy,
+                    rows_per_partition=self.backing.rows_per_partition)
+            else:
+                self._store_version = self.backing.save_table(
+                    self, getattr(self.backing, "rows_per_partition",
+                                  1 << 20))
+            self.cold = False
 
     def ndv(self, col: str) -> Optional[int]:
         """Distinct-value count for costing (exact; computed lazily and
-        cached — the auto-ANALYZE stance, autostats.c:283)."""
+        cached — the auto-ANALYZE stance, autostats.c:283). Cold tables
+        only report manifest-persisted values (ANALYZE writes them)."""
         cached = self.stats.ndv.get(col)
         if cached is not None:
             return cached
+        if self.cold:
+            return None
         arr = self.data.get(col)
         if arr is None or arr.dtype.kind not in "iufb" \
             or self.stats.row_count == 0:
@@ -129,7 +214,8 @@ class Table:
         """Collect NDV and equi-depth histograms for every numeric column
         (the distributed-ANALYZE analog, analyze.c:31 — strings count
         distinct dictionary codes; histogram role: pg_statistic
-        histogram_bounds)."""
+        histogram_bounds) and persist into the manifest if durable."""
+        self.ensure_loaded()
         for f in self.schema.fields:
             arr = self.data.get(f.name)
             if arr is None or arr.dtype.kind not in "iufb" \
@@ -147,12 +233,25 @@ class Table:
                     self.stats.hist[f.name] = [
                         float(v) for v in np.quantile(vals, qs)]
         self.stats.analyzed_rows = int(self.stats.row_count)
+        # fresh stats change plan choices (selectivity, memo motion
+        # costing): bump the STATS version so cached compiled statements
+        # re-plan — deliberately not _version, which OCC snapshots watch
+        # (an ANALYZE must never abort a concurrent writer)
+        self._stats_version = next(_VERSION_COUNTER)
+        if self.backing is not None:
+            self._store_version = \
+                self.backing.save_stats(self.name, self.stats.ndv,
+                                        self.stats.hist,
+                                        self.stats.analyzed_rows)
         return dict(self.stats.ndv)
 
     def is_unique(self, col: str) -> bool:
         """Whether a column's values are distinct (PK detection; the planner
         uses this the way nodeHash.c trusts unique-ified hash sides). Lazy +
         cached; recomputed when data changes (set_data clears the cache)."""
+        if self.cold:
+            # data not in RAM: only manifest-recorded uniqueness counts
+            return bool(self.stats.unique.get(col, False))
         cached = self.stats.unique.get(col)
         if cached is None:
             arr = self.data.get(col)
@@ -167,6 +266,9 @@ class Table:
     def is_unique_cols(self, cols: tuple[str, ...]) -> bool:
         """Exact multi-column uniqueness (composite PK detection, e.g.
         partsupp's (ps_partkey, ps_suppkey)) — lexsort + adjacent compare."""
+        if self.cold:
+            # conservative without RAM data (single-column manifests only)
+            return any(bool(self.stats.unique.get(c, False)) for c in cols)
         key = "|".join(sorted(cols))
         cached = self.stats.unique.get(key)
         if cached is None:
@@ -226,17 +328,28 @@ _VERSION_COUNTER = itertools.count(1)
 class Catalog:
     def __init__(self):
         self.tables: dict[str, Table] = {}
+        # durable store (storage/table_store.py) when the session is
+        # storage-backed; new tables bind to it at CREATE
+        self.store = None
         # name -> unbound query AST (views re-bind per statement, so they
         # track base-table changes like the reference's rewriter)
         self.views: dict[str, object] = {}
         # bumped on any DDL that can change name resolution (view create/
         # drop, table create/drop) — statement caches key on it
         self.ddl_version: int = 0
-        # sequences (gp_fastsequence / '?'-message analog). nextval never
-        # rolls back (PostgreSQL semantics).
+        # sequences (gp_fastsequence / '?'-message analog): storeless
+        # sessions keep state here; store-backed sessions delegate every
+        # allocation to the store's locked _SEQUENCES.json so all sessions
+        # draw from one coordinator-owned number line. nextval never rolls
+        # back (PostgreSQL semantics) — deliberately outside txn snapshots.
         self.sequences: dict[str, dict] = {}
+        # materialized views (not yet ported): always empty here, so the
+        # planner's maintenance hooks have nothing to do
+        self.matviews: dict[str, object] = {}
         self._seq_currval: dict[str, int] = {}  # session-local currval
-        # allocation is read-modify-write on shared session state
+        # storeless allocation is read-modify-write on shared session
+        # state — server handler threads share one Session, so it needs
+        # its own lock (the store path is covered by the store file lock)
         self._seq_lock = threading.Lock()
 
     def bump_ddl(self) -> None:
@@ -249,6 +362,9 @@ class Catalog:
         name = name.lower()
         if increment == 0:
             raise ValueError("INCREMENT must not be zero")
+        if self.store is not None:
+            self.store.create_sequence(name, start, increment, if_not_exists)
+            return
         with self._seq_lock:
             if name in self.sequences:
                 if if_not_exists:
@@ -259,6 +375,10 @@ class Catalog:
 
     def drop_sequence(self, name: str, if_exists: bool = False) -> None:
         name = name.lower()
+        if self.store is not None:
+            self.store.drop_sequence(name, if_exists)
+            self._seq_currval.pop(name, None)
+            return
         with self._seq_lock:
             if name not in self.sequences:
                 if if_exists:
@@ -270,15 +390,18 @@ class Catalog:
     def seq_nextval(self, name: str) -> int:
         """Allocate the next value — the segments-fetch-from-the-QD
         protocol (postgres.c '?' message, cdb_sequence_nextval_qe): the
-        coordinator owns the number line; here that is this catalog under
-        its own lock."""
+        coordinator owns the number line; here that is the locked store
+        file (durable) or this catalog under its own lock."""
         name = name.lower()
-        with self._seq_lock:
-            s = self.sequences.get(name)
-            if s is None:
-                raise KeyError(f"unknown sequence {name!r}")
-            base = s["next"]
-            s["next"] = base + s["inc"]
+        if self.store is not None:
+            base = self.store.sequence_alloc(name)
+        else:
+            with self._seq_lock:
+                s = self.sequences.get(name)
+                if s is None:
+                    raise KeyError(f"unknown sequence {name!r}")
+                base = s["next"]
+                s["next"] = base + s["inc"]
         self._seq_currval[name] = base
         return base
 
@@ -293,18 +416,30 @@ class Catalog:
 
     def seq_setval(self, name: str, value: int) -> int:
         name = name.lower()
-        with self._seq_lock:
-            s = self.sequences.get(name)
-            if s is None:
-                raise KeyError(f"unknown sequence {name!r}")
-            s["next"] = int(value) + s["inc"]
+        if self.store is not None:
+            self.store.sequence_setval(name, value)
+        else:
+            with self._seq_lock:
+                s = self.sequences.get(name)
+                if s is None:
+                    raise KeyError(f"unknown sequence {name!r}")
+                s["next"] = int(value) + s["inc"]
         self._seq_currval[name] = int(value)
         return int(value)
+
+    def adopt(self, t: "Table") -> "Table":
+        """Register an externally-constructed table (store registration)
+        without the CREATE-time persistence side effects."""
+        t._version = next(_VERSION_COUNTER)
+        self.tables[t.name] = t
+        self.bump_ddl()
+        return t
 
     def create_table(self, name: str, schema: Schema,
                      policy: DistributionPolicy | None = None,
                      if_not_exists: bool = False,
-                     partition_spec: tuple | None = None) -> Table:
+                     partition_spec: tuple | None = None,
+                     durable: bool = True, bump: bool = True) -> Table:
         name = name.lower()
         if name in self.tables:
             if if_not_exists:
@@ -312,20 +447,34 @@ class Catalog:
             raise ValueError(f"table {name!r} already exists")
         t = Table(name, schema, policy or DistributionPolicy.random())
         if partition_spec is not None:
-            raise NotImplementedError(
-                "PARTITION BY is not yet ported to cloudberry_tpu_torch")
+            if partition_spec[1] not in schema.names:
+                raise ValueError(
+                    f"partition column {partition_spec[1]!r} is not a "
+                    "column of the table")
+            t.partition_spec = partition_spec
         # empty columns from the start so scans of unpopulated tables work
         t.data = {f.name: np.zeros(0, dtype=f.type.np_dtype)
                   for f in schema.fields}
         t._version = next(_VERSION_COUNTER)
+        if self.store is not None and durable:
+            t.backing = self.store
+            # durable schema from CREATE on
+            t._store_version = self.store.save_table(t)
         self.tables[name] = t
-        self.bump_ddl()
+        if bump:
+            # bump=False: transient tables (table functions) are invisible
+            # to SQL names, so creating one must not evict every cached
+            # compiled statement via the ddl version
+            self.bump_ddl()
         return t
 
     def drop_table(self, name: str, if_exists: bool = False) -> None:
         name = name.lower()
         if name not in self.tables and if_exists:
             return
+        t = self.tables[name]
+        if t.backing is not None:
+            t.backing.drop_table(name)
         del self.tables[name]
         self.bump_ddl()
 

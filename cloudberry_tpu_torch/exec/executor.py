@@ -50,16 +50,29 @@ class Executable:
     plan: N.PlanNode
     fn: Callable  # (tables) -> (cols dict, sel, checks dict)
     table_names: list[str]
+    # scans bound to pruned micro-partition reads (plan/scanprune.py) or
+    # point-lookup slices (plan/pointlookup.py); their inputs key by scan
+    # identity, not table name
+    store_scans: list = None  # type: ignore[assignment]
 
 
 def execute(plan: N.PlanNode, session) -> ColumnBatch:
     exe = compile_plan(plan, session)
-    return run_executable(exe, prepare_tables(exe.table_names, session))
+    return run_executable(exe, prepare_inputs(exe, session))
+
+
+def keyed_scan(s: N.PScan) -> bool:
+    """Scans whose input rides under a per-scan key instead of the
+    table name: pruned store reads and point-lookup slices."""
+    return hasattr(s, "_store_parts") or hasattr(s, "_point_rows")
 
 
 def compile_plan(plan: N.PlanNode, session) -> Executable:
     """Eager: the 'program' is the Lowerer walk itself (no jit)."""
-    table_names = sorted({s.table_name for s in scans_of(plan)})
+    scans = list(scans_of(plan))
+    store_scans = [s for s in scans if keyed_scan(s)]
+    table_names = sorted({s.table_name for s in scans
+                          if not keyed_scan(s)})
     device = session.device
 
     def run(tables):
@@ -68,13 +81,172 @@ def compile_plan(plan: N.PlanNode, session) -> Executable:
         out = {f.name: cols[f.name] for f in plan.fields}
         return out, sel, low.checks
 
-    return Executable(plan, run, table_names)
+    return Executable(plan, run, table_names, store_scans)
 
 
 def prepare_tables(table_names: list[str], session) -> dict:
     """Whole RAM tables as device tensors, by name (validity masks under
-    ``$nn:<col>``) — from the session's per-version device copies."""
-    return {name: session.device_table(name) for name in table_names}
+    ``$nn:<col>``) — from the session's per-version device copies. A cold
+    stored table read whole (not through a pruned scan) loads first."""
+    tables = {}
+    for name in table_names:
+        session.catalog.table(name).ensure_loaded()
+        tables[name] = session.device_table(name)
+    return tables
+
+
+def prepare_inputs(exe: Executable, session) -> dict:
+    """All inputs for one executable: RAM tables by name plus pruned
+    store reads and point slices keyed by scan identity plus cached join
+    indexes."""
+    tables = prepare_tables(exe.table_names, session)
+    for s in exe.store_scans or ():
+        if hasattr(s, "_point_rows"):
+            tables[s._input_key] = point_scan_slice(
+                s.table_name, s._point_rows, session)
+        else:
+            tables[s._input_key] = _load_store_scan(s, session)
+    # cached sorted-build join indexes ride next to the tables
+    # (exec/joinindex.py)
+    from cloudberry_tpu_torch.exec.joinindex import join_index_inputs
+
+    tables.update(join_index_inputs(exe.plan, session))
+    return tables
+
+
+def point_scan_slice(table_name: str, rows, session) -> dict:
+    """One point-bound scan's input columns: the matched rows of the
+    table. The JAX package slices them on the host and uploads them at
+    every statement; the port gathers them from the table's device copy
+    (``Session.device_table``) with one index tensor — the same rows in
+    the same order, fewer bytes moved."""
+    cols = session.device_table(table_name)
+    idx = torch.from_numpy(np.asarray(rows, dtype=np.int64)).to(
+        session.device)
+    return {c: v[idx] for c, v in cols.items()}
+
+
+_STORE_SCAN_CACHE_MAX = 16
+
+
+def _nbytes(entry: dict) -> int:
+    return sum(v.numel() * v.element_size() for v in entry.values())
+
+
+def _load_store_scan(scan: N.PScan, session) -> dict:
+    """Read a pruned scan's columns from micro-partitions (column
+    projection: ONLY column_map + mask_map physical columns are read) as
+    tensors on the session's device, cached per (table, version,
+    partitions, columns, device) in the session's LRU. A cache miss
+    consults the device buffer pool per partition before touching the
+    store (exec/bufferpool.py).
+
+    The cache holds device tensors, and a multi-partition entry is a
+    ``torch.cat`` copy of chunks the pool may hold too, so its bytes count
+    with the pool's against ``bufferpool.max_bytes``: after every miss the
+    session's entries plus the pool's resident bytes fit the budget (LRU
+    entries go first; an entry that cannot fit is not kept). Another
+    session's admissions into a shared pool are seen at this session's
+    next miss."""
+    from cloudberry_tpu_torch.exec import bufferpool as BUF
+    from cloudberry_tpu_torch.sched import sharedcache
+
+    store = session.catalog.store
+    key = (scan.table_name, store.effective_version(scan.table_name),
+           tuple(p["file"] for p in scan._store_parts),
+           tuple(sorted(scan.column_map)), tuple(sorted(scan.mask_map)),
+           sharedcache.device_token(session))
+    cache = session._store_scan_cache
+    counters = getattr(session, "counters", None)
+    # LRU, not FIFO: pop-and-reinsert moves a hit to the dict's end so a
+    # hot table's scan survives a burst of one-off queries; the lock keeps
+    # reorder/evict/insert atomic (the store read itself runs unlocked)
+    lock = session._store_scan_lock
+    with lock:
+        hit = cache.pop(key, None)
+        if hit is not None:
+            cache[key] = hit
+    if hit is not None:
+        if counters is not None:
+            counters.bump("store_scan_cache_hits")
+        return hit
+    if counters is not None:
+        counters.bump("store_scan_cache_misses")
+    hit = _read_scan_columns(scan, session, counters)
+    budget = session.config.bufferpool.max_bytes
+    pool = BUF.pool_for(session)
+    if pool is not None:
+        budget -= pool.snapshot()["bytes"]
+    nb = _nbytes(hit)
+    fits = nb <= budget
+    evicted = 0
+    with lock:
+        held = sum(_nbytes(v) for v in cache.values())
+        while cache and (held + (nb if fits else 0) > budget
+                         or (fits and len(cache) >= _STORE_SCAN_CACHE_MAX)):
+            held -= _nbytes(cache.pop(next(iter(cache))))
+            evicted += 1
+        if fits:
+            cache[key] = hit
+    if counters is not None:
+        if evicted:
+            counters.bump("store_scan_cache_evictions", evicted)
+        if not fits:
+            counters.bump("store_scan_cache_refusals")
+    return hit
+
+
+def _read_scan_columns(scan: N.PScan, session, counters) -> dict:
+    """Assemble one pruned scan's input dict on the device. With the
+    buffer pool on, partitions are looked up (and admitted) one by one and
+    the chunks concatenated in part order with ``torch.cat`` —
+    read_partitions concatenates the same chunks in the same order, so
+    the assembly is bit-identical to one batched read; resident
+    partitions skip the host read, decode and upload entirely."""
+    from cloudberry_tpu_torch.exec import bufferpool as BUF
+
+    store = session.catalog.store
+    dev = session.device
+    needed = sorted(set(scan.column_map) | set(scan.mask_map))
+    parts = list(scan._store_parts)
+    bpool = BUF.pool_for(session)
+    if bpool is None or not parts:
+        cols, validity = store.read_partitions(scan.table_name, parts,
+                                               needed)
+        if counters is not None and parts:
+            counters.bump("partitions_decoded", len(parts))
+        hit = {c: BUF.to_device(v, dev) for c, v in cols.items()}
+        for c, v in validity.items():
+            hit[f"$nn:{c}"] = BUF.to_device(
+                np.asarray(v, dtype=np.bool_), dev)
+        return hit
+    cols_key = tuple(needed)
+    col_chunks: dict[str, list] = {}
+    val_chunks: dict[str, list] = {}
+    for part in parts:
+        pk = BUF.partition_key(session, scan.table_name, part, cols_key)
+        ent = bpool.lookup(pk, counters)
+        if ent is None:
+            cols, validity = store.read_partitions(
+                scan.table_name, [part], needed)
+            if counters is not None:
+                counters.bump("partitions_decoded")
+            ent = {"cols": {c: BUF.to_device(v, dev)
+                            for c, v in cols.items()},
+                   "validity": {c: BUF.to_device(
+                       np.asarray(v, dtype=np.bool_), dev)
+                       for c, v in validity.items()}}
+            bpool.offer(pk, ent, table=scan.table_name, log=counters,
+                        device=dev)
+        for c, v in ent["cols"].items():
+            col_chunks.setdefault(c, []).append(v)
+        for c, v in ent["validity"].items():
+            val_chunks.setdefault(c, []).append(v)
+    hit = {c: (vs[0] if len(vs) == 1 else torch.cat(vs))
+           for c, vs in col_chunks.items()}
+    for c, vs in val_chunks.items():
+        hit[f"$nn:{c}"] = vs[0] if len(vs) == 1 else torch.cat(vs)
+    return hit
 
 
 def run_executable(exe: Executable, tables: dict) -> ColumnBatch:
@@ -275,7 +447,7 @@ class Lowerer:
     def scan(self, node: N.PScan):
         if node.table_name == "$dual":
             return {}, torch.ones((1,), dtype=torch.bool, device=self.device)
-        data = self.tables[node.table_name]
+        data = self.tables[getattr(node, "_input_key", node.table_name)]
         cols = {}
         for phys, out in node.column_map.items():
             arr = data[phys]
@@ -335,6 +507,31 @@ class Lowerer:
 
     # ------------------------------------------------------------ operators
 
+    def _join_index(self, node: N.PJoin):
+        """Cached sorted-build index for this join (exec/joinindex.py):
+        (order, sorted packed keys, packing ranges) fed as an input, or
+        None → sort the build side here."""
+        spec = getattr(node, "_jix", None)
+        if spec is None:
+            return None
+        jix = self.tables.get(spec.key)
+        if jix is None:
+            return None
+        ranges = [(jix[f"lo{i}"], jix[f"span{i}"])
+                  for i in range(len(node.build_keys))]
+        return jix["order"], jix["skeys"], ranges
+
+    def _expand_pairs(self, node: N.PJoin, bkeys, bselm, pkeys, pselm,
+                      cap: int):
+        """join_expand through the cached sorted-build index when one is
+        fed (skips the build sort), else the full kernel."""
+        jix = self._join_index(node)
+        if jix is not None:
+            return K.join_expand_sorted(jix[0], jix[1], jix[2], pkeys,
+                                        pselm, cap, bits=node.pack_bits)
+        return K.join_expand(bkeys, bselm, pkeys, pselm, cap,
+                             bits=node.pack_bits)
+
     def join(self, node: N.PJoin):
         bcols, bsel = self.lower_shared(node.build)
         pcols, psel = self.lower(node.probe)
@@ -363,8 +560,14 @@ class Lowerer:
         if fused is not None:
             matched, payload, has_dup = fused
         else:
-            idx, matched, has_dup = K.join_lookup(
-                bkeys, bselm, pkeys, pselm, bits=node.pack_bits)
+            jix = self._join_index(node)
+            if jix is not None:
+                idx, matched, has_dup = K.join_lookup_sorted(
+                    jix[0], jix[1], jix[2], pkeys, pselm,
+                    bits=node.pack_bits)
+            else:
+                idx, matched, has_dup = K.join_lookup(
+                    bkeys, bselm, pkeys, pselm, bits=node.pack_bits)
             payload = K.gather_payload(
                 {n: bcols[n] for n in node.build_payload}, idx, matched)
         if node.kind in ("inner", "left"):
@@ -438,8 +641,8 @@ class Lowerer:
         expand equi-match pairs, evaluate the residual per pair, then
         OR-reduce back onto probe rows."""
         cap = node.out_capacity
-        pi, bi, osel, _matched, total = K.join_expand(
-            bkeys, bselm, pkeys, pselm, cap, bits=node.pack_bits)
+        pi, bi, osel, _matched, total = self._expand_pairs(
+            node, bkeys, bselm, pkeys, pselm, cap)
         self.checks[
             f"semi-join expansion overflow: match pairs exceed capacity "
             f"{cap} (node {id(node)})"] = total > cap
@@ -460,8 +663,8 @@ class Lowerer:
         append unmatched (preserved) probe rows after the pairs; FULL joins
         append unmatched rows from BOTH sides."""
         cap = node.out_capacity
-        pi, bi, osel, matched, total = K.join_expand(
-            bkeys, bselm, pkeys, pselm, cap, bits=node.pack_bits)
+        pi, bi, osel, matched, total = self._expand_pairs(
+            node, bkeys, bselm, pkeys, pselm, cap)
         pi, bi = pi.to(torch.int64), bi.to(torch.int64)
         need = total
         is_pair = osel

@@ -26,6 +26,18 @@ def test_import_pulls_in_no_jax():
             "import cloudberry_tpu_torch.catalog.carry\n"
             "import cloudberry_tpu_torch.tpch\n"
             "import cloudberry_tpu_torch.tpcds\n"
+            "import cloudberry_tpu_torch.lifecycle\n"
+            "import cloudberry_tpu_torch.native\n"
+            "import cloudberry_tpu_torch.utils.faultinject\n"
+            "import cloudberry_tpu_torch.utils.tde\n"
+            "import cloudberry_tpu_torch.storage.iofault\n"
+            "import cloudberry_tpu_torch.storage.micropartition\n"
+            "import cloudberry_tpu_torch.storage.table_store\n"
+            "import cloudberry_tpu_torch.sched.sharedcache\n"
+            "import cloudberry_tpu_torch.plan.scanprune\n"
+            "import cloudberry_tpu_torch.plan.pointlookup\n"
+            "import cloudberry_tpu_torch.exec.bufferpool\n"
+            "import cloudberry_tpu_torch.exec.joinindex\n"
             "print('\\n'.join(sorted(sys.modules)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, check=True,
@@ -72,11 +84,14 @@ def test_unported_paths_raise():
     s.sql("create table t (a int, b text)")
     s.sql("insert into t values (1, 'x'), (2, 'y')")
     with pytest.raises(NotImplementedError):
-        s.sql("update t set a = 1")
+        s.sql("begin")
     with pytest.raises(NotImplementedError):
         s.sql("select nosuchfunc(a) from t")
     with pytest.raises(NotImplementedError):
-        s.sql("delete from t where a = 1")
+        s.sql("create materialized view mv as select a from t")
+    with pytest.raises(NotImplementedError):
+        s.sql("create external table ext (a int) location "
+              "('file:///nonexistent.csv')")
     out = s.sql("select b, sum(a) as s from t group by b order by b")
     assert out.decoded_columns()["s"].tolist() == [1, 2]
     # window functions run in the port

@@ -81,3 +81,66 @@ def assert_same(got, want, allow_empty: bool = False) -> None:
         gd, wd = got.dicts.get(f.name), want.dicts.get(f.name)
         if wd is not None:
             assert list(gd.values) == list(wd.values), f.name
+
+
+class Pair:
+    """A JAX session and a port session (on the CPU) over the same
+    statements: ``sql`` runs a statement in both and holds the results
+    equal — a SELECT's batches by ``assert_same``, any other statement's
+    status text exactly."""
+
+    def __init__(self, jcfg, tcfg):
+        import cloudberry_tpu as cb
+        from cloudberry_tpu_torch import Session as TorchSession
+
+        self.jcfg, self.tcfg = jcfg, tcfg
+        self.js = cb.Session(jcfg)
+        self.ts = TorchSession(tcfg, device="cpu")
+
+    def sql(self, query: str, allow_empty: bool = True):
+        want = self.js.sql(query)
+        got = self.ts.sql(query)
+        if hasattr(want, "num_rows"):
+            assert_same(got, want, allow_empty=allow_empty)
+        else:
+            assert got == want, (got, want)
+        return got, want
+
+    def reopen(self) -> "Pair":
+        """Fresh sessions over the same configs (stored tables register
+        cold)."""
+        return Pair(self.jcfg, self.tcfg)
+
+
+def store_pair(tmp_path, rpp: int = 50, **overrides) -> Pair:
+    """A Pair of store-backed sessions, each engine on a root of its own
+    under ``tmp_path``: one segment, ``rpp`` rows per micro-partition,
+    generic plans off in the JAX package (the port has none)."""
+    import cloudberry_tpu as cb
+    from cloudberry_tpu_torch import Config as TorchConfig
+
+    common = {"storage.rows_per_partition": rpp, **overrides}
+    jcfg = cb.config.Config(n_segments=1).with_overrides(**{
+        "storage.root": str(tmp_path / "jax"),
+        "sched.generic_plans": False, **common})
+    tcfg = TorchConfig().with_overrides(**{
+        "storage.root": str(tmp_path / "port"), **common})
+    return Pair(jcfg, tcfg)
+
+
+def plan_scans(session, sql: str) -> list:
+    """The scans of a statement's optimized plan, in either engine."""
+    pkg = type(session).__module__.split(".")[0]
+    if pkg == "cloudberry_tpu":
+        from cloudberry_tpu.exec.executor import scans_of
+        from cloudberry_tpu.plan.binder import Binder
+        from cloudberry_tpu.plan.planner import _optimize
+        from cloudberry_tpu.sql.parser import parse_sql
+    else:
+        from cloudberry_tpu_torch.exec.executor import scans_of
+        from cloudberry_tpu_torch.plan.binder import Binder
+        from cloudberry_tpu_torch.plan.planner import _optimize
+        from cloudberry_tpu_torch.sql.parser import parse_sql
+    plan = _optimize(Binder(session.catalog).bind_query(parse_sql(sql)),
+                     session)
+    return list(scans_of(plan))
