@@ -5,7 +5,11 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py            # TPC-H SF1 seed 1, TPC-DS scale 100
 
-Phases (any failure exits non-zero, and nothing is caught and passed over):
+Phases (any failure exits non-zero, and nothing is caught and passed over).
+Phases 3 to 6 and 9 run at a 16 GiB per-query memory budget
+(``resource.query_mem_bytes``), an operator's setting for an 80 GB card:
+at the reference's default of 4 GiB four of their statements are refused
+(phase 7).
 
 1. device: the card's name and power limit (nvidia-smi), TF32 off;
 2. build: nvcc compiles the kernels of cloudberry_tpu_torch/csrc (one
@@ -34,7 +38,35 @@ Phases (any failure exits non-zero, and nothing is caught and passed over):
    build holds 12 times) whose true pair count exceeds the planner's
    estimate: the join's buffer must grow (``growth_events``), and the
    count and sum must equal numpy's;
-7. storage: the host packages that import (zstandard, cryptography,
+7. admission at the default 4 GiB budget, planning only where admitted:
+   exactly TPC-DS q27, q59 and q74 and the window query (all three
+   selections) must raise ResourceError (their plans cannot stream, as in
+   the reference), every other statement of phases 3 to 5 and the skew
+   join after its growth must be admitted;
+8. tiling from RAM, on phase 3's and 4's tables: Q1 at 128 MiB, Q3 at
+   512 MiB and Q5 at 256 MiB (TPC-H SF1), and WIN_DS, SORT_DS and TOPN_DS
+   at 128 MiB (scale 100; budgets scale with --sf and --ds-scale); each
+   must tile with the reference's mode, tile rows, tile count and
+   accumulator capacity (at full size), equal its one-shot run (Q1/Q3/Q5
+   also the numpy oracle, Q1's averages in the tiled finalize's order and
+   within 2 ulp of the one-shot run; WIN_DS sorted by every column, floats
+   as in phase 4), launch every kernel the one-shot run launched, never
+   copy the streamed table to the device whole, and keep its peak device
+   bytes above the resident baseline under the budget.
+   One extra run holds every kernel call against its plain version. Q3 at
+   256 MiB and Q18 at 512 MiB must raise ResourceError. Q3 at 512 MiB runs
+   with the in-flight window 1 and 4 and the scan pipeline off and on,
+   bit-identical; the deferred-overflow query of the JAX package's
+   tests/test_tilepipe.py (200,000 rows, k % 7000, 4 MiB) must count a
+   deferred overflow and a window replay at window 4 and equal window 1;
+   a second overflow query (500,000 rows, few groups in the first
+   400,000, a checkpoint every 2 tiles) must resume from a checkpoint at
+   window 4 and equal window 1 and numpy.
+   Per run: wall ms against the one-shot wall, tiles, tile rows, per-tile
+   ms (mean, p95), the scan pipeline's stall, decode, read and overlap,
+   the drain stall, the in-flight depth, the step and pipeline estimates,
+   the peak and the launches per tile;
+9. storage: the host packages that import (zstandard, cryptography,
    pandas) and the native codec, which must have built with g++ and
    loaded. All eight TPC-H tables written through a store-backed
    ``Session`` into a fresh ``storage.root`` in a temporary directory
@@ -59,12 +91,21 @@ Phases (any failure exits non-zero, and nothing is caught and passed over):
    run) and a c_custkey point lookup that the footer blooms prune. Join
    index: Q3 and Q5 twice in a RAM session; the second run must use the
    cached index, which must equal ``kernels.build_sort`` on the device,
-   whose time is printed. DML last, each against numpy: COPY FROM of the
+   whose time is printed. Tiling from the store: Q1 at 128 MiB and Q3 at
+   512 MiB from a cleared cache scope (cold), a second session (the pool
+   admits) and a third (pool-served), each equal to the numpy oracle with
+   the one-shot kernels (a store-backed plan sees only the manifest's
+   statistics, so its decisions are printed, not held); then Q1 on
+   lineitem_p with every other partition dropped from the pool, whose
+   range partitions do not line up with the tiles: some tile must hold
+   pooled and decoded rows in one column (assembled on the device), and
+   the result must equal the numpy oracle. DML last, each
+   against numpy: COPY FROM of the
    SF1 orders as a '|'-delimited file, COPY TO (the same bytes) and back,
    COPY with SEGMENT REJECT LIMIT and LOG ERRORS over four bad lines,
    CREATE TABLE AS of Q3's join, INSERT ... SELECT, UPDATE orders and
    DELETE FROM lineitem; a fresh session must see every change;
-8. kernels: each kernel, on the inputs the TPC-H path gave it and on
+10. kernels: each kernel, on the inputs the TPC-H path gave it and on
    synthetic inputs at the main path's shapes plus edge cases (empty
    selection, ragged N, int64 wraparound, duplicate build keys, one hot
    cell, cell domains for each of dense_agg's modes, a skewed group, odd
@@ -79,14 +120,15 @@ Phases (any failure exits non-zero, and nothing is caught and passed over):
    was before its fused kernel (key packing in PyTorch around the kernel)
    and as the executor's sorted lookup, and each Q5 probe join is traced
    with torch.profiler: it must be one device kernel;
-9. report: the card line, one JSON line of kernels (launches summed over
-   the counted runs of phases 3 to 7), and last the JSON line
+11. report: the card line, one JSON line of kernels (launches summed over
+   the counted runs of phases 3 to 9), and last the JSON line
    ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -114,6 +156,43 @@ WINDOWED = ("q12", "q20", "q36", "q86", "q98")
 FLOAT_RTOL = 1e-9
 ATOL_PER_MAGNITUDE = 1e-12
 SKEW_ROWS = 1_200_000
+# Phases 3 to 6 and 9 run at a 16 GiB per-query budget (query_mem_bytes),
+# an operator's setting for an 80 GB card. At the reference's default of
+# 4 GiB, TPC-DS q27, q59 and q74 and the window query (phase 5, all three
+# selections) are refused with ResourceError in both engines (their plans
+# cannot stream); phase 7 checks exactly that.
+CARD_BUDGET = 16 << 30
+DEFAULT_BUDGET = 4 << 30
+DEFAULT_REFUSED = ("q27", "q59", "q74")
+# the tiling phase: per-query budgets in MiB at TPC-H SF1 and tpcds-lite
+# scale 100 (scaled with --sf and --ds-scale), and the decisions the
+# reference takes there (mode, tile rows, tiles, accumulator capacity;
+# tests/test_torch_admission.py pins both engines to them on the CPU)
+TILED_TPCH = {"q1": (128, (None, 524_288, 12, 8)),
+              "q3": (512, (None, 524_288, 12, 1_880_181)),
+              "q5": (256, (None, 524_288, 12, 25))}
+REFUSED_TPCH = (("q3", 256), ("q18", 512))
+SORT_DS = ("SELECT ss_ticket_number, ss_item_sk, ss_net_profit FROM "
+           "store_sales JOIN date_dim ON ss_sold_date_sk = d_date_sk "
+           "WHERE d_year = 2000 ORDER BY ss_net_profit DESC, "
+           "ss_ticket_number, ss_item_sk")
+TILED_DS = {
+    "WIN_DS": ("SELECT ss_store_sk, ss_ticket_number, ss_quantity, rank() "
+               "over (partition by ss_store_sk order by ss_quantity desc) "
+               "AS r, sum(ss_net_profit) over (partition by ss_store_sk) "
+               "AS sp, avg(ss_ext_sales_price) over (partition by "
+               "ss_store_sk order by ss_ticket_number rows between 2 "
+               "preceding and current row) AS aw FROM store_sales JOIN "
+               "date_dim ON ss_sold_date_sk = d_date_sk WHERE d_year = 2000",
+               128, ("window", 262_144, 12, 0)),
+    "SORT_DS": (SORT_DS, 128, ("sort", 524_288, 6, 0)),
+    "TOPN_DS": (SORT_DS + " LIMIT 100", 128, ("topn", 524_288, 6, 100)),
+}
+TILED_STORE = ("q1", "q3")
+DEFERRED_ROWS = 200_000   # the reference test's deferred-overflow table
+WINDOW_CASES = (("full", "d_year >= 1998"),
+                ("empty selection", "d_year = 1900"),
+                ("one row", "ss_ticket_number = 777"))
 
 
 def log(*a):
@@ -140,9 +219,12 @@ def _lookup(keys, probe):
     return order[pos]
 
 
-def oracle(raw, q, D):
+def oracle(raw, q, D, tiled=False):
     """Independent numpy answers, physical form: strings as str, DECIMAL
-    as int64 fixed-point, DATE as day numbers, avg as float64."""
+    as int64 fixed-point, DATE as day numbers, avg as float64. ``tiled``:
+    Q1's averages in the tiled finalize's order of operations (the
+    reference's two-stage split: sum cast to float, then divided by the
+    count), which can differ from the one-shot order in the last bit."""
     li = raw["lineitem"]
     ep, disc = _cents(li["l_extendedprice"]), _cents(li["l_discount"])
     if q == "q1":
@@ -166,8 +248,12 @@ def oracle(raw, q, D):
                 (e[g] * (100 - d[g]) * (100 + tax[g])).sum())
             for name, v in (("avg_qty", qty), ("avg_price", e),
                             ("avg_disc", d)):
-                out[name].append(np.float64(v[g].sum()) / np.float64(c)
-                                 / 100.0)
+                if tiled:   # the finalize's avg: (sum * 0.01) / count
+                    out[name].append(np.float64(v[g].sum()) * 0.01
+                                     / np.float64(c))
+                else:
+                    out[name].append(np.float64(v[g].sum()) / np.float64(c)
+                                     / 100.0)
             out["count_order"].append(c)
         return out
     if q == "q3":
@@ -544,7 +630,7 @@ def q3_groups(raw, D):
 
 
 def storage_phase(kit, raw, ram, ram_session, names) -> dict:
-    """Phase 7 (module docstring). ``ram``: {query: (physical result,
+    """Phase 9 (module docstring). ``ram``: {query: (physical result,
     kernels launched)} of phase 3; ``ram_session``: phase 3's session,
     whose tables the join-index runs copy. Returns the phase's report."""
     import shutil
@@ -640,17 +726,8 @@ def _storage_runs(kit, raw, ram, ram_session, names, reads, root) -> dict:
 
     torch = kit.torch
     report = {}
-    cfg = ct.Config().with_overrides(**{"storage.root": root})
-
-    def held(name_of_run, fn, sizes=None):
-        """Run fn with every kernel call held against its plain version."""
-        for k in CK.LAUNCHES:
-            setattr(CK, k, kit.holding(k, name_of_run, sizes))
-        try:
-            return fn()
-        finally:
-            for k, fn_ in kit.originals.items():
-                setattr(CK, k, fn_)
+    cfg = ct.Config().with_overrides(**{
+        "storage.root": root, "resource.query_mem_bytes": CARD_BUDGET})
 
     # --------------------------------------------------------- the write
     t0 = time.perf_counter()
@@ -801,7 +878,7 @@ def _storage_runs(kit, raw, ram, ram_session, names, reads, root) -> dict:
               and cached["scan_cache_hits"] + cached["pool_hits"] > 0,
               f"{q} scan-cache tier: {cached}")
         # every kernel call of one more run, held against its plain version
-        held(f"{q} from the store", lambda: s.sql(sql))
+        kit.held(f"{q} from the store", lambda: s.sql(sql))
         tiers[q] = rows
         store_res[q] = got
         del s
@@ -814,7 +891,7 @@ def _storage_runs(kit, raw, ram, ram_session, names, reads, root) -> dict:
         sql = re.sub(r"\blineitem\b", "lineitem_p", tpch.QUERIES[q])
         reps = store_scan_reports(s, sql)
         sizes = []
-        res = held(f"{q} on lineitem_p", lambda: s.sql(sql), sizes)
+        res = kit.held(f"{q} on lineitem_p", lambda: s.sql(sql), sizes)
         got = physical(res)
         same(got, store_res[q], f"{q} on lineitem_p vs unpartitioned")
         res, ms, counts = kit.counted_run(s, sql)
@@ -843,7 +920,8 @@ def _storage_runs(kit, raw, ram, ram_session, names, reads, root) -> dict:
     del s
 
     # --------------------------------------------------------- join index
-    jx = ct.Session()
+    jx = ct.Session(ct.Config().with_overrides(
+        **{"resource.query_mem_bytes": CARD_BUDGET}))
     copy_tables(ram_session, jx, names)
     for n in names:
         jx.device_table(n)
@@ -894,6 +972,11 @@ def _storage_runs(kit, raw, ram, ram_session, names, reads, root) -> dict:
     check(jix["q5"]["indexed_joins"] > 0, "Q5 has no join-index join")
     report["join_index"] = jix
     del jx
+
+    # ---------------------------------------------- tiling from the store
+    t0 = time.perf_counter()
+    report["tiling"] = tiling_store_runs(kit, raw, ram, cfg, root)
+    report["tiling_s"] = time.perf_counter() - t0
 
     # ----------------------------------------------------------- DML last
     report["dml"] = _storage_dml(kit, raw, cfg, root)
@@ -1048,6 +1131,520 @@ def _storage_dml(kit, raw, cfg, root) -> dict:
     return {"walls_ms": walls, "after": want_after}
 
 
+# ------------------------------------------------------------ tiling phase
+
+def sorted_rows(d: dict) -> dict:
+    """A with_nulls() result with its rows sorted by every column (NULL
+    masks included): a tiled window emits whole partitions chunk by
+    chunk, in no SQL order."""
+    keys = []
+    for v, valid in d.values():
+        keys.append(valid)
+        keys.append(np.where(valid, v, np.zeros_like(v))
+                    if v.dtype != object else v)
+    order = np.lexsort(tuple(reversed(keys))) if keys and len(keys[0]) \
+        else np.zeros(0, dtype=np.int64)
+    return {k: (v[order], valid[order]) for k, (v, valid) in d.items()}
+
+
+def max_ulps(got: dict, want: dict) -> int:
+    """The largest distance in units of the last place between two
+    results' float64 columns (0 for none)."""
+    worst = 0
+    for k, w in want.items():
+        w = np.asarray(w)
+        if w.dtype.kind != "f":
+            continue
+        g = np.asarray(got[k]).astype(np.float64).view(np.int64)
+        d = np.abs(g - w.astype(np.float64).view(np.int64))
+        worst = max(worst, int(d.max()) if d.size else 0)
+    return worst
+
+
+def default_budget_phase(gpu, gds, skew, full: bool) -> dict:
+    """Admission at the reference's default budget (4 GiB), planning only
+    where a statement is admitted: the phase-3 TPC-H texts, the 30 TPC-DS
+    texts and the three window-query selections of phase 5. Exactly
+    ``DEFAULT_REFUSED`` and the window query must be over the budget, and
+    each of them must raise ResourceError (its plan cannot stream); every
+    other statement is admitted (``full``: at SF1 and scale 100; smaller
+    data may refuse fewer). ``skew``: (session, text, growths) of the
+    phase-6 skew join, whose grown plan must be admitted too."""
+    from cloudberry_tpu_torch import tpcds, tpch
+    from cloudberry_tpu_torch.exec import executor as X
+    from cloudberry_tpu_torch.exec.resource import (ResourceError,
+                                                    check_admission,
+                                                    estimate_plan_memory)
+    from cloudberry_tpu_torch.plan.planner import plan_statement
+    from cloudberry_tpu_torch.sql.parser import parse_sql
+
+    texts = [(gpu, f"TPC-H {q}", tpch.QUERIES[q]) for q in EXPECTED]
+    texts += [(gds, f"TPC-DS {q}", tpcds.QUERIES[q])
+              for q in sorted(tpcds.QUERIES, key=lambda q: int(q[1:]))]
+    texts += [(gds, f"window query ({case})",
+               tpcds.WINDOW_QUERY.format(where=where))
+              for case, where in WINDOW_CASES]
+    want = {f"TPC-DS {q}" for q in DEFAULT_REFUSED} | {
+        f"window query ({case})" for case, _ in WINDOW_CASES}
+    out = {}
+    for session, name, sql in texts:
+        cfg0 = session.config
+        session.config = cfg0.with_overrides(
+            **{"resource.query_mem_bytes": DEFAULT_BUDGET})
+        try:
+            plan = plan_statement(parse_sql(sql), session, {}).plan
+            est = estimate_plan_memory(plan).peak_bytes
+            outcome = "admitted"
+            if est > DEFAULT_BUDGET:
+                try:
+                    session.sql(sql)
+                    outcome = "tiled"
+                except ResourceError:
+                    outcome = "ResourceError"
+        finally:
+            session.config = cfg0
+        out[name] = {"estimate_bytes": est, "outcome": outcome}
+    refused = {n for n, r in out.items() if r["outcome"] == "ResourceError"}
+    check((refused == want or not full and refused <= want) and all(
+        r["outcome"] == "admitted" for n, r in out.items() if n not in want),
+        f"at the default budget: refused {sorted(refused)}, expected "
+        f"{sorted(want)}; {out}")
+    gsk, sql, growths = skew
+    plan = plan_statement(parse_sql(sql), gsk, {}).plan
+    for _ in range(growths):
+        check(X.grow_expansion(plan, "expansion overflow",
+                               allow_fallback=True), "skew join: no growth")
+    cfg0 = gsk.config
+    gsk.config = cfg0.with_overrides(
+        **{"resource.query_mem_bytes": DEFAULT_BUDGET})
+    try:
+        est = check_admission(plan, gsk).peak_bytes
+    finally:
+        gsk.config = cfg0
+    out["skew join after growth"] = {"estimate_bytes": est,
+                                     "growths": growths,
+                                     "outcome": "admitted"}
+    log(f"[admission] at the default {DEFAULT_BUDGET >> 30} GiB budget: "
+        f"ResourceError for {sorted(refused)} (estimates "
+        f"{[out[n]['estimate_bytes'] for n in sorted(refused)]} bytes), "
+        f"every other phase-3/4/5 statement admitted; the skew join after "
+        f"{growths} growth(s) admitted at {est} bytes")
+    return out
+
+
+def tiled_run(kit, session, sql, budget, what, stream, pool=None,
+              held=True):
+    """One statement at ``budget`` on ``session``: (with ``held``) a
+    warm-up run with every kernel call held against its plain version,
+    then a counted run with the peak device bytes above the resident
+    baseline. Returns (result, row of measurements). The streamed table
+    must never be copied to the device whole, and the peak, less what the
+    buffer pool admitted during the run, must stay under the budget."""
+    torch = kit.torch
+    base_cfg = session.config
+    if base_cfg.resource.query_mem_bytes != budget:
+        # (a store session keeps its own Config object: the buffer pool's
+        # keys carry the config's identity)
+        session.config = base_cfg.with_overrides(
+            **{"resource.query_mem_bytes": budget})
+    uploads = []
+    real_upload = session.device_table
+
+    def recording(name):
+        uploads.append(name)
+        return real_upload(name)
+
+    session.device_table = recording
+    try:
+        if held:
+            kit.held(f"{what} (tiled, held)", lambda: session.sql(sql))
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        pool0 = pool.snapshot()["bytes"] if pool is not None else 0
+        res, ms, counts = kit.counted_run(session, sql)
+        peak = torch.cuda.max_memory_allocated() - base
+        pooled = (pool.snapshot()["bytes"] - pool0) if pool is not None \
+            else 0
+        rep = session.last_tiled_report
+    finally:
+        session.config = base_cfg
+        del session.device_table
+    check(rep is not None and rep["tiled"], f"{what}: did not tile")
+    n = rep["n_tiles"]
+    pipe = rep.get("pipeline", {})
+    row = {"ms": ms, "budget_bytes": budget, "mode": rep.get("mode"),
+           "tile_rows": rep["tile_rows"], "n_tiles": n,
+           "n_chunks": rep.get("n_chunks"),
+           "acc_capacity": rep["acc_capacity"],
+           "tile_time": rep.get("tile_time"), "pipeline": pipe,
+           "drain_stall_s": rep["drain_stall_s"],
+           "inflight_depth": rep["inflight_depth"],
+           "tile_window": rep["tile_window"],
+           "est_step_bytes": rep["est_step_bytes"],
+           "est_pipeline_bytes": rep["est_pipeline_bytes"],
+           "peak_above_resident": peak, "pool_admitted_bytes": pooled,
+           "launches": counts,
+           "launches_per_tile": {k: v / n for k, v in counts.items()}}
+    tt = rep.get("tile_time") or {}
+    log(f"[tiling] {what}: {ms:.3f} ms, mode {row['mode'] or 'agg'}, "
+        f"{n} tiles of {rep['tile_rows']} rows"
+        + (f", {row['n_chunks']} chunks" if row["n_chunks"] else "")
+        + f", acc {rep['acc_capacity']}; tile ms mean "
+        f"{tt.get('mean', 0) * 1e3:.3f} p95 {tt.get('p95', 0) * 1e3:.3f}; "
+        f"pipeline stall {pipe.get('stall_s')} s, decode "
+        f"{pipe.get('decode_s')} s, read {pipe.get('read_s')} s, overlap "
+        f"{pipe.get('overlap_frac')}, parts read {pipe.get('parts_read')} "
+        f"resident {pipe.get('parts_resident')}; drain stall "
+        f"{rep['drain_stall_s']} s, in-flight depth "
+        f"{rep['inflight_depth']} of window {rep['tile_window']}; "
+        f"estimate {rep['est_step_bytes']} + {rep['est_pipeline_bytes']} "
+        f"bytes; peak {peak} bytes above the resident baseline "
+        f"({pooled} admitted to the pool), budget {budget} bytes; "
+        f"launches {counts} ({row['launches_per_tile']} per tile)")
+    check(stream not in uploads, f"{what}: the streamed table {stream} "
+          f"was copied to the device whole")
+    check(peak - pooled <= budget, f"{what}: peak {peak} bytes "
+          f"above the resident baseline ({pooled} of them pool admissions) "
+          f"exceeds the budget {budget}")
+    return res, row
+
+
+def tiling_phase(kit, raw, ram, ram_ms, gpu, gds, args) -> dict:
+    """Tiling from RAM (module docstring): TPC-H Q1/Q3/Q5 at SF1 and
+    WIN_DS/SORT_DS/TOPN_DS at tpcds-lite scale 100 under budgets that
+    force tiling, the two refusals, the dispatch window and the scan
+    pipeline on Q3, and the deferred-overflow replay."""
+    import cloudberry_tpu_torch as ct
+    from cloudberry_tpu_torch import tpch
+    from cloudberry_tpu_torch.catalog import carry
+    from cloudberry_tpu_torch.exec.resource import ResourceError
+    from cloudberry_tpu_torch.types import date_to_days as D
+
+    full_h = args.sf == 1.0
+    full_ds = args.ds_scale == DS_SCALE
+    out = {"tpch": {}, "tpcds": {}}
+
+    def mib(m, scale):
+        return max(int(m * scale), 1) << 20
+
+    def expect(what, row, want, full):
+        got = (row["mode"], row["tile_rows"], row["n_tiles"],
+               row["acc_capacity"])
+        check(row["n_tiles"] > 1, f"{what}: {row['n_tiles']} tile(s)")
+        if full:
+            check(got == want, f"{what}: (mode, tile rows, tiles, "
+                  f"accumulator) {got}, the reference decides {want}")
+
+    for q, (m, want) in TILED_TPCH.items():
+        sql = tpch.QUERIES[q]
+        res, row = tiled_run(kit, gpu, sql, mib(m, args.sf),
+                             f"TPC-H {q} at {m} MiB x sf", "lineitem")
+        expect(q, row, want, full_h)
+        got = physical(res)
+        one_shot, ram_fired = ram[q]
+        fired = {k for k, v in row["launches"].items() if v}
+        check(ram_fired <= fired, f"tiled {q}: launches {row['launches']}, "
+              f"the one-shot run launched {sorted(ram_fired)}")
+        same(got, oracle(raw, q, D, tiled=True),
+             f"tiled {q} vs the numpy oracle (tiled avg order)")
+        row["ulps_vs_one_shot"] = max_ulps(got, one_shot)
+        ints = {k: v for k, v in got.items()
+                if np.asarray(v).dtype.kind != "f"}
+        same(ints, {k: one_shot[k] for k in ints},
+             f"tiled {q} vs the one-shot run (non-float columns)")
+        check(row["ulps_vs_one_shot"] <= 2, f"tiled {q}: floats "
+              f"{row['ulps_vs_one_shot']} ulps from the one-shot run")
+        row["one_shot_ms"] = float(np.median(ram_ms[q]))
+        out["tpch"][q] = row
+        log(f"[tiling] TPC-H {q}: equal to the numpy oracle, the one-shot "
+            f"run's other columns exactly and its floats within "
+            f"{row['ulps_vs_one_shot']} ulp; wall {row['ms']:.3f} ms "
+            f"against {row['one_shot_ms']:.3f} ms one-shot")
+    for q, m in REFUSED_TPCH:
+        cfg0 = gpu.config
+        gpu.config = cfg0.with_overrides(
+            **{"resource.query_mem_bytes": mib(m, args.sf)})
+        try:
+            gpu.sql(tpch.QUERIES[q])
+            refused = False
+        except ResourceError:
+            refused = True
+        finally:
+            gpu.config = cfg0
+        if full_h:
+            check(refused, f"TPC-H {q} at {m} MiB: not refused, the "
+                  "reference raises ResourceError")
+        out["tpch"][f"{q}_{m}MiB_refused"] = refused
+        log(f"[tiling] TPC-H {q} at {m} MiB x sf: "
+            f"{'ResourceError' if refused else 'ran'}")
+
+    for name, (sql, m, want) in TILED_DS.items():
+        one, one_ms, one_counts = kit.counted_run(gds, sql)
+        res, row = tiled_run(kit, gds, sql, mib(m, args.ds_scale / DS_SCALE),
+                             f"{name} at {m} MiB x scale", "store_sales")
+        expect(name, row, want, full_ds)
+        fired = {k for k, v in row["launches"].items() if v}
+        one_fired = {k for k, v in one_counts.items() if v}
+        check(one_fired <= fired, f"tiled {name}: launches "
+              f"{row['launches']}, the one-shot run {one_counts}")
+        if name == "WIN_DS":
+            err = same_nulls(sorted_rows(with_nulls(res)),
+                             sorted_rows(with_nulls(one)),
+                             f"tiled {name} vs the one-shot run (rows "
+                             "sorted by every column)")
+        else:
+            same(physical(res), physical(one),
+                 f"tiled {name} vs the one-shot run")
+            err = 0.0
+        row.update(one_shot_ms=one_ms, rows=res.num_rows(),
+                   largest_float_difference=err)
+        out["tpcds"][name] = row
+        log(f"[tiling] {name}: {res.num_rows()} rows equal to the one-shot "
+            f"run (largest float difference {err}); wall {row['ms']:.3f} ms "
+            f"against {one_ms:.3f} ms one-shot (launches {one_counts})")
+
+    # the dispatch window and the scan pipeline on the card: bit-identical
+    q3 = tpch.QUERIES["q3"]
+    b3 = mib(TILED_TPCH["q3"][0], args.sf)
+    runs, first = {}, None
+    for w in (1, 4):
+        for pipe in (False, True):
+            cfg0 = gpu.config
+            gpu.config = cfg0.with_overrides(**{
+                "resource.query_mem_bytes": b3,
+                "tile_pipeline.inflight_tiles": w,
+                "scan_pipeline.enabled": pipe})
+            try:
+                res, ms, counts = kit.counted_run(gpu, q3)
+                rep = gpu.last_tiled_report
+            finally:
+                gpu.config = cfg0
+            got = physical(res)
+            if first is None:
+                first = got
+            same(got, first, f"Q3 window {w} pipeline {pipe} vs window 1 "
+                 "pipeline off")
+            p = rep.get("pipeline", {})
+            runs[f"window {w}, pipeline {'on' if pipe else 'off'}"] = {
+                "ms": ms, "drain_stall_s": rep["drain_stall_s"],
+                "inflight_depth": rep["inflight_depth"],
+                "stall_s": p.get("stall_s"), "feed_s": p.get("feed_s"),
+                "overlap_frac": p.get("overlap_frac"),
+                "tile_time": rep.get("tile_time")}
+            log(f"[tiling] Q3 window {w}, scan pipeline "
+                f"{'on' if pipe else 'off'}: {ms:.3f} ms, drain stall "
+                f"{rep['drain_stall_s']} s, depth {rep['inflight_depth']}, "
+                f"pipeline {p}; bit-identical to window 1 pipeline off")
+    out["q3_window_pipeline"] = runs
+
+    # a merge overflow that drains behind newer in-flight tiles
+    rng = np.random.default_rng(3)
+    gdf = ct.Session(ct.Config().with_overrides(
+        **{"resource.query_mem_bytes": 4 << 20}))
+    F = carry.field
+    carry.load_encoded(gdf, "fact", [F("k", "int64", 0, False),
+                                     F("v", "int64", 0, False)],
+                       {"k": rng.integers(0, 10_000, DEFERRED_ROWS),
+                        "v": rng.integers(0, 100, DEFERRED_ROWS)})
+    sql = ("SELECT k % 7000 AS kk, count(*) AS c, sum(v) AS sv "
+           "FROM fact GROUP BY k % 7000 ORDER BY kk LIMIT 50")
+    deferred = {}
+    for w in (1, 4):
+        gdf.config = gdf.config.with_overrides(
+            **{"tile_pipeline.inflight_tiles": w})
+        c0 = gdf.counters.snapshot()
+        res, ms, counts = kit.counted_run(gdf, sql)
+        c1 = gdf.counters.snapshot()
+        deferred[w] = {k: c1.get(k, 0) - c0.get(k, 0) for k in (
+            "tile_deferred_overflows", "tile_window_replays",
+            "tile_checkpoints", "tile_resumes")}
+        deferred[w].update(ms=ms, result=physical(res),
+                           acc_capacity=gdf.last_tiled_report[
+                               "acc_capacity"])
+    same(deferred[4].pop("result"), deferred[1].pop("result"),
+         "deferred overflow: window 4 vs window 1")
+    check(deferred[4]["tile_deferred_overflows"] >= 1
+          and deferred[4]["tile_window_replays"] >= 1,
+          f"window 4 counted no deferred overflow and replay: {deferred}")
+    check(deferred[1]["tile_deferred_overflows"] == 0,
+          f"window 1 deferred an overflow: {deferred}")
+    out["deferred_overflow"] = deferred
+    log(f"[tiling] deferred overflow ({DEFERRED_ROWS} rows, k % 7000, "
+        f"4 MiB): {deferred}; window 4 equal to window 1")
+    out["checkpoint_resume"] = checkpoint_resume(kit)
+    return out
+
+
+def checkpoint_resume(kit) -> dict:
+    """A deferred overflow that surfaces behind drained-clean checkpoints:
+    few groups in the stream's first 400,000 rows, many in its last
+    100,000, a checkpoint every 2 tiles. At window 4 the replay must resume
+    from a checkpoint (not re-stream from the first tile) and equal the
+    window-1 run and numpy."""
+    import cloudberry_tpu_torch as ct
+    from cloudberry_tpu_torch.catalog import carry
+
+    rng = np.random.default_rng(4)
+    k = np.concatenate([rng.integers(0, 200, 400_000),
+                        rng.integers(0, 30_000, 100_000)])
+    v = rng.integers(0, 100, len(k))
+    s = ct.Session(ct.Config().with_overrides(**{
+        "resource.query_mem_bytes": 4 << 20,
+        "recovery.checkpoint_every": 2}))
+    F = carry.field
+    carry.load_encoded(s, "fact", [F("k", "int64", 0, False),
+                                   F("v", "int64", 0, False)],
+                       {"k": k, "v": v})
+    sql = ("SELECT k % 20000 AS kk, count(*) AS c, sum(v) AS sv "
+           "FROM fact GROUP BY k % 20000 ORDER BY kk LIMIT 50")
+    kk, inv = np.unique(k % 20_000, return_inverse=True)
+    sv = np.zeros(len(kk), dtype=np.int64)
+    np.add.at(sv, inv, v)
+    want = {"kk": kk[:50], "c": np.bincount(inv)[:50], "sv": sv[:50]}
+    out = {}
+    for w in (1, 4):
+        s.config = s.config.with_overrides(
+            **{"tile_pipeline.inflight_tiles": w})
+        c0 = s.counters.snapshot()
+        res, ms, counts = kit.counted_run(s, sql)
+        c1 = s.counters.snapshot()
+        rep = s.last_tiled_report
+        out[w] = {c: c1.get(c, 0) - c0.get(c, 0) for c in (
+            "tile_deferred_overflows", "tile_window_replays",
+            "tile_checkpoints", "tile_resumes", "tiles_replayed")}
+        out[w].update(ms=ms, n_tiles=rep["n_tiles"],
+                      resumed_from_tile=rep.get("resumed_from_tile"))
+        same(physical(res), want, f"checkpoint resume, window {w}, vs "
+             "numpy")
+    check(out[4]["tile_resumes"] >= 1
+          and (out[4]["resumed_from_tile"] or 0) > 0,
+          f"window 4 did not resume from a checkpoint: {out}")
+    log(f"[tiling] checkpoint resume (500000 rows, k % 20000, 4 MiB, a "
+        f"checkpoint every 2 tiles): {out}; windows 1 and 4 equal to numpy")
+    return out
+
+
+def tiling_store_runs(kit, raw, ram, cfg, root) -> dict:
+    """Q1 and Q3 tiled from phase 9's store: cold (cleared cache scope),
+    a second session (the pool admits), a third (pool-served)."""
+    import cloudberry_tpu_torch as ct
+    from cloudberry_tpu_torch import tpch
+    from cloudberry_tpu_torch.exec import bufferpool as BUF
+    from cloudberry_tpu_torch.sched import sharedcache
+    from cloudberry_tpu_torch.types import date_to_days as D
+
+    out = {}
+    for q in TILED_STORE:
+        m = TILED_TPCH[q][0]
+        budget = max(int(m * kit.sf), 1) << 20
+        sql = tpch.QUERIES[q]
+        one_shot, ram_fired = ram[q]
+        sharedcache.drop_store_scope(root)
+        rows = []
+        # one Config object for the three sessions: pool keys carry it
+        tcfg = cfg.with_overrides(**{"resource.query_mem_bytes": budget})
+        for tier in ("cold", "pool admits", "pool-served"):
+            s = ct.Session(tcfg)
+            check(s.catalog.table("lineitem").cold,
+                  "a fresh session registered lineitem warm")
+            # no held warm-up here: it would count as the tier's scan
+            res, row = tiled_run(kit, s, sql, budget,
+                                 f"{q} from the store ({tier})", "lineitem",
+                                 pool=BUF.pool_for(s), held=False)
+            got = physical(res)
+            same(got, oracle(raw, q, D, tiled=True),
+                 f"{q} tiled from the store ({tier}) vs the numpy oracle")
+            fired = {k for k, v in row["launches"].items() if v}
+            check(ram_fired <= fired, f"{q} tiled from the store ({tier}): "
+                  f"launches {row['launches']}, one-shot {ram_fired}")
+            row["tier"] = tier
+            row["ulps_vs_one_shot"] = max_ulps(got, one_shot)
+            rows.append(row)
+        # every kernel call of one more run, held against its plain version
+        kit.held(f"{q} tiled from the store", lambda: s.sql(sql))
+        del s
+        cold, _, served = rows
+        check(cold["pipeline"].get("parts_read", 0) > 0,
+              f"{q} tiled cold read no partition: {cold['pipeline']}")
+        check(served["pipeline"].get("parts_resident", 0) > 0,
+              f"{q} tiled pool-served tier: {served['pipeline']}")
+        out[q] = rows
+    out["q1_half_warm"] = tiling_half_warm(kit, raw, ram, cfg, root)
+    return out
+
+
+def tiling_half_warm(kit, raw, ram, cfg, root) -> dict:
+    """Q1 tiled from lineitem_p with every other partition dropped from
+    the buffer pool. lineitem_p's range partitions (about 0.9M rows each at
+    SF1) do not line up with the power-of-two tiles, so some tiles take
+    rows from a pooled partition (device tensors) and from a decoded one
+    (pinned host memory): the tile is assembled on the device. Equal to
+    the numpy oracle, with the one-shot kernels."""
+    import re
+
+    import cloudberry_tpu_torch as ct
+    from cloudberry_tpu_torch import tpch
+    from cloudberry_tpu_torch.exec import bufferpool as BUF
+    from cloudberry_tpu_torch.exec import scanpipe as SP
+    from cloudberry_tpu_torch.sched import sharedcache
+    from cloudberry_tpu_torch.types import date_to_days as D
+
+    torch = kit.torch
+    budget = max(int(TILED_TPCH["q1"][0] * kit.sf), 1) << 20
+    sql = re.sub(r"\blineitem\b", "lineitem_p", tpch.QUERIES["q1"])
+    sharedcache.drop_store_scope(root)
+    tcfg = cfg.with_overrides(**{"resource.query_mem_bytes": budget})
+    for _ in range(2):      # read cold, then admitted to the pool
+        ct.Session(tcfg).sql(sql)
+    s = ct.Session(tcfg)
+    pool = BUF.pool_for(s)
+    files = sorted({k[3] for k in pool._entries if k[1] == "lineitem_p"})
+    check(len(files) > 1, f"the pool holds {len(files)} lineitem_p "
+          "partition(s)")
+    pool.sweep(lambda k: k[1] == "lineitem_p" and k[3] in files[1::2])
+    mixed = []
+    real_upload = SP.DeviceStage.upload
+
+    def pooled(p):      # a pool-served piece: a tensor on the device
+        return (torch.is_tensor(p) and p.device.type == s.device.type
+                and not p.is_pinned())
+
+    def upload(self, tile):
+        for name, v in tile.items():
+            if isinstance(v, SP.Mixed) and \
+                    len({pooled(p) for p in v.parts}) == 2:
+                mixed.append(name)
+        return real_upload(self, tile)
+
+    SP.DeviceStage.upload = upload
+    try:
+        res, row = tiled_run(kit, s, sql, budget,
+                             "q1 from lineitem_p (half-warm pool)",
+                             "lineitem_p", pool=pool, held=False)
+    finally:
+        SP.DeviceStage.upload = real_upload
+    same(physical(res), oracle(raw, "q1", D, tiled=True),
+         "q1 tiled from lineitem_p (half-warm pool) vs the numpy oracle")
+    fired = {k for k, v in row["launches"].items() if v}
+    check(ram["q1"][1] <= fired, f"q1 from lineitem_p (half-warm pool): "
+          f"launches {row['launches']}, one-shot {ram['q1'][1]}")
+    p = row["pipeline"]
+    check(p.get("parts_resident", 0) > 0 and p.get("parts_read", 0) > 0,
+          f"q1 from lineitem_p (half-warm pool): {p}")
+    check(len(mixed) > 0, "q1 from lineitem_p (half-warm pool): no tile "
+          "held pooled and decoded rows in one column")
+    row.update(pooled_partitions_kept=len(files[0::2]),
+               mixed_columns=len(mixed))
+    log(f"[tiling] q1 from lineitem_p, {len(files[0::2])} of {len(files)} "
+        f"pooled partitions kept: {len(mixed)} column(s) of tiles held "
+        f"pooled and decoded rows (assembled on the device); equal to the "
+        f"numpy oracle")
+    del s
+    return row
+
+
 # ------------------------------------------------------------- the phases
 
 def main() -> int:
@@ -1196,9 +1793,11 @@ def main() -> int:
     raw = tpch.generate(args.sf, SEED)
     names = ["region", "nation", "supplier", "customer", "orders",
              "lineitem"]
-    gpu = ct.Session()
+    card = ct.Config().with_overrides(
+        **{"resource.query_mem_bytes": CARD_BUDGET})
+    gpu = ct.Session(card)
     tpch.load_tables(gpu, tpch.SCHEMAS, tpch.DIST_KEYS, raw, names)
-    cpu = ct.Session(device="cpu")
+    cpu = ct.Session(card, device="cpu")
     copy_tables(gpu, cpu, names)
     log(f"[data] TPC-H sf={args.sf} seed={SEED}: "
         f"{gpu.catalog.table('lineitem').num_rows} lineitem rows, "
@@ -1271,10 +1870,10 @@ def main() -> int:
     # ---------------------------------------------------------- 4. TPC-DS
     t0 = time.perf_counter()
     ds_raw = tpcds.generate(args.ds_scale, DS_SEED)
-    gds = ct.Session()
+    gds = ct.Session(card)
     tpch.load_tables(gds, tpcds.SCHEMAS, tpcds.DIST_KEYS, ds_raw)
     del ds_raw
-    cds = ct.Session(device="cpu")
+    cds = ct.Session(card, device="cpu")
     copy_tables(gds, cds, list(tpcds.SCHEMAS))
     log(f"[data] TPC-DS (tpcds-lite) scale={args.ds_scale} seed={DS_SEED}: "
         f"{gds.catalog.table('store_sales').num_rows} store_sales, "
@@ -1319,9 +1918,7 @@ def main() -> int:
 
     # ------------------------------------------------- 5. windows at scale
     window = {}
-    for case, where in (("full", "d_year >= 1998"),
-                        ("empty selection", "d_year = 1900"),
-                        ("one row", "ss_ticket_number = 777")):
+    for case, where in WINDOW_CASES:
         sql = tpcds.WINDOW_QUERY.format(where=where)
         gds.sql(sql)                  # warm-up
         torch.cuda.synchronize()
@@ -1354,7 +1951,7 @@ def main() -> int:
 
     # ---------------------------------------------------------- 6. growth
     pk_, pv_, bk_, bv_ = skew_join_tables(SKEW_ROWS)
-    gsk = ct.Session()
+    gsk = ct.Session(card)
     F = carry.field
     carry.load_encoded(gsk, "f", [F("k", "int64", 0, False),
                                   F("v", "int64", 0, False)],
@@ -1375,23 +1972,50 @@ def main() -> int:
     log(f"[growth] skew join: {want_c} pairs from {SKEW_ROWS} probe rows, "
         f"{gsk.growth_events} growth(s) of the pair buffer, {ms:.1f} ms "
         f"with the retries, launches {counts}, equal to numpy")
+
+    # ---------------------------- 7. admission at the default budget
+    admission = default_budget_phase(
+        gpu, gds, (gsk, sql, gsk.growth_events),
+        full=args.sf == 1.0 and args.ds_scale == DS_SCALE)
     del gsk
+
+    # ------------------------------------------- 8. tiling from RAM
+    def held_run(name_of_run, fn, sizes=None):
+        """Run fn with every kernel call held against its plain version
+        (``sizes``, if given, collects each call's input sizes)."""
+        for k in CK.LAUNCHES:
+            setattr(CK, k, holding(k, name_of_run, sizes))
+        try:
+            return fn()
+        finally:
+            for k, fn_ in originals.items():
+                setattr(CK, k, fn_)
+
+    t0 = time.perf_counter()
+    held_before = dict(held)
+    tile_kit = SimpleNamespace(torch=torch, counted_run=counted_run,
+                               held=held_run, sf=args.sf)
+    tiling = tiling_phase(tile_kit, raw, ram, query_ms, gpu, gds, args)
+    tiling["s"] = time.perf_counter() - t0
+    tiling["held"] = {k: held[k] - held_before[k] for k in held}
+    log(f"[tiling] kernel calls of the tiled runs held against their plain "
+        f"versions: {tiling['held']}; tiling phase from RAM: "
+        f"{tiling['s']:.1f} s")
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     timer = Timer(torch, flush, REPS)
 
-    # --------------------------------------------------------- 7. storage
+    # --------------------------------------------------------- 9. storage
     t0 = time.perf_counter()
     held_before = dict(held)
     store = storage_phase(SimpleNamespace(
         torch=torch, dev=dev, sync=torch.cuda.synchronize,
-        counted_run=counted_run, holding=holding, originals=originals,
-        timer=timer), raw, ram, gpu, names)
+        counted_run=counted_run, timer=timer, held=held_run, sf=args.sf), raw, ram, gpu, names)
     store["s"] = time.perf_counter() - t0
     store["held"] = {k: held[k] - held_before[k] for k in held}
     log(f"[store] kernel calls of the store path held against their plain "
         f"versions: {store['held']}; storage phase: {store['s']:.1f} s")
 
-    # --------------------------------------------------------- 8. kernels
+    # -------------------------------------------------------- 10. kernels
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     def rand_int(lo, hi, shape, dtype=torch.int64):
@@ -1809,7 +2433,7 @@ def main() -> int:
             "window_query": tpcds.WINDOW_QUERY.format(
                 where="d_year >= 1998")})
 
-    # ---------------------------------------------------------- 9. report
+    # --------------------------------------------------------- 11. report
     kernels = [{
         "name": name, "route": "cuda",
         "source": f"cloudberry_tpu_torch/csrc/{CK.SOURCES[name]}",
@@ -1825,6 +2449,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "queries_ms": query_ms,
                       "tpcds_ms": ds_ms, "tpcds_launches": ds_launches,
                       "window": window, "growth": growth, "store": store,
+                      "admission": admission, "tiling": tiling,
                       "timer_floor_ms": timer_floor_ms, "sf": args.sf,
                       "tpcds_scale": args.ds_scale}))
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,9 @@ The reference keeps ~6k lines of GUCs (``src/backend/utils/misc/guc_gp.c``).
 Here configuration is a typed, immutable dataclass tree; a session carries
 one, and ``with_overrides`` produces a modified copy. This port carries the
 fields its single-segment slice reads: the planner's, durable storage, the
-device buffer pool and the join-index cache size. There is no counterpart
+device buffer pool, the join-index cache size, the per-query memory budget
+and the tiled (out-of-core) path's scan pipeline, dispatch window and
+checkpoint store. There is no counterpart
 of the JAX package's ``exec.use_pallas``: the kernel gates are decided by
 the plan's shapes alone, and on a CUDA device the hand-written kernels
 always run.
@@ -87,11 +89,81 @@ class StorageConfig:
 
 
 @dataclass(frozen=True)
+class ResourceConfig:
+    """Memory governance analog (vmem_tracker.c:94, workfile_mgr.c). The
+    JAX package's concurrency slots, engine-wide red line and resource
+    queues are not carried yet."""
+
+    # Per-segment device-memory budget for one query's intermediates (bytes).
+    query_mem_bytes: int = 4 << 30
+    # Tiled out-of-core execution when a plan exceeds the budget (the
+    # workfile-manager / spill analog, exec/tiled.py); off = hard refusal.
+    enable_spill: bool = True
+
+
+@dataclass(frozen=True)
+class ScanPipelineConfig:
+    """Asynchronous tiled-scan pipeline (exec/scanpipe.py): a background
+    reader stages the NEXT tiles (read + decode + pad) into a bounded
+    prefetch queue while the device computes the current tile. Results are
+    bit-identical pipeline on/off (same tiles, same order); the knobs only
+    move decode/pad/transfer off the critical path. Queue memory is charged
+    into the statement's tiled report (``est_pipeline_bytes``)."""
+
+    enabled: bool = True
+    # Tiles staged ahead of the consumer (the bounded queue depth).
+    prefetch_tiles: int = 2
+    # Reader-pool threads for column-parallel micro-partition decode.
+    # <=1 decodes serially in the reader.
+    decode_workers: int = 2
+    # Device staging of the next tile while the current one runs: on CUDA
+    # the tile is copied into pinned host memory and uploaded on a side
+    # stream; on a CPU device it is a plain copy.
+    device_buffer: bool = True
+
+
+@dataclass(frozen=True)
+class TilePipelineConfig:
+    """Windowed in-flight tile dispatch (exec/tilepipe.py): the tiled loops
+    keep up to ``inflight_tiles`` steps in flight and read each tile's
+    overflow-check scalars through an async copy, up to W tiles late. A
+    deferred failure replays from the recovery checkpoint store; results
+    are bit-identical window on/off."""
+
+    enabled: bool = True
+    # In-flight tile steps. 1 reproduces the synchronous loop exactly.
+    # <= 0 means auto: 1 on a CPU device, 4 on CUDA.
+    inflight_tiles: int = 0
+
+
+@dataclass(frozen=True)
+class RecoveryConfig:
+    """Tile-granular checkpoints of the tiled executors (exec/recovery.py):
+    the carried state is snapshotted to a host-side, statement-scoped store
+    every ``checkpoint_every`` tiles; the adaptive retry after a deferred
+    overflow resumes from the last drained-clean snapshot."""
+
+    enabled: bool = True
+    # Tiles between snapshots (K).
+    checkpoint_every: int = 4
+    # Statements whose checkpoints the store retains at once (LRU).
+    max_statements: int = 8
+    # Host bytes the store may pin across all statements (0 = unbounded).
+    max_bytes: int = 256 << 20
+
+
+@dataclass(frozen=True)
 class Config:
     planner: PlannerConfig = field(default_factory=PlannerConfig)
     join_filter: JoinFilterConfig = field(default_factory=JoinFilterConfig)
     bufferpool: BufferPoolConfig = field(default_factory=BufferPoolConfig)
     storage: StorageConfig = field(default_factory=StorageConfig)
+    resource: ResourceConfig = field(default_factory=ResourceConfig)
+    scan_pipeline: ScanPipelineConfig = field(
+        default_factory=ScanPipelineConfig)
+    tile_pipeline: TilePipelineConfig = field(
+        default_factory=TilePipelineConfig)
+    recovery: RecoveryConfig = field(default_factory=RecoveryConfig)
 
     def with_overrides(self, **kv: Any) -> "Config":
         """Return a copy with dotted-path overrides, e.g.

@@ -99,18 +99,28 @@ def prepare_inputs(exe: Executable, session) -> dict:
     """All inputs for one executable: RAM tables by name plus pruned
     store reads and point slices keyed by scan identity plus cached join
     indexes."""
-    tables = prepare_tables(exe.table_names, session)
-    for s in exe.store_scans or ():
+    return assemble_inputs(exe.table_names, exe.store_scans or (), session,
+                           plan=exe.plan)
+
+
+def assemble_inputs(table_names, store_scans, session, plan=None) -> dict:
+    """Inputs for the named RAM tables and the keyed scans; with ``plan``,
+    also the cached join indexes its joins are annotated with. The tiled
+    executors call it with every scan except the tile stream, which is
+    never uploaded whole."""
+    tables = prepare_tables(table_names, session)
+    for s in store_scans:
         if hasattr(s, "_point_rows"):
             tables[s._input_key] = point_scan_slice(
                 s.table_name, s._point_rows, session)
         else:
             tables[s._input_key] = _load_store_scan(s, session)
-    # cached sorted-build join indexes ride next to the tables
-    # (exec/joinindex.py)
-    from cloudberry_tpu_torch.exec.joinindex import join_index_inputs
+    if plan is not None:
+        # cached sorted-build join indexes ride next to the tables
+        # (exec/joinindex.py)
+        from cloudberry_tpu_torch.exec.joinindex import join_index_inputs
 
-    tables.update(join_index_inputs(exe.plan, session))
+        tables.update(join_index_inputs(plan, session))
     return tables
 
 
@@ -366,6 +376,10 @@ def grow_expansion(plan: N.PlanNode, message: str, factor: int = 4,
     a multi-segment plan by promoting the motion's capacity rung. One
     segment has no motion buffers (distributed execution is not ported),
     so such a message returns False here."""
+    from cloudberry_tpu_torch.lifecycle import check_cancel
+
+    # cancel seam: each grow-and-retry round re-runs the whole statement
+    check_cancel()
     node = find_expansion_node(plan, message)
     hits = [node] if node is not None else []
     if not hits and allow_fallback and "expansion overflow" in message:
@@ -375,6 +389,9 @@ def grow_expansion(plan: N.PlanNode, message: str, factor: int = 4,
             and (not nd.unique_build or nd.residual is not None))
     for nd in hits:
         nd.out_capacity = max(nd.out_capacity * factor, 64)
+        # capacity re-derivations (the tiled planner's _retile) must never
+        # shrink a runtime-grown buffer back below what overflowed
+        nd._min_out_cap = nd.out_capacity
     return bool(hits)
 
 

@@ -101,6 +101,33 @@ def _build_spec(node: N.PJoin, session):
                          node.pack_bits, build.capacity)
 
 
+def strip_join_index(plan: N.PlanNode) -> None:
+    """Remove every join-index annotation (tiled intake): the tiled
+    prelude and step programs assemble their own inputs, so a join there
+    sorts its build side in-program."""
+    from cloudberry_tpu_torch.exec import executor as X
+
+    for node in X.all_nodes(plan):
+        if isinstance(node, N.PJoin) and hasattr(node, "_jix"):
+            del node._jix
+
+
+def stash_join_index(plan: N.PlanNode) -> list:
+    """(node, spec) pairs for every annotated join. Tiled planning strips
+    speculatively before it knows it can execute the plan — a decline
+    restores these (restore_join_index) so the one-shot fallback keeps
+    the cached index."""
+    from cloudberry_tpu_torch.exec import executor as X
+
+    return [(n, n._jix) for n in X.all_nodes(plan)
+            if isinstance(n, N.PJoin) and hasattr(n, "_jix")]
+
+
+def restore_join_index(stash) -> None:
+    for node, spec in stash:
+        node._jix = spec
+
+
 def jix_specs_of(plan: N.PlanNode) -> list[JoinIndexSpec]:
     """Deduped (by input key) specs of every annotated join in the plan."""
     from cloudberry_tpu_torch.exec import executor as X

@@ -1,12 +1,21 @@
-"""Statement lifecycle — the error taxonomy the storage layer raises.
+"""Statement lifecycle — the error taxonomy, cancellation tokens and the
+current-statement scope.
 
-The JAX package's lifecycle module also carries cancellation tokens, the
-watchdog and the admission circuit breaker; this port carries only the
-retryable-vs-semantic taxonomy its storage path needs (a storage write
-that fails at the OS layer is retryable, a checksum mismatch is not).
+The taxonomy splits retryable failures from semantic ones (a storage write
+that fails at the OS layer is retryable, a checksum mismatch is not). Every
+``Session.sql`` statement runs inside a ``statement_scope`` whose handle
+carries its id (the key of the tiled executors' checkpoint store,
+exec/recovery.py), a deadline and a cancel token; ``check_cancel`` is the
+poll point the tile loops and the scan pipeline's reader thread call. The
+JAX package's watchdog, composite batch handles and admission circuit
+breaker are not carried.
 """
 
 from __future__ import annotations
+
+import threading
+import time
+from typing import Optional
 
 
 class StatementError(RuntimeError):
@@ -17,6 +26,20 @@ class StatementError(RuntimeError):
     itself (explicitly cancelled, semantically wrong)."""
 
     retryable = False
+
+
+class StatementCancelled(StatementError):
+    """Explicitly cancelled (the pg_cancel_backend analog) — semantic:
+    retrying would defeat the cancel."""
+
+    retryable = False
+
+
+class StatementTimeout(StatementError):
+    """Deadline/statement_timeout exceeded — transient: a retry under
+    lighter load may fit."""
+
+    retryable = True
 
 
 class StorageIOError(StatementError):
@@ -57,3 +80,105 @@ def is_retryable(err) -> bool:
             return err.retryable
         err = type(err).__name__
     return str(err) in _RETRYABLE_NAMES
+
+
+# ---------------------------------------------------------- cancel token
+
+
+_REASON_EXC = {
+    "cancelled": StatementCancelled,
+    "timeout": StatementTimeout,
+}
+
+
+class CancelToken:
+    """One statement's cancellation flag, settable from any thread. First
+    cancel wins; the recorded reason picks which taxonomy error the
+    statement's own thread raises at its next poll point."""
+
+    def __init__(self):
+        self._event = threading.Event()
+        self._lock = threading.Lock()
+        self.reason: Optional[str] = None
+        self.message: Optional[str] = None
+
+    def cancel(self, reason: str = "cancelled",
+               message: Optional[str] = None) -> bool:
+        """Request cancellation; True if this call was the first."""
+        with self._lock:
+            if self._event.is_set():
+                return False
+            self.reason = reason
+            self.message = message
+            self._event.set()
+            return True
+
+    def raise_if_cancelled(self) -> None:
+        if not self._event.is_set():
+            return
+        exc = _REASON_EXC.get(self.reason or "cancelled",
+                              StatementCancelled)
+        raise exc(self.message or f"statement {self.reason}")
+
+
+class StatementHandle:
+    """Identity + deadline + token for one executing statement.
+    ``deadline`` is a MONOTONIC absolute (time.monotonic()), or None."""
+
+    def __init__(self, statement_id: int,
+                 deadline: Optional[float] = None,
+                 token: Optional[CancelToken] = None):
+        self.statement_id = statement_id
+        self.deadline = deadline
+        self.token = token if token is not None else CancelToken()
+        self.started = time.monotonic()
+
+    def check(self) -> None:
+        """The CHECK_FOR_INTERRUPTS analog: raise the taxonomy error when
+        cancelled or past the deadline."""
+        self.token.raise_if_cancelled()
+        if self.deadline is not None and time.monotonic() > self.deadline:
+            self.token.cancel(
+                "timeout",
+                f"statement timed out after "
+                f"{time.monotonic() - self.started:.2f}s "
+                "(deadline/statement_timeout exceeded)")
+            self.token.raise_if_cancelled()
+
+
+# ------------------------------------------------- current-statement scope
+
+
+_tls = threading.local()
+
+
+class statement_scope:
+    """Context manager installing ``handle`` as the thread's current
+    statement. Nests: inner statements shadow, exit restores."""
+
+    def __init__(self, handle: StatementHandle):
+        self._handle = handle
+
+    def __enter__(self) -> StatementHandle:
+        stack = getattr(_tls, "stack", None)
+        if stack is None:
+            stack = _tls.stack = []
+        stack.append(self._handle)
+        return self._handle
+
+    def __exit__(self, *exc) -> bool:
+        _tls.stack.pop()
+        return False
+
+
+def current_handle() -> Optional[StatementHandle]:
+    stack = getattr(_tls, "stack", None)
+    return stack[-1] if stack else None
+
+
+def check_cancel() -> None:
+    """Poll point for execution seams: a no-op outside a statement scope,
+    raises StatementCancelled/StatementTimeout inside one."""
+    h = current_handle()
+    if h is not None:
+        h.check()

@@ -8,9 +8,9 @@ executable plan. DML — INSERT, COPY FROM/TO with single-row error
 handling, DELETE, UPDATE, INSERT … SELECT, CREATE TABLE AS — runs its
 synthetic queries through the same executor (``_run_internal``).
 
-This port runs one segment, so there is no distribution pass. The
-reference's ``_run_internal`` also takes an admission slot; the port has
-no admission control yet. Statements that need modules outside the port
+This port runs one segment, so there is no distribution pass.
+``_run_internal`` checks the memory budget as the reference does; the
+reference also takes a resource-queue slot, which the port lacks. Statements that need modules outside the port
 (transactions, matviews, external/foreign/directory tables, resource
 queues, cursors, CLUSTER) raise ``NotImplementedError``.
 """
@@ -201,13 +201,16 @@ def _maybe_autostats(session, table_name: str) -> None:
 
 
 def _run_internal(session, query: ast.Node):
-    """Plan + execute a synthetic query (DML rewrite machinery). The
-    reference runs it under the same admission control and statement
-    slot as user queries; the port has no admission control yet."""
+    """Plan + execute a synthetic query (DML rewrite machinery) under the
+    same memory budget as user queries (over it: ``ResourceError``, no
+    tiling, as in the reference). The reference also takes a statement
+    slot; the port has no resource queues yet."""
     from cloudberry_tpu_torch.exec.executor import execute
+    from cloudberry_tpu_torch.exec.resource import check_admission
 
     binder = Binder(session.catalog)
     plan = _optimize(binder.bind_query(query), session)
+    check_admission(plan, session)
     return execute(plan, session)
 
 

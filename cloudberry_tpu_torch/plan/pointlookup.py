@@ -103,6 +103,7 @@ def _try_bind(filt: N.PFilter, scan: N.PScan, session, seg) -> None:
         rows = _lookup(session, scan.table_name, phys, seg_eff, value)
         if rows is None:
             continue
+        scan._point_undo = (scan.capacity, scan.num_rows)
         scan._point_rows = rows
         scan._point_col = cname
         scan._input_key = f"$pt{id(scan)}"
@@ -147,3 +148,19 @@ def _lookup(session, tname: str, phys: str, seg, value):
         rows = rows[np.asarray(valid)[rows]]
     return rows
 
+
+
+def unbind_point_lookups(plan: N.PlanNode) -> None:
+    """Restore point-bound scans to full scans (the tiled planner streams
+    whole tables by table name; a $pt-keyed sliced scan would miss its
+    input there)."""
+    from cloudberry_tpu_torch.exec.executor import scans_of
+
+    for s in scans_of(plan):
+        undo = getattr(s, "_point_undo", None)
+        if undo is not None:
+            s.capacity, s.num_rows = undo
+            for attr in ("_point_rows", "_point_col", "_input_key",
+                         "_point_undo"):
+                if hasattr(s, attr):
+                    delattr(s, attr)

@@ -5,11 +5,18 @@ device. A Session with no device runs on CUDA and raises when no CUDA
 device is available; it never moves to the CPU by itself. The tests ask
 for ``device="cpu"``, which runs the kernels' plain versions.
 
-A join-expansion overflow (more match pairs than the planner's estimate)
-grows the join's pair buffer and runs the statement again
-(``growth_events`` counts the growths). The reference also re-checks
-admission and may fall back to tiled execution there; the port has
-neither yet, so it only grows and retries.
+Admission: every SELECT's plan is held against ``resource.query_mem_bytes``
+(exec/resource.py). A plan over the budget is re-planned as a stream of
+tiles (exec/tiled.py) and run that way; a plan whose shape cannot stream
+raises the reference's ``ResourceError``. ``last_tiled_report`` holds the
+last tiled run's report (None after a one-shot statement). A join-expansion
+overflow (more match pairs than the planner's estimate) grows the join's
+pair buffer, re-checks admission and runs the statement again
+(``growth_events`` counts the growths); a grown plan over the budget is
+tiled. Each statement runs in a lifecycle scope (lifecycle.py) whose id
+keys the tiled executors' checkpoint store; its checkpoints are discarded
+when the statement ends. The JAX package's greedy re-plan of a refused
+plan needs its join-order memo, which the port lacks.
 
 Durable storage: with ``config.storage.root`` set, the session opens the
 store (storage/table_store.py), registers every stored table COLD (schema
@@ -24,12 +31,13 @@ commits (``_sync_store``). The store runs in autocommit mode.
 store-scan cache and buffer-pool traffic, join-index builds and hits.
 
 Not ported yet: more than one segment, generic plans, transactions (BEGIN
-raises ``NotImplementedError``), materialized views, tiled (out-of-core)
-execution, admission control, serving and the metrics plane.
+raises ``NotImplementedError``), materialized views, resource queues and
+concurrency slots, serving and the metrics plane.
 """
 
 from __future__ import annotations
 
+import itertools
 import threading
 from typing import Any
 
@@ -105,6 +113,16 @@ class Session:
         # join-expansion buffers grown by statement retries
         self.growth_events = 0
         self.counters = Counters()
+        # the last tiled run's report (exec/tiled.py), None after one-shot
+        self.last_tiled_report = None
+        # statement ids (lifecycle scopes) and the tiled executors'
+        # statement-scoped checkpoint store (exec/recovery.py)
+        from cloudberry_tpu_torch.exec.recovery import RecoveryStore
+
+        self._stmt_ids = itertools.count(1)
+        self._recovery = RecoveryStore(
+            self.config.recovery.max_statements,
+            self.config.recovery.max_bytes, log=self.counters)
         # COPY ... LOG ERRORS row rejects, per table (the error-log /
         # gp_read_error_log analog, cdbsreh.c)
         self.copy_errors: dict[str, list] = {}
@@ -117,14 +135,22 @@ class Session:
     def sql(self, query: str, **params: Any):
         """Run one statement: DDL/DML returns its status string, a SELECT
         its ColumnBatch."""
+        from cloudberry_tpu_torch.lifecycle import (StatementHandle,
+                                                    statement_scope)
         from cloudberry_tpu_torch.plan.planner import plan_statement
         from cloudberry_tpu_torch.sql.parser import parse_sql
 
         self._sync_store()
-        result = plan_statement(parse_sql(query), self, params)
-        if result.is_ddl:
-            return result.ddl_result
-        return self._run_with_growth(result.plan)
+        self.last_tiled_report = None  # set again by a tiled run
+        handle = StatementHandle(next(self._stmt_ids))
+        with statement_scope(handle):
+            try:
+                result = plan_statement(parse_sql(query), self, params)
+                if result.is_ddl:
+                    return result.ddl_result
+                return self._run_admitted(result.plan)
+            finally:
+                self._recovery.discard(handle.statement_id)
 
     def read_error_log(self, table: str):
         """Rejected rows recorded by COPY ... LOG ERRORS for ``table``
@@ -186,13 +212,36 @@ class Session:
                         if k[0] in names]:
                 del self._store_scan_cache[key]
 
+    def _run_admitted(self, plan):
+        """Admission control: a plan within the memory budget runs
+        one-shot (with growth retries); an over-budget plan falls back to
+        tiled out-of-core execution (the workfile-manager / spill analog,
+        exec/tiled.py), and one that cannot stream re-raises the
+        ``ResourceError``."""
+        from cloudberry_tpu_torch.exec.resource import (ResourceError,
+                                                        check_admission)
+
+        try:
+            check_admission(plan, self)
+        except ResourceError:
+            from cloudberry_tpu_torch.exec.tiled import plan_tiled
+
+            texe = plan_tiled(plan, self)
+            if texe is None:
+                raise
+            return texe.run()
+        return self._run_with_growth(plan)
+
     def _run_with_growth(self, plan):
         """Execute; on a detected join-expansion overflow, grow the pair
-        buffer and retry — adaptive capacity, never truncation
-        (exec/executor.py:grow_expansion). Six growths at most (4x each),
-        then a last run whose error surfaces."""
+        buffer (re-checking admission) and retry — adaptive capacity, never
+        truncation (exec/executor.py:grow_expansion). Growth that blows the
+        per-query budget falls back to tiled execution. Six growths at most
+        (4x each), then a last run whose error surfaces."""
         from cloudberry_tpu_torch.exec.executor import (ExecError, execute,
                                                         grow_expansion)
+        from cloudberry_tpu_torch.exec.resource import (ResourceError,
+                                                        check_admission)
 
         for _ in range(6):
             try:
@@ -201,6 +250,15 @@ class Session:
                 if not grow_expansion(plan, str(e), allow_fallback=True):
                     raise
                 self.growth_events += 1
+                try:
+                    check_admission(plan, self)
+                except ResourceError:
+                    from cloudberry_tpu_torch.exec.tiled import plan_tiled
+
+                    texe = plan_tiled(plan, self)  # the grown plan spills
+                    if texe is None:
+                        raise
+                    return texe.run()
         return execute(plan, self)
 
     def explain(self, query: str) -> str:

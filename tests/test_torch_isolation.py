@@ -38,6 +38,12 @@ def test_import_pulls_in_no_jax():
             "import cloudberry_tpu_torch.plan.pointlookup\n"
             "import cloudberry_tpu_torch.exec.bufferpool\n"
             "import cloudberry_tpu_torch.exec.joinindex\n"
+            "import cloudberry_tpu_torch.exec.resource\n"
+            "import cloudberry_tpu_torch.exec.tiled\n"
+            "import cloudberry_tpu_torch.exec.tilepipe\n"
+            "import cloudberry_tpu_torch.exec.scanpipe\n"
+            "import cloudberry_tpu_torch.exec.recovery\n"
+            "import cloudberry_tpu_torch.plan.distribute\n"
             "print('\\n'.join(sorted(sys.modules)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, check=True,

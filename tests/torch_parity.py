@@ -144,3 +144,60 @@ def plan_scans(session, sql: str) -> list:
     plan = _optimize(Binder(session.catalog).bind_query(parse_sql(sql)),
                      session)
     return list(scans_of(plan))
+
+
+TILED_KEYS = ("mode", "tile_rows", "n_tiles", "acc_capacity",
+              "est_step_bytes")
+
+
+def budget_pair(load, budget=None, **overrides):
+    """A JAX session (one segment, generic plans off) filled by
+    ``load(session)`` and a port session on the CPU holding the same
+    encoded tables, both under the same memory budget (None: the default
+    4 GiB) and the same dotted ``overrides``."""
+    import cloudberry_tpu as cb
+    from cloudberry_tpu_torch import Config as TorchConfig
+    from cloudberry_tpu_torch import Session as TorchSession
+
+    ov = dict(overrides)
+    if budget is not None:
+        ov["resource.query_mem_bytes"] = budget
+    js = cb.Session(cb.get_config().with_overrides(
+        n_segments=1, **{"sched.generic_plans": False, **ov}))
+    load(js)
+    ts = TorchSession(TorchConfig().with_overrides(**ov), device="cpu")
+    carry_tables(js, ts)
+    return js, ts
+
+
+def same_tiled_report(ts, js) -> dict:
+    """The port's last tiled report, after holding its decision keys equal
+    to the JAX session's (both must have tiled)."""
+    tr, jr = ts.last_tiled_report, js.last_tiled_report
+    assert tr is not None and jr is not None, (tr, jr)
+    assert tr["tiled"] and jr["tiled"]
+    for k in TILED_KEYS:
+        assert tr.get(k) == jr.get(k), (k, tr.get(k), jr.get(k))
+    return tr
+
+
+def sorted_rows(batch):
+    """A window-mode result as a DataFrame sorted by every column (a tiled
+    window emits its rows chunk by chunk, in no SQL order)."""
+    df = batch.to_pandas()
+    return df.sort_values(list(df.columns)).reset_index(drop=True)
+
+
+def assert_same_rows(got, want, float_cols=()) -> None:
+    """Window-mode results compared as the JAX package's spill test does:
+    sorted by every column, other columns exact, ``float_cols`` within the
+    stated float tolerance."""
+    g, w = sorted_rows(got), sorted_rows(want)
+    assert list(g.columns) == list(w.columns) and len(g) == len(w)
+    exact = [c for c in w.columns if c not in float_cols]
+    assert g[exact].equals(w[exact])
+    for c in float_cols:
+        wv = w[c].to_numpy(np.float64)
+        atol = ATOL_PER_MAGNITUDE * max(1.0, float(np.abs(wv).sum()))
+        np.testing.assert_allclose(g[c].to_numpy(np.float64), wv,
+                                   rtol=FLOAT_RTOL, atol=atol, err_msg=c)
