@@ -105,7 +105,25 @@ at the reference's default of 4 GiB four of their statements are refused
    COPY with SEGMENT REJECT LIMIT and LOG ERRORS over four bad lines,
    CREATE TABLE AS of Q3's join, INSERT ... SELECT, UPDATE orders and
    DELETE FROM lineitem; a fresh session must see every change;
-10. kernels: each kernel, on the inputs the TPC-H path gave it and on
+10. telemetry, on phase 3's and 4's tables: EXPLAIN ANALYZE of Q1, Q3, Q5
+   and TPC-DS q98 (its kernel calls held against their plain versions),
+   whose node text (timings stripped) must equal a ``Session(device=
+   "cpu")`` run's, whose root ``rows=`` must equal the statement's row
+   count and whose launches must equal the plain ``sql`` run's; the
+   host-time split of 20 runs each of Q1/Q3/Q5 (the parse, plan,
+   queue_wait and launch stage histograms, p50 and p95, and the exact
+   span medians from the traces), with EXPLAIN ANALYZE's compile_s at its
+   first call and later; obs on against off, 20 interleaved runs each,
+   medians; Q5's trace root covering >= 95 % of its wall, the Chrome
+   trace written to chiprun_out/telemetry_q5_trace.json; the tiled Q1
+   with one ``tile_seconds`` sample per tile and progress climbing to
+   exactly 1.0; RunawayError on the skew join with
+   ``resource.total_mem_bytes`` between its first and grown estimates
+   (and no tiling); two threads running the tiled Q1 in an
+   ``ACTIVE_STATEMENTS 1`` resource queue, the second waiting; and a
+   flight bundle for Q3 with ``obs.slow_ms`` at 1 whose result digest
+   equals the CPU run's;
+11. kernels: each kernel, on the inputs the TPC-H path gave it and on
    synthetic inputs at the main path's shapes plus edge cases (empty
    selection, ragged N, int64 wraparound, duplicate build keys, one hot
    cell, cell domains for each of dense_agg's modes, a skewed group, odd
@@ -120,8 +138,8 @@ at the reference's default of 4 GiB four of their statements are refused
    was before its fused kernel (key packing in PyTorch around the kernel)
    and as the executor's sorted lookup, and each Q5 probe join is traced
    with torch.profiler: it must be one device kernel;
-11. report: the card line, one JSON line of kernels (launches summed over
-   the counted runs of phases 3 to 9), and last the JSON line
+12. report: the card line, one JSON line of kernels (launches summed over
+   the counted runs of phases 3 to 10), and last the JSON line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -190,6 +208,11 @@ TILED_DS = {
 }
 TILED_STORE = ("q1", "q3")
 DEFERRED_ROWS = 200_000   # the reference test's deferred-overflow table
+# the telemetry phase: runs per query for the stage split and for obs
+# on/off, the stage histograms and the trace spans they correspond to
+TELEMETRY_RUNS = 20
+STAGES = ("parse", "plan", "queue_wait", "launch")
+TRACE_STAGES = ("parse", "plan", "queue-wait", "launch")
 WINDOW_CASES = (("full", "d_year >= 1998"),
                 ("empty selection", "d_year = 1900"),
                 ("one row", "ss_ticket_number = 777"))
@@ -1647,6 +1670,364 @@ def tiling_half_warm(kit, raw, ram, cfg, root) -> dict:
 
 # ------------------------------------------------------------- the phases
 
+def strip_timings(text: str) -> str:
+    """EXPLAIN ANALYZE text without what a clock measured: the
+    ``Execution time:`` line and every ``<number> ms``."""
+    import re
+
+    lines = [ln for ln in text.splitlines()
+             if not ln.startswith("Execution time:")]
+    out = re.sub(r"\d+(\.\d+)? ms", "<ms>", "\n".join(lines))
+    return re.sub(r"overlap \d+%", "overlap <pct>", out)
+
+
+def root_rows(text: str) -> int:
+    """The ``rows=`` of an EXPLAIN ANALYZE text's root node."""
+    import re
+
+    m = re.match(r"-> .*?rows=(\d+)", text.splitlines()[0])
+    check(m is not None, f"EXPLAIN ANALYZE root has no rows=: {text}")
+    return int(m.group(1))
+
+
+def hist_since(reg, name, before) -> dict:
+    """Count, p50 and p95 (bucket upper bounds, seconds) of the samples a
+    registry histogram took since ``before`` (its snapshot then)."""
+    from cloudberry_tpu_torch.obs.metrics import _Hist
+
+    now = reg.hist(name) or {"buckets": {}, "count": 0, "sum": 0.0}
+    before = before or {"buckets": {}, "count": 0, "sum": 0.0}
+    h = _Hist()
+    for i, c in now["buckets"].items():
+        h.counts[int(i)] = c - before["buckets"].get(i, 0)
+    h.n = now["count"] - before["count"]
+    h.total = now["sum"] - before["sum"]
+    return {"count": h.n, "p50": h.quantile(0.5), "p95": h.quantile(0.95),
+            "mean": h.total / h.n if h.n else 0.0}
+
+
+def span_split(traces) -> dict:
+    """Per stage, the seconds of each traced statement (its spans of that
+    name summed), plus the statement root's and what no stage covers."""
+    out = {st: [] for st in TRACE_STAGES + ("statement", "other")}
+    for tr in traces:
+        dur = {}
+        for e in tr["events"]:
+            dur[e["name"]] = dur.get(e["name"], 0.0) + e["dur"] / 1e6
+        for st in TRACE_STAGES + ("statement",):
+            out[st].append(dur.get(st, 0.0))
+        out["other"].append(dur.get("statement", 0.0) - sum(
+            dur.get(st, 0.0) for st in TRACE_STAGES))
+    return out
+
+
+def telemetry_phase(kit, ram, gpu, cpu, gds, args) -> dict:
+    """The statement pipeline's telemetry on phase 3's and 4's tables
+    (module docstring, phase 10)."""
+    import dataclasses
+    import threading
+
+    import cloudberry_tpu_torch as ct
+    from cloudberry_tpu_torch import tpcds, tpch
+    from cloudberry_tpu_torch.catalog import carry
+    from cloudberry_tpu_torch.exec import executor as X
+    from cloudberry_tpu_torch.exec.resource import (RunawayError,
+                                                    estimate_plan_memory)
+    from cloudberry_tpu_torch.obs import flightrec as OF
+    from cloudberry_tpu_torch.obs import progress as OP
+    from cloudberry_tpu_torch.obs.trace import chrome_trace
+    from cloudberry_tpu_torch.plan.planner import plan_statement
+    from cloudberry_tpu_torch.sql.parser import parse_sql
+    from cloudberry_tpu_torch.utils import faultinject as FI
+
+    out = {}
+    reg = gpu.stmt_log.registry
+    obs_on = gpu.config.obs
+
+    # ------------------------------------------- EXPLAIN ANALYZE on the card
+    cds = ct.Session(gds.config, device="cpu")
+    copy_tables(gds, cds, list(tpcds.SCHEMAS))
+    ea = {}
+    for name, gs, cs, sql in (
+            ("q1", gpu, cpu, tpch.QUERIES["q1"]),
+            ("q3", gpu, cpu, tpch.QUERIES["q3"]),
+            ("q5", gpu, cpu, tpch.QUERIES["q5"]),
+            ("tpcds q98", gds, cds, tpcds.QUERIES["q98"])):
+        metrics = []
+        gs.metrics_hooks.append(metrics.append)
+        try:
+            kit.held(f"EXPLAIN ANALYZE {name} (held)",
+                     lambda: gs.explain_analyze(sql))
+            res, sql_ms, sql_counts = kit.counted_run(gs, sql)
+            text, ea_ms, ea_counts = kit.counted(
+                lambda: gs.explain_analyze(sql))
+        finally:
+            gs.metrics_hooks.remove(metrics.append)
+        want = cs.explain_analyze(sql)
+        check(strip_timings(text) == strip_timings(want),
+              f"EXPLAIN ANALYZE {name}: the card's text differs from the "
+              f"CPU run's:\n{text}\n--- CPU ---\n{want}")
+        check(root_rows(text) == res.num_rows(),
+              f"EXPLAIN ANALYZE {name}: root rows={root_rows(text)}, the "
+              f"statement returned {res.num_rows()}")
+        check(ea_counts == sql_counts,
+              f"EXPLAIN ANALYZE {name}: launches {ea_counts}, sql "
+              f"launches {sql_counts}")
+        m = metrics[-1]
+        ea[name] = {"sql_ms": sql_ms, "ea_ms": ea_ms, "exec_s": m.wall_s,
+                    "compile_s_first": metrics[0].compile_s,
+                    "compile_s": m.compile_s, "launches": ea_counts,
+                    "rows": res.num_rows(),
+                    "text": strip_timings(text)}
+        log(f"[telemetry] EXPLAIN ANALYZE {name}: text equal to the CPU "
+            f"run's (timings stripped), root rows={res.num_rows()}, "
+            f"launches {ea_counts} = sql's; exec_s {m.wall_s * 1e3:.3f} ms "
+            f"(EXPLAIN ANALYZE wall {ea_ms:.3f} ms, sql wall {sql_ms:.3f} "
+            f"ms), compile_s {metrics[0].compile_s} s at its first call, "
+            f"{m.compile_s} s later")
+        log("[telemetry]   " + text.replace("\n", "\n[telemetry]   "))
+    del cds
+    out["explain_analyze"] = ea
+    out["kernel_build_s"] = kit.build_s
+    out["compiles"] = gpu.stmt_log.counter("compiles")
+    log(f"[telemetry] kernel library built by nvcc in phase 2 "
+        f"({kit.build_s:.2f} s), before any statement: every later "
+        f"compile_s is 0.0; compiles counter {out['compiles']}")
+
+    # ------------------------------------------- the host-time split
+    stages = {}
+    for q in ("q1", "q3", "q5"):
+        sql = tpch.QUERIES[q]
+        before = {st: reg.hist(f"stage_seconds.{st}") for st in STAGES}
+        walls = []
+        for _ in range(TELEMETRY_RUNS):
+            t0 = time.perf_counter()
+            gpu.sql(sql)
+            kit.torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        hists = {st: hist_since(reg, f"stage_seconds.{st}", before[st])
+                 for st in STAGES}
+        for st, h in hists.items():
+            check(h["count"] == TELEMETRY_RUNS,
+                  f"{q}: {h['count']} {st} samples for {TELEMETRY_RUNS} "
+                  f"statements")
+        split = span_split(gpu.stmt_log.traces(TELEMETRY_RUNS))
+        exact = {st: {"p50": float(np.median(v)),
+                      "p95": float(np.percentile(v, 95))}
+                 for st, v in split.items()}
+        stages[q] = {"hist": hists, "spans": exact,
+                     "wall_p50": float(np.median(walls)),
+                     "wall_p95": float(np.percentile(walls, 95))}
+        log(f"[telemetry] {q} host-time split over {TELEMETRY_RUNS} runs "
+            f"(trace spans, median/p95 ms): " + ", ".join(
+                f"{st} {exact[st]['p50'] * 1e3:.3f}/"
+                f"{exact[st]['p95'] * 1e3:.3f}"
+                for st in TRACE_STAGES + ("other", "statement"))
+            + f"; wall {stages[q]['wall_p50'] * 1e3:.3f}/"
+            f"{stages[q]['wall_p95'] * 1e3:.3f}; stage histograms "
+            "(p50/p95 bucket bounds, ms): " + ", ".join(
+                f"{st} {h['p50'] * 1e3:.3f}/{h['p95'] * 1e3:.3f}"
+                for st, h in hists.items()))
+    out["stages"] = stages
+
+    # ------------------------------------------- obs on against off
+    obs_off = dataclasses.replace(obs_on, enabled=False)
+    onoff = {}
+    for q in ("q1", "q3", "q5"):
+        sql = tpch.QUERIES[q]
+        walls = {"on": [], "off": []}
+        for i in range(TELEMETRY_RUNS):
+            for mode in (("on", "off") if i % 2 == 0 else ("off", "on")):
+                gpu.stmt_log.configure_obs(obs_on if mode == "on"
+                                           else obs_off)
+                t0 = time.perf_counter()
+                gpu.sql(sql)
+                kit.torch.cuda.synchronize()
+                walls[mode].append(time.perf_counter() - t0)
+        gpu.stmt_log.configure_obs(obs_on)
+        onoff[q] = {m: float(np.median(w)) for m, w in walls.items()}
+        onoff[q]["runs"] = walls
+        log(f"[telemetry] {q} obs on {onoff[q]['on'] * 1e3:.3f} ms, off "
+            f"{onoff[q]['off'] * 1e3:.3f} ms (medians of {TELEMETRY_RUNS} "
+            f"interleaved runs each)")
+    out["obs_on_off"] = onoff
+
+    # ------------------------------------------- Q5's trace coverage
+    t0 = time.perf_counter()
+    gpu.sql(tpch.QUERIES["q5"])
+    wall = time.perf_counter() - t0
+    tr = gpu.stmt_log.traces(1)[0]
+    root = next(e for e in tr["events"] if e["name"] == "statement")
+    cover = root["dur"] / 1e6 / wall
+    names = {e["name"] for e in tr["events"]}
+    os.makedirs("chiprun_out", exist_ok=True)
+    path = os.path.join("chiprun_out", "telemetry_q5_trace.json")
+    with open(path, "w") as fh:
+        json.dump(chrome_trace([tr]), fh)
+    check(cover >= 0.95 and {"parse", "plan", "queue-wait",
+                             "launch"} <= names,
+          f"Q5 trace: root covers {cover:.4f} of the wall, spans {names}")
+    out["q5_trace_coverage"] = cover
+    log(f"[telemetry] Q5 trace: the statement span covers {cover:.4f} of "
+        f"the {wall * 1e3:.3f} ms wall; spans {sorted(names)}; Chrome "
+        f"trace written to {path}")
+
+    # ------------------------------------------- tiled Q1: tiles, progress
+    budget = max(int(TILED_TPCH["q1"][0] * args.sf), 1) << 20
+    cfg0 = gpu.config
+    fracs = []
+    real_update = OP.Progress.update
+
+    def spy(self, *a, **k):
+        real_update(self, *a, **k)
+        fracs.append(self.fraction)
+
+    OP.Progress.update = spy
+    gpu.config = cfg0.with_overrides(**{"resource.query_mem_bytes": budget})
+    try:
+        before = reg.hist("tile_seconds")
+        res, ms, counts = kit.counted_run(gpu, tpch.QUERIES["q1"])
+        rep = gpu.last_tiled_report
+    finally:
+        gpu.config = cfg0
+        OP.Progress.update = real_update
+    h = hist_since(reg, "tile_seconds", before)
+    final = gpu.stmt_log.recent(1)[0].get("progress")
+    check(rep is not None and h["count"] == rep["n_tiles"],
+          f"tiled Q1: {h['count']} tile_seconds samples, report {rep}")
+    check(final == 1.0 and fracs and fracs[-1] < 1.0 and all(
+        a <= b for a, b in zip(fracs, fracs[1:])),
+          f"tiled Q1: progress {fracs} then {final}")
+    check(res.num_rows() == len(next(iter(ram["q1"][0].values()))),
+          f"tiled Q1: {res.num_rows()} rows")
+    out["tiled_q1"] = {"ms": ms, "n_tiles": rep["n_tiles"],
+                       "tile_seconds": h, "progress": fracs + [final],
+                       "launches": counts}
+    log(f"[telemetry] tiled Q1 at {budget >> 20} MiB: {rep['n_tiles']} "
+        f"tiles, {h['count']} tile_seconds samples (p50 "
+        f"{h['p50'] * 1e3:.3f} ms, p95 {h['p95'] * 1e3:.3f} ms), progress "
+        f"{[round(f, 4) for f in fracs]} then exactly {final}, "
+        f"{ms:.3f} ms, launches {counts}")
+
+    # ------------------------------------------- two threads, one slot
+    gpu.sql("create resource queue one with (active_statements=1)")
+    q = gpu.catalog.resource_queues["one"]
+    gpu.config = cfg0.with_overrides(**{"resource.query_mem_bytes": budget,
+                                        "resource.queue": "one"})
+    results, seen = {}, {"waiting": 0, "active": 0}
+    stop = threading.Event()
+
+    def run(tag):
+        results[tag] = physical(gpu.sql(tpch.QUERIES["q1"]))
+
+    def poll():
+        while not stop.is_set():
+            seen["waiting"] = max(seen["waiting"], q.waiting)
+            seen["active"] = max(seen["active"], q.active)
+            time.sleep(0.0002)
+
+    # the first statement's first tiles sleep (a fault point in the tile
+    # loop), so it still holds the slot when the second one asks
+    FI.inject_fault("tile_step", "sleep", sleep_s=0.05, end_hit=6)
+    poller = threading.Thread(target=poll)
+    first = threading.Thread(target=run, args=("first",))
+    second = threading.Thread(target=run, args=("second",))
+    t0 = time.perf_counter()
+    try:
+        poller.start()
+        first.start()
+        end = time.monotonic() + 30
+        while q.active == 0 and first.is_alive() \
+                and time.monotonic() < end:
+            time.sleep(0.0002)
+        second.start()
+        first.join(60)
+        second.join(60)
+    finally:
+        FI.reset_fault("tile_step")
+        stop.set()
+        poller.join(5)
+        gpu.config = cfg0
+    wall = time.perf_counter() - t0
+    waits = [e["dur"] / 1e3 for tr in gpu.stmt_log.traces(2)
+             for e in tr["events"] if e["name"] == "queue-wait"]
+    gpu.sql("drop resource queue one")
+    check(not first.is_alive() and not second.is_alive()
+          and set(results) == {"first", "second"},
+          f"queue: statements did not finish ({sorted(results)})")
+    same(results["second"], results["first"], "queue: second vs first")
+    check(seen["waiting"] >= 1 and seen["active"] == 1 and q.active == 0,
+          f"queue ACTIVE_STATEMENTS 1: {seen}, active now {q.active}")
+    out["queue"] = {"max_waiting": seen["waiting"],
+                    "max_active": seen["active"], "wall_s": wall,
+                    "queue_wait_ms": waits}
+    log(f"[telemetry] resource queue ACTIVE_STATEMENTS 1, two threads "
+        f"running tiled Q1: the second waited (waiting peaked at "
+        f"{seen['waiting']}, active at {seen['active']}), queue-wait spans "
+        f"{[round(w, 3) for w in waits]} ms, both equal, {wall:.3f} s")
+
+    # ------------------------------------------- runaway on the skew join
+    pk_, pv_, bk_, bv_ = skew_join_tables(SKEW_ROWS)
+    F = carry.field
+    skew_sql = ("select count(*) as c, sum(f.v + d.w) as s from f join d "
+                "on f.k = d.k")
+
+    def skew_session(cfg):
+        s = ct.Session(cfg, device=gpu.device)
+        carry.load_encoded(s, "f", [F("k", "int64", 0, False),
+                                    F("v", "int64", 0, False)],
+                           {"k": pk_, "v": pv_})
+        carry.load_encoded(s, "d", [F("k", "int64", 0, False),
+                                    F("w", "int64", 0, False)],
+                           {"k": bk_, "w": bv_})
+        return s
+
+    plan = plan_statement(parse_sql(skew_sql), skew_session(cfg0), {}).plan
+    est1 = estimate_plan_memory(plan).peak_bytes
+    check(X.grow_expansion(plan, "expansion overflow", allow_fallback=True),
+          "skew join: no growth")
+    est2 = estimate_plan_memory(plan).peak_bytes
+    red = (est1 + est2) // 2
+    rz = skew_session(cfg0.with_overrides(
+        **{"resource.total_mem_bytes": red}))
+    err = None
+    try:
+        kit.counted_run(rz, skew_sql)
+    except RunawayError as e:
+        err = e
+    check(err is not None and rz.growth_events == 1
+          and rz.last_tiled_report is None and rz._vmem.used == 0,
+          f"skew join under a {red}-byte red line: {err!r}, growths "
+          f"{rz.growth_events}, tiled {rz.last_tiled_report}")
+    out["runaway"] = {"est_first": est1, "est_grown": est2,
+                      "total_mem_bytes": red, "error": str(err)}
+    log(f"[telemetry] skew join ({SKEW_ROWS} probe rows) under "
+        f"total_mem_bytes {red} (estimates {est1} first, {est2} grown): "
+        f"RunawayError at growth 1, not tiled: {err}")
+    del rz
+
+    # ------------------------------------------- the flight recorder
+    gpu.stmt_log.configure_obs(dataclasses.replace(obs_on, slow_ms=1.0))
+    try:
+        res = gpu.sql(tpch.QUERIES["q3"])
+        bundle = gpu.stmt_log.flights(1)[0]
+    finally:
+        gpu.stmt_log.configure_obs(obs_on)
+    want = OF.result_digest(cpu.sql(tpch.QUERIES["q3"]))
+    check(bundle["reason"] == "slow" and bundle["result"] == want
+          and bundle["sql"] == tpch.QUERIES["q3"],
+          f"Q3 flight bundle: {bundle.get('reason')}, digest "
+          f"{bundle.get('result')} against the CPU run's {want}")
+    json.dumps(bundle)
+    out["flight"] = {"wall_s": bundle["wall_s"], "result": bundle["result"],
+                     "keys": sorted(bundle)}
+    log(f"[telemetry] Q3 flight bundle (slow_ms 1): wall "
+        f"{bundle['wall_s'] * 1e3:.3f} ms, result digest "
+        f"{bundle['result']['sha256'][:16]}... over {bundle['result']['rows']} "
+        f"rows equal to the CPU run's; keys {sorted(bundle)}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=float, default=1.0)
@@ -1689,7 +2070,8 @@ def main() -> int:
     # ----------------------------------------------------------- 2. build
     t0 = time.perf_counter()
     CK.build(verbose=True)
-    log(f"[build] kernels built in {time.perf_counter() - t0:.2f} s")
+    build_s = time.perf_counter() - t0
+    log(f"[build] kernels built in {build_s:.2f} s")
 
     originals = {k: getattr(CK, k) for k in CK.LAUNCHES}
     launches = {k: 0 for k in CK.LAUNCHES}   # summed over counted runs
@@ -1755,20 +2137,25 @@ def main() -> int:
             return f"B={a[1].shape[0]} N={a[3].shape[0]}"
         return f"N={a[0].shape[1]} groups={int(a[3])} cap={a[4]}"
 
-    def counted_run(session, sql):
-        """One run with the launch counts zeroed just before and read just
-        after: (result, wall ms, launches), launches added to the totals."""
+    def counted(fn):
+        """One call of fn with the launch counts zeroed just before and
+        read just after: (result, wall ms, launches), launches added to
+        the totals."""
         torch.cuda.synchronize()
         for k in CK.LAUNCHES:
             CK.LAUNCHES[k] = 0
         t0 = time.perf_counter()
-        res = session.sql(sql)
+        res = fn()
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         counts = dict(CK.LAUNCHES)
         for k, v in counts.items():
             launches[k] += v
         return res, ms, counts
+
+    def counted_run(session, sql):
+        """One counted statement (``counted``)."""
+        return counted(lambda: session.sql(sql))
 
     def cpu_run(session, sql):
         """The port's CPU run, and which kernels' wrappers it called."""
@@ -2015,7 +2402,19 @@ def main() -> int:
     log(f"[store] kernel calls of the store path held against their plain "
         f"versions: {store['held']}; storage phase: {store['s']:.1f} s")
 
-    # -------------------------------------------------------- 10. kernels
+    # ------------------------------------------------------ 10. telemetry
+    t0 = time.perf_counter()
+    held_before = dict(held)
+    telemetry = telemetry_phase(SimpleNamespace(
+        torch=torch, counted=counted, counted_run=counted_run,
+        held=held_run, build_s=build_s), ram, gpu, cpu, gds, args)
+    telemetry["s"] = time.perf_counter() - t0
+    telemetry["held"] = {k: held[k] - held_before[k] for k in held}
+    log(f"[telemetry] kernel calls of EXPLAIN ANALYZE held against their "
+        f"plain versions: {telemetry['held']}; telemetry phase: "
+        f"{telemetry['s']:.1f} s")
+
+    # -------------------------------------------------------- 11. kernels
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     def rand_int(lo, hi, shape, dtype=torch.int64):
@@ -2433,7 +2832,7 @@ def main() -> int:
             "window_query": tpcds.WINDOW_QUERY.format(
                 where="d_year >= 1998")})
 
-    # --------------------------------------------------------- 11. report
+    # --------------------------------------------------------- 12. report
     kernels = [{
         "name": name, "route": "cuda",
         "source": f"cloudberry_tpu_torch/csrc/{CK.SOURCES[name]}",
@@ -2450,6 +2849,7 @@ def main() -> int:
                       "tpcds_ms": ds_ms, "tpcds_launches": ds_launches,
                       "window": window, "growth": growth, "store": store,
                       "admission": admission, "tiling": tiling,
+                      "telemetry": telemetry,
                       "timer_floor_ms": timer_floor_ms, "sf": args.sf,
                       "tpcds_scale": args.ds_scale}))
     print(json.dumps({"ok": True, "device": {

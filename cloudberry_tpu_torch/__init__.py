@@ -8,7 +8,9 @@ with their imports rewritten, and the device layers (exec/) are written in
 PyTorch, with every Pallas kernel of the reference replaced by a CUDA C++
 kernel for sm_90a (exec/cuda_kernels.py, csrc/).
 
-This slice runs single-segment SELECTs over in-RAM tables on one device.
+It runs single-segment statements on one device, over in-RAM tables or a
+durable store, with admission (memory budget, tiling, resource queues,
+the red line), EXPLAIN ANALYZE and the observability plane (obs/).
 """
 
 from cloudberry_tpu_torch.config import Config, get_config, set_config

@@ -346,6 +346,12 @@ class Catalog:
         # materialized views (not yet ported): always empty here, so the
         # planner's maintenance hooks have nothing to do
         self.matviews: dict[str, object] = {}
+        # resource queues (resqueue.c analog); "default" always exists and
+        # is unlimited — sessions pick one via config.resource.queue
+        from cloudberry_tpu_torch.exec.resource import ResourceQueue
+
+        self.resource_queues: dict[str, ResourceQueue] = {
+            "default": ResourceQueue("default")}
         self._seq_currval: dict[str, int] = {}  # session-local currval
         # storeless allocation is read-modify-write on shared session
         # state — server handler threads share one Session, so it needs

@@ -4,9 +4,11 @@ The reference keeps ~6k lines of GUCs (``src/backend/utils/misc/guc_gp.c``).
 Here configuration is a typed, immutable dataclass tree; a session carries
 one, and ``with_overrides`` produces a modified copy. This port carries the
 fields its single-segment slice reads: the planner's, durable storage, the
-device buffer pool, the join-index cache size, the per-query memory budget
-and the tiled (out-of-core) path's scan pipeline, dispatch window and
-checkpoint store. There is no counterpart
+device buffer pool, the join-index cache size, memory governance (the
+per-query budget, the concurrency slots, the engine-wide red line and the
+resource queue), the statement timeout, the observability plane and the
+tiled (out-of-core) path's scan pipeline, dispatch window and checkpoint
+store. There is no counterpart
 of the JAX package's ``exec.use_pallas``: the kernel gates are decided by
 the plan's shapes alone, and on a CUDA device the hand-written kernels
 always run.
@@ -90,15 +92,57 @@ class StorageConfig:
 
 @dataclass(frozen=True)
 class ResourceConfig:
-    """Memory governance analog (vmem_tracker.c:94, workfile_mgr.c). The
-    JAX package's concurrency slots, engine-wide red line and resource
-    queues are not carried yet."""
+    """Memory governance analog (vmem_tracker.c:94, workfile_mgr.c)."""
 
     # Per-segment device-memory budget for one query's intermediates (bytes).
     query_mem_bytes: int = 4 << 30
+    # Admission: max concurrent statements (resgroup slot pool analog,
+    # resgroup.c:135-171).
+    max_concurrency: int = 8
     # Tiled out-of-core execution when a plan exceeds the budget (the
     # workfile-manager / spill analog, exec/tiled.py); off = hard refusal.
     enable_spill: bool = True
+    # Engine-wide memory red line across CONCURRENT statements (the vmem
+    # tracker / red-zone analog, redzone_handler.c): admissions reserve
+    # their estimate against it; adaptive growth crossing it terminates
+    # the growing statement (runaway_cleaner.c). The reference's default;
+    # an 80 GB card could hold more, but the port keeps it.
+    total_mem_bytes: int = 16 << 30
+    # The resource queue this session's statements run in (resqueue.c);
+    # queues are created with CREATE RESOURCE QUEUE.
+    queue: str = "default"
+
+
+@dataclass(frozen=True)
+class ObsConfig:
+    """Observability plane (cloudberry_tpu_torch/obs/): statement trace
+    spans, the session's metrics registry, and the pg_stat_statements-class
+    aggregate table. ON by default; every ring and table below is
+    explicitly bounded. The JAX package's ``skew_ratio`` (a motion's skew
+    alarm) belongs to distributed execution and is not carried."""
+
+    # Master switch for the OPTIONAL telemetry (trace spans, stage
+    # histograms, per-skeleton aggregates, progress, capacity histograms,
+    # flight captures). The counter registry itself stays on — engine
+    # counters pre-date this subsystem and other features read them.
+    enabled: bool = True
+    # Keep every Nth statement's span tree (1 = all). Sampling bounds
+    # tracing cost under high QPS without losing the aggregate plane.
+    trace_sample: int = 1
+    # Completed traces retained in the ring (StatementLog.traces).
+    trace_ring: int = 64
+    # Spans per statement trace; past it spans drop (counted).
+    max_spans: int = 512
+    # Skeleton rows in the pg_stat_statements analog (LRU dealloc).
+    statements_max: int = 256
+    # Slow-statement flight recorder (obs/flightrec.py): a statement
+    # slower than this many milliseconds — or one that errors — captures
+    # a bounded debug bundle (trace spans, plan, skeleton + param
+    # fingerprint, counter deltas, config epoch, result digest) into the
+    # session's ring (StatementLog.flights). 0 disables capture.
+    slow_ms: float = 5000.0
+    # Flight bundles retained (ring; oldest drop).
+    flight_ring: int = 16
 
 
 @dataclass(frozen=True)
@@ -154,6 +198,11 @@ class RecoveryConfig:
 
 @dataclass(frozen=True)
 class Config:
+    # Per-statement wall-clock limit in seconds (the statement_timeout
+    # GUC): every statement gets a deadline this far out; cooperative
+    # checks at execution seams (and the watchdog, lifecycle.py) convert
+    # an overrun into the retryable StatementTimeout. 0 disables.
+    statement_timeout_s: float = 0.0
     planner: PlannerConfig = field(default_factory=PlannerConfig)
     join_filter: JoinFilterConfig = field(default_factory=JoinFilterConfig)
     bufferpool: BufferPoolConfig = field(default_factory=BufferPoolConfig)
@@ -164,6 +213,7 @@ class Config:
     tile_pipeline: TilePipelineConfig = field(
         default_factory=TilePipelineConfig)
     recovery: RecoveryConfig = field(default_factory=RecoveryConfig)
+    obs: ObsConfig = field(default_factory=ObsConfig)
 
     def with_overrides(self, **kv: Any) -> "Config":
         """Return a copy with dotted-path overrides, e.g.

@@ -78,6 +78,9 @@ _SIGNATURES = {
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# nvcc runs that built a library in this process (a library already on
+# disk under its source hash loads without one)
+NVCC_BUILDS = 0
 
 
 def _nvcc() -> str:
@@ -98,6 +101,11 @@ def _lib_path(name: str) -> Path:
     return BUILD / f"lib{name}-{tag}.so"
 
 
+def loaded() -> bool:
+    """True once every kernel library is loaded in this process."""
+    return all(n in _LIBS for n in SOURCES)
+
+
 def build(verbose: bool = False) -> dict[str, ctypes.CDLL]:
     """Compile every kernel source not yet built (one nvcc each, all in
     parallel) and load the libraries. Raises on any compiler error."""
@@ -116,12 +124,14 @@ def build(verbose: bool = False) -> dict[str, ctypes.CDLL]:
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
+    global NVCC_BUILDS
     errors = []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             errors.append(f"nvcc {SOURCES[name]} failed:\n{log}")
             continue
+        NVCC_BUILDS += 1
         if verbose:
             print(f"[build] {SOURCES[name]}:\n{log.strip()}")
         os.replace(tmp, out)

@@ -14,6 +14,7 @@ shape-world analog of ereport().
 from __future__ import annotations
 
 import re
+import time
 from dataclasses import dataclass
 from typing import Any, Callable
 
@@ -58,7 +59,28 @@ class Executable:
 
 def execute(plan: N.PlanNode, session) -> ColumnBatch:
     exe = compile_plan(plan, session)
+    build_kernels(session)
     return run_executable(exe, prepare_inputs(exe, session))
+
+
+def build_kernels(session) -> float:
+    """Build and load the kernel library before a run on a CUDA device,
+    if this process has not yet (exec/cuda_kernels.py, one nvcc per
+    source): the port's counterpart of a program compile. Records a
+    ``compile`` span, counts each nvcc build on the engine's ``compiles``
+    counter, and returns the seconds spent (0.0 once the library is
+    loaded, and on a CPU device, which runs the plain versions)."""
+    if session.device.type != "cuda" or CK.loaded():
+        return 0.0
+    from cloudberry_tpu_torch.obs import trace as OT
+
+    t0 = time.monotonic()
+    before = CK.NVCC_BUILDS
+    with OT.span("compile"):
+        CK.build()
+    if CK.NVCC_BUILDS > before:
+        session.stmt_log.bump("compiles", CK.NVCC_BUILDS - before)
+    return time.monotonic() - t0
 
 
 def keyed_scan(s: N.PScan) -> bool:
@@ -67,13 +89,34 @@ def keyed_scan(s: N.PScan) -> bool:
     return hasattr(s, "_store_parts") or hasattr(s, "_point_rows")
 
 
-def compile_plan(plan: N.PlanNode, session) -> Executable:
-    """Eager: the 'program' is the Lowerer walk itself (no jit)."""
+def compile_plan(plan: N.PlanNode, session,
+                 instrument: bool = False) -> Executable:
+    """Eager: the 'program' is the Lowerer walk itself (no jit).
+    ``instrument=True`` (EXPLAIN ANALYZE's pipeline path,
+    exec/instrument.py run_pipeline) builds THE SAME walk through this
+    same entry point with per-node row counts (device tensors) as a 4th
+    output — no private lowerer, so the same kernels launch."""
     scans = list(scans_of(plan))
     store_scans = [s for s in scans if keyed_scan(s)]
     table_names = sorted({s.table_name for s in scans
                           if not keyed_scan(s)})
     device = session.device
+
+    if instrument:
+        from cloudberry_tpu_torch.exec.instrument import InstrumentingMixin
+
+        class _InstrLowerer(InstrumentingMixin, Lowerer):
+            def __init__(self, *a, **kw):
+                Lowerer.__init__(self, *a, **kw)
+                self.__init_instrument__()
+
+        def run_counted(tables):
+            low = _InstrLowerer(tables, device)
+            cols, sel = low.lower(plan)
+            out = {f.name: cols[f.name] for f in plan.fields}
+            return out, sel, low.checks, low.node_counts
+
+        return Executable(plan, run_counted, table_names, store_scans)
 
     def run(tables):
         low = Lowerer(tables, device)
@@ -167,7 +210,7 @@ def _load_store_scan(scan: N.PScan, session) -> dict:
            tuple(sorted(scan.column_map)), tuple(sorted(scan.mask_map)),
            sharedcache.device_token(session))
     cache = session._store_scan_cache
-    counters = getattr(session, "counters", None)
+    log = getattr(session, "stmt_log", None)
     # LRU, not FIFO: pop-and-reinsert moves a hit to the dict's end so a
     # hot table's scan survives a burst of one-off queries; the lock keeps
     # reorder/evict/insert atomic (the store read itself runs unlocked)
@@ -177,12 +220,12 @@ def _load_store_scan(scan: N.PScan, session) -> dict:
         if hit is not None:
             cache[key] = hit
     if hit is not None:
-        if counters is not None:
-            counters.bump("store_scan_cache_hits")
+        if log is not None:
+            log.bump("store_scan_cache_hits")
         return hit
-    if counters is not None:
-        counters.bump("store_scan_cache_misses")
-    hit = _read_scan_columns(scan, session, counters)
+    if log is not None:
+        log.bump("store_scan_cache_misses")
+    hit = _read_scan_columns(scan, session, log)
     budget = session.config.bufferpool.max_bytes
     pool = BUF.pool_for(session)
     if pool is not None:
@@ -198,15 +241,15 @@ def _load_store_scan(scan: N.PScan, session) -> dict:
             evicted += 1
         if fits:
             cache[key] = hit
-    if counters is not None:
+    if log is not None:
         if evicted:
-            counters.bump("store_scan_cache_evictions", evicted)
+            log.bump("store_scan_cache_evictions", evicted)
         if not fits:
-            counters.bump("store_scan_cache_refusals")
+            log.bump("store_scan_cache_refusals")
     return hit
 
 
-def _read_scan_columns(scan: N.PScan, session, counters) -> dict:
+def _read_scan_columns(scan: N.PScan, session, log) -> dict:
     """Assemble one pruned scan's input dict on the device. With the
     buffer pool on, partitions are looked up (and admitted) one by one and
     the chunks concatenated in part order with ``torch.cat`` —
@@ -223,8 +266,8 @@ def _read_scan_columns(scan: N.PScan, session, counters) -> dict:
     if bpool is None or not parts:
         cols, validity = store.read_partitions(scan.table_name, parts,
                                                needed)
-        if counters is not None and parts:
-            counters.bump("partitions_decoded", len(parts))
+        if log is not None and parts:
+            log.bump("partitions_decoded", len(parts))
         hit = {c: BUF.to_device(v, dev) for c, v in cols.items()}
         for c, v in validity.items():
             hit[f"$nn:{c}"] = BUF.to_device(
@@ -235,18 +278,18 @@ def _read_scan_columns(scan: N.PScan, session, counters) -> dict:
     val_chunks: dict[str, list] = {}
     for part in parts:
         pk = BUF.partition_key(session, scan.table_name, part, cols_key)
-        ent = bpool.lookup(pk, counters)
+        ent = bpool.lookup(pk, log)
         if ent is None:
             cols, validity = store.read_partitions(
                 scan.table_name, [part], needed)
-            if counters is not None:
-                counters.bump("partitions_decoded")
+            if log is not None:
+                log.bump("partitions_decoded")
             ent = {"cols": {c: BUF.to_device(v, dev)
                             for c, v in cols.items()},
                    "validity": {c: BUF.to_device(
                        np.asarray(v, dtype=np.bool_), dev)
                        for c, v in validity.items()}}
-            bpool.offer(pk, ent, table=scan.table_name, log=counters,
+            bpool.offer(pk, ent, table=scan.table_name, log=log,
                         device=dev)
         for c, v in ent["cols"].items():
             col_chunks.setdefault(c, []).append(v)
@@ -260,9 +303,17 @@ def _read_scan_columns(scan: N.PScan, session, counters) -> dict:
 
 
 def run_executable(exe: Executable, tables: dict) -> ColumnBatch:
-    cols, sel, checks = exe.fn(tables)
-    raise_checks(checks)
-    return make_batch(exe.plan, cols, sel)
+    # the run, its checks and the result copy under the statement's
+    # ``launch`` span and a torch.profiler range (obs/trace.py); the
+    # result copy is where the host waits for the device, so it must fall
+    # inside the span. Both are no-ops untraced.
+    from cloudberry_tpu_torch.obs import trace as OT
+
+    with OT.span("launch", plan=type(exe.plan).__name__), \
+            OT.device_annotation("launch"):
+        cols, sel, checks = exe.fn(tables)
+        raise_checks(checks)
+        return make_batch(exe.plan, cols, sel)
 
 
 def raise_checks(checks: dict) -> None:

@@ -1,0 +1,700 @@
+"""Query instrumentation — the instrument.c / explain_gp.c analog.
+
+The reference times every executor node per tuple (InstrStartNode/
+InstrStopNode) and ships per-QE stats to the QD for distributed EXPLAIN
+ANALYZE (cdbexplain_sendExecStats, explain_gp.c:384). Here the plan runs as
+eager PyTorch operators on one device, so per-node wall time is not
+separable without a synchronization per node — but per-node ROW COUNTS
+are: each node's selected-row count stays a device tensor until the run
+ends, and every count crosses to the host in ONE stacked copy (the way
+``executor.raise_checks`` reads the check flags). They answer the
+questions EXPLAIN ANALYZE usually answers (selectivity, join fanout).
+Whole-query compile and execute times complete the picture: the port has
+no jit, so ``compile_s`` is the first-use ``nvcc`` build of the kernel
+library (exec/cuda_kernels.py) that the run paid, and ``exec_s`` the
+host wall from the program's start to a device synchronize.
+
+``StatementLog`` is also the engine's telemetry hub: its counters live on
+an ``obs.metrics.MetricsRegistry`` (``counters`` is a view), finished
+statements feed the pg_stat_statements-class aggregate table
+(obs/statements.py), and completed trace span trees land in a bounded
+ring (obs/trace.py).
+
+The ``metrics_hooks`` list on a Session is the query_info_collect_hook
+analog (src/include/utils/metrics_utils.h:39): every instrumented run
+emits a QueryMetrics record to each registered hook; a raising hook is
+counted (``metrics_hook_errors``) and never aborts the statement.
+
+One segment: the JAX package's distributed instrumentation
+(``_run_instrumented_dist``, ``_dist_counts_host``) and generic-plan form
+(``_generic_form``) belong to modules the port does not have yet.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from cloudberry_tpu_torch.plan import nodes as N
+
+
+class StatementLog:
+    """Per-engine statement history + active registry — the
+    pg_stat_activity / log-collector analog. One instance is shared by
+    every connection session of a server (like the admission gate), so
+    "who is running what" spans backends. Ring-buffered: observability
+    must never grow without bound."""
+
+    def __init__(self, capacity: int = 256):
+        import collections
+        import itertools
+        import threading
+
+        from cloudberry_tpu_torch.obs.metrics import (CounterView,
+                                                      MetricsRegistry)
+        from cloudberry_tpu_torch.obs.statements import StatementStats
+
+        self._recent = collections.deque(maxlen=capacity)
+        self._active: dict[int, dict] = {}
+        self._lock = threading.Lock()
+        self._ids = itertools.count(1)
+        # engine-wide counters (compiles, dispatches, stmt_cache_hits,
+        # generic_hits, ...) re-homed onto the obs metrics registry
+        # (obs/metrics.py): ONE home for counters/gauges/histograms,
+        # with a Prometheus exposition; ``counters`` stays as a mapping
+        # view so pre-registry readers keep working
+        self.registry = MetricsRegistry()
+        self.counters = CounterView(self.registry)
+        # pg_stat_statements analog: per-skeleton aggregates fed by
+        # finish(); bounded (obs/statements.py)
+        self.statements = StatementStats()
+        # completed statement trace span trees, newest last (bounded)
+        self._trace_ring = collections.deque(maxlen=64)
+        self._trace_seq = itertools.count()
+        # slow-statement flight bundles, newest last (obs/flightrec.py;
+        # bounded — the forensics plane must never become the leak)
+        self._flight_ring = collections.deque(maxlen=16)
+        self.obs_enabled = True
+        self.trace_sample = 1
+        self.slow_ms = 5000.0
+
+    def configure_obs(self, obs_cfg) -> None:
+        """Apply a session's ObsConfig (config.py). Called once at
+        session construction; server backends share the server's log, so
+        the serving config wins engine-wide."""
+        import collections
+
+        from cloudberry_tpu_torch.obs.statements import StatementStats
+
+        self.obs_enabled = bool(obs_cfg.enabled)
+        self.trace_sample = max(1, int(obs_cfg.trace_sample))
+        self._trace_ring = collections.deque(
+            self._trace_ring, maxlen=max(1, obs_cfg.trace_ring))
+        self._flight_ring = collections.deque(
+            self._flight_ring, maxlen=max(1, obs_cfg.flight_ring))
+        self.slow_ms = float(getattr(obs_cfg, "slow_ms", 0.0))
+        if self.statements.max_rows != obs_cfg.statements_max:
+            self.statements = StatementStats(max(1, obs_cfg.statements_max))
+        self._max_spans = max(16, obs_cfg.max_spans)
+
+    def bump(self, name: str, n: int = 1, tenant: str | None = None) -> None:
+        self.registry.bump(name, n, tenant=tenant)
+
+    def counter(self, name: str) -> int:
+        return self.registry.counter(name)
+
+    def counter_snapshot(self) -> dict:
+        return self.registry.counter_snapshot()
+
+    # ------------------------------------------------------------- tracing
+
+    def trace_this(self) -> bool:
+        """Sampling gate: keep every Nth statement's span tree."""
+        if not self.obs_enabled:
+            return False
+        return next(self._trace_seq) % self.trace_sample == 0
+
+    def start_trace(self, sid: int, sql: str, tenant: str | None = None):
+        """A Trace for statement ``sid`` when tracing is on and the
+        sampler picks it, else None. The caller hangs it on the
+        statement's lifecycle handle (handle.trace) — that is how spans
+        follow the statement across threads."""
+        if not self.trace_this():
+            return None
+        from cloudberry_tpu_torch.obs.trace import Trace
+
+        return Trace(sid, sql, max_spans=getattr(self, "_max_spans", 512),
+                     tenant=tenant)
+
+    def traces(self, limit: int = 16) -> list[dict]:
+        """Most recent completed trace exports, newest first."""
+        out = list(self._trace_ring)[-max(1, limit):]
+        return out[::-1]
+
+    # ------------------------------------------------------ flight ring
+
+    def add_flight(self, bundle: dict) -> None:
+        """Record one flight-recorder bundle (obs/flightrec.py); deque
+        appends are GIL-atomic, like the trace ring's."""
+        self._flight_ring.append(bundle)
+        self.registry.bump("flight_captures")
+
+    def flights(self, limit: int = 8) -> list[dict]:
+        """Most recent flight bundles, newest first (``meta "flight"``)."""
+        out = list(self._flight_ring)[-max(1, limit):]
+        return out[::-1]
+
+    def ring_sizes(self) -> dict:
+        """Current ring occupancy — the capacity plane's gauge feed."""
+        return {"traces": len(self._trace_ring),
+                "flights": len(self._flight_ring)}
+
+    def begin(self, sql: str, session_id: int = 0) -> int:
+        sid = next(self._ids)
+        with self._lock:
+            self._active[sid] = {
+                "id": sid, "session": session_id, "state": "running",
+                "sql": sql[:500], "started": time.time(),
+                # durations derive from the MONOTONIC clock (the same
+                # clock lifecycle deadlines use); "started" stays wall
+                # time for the activity view's human timestamps
+                "_t0": time.monotonic()}
+        return sid
+
+    # ------------------------------------------------ statement lifecycle
+    # The active registry doubles as the cancellation directory (the
+    # pg_stat_activity + pg_cancel_backend pair): a session attaches its
+    # StatementHandle at begin time, and any thread — the watchdog, the
+    # server's `cancel <id>` verb — cancels by statement id.
+
+    def attach(self, sid: int, handle) -> None:
+        """Register a lifecycle.StatementHandle for an active statement."""
+        with self._lock:
+            entry = self._active.get(sid)
+            if entry is not None:
+                entry["handle"] = handle
+
+    def active_handles(self) -> list[tuple[int, object]]:
+        """(statement id, handle) for every active statement that has
+        one — the watchdog's scan set."""
+        with self._lock:
+            return [(sid, e["handle"]) for sid, e in self._active.items()
+                    if e.get("handle") is not None]
+
+    def cancel(self, sid: int, reason: str = "cancelled") -> bool:
+        """Cancel an active statement by id (pg_cancel_backend analog).
+        Returns False when the id is not an active, cancellable
+        statement (already finished, or never attached a handle)."""
+        with self._lock:
+            entry = self._active.get(sid)
+            handle = entry.get("handle") if entry is not None else None
+        if handle is None:
+            return False
+        if handle.token.cancel(reason,
+                               f"statement {sid} cancelled by request"):
+            self.bump("cancel_requests")
+        self.mark_cancelling(sid)
+        return True
+
+    def mark_cancelling(self, sid: int) -> None:
+        with self._lock:
+            entry = self._active.get(sid)
+            if entry is not None:
+                entry["state"] = "cancelling"
+
+    def set_state(self, sid: int, state: str) -> None:
+        """Lifecycle state for the activity view (running/recovering).
+        'cancelling' is sticky — a cancelled statement must never read
+        as healthy again."""
+        with self._lock:
+            entry = self._active.get(sid)
+            if entry is not None and entry.get("state") != "cancelling":
+                entry["state"] = state
+
+    def annotate(self, sid: int, **kv) -> None:
+        """Attach observability fields to an ACTIVE statement (retry
+        attempts, backoff); they ride into the history entry at
+        finish()."""
+        with self._lock:
+            entry = self._active.get(sid)
+            if entry is not None:
+                entry.update(kv)
+
+    def finish(self, sid: int, status: str, rows: int = -1,
+               error: str | None = None, **extra) -> None:
+        with self._lock:
+            entry = self._active.pop(sid, None)
+            if entry is None:
+                return
+            # the handle (and its token) must not outlive the statement
+            # in the history ring; its trace closes below, outside the
+            # lock (export walks the span list)
+            handle = entry.pop("handle", None)
+            entry.pop("state", None)
+            entry["wall_s"] = round(
+                time.monotonic() - entry.pop("_t0"), 4)
+            entry["status"] = status
+            entry["rows"] = rows
+            if error:
+                entry["error"] = error[:500]
+            # per-statement scheduler observability (compile count, cache
+            # path, batch membership) rides the history entry
+            entry.update(extra)
+            self._recent.append(entry)
+        if not self.obs_enabled:
+            return
+        if status == "requeued":
+            # dispatcher bookkeeping, not an execution: the statement
+            # re-runs through session.sql (which logs/traces it for
+            # real) — feeding this stub into the statements table /
+            # latency histogram / trace ring would double-count it
+            return
+        # live progress closes with the statement: success is EXACTLY
+        # 1.0 (the monotone contract's endpoint), and the final
+        # fraction rides the history entry so a failed statement's
+        # partial progress stays inspectable after the fact
+        prog = getattr(handle, "progress", None)
+        if prog is not None:
+            if status != "error":
+                prog.complete()
+            entry["progress"] = prog.fraction
+        # pg_stat_statements aggregation + trace close ride every finish
+        # path (session.sql, the dispatcher's batched finishes) — one
+        # funnel, so the counters-consistency contract holds engine-wide
+        self.statements.observe(entry)
+        self.registry.observe("statement_seconds", entry["wall_s"])
+        trace = getattr(handle, "trace", None)
+        if trace is not None:
+            trace.finish(status)
+            self._trace_ring.append(trace.export())
+            self.registry.bump("trace_statements")
+            if trace.dropped:
+                self.registry.bump("trace_spans_dropped", trace.dropped)
+
+    def activity(self) -> list[dict]:
+        """Currently-executing statements (pg_stat_activity role), with
+        live lifecycle state: id, state (running/cancelling), elapsed,
+        and time left to the deadline when one is set."""
+        mono = time.monotonic()
+        out = []
+        with self._lock:
+            for e in self._active.values():
+                row = {k: v for k, v in e.items()
+                       if k not in ("handle", "_t0")}
+                row["elapsed_s"] = round(mono - e["_t0"], 4)
+                h = e.get("handle")
+                if h is not None and h.deadline is not None:
+                    row["deadline_in_s"] = round(h.deadline - mono, 4)
+                p = getattr(h, "progress", None)
+                if p is not None:
+                    # Progress._lock is a declared leaf below this lock
+                    row["progress"] = round(p.fraction, 4)
+                out.append(row)
+        return out
+
+    def progress_rows(self) -> list[dict]:
+        """Live per-statement progress (``meta "progress"``): every
+        active statement's monotone fraction + tile/row positions, with
+        enough identity (id, sql, state, elapsed) to act on — the
+        pg_stat_progress_* role."""
+        mono = time.monotonic()
+        out = []
+        with self._lock:
+            entries = [(dict(id=e["id"], sql=e["sql"],
+                             state=e.get("state", "running"),
+                             elapsed_s=round(mono - e["_t0"], 4)),
+                        getattr(e.get("handle"), "progress", None))
+                       for e in self._active.values()]
+        for row, p in entries:
+            row.update(p.snapshot() if p is not None
+                       else {"fraction": None})
+            out.append(row)
+        return out
+
+    def recent(self, limit: int = 50) -> list[dict]:
+        """Most recent completed statements, newest first."""
+        with self._lock:
+            out = list(self._recent)[-limit:]
+        return out[::-1]
+
+
+@dataclass
+class QueryMetrics:
+    """One executed statement's stats (the metrics-collector payload)."""
+    query: str
+    wall_s: float
+    compile_s: float
+    rows_out: int
+    # plan-order list of (node title, sharding, rows selected after the node)
+    node_rows: list[tuple[str, str, int]] = field(default_factory=list)
+    # nvcc builds of the kernel library this run charged to the engine
+    # counter (the StatementLog compile counter; the JAX package counts
+    # XLA program constructions there)
+    compiles: int = 0
+
+
+class InstrumentingMixin:
+    """Mixes into a Lowerer: records post-node selected-row counts as
+    device tensors (no host read per node; ``read_counts`` copies them
+    all at once after the run)."""
+
+    def __init_instrument__(self):
+        self.node_counts: dict[int, torch.Tensor] = {}
+
+    def lower(self, node):  # type: ignore[override]
+        cols, sel = super().lower(node)  # type: ignore[misc]
+        self.node_counts[id(node)] = sel.sum(dtype=torch.int64)
+        return cols, sel
+
+
+def read_counts(counts: dict) -> dict[int, int]:
+    """Every node's count in ONE device→host copy."""
+    if not counts:
+        return {}
+    host = torch.stack(list(counts.values())).cpu().numpy()
+    return dict(zip(counts, host.tolist()))
+
+
+def plan_nodes_in_order(plan: N.PlanNode) -> list[N.PlanNode]:
+    out = []
+
+    def rec(n):
+        out.append(n)
+        for c in n.children():
+            rec(c)
+
+    rec(plan)
+    return out
+
+
+# ------------------------------------------------------- timing discipline
+
+
+def _timed_run(fn, inputs, session, log=None):
+    """(result, compile_s, exec_s) for one eager run of ``fn`` on
+    ``inputs`` — the counterpart of the JAX package's
+    ``_timed_compile_run``. The compile leg is the first-use ``nvcc``
+    build of the kernel library (``executor.build_kernels``): its seconds
+    in this call, 0.0 once the library is loaded and on a CPU device. The
+    launch leg is the host wall from the program's start to a device
+    synchronize (the ``block_until_ready`` counterpart); checks and the
+    result copy stay outside it, as in the reference. Both legs record
+    trace spans and stage histograms when the thread is inside a traced
+    statement."""
+    from cloudberry_tpu_torch.exec import executor as X
+    from cloudberry_tpu_torch.obs import metrics as OM
+    from cloudberry_tpu_torch.obs import trace as OT
+
+    compile_s = X.build_kernels(session)
+    OM.observe_stage(log, "compile", compile_s)
+    t1 = time.monotonic()
+    with OT.span("launch", mode="instrumented"), \
+            OT.device_annotation("launch"):
+        result = fn(inputs)
+        if session.device.type == "cuda":
+            torch.cuda.synchronize(session.device)
+    exec_s = time.monotonic() - t1
+    OM.observe_stage(log, "launch", exec_s)
+    return result, compile_s, exec_s
+
+
+# ---------------------------------------------------------- plan annotation
+
+
+def motion_annotations(plan: N.PlanNode, counts: dict,
+                       packed: bool = True) -> dict:
+    """Per-node EXPLAIN ANALYZE annotations beyond row counts:
+
+    - PMotion: collective launches (1 fused on the packed wire, one per
+      column otherwise), estimated wire bytes (rows into the motion ×
+      packed row width), the capacity rung for redistributes, and —
+      when the run recorded per-destination demand (``_seg_rows``,
+      exec/dist_executor.py) — the observed skew ratio (max/mean rows
+      per destination) with the hottest destination's row count;
+    - PRuntimeFilter: observed jf_rows_in/out when the digest executor
+      recorded them (``_jf_pre``/``_jf_post``, exec/dist_executor.py).
+    """
+    from cloudberry_tpu_torch.obs.capacity import _wire_row_bytes
+
+    out: dict[int, str] = {}
+    for n in plan_nodes_in_order(plan):
+        if isinstance(n, N.PMotion):
+            fields = n.child.fields
+            row_bytes = _wire_row_bytes(n)
+            launches = 1 if packed else max(1, len(fields))
+            rows = counts.get(id(n.child), -1)
+            bits = [f"launches={launches}"]
+            if rows >= 0:
+                bits.append(f"wire_bytes={rows * row_bytes}")
+            if n.kind == "redistribute":
+                bits.append(f"rung={n.bucket_cap}")
+                ratio = getattr(n, "_skew_ratio", None)
+                if ratio is not None:
+                    bits.append(f"skew={ratio:.2f}")
+                    seg_rows = getattr(n, "_seg_rows", None)
+                    if seg_rows is not None:
+                        bits.append(
+                            f"hot_seg_rows={int(np.max(seg_rows))}")
+            out[id(n)] = "  ".join(bits)
+        elif isinstance(n, N.PRuntimeFilter):
+            pre = getattr(n, "_jf_pre", None)
+            post = getattr(n, "_jf_post", None)
+            if pre is not None and post is not None:
+                out[id(n)] = f"jf_rows_in={pre}  jf_rows_out={post}"
+    return out
+
+
+def _tiled_lines(report: dict) -> list[str]:
+    """EXPLAIN ANALYZE trailer for tiled (out-of-core) execution:
+    per-tile time distribution + checkpoint/resume counters from the
+    run's report (exec/tiled.py, exec/recovery.py)."""
+    lines = [f"Tiled execution: {report.get('n_tiles', '?')} tiles of "
+             f"{report.get('tile_rows', '?')} rows "
+             f"(stream {report.get('stream_table', '?')})"]
+    th = report.get("tile_time")
+    if th:
+        lines.append(
+            f"  tile step: mean {th['mean'] * 1000:.2f} ms  "
+            f"p95 {th['p95'] * 1000:.2f} ms  over {th['count']} tiles")
+    # windowed dispatch line (exec/tilepipe.py) only when a window was
+    # actually open — window=1 is the legacy loop and its trailer is
+    # pinned by existing tests
+    if report.get("tile_window", 1) > 1:
+        lines.append(
+            f"  tile dispatch: window {report['tile_window']}  "
+            f"in-flight peak {report.get('inflight_depth', 0)}  "
+            f"drain stall "
+            f"{report.get('drain_stall_s', 0) * 1000:.1f} ms")
+    pl = report.get("pipeline")
+    if pl:
+        if pl.get("enabled"):
+            # stall attribution (exec/scanpipe.py): feed = the host work
+            # the pipeline moved off the critical path, stall = what the
+            # device still waited for, decode/read split the feed side
+            bits = [f"prefetch depth {pl.get('depth', '?')}",
+                    f"feed {pl.get('feed_s', 0) * 1000:.1f} ms",
+                    f"stall {pl.get('stall_s', 0) * 1000:.1f} ms"]
+            if "overlap_frac" in pl:
+                bits.append(f"overlap {pl['overlap_frac'] * 100:.0f}%")
+            if pl.get("decode_s"):
+                bits.append(f"decode {pl['decode_s'] * 1000:.1f} ms")
+            if pl.get("read_s"):
+                bits.append(f"read {pl['read_s'] * 1000:.1f} ms")
+            lines.append("  scan pipeline: " + "  ".join(bits))
+        else:
+            lines.append("  scan pipeline: off")
+    ck = {k: report[k] for k in ("checkpoints", "resumed_from_tile",
+                                 "tiles_replayed") if k in report}
+    if ck:
+        lines.append("  recovery: " + "  ".join(
+            f"{k}={v}" for k, v in ck.items()))
+    return lines
+
+
+def explain_analyze_text(plan: N.PlanNode, counts: dict[int, int],
+                         wall_s: float, compile_s: float,
+                         annotations: dict | None = None,
+                         tiled_report: dict | None = None) -> str:
+    """Render the plan tree with actual row counts (EXPLAIN ANALYZE)
+    plus the motion/join annotations and the tiled-execution trailer."""
+    annotations = annotations or {}
+
+    def rec(n: N.PlanNode, indent: int) -> list[str]:
+        rows = counts.get(id(n))
+        extra = f"  rows={rows}" if rows is not None else ""
+        sh = f"  [{n.sharding}]" if n.sharding else ""
+        ann = annotations.get(id(n))
+        lines = [" " * indent + "-> " + n.title() + sh + extra
+                 + (f"  ({ann})" if ann else "")]
+        for c in n.children():
+            lines += rec(c, indent + 3)
+        return lines
+
+    lines = rec(plan, 0)
+    if tiled_report:
+        lines += _tiled_lines(tiled_report)
+    lines.append(f"Execution time: {wall_s * 1000:.2f} ms "
+                 f"(compile {compile_s * 1000:.2f} ms)")
+    return "\n".join(lines)
+
+
+# --------------------------------------------------- the instrumented runs
+
+
+def run_instrumented(plan: N.PlanNode, session, query: str = ""):
+    """Execute with instrumentation; returns (ColumnBatch, QueryMetrics).
+
+    The LEGACY side path: a private instrumented Lowerer outside the
+    statement pipeline (no lifecycle handle, no admission). Kept as the
+    parity oracle for run_pipeline and for library callers that want
+    counts without pipeline semantics.
+    """
+    from cloudberry_tpu_torch.exec import executor as X
+
+    device = session.device
+
+    class InstrLowerer(InstrumentingMixin, X.Lowerer):
+        def __init__(self, tables):
+            X.Lowerer.__init__(self, tables, device)
+            self.__init_instrument__()
+
+    def run(tables):
+        low = InstrLowerer(tables)
+        cols, sel = low.lower(plan)
+        out = {f.name: cols[f.name] for f in plan.fields}
+        return out, sel, low.checks, low.node_counts
+
+    scans = list(X.scans_of(plan))
+    tables = X.assemble_inputs(
+        sorted({s.table_name for s in scans if not X.keyed_scan(s)}),
+        [s for s in scans if X.keyed_scan(s)], session, plan=plan)
+    (cols, sel, checks, counts), compile_s, wall_s = \
+        _timed_run(run, tables, session)
+    X.raise_checks(checks)
+    batch = X.make_batch(plan, cols, sel)
+
+    counts_host = read_counts(counts)
+    metrics = _metrics(plan, counts_host, query, wall_s, compile_s,
+                       batch.num_rows())
+    _emit(session, metrics)
+    return batch, metrics
+
+
+def _run_instrumented_dist(plan: N.PlanNode, session, query: str):
+    raise NotImplementedError(
+        "distributed EXPLAIN ANALYZE: the distributed executor is not yet "
+        "ported")
+
+
+def _dist_counts_host(plan, counts) -> dict:
+    raise NotImplementedError(
+        "distributed EXPLAIN ANALYZE: the distributed executor is not yet "
+        "ported")
+
+
+# --------------------------------------- EXPLAIN ANALYZE via the pipeline
+
+
+def run_pipeline(plan: N.PlanNode, session, query: str):
+    """EXPLAIN ANALYZE through the STATEMENT PIPELINE: the same lifecycle
+    bracket (handle + scope + StatementLog entry), the same dispatch
+    seams and admission gate, and the shared compile entry point
+    (executor.compile_plan with ``instrument=True``), so what EXPLAIN
+    ANALYZE times is the program the statement path runs, with the same
+    kernels — not a private lowerer's variant.
+
+    Returns (batch, QueryMetrics, annotations): per-node row counts plus
+    the motion/join annotations for explain_analyze_text."""
+    from cloudberry_tpu_torch import lifecycle
+    from cloudberry_tpu_torch.utils.faultinject import fault_point
+
+    log = session.stmt_log
+    log_id = log.begin(query, session._session_id)
+    deadline = None
+    timeout = session.config.statement_timeout_s
+    if timeout:
+        deadline = time.monotonic() + timeout
+    handle = lifecycle.StatementHandle(log_id, deadline=deadline)
+    handle.trace = log.start_trace(log_id, query)
+    if log.obs_enabled:
+        from cloudberry_tpu_torch.obs.progress import Progress
+
+        handle.progress = Progress()
+    log.attach(log_id, handle)
+    compiles_before = log.counter("compiles")
+    try:
+        with lifecycle.statement_scope(handle):
+            log.bump("dispatches")
+            session._dispatch_seams(fault_point)
+            batch, metrics, annotations = _pipeline_once(
+                plan, session, query)
+    except BaseException as e:
+        log.finish(log_id, "error", error=f"{type(e).__name__}: {e}")
+        raise
+    finally:
+        session._recovery.discard(log_id)
+    metrics.compiles = log.counter("compiles") - compiles_before
+    log.finish(log_id, "ok", rows=batch.num_rows(),
+               compiles=metrics.compiles)
+    _emit(session, metrics)
+    return batch, metrics, annotations
+
+
+def _generic_form(session, plan):
+    """The generic-plan form's bindings: always none, since generic plans
+    (the JAX package's sched/paramplan.analyze) are not ported yet."""
+    return {}
+
+
+def _pipeline_once(plan, session, query):
+    from cloudberry_tpu_torch.exec import executor as X
+    from cloudberry_tpu_torch.exec.resource import (ResourceError,
+                                                    check_admission)
+
+    session.last_tiled_report = None  # set again by the tiled fallback
+    packed = True   # one segment: no motion, so the wire flag is moot
+    try:
+        est = check_admission(plan, session)
+    except ResourceError:
+        # over-budget plans take the tiled (out-of-core) path like any
+        # statement would; per-node counts are not separable there, but
+        # the tiled report (per-tile time histogram, checkpoint/resume
+        # counters) rides the rendered output instead
+        from cloudberry_tpu_torch.exec.tiled import plan_tiled
+
+        texe = plan_tiled(plan, session)
+        if texe is None:
+            raise
+        from cloudberry_tpu_torch.obs import capacity as OC
+
+        texe.refresh_bufpool_charge()
+        OC.record_tiled(session.stmt_log, texe.report)
+        t0 = time.monotonic()
+        with session._gate, session._admitted(
+                session.config.resource.query_mem_bytes):
+            batch = texe.run()
+        wall_s = time.monotonic() - t0
+        OC.record_tile_dispatch(session.stmt_log, texe.report)
+        metrics = _metrics(plan, {}, query, wall_s, 0.0,
+                           batch.num_rows())
+        return batch, metrics, motion_annotations(plan, {}, packed)
+    _generic_form(session, plan)
+    from cloudberry_tpu_torch.obs import capacity as OC
+
+    OC.record_statement(session.stmt_log, plan, session, est=est)
+    with session._gate, session._admitted(est.peak_bytes):
+        exe = X.compile_plan(plan, session, instrument=True)
+        inputs = X.prepare_inputs(exe, session)
+        (cols, sel, checks, counts), compile_s, wall_s = \
+            _timed_run(exe.fn, inputs, session, log=session.stmt_log)
+        X.raise_checks(checks)
+        batch = X.make_batch(plan, cols, sel)
+        counts_host = read_counts(counts)
+    metrics = _metrics(plan, counts_host, query, wall_s, compile_s,
+                       batch.num_rows())
+    return batch, metrics, motion_annotations(plan, counts_host, packed)
+
+
+def _metrics(plan, counts_host, query, wall_s, compile_s, rows_out):
+    node_rows = [(n.title(), str(n.sharding) if n.sharding else "",
+                  counts_host.get(id(n), -1))
+                 for n in plan_nodes_in_order(plan)]
+    return QueryMetrics(query=query, wall_s=wall_s, compile_s=compile_s,
+                        rows_out=rows_out, node_rows=node_rows)
+
+
+def _emit(session, metrics: QueryMetrics) -> None:
+    """Deliver to every metrics hook, exception-safely: a raising hook
+    is the OBSERVER's bug — it is counted (metrics_hook_errors) and must
+    never abort the observed statement (the reference likewise shields
+    the executor from a broken query_info_collect_hook)."""
+    for hook in getattr(session, "metrics_hooks", []):
+        try:
+            hook(metrics)
+        except Exception:
+            log = getattr(session, "stmt_log", None)
+            if log is not None:
+                log.bump("metrics_hook_errors")

@@ -173,14 +173,14 @@ def _cached_index(session, spec: JoinIndexSpec) -> dict:
         hit = cache.pop(key, None)
         if hit is not None:
             cache[key] = hit  # LRU touch
-    counters = getattr(session, "counters", None)
+    log = getattr(session, "stmt_log", None)
     if hit is not None:
-        if counters is not None:
-            counters.bump("join_index_hits")
+        if log is not None:
+            log.bump("join_index_hits")
         return hit
     hit = _build_index(session, spec, t)
-    if counters is not None:
-        counters.bump("join_index_builds")
+    if log is not None:
+        log.bump("join_index_builds")
     limit = max(session.config.join_filter.index_cache, 1)
     with lock:
         while len(cache) >= limit:

@@ -30,7 +30,9 @@ from typing import Optional
 
 import numpy as np
 
+from cloudberry_tpu_torch.obs.capacity import nbytes_of
 from cloudberry_tpu_torch.utils.faultinject import fault_point
+
 
 @dataclass
 class TileCheckpoint:
@@ -42,17 +44,6 @@ class TileCheckpoint:
     consumed: int             # rows of the stream consumed (a prefix)
     payload: dict             # mode-specific host state (numpy only)
     g_cap: int = 0            # accumulator capacity at snapshot
-
-
-def nbytes_of(obj) -> int:
-    """Host bytes a payload pins (numpy leaves of dicts/lists)."""
-    if isinstance(obj, np.ndarray):
-        return int(obj.nbytes)
-    if isinstance(obj, dict):
-        return sum(nbytes_of(v) for v in obj.values())
-    if isinstance(obj, (list, tuple)):
-        return sum(nbytes_of(v) for v in obj)
-    return 0
 
 
 class RecoveryStore:
@@ -109,6 +100,10 @@ class RecoveryStore:
     def pinned_bytes(self) -> int:
         with self._lock:
             return int(self._bytes)
+
+    def pinned_count(self) -> int:
+        with self._lock:
+            return len(self._ckpts)
 
     def load(self, sid: int, signature: tuple) -> Optional[TileCheckpoint]:
         with self._lock:
@@ -222,7 +217,7 @@ class RecoveryCtx:
         self.session = exe.session
         self.cfg = self.session.config.recovery
         self.store = self.session._recovery
-        self.log = self.session.counters
+        self.log = self.session.stmt_log
         self.sid = _statement_id()
         self.sig = plan_signature(exe)
         self.ckpt: Optional[TileCheckpoint] = None
@@ -370,5 +365,5 @@ def begin(exe) -> Optional[RecoveryCtx]:
     try:
         return RecoveryCtx(exe)
     except Exception:  # noqa: BLE001 — resume is best-effort by contract
-        session.counters.bump("tile_resume_declined")
+        session.stmt_log.bump("tile_resume_declined")
         return None

@@ -1,22 +1,36 @@
-"""Resource governance — the per-query memory budget (admission estimate).
+"""Resource governance — the vmem-tracker / resource-queue analog.
 
 The reference tracks per-segment virtual memory in chunks with a red zone
-(vmem_tracker.c:94, redzone_handler.c). Here memory is PREDICTABLE — every
-node's capacity and column widths are static at plan time — so admission
-is a plan-time estimate (the sum of live intermediate arrays, an upper
-bound analogous to per-operator memory quotas) that refuses a query whose
-estimate exceeds ``resource.query_mem_bytes`` before it runs. The session
-then re-plans the refused statement as a stream of tiles (exec/tiled.py).
+and a runaway killer (vmem_tracker.c:94, redzone_handler.c,
+runaway_cleaner.c), and gates statement admission through a shared slot
+pool (resgroup.c:135) and named resource queues (resqueue.c). Here memory
+is PREDICTABLE — every node's capacity and column widths are static at
+plan time — so governance is:
+
+- a plan-time memory estimator (the sum of live intermediate arrays, an
+  upper bound analogous to per-operator memory quotas) that refuses a
+  query whose estimate exceeds ``resource.query_mem_bytes`` before it
+  runs; the session then re-plans the refused statement as a stream of
+  tiles (exec/tiled.py);
+- a concurrency gate (``AdmissionGate``, a slot pool) limiting
+  simultaneous statements;
+- resource queues (``QueueManager``): bounded active statements, a
+  MAX_COST ceiling in estimated bytes, and priority-ordered waiters;
+- an engine-wide red line (``VmemTracker``): admitted statements reserve
+  their estimate, and a running statement whose join-expansion growth
+  would cross the line is terminated (``RunawayError``), never spilled.
 
 The estimate is the JAX package's, integer for integer: the tiled planner's
 tile size, mode and accumulator capacity all follow from it, so both
-engines take the same decisions on the same plan. The JAX package's
-concurrency slots, engine-wide red line and runaway termination are not
-carried yet.
+engines take the same decisions on the same plan. The slots, queues and
+the red line are pure host threading, copied from the JAX package. Its
+per-tenant groups (``TenantGroup``, ``TenantQueueFull``) belong to the
+serving layer and are not carried.
 """
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 
 from cloudberry_tpu_torch.plan import nodes as N
@@ -24,6 +38,11 @@ from cloudberry_tpu_torch.plan import nodes as N
 
 class ResourceError(RuntimeError):
     pass
+
+
+class RunawayError(ResourceError):
+    """A RUNNING statement's adaptive growth crossed the vmem red line —
+    it is terminated (runaway_cleaner.c), never spilled."""
 
 
 @dataclass
@@ -90,3 +109,187 @@ def check_admission(plan: N.PlanNode, session) -> MemoryEstimate:
             f"(largest nodes: {top}); raise "
             "config.resource.query_mem_bytes or reduce capacities")
     return est
+
+
+_PRIORITY = {"min": 0, "low": 100, "medium": 200, "high": 300, "max": 400}
+
+
+@dataclass
+class ResourceQueue:
+    """A named admission queue (resqueue.c analog): bounded concurrent
+    statements, a plan-cost ceiling (here: the memory estimate in bytes —
+    the engine's native cost unit), and a backoff.c-style priority weight
+    that orders WAITERS (higher priority wakes first)."""
+
+    name: str
+    active_statements: int = 0      # 0 = unlimited
+    max_cost: int = 0               # bytes; 0 = unlimited
+    priority: str = "medium"
+    active: int = 0                 # running statements (observability)
+    waiting: int = 0
+
+
+class QueueManager:
+    """Slot accounting for every resource queue in one engine process.
+    Waiters admit in (priority desc, arrival) order via a per-queue heap —
+    the prioritization backoff.c implements with CPU weights, expressed
+    here at the admission boundary where this engine schedules work."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._seq = 0
+        self._waiters: dict[str, list] = {}
+
+    def slot(self, queue: ResourceQueue, cost: int, priority: str,
+             timeout_s: float = 60.0):
+        import contextlib
+        import heapq
+        import time as _t
+
+        if queue.max_cost and cost > queue.max_cost:
+            raise ResourceError(
+                f"resource queue {queue.name!r}: statement cost "
+                f"{cost >> 20} MiB exceeds MAX_COST "
+                f"{queue.max_cost >> 20} MiB")
+
+        @contextlib.contextmanager
+        def _slot():
+            if not queue.active_statements:
+                with self._cond:
+                    queue.active += 1
+                try:
+                    yield
+                finally:
+                    with self._cond:
+                        queue.active -= 1
+                return
+            key = None
+            with self._cond:
+                self._seq += 1
+                key = (-_PRIORITY.get(priority, 200), self._seq)
+                heap = self._waiters.setdefault(queue.name, [])
+                heapq.heappush(heap, key)
+                queue.waiting = len(heap)
+                end = _t.monotonic() + timeout_s
+                try:
+                    # admit only when a slot is free AND no better-ranked
+                    # waiter exists (priority beats arrival)
+                    while queue.active >= queue.active_statements \
+                            or heap[0] != key:
+                        left = end - _t.monotonic()
+                        if left <= 0:
+                            raise ResourceError(
+                                f"resource queue {queue.name!r}: no slot "
+                                f"within {timeout_s:.0f}s "
+                                f"({queue.active} active, "
+                                f"{len(heap)} waiting)")
+                        self._cond.wait(timeout=min(left, 1.0))
+                    heapq.heappop(heap)
+                finally:
+                    if heap and key in heap:
+                        heap.remove(key)
+                        heapq.heapify(heap)
+                    queue.waiting = len(heap)
+                    # whoever is next-ranked must learn the head changed
+                    # NOW, not on its poll timeout
+                    self._cond.notify_all()
+                queue.active += 1
+            try:
+                yield
+            finally:
+                with self._cond:
+                    queue.active -= 1
+                    self._cond.notify_all()
+
+        return _slot()
+
+
+class VmemTracker:
+    """Engine-wide memory reservation (vmem_tracker.c + redzone_handler.c
+    analog): every admitted statement reserves its plan-time estimate;
+    reservations past the red line WAIT (bounded), and a RUNNING statement
+    whose adaptive growth (join-expansion retry) would cross the red line
+    is TERMINATED — the runaway_cleaner.c decision, made exactly at the
+    one point where this engine's memory is not statically predictable."""
+
+    def __init__(self, budget_bytes: int):
+        self.budget = budget_bytes
+        self.used = 0
+        self.by_stmt: dict[int, int] = {}
+        self._cond = threading.Condition()
+
+    def reserve(self, stmt_id: int, nbytes: int,
+                timeout_s: float = 60.0) -> None:
+        import time as _t
+
+        if nbytes > self.budget:
+            # can NEVER fit — fail fast instead of holding queue/gate
+            # slots for the whole timeout
+            raise ResourceError(
+                f"vmem red zone: {nbytes >> 20} MiB exceeds the entire "
+                f"engine budget {self.budget >> 20} MiB")
+        end = _t.monotonic() + timeout_s
+        with self._cond:
+            while self.used + nbytes > self.budget:
+                self._cond.wait(timeout=max(
+                    min(end - _t.monotonic(), 1.0), 0.01))
+                if _t.monotonic() >= end:
+                    raise ResourceError(
+                        f"vmem red zone: {nbytes >> 20} MiB reservation "
+                        f"cannot fit ({self.used >> 20} MiB of "
+                        f"{self.budget >> 20} MiB in use) after "
+                        f"{timeout_s:.0f}s")
+            self.used += nbytes
+            self.by_stmt[stmt_id] = self.by_stmt.get(stmt_id, 0) + nbytes
+
+    def grow(self, stmt_id: int, new_total: int) -> None:
+        """Re-reserve a RUNNING statement at a larger estimate; crossing
+        the red line terminates THIS statement (it is the runaway — its
+        growth, not its admission, broke the budget)."""
+        with self._cond:
+            cur = self.by_stmt.get(stmt_id, 0)
+            if self.used - cur + new_total > self.budget:
+                raise RunawayError(
+                    "runaway query terminated: adaptive growth to "
+                    f"{new_total >> 20} MiB would cross the vmem red "
+                    f"zone ({(self.used - cur) >> 20} MiB held by other "
+                    f"statements, budget {self.budget >> 20} MiB)")
+            self.used += new_total - cur
+            self.by_stmt[stmt_id] = new_total
+
+    def release(self, stmt_id: int) -> None:
+        with self._cond:
+            self.used -= self.by_stmt.pop(stmt_id, 0)
+            self._cond.notify_all()
+
+
+class AdmissionGate:
+    """Slot-pool concurrency limit (ResGroupSlotData free list analog).
+    Tracks active and peak occupancy so servers/tests can OBSERVE that
+    admission control actually bounded concurrency."""
+
+    def __init__(self, max_concurrency: int):
+        self._sem = threading.BoundedSemaphore(max_concurrency)
+        self.max_concurrency = max_concurrency
+        self._lock = threading.Lock()
+        self.active = 0
+        self.peak = 0
+        self.total_admitted = 0
+
+    def __enter__(self):
+        acquired = self._sem.acquire(timeout=60.0)
+        if not acquired:
+            raise ResourceError(
+                "admission timeout: all "
+                f"{self.max_concurrency} statement slots busy for 60s")
+        with self._lock:
+            self.active += 1
+            self.peak = max(self.peak, self.active)
+            self.total_admitted += 1
+        return self
+
+    def __exit__(self, *exc):
+        with self._lock:
+            self.active -= 1
+        self._sem.release()
+        return False

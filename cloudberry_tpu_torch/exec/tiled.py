@@ -38,10 +38,14 @@ group buffers raises, and the adaptive loop grows the buffer (or halves
 the tile) and re-runs — never truncation. The admitted step estimate
 bounds resident builds + one tile's working set + the accumulator.
 
+Telemetry: every step feeds the ``tile_seconds`` histogram, a
+``tile-step`` span on a traced statement and the report's ``tile_time``
+summary (``_TileTimer``); drained tiles feed the statement's live
+progress (``TileTracker``); store decodes feed ``decode_seconds``.
+
 Not carried: the distributed tiler (exec/tiled_dist.py), the skew
-sentinel, the device-loss retry, the tile-time histogram and spans and
-the statement cache of tiled runners; ``_TileTimer`` keeps only the
-report's ``tile_time`` summary.
+sentinel, the device-loss retry and the statement cache of tiled
+runners.
 """
 
 from __future__ import annotations
@@ -564,15 +568,25 @@ class _TileLowerer(_ReplacingLowerer):
 
 
 class _TileTimer:
-    """Per-tile step wall times (host clock: the step's enqueue, plus the
-    drains the dispatch window makes it wait for); ``stamp`` writes the
-    report's ``tile_time`` summary (count, mean, p95 seconds)."""
+    """Per-tile step timing: each step's wall (host clock: the step's
+    enqueue, plus the drains the dispatch window makes it wait for) feeds
+    the engine ``tile_seconds`` histogram — so tile-time regressions show
+    in the session's metrics without an instrumented rerun — and, when
+    the statement is traced, a per-tile span; ``stamp()`` summarizes the
+    distribution onto the run report for EXPLAIN ANALYZE's tiled trailer.
+    Bounded by construction: one fixed-size histogram, and spans ride the
+    trace's own cap."""
 
-    def __init__(self):
-        self._t: list[float] = []
+    def __init__(self, session):
+        from cloudberry_tpu_torch.obs.metrics import _Hist
 
-    def step(self):
+        self._log = getattr(session, "stmt_log", None)
+        self._h = _Hist()
+
+    def step(self, idx: int):
         import contextlib
+
+        from cloudberry_tpu_torch.obs import trace as OT
 
         @contextlib.contextmanager
         def _cm():
@@ -580,18 +594,34 @@ class _TileTimer:
             try:
                 yield
             finally:
-                self._t.append(time.perf_counter() - t0)
+                dt = time.perf_counter() - t0
+                self._h.add(dt)
+                if self._log is not None and self._log.obs_enabled:
+                    self._log.registry.observe("tile_seconds", dt)
+                OT.mark("tile-step", t0, tile=idx)
 
         return _cm()
 
     def stamp(self, report: dict) -> None:
-        if self._t:
-            a = np.asarray(self._t)
+        if self._h.n:
             report["tile_time"] = {
-                "count": int(a.size),
-                "mean": round(float(a.mean()), 6),
-                "p95": float(np.quantile(a, 0.95)),
+                "count": self._h.n,
+                "mean": round(self._h.total / self._h.n, 6),
+                "p95": self._h.quantile(0.95),
             }
+
+
+def _progress_tracker(exe, n_base: int, skip: int):
+    """Live-progress feeder for a tile loop (obs/progress.py): one lane —
+    the remaining row prefix of the deterministic stream. A no-op object
+    when the statement carries no Progress (obs off, or no lifecycle
+    scope)."""
+    from cloudberry_tpu_torch.obs.progress import TileTracker, stream_rows
+
+    total = stream_rows(exe.shape.stream, exe.session)
+    return TileTracker(max(total - skip, 0), exe.tile_rows,
+                       n_base=n_base, base_rows=min(skip, total),
+                       rows_total=total)
 
 
 class AdaptiveTiledMixin:
@@ -602,10 +632,16 @@ class AdaptiveTiledMixin:
 
     _what = "tiled execution"
 
-    def _publish_report(self) -> None:
-        # the pool's residency for the stream moved during the run
+    def refresh_bufpool_charge(self) -> None:
+        """Re-stamp the report's ``est_bufpool_bytes``: the report is
+        built once per compile, but the pool's residency for the streamed
+        table moves between statements — dispatch-time capacity recording
+        and report publication both re-read it."""
         self.report["est_bufpool_bytes"] = _bufpool_charge(
             self.session, self.shape.stream.table_name)
+
+    def _publish_report(self) -> None:
+        self.refresh_bufpool_charge()
         self.session.last_tiled_report = dict(self.report)
 
     def _run_adaptive(self) -> ColumnBatch:
@@ -647,7 +683,7 @@ class AdaptiveTiledMixin:
                     # deferred-failure replay, resuming from the last
                     # drained-clean checkpoint
                     self._deferred_fail = False
-                    self.session.counters.bump("tile_window_replays")
+                    self.session.stmt_log.bump("tile_window_replays")
                 self._compiled = None
                 self._refresh_report()
                 # a grown accumulator may blow the step budget: smaller
@@ -843,6 +879,7 @@ class TiledExecutable(AdaptiveTiledMixin):
     # ----------------------------------------------------------------- run
 
     def run(self) -> ColumnBatch:
+        X.build_kernels(self.session)
         with self._run_lock:
             return self._run_adaptive()
 
@@ -867,7 +904,8 @@ class TiledExecutable(AdaptiveTiledMixin):
         n_base = ctx.tiles_base if ctx is not None else 0
         n_local = 0
         n_sub = 0
-        timer = _TileTimer()
+        timer = _TileTimer(self.session)
+        tracker = _progress_tracker(self, n_base, skip)
         pipe = TP.TilePipe(self.session, TP.effective_window(
             self.session.config, self._platform))
         feed = _tile_feed(self.shape.stream, self.session,
@@ -875,13 +913,15 @@ class TiledExecutable(AdaptiveTiledMixin):
                           min_depth=pipe.window)
 
         def _verified(d):
-            # host effects for ONE drained-clean tile, in stream order: the
-            # K-tile checkpoint tick (a staged payload when the submit saw
-            # the boundary coming; the live accumulator at window=1, where
-            # the drain is synchronous and acc IS this tile's state)
+            # host effects for ONE drained-clean tile, in stream order:
+            # progress, then the K-tile checkpoint tick (a staged payload
+            # when the submit saw the boundary coming; the live
+            # accumulator at window=1, where the drain is synchronous and
+            # acc IS this tile's state)
             nonlocal n_local
             tile_k, staged = d.payload
             n_local = tile_k
+            tracker.step(tile_k)
             if ctx is not None:
                 ctx.tick(tile_k, staged if staged is not None
                          else (lambda: R.acc_payload(acc)))
@@ -892,7 +932,7 @@ class TiledExecutable(AdaptiveTiledMixin):
                 n_sub += 1
                 stage = (ctx is not None and pipe.window > 1
                          and ctx.snapshot_due(n_sub))
-                with timer.step():
+                with timer.step(n_base + n_sub - 1):
                     acc, checks = step_fn(resident, prelude, tile, tile_n,
                                           acc)
                     del tile
@@ -1069,7 +1109,8 @@ class SortTiledExecutable(TiledExecutable):
         n_base = ctx.tiles_base if ctx is not None else 0
         n_local = 0
         n_sub = 0
-        timer = _TileTimer()
+        timer = _TileTimer(self.session)
+        tracker = _progress_tracker(self, n_base, skip)
         pipe = TP.TilePipe(self.session, TP.effective_window(
             self.session.config, self._platform))
         feed = _tile_feed(shape.stream, self.session,
@@ -1084,6 +1125,7 @@ class SortTiledExecutable(TiledExecutable):
             nonlocal n_local
             tile_k, names, rows = d.payload
             n_local = tile_k
+            tracker.step(tile_k)
             host = rows.wait()
             mask = host[len(names)].numpy()
             for i, nm in enumerate(names):
@@ -1098,7 +1140,7 @@ class SortTiledExecutable(TiledExecutable):
             for tile, tile_n in feed:
                 fault_point("tile_step")
                 n_sub += 1
-                with timer.step():
+                with timer.step(n_base + n_sub - 1):
                     (pcols, psel, keys), checks = step_fn(
                         resident, prelude, tile, tile_n)
                     del tile
@@ -1471,7 +1513,8 @@ def _store_tiles(scan: N.PScan, session, tile_rows: int,
     pool = SP.decode_pool(session.config)
     bpool = BUF.pool_for(session)
     cols_key = tuple(needed)
-    log = session.counters
+    log = session.stmt_log
+    obs = log.obs_enabled
     buf = _PendBuf(stats)
     skip_left = max(int(skip_rows), 0)
 
@@ -1517,6 +1560,9 @@ def _store_tiles(scan: N.PScan, session, tile_rows: int,
         stats.parts_read += 1
         stats.decode_s += sum(dts)
         log.bump("partitions_decoded")
+        if obs:
+            for dt in dts:
+                log.registry.observe("decode_seconds", dt)
         ent = {"cols": {c: np.asarray(v) for c, v in cols.items()},
                "validity": {c: np.asarray(v, dtype=np.bool_)
                             for c, v in validity.items()}}

@@ -39,7 +39,7 @@ holds it, so the port keeps no donation rule.
 
 Telemetry: ``drain_stall_s`` (host seconds blocked on drained flags) and
 ``inflight_depth`` (window high-water mark) stamp the tiled run report;
-the ``tile_deferred_overflows`` counter rides the session's counters. The
+the ``tile_deferred_overflows`` counter rides the session's statement log. The
 window's extra in-flight tiles are charged into the report's
 ``est_pipeline_bytes`` (``window_charge_bytes``).
 """
@@ -159,7 +159,7 @@ class TilePipe:
 
     def __init__(self, session, window: int):
         self.window = max(int(window), 1)
-        self._log = getattr(session, "counters", None)
+        self._log = getattr(session, "stmt_log", None)
         self._q: deque = deque()
         self.max_depth = 0        # in-flight high-water mark
         self.drain_stall_s = 0.0  # host blocked on drained flags

@@ -6,9 +6,10 @@ that fails at the OS layer is retryable, a checksum mismatch is not). Every
 ``Session.sql`` statement runs inside a ``statement_scope`` whose handle
 carries its id (the key of the tiled executors' checkpoint store,
 exec/recovery.py), a deadline and a cancel token; ``check_cancel`` is the
-poll point the tile loops and the scan pipeline's reader thread call. The
-JAX package's watchdog, composite batch handles and admission circuit
-breaker are not carried.
+poll point the tile loops and the scan pipeline's reader thread call.
+``Watchdog`` cancels over-deadline statements through the statement log's
+active handles (exec/instrument.py). The JAX package's composite batch
+handles and admission circuit breaker are not carried.
 """
 
 from __future__ import annotations
@@ -102,6 +103,10 @@ class CancelToken:
         self.reason: Optional[str] = None
         self.message: Optional[str] = None
 
+    @property
+    def cancelled(self) -> bool:
+        return self._event.is_set()
+
     def cancel(self, reason: str = "cancelled",
                message: Optional[str] = None) -> bool:
         """Request cancellation; True if this call was the first."""
@@ -182,3 +187,59 @@ def check_cancel() -> None:
     h = current_handle()
     if h is not None:
         h.check()
+
+
+# --------------------------------------------------------------- watchdog
+
+
+class Watchdog:
+    """Background canceller for over-deadline statements (the SIGALRM /
+    statement_timeout enforcement role). Cooperative checks already raise
+    at seams that compare the deadline; the watchdog covers statements
+    wedged where only the TOKEN is polled (the interruptible ``hang``
+    fault point, a blocking wait) and makes the timeout visible in the
+    activity view (state flips to 'cancelling') while the serving thread
+    survives to run the next statement."""
+
+    def __init__(self, stmt_log, interval_s: float = 0.05):
+        self.stmt_log = stmt_log
+        self.interval_s = interval_s
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> "Watchdog":
+        if self._thread is None:
+            self._stop.clear()
+            self._thread = threading.Thread(target=self._loop, daemon=True,
+                                            name="cbtpu-watchdog")
+            self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+            self._thread = None
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            self.scan()
+
+    def scan(self) -> int:
+        """One pass; returns how many statements it cancelled (exposed
+        for deterministic tests)."""
+        now = time.monotonic()
+        n = 0
+        for sid, handle in self.stmt_log.active_handles():
+            if handle.deadline is None or now <= handle.deadline \
+                    or handle.token.cancelled:
+                continue
+            if handle.token.cancel(
+                    "timeout",
+                    f"statement {sid} cancelled by watchdog "
+                    f"{now - handle.started:.2f}s after start "
+                    "(deadline exceeded)"):
+                self.stmt_log.mark_cancelling(sid)
+                self.stmt_log.bump("watchdog_timeouts")
+                n += 1
+        return n

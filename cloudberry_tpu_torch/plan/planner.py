@@ -9,10 +9,12 @@ handling, DELETE, UPDATE, INSERT … SELECT, CREATE TABLE AS — runs its
 synthetic queries through the same executor (``_run_internal``).
 
 This port runs one segment, so there is no distribution pass.
-``_run_internal`` checks the memory budget as the reference does; the
-reference also takes a resource-queue slot, which the port lacks. Statements that need modules outside the port
-(transactions, matviews, external/foreign/directory tables, resource
-queues, cursors, CLUSTER) raise ``NotImplementedError``.
+``_run_internal`` checks the memory budget and takes a statement slot
+(the session's concurrency gate) as the reference does. CREATE and DROP
+RESOURCE QUEUE edit the catalog's queues (exec/resource.py). Statements
+that need modules outside the port (transactions, matviews,
+external/foreign/directory tables, cursors, CLUSTER) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -85,6 +87,41 @@ def plan_statement(stmt: ast.Node, session, params: dict,
             raise BindError(str(e.args[0]))
         return PlanResult(is_ddl=True,
                           ddl_result=f"DROP SEQUENCE {stmt.name}")
+
+    if isinstance(stmt, ast.CreateResourceQueue):
+        from cloudberry_tpu_torch.exec.resource import _PRIORITY, ResourceQueue
+
+        name = stmt.name.lower()
+        if name in catalog.resource_queues:
+            raise BindError(f"resource queue {name!r} already exists")
+        known = {"active_statements", "max_cost", "priority"}
+        bad = set(stmt.options) - known
+        if bad:
+            raise BindError(f"unknown resource queue option(s) "
+                            f"{sorted(bad)}; valid: {sorted(known)}")
+        prio = str(stmt.options.get("priority", "medium")).lower()
+        if prio not in _PRIORITY:
+            raise BindError(f"unknown priority {prio!r}")
+        catalog.resource_queues[name] = ResourceQueue(
+            name,
+            active_statements=int(stmt.options.get("active_statements", 0)),
+            max_cost=int(stmt.options.get("max_cost", 0)),
+            priority=prio)
+        return PlanResult(is_ddl=True,
+                          ddl_result=f"CREATE RESOURCE QUEUE {stmt.name}")
+
+    if isinstance(stmt, ast.DropResourceQueue):
+        name = stmt.name.lower()
+        if name == "default":
+            raise BindError("cannot drop the default resource queue")
+        if name not in catalog.resource_queues:
+            if stmt.if_exists:
+                return PlanResult(is_ddl=True,
+                                  ddl_result="DROP RESOURCE QUEUE")
+            raise BindError(f"unknown resource queue {name!r}")
+        del catalog.resource_queues[name]
+        return PlanResult(is_ddl=True,
+                          ddl_result=f"DROP RESOURCE QUEUE {stmt.name}")
 
     if isinstance(stmt, ast.CreateView):
         if stmt.name.lower() in catalog.tables:
@@ -201,17 +238,17 @@ def _maybe_autostats(session, table_name: str) -> None:
 
 
 def _run_internal(session, query: ast.Node):
-    """Plan + execute a synthetic query (DML rewrite machinery) under the
-    same memory budget as user queries (over it: ``ResourceError``, no
-    tiling, as in the reference). The reference also takes a statement
-    slot; the port has no resource queues yet."""
+    """Plan + execute a synthetic query (DML rewrite machinery) — under
+    the same memory budget (over it: ``ResourceError``, no tiling) and
+    statement slot as user queries."""
     from cloudberry_tpu_torch.exec.executor import execute
     from cloudberry_tpu_torch.exec.resource import check_admission
 
     binder = Binder(session.catalog)
     plan = _optimize(binder.bind_query(query), session)
     check_admission(plan, session)
-    return execute(plan, session)
+    with session._gate:
+        return execute(plan, session)
 
 
 def _copy_from(session, stmt: ast.CopyFrom) -> str:

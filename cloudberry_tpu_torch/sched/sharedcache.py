@@ -177,3 +177,12 @@ def topology_token(session) -> int:
     """The topology-epoch token of the JAX package's shared keys. One
     segment has one topology: a constant."""
     return 0
+
+
+def tier_snapshot(session) -> dict:
+    """Observability (the flight recorder's cache-tier section): this
+    session's scope."""
+    scope = scope_for(session)
+    out = scope.snapshot()
+    out["shared"] = scope.kind == "store"
+    return out

@@ -1,22 +1,41 @@
 """Session — the QD (query dispatcher) analog, single segment.
 
-``sql()`` runs the pipeline: parse → bind/plan → execute on the session's
-device. A Session with no device runs on CUDA and raises when no CUDA
-device is available; it never moves to the CPU by itself. The tests ask
-for ``device="cpu"``, which runs the kernels' plain versions.
+``sql()`` runs the statement pipeline: a statement-log entry with a
+lifecycle handle (deadline from ``statement_timeout_s``, trace, live
+progress) → parse → bind/plan → admission → launch on the session's
+device → finish (statements table, trace ring) → the flight recorder. A
+Session with no device runs on CUDA and raises when no CUDA device is
+available; it never moves to the CPU by itself. The tests ask for
+``device="cpu"``, which runs the kernels' plain versions.
 
 Admission: every SELECT's plan is held against ``resource.query_mem_bytes``
 (exec/resource.py). A plan over the budget is re-planned as a stream of
 tiles (exec/tiled.py) and run that way; a plan whose shape cannot stream
-raises the reference's ``ResourceError``. ``last_tiled_report`` holds the
-last tiled run's report (None after a one-shot statement). A join-expansion
-overflow (more match pairs than the planner's estimate) grows the join's
-pair buffer, re-checks admission and runs the statement again
+raises the reference's ``ResourceError``. An admitted statement then takes
+a concurrency slot (``resource.max_concurrency``), a slot of its resource
+queue (``resource.queue``; CREATE RESOURCE QUEUE sets ACTIVE_STATEMENTS,
+MAX_COST and PRIORITY) and reserves its estimate against the engine-wide
+red line (``resource.total_mem_bytes``). ``last_tiled_report`` holds the
+last tiled run's report (None after a one-shot statement; like the
+reference's, one attribute per session, so concurrent tiled statements of
+one session overwrite each other's). A join-expansion overflow (more
+match pairs than the planner's estimate) grows the join's pair buffer,
+re-checks admission and the red line and runs the statement again
 (``growth_events`` counts the growths); a grown plan over the budget is
-tiled. Each statement runs in a lifecycle scope (lifecycle.py) whose id
-keys the tiled executors' checkpoint store; its checkpoints are discarded
-when the statement ends. The JAX package's greedy re-plan of a refused
-plan needs its join-order memo, which the port lacks.
+tiled, one that crosses the red line is terminated (``RunawayError``).
+The statement-log id keys the tiled executors' checkpoint store; its
+checkpoints are discarded when the statement ends. The JAX package's
+greedy re-plan of a refused plan needs its join-order memo, which the
+port lacks.
+
+Observability (exec/instrument.py, obs/): ``stmt_log`` holds the history
+and active registry, the metrics registry (``counters`` is its counter
+view: storage-path counts, statement errors, kernel builds), the stage
+histograms (``stage_seconds.parse|plan|queue_wait|compile|launch``),
+the statements table, the trace ring and the flight ring.
+``explain_analyze`` runs a statement through the same pipeline with
+per-node row counts. ``metrics_hooks`` receive each instrumented run's
+QueryMetrics.
 
 Durable storage: with ``config.storage.root`` set, the session opens the
 store (storage/table_store.py), registers every stored table COLD (schema
@@ -27,12 +46,9 @@ the device buffer pool and a per-session store-scan LRU
 (exec/executor.py). Every statement first picks up other sessions'
 commits (``_sync_store``). The store runs in autocommit mode.
 
-``counters`` holds the session's storage-path counts: partitions decoded,
-store-scan cache and buffer-pool traffic, join-index builds and hits.
-
-Not ported yet: more than one segment, generic plans, transactions (BEGIN
-raises ``NotImplementedError``), materialized views, resource queues and
-concurrency slots, serving and the metrics plane.
+Not ported yet: more than one segment, generic plans and the statement
+cache, the failure retry and its circuit breaker, transactions (BEGIN
+raises ``NotImplementedError``), materialized views and serving.
 """
 
 from __future__ import annotations
@@ -45,27 +61,6 @@ import numpy as np
 import torch
 
 from cloudberry_tpu_torch.config import Config, get_config
-
-
-class Counters:
-    """Named event counts (the storage path's subset of the JAX
-    package's StatementLog counters), safe across threads."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._counts: dict[str, int] = {}
-
-    def bump(self, name: str, n: int = 1) -> None:
-        with self._lock:
-            self._counts[name] = self._counts.get(name, 0) + n
-
-    def counter(self, name: str) -> int:
-        with self._lock:
-            return self._counts.get(name, 0)
-
-    def snapshot(self) -> dict[str, int]:
-        with self._lock:
-            return dict(self._counts)
 
 
 class Session:
@@ -112,17 +107,35 @@ class Session:
         self._device_tables: dict[str, tuple[int, dict]] = {}
         # join-expansion buffers grown by statement retries
         self.growth_events = 0
-        self.counters = Counters()
         # the last tiled run's report (exec/tiled.py), None after one-shot
         self.last_tiled_report = None
-        # statement ids (lifecycle scopes) and the tiled executors'
-        # statement-scoped checkpoint store (exec/recovery.py)
+        # statement history + active registry + the metrics registry, the
+        # ONE home of the session's counters (``counters`` is its view)
+        from cloudberry_tpu_torch.exec.instrument import StatementLog
+
+        self.stmt_log = StatementLog()
+        self.stmt_log.configure_obs(self.config.obs)
+        self.counters = self.stmt_log.counters
+        self._session_id = id(self) & 0xFFFF
+        # query_info_collect_hook analog: callables receiving QueryMetrics
+        self.metrics_hooks: list = []
+        # admission: the concurrency slot pool, the resource queues and
+        # the engine-wide vmem red line (exec/resource.py)
+        from cloudberry_tpu_torch.exec.resource import (AdmissionGate,
+                                                        QueueManager,
+                                                        VmemTracker)
+
+        self._gate = AdmissionGate(self.config.resource.max_concurrency)
+        self._queues = QueueManager()
+        self._vmem = VmemTracker(self.config.resource.total_mem_bytes)
+        self._stmt_ids = itertools.count(1)   # vmem reservation keys
+        # the tiled executors' statement-scoped checkpoint store
+        # (exec/recovery.py), keyed by the statement-log id
         from cloudberry_tpu_torch.exec.recovery import RecoveryStore
 
-        self._stmt_ids = itertools.count(1)
         self._recovery = RecoveryStore(
             self.config.recovery.max_statements,
-            self.config.recovery.max_bytes, log=self.counters)
+            self.config.recovery.max_bytes, log=self.stmt_log)
         # COPY ... LOG ERRORS row rejects, per table (the error-log /
         # gp_read_error_log analog, cdbsreh.c)
         self.copy_errors: dict[str, list] = {}
@@ -134,23 +147,180 @@ class Session:
 
     def sql(self, query: str, **params: Any):
         """Run one statement: DDL/DML returns its status string, a SELECT
-        its ColumnBatch."""
-        from cloudberry_tpu_torch.lifecycle import (StatementHandle,
-                                                    statement_scope)
+        its ColumnBatch. ``config.statement_timeout_s`` gives it a
+        deadline, checked at execution seams (and by a ``Watchdog``)."""
+        import time as _t
+
+        from cloudberry_tpu_torch import lifecycle
+
+        log = self.stmt_log
+        log_id = log.begin(query, self._session_id)
+        deadline = None
+        timeout = self.config.statement_timeout_s
+        if timeout:
+            deadline = _t.monotonic() + timeout
+        handle = lifecycle.StatementHandle(log_id, deadline=deadline)
+        # statement trace (obs/trace.py): the span tree rides the handle,
+        # so every thread serving this statement records against it
+        handle.trace = log.start_trace(log_id, query)
+        # live progress (obs/progress.py): the tiled executors' tile loops
+        # feed it through the same handle channel
+        if log.obs_enabled:
+            from cloudberry_tpu_torch.obs.progress import Progress
+
+            handle.progress = Progress()
+        log.attach(log_id, handle)
+        t_begin = _t.monotonic()
+        compiles_before = log.counter("compiles")
+        try:
+            with lifecycle.statement_scope(handle):
+                out = self._sql_once(query, **params)
+        except BaseException as e:
+            # BaseException too: a Ctrl-C mid-statement must not leave a
+            # phantom "running" entry in the active registry
+            if isinstance(e, lifecycle.StatementTimeout):
+                log.bump("statement_timeouts")
+            elif isinstance(e, lifecycle.StatementCancelled):
+                log.bump("statement_cancels")
+            else:
+                from cloudberry_tpu_torch.exec.executor import \
+                    DuplicateBuildKeyError
+
+                if isinstance(e, DuplicateBuildKeyError):
+                    log.bump("duplicate_build_key_errors")
+            log.finish(log_id, "error", error=f"{type(e).__name__}: {e}")
+            # flight recorder (obs/flightrec.py): after finish, so the
+            # trace is closed and the bundle ships complete spans
+            from cloudberry_tpu_torch.obs import flightrec as OF
+
+            OF.maybe_capture(
+                self, query, "error", _t.monotonic() - t_begin, handle,
+                params=params, error=e, counters={
+                    "compiles": log.counter("compiles") - compiles_before})
+            raise
+        finally:
+            # statement-scoped checkpoints die with their statement
+            self._recovery.discard(log_id)
+        is_batch = hasattr(out, "num_rows")
+        compiles_d = log.counter("compiles") - compiles_before
+        log.finish(log_id, "ok" if is_batch else str(out)[:80],
+                   rows=out.num_rows() if is_batch else -1,
+                   compiles=compiles_d)
+        from cloudberry_tpu_torch.obs import flightrec as OF
+
+        OF.maybe_capture(
+            self, query, "ok", _t.monotonic() - t_begin, handle,
+            params=params, result=out if is_batch else None,
+            counters={"compiles": compiles_d})
+        return out
+
+    def _sql_once(self, query: str, **params: Any):
+        import time as _t
+
+        from cloudberry_tpu_torch.exec.resource import (ResourceError,
+                                                        check_admission)
+        from cloudberry_tpu_torch.obs import capacity as OC
+        from cloudberry_tpu_torch.obs import metrics as OM
+        from cloudberry_tpu_torch.obs import trace as OT
         from cloudberry_tpu_torch.plan.planner import plan_statement
         from cloudberry_tpu_torch.sql.parser import parse_sql
+        from cloudberry_tpu_torch.utils.faultinject import fault_point
 
         self._sync_store()
         self.last_tiled_report = None  # set again by a tiled run
-        handle = StatementHandle(next(self._stmt_ids))
-        with statement_scope(handle):
-            try:
-                result = plan_statement(parse_sql(query), self, params)
-                if result.is_ddl:
-                    return result.ddl_result
-                return self._run_admitted(result.plan)
-            finally:
-                self._recovery.discard(handle.statement_id)
+        t0 = _t.perf_counter()
+        with OT.span("parse"):
+            stmt = parse_sql(query)
+        t1 = _t.perf_counter()
+        OM.observe_stage(self.stmt_log, "parse", t1 - t0)
+        with OT.span("plan"):
+            result = plan_statement(stmt, self, params)
+        OM.observe_stage(self.stmt_log, "plan", _t.perf_counter() - t1)
+        if result.is_ddl:
+            return result.ddl_result
+        # admission control: memory budget check + queue slot + vmem
+        # reservation; an over-budget plan falls back to tiled
+        # out-of-core execution (exec/tiled.py) first
+        try:
+            est = check_admission(result.plan, self)
+        except ResourceError:
+            from cloudberry_tpu_torch.exec.tiled import plan_tiled
+
+            texe = plan_tiled(result.plan, self)
+            if texe is None:
+                raise
+            texe.refresh_bufpool_charge()
+            OC.record_tiled(self.stmt_log, texe.report)
+            self.stmt_log.bump("dispatches")
+            self._dispatch_seams(fault_point)
+            t_wait = _t.perf_counter()
+            with self._gate, self._admitted(
+                    self.config.resource.query_mem_bytes):
+                self._obs_wait(t_wait)
+                return self._run_tiled(texe)
+        # capacity plane: itemized device-byte estimate of the fresh plan
+        OC.record_statement(self.stmt_log, result.plan, self, est=est)
+        self.stmt_log.bump("dispatches")
+        self._dispatch_seams(fault_point)
+        t_wait = _t.perf_counter()
+        with self._gate, self._admitted(est.peak_bytes) as sid:
+            self._obs_wait(t_wait)
+            return self._run_with_growth(result.plan, sid)
+
+    @staticmethod
+    def _dispatch_seams(fault_point) -> None:
+        """The seams every statement crosses before it launches: the
+        ``dispatch_start`` fault point and the cancel/deadline poll."""
+        from cloudberry_tpu_torch.lifecycle import check_cancel
+
+        fault_point("dispatch_start")
+        check_cancel()
+
+    def _obs_wait(self, t0: float) -> None:
+        """Record the admission/queue wait that just ended (span + stage
+        histogram) — called immediately after entering the gate."""
+        import time as _t
+
+        from cloudberry_tpu_torch.obs import metrics as OM
+        from cloudberry_tpu_torch.obs import trace as OT
+
+        dt = _t.perf_counter() - t0
+        OT.mark("queue-wait", t0)
+        OM.observe_stage(self.stmt_log, "queue_wait", dt)
+
+    def _obs_launch(self, runner):
+        """Run a statement runner, recording the launch stage (histogram;
+        the span records inside run_executable and the tile loops)."""
+        import time as _t
+
+        from cloudberry_tpu_torch.obs import metrics as OM
+
+        t0 = _t.perf_counter()
+        out = runner()
+        OM.observe_stage(self.stmt_log, "launch", _t.perf_counter() - t0)
+        return out
+
+    def _admitted(self, cost: int):
+        """Queue slot (bounded active statements, MAX_COST, priority wake
+        order) + engine-wide vmem reservation for one statement; yields
+        the id growth re-reservations key on."""
+        import contextlib
+
+        q = self.catalog.resource_queues.get(
+            self.config.resource.queue.lower()) \
+            or self.catalog.resource_queues["default"]
+
+        @contextlib.contextmanager
+        def _cm():
+            with self._queues.slot(q, cost, q.priority):
+                sid = next(self._stmt_ids)
+                self._vmem.reserve(sid, cost)
+                try:
+                    yield sid
+                finally:
+                    self._vmem.release(sid)
+
+        return _cm()
 
     def read_error_log(self, table: str):
         """Rejected rows recorded by COPY ... LOG ERRORS for ``table``
@@ -212,54 +382,49 @@ class Session:
                         if k[0] in names]:
                 del self._store_scan_cache[key]
 
-    def _run_admitted(self, plan):
-        """Admission control: a plan within the memory budget runs
-        one-shot (with growth retries); an over-budget plan falls back to
-        tiled out-of-core execution (the workfile-manager / spill analog,
-        exec/tiled.py), and one that cannot stream re-raises the
-        ``ResourceError``."""
-        from cloudberry_tpu_torch.exec.resource import (ResourceError,
-                                                        check_admission)
+    def _run_tiled(self, texe):
+        """Run a tiled executable as the statement's launch; afterwards
+        the dispatch window's in-flight gauge (obs/capacity.py)."""
+        from cloudberry_tpu_torch.obs import capacity as OC
 
-        try:
-            check_admission(plan, self)
-        except ResourceError:
-            from cloudberry_tpu_torch.exec.tiled import plan_tiled
+        out = self._obs_launch(texe.run)
+        OC.record_tile_dispatch(self.stmt_log, texe.report)
+        return out
 
-            texe = plan_tiled(plan, self)
-            if texe is None:
-                raise
-            return texe.run()
-        return self._run_with_growth(plan)
-
-    def _run_with_growth(self, plan):
+    def _run_with_growth(self, plan, stmt_id: int = 0):
         """Execute; on a detected join-expansion overflow, grow the pair
         buffer (re-checking admission) and retry — adaptive capacity, never
         truncation (exec/executor.py:grow_expansion). Growth that blows the
-        per-query budget falls back to tiled execution. Six growths at most
-        (4x each), then a last run whose error surfaces."""
+        per-query budget falls back to tiled execution; growth that would
+        cross the ENGINE-WIDE vmem red line terminates this statement (the
+        runaway_cleaner.c decision). Six growths at most (4x each), then a
+        last run whose error surfaces."""
         from cloudberry_tpu_torch.exec.executor import (ExecError, execute,
                                                         grow_expansion)
         from cloudberry_tpu_torch.exec.resource import (ResourceError,
+                                                        RunawayError,
                                                         check_admission)
 
         for _ in range(6):
             try:
-                return execute(plan, self)
+                return self._obs_launch(lambda: execute(plan, self))
             except ExecError as e:
                 if not grow_expansion(plan, str(e), allow_fallback=True):
                     raise
                 self.growth_events += 1
                 try:
-                    check_admission(plan, self)
+                    est = check_admission(plan, self)  # budget-ok growth…
+                    self._vmem.grow(stmt_id, est.peak_bytes)  # …red-zone ok
+                except RunawayError:
+                    raise  # red-zone termination, never a spill case
                 except ResourceError:
                     from cloudberry_tpu_torch.exec.tiled import plan_tiled
 
                     texe = plan_tiled(plan, self)  # the grown plan spills
                     if texe is None:
                         raise
-                    return texe.run()
-        return execute(plan, self)
+                    return self._run_tiled(texe)
+        return self._obs_launch(lambda: execute(plan, self))
 
     def explain(self, query: str) -> str:
         """The plan text of a statement, without running it (one
@@ -273,6 +438,35 @@ class Session:
         if result.is_ddl:
             return str(result.ddl_result)
         return result.plan.explain()
+
+    def explain_analyze(self, query: str) -> str:
+        """Execute with instrumentation; returns the annotated plan (the
+        EXPLAIN ANALYZE analog, explain_gp.c): per-node row counts, and
+        for a tiled statement its per-tile time distribution and
+        checkpoint counters.
+
+        Runs THROUGH the statement pipeline (instrument.run_pipeline):
+        lifecycle handle + activity entry, dispatch seams, admission gate
+        and the executor's own compile entry point, so the counts come
+        from the same kernels the ``sql`` path launches."""
+        from cloudberry_tpu_torch.exec.instrument import (
+            explain_analyze_text, plan_nodes_in_order, run_pipeline)
+        from cloudberry_tpu_torch.plan.planner import plan_statement
+        from cloudberry_tpu_torch.sql.parser import parse_sql
+
+        self._sync_store()
+        stmt = parse_sql(query)
+        result = plan_statement(stmt, self, {})
+        if result.is_ddl:
+            return str(result.ddl_result)
+        _, metrics, annotations = run_pipeline(result.plan, self, query)
+        counts = {id(n): r for n, (_, _, r) in
+                  zip(plan_nodes_in_order(result.plan), metrics.node_rows)
+                  if r >= 0}
+        return explain_analyze_text(result.plan, counts,
+                                    metrics.wall_s, metrics.compile_s,
+                                    annotations=annotations,
+                                    tiled_report=self.last_tiled_report)
 
     def device_table(self, name: str) -> dict:
         """A table's columns (and ``$nn:<col>`` validity masks) as tensors

@@ -320,18 +320,20 @@ def test_statement_scope_and_cancel():
     ts = TorchSession(device="cpu")
     ts.sql("CREATE TABLE t (k BIGINT)")
     seen = []
-    real = ts._run_admitted
+    real = ts._run_with_growth
 
-    def spy(plan):
+    def spy(plan, stmt_id):
         h = lifecycle.current_handle()
         seen.append(h.statement_id)
         ts._recovery.note_progress(h.statement_id, 3)
-        return real(plan)
+        return real(plan, stmt_id)
 
-    ts._run_admitted = spy
+    ts._run_with_growth = spy
     ts.sql("SELECT k FROM t")
     ts.sql("SELECT k FROM t")
     assert len(seen) == 2 and seen[1] > seen[0]
+    # the scope's id is the statement log's id
+    assert seen == [e["id"] for e in ts.stmt_log.recent(2)][::-1]
     assert ts._recovery.progress(seen[0]) == 0     # discarded
     assert lifecycle.current_handle() is None
     h = lifecycle.StatementHandle(7)

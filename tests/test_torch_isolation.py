@@ -44,6 +44,17 @@ def test_import_pulls_in_no_jax():
             "import cloudberry_tpu_torch.exec.scanpipe\n"
             "import cloudberry_tpu_torch.exec.recovery\n"
             "import cloudberry_tpu_torch.plan.distribute\n"
+            "import cloudberry_tpu_torch.obs\n"
+            "import cloudberry_tpu_torch.obs.metrics\n"
+            "import cloudberry_tpu_torch.obs.trace\n"
+            "import cloudberry_tpu_torch.obs.statements\n"
+            "import cloudberry_tpu_torch.obs.progress\n"
+            "import cloudberry_tpu_torch.obs.capacity\n"
+            "import cloudberry_tpu_torch.obs.flightrec\n"
+            "import cloudberry_tpu_torch.sched.paramplan\n"
+            "import cloudberry_tpu_torch.sql.classify\n"
+            "import cloudberry_tpu_torch.exec.instrument\n"
+            "import cloudberry_tpu_torch.session\n"
             "print('\\n'.join(sorted(sys.modules)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, check=True,
@@ -104,3 +115,19 @@ def test_unported_paths_raise():
     out = s.sql("select a, row_number() over (order by a desc) as r from t "
                 "order by a")
     assert out.decoded_columns()["r"].tolist() == [2, 1]
+
+
+def test_paramplan_carries_normalize_only():
+    """Only ``normalize`` of generic plans is ported; any other name of
+    the module raises NotImplementedError."""
+    from cloudberry_tpu.sched import paramplan as JP
+    from cloudberry_tpu_torch.sched import paramplan as TP
+
+    for sql in ("select a from t where k = 42 and s = 'x' limit 5",
+                "insert into t values (1)", "(select 1) union (select 2)",
+                "with q as (select 1.5 as x) select x from q", ""):
+        assert TP.normalize(sql) == JP.normalize(sql)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        TP.analyze
+    with pytest.raises(AttributeError):
+        TP.__wrapped__

@@ -246,10 +246,10 @@ def test_deferred_failure_flag_and_counter():
     deferred and bumps ``tile_deferred_overflows``; the same failure on
     the last in-flight tile is not deferred."""
     from cloudberry_tpu_torch.exec.executor import ExecError
-    from cloudberry_tpu_torch.session import Counters
+    from cloudberry_tpu_torch.exec.instrument import StatementLog
 
     class S:
-        counters = Counters()
+        stmt_log = StatementLog()
 
     for tail, deferred in ((2, True), (0, False)):
         pipe = TP.TilePipe(S, 8)
@@ -259,16 +259,16 @@ def test_deferred_failure_flag_and_counter():
         with pytest.raises(ExecError, match=r"^\[tile 0\] tile merge"):
             pipe.drain_one()
         assert pipe.deferred_fail is deferred
-    assert S.counters.counter("tile_deferred_overflows") == 1
+    assert S.stmt_log.counter("tile_deferred_overflows") == 1
 
 
 # --------------------------------------------------- recovery store
 
 
 def test_recovery_store_lru_by_statements_and_bytes():
-    from cloudberry_tpu_torch.session import Counters
+    from cloudberry_tpu_torch.exec.instrument import StatementLog
 
-    log = Counters()
+    log = StatementLog()
     store = R.RecoveryStore(max_statements=2, max_bytes=1000, log=log)
 
     def ck(nbytes, sig=("s",)):

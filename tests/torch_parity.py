@@ -201,3 +201,80 @@ def assert_same_rows(got, want, float_cols=()) -> None:
         atol = ATOL_PER_MAGNITUDE * max(1.0, float(np.abs(wv).sum()))
         np.testing.assert_allclose(g[c].to_numpy(np.float64), wv,
                                    rtol=FLOAT_RTOL, atol=atol, err_msg=c)
+
+
+def strip_timings(text: str) -> str:
+    """EXPLAIN ANALYZE text without what a clock measured: the
+    ``Execution time:`` line and every ``<number> ms`` of a tiled
+    trailer."""
+    import re
+
+    lines = [ln for ln in text.splitlines()
+             if not ln.startswith("Execution time:")]
+    out = re.sub(r"\d+(\.\d+)? ms", "<ms>", "\n".join(lines))
+    return re.sub(r"overlap \d+%", "overlap <pct>", out)
+
+
+def explain_analyze_session(load):
+    """A JAX session on its default path (Pallas off: node text and
+    counts do not depend on the kernels, and its Pallas dense path raises
+    on TPC-H q4/q21, ROADMAP Queue C 5), no generic plans, filled by
+    ``load(session)``, and a port session on the CPU holding the same
+    encoded tables."""
+    import cloudberry_tpu as cb
+    from cloudberry_tpu_torch import Session as TorchSession
+
+    js = cb.Session(cb.get_config().with_overrides(
+        **{"exec.use_pallas": False, "sched.generic_plans": False}))
+    load(js)
+    ts = TorchSession(device="cpu")
+    carry_tables(js, ts)
+    return js, ts
+
+
+def held_explain_analyze(js, ts, sql: str, monkeypatch) -> str:
+    """Hold the port's EXPLAIN ANALYZE of ``sql`` against the JAX
+    session's, timings stripped, and against the port's own ``sql`` of
+    the statement: the same kernel calls, the same number of times, and
+    a root ``rows=`` equal to the result's row count. Returns the port's
+    text."""
+    import re
+
+    from cloudberry_tpu_torch.exec import cuda_kernels as CK
+
+    def calls_of(run):
+        calls = count_calls(monkeypatch, CK, {k: k for k in PALLAS_OF})
+        run()
+        out = dict(calls)
+        monkeypatch.undo()
+        return out
+
+    want = js.explain_analyze(sql)
+    got = {}
+    by_sql = calls_of(lambda: got.setdefault("batch", ts.sql(sql)))
+    by_ea = calls_of(
+        lambda: got.setdefault("text", ts.explain_analyze(sql)))
+    text = got["text"]
+    assert strip_timings(text) == strip_timings(want)
+    assert by_ea == by_sql, (by_ea, by_sql)
+    root = re.match(r"-> .*?rows=(\d+)", text.splitlines()[0])
+    assert root is not None and int(root.group(1)) == \
+        got["batch"].num_rows()
+    return text
+
+
+# EXPLAIN ANALYZE parity texts, spread over three test files so each
+# stays near two minutes of test time in the tier-1 run (JAX compiles an
+# instrumented program per text): every TPC-H text once, and seven
+# TPC-DS texts, among them the window queries q12, q36 and q98
+EA_TEXTS = {
+    "test_torch_explain_analyze": (
+        [f"q{i}" for i in (1, 2, 3, 4, 5, 6, 11, 12, 13, 14, 16, 22)],
+        ["q3", "q42"]),
+    "test_torch_explain_analyze_mid": (
+        [f"q{i}" for i in (7, 8, 9, 10)], ["q12", "q55"]),
+    "test_torch_explain_analyze_tail": (
+        [f"q{i}" for i in (15, 17, 18, 19, 20, 21)],
+        ["q36", "q52", "q98"]),
+}
+EA_WINDOWED = ("q12", "q36", "q98")
