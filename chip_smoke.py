@@ -9,7 +9,10 @@ Phases (any failure exits non-zero, and nothing is caught and passed over).
 Phases 3 to 6 and 9 run at a 16 GiB per-query memory budget
 (``resource.query_mem_bytes``), an operator's setting for an 80 GB card:
 at the reference's default of 4 GiB four of their statements are refused
-(phase 7).
+(phase 7). Phases 3 to 10 empty the session's statement cache and generic
+plans before every statement (``EmptyCaches``), and run with generic plans
+off (the port's default), so each of their runs parses, plans and builds
+its Executable as before the caches existed; phase 11 measures the caches.
 
 1. device: the card's name and power limit (nvidia-smi), TF32 off;
 2. build: nvcc compiles the kernels of cloudberry_tpu_torch/csrc (one
@@ -104,7 +107,8 @@ at the reference's default of 4 GiB four of their statements are refused
    SF1 orders as a '|'-delimited file, COPY TO (the same bytes) and back,
    COPY with SEGMENT REJECT LIMIT and LOG ERRORS over four bad lines,
    CREATE TABLE AS of Q3's join, INSERT ... SELECT, UPDATE orders and
-   DELETE FROM lineitem; a fresh session must see every change;
+   DELETE FROM lineitem; a fresh session must see every change. Phase 11's
+   store repeats run here, on Q3's and Q5's pool-served session;
 10. telemetry, on phase 3's and 4's tables: EXPLAIN ANALYZE of Q1, Q3, Q5
    and TPC-DS q98 (its kernel calls held against their plain versions),
    whose node text (timings stripped) must equal a ``Session(device=
@@ -123,7 +127,27 @@ at the reference's default of 4 GiB four of their statements are refused
    ``ACTIVE_STATEMENTS 1`` resource queue, the second waiting; and a
    flight bundle for Q3 with ``obs.slow_ms`` at 1 whose result digest
    equals the CPU run's;
-11. kernels: each kernel, on the inputs the TPC-H path gave it and on
+11. statement cache and generic plans, on phase 3's tables in a fresh
+   CUDA session: Q1, Q3 and Q5 once (a miss and a generic build), then 20
+   exact repeats each, every one a statement-cache hit with no parse or
+   plan span and no ``compile_plan`` call, launching phase 3's kernels
+   and equal to the numpy oracle (the host-time split of the repeats, as
+   in phase 10); perturbed literals (Q1's and Q3's from the JAX package's
+   tests/test_generic_parity.py, Q5's date and region), each a generic
+   hit with no build and no ``compile_plan`` call, bit-identical to a
+   CUDA session with ``sched.generic_plans`` off and equal to the CPU
+   run; 20 interleaved pairs of distinct-literal texts per query with
+   generic plans on and off (the statement cache missing), medians; the
+   tiled Q1 at 128 MiB twice, the second run a statement-cache hit equal
+   to the first; 5 exact repeats of Q3 and Q5 on phase 9's pool-served
+   session (no manifest read); invalidation: an INSERT into a cached
+   statement's table re-plans it, a re-registered UDF misses the cache,
+   a generate_series join and a registered table function re-run at
+   every statement; a tensor UDF and a dictionary-rewrite UDF in a
+   Q1-shaped aggregate, equal to the CPU run; one run of each query's
+   cached and rebound path with every kernel call held against its plain
+   version;
+12. kernels: each kernel, on the inputs the TPC-H path gave it and on
    synthetic inputs at the main path's shapes plus edge cases (empty
    selection, ragged N, int64 wraparound, duplicate build keys, one hot
    cell, cell domains for each of dense_agg's modes, a skewed group, odd
@@ -138,8 +162,8 @@ at the reference's default of 4 GiB four of their statements are refused
    was before its fused kernel (key packing in PyTorch around the kernel)
    and as the executor's sorted lookup, and each Q5 probe join is traced
    with torch.profiler: it must be one device kernel;
-12. report: the card line, one JSON line of kernels (launches summed over
-   the counted runs of phases 3 to 10), and last the JSON line
+13. report: the card line, one JSON line of kernels (launches summed over
+   the counted runs of phases 3 to 11), and last the JSON line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -213,6 +237,21 @@ DEFERRED_ROWS = 200_000   # the reference test's deferred-overflow table
 TELEMETRY_RUNS = 20
 STAGES = ("parse", "plan", "queue_wait", "launch")
 TRACE_STAGES = ("parse", "plan", "queue-wait", "launch")
+# the statement-cache phase: exact repeats per query, interleaved generic
+# on/off pairs per query, exact repeats from the store; literal swaps that
+# rebind (JAX tests/test_generic_parity.py for Q1 and Q3), and per query
+# the literal that the on/off pairs vary over distinct texts
+STMT_REPEATS = 20
+GENERIC_PAIRS = 20
+STORE_REPEATS = 5
+PERTURBED = {
+    "q1": [("'1998-12-01'", "'1998-11-15'")],
+    "q3": [("'1995-03-15'", "'1995-03-01'")],
+    "q5": [("'1994-01-01'", "'1995-01-01'"), ("'ASIA'", "'EUROPE'")],
+}
+DISTINCT = {"q1": ("'1998-12-01'", "'1998-10-{:02d}'"),
+            "q3": ("'1995-03-15'", "'1995-02-{:02d}'"),
+            "q5": ("'1994-01-01'", "'1994-02-{:02d}'")}
 WINDOW_CASES = (("full", "d_year >= 1998"),
                 ("empty selection", "d_year = 1900"),
                 ("one row", "ss_ticket_number = 777"))
@@ -902,6 +941,10 @@ def _storage_runs(kit, raw, ram, ram_session, names, reads, root) -> dict:
               f"{q} scan-cache tier: {cached}")
         # every kernel call of one more run, held against its plain version
         kit.held(f"{q} from the store", lambda: s.sql(sql))
+        if q in ("q3", "q5"):
+            # phase 11, step 5: exact repeats on this pool-served session
+            report.setdefault("stmt_cache_repeats", {})[q] = store_repeats(
+                kit, s, q, sql, want, reads, served["ms"])
         tiers[q] = rows
         store_res[q] = got
         del s
@@ -2028,6 +2071,412 @@ def telemetry_phase(kit, ram, gpu, cpu, gds, args) -> dict:
     return out
 
 
+# -------------------------------------- statement cache and generic plans
+
+
+def empty_caches(session) -> None:
+    """Clear a session's statement cache and its scope's generic plans,
+    each under its lock."""
+    with session._stmt_lock:
+        session._stmt_cache.clear()
+    with session._generic_lock:
+        session._generic_cache.clear()
+
+
+class EmptyCaches:
+    """While active, every ``Session.sql`` first empties the session's
+    statement cache and generic plans: phases 3 to 10 take their timed
+    and counted runs with both caches empty, so their numbers stay
+    comparable with the PRs before the caches. ``real`` is the method
+    that keeps the caches."""
+
+    def __init__(self, session_cls):
+        self.cls = session_cls
+        self.real = session_cls.sql
+
+    def __enter__(self):
+        real = self.real
+
+        def sql(session, *a, **kw):
+            empty_caches(session)
+            return real(session, *a, **kw)
+
+        self.cls.sql = sql
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.sql = self.real
+
+
+def stage_split(log_, before, n) -> dict:
+    """The host-time split of the last ``n`` statements of a statement
+    log (trace spans, medians and p95 in seconds) and the stage
+    histograms' samples since ``before``."""
+    reg = log_.registry
+    split = span_split(log_.traces(n))
+    return {"spans": {st: {"p50": float(np.median(v)),
+                           "p95": float(np.percentile(v, 95))}
+                      for st, v in split.items()},
+            "raw": split,
+            "hist": {st: hist_since(reg, f"stage_seconds.{st}", before[st])
+                     for st in STAGES}}
+
+
+def fmt_split(spans) -> str:
+    return ", ".join(f"{st} {spans[st]['p50'] * 1e3:.3f}/"
+                     f"{spans[st]['p95'] * 1e3:.3f}"
+                     for st in TRACE_STAGES + ("other", "statement"))
+
+
+def store_repeats(kit, s, q, sql, want, reads, served_ms) -> dict:
+    """Phase 11, step 5, run inside phase 9 on its third (pool-served)
+    session: exact repeats of a statement whose runner the session has
+    cached, with the statement cache kept (``kit.cached_sql``). No parse,
+    no plan and so no manifest read; each repeat equal to the RAM path.
+    ``served_ms``: the pool-served tier's wall (it parsed and planned)."""
+    log_ = s.stmt_log
+    before = {st: log_.registry.hist(f"stage_seconds.{st}")
+              for st in STAGES}
+    hits0, m0 = s.counters.counter("stmt_cache_hits"), reads["manifests"]
+    walls = []
+    for _ in range(STORE_REPEATS):
+        res, ms, counts = kit.counted(lambda: kit.cached_sql(s, sql))
+        same(physical(res), want, f"{q} exact repeat from the store")
+        check(EXPECTED[q] <= {k for k, v in counts.items() if v},
+              f"{q} exact repeat from the store: launches {counts}")
+        walls.append(ms)
+    hits = s.counters.counter("stmt_cache_hits") - hits0
+    manifests = reads["manifests"] - m0
+    split = stage_split(log_, before, STORE_REPEATS)
+    check(hits == STORE_REPEATS, f"{q} from the store: {hits} statement-"
+          f"cache hits in {STORE_REPEATS} exact repeats")
+    check(split["hist"]["plan"]["count"] == 0
+          and split["hist"]["parse"]["count"] == 0,
+          f"{q} from the store: exact repeats parsed or planned")
+    check(manifests == 0, f"{q} from the store: {manifests} manifest "
+          "read(s) in exact repeats")
+    out = {"ms": walls, "p50": float(np.median(walls)),
+           "pool_served_ms": served_ms,
+           "stmt_cache_hits": hits, "manifest_reads": manifests,
+           "spans": split["spans"]}
+    log(f"[stmtcache] {q} from the store, pool-served session, "
+        f"{STORE_REPEATS} exact repeats: {hits} statement-cache hits, "
+        f"no parse or plan, {manifests} manifest reads; wall ms median "
+        f"{out['p50']:.3f} ({min(walls):.3f}-{max(walls):.3f}; the "
+        f"pool-served tier {served_ms:.3f}); split (median/p95 ms): "
+        f"{fmt_split(split['spans'])}; equal to the RAM path")
+    return out
+
+
+def stmt_cache_phase(kit, raw, gpu, cpu, names, store, args) -> dict:
+    """Phase 11 (module docstring): the statement cache and generic plans
+    on phase 3's tables, their invalidation, UDFs and table functions on
+    the card. ``store``: phase 9's exact repeats (``store_repeats``)."""
+    import cloudberry_tpu_torch as ct
+    from cloudberry_tpu_torch import types as T
+    from cloudberry_tpu_torch.catalog import carry
+    from cloudberry_tpu_torch.exec import executor as X
+    from cloudberry_tpu_torch.exec import tablefunc as TF
+    from cloudberry_tpu_torch.exec import udf as U
+    from cloudberry_tpu_torch.types import date_to_days as D
+
+    out = {}
+    # a fresh session with generic plans on, and one with the port's
+    # default, off
+    g = ct.Session(gpu.config.with_overrides(
+        **{"sched.generic_plans": True}), device=gpu.device)
+    copy_tables(gpu, g, names)
+    off = ct.Session(gpu.config, device=gpu.device)
+    check(not off.config.sched.generic_plans, "generic plans on by default")
+    copy_tables(gpu, off, names)
+    builds = [0]
+    real_compile = X.compile_plan
+
+    def counting_compile(*a, **kw):
+        builds[0] += 1
+        return real_compile(*a, **kw)
+
+    X.compile_plan = counting_compile
+    try:
+        out.update(_stmt_cache_runs(kit, raw, g, off, cpu, builds, args))
+    finally:
+        X.compile_plan = real_compile
+    out["store"] = store
+
+    # ------------------------------------------- 6. invalidation
+    F = carry.field
+    n = 100_000
+    carry.load_encoded(g, "inv", [F("k", "int64", 0, False),
+                                  F("v", "int64", 0, False)],
+                       {"k": np.arange(n, dtype=np.int64),
+                        "v": np.arange(n, dtype=np.int64) % 1000})
+    q = "select count(*) as c, sum(v) as s from inv where k >= 0"
+    first = physical(g.sql(q))
+    hits = g.counters.counter("stmt_cache_hits")
+    physical(g.sql(q))
+    check(g.counters.counter("stmt_cache_hits") == hits + 1,
+          "invalidation: the repeat was not a statement-cache hit")
+    g.sql("insert into inv values (5000000, 7)")
+    plans = g.stmt_log.registry.hist("stage_seconds.plan")["count"]
+    after = physical(g.sql(q))
+    check(g.counters.counter("stmt_cache_hits") == hits + 1
+          and g.stmt_log.registry.hist("stage_seconds.plan")["count"]
+          == plans + 1,
+          "invalidation: the statement after the INSERT did not re-plan")
+    check(int(after["c"][0]) == int(first["c"][0]) + 1
+          and int(after["s"][0]) == int(first["s"][0]) + 7,
+          f"invalidation: {first} then {after} after the INSERT")
+    U.register_function("cb_scaled", lambda x: x * 3, [T.INT64], T.INT64,
+                        jit=True)
+    try:
+        uq = "select sum(cb_scaled(v)) as s from inv where k >= 0"
+        s1 = physical(g.sql(uq))
+        hits = g.counters.counter("stmt_cache_hits")
+        physical(g.sql(uq))
+        check(g.counters.counter("stmt_cache_hits") == hits + 1,
+              "UDF statement: the repeat was not a cache hit")
+        U.register_function("cb_scaled", lambda x: x * 5, [T.INT64],
+                            T.INT64, jit=True)
+        s2 = physical(g.sql(uq))
+        check(g.counters.counter("stmt_cache_hits") == hits + 1
+              and int(s2["s"][0]) * 3 == int(s1["s"][0]) * 5,
+              f"UDF re-registered: {s1} then {s2}, the cache served")
+    finally:
+        U.unregister_function("cb_scaled")
+    calls = [0]
+
+    def ticker(m):
+        calls[0] += 1
+        return {"t": np.arange(int(m) + calls[0], dtype=np.int64)}
+
+    TF.register_table_function("cb_ticker", ticker)
+    gs_q = ("select count(*) as c from inv join generate_series(1, 10) g "
+            "on k = g.generate_series")
+    tk_q = "select count(*) as c from inv join cb_ticker(3) t on k = t.t"
+    hits = g.counters.counter("stmt_cache_hits")
+    gens = []
+    for _ in range(2):
+        check(int(physical(g.sql(gs_q))["c"][0]) == 10,
+              "generate_series join: wrong count")
+        (tname,) = [t for t in g.catalog.tables
+                    if t.startswith("$tf_generate_series")]
+        gens.append(g.catalog.table(tname)._version)
+    counts = [int(physical(g.sql(tk_q))["c"][0]) for _ in range(2)]
+    check(g.counters.counter("stmt_cache_hits") == hits
+          and gens[0] != gens[1] and calls[0] == 2 and counts == [4, 5],
+          "table functions: hits "
+          f"{g.counters.counter('stmt_cache_hits') - hits}"
+          f", generate_series versions {gens}, ticker calls {calls[0]} "
+          f"counts {counts}")
+    out["invalidation"] = {
+        "counts": [int(first["c"][0]), int(after["c"][0])],
+        "udf_sums": [int(s1["s"][0]), int(s2["s"][0])],
+        "generate_series_versions": gens, "ticker_counts": counts}
+    log(f"[stmtcache] invalidation: an INSERT into inv re-planned the "
+        f"cached statement (count {int(first['c'][0])} -> "
+        f"{int(after['c'][0])}); re-registering cb_scaled missed the cache "
+        f"(sum {int(s1['s'][0])} -> {int(s2['s'][0])}); generate_series "
+        f"re-materialized every statement (versions {gens}) and cb_ticker "
+        f"ran at each statement (counts {counts}), no cache hit")
+
+    # ------------------------------------------- 7. UDFs on the card
+    U.register_function("cb_weight", lambda x: x % 7, [T.INT64], T.INT64,
+                        jit=True)
+    U.register_function("cb_flag", lambda s: {"A": "accepted",
+                                              "N": "none",
+                                              "R": "returned"}[s],
+                        [T.STRING], T.STRING)
+    try:
+        uq = ("select cb_flag(l_returnflag) as flag, l_linestatus, "
+              "sum(cb_weight(l_orderkey)) as w, sum(l_quantity) as q, "
+              "count(*) as c from lineitem where l_shipdate <= date "
+              "'1998-09-02' group by cb_flag(l_returnflag), l_linestatus "
+              "order by flag, l_linestatus")
+        kit.held("UDF Q1-shaped aggregate (held)", lambda: g.sql(uq))
+        res, ms, counts = kit.counted(lambda: g.sql(uq))
+        got = physical(res)
+        same(got, physical(cpu.sql(uq)), "UDF Q1-shaped aggregate vs the "
+             "port on the CPU")
+        li = raw["lineitem"]
+        m = li["l_shipdate"] <= D("1998-09-02")
+        check(int(got["c"].sum()) == int(m.sum())
+              and int(got["w"].sum()) == int((li["l_orderkey"][m] % 7).sum()),
+              f"UDF Q1-shaped aggregate: {got}")
+        check(any(counts.values()), f"UDF aggregate: no kernel ran "
+              f"({counts})")
+        out["udf"] = {"ms": ms, "launches": counts,
+                      "rows": res.num_rows()}
+        log(f"[stmtcache] a tensor UDF (cb_weight) and a dictionary-rewrite"
+            f" UDF (cb_flag) in a Q1-shaped aggregate: {res.num_rows()} "
+            f"rows in {ms:.3f} ms, launches {counts}; equal to the CPU run "
+            f"and numpy")
+    finally:
+        U.unregister_function("cb_weight")
+        U.unregister_function("cb_flag")
+    del g, off
+    return out
+
+
+def _stmt_cache_runs(kit, raw, g, off, cpu, builds, args) -> dict:
+    """Phase 11, steps 1 to 4 and 8 (module docstring)."""
+    from cloudberry_tpu_torch import tpch
+    from cloudberry_tpu_torch.types import date_to_days as D
+
+    out = {}
+    log_ = g.stmt_log
+    reg = log_.registry
+
+    # ------------------------------------------- 1. exact repeats
+    repeats = {}
+    for q in ("q1", "q3", "q5"):
+        sql = tpch.QUERIES[q]
+        want = oracle(raw, q, D)
+        b0 = g.counters.counter("generic_builds")
+        res, first_ms, counts = kit.counted(lambda: g.sql(sql))
+        same(physical(res), want, f"{q} first run vs the numpy oracle")
+        check(g.counters.counter("generic_builds") == b0 + 1,
+              f"{q}: the first run built no generic plan")
+        before = {st: reg.hist(f"stage_seconds.{st}") for st in STAGES}
+        hits0, c0 = g.counters.counter("stmt_cache_hits"), builds[0]
+        walls = []
+        for _ in range(STMT_REPEATS):
+            res, ms, counts = kit.counted(lambda: g.sql(sql))
+            same(physical(res), want, f"{q} exact repeat vs the numpy "
+                 "oracle")
+            check(EXPECTED[q] <= {k for k, v in counts.items() if v},
+                  f"{q} exact repeat: launches {counts}")
+            walls.append(ms)
+        hits = g.counters.counter("stmt_cache_hits") - hits0
+        split = stage_split(log_, before, STMT_REPEATS)
+        check(hits == STMT_REPEATS and builds[0] == c0,
+              f"{q}: {hits} statement-cache hits and "
+              f"{builds[0] - c0} compile_plan calls in {STMT_REPEATS} "
+              f"exact repeats")
+        check(all(v == 0.0 for st in ("parse", "plan")
+                  for v in split["raw"][st])
+              and split["hist"]["parse"]["count"] == 0
+              and split["hist"]["plan"]["count"] == 0,
+              f"{q}: an exact repeat recorded a parse or plan span")
+        del split["raw"]
+        repeats[q] = {"first_ms": first_ms, "ms": walls,
+                      "wall_p50": float(np.median(walls)),
+                      "wall_p95": float(np.percentile(walls, 95)),
+                      "stmt_cache_hits": hits, **split}
+        log(f"[stmtcache] {q}: first run {first_ms:.3f} ms (a miss and a "
+            f"generic build), {STMT_REPEATS} exact repeats "
+            f"{repeats[q]['wall_p50']:.3f}/{repeats[q]['wall_p95']:.3f} ms "
+            f"(median/p95), {hits} statement-cache hits, no parse or plan "
+            f"span, no compile_plan; split (median/p95 ms): "
+            f"{fmt_split(split['spans'])}; every repeat equal to the numpy "
+            f"oracle with launches {counts}")
+    out["exact"] = repeats
+
+    # ------------------------------------------- 2. perturbed literals
+    perturbed = {}
+    for q, swaps in PERTURBED.items():
+        for old, new in swaps:
+            sql = tpch.QUERIES[q]
+            check(old in sql, f"{q}: {old} not in the text")
+            text = sql.replace(old, new)
+            h0, b0 = (g.counters.counter("generic_hits"),
+                      g.counters.counter("generic_builds"))
+            c0 = builds[0]
+            res, ms, counts = kit.counted(lambda: g.sql(text))
+            hits = g.counters.counter("generic_hits") - h0
+            new_builds = g.counters.counter("generic_builds") - b0
+            check(hits == 1 and new_builds == 0 and builds[0] == c0,
+                  f"{q} {old}->{new}: generic hits {hits}, builds "
+                  f"{new_builds}, compile_plan calls {builds[0] - c0}")
+            check(EXPECTED[q] <= {k for k, v in counts.items() if v},
+                  f"{q} {old}->{new}: launches {counts}")
+            got = physical(res)
+            same(got, physical(off.sql(text)), f"{q} {old}->{new} vs "
+                 "generic plans off (bit for bit)")
+            same(got, physical(cpu.sql(text)), f"{q} {old}->{new} vs the "
+                 "port on the CPU")
+            perturbed[f"{q} {old}->{new}"] = {
+                "ms": ms, "rows": len(next(iter(got.values()))),
+                "launches": counts}
+            log(f"[stmtcache] {q} with {old} -> {new}: a generic hit (no "
+                f"build, no compile_plan), {ms:.3f} ms, launches {counts}; "
+                "bit-identical to the generic-off CUDA session and equal "
+                "to the CPU run")
+    out["perturbed"] = perturbed
+
+    # ------------------------------------------- 3. generic on against off
+    pairs = {}
+    for q, (old, fmt) in DISTINCT.items():
+        sql = tpch.QUERIES[q]
+        on_ms, off_ms = [], []
+        h0 = g.counters.counter("generic_hits")
+        c0 = builds[0]
+        for i in range(GENERIC_PAIRS):
+            text = sql.replace(old, fmt.format(i + 1))
+            for s, walls in ((g, on_ms), (off, off_ms)):
+                res, ms, counts = kit.counted(lambda: s.sql(text))
+                check(EXPECTED[q] <= {k for k, v in counts.items() if v},
+                      f"{q} on/off pair: launches {counts}")
+                walls.append(ms)
+        hits = g.counters.counter("generic_hits") - h0
+        check(hits == GENERIC_PAIRS and builds[0] - c0 == GENERIC_PAIRS,
+              f"{q} on/off: {hits} generic hits, {builds[0] - c0} "
+              f"compile_plan calls (the off session's)")
+        pairs[q] = {"on_ms": on_ms, "off_ms": off_ms,
+                    "on_p50": float(np.median(on_ms)),
+                    "off_p50": float(np.median(off_ms))}
+        log(f"[stmtcache] {q} generic plans on / off, {GENERIC_PAIRS} "
+            f"interleaved pairs of distinct texts (statement cache "
+            f"missing): medians {pairs[q]['on_p50']:.3f} / "
+            f"{pairs[q]['off_p50']:.3f} ms "
+            f"({(pairs[q]['on_p50'] / pairs[q]['off_p50'] - 1) * 100:+.1f} "
+            f"%); quartiles on {np.percentile(on_ms, 25):.3f}-"
+            f"{np.percentile(on_ms, 75):.3f}, off "
+            f"{np.percentile(off_ms, 25):.3f}-"
+            f"{np.percentile(off_ms, 75):.3f}")
+    out["generic_on_off"] = pairs
+
+    # ------------------------------------------- 4. the cached tiled runner
+    budget = max(int(TILED_TPCH["q1"][0] * args.sf), 1) << 20
+    cfg0 = g.config
+    g.config = cfg0.with_overrides(**{"resource.query_mem_bytes": budget})
+    try:
+        sql = tpch.QUERIES["q1"]
+        res1, ms1, counts1 = kit.counted(lambda: g.sql(sql))
+        rep1 = g.last_tiled_report
+        hits0 = g.counters.counter("stmt_cache_hits")
+        res2, ms2, counts2 = kit.counted(lambda: g.sql(sql))
+        rep2 = g.last_tiled_report
+    finally:
+        g.config = cfg0
+    check(rep1 is not None and rep1["tiled"] and rep2 is not None
+          and rep2["tiled"] and rep2["n_tiles"] == rep1["n_tiles"],
+          f"tiled Q1 at {budget} bytes: reports {rep1} then {rep2}")
+    check(g.counters.counter("stmt_cache_hits") == hits0 + 1,
+          "tiled Q1: the second run was not a statement-cache hit")
+    same(physical(res2), physical(res1), "tiled Q1 from the cache vs its "
+         "first run")
+    same(physical(res1), oracle(raw, "q1", D, tiled=True),
+         "tiled Q1 vs the numpy oracle (tiled order)")
+    check(counts1 == counts2 and EXPECTED["q1"] <= {
+        k for k, v in counts2.items() if v},
+        f"tiled Q1: launches {counts1} then {counts2}")
+    out["tiled_q1"] = {"budget_bytes": budget, "ms": [ms1, ms2],
+                       "n_tiles": rep2["n_tiles"], "launches": counts2}
+    log(f"[stmtcache] tiled Q1 at {budget >> 20} MiB: {ms1:.3f} ms, then "
+        f"{ms2:.3f} ms from the statement cache ({rep2['n_tiles']} tiles, "
+        f"last_tiled_report set), equal to the first run and the numpy "
+        f"oracle, launches {counts2} each")
+
+    # ------------------------------------------- 8. kernel checks
+    for q in ("q1", "q3", "q5"):
+        text = tpch.QUERIES[q]
+        for old, new in PERTURBED[q][:1]:
+            text = text.replace(old, new)
+        kit.held(f"{q} cached (held)", lambda: g.sql(tpch.QUERIES[q]))
+        kit.held(f"{q} generic rebind (held)", lambda: g.sql(text))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=float, default=1.0)
@@ -2175,246 +2624,268 @@ def main() -> int:
             for k, fn in originals.items():
                 setattr(CK, k, fn)
 
-    # ----------------------------------------------------------- 3. TPC-H
-    t0 = time.perf_counter()
-    raw = tpch.generate(args.sf, SEED)
-    names = ["region", "nation", "supplier", "customer", "orders",
-             "lineitem"]
-    card = ct.Config().with_overrides(
-        **{"resource.query_mem_bytes": CARD_BUDGET})
-    gpu = ct.Session(card)
-    tpch.load_tables(gpu, tpch.SCHEMAS, tpch.DIST_KEYS, raw, names)
-    cpu = ct.Session(card, device="cpu")
-    copy_tables(gpu, cpu, names)
-    log(f"[data] TPC-H sf={args.sf} seed={SEED}: "
-        f"{gpu.catalog.table('lineitem').num_rows} lineitem rows, "
-        f"{time.perf_counter() - t0:.1f} s to generate and load")
+    # phases 3 to 10 run every statement with the statement cache and the
+    # generic plans emptied first (EmptyCaches), generic plans off (the
+    # port's default), as before the caches; phase 11 measures them
+    with EmptyCaches(ct.Session) as caches:
 
-    # record the inputs every kernel call of the warm-up runs receives
-    recorded: dict[str, list] = {k: [] for k in CK.LAUNCHES}
-    current = [None]
-
-    def snap(x):
-        if torch.is_tensor(x):
-            return x.clone()
-        return [snap(y) for y in x] if isinstance(x, list) else x
-
-    def recorder(name):
-        def wrapped(*a):
-            if a[1].device.type == "cuda":
-                recorded[name].append((current[0], [snap(x) for x in a]))
-            return originals[name](*a)
-        return wrapped
-
-    # the probe-join operator as the Lowerer calls it on Q5, to count its
-    # device kernels later
-    operator_calls = []
-    real_gate = X.Lowerer._probe_join_kernel
-
-    def gate_recorder(self, *a):
-        out = real_gate(self, *a)
-        if out is not None:     # the join took the probe-join kernel
-            operator_calls.append((self, a))
-        return out
-
-    query_ms = {}
-    ram = {}    # per query: (physical result, kernels launched)
-    for q in ("q1", "q3", "q5"):
-        sql = tpch.QUERIES[q]
-        for k in CK.LAUNCHES:
-            setattr(CK, k, recorder(k))
-        if q == "q5":
-            X.Lowerer._probe_join_kernel = gate_recorder
-        current[0] = q
+        # ----------------------------------------------------------- 3. TPC-H
         t0 = time.perf_counter()
-        gpu.sql(sql)
-        warm_ms = (time.perf_counter() - t0) * 1e3
-        for k, fn in originals.items():
-            setattr(CK, k, fn)
-        X.Lowerer._probe_join_kernel = real_gate
-        res, ms, counts = counted_run(gpu, sql)
-        query_ms[q] = [ms]
-        fired = {k for k, v in counts.items() if v > 0}
-        check(EXPECTED[q] <= fired,
-              f"{q}: kernels {sorted(EXPECTED[q])} expected, launches "
-              f"{counts}")
-        got = physical(res)
-        ram[q] = (got, fired)
-        same(got, oracle(raw, q, date_to_days), f"{q} vs numpy oracle")
-        same(got, physical(cpu.sql(sql)), f"{q} vs the port on the CPU")
-        for _ in range(QUERY_RUNS - 1):    # more runs for the spread
+        raw = tpch.generate(args.sf, SEED)
+        names = ["region", "nation", "supplier", "customer", "orders",
+                 "lineitem"]
+        card = ct.Config().with_overrides(
+            **{"resource.query_mem_bytes": CARD_BUDGET})
+        gpu = ct.Session(card)
+        tpch.load_tables(gpu, tpch.SCHEMAS, tpch.DIST_KEYS, raw, names)
+        cpu = ct.Session(card, device="cpu")
+        copy_tables(gpu, cpu, names)
+        log(f"[data] TPC-H sf={args.sf} seed={SEED}: "
+            f"{gpu.catalog.table('lineitem').num_rows} lineitem rows, "
+            f"{time.perf_counter() - t0:.1f} s to generate and load")
+
+        # record the inputs every kernel call of the warm-up runs receives
+        recorded: dict[str, list] = {k: [] for k in CK.LAUNCHES}
+        current = [None]
+
+        def snap(x):
+            if torch.is_tensor(x):
+                return x.clone()
+            return [snap(y) for y in x] if isinstance(x, list) else x
+
+        def recorder(name):
+            def wrapped(*a):
+                if a[1].device.type == "cuda":
+                    recorded[name].append((current[0], [snap(x) for x in a]))
+                return originals[name](*a)
+            return wrapped
+
+        # the probe-join operator as the Lowerer calls it on Q5, to count its
+        # device kernels later
+        operator_calls = []
+        real_gate = X.Lowerer._probe_join_kernel
+
+        def gate_recorder(self, *a):
+            out = real_gate(self, *a)
+            if out is not None:     # the join took the probe-join kernel
+                operator_calls.append((self, a))
+            return out
+
+        query_ms = {}
+        ram = {}    # per query: (physical result, kernels launched)
+        for q in ("q1", "q3", "q5"):
+            sql = tpch.QUERIES[q]
+            for k in CK.LAUNCHES:
+                setattr(CK, k, recorder(k))
+            if q == "q5":
+                X.Lowerer._probe_join_kernel = gate_recorder
+            current[0] = q
             t0 = time.perf_counter()
             gpu.sql(sql)
-            torch.cuda.synchronize()
-            query_ms[q].append((time.perf_counter() - t0) * 1e3)
-        log(f"[query] {q}: {np.median(query_ms[q]):.3f} ms median of "
-            f"{QUERY_RUNS} runs ({min(query_ms[q]):.3f}-"
-            f"{max(query_ms[q]):.3f}; first run, tables uploaded: "
-            f"{warm_ms:.1f} ms), {len(next(iter(got.values())))} rows, "
-            f"launches {counts}, equal to the numpy oracle and the CPU run")
+            warm_ms = (time.perf_counter() - t0) * 1e3
+            for k, fn in originals.items():
+                setattr(CK, k, fn)
+            X.Lowerer._probe_join_kernel = real_gate
+            res, ms, counts = counted_run(gpu, sql)
+            query_ms[q] = [ms]
+            fired = {k for k, v in counts.items() if v > 0}
+            check(EXPECTED[q] <= fired,
+                  f"{q}: kernels {sorted(EXPECTED[q])} expected, launches "
+                  f"{counts}")
+            got = physical(res)
+            ram[q] = (got, fired)
+            same(got, oracle(raw, q, date_to_days), f"{q} vs numpy oracle")
+            same(got, physical(cpu.sql(sql)), f"{q} vs the port on the CPU")
+            for _ in range(QUERY_RUNS - 1):    # more runs for the spread
+                t0 = time.perf_counter()
+                gpu.sql(sql)
+                torch.cuda.synchronize()
+                query_ms[q].append((time.perf_counter() - t0) * 1e3)
+            log(f"[query] {q}: {np.median(query_ms[q]):.3f} ms median of "
+                f"{QUERY_RUNS} runs ({min(query_ms[q]):.3f}-"
+                f"{max(query_ms[q]):.3f}; first run, tables uploaded: "
+                f"{warm_ms:.1f} ms), {len(next(iter(got.values())))} rows, "
+                f"launches {counts}, equal to the numpy oracle and the CPU "
+                "run")
 
 
-    # ---------------------------------------------------------- 4. TPC-DS
-    t0 = time.perf_counter()
-    ds_raw = tpcds.generate(args.ds_scale, DS_SEED)
-    gds = ct.Session(card)
-    tpch.load_tables(gds, tpcds.SCHEMAS, tpcds.DIST_KEYS, ds_raw)
-    del ds_raw
-    cds = ct.Session(card, device="cpu")
-    copy_tables(gds, cds, list(tpcds.SCHEMAS))
-    log(f"[data] TPC-DS (tpcds-lite) scale={args.ds_scale} seed={DS_SEED}: "
-        f"{gds.catalog.table('store_sales').num_rows} store_sales, "
-        f"{gds.catalog.table('catalog_sales').num_rows} catalog_sales, "
-        f"{gds.catalog.table('web_sales').num_rows} web_sales, "
-        f"{gds.catalog.table('inventory').num_rows} inventory rows, "
-        f"{time.perf_counter() - t0:.1f} s to generate and load")
-    ds_ms, ds_launches = {}, {}
-    for q in sorted(tpcds.QUERIES, key=lambda q: int(q[1:])):
-        sql = tpcds.QUERIES[q]
-        for k in CK.LAUNCHES:
-            setattr(CK, k, holding(k, f"TPC-DS {q} main-path input"))
+        # ---------------------------------------------------------- 4. TPC-DS
         t0 = time.perf_counter()
-        gds.sql(sql)
-        warm_ms = (time.perf_counter() - t0) * 1e3
-        for k, fn in originals.items():
-            setattr(CK, k, fn)
-        res, ms, counts = counted_run(gds, sql)
-        want, called = cpu_run(cds, sql)
-        check({k for k, v in counts.items() if v} ==
-              {k for k, v in called.items() if v},
-              f"TPC-DS {q}: launches {counts} on the card, kernel calls "
-              f"{called} on the CPU")
-        check(any(counts.values()), f"TPC-DS {q}: no kernel launched")
-        err = same_nulls(with_nulls(res), with_nulls(want),
-                         f"TPC-DS {q} vs the port on the CPU")
-        ds_ms[q] = [ms]
-        runs = QUERY_RUNS if q in WINDOWED else 1
-        for _ in range(runs - 1):
+        ds_raw = tpcds.generate(args.ds_scale, DS_SEED)
+        gds = ct.Session(card)
+        tpch.load_tables(gds, tpcds.SCHEMAS, tpcds.DIST_KEYS, ds_raw)
+        del ds_raw
+        cds = ct.Session(card, device="cpu")
+        copy_tables(gds, cds, list(tpcds.SCHEMAS))
+        log(f"[data] TPC-DS (tpcds-lite) scale={args.ds_scale} "
+            f"seed={DS_SEED}: "
+            f"{gds.catalog.table('store_sales').num_rows} store_sales, "
+            f"{gds.catalog.table('catalog_sales').num_rows} catalog_sales, "
+            f"{gds.catalog.table('web_sales').num_rows} web_sales, "
+            f"{gds.catalog.table('inventory').num_rows} inventory rows, "
+            f"{time.perf_counter() - t0:.1f} s to generate and load")
+        ds_ms, ds_launches = {}, {}
+        for q in sorted(tpcds.QUERIES, key=lambda q: int(q[1:])):
+            sql = tpcds.QUERIES[q]
+            for k in CK.LAUNCHES:
+                setattr(CK, k, holding(k, f"TPC-DS {q} main-path input"))
             t0 = time.perf_counter()
             gds.sql(sql)
+            warm_ms = (time.perf_counter() - t0) * 1e3
+            for k, fn in originals.items():
+                setattr(CK, k, fn)
+            res, ms, counts = counted_run(gds, sql)
+            want, called = cpu_run(cds, sql)
+            check({k for k, v in counts.items() if v} ==
+                  {k for k, v in called.items() if v},
+                  f"TPC-DS {q}: launches {counts} on the card, kernel calls "
+                  f"{called} on the CPU")
+            check(any(counts.values()), f"TPC-DS {q}: no kernel launched")
+            err = same_nulls(with_nulls(res), with_nulls(want),
+                             f"TPC-DS {q} vs the port on the CPU")
+            ds_ms[q] = [ms]
+            runs = QUERY_RUNS if q in WINDOWED else 1
+            for _ in range(runs - 1):
+                t0 = time.perf_counter()
+                gds.sql(sql)
+                torch.cuda.synchronize()
+                ds_ms[q].append((time.perf_counter() - t0) * 1e3)
+            ds_launches[q] = counts
+            log(f"[tpcds] {q}: {np.median(ds_ms[q]):.3f} ms median of "
+                f"{len(ds_ms[q])} run(s) ({min(ds_ms[q]):.3f}-"
+                f"{max(ds_ms[q]):.3f}; warm-up {warm_ms:.1f} ms), "
+                f"{res.num_rows()} rows, launches {counts}, equal to the CPU "
+                f"run (largest float difference {err})")
+        log(f"[tpcds] kernel calls of the warm-up runs held against their "
+            f"plain versions: {held}")
+
+        # ------------------------------------------------- 5. windows at scale
+        window = {}
+        for case, where in WINDOW_CASES:
+            sql = tpcds.WINDOW_QUERY.format(where=where)
+            gds.sql(sql)                  # warm-up
             torch.cuda.synchronize()
-            ds_ms[q].append((time.perf_counter() - t0) * 1e3)
-        ds_launches[q] = counts
-        log(f"[tpcds] {q}: {np.median(ds_ms[q]):.3f} ms median of "
-            f"{len(ds_ms[q])} run(s) ({min(ds_ms[q]):.3f}-"
-            f"{max(ds_ms[q]):.3f}; warm-up {warm_ms:.1f} ms), "
-            f"{res.num_rows()} rows, launches {counts}, equal to the CPU "
-            f"run (largest float difference {err})")
-    log(f"[tpcds] kernel calls of the warm-up runs held against their plain "
-        f"versions: {held}")
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            res, ms, counts = counted_run(gds, sql)
+            peak = torch.cuda.max_memory_allocated()
+            want, _ = cpu_run(cds, sql)
+            err = same_nulls(with_nulls(res), with_nulls(want),
+                             f"window query ({case}) vs the port on the CPU")
+            walls = [ms]
+            for _ in range(QUERY_RUNS - 1 if case == "full" else 0):
+                t0 = time.perf_counter()
+                gds.sql(sql)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            check((res.num_rows() > 0) if case == "full" else
+                  res.num_rows() == {"empty selection": 0, "one row": 1}[case],
+                  f"window query ({case}): {res.num_rows()} rows")
+            window[case] = {"rows": res.num_rows(), "ms": walls,
+                            "peak_bytes": peak, "resident_bytes": base,
+                            "launches": counts}
+            log(f"[window] {case}: {res.num_rows()} rows, "
+                f"{np.median(walls):.3f} ms median of {len(walls)} run(s) "
+                f"({min(walls):.3f}-{max(walls):.3f}), peak device memory "
+                f"{peak / 2**30:.3f} GiB ({base / 2**30:.3f} GiB resident "
+                f"before), launches {counts}, equal to the CPU run (largest "
+                f"float difference {err})")
+        del cds
 
-    # ------------------------------------------------- 5. windows at scale
-    window = {}
-    for case, where in WINDOW_CASES:
-        sql = tpcds.WINDOW_QUERY.format(where=where)
-        gds.sql(sql)                  # warm-up
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        res, ms, counts = counted_run(gds, sql)
-        peak = torch.cuda.max_memory_allocated()
-        want, _ = cpu_run(cds, sql)
-        err = same_nulls(with_nulls(res), with_nulls(want),
-                         f"window query ({case}) vs the port on the CPU")
-        walls = [ms]
-        for _ in range(QUERY_RUNS - 1 if case == "full" else 0):
-            t0 = time.perf_counter()
-            gds.sql(sql)
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        check((res.num_rows() > 0) if case == "full" else
-              res.num_rows() == {"empty selection": 0, "one row": 1}[case],
-              f"window query ({case}): {res.num_rows()} rows")
-        window[case] = {"rows": res.num_rows(), "ms": walls,
-                        "peak_bytes": peak, "resident_bytes": base,
-                        "launches": counts}
-        log(f"[window] {case}: {res.num_rows()} rows, "
-            f"{np.median(walls):.3f} ms median of {len(walls)} run(s) "
-            f"({min(walls):.3f}-{max(walls):.3f}), peak device memory "
-            f"{peak / 2**30:.3f} GiB ({base / 2**30:.3f} GiB resident "
-            f"before), launches {counts}, equal to the CPU run (largest "
-            f"float difference {err})")
-    del cds
+        # ---------------------------------------------------------- 6. growth
+        pk_, pv_, bk_, bv_ = skew_join_tables(SKEW_ROWS)
+        gsk = ct.Session(card)
+        F = carry.field
+        carry.load_encoded(gsk, "f", [F("k", "int64", 0, False),
+                                      F("v", "int64", 0, False)],
+                           {"k": pk_, "v": pv_})
+        carry.load_encoded(gsk, "d", [F("k", "int64", 0, False),
+                                      F("w", "int64", 0, False)],
+                           {"k": bk_, "w": bv_})
+        sql = ("select count(*) as c, sum(f.v + d.w) as s from f join d "
+               "on f.k = d.k")
+        res, ms, counts = counted_run(gsk, sql)
+        want_c, want_s = skew_join_oracle(pk_, pv_, bk_, bv_)
+        got = physical(res)
+        check(got["c"].tolist() == [want_c] and got["s"].tolist() == [want_s],
+              f"skew join: {got} against numpy count {want_c}, sum {want_s}")
+        check(gsk.growth_events > 0, "skew join: the pair buffer never grew")
+        growth = {"probe_rows": SKEW_ROWS, "pairs": want_c,
+                  "growth_events": gsk.growth_events, "ms": ms,
+                  "launches": counts}
+        log(f"[growth] skew join: {want_c} pairs from {SKEW_ROWS} probe rows, "
+            f"{gsk.growth_events} growth(s) of the pair buffer, {ms:.1f} ms "
+            f"with the retries, launches {counts}, equal to numpy")
 
-    # ---------------------------------------------------------- 6. growth
-    pk_, pv_, bk_, bv_ = skew_join_tables(SKEW_ROWS)
-    gsk = ct.Session(card)
-    F = carry.field
-    carry.load_encoded(gsk, "f", [F("k", "int64", 0, False),
-                                  F("v", "int64", 0, False)],
-                       {"k": pk_, "v": pv_})
-    carry.load_encoded(gsk, "d", [F("k", "int64", 0, False),
-                                  F("w", "int64", 0, False)],
-                       {"k": bk_, "w": bv_})
-    sql = "select count(*) as c, sum(f.v + d.w) as s from f join d on f.k = d.k"
-    res, ms, counts = counted_run(gsk, sql)
-    want_c, want_s = skew_join_oracle(pk_, pv_, bk_, bv_)
-    got = physical(res)
-    check(got["c"].tolist() == [want_c] and got["s"].tolist() == [want_s],
-          f"skew join: {got} against numpy count {want_c}, sum {want_s}")
-    check(gsk.growth_events > 0, "skew join: the pair buffer never grew")
-    growth = {"probe_rows": SKEW_ROWS, "pairs": want_c,
-              "growth_events": gsk.growth_events, "ms": ms,
-              "launches": counts}
-    log(f"[growth] skew join: {want_c} pairs from {SKEW_ROWS} probe rows, "
-        f"{gsk.growth_events} growth(s) of the pair buffer, {ms:.1f} ms "
-        f"with the retries, launches {counts}, equal to numpy")
+        # ---------------------------- 7. admission at the default budget
+        admission = default_budget_phase(
+            gpu, gds, (gsk, sql, gsk.growth_events),
+            full=args.sf == 1.0 and args.ds_scale == DS_SCALE)
+        del gsk
 
-    # ---------------------------- 7. admission at the default budget
-    admission = default_budget_phase(
-        gpu, gds, (gsk, sql, gsk.growth_events),
-        full=args.sf == 1.0 and args.ds_scale == DS_SCALE)
-    del gsk
+        # ------------------------------------------- 8. tiling from RAM
+        def held_run(name_of_run, fn, sizes=None):
+            """Run fn with every kernel call held against its plain version
+            (``sizes``, if given, collects each call's input sizes)."""
+            for k in CK.LAUNCHES:
+                setattr(CK, k, holding(k, name_of_run, sizes))
+            try:
+                return fn()
+            finally:
+                for k, fn_ in originals.items():
+                    setattr(CK, k, fn_)
 
-    # ------------------------------------------- 8. tiling from RAM
-    def held_run(name_of_run, fn, sizes=None):
-        """Run fn with every kernel call held against its plain version
-        (``sizes``, if given, collects each call's input sizes)."""
-        for k in CK.LAUNCHES:
-            setattr(CK, k, holding(k, name_of_run, sizes))
-        try:
-            return fn()
-        finally:
-            for k, fn_ in originals.items():
-                setattr(CK, k, fn_)
+        t0 = time.perf_counter()
+        held_before = dict(held)
+        tile_kit = SimpleNamespace(torch=torch, counted_run=counted_run,
+                                   held=held_run, sf=args.sf)
+        tiling = tiling_phase(tile_kit, raw, ram, query_ms, gpu, gds, args)
+        tiling["s"] = time.perf_counter() - t0
+        tiling["held"] = {k: held[k] - held_before[k] for k in held}
+        log(f"[tiling] kernel calls of the tiled runs held against their "
+            f"plain versions: {tiling['held']}; tiling phase from RAM: "
+            f"{tiling['s']:.1f} s")
+        flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+        timer = Timer(torch, flush, REPS)
 
+        # --------------------------------------------------------- 9. storage
+        t0 = time.perf_counter()
+        held_before = dict(held)
+        store = storage_phase(SimpleNamespace(
+            torch=torch, dev=dev, sync=torch.cuda.synchronize,
+            counted=counted, counted_run=counted_run, timer=timer,
+            held=held_run, sf=args.sf, cached_sql=caches.real),
+            raw, ram, gpu, names)
+        store["s"] = time.perf_counter() - t0
+        store["held"] = {k: held[k] - held_before[k] for k in held}
+        log(f"[store] kernel calls of the store path held against their plain "
+            f"versions: {store['held']}; storage phase: {store['s']:.1f} s")
+
+        # ------------------------------------------------------ 10. telemetry
+        t0 = time.perf_counter()
+        held_before = dict(held)
+        telemetry = telemetry_phase(SimpleNamespace(
+            torch=torch, counted=counted, counted_run=counted_run,
+            held=held_run, build_s=build_s), ram, gpu, cpu, gds, args)
+        telemetry["s"] = time.perf_counter() - t0
+        telemetry["held"] = {k: held[k] - held_before[k] for k in held}
+        log(f"[telemetry] kernel calls of EXPLAIN ANALYZE held against their "
+            f"plain versions: {telemetry['held']}; telemetry phase: "
+            f"{telemetry['s']:.1f} s")
+
+    # ------------------------------ 11. statement cache and generic plans
     t0 = time.perf_counter()
     held_before = dict(held)
-    tile_kit = SimpleNamespace(torch=torch, counted_run=counted_run,
-                               held=held_run, sf=args.sf)
-    tiling = tiling_phase(tile_kit, raw, ram, query_ms, gpu, gds, args)
-    tiling["s"] = time.perf_counter() - t0
-    tiling["held"] = {k: held[k] - held_before[k] for k in held}
-    log(f"[tiling] kernel calls of the tiled runs held against their plain "
-        f"versions: {tiling['held']}; tiling phase from RAM: "
-        f"{tiling['s']:.1f} s")
-    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
-    timer = Timer(torch, flush, REPS)
+    stmt_cache = stmt_cache_phase(SimpleNamespace(
+        torch=torch, counted=counted, held=held_run), raw, gpu, cpu, names,
+        store.pop("stmt_cache_repeats"), args)
+    stmt_cache["s"] = time.perf_counter() - t0
+    stmt_cache["held"] = {k: held[k] - held_before[k] for k in held}
+    log(f"[stmtcache] kernel calls of the cached and generic runs held "
+        f"against their plain versions: {stmt_cache['held']}; statement-"
+        f"cache phase: {stmt_cache['s']:.1f} s")
 
-    # --------------------------------------------------------- 9. storage
-    t0 = time.perf_counter()
-    held_before = dict(held)
-    store = storage_phase(SimpleNamespace(
-        torch=torch, dev=dev, sync=torch.cuda.synchronize,
-        counted_run=counted_run, timer=timer, held=held_run, sf=args.sf), raw, ram, gpu, names)
-    store["s"] = time.perf_counter() - t0
-    store["held"] = {k: held[k] - held_before[k] for k in held}
-    log(f"[store] kernel calls of the store path held against their plain "
-        f"versions: {store['held']}; storage phase: {store['s']:.1f} s")
-
-    # ------------------------------------------------------ 10. telemetry
-    t0 = time.perf_counter()
-    held_before = dict(held)
-    telemetry = telemetry_phase(SimpleNamespace(
-        torch=torch, counted=counted, counted_run=counted_run,
-        held=held_run, build_s=build_s), ram, gpu, cpu, gds, args)
-    telemetry["s"] = time.perf_counter() - t0
-    telemetry["held"] = {k: held[k] - held_before[k] for k in held}
-    log(f"[telemetry] kernel calls of EXPLAIN ANALYZE held against their "
-        f"plain versions: {telemetry['held']}; telemetry phase: "
-        f"{telemetry['s']:.1f} s")
-
-    # -------------------------------------------------------- 11. kernels
+    # -------------------------------------------------------- 12. kernels
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     def rand_int(lo, hi, shape, dtype=torch.int64):
@@ -2832,7 +3303,7 @@ def main() -> int:
             "window_query": tpcds.WINDOW_QUERY.format(
                 where="d_year >= 1998")})
 
-    # --------------------------------------------------------- 12. report
+    # --------------------------------------------------------- 13. report
     kernels = [{
         "name": name, "route": "cuda",
         "source": f"cloudberry_tpu_torch/csrc/{CK.SOURCES[name]}",
@@ -2849,7 +3320,7 @@ def main() -> int:
                       "tpcds_ms": ds_ms, "tpcds_launches": ds_launches,
                       "window": window, "growth": growth, "store": store,
                       "admission": admission, "tiling": tiling,
-                      "telemetry": telemetry,
+                      "telemetry": telemetry, "stmt_cache": stmt_cache,
                       "timer_floor_ms": timer_floor_ms, "sf": args.sf,
                       "tpcds_scale": args.ds_scale}))
     print(json.dumps({"ok": True, "device": {

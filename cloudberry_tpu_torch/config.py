@@ -8,7 +8,7 @@ device buffer pool, the join-index cache size, memory governance (the
 per-query budget, the concurrency slots, the engine-wide red line and the
 resource queue), the statement timeout, the observability plane and the
 tiled (out-of-core) path's scan pipeline, dispatch window and checkpoint
-store. There is no counterpart
+store, and the statement scheduler's generic plans and shared cache tier. There is no counterpart
 of the JAX package's ``exec.use_pallas``: the kernel gates are decided by
 the plan's shapes alone, and on a CUDA device the hand-written kernels
 always run.
@@ -197,6 +197,25 @@ class RecoveryConfig:
 
 
 @dataclass(frozen=True)
+class SchedConfig:
+    """Statement scheduler: generic plans (sched/paramplan.py; the
+    plan_cache.c analog). The JAX package's micro-batch dispatcher fields
+    (``enabled``, ``max_batch``, ``max_queue``, ``tick_s``,
+    ``deadline_s``) come with its dispatcher, which the port does not have
+    yet. Its ``max_variants`` and ``shared_cache`` are constants here
+    (``paramplan._MAX_VARIANTS``, ``sharedcache.scope_for``)."""
+
+    # Parameterized generic plans: hoist constant literals out of repeated
+    # statements so same-shape SQL shares ONE Executable with literals fed
+    # as device inputs. Off by default, where the JAX package has it on:
+    # the port has no jit, so a generic hit saves only the construction of
+    # an Executable (a closure) and pays the plan's signature walk, slower
+    # than the plan-per-text path on the card. The exact-text statement
+    # cache serves repeats either way. Results are the same on or off.
+    generic_plans: bool = False
+
+
+@dataclass(frozen=True)
 class Config:
     # Per-statement wall-clock limit in seconds (the statement_timeout
     # GUC): every statement gets a deadline this far out; cooperative
@@ -214,6 +233,7 @@ class Config:
         default_factory=TilePipelineConfig)
     recovery: RecoveryConfig = field(default_factory=RecoveryConfig)
     obs: ObsConfig = field(default_factory=ObsConfig)
+    sched: SchedConfig = field(default_factory=SchedConfig)
 
     def with_overrides(self, **kv: Any) -> "Config":
         """Return a copy with dotted-path overrides, e.g.

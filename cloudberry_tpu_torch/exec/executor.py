@@ -111,7 +111,8 @@ def compile_plan(plan: N.PlanNode, session,
                 self.__init_instrument__()
 
         def run_counted(tables):
-            low = _InstrLowerer(tables, device)
+            low = _InstrLowerer(tables, device,
+                                params=tables.get("$params"))
             cols, sel = low.lower(plan)
             out = {f.name: cols[f.name] for f in plan.fields}
             return out, sel, low.checks, low.node_counts
@@ -119,7 +120,7 @@ def compile_plan(plan: N.PlanNode, session,
         return Executable(plan, run_counted, table_names, store_scans)
 
     def run(tables):
-        low = Lowerer(tables, device)
+        low = Lowerer(tables, device, params=tables.get("$params"))
         cols, sel = low.lower(plan)
         out = {f.name: cols[f.name] for f in plan.fields}
         return out, sel, low.checks
@@ -452,9 +453,13 @@ def grow_expansion(plan: N.PlanNode, message: str, factor: int = 4,
 class Lowerer:
     """Walks a plan into torch ops on one device."""
 
-    def __init__(self, tables, device):
+    def __init__(self, tables, device, params=None):
         self.tables = tables
         self.device = torch.device(device)
+        # a generic plan's bindings (sched/paramplan.py): ``$prm<slot>``
+        # literal values as 0-d device tensors and ``$nrw<i>`` scan row
+        # counts; None on the plan-per-text path
+        self.params = params
         self.checks: dict[str, torch.Tensor] = {}
         self._subcache: dict[int, torch.Tensor] = {}
         # shared-subplan (PShare) results, keyed by child object identity
@@ -530,6 +535,13 @@ class Lowerer:
                                   device=self.device)
             cols[out] = arr
         n = node.num_rows if node.num_rows >= 0 else node.capacity
+        key = getattr(node, "_nrows_key", None)
+        if key is not None and self.params is not None \
+                and key in self.params:
+            # generic plan: the row count rides the "$params" input, so one
+            # executable serves every table version at an unchanged
+            # capacity — the count is data, the CAPACITY is the shape
+            n = self.params[key]
         sel = torch.arange(node.capacity, device=self.device) < n
         return cols, sel
 
@@ -545,8 +557,12 @@ class Lowerer:
 
     def expr(self, e: ex.Expr, cols) -> torch.Tensor:
         """Evaluate an expression; uncorrelated scalar subqueries (InitPlan
-        analog) are lowered once and broadcast."""
+        analog) are lowered once and broadcast; Param leaves (generic
+        plans) read their binding from the "$params" input."""
         subs = [n for n in ex.walk(e) if isinstance(n, ex.SubqueryScalar)]
+        if self.params is not None \
+                and any(isinstance(n, ex.Param) for n in ex.walk(e)):
+            cols = {**cols, **self.params}
         if not subs:
             return compile_expr(e, self.device)(cols)
         aug = dict(cols)

@@ -43,9 +43,20 @@ def compile_expr(e: ex.Expr, device) -> Callable[[Columns], torch.Tensor]:
         return lambda cols: val
 
     if isinstance(e, ex.Param):
-        raise NotImplementedError(
-            "generic-plan parameters are not yet ported to "
-            "cloudberry_tpu_torch")
+        # runtime-bound literal (sched/paramplan.py): the Lowerer injects
+        # the slot's value next to the columns — a 0-d tensor of the
+        # literal's own dtype on the device, from the "$params" input — so
+        # a generic plan re-runs with new literals through the same ops,
+        # promotions included, as the literal it replaced. Without a
+        # binding (a rewritten plan on the plan-per-text path: the growth
+        # retry, a tiled step) the kept build-time value lowers exactly
+        # as its Literal would.
+        name = e.input_name
+        if e.value is None:
+            return lambda cols: cols[name]
+        kept = np.asarray(e.value, dtype=e.dtype.np_dtype)
+        return lambda cols: cols[name] if name in cols \
+            else torch.as_tensor(kept, device=device)
 
     if isinstance(e, ex.BinOp):
         lf, rf = compile_expr(e.left, device), compile_expr(e.right, device)
@@ -178,9 +189,14 @@ def _compile_func(e: ex.Func, device):
         k = int(e.args[1].value)  # type: ignore[attr-defined]
         return lambda cols: _scale_down(args[0](cols), k)
     if name.startswith("udf:"):
-        raise NotImplementedError(
-            f"function {name}: scalar UDFs are not yet ported to "
-            "cloudberry_tpu_torch")
+        # tensor scalar UDF (exec/udf.py, ``jit=True``): the registered
+        # callable runs on the argument tensors inside the walk
+        from cloudberry_tpu_torch.exec import udf as U
+
+        u = U.lookup(name[4:])
+        if u is not None and u.jit:
+            fn = u.fn
+            return lambda cols: fn(*[a(cols) for a in args])
     raise NotImplementedError(f"function {name}")
 
 

@@ -26,8 +26,10 @@ emits a QueryMetrics record to each registered hook; a raising hook is
 counted (``metrics_hook_errors``) and never aborts the statement.
 
 One segment: the JAX package's distributed instrumentation
-(``_run_instrumented_dist``, ``_dist_counts_host``) and generic-plan form
-(``_generic_form``) belong to modules the port does not have yet.
+(``_run_instrumented_dist``, ``_dist_counts_host``) belongs to a module
+the port does not have yet. EXPLAIN ANALYZE runs the generic-plan form
+of a statement (``_generic_form``) with its bindings as ``$params``, as
+the JAX package does.
 """
 
 from __future__ import annotations
@@ -624,9 +626,21 @@ def run_pipeline(plan: N.PlanNode, session, query: str):
 
 
 def _generic_form(session, plan):
-    """The generic-plan form's bindings: always none, since generic plans
-    (the JAX package's sched/paramplan.analyze) are not ported yet."""
-    return {}
+    """Rewrite the plan to its generic form (literals → $params slots,
+    scan row counts → $nrw slots) and return the bindings — the same
+    walk the plan cache performs (sched/paramplan.analyze). Plans the
+    walker does not model keep their baked literals (bindings = {})."""
+    from cloudberry_tpu_torch.sched import paramplan
+
+    if not session.config.sched.generic_plans \
+            or getattr(plan, "_no_stmt_cache", False):
+        return {}
+    try:
+        _sig, bindings, _keyed, _slots = paramplan.analyze(
+            session, plan, rewrite=True)
+    except paramplan.UnsupportedPlan:
+        return {}
+    return bindings
 
 
 def _pipeline_once(plan, session, query):
@@ -661,13 +675,18 @@ def _pipeline_once(plan, session, query):
         metrics = _metrics(plan, {}, query, wall_s, 0.0,
                            batch.num_rows())
         return batch, metrics, motion_annotations(plan, {}, packed)
-    _generic_form(session, plan)
+    bindings = _generic_form(session, plan)
     from cloudberry_tpu_torch.obs import capacity as OC
 
     OC.record_statement(session.stmt_log, plan, session, est=est)
     with session._gate, session._admitted(est.peak_bytes):
         exe = X.compile_plan(plan, session, instrument=True)
         inputs = X.prepare_inputs(exe, session)
+        if bindings:
+            from cloudberry_tpu_torch.sched.paramplan import \
+                device_bindings
+
+            inputs["$params"] = device_bindings(bindings, session.device)
         (cols, sel, checks, counts), compile_s, wall_s = \
             _timed_run(exe.fn, inputs, session, log=session.stmt_log)
         X.raise_checks(checks)

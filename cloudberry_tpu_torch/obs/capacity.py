@@ -206,14 +206,15 @@ def nbytes_of(obj) -> int:
 
 def refresh_gauges(session) -> dict:
     """Refresh every memory-holder gauge the port has on the session's
-    registry and return the values: the join-index cache and the buffer
-    pool of the session's cache scope, the session's store-scan cache,
-    the recovery store's checkpoint pins, the trace and flight rings and
-    the statements table. ``*_bytes`` gauges are bytes measured from the
+    registry and return the values: the generic-plan skeletons, the
+    join-index cache and the buffer pool of the session's cache scope,
+    the session's statement cache and store-scan cache, the recovery
+    store's checkpoint pins, the trace and flight rings and the
+    statements table. ``*_bytes`` gauges are bytes measured from the
     live arrays: device bytes for the join index, the pool and the scan
-    cache, host bytes for the checkpoint pins. The JAX package's plan
-    cache, rung cache, dispatcher, statement cache, topology and write
-    plane gauges belong to modules the port does not have yet."""
+    cache, host bytes for the checkpoint pins. The JAX package's rung
+    cache, dispatcher, topology and write plane gauges belong to modules
+    the port does not have yet."""
     log = getattr(session, "stmt_log", None)
     if log is None:
         return {}
@@ -221,6 +222,8 @@ def refresh_gauges(session) -> dict:
 
     scope = getattr(session, "_cache_scope", None)
     if scope is not None:
+        with scope.generic_lock:
+            vals["mem_plan_cache_skeletons"] = len(scope.generic)
         with scope.joinindex_lock:
             vals["mem_join_index_entries"] = len(scope.joinindex)
             vals["mem_join_index_bytes"] = sum(
@@ -239,6 +242,9 @@ def refresh_gauges(session) -> dict:
     vals["mem_trace_ring_entries"] = rings["traces"]
     vals["mem_flight_ring_entries"] = rings["flights"]
     vals["mem_statement_rows"] = len(log.statements)
+    stmt_cache = getattr(session, "_stmt_cache", None)
+    if stmt_cache is not None:
+        vals["mem_stmt_cache_entries"] = len(stmt_cache)
     scan_cache = getattr(session, "_store_scan_cache", None)
     if scan_cache is not None:
         lock = getattr(session, "_store_scan_lock", None)

@@ -550,9 +550,44 @@ class Binder:
 
     def _bind_func_table(self, ref: ast.FuncTable,
                          scope: Scope) -> tuple[str, N.PlanNode]:
-        raise NotImplementedError(
-            f"table function {ref.name!r}: function scans are not yet "
-            "ported to cloudberry_tpu_torch")
+        """Function Scan (nodeFunctionscan.c role): evaluate host-side at
+        bind time — arguments must be constants — and scan the transient
+        replicated table exec/tablefunc.py materializes."""
+        from cloudberry_tpu_torch.exec import tablefunc
+
+        fn = tablefunc.lookup(ref.name)
+        if fn is None:
+            raise BindError(
+                f"unknown table function {ref.name!r} (known: "
+                f"{', '.join(tablefunc.known_functions())}; register "
+                "with cloudberry_tpu_torch.exec.tablefunc."
+                "register_table_function)")
+        vals = []
+        for a in ref.args:
+            b = self.bind_scalar(a, Scope())
+            if _is_null_literal(b):
+                vals.append(None)  # functions see NULL as None
+                continue
+            if not isinstance(b, ex.Literal):
+                raise BindError(
+                    f"{ref.name}: table function arguments must be "
+                    "constants (no per-row function scans)")
+            v = b.value
+            if b.dtype.base == DType.DECIMAL:
+                # literals bind in fixed-point; the function sees the
+                # numeric VALUE (1.5, never the scaled 15)
+                v = v / 10 ** b.dtype.scale
+            vals.append(v)
+        try:
+            tname = tablefunc.materialize(self.catalog, ref.name, fn,
+                                          vals)
+        except (ValueError, TypeError) as e:
+            raise BindError(f"table function {ref.name}: {e}")
+        table = self._lookup_table(tname)
+        alias = ref.alias or ref.name
+        plan = _scan_node(table, alias)
+        scope.entries.append(RangeEntry(alias, plan))
+        return alias, plan
 
     def _requalify(self, sub: N.PlanNode, alias: str) -> N.PProject:
         """Re-qualify a subplan's output names under a derived/CTE alias
@@ -1546,9 +1581,15 @@ class Binder:
                                   _valid_of(arg))
             if node.name in AGG_FUNCS:
                 raise BindError(f"aggregate {node.name}() not allowed here")
-            raise NotImplementedError(
-                f"unknown function {node.name!r}: scalar UDFs are not yet "
-                "ported to cloudberry_tpu_torch")
+            from cloudberry_tpu_torch.exec import udf as U
+
+            u = U.lookup(node.name)
+            if u is not None:
+                return self._bind_udf(u, node, scope)
+            raise BindError(
+                f"unknown function {node.name!r} (register scalar "
+                "functions with cloudberry_tpu_torch.exec.udf."
+                "register_function)")
 
         raise BindError(f"unsupported expression {type(node).__name__}")
 
@@ -2144,6 +2185,123 @@ class Binder:
         out = self._filter(j, cmp)
         out.fields = list(plan.fields)  # drop subplan columns from output
         return out
+
+    def _bind_udf(self, u, node: ast.FuncCall, scope: Scope) -> ex.Expr:
+        """Scalar UDF (exec/udf.py — the PL-function seam) in one of the
+        three compilable shapes: bind-time constant folding, dictionary
+        rewrite over one string column (the LIKE machinery), or a
+        tensor function (``jit=True``) run inside the plan's lowering. Strict NULL
+        semantics: NULL in → NULL out; a function returning None over a
+        dictionary value NULLs exactly the rows holding that value."""
+        from cloudberry_tpu_torch.exec import udf as U
+
+        if node.star or len(node.args) != len(u.arg_types):
+            raise BindError(f"{u.name}() takes {len(u.arg_types)} "
+                            f"argument(s), got {len(node.args)}")
+        bound = []
+        for a, at in zip(node.args, u.arg_types):
+            b = self.bind_scalar(a, scope)
+            if _is_null_literal(b):
+                bound.append(b)
+                continue
+            if at.base == DType.STRING:
+                if b.dtype.base != DType.STRING:
+                    raise BindError(
+                        f"{u.name}: expected a string argument, got "
+                        f"{b.dtype.base.name}")
+            elif b.dtype != at:
+                b = self._coerce(b, at)
+            bound.append(b)
+        if any(_is_null_literal(b) for b in bound):
+            # strict: a constant NULL argument folds to NULL
+            return _null_literal(u.ret if u.ret.base != DType.STRING
+                                 else T.INT64)
+        all_const = all(isinstance(b, ex.Literal) for b in bound)
+        if u.volatility == "immutable" and all_const:
+            vals = [U.py_value(b.value, b.dtype) for b in bound]
+            try:
+                rv = u.fn(*vals)
+            except Exception as e:  # surface the function's own error
+                raise BindError(f"{u.name}: {type(e).__name__}: {e}")
+            if rv is None:
+                return _null_literal(u.ret if u.ret.base != DType.STRING
+                                     else T.INT64)
+            ev = U.encode_result(rv, u.ret)
+            if u.ret.base == DType.STRING:
+                # folded string constant: code 0 in a one-entry output
+                # dictionary (the substring-fold convention) — a bare
+                # python-str literal only works in comparison context
+                d = StringDictionary((ev,))
+                lit = ex.Literal(0, T.STRING)
+                object.__setattr__(lit, "_out_dict", d)
+                return lit
+            return ex.Literal(ev, u.ret)
+        colargs = [(i, b) for i, b in enumerate(bound)
+                   if not isinstance(b, ex.Literal)]
+        if u.volatility == "immutable" and not u.jit \
+                and len(colargs) == 1 \
+                and colargs[0][1].dtype.base == DType.STRING \
+                and _expr_dict(colargs[0][1]) is not None:
+            return self._bind_udf_dict(u, bound, colargs[0])
+        if u.jit:
+            if any(b.dtype.base == DType.STRING for b in bound):
+                raise BindError(
+                    f"{u.name}: jit UDFs take numeric arguments "
+                    "(string columns are dictionary codes on device — "
+                    "use the non-jit dictionary rewrite)")
+            out = ex.Func("udf:" + u.name, tuple(bound), u.ret)
+            return _set_valid(out,
+                              _and_valid(*[_valid_of(b) for b in bound]))
+        raise BindError(
+            f"{u.name}: this call shape does not compile — supported: "
+            "constant arguments (bind-time fold), one dictionary-encoded "
+            "string column + constants (dictionary rewrite), or "
+            "register_function(..., jit=True) with numeric tensor code")
+
+    def _bind_udf_dict(self, u, bound, colarg) -> ex.Expr:
+        """Dictionary rewrite: run the function host-side once per
+        dictionary VALUE, compile the per-row work to a table gather."""
+        import numpy as np
+
+        from cloudberry_tpu_torch.exec import udf as U
+
+        i0, col = colarg
+        d = _expr_dict(col)
+        vals = [U.py_value(b.value, b.dtype)
+                if isinstance(b, ex.Literal) else None for b in bound]
+        results = []
+        for v in d.values:
+            args2 = list(vals)
+            args2[i0] = v
+            try:
+                results.append(u.fn(*args2))
+            except Exception as e:
+                raise BindError(f"{u.name}({v!r}): "
+                                f"{type(e).__name__}: {e}")
+        has_null = any(r is None for r in results)
+        if u.ret.base == DType.STRING:
+            out_dict = StringDictionary()
+            codes = [(-1 if r is None
+                      else out_dict.add(U.encode_result(r, u.ret)))
+                     for r in results]
+            out: ex.Expr = ex.DictLookup(col, np.asarray(codes,
+                                                         dtype=np.int32),
+                                         T.STRING)
+            # _out_dict: the dictionary governing the RESULT codes (the
+            # substring-machinery convention _expr_dict reads)
+            object.__setattr__(out, "_out_dict", out_dict)
+        else:
+            zero = (False if u.ret.base == DType.BOOL else 0)
+            table = np.asarray(
+                [zero if r is None else U.encode_result(r, u.ret)
+                 for r in results], dtype=u.ret.np_dtype)
+            out = ex.DictLookup(col, table, u.ret)
+        valid = _valid_of(col)
+        if has_null:
+            nl = ex.DictLookup(col, np.asarray(
+                [r is not None for r in results], dtype=bool), T.BOOL)
+            valid = _and_valid(valid, nl) or nl
+        return _set_valid(out, valid)
 
     def _bind_coalesce(self, node: ast.FuncCall, scope: Scope) -> ex.Expr:
         """COALESCE: first non-NULL value wins; result is NULL only when

@@ -46,6 +46,11 @@ def _not_ported(what: str):
 def plan_statement(stmt: ast.Node, session, params: dict,
                    explain_only: bool = False) -> PlanResult:
     catalog = session.catalog
+    # new statement: function tables it materializes while binding are
+    # pinned against transient-pool eviction until the next statement
+    from cloudberry_tpu_torch.exec import tablefunc as _tf
+
+    _tf.begin_statement(catalog)
 
     if isinstance(stmt, ast.CreateTable):
         if stmt.name.lower() in catalog.views:
@@ -163,14 +168,22 @@ def plan_statement(stmt: ast.Node, session, params: dict,
         return PlanResult(is_ddl=True, ddl_result=plan.explain())
 
     if isinstance(stmt, (ast.Select, ast.SetOp, ast.WithQuery)):
+        folded = False
         if isinstance(stmt, ast.Select) and not stmt.from_refs:
             # FROM-less sequence calls evaluate host-side at the QD — the
             # coordinator owns the number line (sequence.c '?' protocol).
-            stmt = _fold_sequence_calls(catalog, stmt,
-                                        allocate=not explain_only)
+            stmt2 = _fold_sequence_calls(catalog, stmt,
+                                         allocate=not explain_only)
+            folded = stmt2 is not stmt
+            stmt = stmt2
         binder = Binder(catalog)
         plan = binder.bind_query(stmt)
-        return PlanResult(plan=_optimize(plan, session))
+        plan = _optimize(plan, session)
+        if folded:
+            # replaying a cached program would replay the SAME value —
+            # sequence statements must re-plan every execution
+            plan._no_stmt_cache = True
+        return PlanResult(plan=plan)
 
     if isinstance(stmt, ast.Analyze):
         t = catalog.table(stmt.table)

@@ -2,12 +2,16 @@
 
 The JAX package promotes three per-session caches (generic plans,
 capacity-rung executables, join indexes) to an engine-wide tier, plus the
-HBM buffer pool. This port carries the tier's scope machinery for the two
-caches it has: the join-index cache (exec/joinindex.py) and the device
-buffer pool (exec/bufferpool.py).
+HBM buffer pool. This port carries the tier's scope machinery for the
+three caches it has: generic plans (sched/paramplan.py), the join-index
+cache (exec/joinindex.py) and the device buffer pool
+(exec/bufferpool.py). Capacity-rung executables belong to the
+distributed executor, which the port does not have yet.
 
-- sessions over the same durable store root share ONE scope;
-- storeless sessions get a private scope.
+- sessions over the same durable store root share ONE scope (the JAX
+  package's ``sched.shared_cache`` at its default; the port has no
+  switch);
+- every other session gets a private scope.
 
 The invalidation contract is the signature discipline, not a protocol:
 
@@ -21,7 +25,11 @@ The invalidation contract is the signature discipline, not a protocol:
   one default device per process; the port can hold a CPU session and a
   CUDA session over the same store root in one process, and an entry
   holds tensors on the device that built it — a CPU session must never
-  be handed CUDA tensors, or the other way round.
+  be handed CUDA tensors, or the other way round. A generic plan matches
+  on it too (``GenericPlan.matches``): its executable lowers on the
+  device of the session that built it;
+- the UDF registry version stays in every plan epoch (``plan_epoch``):
+  process-wide state baked into plans at bind time.
 
 At one segment there is no topology epoch: ``topology_token`` is a
 constant.
@@ -41,6 +49,9 @@ class CacheScope:
     def __init__(self, kind: str, token):
         self.kind = kind
         self.token = token
+        # generic-plan cache: skeleton -> [GenericPlan, ...] (paramplan)
+        self.generic: dict = {}
+        self.generic_lock = threading.Lock()
         # join indexes (exec/joinindex.py)
         self.joinindex: dict = {}
         self.joinindex_lock = threading.Lock()
@@ -51,6 +62,8 @@ class CacheScope:
         self.bufferpool = None
 
     def clear(self) -> None:
+        with self.generic_lock:
+            self.generic.clear()
         with self.joinindex_lock:
             self.joinindex.clear()
         pool = self.bufferpool
@@ -59,6 +72,7 @@ class CacheScope:
 
     def snapshot(self) -> dict:
         out = {"kind": self.kind,
+               "generic_skeletons": len(self.generic),
                "join_index_entries": len(self.joinindex)}
         pool = self.bufferpool
         if pool is not None:
@@ -127,6 +141,10 @@ def _uid(obj) -> int:
     return u
 
 
+def session_uid(session) -> int:
+    return _uid(session)
+
+
 _config_uids: dict[int, tuple] = {}  # id(cfg) -> (uid, weakref)
 
 
@@ -167,6 +185,12 @@ def table_key(session, name: str):
             getattr(t, "_stats_version", 0))
 
 
+def table_versions(session, names):
+    """Tuple of table_key tokens for a sorted name list (the shared-tier
+    form of Session._table_versions in cache guards)."""
+    return tuple(table_key(session, n) for n in names)
+
+
 def device_token(session) -> str:
     """The device an entry's tensors live on — part of every shared key
     (module docstring)."""
@@ -177,6 +201,21 @@ def topology_token(session) -> int:
     """The topology-epoch token of the JAX package's shared keys. One
     segment has one topology: a constant."""
     return 0
+
+
+def plan_epoch(session) -> tuple:
+    """The non-table part of a generic plan's validity: the process-wide
+    UDF registry version always, plus the topology token; the catalog ddl
+    counter only for private scopes (shared scopes rely on the full
+    structural signature — ddl counters are per-catalog and would just
+    block sharing)."""
+    from cloudberry_tpu_torch.exec.udf import registry_version
+
+    scope = scope_for(session)
+    if scope.kind == "session":
+        return ("local", topology_token(session),
+                session.catalog.ddl_version, registry_version())
+    return ("store", topology_token(session), registry_version())
 
 
 def tier_snapshot(session) -> dict:

@@ -28,6 +28,15 @@ checkpoints are discarded when the statement ends. The JAX package's
 greedy re-plan of a refused plan needs its join-order memo, which the
 port lacks.
 
+Statement cache: a repeated statement text (with the same user params)
+reuses its runner — one-shot or tiled — without parsing or planning,
+while every referenced table's version, the catalog's DDL version, the
+UDF registry's version and the config object are unchanged
+(``_cached_statement``). Generic plans (sched/paramplan.py) let a
+statement of the same skeleton with other literals reuse the Executable
+of an earlier one. Statements over table-function rows (and sequence
+calls) bypass both.
+
 Observability (exec/instrument.py, obs/): ``stmt_log`` holds the history
 and active registry, the metrics registry (``counters`` is its counter
 view: storage-path counts, statement errors, kernel builds), the stage
@@ -46,9 +55,9 @@ the device buffer pool and a per-session store-scan LRU
 (exec/executor.py). Every statement first picks up other sessions'
 commits (``_sync_store``). The store runs in autocommit mode.
 
-Not ported yet: more than one segment, generic plans and the statement
-cache, the failure retry and its circuit breaker, transactions (BEGIN
-raises ``NotImplementedError``), materialized views and serving.
+Not ported yet: more than one segment, the failure retry and its circuit
+breaker, transactions (BEGIN raises ``NotImplementedError``),
+materialized views and serving.
 """
 
 from __future__ import annotations
@@ -144,6 +153,21 @@ class Session:
         from cloudberry_tpu_torch.sched import sharedcache
 
         self._cache_scope = sharedcache.scope_for(self)
+        # prepared-statement cache: sql text (+ user params) -> entry
+        # (_cache_statement); an LRU under its lock, since hits reorder
+        # the dict
+        self._stmt_cache: dict = {}
+        self._stmt_lock = threading.Lock()
+
+    # the generic-plan cache lives in the session's cache scope
+    # (sched/sharedcache.py): shared by the sessions over one store root
+    @property
+    def _generic_cache(self) -> dict:
+        return self._cache_scope.generic
+
+    @property
+    def _generic_lock(self):
+        return self._cache_scope.generic_lock
 
     def sql(self, query: str, **params: Any):
         """Run one statement: DDL/DML returns its status string, a SELECT
@@ -172,6 +196,10 @@ class Session:
         log.attach(log_id, handle)
         t_begin = _t.monotonic()
         compiles_before = log.counter("compiles")
+        # per-statement generic-plan hits, the compile counter's delta
+        # discipline: the statements table aggregates the generic-hit
+        # rate per skeleton from them (obs/statements.py)
+        generic_before = log.counter("generic_hits")
         try:
             with lifecycle.statement_scope(handle):
                 out = self._sql_once(query, **params)
@@ -196,23 +224,35 @@ class Session:
             OF.maybe_capture(
                 self, query, "error", _t.monotonic() - t_begin, handle,
                 params=params, error=e, counters={
-                    "compiles": log.counter("compiles") - compiles_before})
+                    "compiles": log.counter("compiles") - compiles_before,
+                    "generic_hits": log.counter("generic_hits")
+                    - generic_before})
             raise
         finally:
             # statement-scoped checkpoints die with their statement
             self._recovery.discard(log_id)
         is_batch = hasattr(out, "num_rows")
         compiles_d = log.counter("compiles") - compiles_before
+        generic_d = log.counter("generic_hits") - generic_before
         log.finish(log_id, "ok" if is_batch else str(out)[:80],
                    rows=out.num_rows() if is_batch else -1,
-                   compiles=compiles_d)
+                   compiles=compiles_d, generic_hits=generic_d)
         from cloudberry_tpu_torch.obs import flightrec as OF
 
         OF.maybe_capture(
             self, query, "ok", _t.monotonic() - t_begin, handle,
             params=params, result=out if is_batch else None,
-            counters={"compiles": compiles_d})
+            counters={"compiles": compiles_d, "generic_hits": generic_d})
         return out
+
+    @staticmethod
+    def _stmt_cache_key(query: str, params: dict) -> str:
+        """Statement-cache key: the SQL text PLUS the user-supplied
+        ``sql(query, **params)`` arguments — two calls with the same text
+        but different params must never share a cached runner."""
+        if not params:
+            return query
+        return query + "\x00" + repr(sorted(params.items()))
 
     def _sql_once(self, query: str, **params: Any):
         import time as _t
@@ -228,6 +268,22 @@ class Session:
 
         self._sync_store()
         self.last_tiled_report = None  # set again by a tiled run
+        ckey = self._stmt_cache_key(query, params)
+        cached = self._cached_statement(ckey)
+        if cached is not None:
+            runner, cost, obs_bytes = cached
+            self.stmt_log.bump("stmt_cache_hits")
+            self.stmt_log.bump("dispatches")
+            # capacity plane: the cached device-byte estimate, one
+            # histogram sample, no plan walk on the hot path (a tiled
+            # runner admits against the whole budget but observes its
+            # step estimate)
+            OC.observe_stmt_bytes(self.stmt_log, obs_bytes)
+            self._dispatch_seams(fault_point)
+            t_wait = _t.perf_counter()
+            with self._gate, self._admitted(cost):
+                self._obs_wait(t_wait)
+                return self._obs_launch(runner)
         t0 = _t.perf_counter()
         with OT.span("parse"):
             stmt = parse_sql(query)
@@ -257,7 +313,7 @@ class Session:
             with self._gate, self._admitted(
                     self.config.resource.query_mem_bytes):
                 self._obs_wait(t_wait)
-                return self._run_tiled(texe)
+                return self._run_cached_tiled(ckey, texe)
         # capacity plane: itemized device-byte estimate of the fresh plan
         OC.record_statement(self.stmt_log, result.plan, self, est=est)
         self.stmt_log.bump("dispatches")
@@ -265,7 +321,7 @@ class Session:
         t_wait = _t.perf_counter()
         with self._gate, self._admitted(est.peak_bytes) as sid:
             self._obs_wait(t_wait)
-            return self._run_with_growth(result.plan, sid)
+            return self._run_with_growth(ckey, query, result.plan, sid)
 
     @staticmethod
     def _dispatch_seams(fault_point) -> None:
@@ -382,16 +438,150 @@ class Session:
                         if k[0] in names]:
                 del self._store_scan_cache[key]
 
-    def _run_tiled(self, texe):
-        """Run a tiled executable as the statement's launch; afterwards
-        the dispatch window's in-flight gauge (obs/capacity.py)."""
+    def _run_cached_tiled(self, ckey: str, texe):
+        """Cache a tiled executable's runner under the statement's key
+        (unless it reads table-function rows), then run it as the
+        statement's launch; afterwards the dispatch window's in-flight
+        gauge (obs/capacity.py)."""
+        from cloudberry_tpu_torch.exec import executor as X
         from cloudberry_tpu_torch.obs import capacity as OC
 
+        names = sorted({s.table_name
+                        for s in X.scans_of(texe._whole_plan())})
+        if not self._any_external(names):
+            report = texe.report
+            self._cache_statement(
+                ckey, names, texe.run,
+                self.config.resource.query_mem_bytes,
+                obs_bytes=max(int(report.get("est_step_bytes", 0)),
+                              int(report.get("est_finalize_bytes", 0))))
         out = self._obs_launch(texe.run)
         OC.record_tile_dispatch(self.stmt_log, texe.report)
         return out
 
-    def _run_with_growth(self, plan, stmt_id: int = 0):
+    def _any_external(self, names) -> bool:
+        """Whether any named table's rows change outside the versioning
+        that keys the caches — in the port, a table function's transient
+        table (exec/tablefunc.py), which re-runs its function at every
+        referencing statement. The JAX package's foreign, external and
+        directory tables count too; the port has none."""
+        return any(getattr(self.catalog.tables.get(n), "_tablefunc", None)
+                   for n in names)
+
+    # ------------------------------------------------- statement cache
+    # The prepared-statement / plan-cache analog: a repeated query string
+    # reuses its runner as long as every referenced table's data version
+    # is unchanged — shapes are static per version, so reuse is exact,
+    # never heuristic.
+
+    def _table_versions(self, names) -> tuple:
+        out = []
+        for n in names:
+            t = self.catalog.table(n)
+            out.append((n, getattr(t, "_version", 0),
+                        getattr(t, "_stats_version", 0)))
+        return tuple(out)
+
+    _STMT_CACHE_MAX = 64
+
+    def _cached_statement(self, ckey: str):
+        """(runner, admission cost, obs device-byte estimate) from a
+        live cache entry, else None — returned together so the caller
+        never re-indexes an entry a concurrent thread may have evicted.
+        LRU: a hit moves the entry to the dict's end (under the lock —
+        hits MUTATE the dict)."""
+        with self._stmt_lock:
+            entry = self._stmt_cache.pop(ckey, None)
+            if entry is not None:
+                self._stmt_cache[ckey] = entry  # LRU touch
+        if entry is None:
+            return None
+        from cloudberry_tpu_torch.exec.udf import registry_version
+
+        names, versions, cfg, ddlv, runner, cost, obs_bytes, _fbgen = \
+            entry
+        # ddlv pairs the catalog DDL version with the UDF registry
+        # version: re-registering a function must drop plans that baked
+        # its OLD results in at bind time. The config IDENTITY check is
+        # the config-epoch guard: any with_overrides swap replaces the
+        # frozen tree wholesale. _fbgen holds the place of the JAX
+        # package's feedback-store generation (plan/feedback.py, which
+        # comes with distributed execution): a constant 0 until then.
+        stale = (cfg is not self.config
+                 or ddlv != (self.catalog.ddl_version, registry_version()))
+        if not stale:
+            try:
+                stale = self._table_versions(names) != versions
+            except KeyError:
+                stale = True
+        if stale:
+            with self._stmt_lock:  # free the cached runner
+                self._stmt_cache.pop(ckey, None)
+            return None
+        return runner, cost, obs_bytes
+
+    def _execute_and_cache(self, ckey: str, query: str, plan):
+        """Build the statement's runner — the generic plan's rebind when
+        the skeleton has one (sched/paramplan.py), else a fresh
+        Executable — cache it unless the plan opts out or reads
+        table-function rows, and run it as the statement's launch."""
+        from cloudberry_tpu_torch.exec import executor as X
+        from cloudberry_tpu_torch.sched import paramplan
+
+        names = sorted({s.table_name for s in X.scans_of(plan)})
+        prep = None
+        if self.config.sched.generic_plans:
+            prep = paramplan.lookup_or_build(self, query, plan)
+        if prep is not None:
+            runner = lambda: prep.run(self)  # noqa: E731
+        else:
+            exe = X.compile_plan(plan, self)
+            runner = lambda: X.run_executable(  # noqa: E731
+                exe, X.prepare_inputs(exe, self))
+        if not getattr(plan, "_no_stmt_cache", False) \
+                and not self._any_external(names):
+            from cloudberry_tpu_torch.exec.resource import \
+                estimate_plan_memory
+
+            self._cache_statement(ckey, names, runner,
+                                  estimate_plan_memory(plan).peak_bytes)
+        X.build_kernels(self)
+        try:
+            return self._obs_launch(runner)
+        except X.ExecError:
+            if prep is not None and prep.built:
+                # the variant was built over this plan, which the growth
+                # loop is about to grow in place: drop it with the failed
+                # runner (a hit's variant holds another statement's plan
+                # and stays valid for its signature)
+                paramplan.forget(self, prep.gp)
+            raise
+
+    def _cache_statement(self, ckey: str, names, runner, cost: int = 0,
+                         obs_bytes: int | None = None) -> None:
+        """``cost`` is the ADMISSION reservation for cache hits;
+        ``obs_bytes`` (defaults to cost) is the device-byte estimate the
+        capacity plane observes — tiled runners reserve the whole budget
+        but measure their step working set."""
+        from cloudberry_tpu_torch.exec.udf import registry_version
+
+        entry = (
+            names, self._table_versions(names), self.config,
+            (self.catalog.ddl_version, registry_version()),
+            runner, cost,
+            cost if obs_bytes is None else int(obs_bytes),
+            0)  # the feedback generation's place (see _cached_statement)
+        with self._stmt_lock:
+            self._stmt_cache.pop(ckey, None)  # re-insert at the tail
+            while len(self._stmt_cache) >= self._STMT_CACHE_MAX:
+                # LRU eviction (hits reorder, so the head really is the
+                # least recently used) keeps the cache bounded under
+                # literal-inlining workloads
+                self._stmt_cache.pop(next(iter(self._stmt_cache)))
+            self._stmt_cache[ckey] = entry
+
+    def _run_with_growth(self, ckey: str, query: str, plan,
+                         stmt_id: int = 0):
         """Execute; on a detected join-expansion overflow, grow the pair
         buffer (re-checking admission) and retry — adaptive capacity, never
         truncation (exec/executor.py:grow_expansion). Growth that blows the
@@ -399,7 +589,7 @@ class Session:
         cross the ENGINE-WIDE vmem red line terminates this statement (the
         runaway_cleaner.c decision). Six growths at most (4x each), then a
         last run whose error surfaces."""
-        from cloudberry_tpu_torch.exec.executor import (ExecError, execute,
+        from cloudberry_tpu_torch.exec.executor import (ExecError,
                                                         grow_expansion)
         from cloudberry_tpu_torch.exec.resource import (ResourceError,
                                                         RunawayError,
@@ -407,8 +597,10 @@ class Session:
 
         for _ in range(6):
             try:
-                return self._obs_launch(lambda: execute(plan, self))
+                return self._execute_and_cache(ckey, query, plan)
             except ExecError as e:
+                with self._stmt_lock:  # drop the failed runner
+                    self._stmt_cache.pop(ckey, None)
                 if not grow_expansion(plan, str(e), allow_fallback=True):
                     raise
                 self.growth_events += 1
@@ -423,8 +615,8 @@ class Session:
                     texe = plan_tiled(plan, self)  # the grown plan spills
                     if texe is None:
                         raise
-                    return self._run_tiled(texe)
-        return self._obs_launch(lambda: execute(plan, self))
+                    return self._run_cached_tiled(ckey, texe)
+        return self._execute_and_cache(ckey, query, plan)
 
     def explain(self, query: str) -> str:
         """The plan text of a statement, without running it (one

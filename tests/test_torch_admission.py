@@ -322,15 +322,15 @@ def test_statement_scope_and_cancel():
     seen = []
     real = ts._run_with_growth
 
-    def spy(plan, stmt_id):
+    def spy(*a):
         h = lifecycle.current_handle()
         seen.append(h.statement_id)
         ts._recovery.note_progress(h.statement_id, 3)
-        return real(plan, stmt_id)
+        return real(*a)
 
     ts._run_with_growth = spy
     ts.sql("SELECT k FROM t")
-    ts.sql("SELECT k FROM t")
+    ts.sql("SELECT k FROM t WHERE k > 0")   # another text: not cached
     assert len(seen) == 2 and seen[1] > seen[0]
     # the scope's id is the statement log's id
     assert seen == [e["id"] for e in ts.stmt_log.recent(2)][::-1]

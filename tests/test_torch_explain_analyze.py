@@ -13,6 +13,10 @@ and q98 among them), spread over this file,
 ``test_torch_explain_analyze_tail.py`` (``torch_parity.EA_TEXTS``), and
 one tiled statement with its trailer lines.
 
+With generic plans on in both engines, EXPLAIN ANALYZE runs the generic
+form of Q1 and Q3 (literals as ``$params`` slots) with equal bindings and
+equal text.
+
 Pipeline contracts of the port: EXPLAIN ANALYZE reaches the same kernels as
 ``sql`` of the same statement, the same number of times (the wrappers'
 calls counted on the CPU); its per-node counts cross to the host in ONE
@@ -24,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from cloudberry_tpu_torch import Config as TorchConfig
 from cloudberry_tpu_torch import Session as TorchSession
 from cloudberry_tpu_torch import tpcds
 from cloudberry_tpu_torch import tpch
@@ -70,6 +75,48 @@ def test_tpcds_explain_analyze_matches_jax(ds_sessions, qname,
     js, ts = ds_sessions
     text = held_explain_analyze(js, ts, tpcds.QUERIES[qname], monkeypatch)
     assert ("Window" in text) == (qname in EA_WINDOWED)
+
+
+@pytest.fixture(scope="module")
+def generic_sessions():
+    """The JAX package with generic plans on (its default; Pallas off, as
+    in ``explain_analyze_session``) and a port session with generic plans
+    on (the port's default is off) over the same TPC-H tables."""
+    import cloudberry_tpu as cb
+
+    from torch_parity import carry_tables
+
+    js = cb.Session(cb.get_config().with_overrides(
+        **{"exec.use_pallas": False}))
+    load_tpch(js, sf=0.01, seed=7)
+    ts = TorchSession(TorchConfig().with_overrides(
+        **{"sched.generic_plans": True}), device="cpu")
+    carry_tables(js, ts)
+    return js, ts
+
+
+@pytest.mark.parametrize("qname", ["q1", "q3"])
+def test_generic_form_matches_jax(generic_sessions, qname, monkeypatch):
+    """EXPLAIN ANALYZE runs a statement's generic-plan form (literals as
+    ``$params`` slots, scan row counts as ``$nrw`` slots) with its
+    bindings fed as the ``$params`` input, in both engines: the bindings
+    are equal, and the text (timings stripped) equals the JAX package's,
+    with the ``sql`` path's kernels and root rows."""
+    from cloudberry_tpu.exec import instrument as JI
+    from cloudberry_tpu_torch.exec import instrument as TI
+
+    js, ts = generic_sessions
+    seen = {}
+    with pytest.MonkeyPatch.context() as mp:
+        for key, mod in (("port", TI), ("jax", JI)):
+            def spy(session, plan, real=mod._generic_form, key=key):
+                seen[key] = real(session, plan)
+                return seen[key]
+            mp.setattr(mod, "_generic_form", spy)
+        held_explain_analyze(js, ts, tpch.QUERIES[qname], monkeypatch)
+    assert seen["port"] and list(seen["port"]) == list(seen["jax"])
+    for k, v in seen["jax"].items():
+        assert seen["port"][k].dtype == v.dtype and seen["port"][k] == v
 
 
 def _load_big(s):

@@ -64,10 +64,17 @@ def test_skew_join_grows_and_matches_numpy_and_jax(skew):
     assert js.growth_events > 0
     assert want.columns["n"][want.sel].tolist() == [n]
     assert want.columns["s"][want.sel].tolist() == [s]
-    # the grown plan is not kept: a second statement grows again
-    events = ts.growth_events
-    assert ts.sql(Q).columns["n"].tolist() == [n]
-    assert ts.growth_events > events
+    # the grown plan is kept, as in the JAX package: a second statement
+    # is a statement-cache hit and grows no more
+    events, jevents = ts.growth_events, js.growth_events
+    hits = ts.counters.counter("stmt_cache_hits")
+    got = ts.sql(Q)
+    assert got.columns["n"][got.sel].tolist() == [n]
+    assert ts.growth_events == events
+    assert ts.counters.counter("stmt_cache_hits") == hits + 1
+    want = js.sql(Q)
+    assert want.columns["n"][want.sel].tolist() == [n]
+    assert js.growth_events == jevents
 
 
 def test_overflow_surfaces_after_the_last_growth(skew, monkeypatch):

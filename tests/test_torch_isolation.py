@@ -102,7 +102,11 @@ def test_unported_paths_raise():
     s.sql("insert into t values (1, 'x'), (2, 'y')")
     with pytest.raises(NotImplementedError):
         s.sql("begin")
-    with pytest.raises(NotImplementedError):
+    # scalar UDFs are ported: an unknown function is the reference's
+    # BindError
+    from cloudberry_tpu_torch.plan.binder import BindError
+
+    with pytest.raises(BindError, match="unknown function"):
         s.sql("select nosuchfunc(a) from t")
     with pytest.raises(NotImplementedError):
         s.sql("create materialized view mv as select a from t")
@@ -118,8 +122,9 @@ def test_unported_paths_raise():
 
 
 def test_paramplan_carries_normalize_only():
-    """Only ``normalize`` of generic plans is ported; any other name of
-    the module raises NotImplementedError."""
+    """``normalize`` equals the JAX package's; generic plans are ported
+    but for the dispatcher's stacked launch, whose names raise
+    NotImplementedError; any other unknown name is an AttributeError."""
     from cloudberry_tpu.sched import paramplan as JP
     from cloudberry_tpu_torch.sched import paramplan as TP
 
@@ -127,7 +132,11 @@ def test_paramplan_carries_normalize_only():
                 "insert into t values (1)", "(select 1) union (select 2)",
                 "with q as (select 1.5 as x) select x from q", ""):
         assert TP.normalize(sql) == JP.normalize(sql)
+    assert callable(TP.analyze) and callable(TP.lookup_or_build)
+    for name in ("prepare_one", "run_batch"):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            getattr(TP, name)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        TP.analyze
+        TP.GenericPlan.rung_fn(None, None, 2)
     with pytest.raises(AttributeError):
         TP.__wrapped__

@@ -223,21 +223,21 @@ def test_two_threads_share_one_port_session(monkeypatch):
     s.sql("insert into t values " +
           ", ".join(f"({i % 5}, {i})" for i in range(100)))
     q = s.catalog.resource_queues["one"]
-    real = TX.execute
+    real = TX.run_executable
     spans, lock = [], threading.Lock()
     waited = []
 
-    def slow(plan, session):
+    def slow(exe, tables):
         t0 = time.monotonic()
         if not waited:
             time.sleep(0.3)
             waited.append(q.waiting)
-        out = real(plan, session)
+        out = real(exe, tables)
         with lock:
             spans.append((t0, time.monotonic()))
         return out
 
-    monkeypatch.setattr(TX, "execute", slow)
+    monkeypatch.setattr(TX, "run_executable", slow)
     out = {}
 
     def run(i):
