@@ -3,7 +3,9 @@
 The reference keeps ~6k lines of GUCs (``src/backend/utils/misc/guc_gp.c``).
 Here configuration is a typed, immutable dataclass tree; a session carries
 one, and ``with_overrides`` produces a modified copy. This port carries the
-fields its single-segment slice reads: the planner's, durable storage, the
+fields its slices read: the segment count and the motion transport, the
+planner's (motion choices, the memo, direct dispatch, runtime filters),
+the runtime join-filter digests, feedback, durable storage, the
 device buffer pool, the join-index cache size, memory governance (the
 per-query budget, the concurrency slots, the engine-wide red line and the
 resource queue), the statement timeout, the observability plane and the
@@ -22,9 +24,56 @@ from typing import Any
 
 
 @dataclass(frozen=True)
-class PlannerConfig:
-    """Planner settings the single-segment slice reads."""
+class InterconnectConfig:
+    """Motion transport knobs (reference: gp_interconnect_* GUCs,
+    contrib/interconnect/ic_modules.c:26-160 vtable selection). On one
+    card the segments share the device: a motion is an index transpose
+    of the segments' wire buffers (parallel/transport.py)."""
 
+    # Per-destination bucket capacity for hash redistribute, as a multiple of
+    # fair share (local_rows / n_segments). The moral equivalent of the UDP
+    # interconnect's capacity-based flow control (ic_udpifc.c:3018-3040):
+    # rows over capacity are detected and reported, not silently dropped.
+    capacity_factor: float = 2.0
+    # Motion transport (the ic_modules.c vtable selection). "xla" is the
+    # one-card exchange (the JAX package's name for its native
+    # collectives, kept so configs carry over); "ring" is not ported.
+    backend: str = "xla"
+    # Packed wire format (exec/kernels.py wire_layout): every motion
+    # bitcasts ALL its columns plus the row-validity mask into one
+    # (rows, W) int32 buffer, so gather/broadcast/redistribute each move
+    # ONE buffer instead of one per column. False falls back to the
+    # per-column exchange (results are bit-identical either way).
+    packed_wire: bool = True
+
+
+@dataclass(frozen=True)
+class PlannerConfig:
+    """Planner settings: motion choices (the cost-model analog of
+    cdbpath.c), the memo, direct dispatch, runtime filters, autostats and
+    point lookups."""
+
+    # Broadcast the smaller join side instead of redistributing both when its
+    # (estimated) row count is below this (reference: cdbpath_motion_for_join
+    # cdbpath.c:1346 chooses broadcast vs redistribute by cost).
+    broadcast_threshold: int = 100_000
+    # Cascades-lite memo exploration (plan/memo.py, the gporca role): cost
+    # and compare motion strategies over whole join trees — including the
+    # GROUP BY's final redistribute — instead of deciding greedily per
+    # join. Off falls back to the cdbpath.c-style rules alone.
+    enable_memo: bool = True
+    # Prune dispatch to a single segment for point predicates on the
+    # distribution key (reference: cdbtargeteddispatch.c).
+    enable_direct_dispatch: bool = True
+    # Push a semi-join runtime filter below the probe's redistribute when
+    # the estimated build side is at most this many rows (0 disables) —
+    # the nodeRuntimeFilter.c analog, exact rather than bloom.
+    runtime_filter_threshold: int = 1_000_000
+    # Final grouped aggregation runs on ONE segment via gather when the
+    # group capacity is at most this (the GATHER_SINGLE motion analog,
+    # plannodes.h:1638): immune to hash-space skew across destinations,
+    # and cheaper than an all_to_all for small partials. 0 disables.
+    gather_single_threshold: int = 8192
     # Auto-ANALYZE after DML (the gp_autostats_mode analog,
     # autostats.c:283): "none" | "on_no_stats" (first DML on an
     # unanalyzed table) | "on_change" (row count drifted more than
@@ -38,10 +87,24 @@ class PlannerConfig:
 
 @dataclass(frozen=True)
 class JoinFilterConfig:
-    """The join-index cache (exec/joinindex.py). The JAX package's
-    runtime join-filter digests are a multi-segment feature and are not
-    carried."""
+    """Runtime join-filter digests + the join-index cache (the
+    semijoin-reduction / runtime-filter-pushdown pair: ORCA's semijoin
+    transforms, nodeRuntimeFilter.c's bloom mode).
 
+    The EXACT runtime filter (planner.runtime_filter_threshold) gathers
+    every packed build key and is preferred for small builds; the DIGEST
+    filter here covers the builds too big for that: a fixed-size bloom
+    bitmap plus packed-key min/max, exchanged as ONE small buffer and
+    applied to probe rows BEFORE their redistribute. Bloom false positives
+    only let extra rows through — results stay bit-identical."""
+
+    # Digest (bloom + min/max) runtime filters on probe-side redistributes
+    # whose estimated wire savings exceed the digest broadcast cost.
+    enabled: bool = True
+    # Bloom bitmap size in bits (rounded to a power of two >= 64).
+    bloom_bits: int = 1 << 18
+    # Hash probes per key (false-positive rate ~ (1 - e^{-k·n/m})^k).
+    bloom_k: int = 3
     # Join-index (sorted-build) cache entries per cache scope: cached
     # (sort order, sorted packed keys, packing ranges) per build table
     # version — repeated statements skip the build-side argsort entirely.
@@ -118,8 +181,7 @@ class ObsConfig:
     """Observability plane (cloudberry_tpu_torch/obs/): statement trace
     spans, the session's metrics registry, and the pg_stat_statements-class
     aggregate table. ON by default; every ring and table below is
-    explicitly bounded. The JAX package's ``skew_ratio`` (a motion's skew
-    alarm) belongs to distributed execution and is not carried."""
+    explicitly bounded."""
 
     # Master switch for the OPTIONAL telemetry (trace spans, stage
     # histograms, per-skeleton aggregates, progress, capacity histograms,
@@ -143,6 +205,34 @@ class ObsConfig:
     slow_ms: float = 5000.0
     # Flight bundles retained (ring; oldest drop).
     flight_ring: int = 16
+    # Per-motion skew alarm (obs capacity plane): a redistribute whose
+    # global rows-per-destination max/mean ratio reaches this bumps
+    # ``skew_events`` and stamps the ratio on EXPLAIN ANALYZE's motion
+    # annotation. 0 disables the counter (histograms still record).
+    skew_ratio: float = 3.0
+
+
+@dataclass(frozen=True)
+class FeedbackConfig:
+    """Feedback-driven re-optimization (plan/feedback.py).
+
+    After every distributed statement the motion stats (per-destination
+    demand vectors, runtime-filter survivor counts) fold into
+    per-(table, key-set) sketches keyed by content-stable tokens — DML
+    version bumps and relevant config swaps invalidate by construction.
+    The planner consumes them: the memo re-ranks join order / motion
+    choice, the distributor seeds capacity rungs at the observed demand
+    rung, and the cost model clamps group counts. The mid-statement
+    adaptive replan and its fields belong to tiled distributed execution
+    (ROADMAP Queue A 7)."""
+
+    enabled: bool = True
+    # Multiplier over observed per-destination demand when seeding a
+    # rung (rung_up gives pow2 headroom on top).
+    headroom: float = 1.25
+    # Persist sketches alongside ANALYZE stats (store-backed sessions
+    # only) so fresh sessions inherit them.
+    persist: bool = True
 
 
 @dataclass(frozen=True)
@@ -217,11 +307,16 @@ class SchedConfig:
 
 @dataclass(frozen=True)
 class Config:
+    # Segments of the distributed plan (the gang size). On one card every
+    # segment is a set of row views of the same device's tensors.
+    n_segments: int = 1
     # Per-statement wall-clock limit in seconds (the statement_timeout
     # GUC): every statement gets a deadline this far out; cooperative
     # checks at execution seams (and the watchdog, lifecycle.py) convert
     # an overrun into the retryable StatementTimeout. 0 disables.
     statement_timeout_s: float = 0.0
+    interconnect: InterconnectConfig = field(
+        default_factory=InterconnectConfig)
     planner: PlannerConfig = field(default_factory=PlannerConfig)
     join_filter: JoinFilterConfig = field(default_factory=JoinFilterConfig)
     bufferpool: BufferPoolConfig = field(default_factory=BufferPoolConfig)
@@ -234,6 +329,7 @@ class Config:
     recovery: RecoveryConfig = field(default_factory=RecoveryConfig)
     obs: ObsConfig = field(default_factory=ObsConfig)
     sched: SchedConfig = field(default_factory=SchedConfig)
+    feedback: FeedbackConfig = field(default_factory=FeedbackConfig)
 
     def with_overrides(self, **kv: Any) -> "Config":
         """Return a copy with dotted-path overrides, e.g.

@@ -1,4 +1,4 @@
-"""Single-segment executor: plan tree → eager PyTorch operators.
+"""Executor: plan tree → eager PyTorch operators.
 
 The reference pulls tuples through a process-per-slice Volcano tree
 (ExecProcNode, src/backend/executor/execProcnode.c); the JAX package traces
@@ -9,6 +9,11 @@ exec/cuda_kernels.py. Runtime "can't happen" conditions (agg capacity
 overflow, duplicate build keys in a PK join) stay device tensors until the
 statement ends, and are read on the host ONCE (``raise_checks``) — the
 shape-world analog of ereport().
+
+A distributed plan (``n_segments > 1``) runs through
+exec/dist_executor.py, whose per-segment lowerer subclasses this one and
+overrides the scan, motion, runtime-filter and ``global_any_of`` hooks.
+A direct-dispatched plan runs here over one segment's shard.
 """
 
 from __future__ import annotations
@@ -58,9 +63,15 @@ class Executable:
 
 
 def execute(plan: N.PlanNode, session) -> ColumnBatch:
-    exe = compile_plan(plan, session)
+    seg = getattr(plan, "_direct_segment", None)
     build_kernels(session)
-    return run_executable(exe, prepare_inputs(exe, session))
+    if session.config.n_segments > 1 and seg is None:
+        from cloudberry_tpu_torch.exec.dist_executor import \
+            execute_distributed
+
+        return execute_distributed(plan, session)
+    exe = compile_plan(plan, session)
+    return run_executable(exe, prepare_inputs(exe, session, segment=seg))
 
 
 def build_kernels(session) -> float:
@@ -128,35 +139,45 @@ def compile_plan(plan: N.PlanNode, session,
     return Executable(plan, run, table_names, store_scans)
 
 
-def prepare_tables(table_names: list[str], session) -> dict:
-    """Whole RAM tables as device tensors, by name (validity masks under
+def prepare_tables(table_names: list[str], session,
+                   segment: int | None = None) -> dict:
+    """RAM tables as device tensors, by name (validity masks under
     ``$nn:<col>``) — from the session's per-version device copies. A cold
-    stored table read whole (not through a pruned scan) loads first."""
+    stored table read whole (not through a pruned scan) loads first.
+    ``segment``: ONE segment's shard of each partitioned table (direct
+    dispatch — the cdbtargeteddispatch analog); replicated tables whole."""
     tables = {}
     for name in table_names:
-        session.catalog.table(name).ensure_loaded()
-        tables[name] = session.device_table(name)
+        t = session.catalog.table(name)
+        t.ensure_loaded()
+        if segment is None or t.policy.kind == "replicated":
+            tables[name] = session.device_table(name)
+        else:
+            ds = session.device_shards(name)
+            tables[name] = {c: v[segment] for c, v in ds.columns.items()}
     return tables
 
 
-def prepare_inputs(exe: Executable, session) -> dict:
+def prepare_inputs(exe: Executable, session,
+                   segment: int | None = None) -> dict:
     """All inputs for one executable: RAM tables by name plus pruned
     store reads and point slices keyed by scan identity plus cached join
-    indexes."""
+    indexes (``segment``: a direct-dispatched statement's shard)."""
     return assemble_inputs(exe.table_names, exe.store_scans or (), session,
-                           plan=exe.plan)
+                           plan=exe.plan, segment=segment)
 
 
-def assemble_inputs(table_names, store_scans, session, plan=None) -> dict:
+def assemble_inputs(table_names, store_scans, session, plan=None,
+                    segment: int | None = None) -> dict:
     """Inputs for the named RAM tables and the keyed scans; with ``plan``,
     also the cached join indexes its joins are annotated with. The tiled
     executors call it with every scan except the tile stream, which is
     never uploaded whole."""
-    tables = prepare_tables(table_names, session)
+    tables = prepare_tables(table_names, session, segment=segment)
     for s in store_scans:
         if hasattr(s, "_point_rows"):
             tables[s._input_key] = point_scan_slice(
-                s.table_name, s._point_rows, session)
+                s.table_name, s._point_rows, session, segment)
         else:
             tables[s._input_key] = _load_store_scan(s, session)
     if plan is not None:
@@ -164,17 +185,19 @@ def assemble_inputs(table_names, store_scans, session, plan=None) -> dict:
         # (exec/joinindex.py)
         from cloudberry_tpu_torch.exec.joinindex import join_index_inputs
 
-        tables.update(join_index_inputs(plan, session))
+        tables.update(join_index_inputs(plan, session, segment))
     return tables
 
 
-def point_scan_slice(table_name: str, rows, session) -> dict:
+def point_scan_slice(table_name: str, rows, session,
+                     segment: int | None = None) -> dict:
     """One point-bound scan's input columns: the matched rows of the
-    table. The JAX package slices them on the host and uploads them at
-    every statement; the port gathers them from the table's device copy
-    (``Session.device_table``) with one index tensor — the same rows in
+    table (or of its direct-dispatched shard). The JAX package slices
+    them on the host and uploads them at every statement; the port
+    gathers them from the table's device copy (``Session.device_table``,
+    ``Session.device_shards``) with one index tensor — the same rows in
     the same order, fewer bytes moved."""
-    cols = session.device_table(table_name)
+    cols = prepare_tables([table_name], session, segment)[table_name]
     idx = torch.from_numpy(np.asarray(rows, dtype=np.int64)).to(
         session.device)
     return {c: v[idx] for c, v in cols.items()}
@@ -418,16 +441,15 @@ def grow_expansion(plan: N.PlanNode, message: str, factor: int = 4,
     """Adaptive recovery from a detected join-expansion overflow (the
     increase-nbatch-and-retry discipline of nodeHash.c): grow the named
     join's pair buffer by ``factor`` and report success. The caller
-    re-runs — results are never truncated.
+    re-runs — results are never truncated. A skew-blown redistribute
+    bucket recovers the same way, except it promotes to the next CAPACITY
+    RUNG that fits the observed demand (``factor`` does not apply there).
 
-    ``allow_fallback``: when the message names no join of ``plan``, grow
-    every expansion join's buffer instead of giving up (padding at worst,
-    progress guaranteed); the statement retry loop sets it.
-
-    The reference also recovers redistribute and host-bucket overflows of
-    a multi-segment plan by promoting the motion's capacity rung. One
-    segment has no motion buffers (distributed execution is not ported),
-    so such a message returns False here."""
+    ``allow_fallback``: when the message's node id resolves nowhere in
+    ``plan``, grow every candidate buffer instead of giving up (padding at
+    worst, progress guaranteed); the statement retry loop sets it — there
+    an unresolvable id means the runner was built over another,
+    signature-equal plan (a generic plan's rebind, sched/paramplan.py)."""
     from cloudberry_tpu_torch.lifecycle import check_cancel
 
     # cancel seam: each grow-and-retry round re-runs the whole statement
@@ -439,19 +461,49 @@ def grow_expansion(plan: N.PlanNode, message: str, factor: int = 4,
             nd for nd in all_nodes(plan)
             if isinstance(nd, N.PJoin)
             and (not nd.unique_build or nd.residual is not None))
-    for nd in hits:
-        nd.out_capacity = max(nd.out_capacity * factor, 64)
-        # capacity re-derivations (the tiled planner's _retile) must never
-        # shrink a runtime-grown buffer back below what overflowed
-        nd._min_out_cap = nd.out_capacity
-    return bool(hits)
+    if hits:
+        for nd in hits:
+            nd.out_capacity = max(nd.out_capacity * factor, 64)
+            # capacity re-derivations (the tiled planner's _retile) must
+            # never shrink a runtime-grown buffer back below what
+            # overflowed
+            nd._min_out_cap = nd.out_capacity
+        return True
+    if "redistribute overflow" in message:
+        m = re.search(r"\(node (\d+)\)", message)
+        nid = int(m.group(1)) if m is not None else -1
+        # kind filter matters: a stale id from a runner built over
+        # another plan could alias ANY current node's address — never
+        # promote a gather/broadcast
+        motions = _dedupe_nodes(
+            nd for nd in all_nodes(plan)
+            if isinstance(nd, N.PMotion) and nd.kind == "redistribute")
+        hits = [nd for nd in motions if id(nd) == nid]
+        if not hits and allow_fallback:
+            hits = motions
+        for nd in hits:
+            # out_capacity tracks bucket_cap × nseg; recover the factor
+            # so memory estimates see the grown buffer
+            nseg = max(1, (nd.out_capacity or nd.bucket_cap)
+                       // max(nd.bucket_cap, 1))
+            # the next rung, or straight to the rung fitting the observed
+            # global bucket demand (dist_executor.record_motion_stats)
+            observed = getattr(nd, "_observed_bucket", 0)
+            nd.bucket_cap = K.rung_up(max(nd.bucket_cap * 2, observed, 64))
+            nd.out_capacity = nd.bucket_cap * nseg
+            nd._min_bucket_cap = nd.bucket_cap
+        return bool(hits)
+    return False
 
 
 # ------------------------------------------------------------- plan lowering
 
 
 class Lowerer:
-    """Walks a plan into torch ops on one device."""
+    """Walks a plan into torch ops on one device. Subclassed by the
+    distributed executor (exec/dist_executor.py), which overrides the
+    scan (per-segment inputs), motion, runtime-filter and
+    ``global_any_of`` hooks."""
 
     def __init__(self, tables, device, params=None):
         self.tables = tables
@@ -499,16 +551,13 @@ class Lowerer:
             cols, sel = self.lower(node.child)
             return cols, K.limit_mask(sel, node.limit, node.offset)
         if isinstance(node, N.PMotion):
-            # single segment: loopback motion is the identity
-            return self.lower_shared(node.child)
+            return self.motion(node)
         if isinstance(node, N.PWindow):
             return self.window(node)
         if isinstance(node, N.PShare):
             return self.lower_shared(node.child)
         if isinstance(node, N.PRuntimeFilter):
-            # single segment: the filter would only duplicate the join's
-            # own matching — pass through
-            return self.lower(node.child)
+            return self.runtime_filter(node)
         if isinstance(node, N.PConcat):
             outs = [self.lower(c) for c in node.inputs]
             cols = {f.name: torch.cat([o[0][f.name] for o in outs])
@@ -544,6 +593,25 @@ class Lowerer:
             n = self.params[key]
         sel = torch.arange(node.capacity, device=self.device) < n
         return cols, sel
+
+    def motion(self, node: N.PMotion):
+        """Single program: a loopback motion is the identity.
+        ``lower_shared``: a runtime filter may reference the motion's
+        child (build side) too."""
+        return self.lower_shared(node.child)
+
+    def runtime_filter(self, node: N.PRuntimeFilter):
+        """Single program: the filter would only duplicate the join's own
+        matching — pass through."""
+        return self.lower(node.child)
+
+    def global_any_of(self, node: N.PlanNode, fn) -> torch.Tensor:
+        """Any() of ``fn(lowerer)`` across ALL data. ``fn`` computes a
+        lowerer's local 0-d bool from ITS lowering (through
+        ``lower_shared``); one program answers locally, the distributed
+        gang once for every segment, keyed by ``node`` (the reference's
+        ``global_any``: null-aware NOT IN needs a cluster-wide answer)."""
+        return fn(self)
 
     def lower_shared(self, node: N.PlanNode):
         """Lower a subtree at most once (PShare / runtime-filter build
@@ -680,7 +748,10 @@ class Lowerer:
                 if pkv is not None:
                     sel = sel & pkv
                 if bkv is not None:
-                    sel = sel & ~(bsel & ~bkv).any()
+                    # the build-side NULL test must be GLOBAL across
+                    # segments (the NULL row may live on another shard)
+                    sel = sel & ~self.global_any_of(
+                        node, lambda low: _null_build_key(low, node))
         else:
             raise ExecError(f"join kind {node.kind}")
         return cols, sel
@@ -1210,6 +1281,13 @@ class Lowerer:
             out_aggs = {n: _pad(c, pad) for n, c in out_aggs.items()}
             occupied = _pad(occupied, pad)
         return {**out_keys, **out_aggs}, occupied
+
+
+def _null_build_key(low: Lowerer, node: N.PJoin) -> torch.Tensor:
+    """A null-aware anti join's local part of its global test: does this
+    lowerer's build side hold a selected row with a NULL key?"""
+    bcols, bsel = low.lower_shared(node.build)
+    return (bsel & ~low.expr(node.build_key_valid, bcols)).any()
 
 
 def merge_group_aggregate(key_cols, agg_values, specs, sel, capacity: int):

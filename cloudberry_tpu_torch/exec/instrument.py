@@ -25,11 +25,12 @@ analog (src/include/utils/metrics_utils.h:39): every instrumented run
 emits a QueryMetrics record to each registered hook; a raising hook is
 counted (``metrics_hook_errors``) and never aborts the statement.
 
-One segment: the JAX package's distributed instrumentation
-(``_run_instrumented_dist``, ``_dist_counts_host``) belongs to a module
-the port does not have yet. EXPLAIN ANALYZE runs the generic-plan form
-of a statement (``_generic_form``) with its bindings as ``$params``, as
-the JAX package does.
+A distributed plan counts through the same gang the statement runs
+(exec/dist_executor.py with ``instrument=True``): partitioned nodes sum
+their counts over the segments, replicated (post-gather) nodes count
+once. EXPLAIN ANALYZE runs the generic-plan form of a statement
+(``_generic_form``) with its bindings as ``$params``, as the JAX package
+does.
 """
 
 from __future__ import annotations
@@ -536,6 +537,13 @@ def run_instrumented(plan: N.PlanNode, session, query: str = ""):
     """
     from cloudberry_tpu_torch.exec import executor as X
 
+    if session.config.n_segments > 1:
+        batch, counts_host, compile_s, wall_s = \
+            _run_dist_instrumented(plan, session)
+        metrics = _metrics(plan, counts_host, query, wall_s, compile_s,
+                           batch.num_rows())
+        _emit(session, metrics)
+        return batch, metrics
     device = session.device
 
     class InstrLowerer(InstrumentingMixin, X.Lowerer):
@@ -565,16 +573,22 @@ def run_instrumented(plan: N.PlanNode, session, query: str = ""):
     return batch, metrics
 
 
-def _run_instrumented_dist(plan: N.PlanNode, session, query: str):
-    raise NotImplementedError(
-        "distributed EXPLAIN ANALYZE: the distributed executor is not yet "
-        "ported")
+def _run_dist_instrumented(plan: N.PlanNode, session, params=None,
+                           log=None):
+    """One instrumented gang run, finished as every distributed run is
+    (dist_executor.finish_run): (batch, per-node counts, compile_s,
+    wall_s). Partitioned nodes' counts sum over segments; post-gather
+    nodes count once, via segment 0 (they are replicated)."""
+    from cloudberry_tpu_torch.exec import dist_executor as DX
 
-
-def _dist_counts_host(plan, counts) -> dict:
-    raise NotImplementedError(
-        "distributed EXPLAIN ANALYZE: the distributed executor is not yet "
-        "ported")
+    fn = DX.compile_distributed(plan, session, instrument=True)
+    inputs = DX.prepare_dist_inputs(plan, session)
+    if params:
+        for d in inputs:
+            d["$params"] = params
+    out, compile_s, wall_s = _timed_run(fn, inputs, session, log=log)
+    batch, stats = DX.finish_run(plan, session, out)
+    return batch, DX.instrument_counts(plan, stats), compile_s, wall_s
 
 
 # --------------------------------------- EXPLAIN ANALYZE via the pipeline
@@ -583,10 +597,11 @@ def _dist_counts_host(plan, counts) -> dict:
 def run_pipeline(plan: N.PlanNode, session, query: str):
     """EXPLAIN ANALYZE through the STATEMENT PIPELINE: the same lifecycle
     bracket (handle + scope + StatementLog entry), the same dispatch
-    seams and admission gate, and the shared compile entry point
-    (executor.compile_plan with ``instrument=True``), so what EXPLAIN
-    ANALYZE times is the program the statement path runs, with the same
-    kernels — not a private lowerer's variant.
+    seams and admission gate, and the shared compile entry points
+    (executor.compile_plan / dist_executor.compile_distributed with
+    ``instrument=True``), so what EXPLAIN ANALYZE times is the program
+    the statement path runs, with the same kernels — not a private
+    lowerer's variant.
 
     Returns (batch, QueryMetrics, annotations): per-node row counts plus
     the motion/join annotations for explain_analyze_text."""
@@ -649,7 +664,7 @@ def _pipeline_once(plan, session, query):
                                                     check_admission)
 
     session.last_tiled_report = None  # set again by the tiled fallback
-    packed = True   # one segment: no motion, so the wire flag is moot
+    packed = session.config.interconnect.packed_wire
     try:
         est = check_admission(plan, session)
     except ResourceError:
@@ -679,19 +694,27 @@ def _pipeline_once(plan, session, query):
     from cloudberry_tpu_torch.obs import capacity as OC
 
     OC.record_statement(session.stmt_log, plan, session, est=est)
+    seg = getattr(plan, "_direct_segment", None)
     with session._gate, session._admitted(est.peak_bytes):
-        exe = X.compile_plan(plan, session, instrument=True)
-        inputs = X.prepare_inputs(exe, session)
+        params = None
         if bindings:
             from cloudberry_tpu_torch.sched.paramplan import \
                 device_bindings
 
-            inputs["$params"] = device_bindings(bindings, session.device)
-        (cols, sel, checks, counts), compile_s, wall_s = \
-            _timed_run(exe.fn, inputs, session, log=session.stmt_log)
-        X.raise_checks(checks)
-        batch = X.make_batch(plan, cols, sel)
-        counts_host = read_counts(counts)
+            params = device_bindings(bindings, session.device)
+        if session.config.n_segments > 1 and seg is None:
+            batch, counts_host, compile_s, wall_s = _run_dist_instrumented(
+                plan, session, params, log=session.stmt_log)
+        else:
+            exe = X.compile_plan(plan, session, instrument=True)
+            inputs = X.prepare_inputs(exe, session, segment=seg)
+            if params:
+                inputs["$params"] = params
+            (cols, sel, checks, counts), compile_s, wall_s = \
+                _timed_run(exe.fn, inputs, session, log=session.stmt_log)
+            X.raise_checks(checks)
+            counts_host = read_counts(counts)
+            batch = X.make_batch(plan, cols, sel)
     metrics = _metrics(plan, counts_host, query, wall_s, compile_s,
                        batch.num_rows())
     return batch, metrics, motion_annotations(plan, counts_host, packed)

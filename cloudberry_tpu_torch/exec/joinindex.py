@@ -15,17 +15,22 @@ when it finds it: a repeated statement uploads nothing and sorts nothing.
 Any write bumps the table version, which changes the key — the version
 machinery IS the invalidation contract.
 
-Eligible joins (``annotate_join_index``): the build subtree is a bare
-full-table scan of a RAM table (optionally under PShare), every build key
-is a plain ColumnRef onto a scanned column, and there is no build-side
-key-validity expression (NULL-key masking would change the masked sort
-order at run time). Pruned store scans and point-lookup slices change
-their row set per statement, so they keep the in-program sort. Joins the
-probe-join kernel takes never consult the index (the kernel runs first).
+Eligible joins (``annotate_join_index``, stamped after distribution):
+the build subtree is a bare full-table scan of a RAM table (optionally
+under PShare), or that scan under a plain broadcast motion — the gathered
+buffer's row order is deterministic (shard-major), so the index can be
+built over the same layout; every build key is a plain ColumnRef onto a
+scanned column, and there is no build-side key-validity expression
+(NULL-key masking would change the masked sort order at run time). Pruned
+store scans and point-lookup slices change their row set per statement,
+so they keep the in-program sort. Joins the probe-join kernel takes never
+consult the index (the kernel runs first).
 
-The JAX package's 'shard' and 'gathered' layouts belong to multi-segment
-execution, which the port does not carry: every index here is a whole
-table's ('table' mode).
+Layouts (``JoinIndexSpec.mode``), as in the JAX package: 'table' (the
+whole table, or ONE shard under direct dispatch), 'shard' (a colocated
+distributed build: one index per segment, over that segment's shard) and
+'gathered' (a broadcast build: one index over the segment-major gathered
+buffer, each shard a selected prefix).
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ class JoinIndexSpec:
     phys: tuple       # physical key column names, join-key order
     bits: int         # PJoin.pack_bits
     capacity: int     # build scan rows (its capacity)
+    mode: str = "table"   # 'table' | 'shard' | 'gathered'
 
 
 # ------------------------------------------------------------- annotation
@@ -61,19 +67,30 @@ def annotate_join_index(plan: N.PlanNode, session) -> None:
         return
     from cloudberry_tpu_torch.exec import executor as X
 
+    nseg = session.config.n_segments
+    direct = getattr(plan, "_direct_segment", None) is not None
     for node in X.all_nodes(plan):
         if isinstance(node, N.PJoin) and not hasattr(node, "_jix"):
-            spec = _build_spec(node, session)
+            spec = _build_spec(node, session, nseg, direct)
             if spec is not None:
                 node._jix = spec
 
 
-def _build_spec(node: N.PJoin, session):
+def _build_spec(node: N.PJoin, session, nseg: int = 1,
+                direct: bool = False):
     from cloudberry_tpu_torch.exec.executor import keyed_scan
 
     if node.build_key_valid is not None:
         return None
     build = node.build
+    mode = "table"
+    while isinstance(build, N.PShare):
+        build = build.child
+    if isinstance(build, N.PMotion):
+        if build.kind != "broadcast" or build.pre_compact:
+            return None
+        mode = "gathered"
+        build = build.child
     while isinstance(build, N.PShare):
         build = build.child
     if not isinstance(build, N.PScan) or build.table_name == "$dual":
@@ -83,7 +100,7 @@ def _build_spec(node: N.PJoin, session):
         # statement — the table version cannot key their layout
         return None
     try:
-        session.catalog.table(build.table_name)
+        t = session.catalog.table(build.table_name)
     except KeyError:
         return None
     rev = {out: p for p, out in build.column_map.items()}
@@ -95,10 +112,15 @@ def _build_spec(node: N.PJoin, session):
         if p is None:
             return None
         phys.append(p)
+    if mode == "table" and nseg > 1 and not direct \
+            and t.policy.kind != "replicated":
+        # distributed colocated build: the fragment is this segment's
+        # shard — one index per segment
+        mode = "shard"
     key = (f"$jix:{build.table_name}:{','.join(phys)}:"
-           f"{node.pack_bits}:table")
+           f"{node.pack_bits}:{mode}")
     return JoinIndexSpec(key, build.table_name, tuple(phys),
-                         node.pack_bits, build.capacity)
+                         node.pack_bits, build.capacity, mode)
 
 
 def strip_join_index(plan: N.PlanNode) -> None:
@@ -153,21 +175,24 @@ def _cache(session):
     return scope.joinindex, scope.joinindex_lock
 
 
-def index_key(session, spec: JoinIndexSpec) -> tuple:
+def index_key(session, spec: JoinIndexSpec, segment=None) -> tuple:
     """The cache key of one spec's index in this session: the table's
-    content-stable version token, the key layout, and the device the
-    index tensors live on."""
+    content-stable version token, the key layout (mode, segment count,
+    direct-dispatch segment), and the device the index tensors live on."""
     from cloudberry_tpu_torch.sched import sharedcache
 
     return (sharedcache.table_key(session, spec.table), spec.phys,
-            spec.bits, spec.capacity, sharedcache.device_token(session))
+            spec.bits, spec.capacity, spec.mode,
+            session.config.n_segments, segment,
+            sharedcache.device_token(session))
 
 
-def _cached_index(session, spec: JoinIndexSpec) -> dict:
-    """The spec's index tensors from the scope LRU, built on miss."""
+def _cached_index(session, spec: JoinIndexSpec, segment=None):
+    """The spec's index tensors from the scope LRU, built on miss: a dict
+    of tensors, or for 'shard' mode a list of per-segment dicts."""
     t = session.catalog.table(spec.table)
     t.ensure_loaded()
-    key = index_key(session, spec)
+    key = index_key(session, spec, segment)
     cache, lock = _cache(session)
     with lock:
         hit = cache.pop(key, None)
@@ -178,7 +203,7 @@ def _cached_index(session, spec: JoinIndexSpec) -> dict:
         if log is not None:
             log.bump("join_index_hits")
         return hit
-    hit = _build_index(session, spec, t)
+    hit = _build_index(session, spec, t, segment)
     if log is not None:
         log.bump("join_index_builds")
     limit = max(session.config.join_filter.index_cache, 1)
@@ -189,13 +214,41 @@ def _cached_index(session, spec: JoinIndexSpec) -> dict:
     return hit
 
 
-def _build_index(session, spec: JoinIndexSpec, t) -> dict:
-    """``kernels.build_sort`` of the table's key columns on the device, as
-    the build scan presents them: the table's rows, zero-padded to the
-    scan's capacity (an empty table scans one zero row), rows past the
-    count unselected."""
+def _sorted_index(cols, sel, bits: int) -> dict:
     from cloudberry_tpu_torch.exec import kernels as K
 
+    order, skeys, ranges = K.build_sort(cols, sel, bits)
+    out = {"order": order, "skeys": skeys}
+    for i, (lo, span) in enumerate(ranges):
+        out[f"lo{i}"] = lo
+        out[f"span{i}"] = span
+    return out
+
+
+def _build_index(session, spec: JoinIndexSpec, t, segment=None):
+    """``kernels.build_sort`` of the build's key columns on the device, as
+    the build presents them. 'table': the table's rows (or the
+    direct-dispatched shard's), zero-padded to the scan's capacity (an
+    empty table scans one zero row), rows past the count unselected.
+    'shard': one index per segment over its shard row. 'gathered': one
+    index over the segment-major concatenation of the shards, each shard
+    a selected prefix."""
+    if spec.mode in ("shard", "gathered") or (
+            segment is not None and t.policy.kind != "replicated"):
+        ds = session.device_shards(spec.table)
+        cap = ds.capacity
+        ar = torch.arange(cap, device=session.device)
+        if spec.mode == "shard":
+            return [_sorted_index([ds.columns[p][s] for p in spec.phys],
+                                  ar < int(ds.counts_host[s]), spec.bits)
+                    for s in range(ds.nseg)]
+        if spec.mode == "gathered":
+            sel = torch.cat([ar < int(ds.counts_host[s])
+                             for s in range(ds.nseg)])
+            return _sorted_index([ds.columns[p].reshape(-1)
+                                  for p in spec.phys], sel, spec.bits)
+        return _sorted_index([ds.columns[p][segment] for p in spec.phys],
+                             ar < int(ds.counts_host[segment]), spec.bits)
     data = session.device_table(spec.table)
     cap = max(spec.capacity, t.num_rows, 1)
     cols = []
@@ -205,19 +258,28 @@ def _build_index(session, spec: JoinIndexSpec, t) -> dict:
             c = torch.cat([c, c.new_zeros(cap - c.shape[0])])
         cols.append(c)
     sel = torch.arange(cap, device=session.device) < t.num_rows
-    order, skeys, ranges = K.build_sort(cols, sel, spec.bits)
-    out = {"order": order, "skeys": skeys}
-    for i, (lo, span) in enumerate(ranges):
-        out[f"lo{i}"] = lo
-        out[f"span{i}"] = span
-    return out
+    return _sorted_index(cols, sel, spec.bits)
 
 
 # -------------------------------------------------------- input assembly
 
 
-def join_index_inputs(plan: N.PlanNode, session) -> dict:
-    """{input key: index tensors} for every annotated join — the input
-    assembly chokepoint (exec/executor.py prepare_inputs)."""
-    return {spec.key: _cached_index(session, spec)
+def join_index_inputs(plan: N.PlanNode, session, segment=None) -> dict:
+    """{input key: index tensors} for every annotated join — the single /
+    direct-dispatch input assembly chokepoint (exec/executor.py
+    prepare_inputs)."""
+    return {spec.key: _cached_index(session, spec, segment)
             for spec in jix_specs_of(plan)}
+
+
+def dist_join_index_inputs(plan: N.PlanNode, session) -> list:
+    """Per-segment {input key: index tensors} for the distributed gang:
+    'shard'-mode indexes split by segment, 'table'/'gathered' ones shared
+    by every segment (the reference's replicated inputs)."""
+    nseg = session.config.n_segments
+    out = [dict() for _ in range(nseg)]
+    for spec in jix_specs_of(plan):
+        arrs = _cached_index(session, spec, None)
+        for s in range(nseg):
+            out[s][spec.key] = arrs[s] if spec.mode == "shard" else arrs
+    return out

@@ -24,6 +24,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 Columns = dict[str, torch.Tensor]
@@ -512,6 +513,265 @@ def join_expand_sorted(
         0, kb_sorted.shape[0] - 1)
     build_row = order[build_pos].to(torch.int32)
     return pi_c.to(torch.int32), build_row, out_sel, matched, total
+
+
+# --------------------------------------------------------------------------
+# bloom digest — runtime join filters (plan/nodes.py PRuntimeFilter
+# mode="digest"): a fixed-size bitmap over RANGE-FREE key hashes, so every
+# segment's insertions agree on bit positions without a range reduction
+# first. The digest (per-key u64 min/max + the bitmap words) rides ONE
+# small exchange; probe rows failing the min/max or bloom test drop BEFORE
+# their redistribute. False positives only let extra rows through.
+#
+# u64 values are raw bits held in int64 here (not biased: ``bloom_hash``
+# takes ``sort_key_u64(k) ^ _I64_MIN``), and the reference's u32 words are
+# int32 words with the same bits (bit 31 is the sign bit).
+# --------------------------------------------------------------------------
+
+
+_MIX_M1 = -4658895280553007687   # 0xBF58476D1CE4E5B9 as int64
+_MIX_M2 = -7723592293110705685   # 0x94D049BB133111EB
+_MIX_SEED = -7046029254386353131  # 0x9E3779B97F4A7C15
+
+
+def _shr(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Logical right shift of u64 bits held in int64."""
+    return (x >> n) & ((1 << (64 - n)) - 1)
+
+
+def _mix64(x: torch.Tensor) -> torch.Tensor:
+    """splitmix64 finalizer over u64 bits (int64, wrapping)."""
+    x = (x ^ _shr(x, 30)) * _MIX_M1
+    x = (x ^ _shr(x, 27)) * _MIX_M2
+    return x ^ _shr(x, 31)
+
+
+def _to_i32(x: torch.Tensor) -> torch.Tensor:
+    """The low 32 bits of int64 values as int32 (two's complement)."""
+    x = x & 0xFFFFFFFF
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def bloom_hash(key_u64s: Sequence[torch.Tensor]) -> torch.Tensor:
+    """One u64 hash per row over the raw u64 key forms of the key tuple —
+    independent of packing ranges, so equal key tuples hash identically
+    on every segment."""
+    h = torch.full(key_u64s[0].shape, _MIX_SEED, dtype=torch.int64,
+                   device=key_u64s[0].device)
+    for u in key_u64s:
+        h = _mix64(h ^ u)
+    return h
+
+
+def bloom_bits_pow2(bits: int) -> int:
+    """Clamp a configured bitmap size to a power of two >= 64."""
+    return 1 << max(6, int(bits - 1).bit_length())
+
+
+def _bloom_positions(h: torch.Tensor, bits: int, k: int) -> list:
+    """k bit positions per row sliced from ONE 64-bit hash."""
+    lb = max(bits.bit_length() - 1, 1)
+    step = max((64 - lb) // max(k, 1), 1)
+    return [(_shr(h, i * step) if i * step else h) & (bits - 1)
+            for i in range(max(k, 1))]
+
+
+def bloom_build(key_u64s: Sequence[torch.Tensor], sel: torch.Tensor,
+                bits: int, k: int) -> torch.Tensor:
+    """(bits // 32,) int32 bitmap words over the SELECTED rows' key
+    hashes: a bool bitmap with one dump slot (the reference's
+    ``mode="drop"`` scatter), packed to words; segments combine by OR."""
+    h = bloom_hash(key_u64s)
+    bm = torch.zeros((bits + 1,), dtype=torch.bool, device=h.device)
+    for pos in _bloom_positions(h, bits, k):
+        bm[torch.where(sel, pos, _full(pos, bits))] = True
+    w = bm[:bits].reshape(bits // 32, 32).to(torch.int64)
+    shifts = torch.arange(32, dtype=torch.int64, device=h.device)
+    return _to_i32((w << shifts).sum(1))
+
+
+def bloom_test(words: torch.Tensor, key_u64s: Sequence[torch.Tensor],
+               bits: int, k: int) -> torch.Tensor:
+    """Per-row membership test against packed bitmap words: True =
+    possibly present, False = definitely absent."""
+    h = bloom_hash(key_u64s)
+    ok = torch.ones(h.shape, dtype=torch.bool, device=h.device)
+    for pos in _bloom_positions(h, bits, k):
+        w = words[pos >> 5]
+        ok = ok & (((w >> (pos & 31).to(torch.int32)) & 1) != 0)
+    return ok
+
+
+# --------------------------------------------------------------------------
+# motion wire format: every column of a row set (plus the row-validity
+# mask) packed into ONE (rows, W) buffer of 32-bit words, so each motion
+# moves one buffer instead of one per column. The reference's uint32 words
+# are int32 here (same bits). 4-byte dtypes view as one word, 8-byte dtypes
+# as two (lo, hi) — the little-endian ``view`` equals
+# ``bitcast_convert_type``'s word order — and bool columns ride as bits of
+# the leading flag word(s) next to the validity bit.
+# --------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class WireLayout:
+    """Static description of one packed wire buffer. Word 0 bit 0 is the
+    row-validity bit; bool columns occupy the following bits (spilling
+    into additional flag words past 32 bools); wider columns get 1 or 2
+    whole words each, in sorted-name order."""
+
+    names: tuple          # all column names, layout order (bools first)
+    dtypes: tuple         # torch dtype per name
+    flag_bits: dict       # bool column name -> (word, bit)
+    offsets: dict         # non-bool column name -> first word index
+    n_flag_words: int     # leading words carrying validity + bool bits
+    width: int            # W: total 32-bit words per row
+
+    def row_bytes(self) -> int:
+        return 4 * self.width
+
+    def payload_bytes(self) -> int:
+        """Bytes of actual column data per row (excludes flag-word
+        padding)."""
+        bits = 1  # validity
+        total = 0
+        for dt in self.dtypes:
+            if _itemsize(dt) == 0:
+                bits += 1
+            else:
+                total += _itemsize(dt)
+        return total + (bits + 7) // 8
+
+
+# the packed wire's dtype contract: bool columns (flag bits) and columns of
+# exactly these byte widths
+WIRE_ITEMSIZES = (4, 8)
+
+
+def _itemsize(dt) -> int:
+    """Bytes of a torch or numpy dtype; 0 for bool (a flag bit)."""
+    if dt == torch.bool or (not isinstance(dt, torch.dtype)
+                            and np.dtype(dt) == np.bool_):
+        return 0
+    if isinstance(dt, torch.dtype):
+        return torch.empty((), dtype=dt).element_size()
+    return np.dtype(dt).itemsize
+
+
+def wire_layout(col_dtypes: dict) -> WireLayout:
+    """Layout for a column dict (name -> dtype). Deterministic: bools in
+    sorted order take flag bits, then the remaining columns in sorted
+    order take whole words."""
+    bools = sorted(n for n, dt in col_dtypes.items() if _itemsize(dt) == 0)
+    wides = sorted(n for n, dt in col_dtypes.items() if _itemsize(dt) != 0)
+    n_flag_words = max(1, -(-(1 + len(bools)) // 32))
+    flag_bits = {}
+    for i, n in enumerate(bools):
+        flag_bits[n] = ((1 + i) // 32, (1 + i) % 32)
+    offsets = {}
+    w = n_flag_words
+    for n in wides:
+        size = _itemsize(col_dtypes[n])
+        if size not in WIRE_ITEMSIZES:
+            raise NotImplementedError(
+                f"wire pack: column {n!r} has {size}-byte dtype "
+                f"{col_dtypes[n]}; only 4/8-byte dtypes and bool ship")
+        offsets[n] = w
+        w += size // 4
+    names = tuple(bools + wides)
+    dtypes = tuple(col_dtypes[n] for n in names)
+    return WireLayout(names, dtypes, flag_bits, offsets, n_flag_words, w)
+
+
+def pack_wire(cols: Columns, sel: torch.Tensor,
+              layout: WireLayout) -> torch.Tensor:
+    """(rows, W) int32 buffer carrying every column and the validity
+    mask. An all-zero row unpacks as invalid."""
+    rows = sel.shape[0]
+    words: list = [None] * layout.width
+    flags = [torch.zeros((rows,), dtype=torch.int32, device=sel.device)
+             for _ in range(layout.n_flag_words)]
+    flags[0] = sel.to(torch.int32)
+    for name, (w, bit) in layout.flag_bits.items():
+        flags[w] = flags[w] | (cols[name].to(torch.int32) << bit)
+    for i, f in enumerate(flags):
+        words[i] = f
+    for name, off in layout.offsets.items():
+        c = cols[name].contiguous()
+        if c.element_size() == 4:
+            words[off] = c.view(torch.int32)
+        else:
+            u = c.view(torch.int32).reshape(rows, 2)
+            words[off] = u[:, 0]
+            words[off + 1] = u[:, 1]
+    return torch.stack(words, dim=-1)
+
+
+def unpack_wire(buf: torch.Tensor,
+                layout: WireLayout) -> tuple[Columns, torch.Tensor]:
+    """Inverse of pack_wire: bit-identical columns + the validity mask."""
+    sel = (buf[:, 0] & 1).to(torch.bool)
+    cols: Columns = {}
+    for name, dt in zip(layout.names, layout.dtypes):
+        if _itemsize(dt) == 0:
+            w, bit = layout.flag_bits[name]
+            cols[name] = ((buf[:, w] >> bit) & 1).to(torch.bool)
+            continue
+        off = layout.offsets[name]
+        if _itemsize(dt) == 4:
+            cols[name] = buf[:, off].contiguous().view(dt)
+        else:
+            pair = buf[:, off:off + 2].contiguous()
+            cols[name] = pair.view(dt).reshape(-1)
+    return cols, sel
+
+
+def bucket_slots(key: torch.Tensor, valid: torch.Tensor, n_buckets: int,
+                 cap: int):
+    """The redistribute's slot assignment: a STABLE sort of the bucket
+    ids (invalid rows go to bucket ``n_buckets``), each row's rank inside
+    its bucket, and its flat slot ``bucket * cap + rank`` — the dump slot
+    ``n_buckets * cap`` for invalid rows and rows past ``cap``. Returns
+    (order, slot, valid-in-slot, per-bucket demand)."""
+    n = key.shape[0]
+    k = torch.where(valid, key.to(torch.int64),
+                    _full(key, n_buckets, torch.int64))
+    counts = torch.bincount(k, minlength=n_buckets + 1)[:n_buckets]
+    order = torch.sort(k, stable=True).indices
+    sorted_k = k[order]
+    start = torch.searchsorted(
+        sorted_k, torch.arange(n_buckets, dtype=torch.int64,
+                               device=k.device))
+    rank = torch.arange(n, device=k.device) - start[
+        sorted_k.clamp(0, n_buckets - 1)]
+    ok = (sorted_k < n_buckets) & (rank < cap)
+    slot = torch.where(ok, sorted_k * cap + rank,
+                       _full(sorted_k, n_buckets * cap))
+    return order, slot, ok, counts
+
+
+def scatter_slots(vals: torch.Tensor, slot: torch.Tensor,
+                  n_slots: int) -> torch.Tensor:
+    """``zeros(n_slots).at[slot].set(vals, mode="drop")``: a scatter into
+    one extra dump row, sliced off. Slots are distinct but the dump."""
+    out = torch.zeros((n_slots + 1,) + tuple(vals.shape[1:]),
+                      dtype=vals.dtype, device=vals.device)
+    out[slot] = vals
+    return out[:n_slots]
+
+
+def wire_rebucket(rows: torch.Tensor, key: torch.Tensor,
+                  valid: torch.Tensor, n_buckets: int,
+                  cap: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Permutation re-bucket of PACKED wire rows (no unpack). Valid rows
+    compact stably into their bucket's slots; all-zero fill pads the
+    rest. Returns ((n_buckets, cap, W) buffer, (n_buckets,) demand) —
+    rows past ``cap`` are dropped from the buffer but counted, so the
+    caller's overflow check fires before any result could ship."""
+    order, slot, _, counts = bucket_slots(key, valid, n_buckets, cap)
+    out = scatter_slots(rows[order], slot, n_buckets * cap)
+    return out.reshape(n_buckets, cap, rows.shape[1]), \
+        counts.to(torch.int32)
 
 
 def rung_up(n: int) -> int:

@@ -109,9 +109,17 @@ class _TileShape:
 
 def plan_tiled(plan: N.PlanNode, session) -> Optional["TiledExecutable"]:
     """Try to re-plan an admission-refused statement for tiled execution.
-    Returns None when the plan shape or the budget cannot support it. One
-    segment: the JAX package's distributed branch has no counterpart."""
+    Returns None when the plan shape or the budget cannot support it. A
+    distributed plan tiles in the reference's ``exec/tiled_dist.py``,
+    which the port does not have: it raises ``NotImplementedError`` rather
+    than tiling a multi-segment plan as one segment."""
     if not session.config.resource.enable_spill:
+        return None
+    if session.config.n_segments > 1:
+        raise NotImplementedError(
+            "tiled execution of a distributed plan (n_segments > 1): "
+            "exec/tiled_dist.py is not yet ported to cloudberry_tpu_torch")
+    if getattr(plan, "_direct_segment", None) is not None:
         return None
     from cloudberry_tpu_torch.exec.joinindex import (restore_join_index,
                                                      stash_join_index,

@@ -31,10 +31,10 @@ Gauge writes live HERE by contract (the JAX package's graftlint
 ``obs-gauge-home`` rule): a point-in-time gauge scattered across the
 engine goes stale invisibly; one refresh site cannot.
 
-The port at one segment: its plans carry no motion, so the wire and rung
-terms are zero; the two-level exchange's staging (hierarchical motions
-of the distributed executor) is not ported and raises if reached. Device
-bytes of tensors count through their storage (``nbytes_of``).
+The wire and rung terms count the motions of distributed plans; the
+two-level exchange's staging (hierarchical motions) is not ported and
+raises if reached. Device bytes of tensors count through their storage
+(``nbytes_of``).
 """
 
 from __future__ import annotations
@@ -212,9 +212,10 @@ def refresh_gauges(session) -> dict:
     store's checkpoint pins, the trace and flight rings and the
     statements table. ``*_bytes`` gauges are bytes measured from the
     live arrays: device bytes for the join index, the pool and the scan
-    cache, host bytes for the checkpoint pins. The JAX package's rung
-    cache, dispatcher, topology and write plane gauges belong to modules
-    the port does not have yet."""
+    cache, host bytes for the checkpoint pins. The port has no rung
+    cache (sched/sharedcache.py); the JAX package's dispatcher, topology
+    and write plane gauges belong to modules the port does not have
+    yet."""
     log = getattr(session, "stmt_log", None)
     if log is None:
         return {}

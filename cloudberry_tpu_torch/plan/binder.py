@@ -167,8 +167,12 @@ def _build_is_unique(plan: N.PlanNode, keys: list[ex.Expr],
 
 
 class Binder:
-    def __init__(self, catalog: Catalog):
+    def __init__(self, catalog: Catalog, config=None):
         self.catalog = catalog
+        # session config (None = single-node defaults): the joint
+        # join-order search needs n_segments / memo switches at BIND
+        # time, because join ORDER is decided here
+        self.config = config
         self._counter = 0
         # CTE name -> bound plan; references share the plan via PShare
         self._ctes: dict[str, N.PlanNode] = {}
@@ -433,7 +437,8 @@ class Binder:
                 for a2, pv in list(plans.items()):
                     if pv is old:
                         plans[a2] = p
-            plan = self._join_tree(plans, edges, scope)
+            plan = self._join_tree(plans, edges, scope,
+                                   groupby=sel.group_by)
             for pred in residual:
                 plan = self._filter(plan, self.bind_scalar(pred, scope))
             for pred in subq_preds:
@@ -728,8 +733,8 @@ class Binder:
                 residual.append(c)
         return edges, per_alias, residual
 
-    def _join_tree(self, plans: dict[str, N.PlanNode], edges, scope: Scope
-                   ) -> N.PlanNode:
+    def _join_tree(self, plans: dict[str, N.PlanNode], edges, scope: Scope,
+                   groupby=()) -> N.PlanNode:
         # group aliases by current plan object (explicit joins may share)
         groups: dict[int, set[str]] = {}
         plan_of: dict[int, N.PlanNode] = {}
@@ -767,9 +772,63 @@ class Binder:
         if len(plan_of) == 1:
             return next(iter(plan_of.values()))
         gids = list(plan_of)
+        joint = self._join_tree_joint(groups, plan_of, gids, edges, scope,
+                                      groupby)
+        if joint is not None:
+            return joint
         if len(gids) <= 10:
             return self._join_tree_dp(groups, plan_of, gids, edges, scope)
         return self._join_tree_greedy(groups, plan_of, edges, scope)
+
+    def _join_tree_joint(self, groups, plan_of, gids, edges, scope: Scope,
+                         groupby) -> Optional[N.PlanNode]:
+        """Joint join-order + motion search (plan/memo.joint_search — the
+        CJoinOrderDPv2/CMemo marriage): only meaningful distributed with
+        the memo enabled; the plain DP remains the fallback whenever the
+        search abstains."""
+        cfg = self.config
+        if cfg is None or cfg.n_segments <= 1 \
+                or not cfg.planner.enable_memo:
+            return None
+        from cloudberry_tpu_torch.plan import memo
+
+        idx_of = {g: i for i, g in enumerate(gids)}
+        alias_idx = {a: idx_of[gid] for gid, aliases in groups.items()
+                     if gid in idx_of for a in aliases}
+        atoms = []
+        for g in gids:
+            p = plan_of[g]
+            atoms.append((p, max(sum(f.type.np_dtype.itemsize
+                                     for f in p.fields), 1)))
+        bedges = []
+        for (a, lx, b, rx) in edges:
+            ia, ib = alias_idx.get(a), alias_idx.get(b)
+            if ia is None or ib is None or ia == ib:
+                continue
+            bedges.append((ia, ib, self.bind_scalar(lx, scope),
+                           self.bind_scalar(rx, scope)))
+        gb_names = set()
+        for g in groupby or ():
+            try:
+                bound = self.bind_scalar(g, scope)
+            except BindError:
+                continue
+            if isinstance(bound, ex.ColumnRef):
+                gb_names.add(bound.name)
+        final = memo.joint_search(
+            atoms, bedges, cfg.n_segments,
+            cfg.planner.broadcast_threshold, self.catalog,
+            frozenset(gb_names), self._make_join,
+            is_unique=lambda i, keys: _build_is_unique(
+                atoms[i][0], keys, self.catalog),
+            gst=cfg.planner.gather_single_threshold)
+        if final is None:
+            return None
+        for e in scope.entries:
+            if e.alias in alias_set_of(groups):
+                e.plan = final
+        return final
+
 
     def _join_tree_dp(self, groups, plan_of, gids, edges, scope: Scope
                       ) -> N.PlanNode:
@@ -1905,7 +1964,7 @@ class Binder:
         return self._filter(plan, self.bind_scalar(pred, scope))
 
     def _bind_uncorrelated_scalar(self, node: ast.ScalarSubquery) -> ex.Expr:
-        sub = Binder(self.catalog)
+        sub = Binder(self.catalog, self.config)
         sub._counter = self._counter + 1000
         sub._ctes = self._ctes
         plan = sub.bind_select(node.select)
@@ -1948,7 +2007,7 @@ class Binder:
 
     def _scratch_inner_scope(self, sub: ast.Select) -> Scope:
         inner = Scope()
-        sb = Binder(self.catalog)
+        sb = Binder(self.catalog, self.config)
         sb._counter = self._counter + 2000
         sb._ctes = self._ctes
         dump: list = []

@@ -58,6 +58,22 @@ def _estimate(node: N.PlanNode, catalog) -> float:
                 prod = child
                 break
         est = min(prod, child)
+        # feedback (plan/feedback.py): a prior merge motion over these
+        # group keys COUNTED the shipped partials, bracketing the true
+        # distinct-group count (every group ships >= 1 and <= nseg
+        # partial rows) — clamp the static product into the observed
+        # bracket. Refines both failure modes: an over-estimate shrinks
+        # the merge rung (fewer padded wire bytes), an under-estimate
+        # grows g_cap before the overflow-retry would have.
+        fb = getattr(catalog, "_feedback", None)
+        if fb is not None:
+            bounds = fb.group_ndv(node)
+            if bounds is not None:
+                lo, hi = bounds
+                clamped = min(max(est, float(lo)), float(hi), child)
+                if clamped != est:
+                    node._feedback_ndv = (lo, hi)
+                    est = clamped
         return est
     if isinstance(node, N.PJoin):
         return _estimate_join(node, catalog)

@@ -1,0 +1,475 @@
+"""Feedback-driven re-optimization — learned sketches from live telemetry.
+
+Every distributed statement already measures exactly what the planner
+guesses at: the motion programs psum per-destination row-demand vectors,
+pmax the required bucket rung, and count runtime-filter survivors
+(exec/dist_executor.py record_motion_stats). Until now that telemetry
+died with the statement, so the second execution of a mis-estimated
+query was exactly as bad as the first. This module closes the loop — the
+adaptive-scheduling story of "Accelerating Presto with GPUs" and the
+data-movement-first costing of "Theseus" (PAPERS.md), mapped onto the
+QD/QE split: the dispatcher learns from what the gangs actually shipped.
+
+After every statement, ``fold_plan`` folds the stats pinned on the plan's
+motion nodes into per-(table, key-set) ``FeedbackSketch``es held by a
+``FeedbackStore`` anchored on the shared cache tier's scope
+(sched/sharedcache.py): sessions over one store root share sketches the
+way they share compiled programs. Consumers:
+
+- ``plan/distribute.py`` seeds capacity rungs at the observed demand
+  rung (exact skew bounds stay the authoritative CEILING — feedback only
+  ever replaces the estimate-path seed, and overflow still promotes up
+  the ladder, so a stale sketch costs a retry, never a wrong answer);
+- ``plan/memo.py``'s hot-fraction read and ``plan/cost.py``'s group-NDV
+  estimate consult sketches through ``catalog._feedback``, re-ranking
+  join order / motion choice when an observed skew alarm contradicts
+  the histogram;
+- ``plan/distribute.py digest_filter_frac`` prices probe redistributes
+  at the OBSERVED survivor fraction of the runtime filter;
+- ``exec/tiled_dist.py`` replans MID-STATEMENT through the PR-6
+  checkpoint store when per-tile motion stats cross the skew alarm.
+
+Invalidation is by construction, not by protocol: every sketch carries
+the same content-stable tokens the shared cache tier keys on —
+``table_key`` (any DML commit or ANALYZE bumps it), the topology epoch
+id, and a content-stable config token (segment count + capacity factor
++ filter knobs). A lookup whose tokens no longer match drops the entry.
+Store-backed scopes persist sketches to ``_FEEDBACK.json`` beside the
+manifests ANALYZE stats live in, so fresh sessions inherit them.
+
+Deliberately NOT learned: sketches key on (table, key-set), not on the
+predicate — a filtered query's observations generalize to every query
+shuffling the same columns, and the rung ladder absorbs the
+mis-generalization (overflow promotes; padding is bounded by the
+ceiling). Exact bucket bounds are never replaced, host-pair rungs
+derive from the seeded segment rung as before, single-segment plans
+have no motions to learn from, and generic (parameterized) plans keep
+their compiled shape until a fold materially changes a sketch (the
+feedback generation joins the statement-cache guard, not the
+generic-plan signature).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+from dataclasses import dataclass, replace
+from typing import Optional
+
+from cloudberry_tpu_torch.plan import expr as ex
+from cloudberry_tpu_torch.plan import nodes as N
+from cloudberry_tpu_torch.utils.faultinject import fault_point
+
+# sketches retained per store (LRU): a serving workload's hot key-sets
+# stay; a scan of one-off ad-hoc shapes cannot grow the store unbounded
+_MAX_SKETCHES = 512
+
+# relative change in a folded maximum that counts as MATERIAL — material
+# folds bump the store generation, which invalidates cached statements
+# planned under the old sketch; steady-state re-executions of the same
+# statement reproduce their stats exactly and must NOT churn the cache
+_MATERIAL_DELTA = 0.10
+
+
+@dataclass(frozen=True)
+class FeedbackSketch:
+    """One (table, key-set)'s observed motion behavior."""
+
+    kind: str                 # "redist" | "jf"
+    src: tuple                # ((table, phys_col), ...) sorted
+    nseg: int                 # mesh the observation was made on
+    demand_max: int = 0       # max observed per-destination bucket demand
+    seg_rows_max: int = 0     # max rows any destination received
+    rows_total: int = 0       # total rows shipped (post-filter, observed)
+    skew_ratio: float = 0.0   # max/mean destination rows
+    alarmed: bool = False     # ratio crossed config.obs.skew_ratio
+    ndv_est: int = 0          # distinct-group upper bound (merge motions)
+    jf_frac: float = 0.0      # runtime-filter survivor fraction ("jf")
+    statements: int = 0       # observations folded in
+    partial: bool = False     # latest fold came mid-statement (alarm path)
+
+    def hot_frac(self) -> float:
+        """Observed hottest-destination row fraction — the learned
+        counterpart of memo._hot_frac's histogram estimate."""
+        if self.rows_total <= 0:
+            return 0.0
+        return min(self.seg_rows_max / self.rows_total, 1.0)
+
+
+def config_token(cfg) -> tuple:
+    """Content-stable config component of a sketch's validity: the knobs
+    that change what a motion's demand/skew observation MEANS. Unlike
+    the shared cache tier's config OBJECT identity, this survives
+    process restarts (persisted sketches must be inheritable) and
+    ignores irrelevant swaps; any swap that changes these invalidates."""
+    return (int(cfg.n_segments),
+            round(float(cfg.interconnect.capacity_factor), 6),
+            bool(cfg.join_filter.enabled))
+
+
+def _tokens(session, src) -> Optional[tuple]:
+    """Current validity tokens for a source set: per-table content
+    tokens + topology epoch + config token. None when any table is
+    unknown (sketch can neither fold nor serve)."""
+    from cloudberry_tpu_torch.sched import sharedcache as SC
+
+    try:
+        tabs = tuple(SC.table_key(session, t)
+                     for t in sorted({t for t, _ in src}))
+    except KeyError:
+        return None
+    return (tabs, SC.topology_token(session),
+            config_token(session.config))
+
+
+def resolve_sources(child: N.PlanNode, keys) -> Optional[tuple]:
+    """Trace motion hash keys to ((table, phys_col), ...) through the
+    child subtree — the sketch's content identity. None when any key
+    crosses a computation (those shuffles are deliberately unlearned)."""
+    from cloudberry_tpu_torch.plan.cost import _col_source
+
+    out = []
+    for k in keys:
+        if not isinstance(k, ex.ColumnRef):
+            return None
+        src = _col_source(child, k.name)
+        if src is None:
+            return None
+        out.append(src)
+    if not out:
+        return None
+    return tuple(sorted(set(out)))
+
+
+class FeedbackStore:
+    """Engine-wide learned-stats store for one cache scope. The lock is
+    an innermost leaf (witness rank 4): token derivation, logging, and
+    persistence all happen OUTSIDE it — planning paths reach lookups
+    while holding cache-tier locks."""
+
+    def __init__(self, path: Optional[str] = None):
+        self._lock = threading.Lock()
+        self._io_lock = threading.Lock()
+        # key -> (tokens, FeedbackSketch); key = (kind, src, nseg)
+        self._sketches: dict = {}
+        self.gen = 0              # bumped on MATERIAL folds (cache guard)
+        self.folds = 0
+        self.path = path
+        if path is not None:
+            self._load()
+
+    # ------------------------------------------------------------- folding
+
+    def fold(self, session, kind: str, src: tuple, nseg: int,
+             partial: bool = False, **obs) -> bool:
+        """Merge one observation; True when the fold was material (new
+        sketch, or a folded maximum moved past the material delta)."""
+        toks = _tokens(session, src)
+        if toks is None:
+            return False
+        key = (kind, src, nseg)
+        fresh = FeedbackSketch(kind=kind, src=src, nseg=nseg,
+                               statements=1, partial=partial, **obs)
+        with self._lock:
+            ent = self._sketches.pop(key, None)
+            if ent is not None and ent[0] == toks:
+                merged = _merge(ent[1], fresh, partial)
+                material = _material(ent[1], merged)
+            else:
+                merged = fresh      # stale tokens: start over
+                material = True
+            self._sketches[key] = (toks, merged)
+            while len(self._sketches) > _MAX_SKETCHES:
+                self._sketches.pop(next(iter(self._sketches)))
+            if material:
+                self.gen += 1
+            self.folds += 1
+        return material
+
+    # ------------------------------------------------------------- lookups
+
+    def lookup(self, session, kind: str, src: tuple,
+               nseg: Optional[int] = None) -> Optional[FeedbackSketch]:
+        """The live sketch for (kind, src) at the session's current
+        segment count — None (and the entry dropped) when any validity
+        token moved: DML version bumps, ANALYZE, topology epoch flips,
+        and relevant config swaps invalidate by construction."""
+        if nseg is None:
+            nseg = session.config.n_segments
+        key = (kind, src, nseg)
+        with self._lock:
+            ent = self._sketches.get(key)
+        if ent is None:
+            return None
+        toks = _tokens(session, src)
+        if toks != ent[0]:
+            with self._lock:
+                cur = self._sketches.get(key)
+                if cur is ent:      # racing folds keep their fresh entry
+                    del self._sketches[key]
+            return None
+        return ent[1]
+
+    def reset(self) -> None:
+        """Forget every sketch. The generation moves on, so statements
+        cached under the forgotten sketches plan again."""
+        with self._lock:
+            self._sketches.clear()
+            self.gen += 1
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            n = len(self._sketches)
+            alarmed = sum(1 for _, s in self._sketches.values()
+                          if s.alarmed)
+            return {"sketches": n, "alarmed": alarmed, "gen": self.gen,
+                    "folds": self.folds}
+
+    # --------------------------------------------------------- persistence
+
+    def persist(self) -> None:
+        """Write-through to ``_FEEDBACK.json`` (atomic replace via the
+        iofault primitives — fsynced temp + rename, so a crash never
+        leaves torn JSON). Sketch loss is never a correctness problem —
+        the loop just re-learns — so IO failures are swallowed here,
+        but they are COUNTED (storage_io_errors), not silent."""
+        if self.path is None:
+            return
+        from cloudberry_tpu_torch.lifecycle import StorageIOError
+        from cloudberry_tpu_torch.storage import iofault
+
+        with self._lock:
+            ents = [{"key": [k[0], [list(p) for p in k[1]], k[2]],
+                     "tokens": [list(map(list, t[0])), t[1], list(t[2])],
+                     "sketch": _sketch_json(s)}
+                    for k, (t, s) in self._sketches.items()]
+            body = {"version": 1, "gen": self.gen, "entries": ents}
+        try:
+            with self._io_lock:
+                fault_point("io_feedback_write")
+                iofault.atomic_json(self.path, body)
+        except StorageIOError:
+            pass  # counted by the shim; the learner re-folds
+
+    def _load(self) -> None:
+        try:
+            with open(self.path) as f:
+                body = json.load(f)
+        except (OSError, ValueError):
+            return
+        for ent in body.get("entries", []):
+            try:
+                kind, src, nseg = ent["key"]
+                src = tuple(tuple(p) for p in src)
+                toks = ent["tokens"]
+                toks = (tuple(tuple(t) for t in toks[0]), toks[1],
+                        tuple(toks[2]))
+                sk = FeedbackSketch(kind=kind, src=src, nseg=int(nseg),
+                                    **ent["sketch"])
+                self._sketches[(kind, src, int(nseg))] = (toks, sk)
+            except (KeyError, TypeError, ValueError):
+                continue        # one bad entry must not poison the rest
+        self.gen = int(body.get("gen", 0))
+
+
+def _sketch_json(s: FeedbackSketch) -> dict:
+    return {"demand_max": s.demand_max, "seg_rows_max": s.seg_rows_max,
+            "rows_total": s.rows_total, "skew_ratio": s.skew_ratio,
+            "alarmed": s.alarmed, "ndv_est": s.ndv_est,
+            "jf_frac": s.jf_frac, "statements": s.statements,
+            "partial": s.partial}
+
+
+def _merge(old: FeedbackSketch, new: FeedbackSketch,
+           partial: bool) -> FeedbackSketch:
+    """Fold maxima (conservative for rung seeding: the largest demand
+    ever observed under these tokens is the bound that avoids retries);
+    survivor fractions fold toward the LEAST selective observation for
+    the same reason. A partial (mid-statement) fold never shrinks what a
+    completed statement established."""
+    return replace(
+        old,
+        demand_max=max(old.demand_max, new.demand_max),
+        seg_rows_max=max(old.seg_rows_max, new.seg_rows_max),
+        rows_total=max(old.rows_total, new.rows_total),
+        skew_ratio=max(old.skew_ratio, new.skew_ratio),
+        alarmed=old.alarmed or new.alarmed,
+        ndv_est=max(old.ndv_est, new.ndv_est),
+        jf_frac=max(old.jf_frac, new.jf_frac),
+        statements=old.statements + 1,
+        partial=partial)
+
+
+def _material(old: FeedbackSketch, new: FeedbackSketch) -> bool:
+    def moved(a, b):
+        return abs(b - a) > _MATERIAL_DELTA * max(abs(a), 1.0)
+
+    return (old.alarmed != new.alarmed
+            or moved(old.demand_max, new.demand_max)
+            or moved(old.rows_total, new.rows_total)
+            or moved(old.jf_frac * 1000, new.jf_frac * 1000)
+            or moved(old.ndv_est, new.ndv_est))
+
+
+# ----------------------------------------------------------- scope anchor
+
+
+_create_lock = threading.Lock()
+
+
+def store_for(session) -> Optional[FeedbackStore]:
+    """The session's feedback store (scope-anchored, created lazily),
+    or None when the subsystem is off. Store-backed scopes with
+    ``config.feedback.persist`` load/save ``_FEEDBACK.json`` under the
+    storage root — the same place ANALYZE stats persist."""
+    cfg = getattr(session.config, "feedback", None)
+    if cfg is None or not cfg.enabled:
+        return None
+    from cloudberry_tpu_torch.sched.sharedcache import scope_for
+
+    scope = scope_for(session)
+    store = getattr(scope, "feedback", None)
+    if store is None:
+        with _create_lock:
+            store = getattr(scope, "feedback", None)
+            if store is None:
+                path = None
+                if scope.kind == "store" and cfg.persist:
+                    path = os.path.join(
+                        str(session.config.storage.root),
+                        "_FEEDBACK.json")
+                store = FeedbackStore(path)
+                scope.feedback = store
+    return store
+
+
+class FeedbackView:
+    """Session-bound read surface stamped on ``catalog._feedback`` so
+    cost/memo code that only sees the catalog can consult sketches (the
+    catalog hook). Holds the session weakly — the catalog lives inside
+    the session."""
+
+    def __init__(self, store: FeedbackStore, session):
+        import weakref
+
+        self.store = store
+        self._session = weakref.ref(session)
+
+    def _lookup(self, kind: str, src) -> Optional[FeedbackSketch]:
+        session = self._session()
+        if session is None or src is None:
+            return None
+        return self.store.lookup(session, kind, src)
+
+    def hot_frac(self, plan: N.PlanNode, keys) -> Optional[float]:
+        """Observed hottest-destination fraction for a shuffle of
+        ``keys`` out of ``plan`` — only when the observation ALARMED
+        (crossed config.obs.skew_ratio): sub-alarm skew leaves the
+        histogram estimate in charge, so plans only re-rank when the
+        telemetry contradicts the stats hard enough to matter."""
+        sk = self._lookup("redist", resolve_sources(plan, keys))
+        if sk is None or not sk.alarmed:
+            return None
+        return sk.hot_frac()
+
+    def group_ndv(self, agg: N.PAgg) -> Optional[tuple]:
+        """(lo, hi) bounds on the distinct-group count of a grouped
+        aggregation, from an observed merge motion: every group ships at
+        least one and at most nseg partial rows, so the observed partial
+        total brackets the true NDV."""
+        keys = [e for _, e in agg.group_keys]
+        sk = self._lookup("redist", resolve_sources(agg.child, keys))
+        if sk is None or sk.ndv_est <= 0:
+            return None
+        lo = max(sk.ndv_est // max(sk.nseg, 1), 1)
+        return (lo, sk.ndv_est)
+
+    def jf_frac(self, node) -> Optional[float]:
+        """Observed runtime-filter survivor fraction for a join's probe
+        keys — the learned replacement for the bloom-model estimate."""
+        sk = self._lookup("jf", resolve_sources(node.probe,
+                                                node.probe_keys))
+        if sk is None or sk.jf_frac <= 0:
+            return None
+        return min(sk.jf_frac, 1.0)
+
+
+# ------------------------------------------------------------ the fold hook
+
+
+def fold_plan(session, plan: N.PlanNode, partial: bool = False) -> None:
+    """Fold every motion/filter observation pinned on ``plan`` (by
+    record_motion_stats) into the session's feedback store — called
+    after raise_checks passed, at every execution surface. Best-effort
+    by contract: learning must never fail a healthy statement."""
+    store = store_for(session)
+    if store is None:
+        return
+    if fault_point("feedback_fold"):
+        return      # chaos arm: suppress learning
+    try:
+        material = _fold_plan(session, store, plan, partial)
+    except Exception:   # noqa: BLE001 — telemetry, never load-bearing
+        return
+    log = getattr(session, "stmt_log", None)
+    if log is not None:
+        log.bump("feedback_folds")
+        if material:
+            log.bump("feedback_gen_bumps")
+    if material:
+        store.persist()
+
+
+def _fold_plan(session, store: FeedbackStore, plan: N.PlanNode,
+               partial: bool) -> bool:
+    from cloudberry_tpu_torch.exec.executor import all_nodes
+
+    thr = float(session.config.obs.skew_ratio)
+    nseg = session.config.n_segments
+    material = False
+    for node in all_nodes(plan):
+        if isinstance(node, N.PMotion) and node.kind == "redistribute":
+            rows = getattr(node, "_seg_rows", None)
+            if rows is None or rows.shape[0] == 0:
+                continue
+            src = resolve_sources(node.child, node.hash_keys)
+            if src is None:
+                continue
+            total = int(rows.sum())
+            if total <= 0:
+                continue
+            mx = int(rows.max())
+            ratio = mx / (total / rows.shape[0])
+            demand = int(getattr(node, "_observed_bucket", 0) or mx)
+            below = node.child
+            while isinstance(below, (N.PFilter, N.PProject,
+                                     N.PRuntimeFilter)):
+                below = below.child
+            ndv = total if (isinstance(below, N.PAgg)
+                            and below.mode == "partial") else 0
+            material |= store.fold(
+                session, "redist", src, nseg, partial=partial,
+                demand_max=demand, seg_rows_max=mx, rows_total=total,
+                skew_ratio=float(ratio),
+                alarmed=bool(thr > 0 and ratio >= thr), ndv_est=ndv)
+        elif isinstance(node, N.PRuntimeFilter):
+            pre = getattr(node, "_jf_pre", None)
+            post = getattr(node, "_jf_post", None)
+            if not pre or post is None:
+                continue
+            src = resolve_sources(node.child, node.probe_keys)
+            if src is None:
+                continue
+            material |= store.fold(
+                session, "jf", src, nseg, partial=partial,
+                jf_frac=max(min(post / pre, 1.0), 1e-6))
+    return material
+
+
+def feedback_gen(session) -> int:
+    """The store generation — a statement-cache guard component: a
+    MATERIAL fold must replan cached statements (that is the whole
+    point), while steady-state identical folds must not churn them."""
+    store = store_for(session)
+    return store.gen if store is not None else 0

@@ -8,7 +8,9 @@ executable plan. DML — INSERT, COPY FROM/TO with single-row error
 handling, DELETE, UPDATE, INSERT … SELECT, CREATE TABLE AS — runs its
 synthetic queries through the same executor (``_run_internal``).
 
-This port runs one segment, so there is no distribution pass.
+At ``n_segments > 1`` the distribution pass (plan/distribute.py, the
+cdbllize analog) inserts Motion nodes per the Sharding algebra, or direct
+dispatch routes a point statement to one segment.
 ``_run_internal`` checks the memory budget and takes a statement slot
 (the session's concurrency gate) as the reference does. CREATE and DROP
 RESOURCE QUEUE edit the catalog's queues (exec/resource.py). Statements
@@ -162,7 +164,7 @@ def plan_statement(stmt: ast.Node, session, params: dict,
             # plain EXPLAIN has no side effects: fold sequence calls to a
             # placeholder WITHOUT allocating (PostgreSQL semantics)
             inner = _fold_sequence_calls(catalog, inner, allocate=False)
-        binder = Binder(catalog)
+        binder = Binder(catalog, session.config)
         plan = binder.bind_query(inner)
         plan = _optimize(plan, session)
         return PlanResult(is_ddl=True, ddl_result=plan.explain())
@@ -176,7 +178,7 @@ def plan_statement(stmt: ast.Node, session, params: dict,
                                          allocate=not explain_only)
             folded = stmt2 is not stmt
             stmt = stmt2
-        binder = Binder(catalog)
+        binder = Binder(catalog, session.config)
         plan = binder.bind_query(stmt)
         plan = _optimize(plan, session)
         if folded:
@@ -257,7 +259,7 @@ def _run_internal(session, query: ast.Node):
     from cloudberry_tpu_torch.exec.executor import execute
     from cloudberry_tpu_torch.exec.resource import check_admission
 
-    binder = Binder(session.catalog)
+    binder = Binder(session.catalog, session.config)
     plan = _optimize(binder.bind_query(query), session)
     check_admission(plan, session)
     with session._gate:
@@ -574,11 +576,14 @@ def _eval_aligned(session, table_name: str, items: list):
     host row order.
 
     This is the DML read path: only the expressions DML actually needs flow
-    through the executor — never the whole table. At one segment a RAM
-    table scans in its row order and a cold table's scan reads its
-    partitions in manifest order, which is the order ``ensure_loaded``
-    lays them out in — canonical row order either way (the JAX package's
-    distributed un-permutation is not needed)."""
+    through the executor (and, distributed, through the gather motion) —
+    never the whole table. At one segment a RAM table scans in its row
+    order and a cold table's scan reads its partitions in manifest order,
+    which is the order ``ensure_loaded`` lays them out in. Distributed
+    results arrive segment-major (the shard layout order), so they
+    scatter back through the same stable placement permutation
+    ``sharded_table`` used; canonical row order is therefore STABLE under
+    DML in every mode."""
     q = ast.Select(items=items, from_refs=[ast.TableName(table_name)])
     batch = _run_internal(session, q)
     sel = np.asarray(batch.sel)
@@ -593,7 +598,20 @@ def _eval_aligned(session, table_name: str, items: list):
             raise BindError(
                 f"DML row evaluation returned {len(arr)} rows for "
                 f"{table_name!r} ({n} rows) — internal error")
+    nseg = session.config.n_segments
+    if nseg > 1 and t.policy.kind != "replicated" and n:
+        assign = t.shard_assignment(nseg)
+        order = np.argsort(assign, kind="stable")
+        cols = {name: _unpermute(arr, order) for name, arr in cols.items()}
+        valid = {name: _unpermute(arr, order)
+                 for name, arr in valid.items()}
     return cols, valid, dict(batch.dicts)
+
+
+def _unpermute(arr: np.ndarray, order: np.ndarray) -> np.ndarray:
+    out = np.empty_like(arr)
+    out[order] = arr
+    return out
 
 
 def _delete(session, stmt: ast.Delete) -> str:
@@ -837,12 +855,13 @@ def _insert_select(session, stmt: ast.InsertSelect) -> str:
 
 
 def _optimize(plan: N.PlanNode, session) -> N.PlanNode:
-    """The single-segment branch of the reference's rewrites: predicate
-    pushdown + column pruning, storage-scan binding (cold tables read
-    pruned partitions), the 32-bit packed-key proof that gates the
-    probe-join kernel, point lookups on big RAM tables, and — last, so
-    the specs see final capacities — the join-index annotation."""
-    from cloudberry_tpu_torch.exec.joinindex import annotate_join_index
+    """The reference's rewrites: predicate pushdown + column pruning,
+    storage-scan binding (cold tables read pruned partitions; one segment
+    only), the 32-bit packed-key proof that gates the probe-join kernel,
+    then direct dispatch or the distribution pass at ``n_segments > 1``,
+    point lookups (one segment, or the direct-dispatched shard), and —
+    last, so the specs see final capacities and motions — the join-index
+    annotation."""
     from cloudberry_tpu_torch.plan.cost import annotate_pack_bits
     from cloudberry_tpu_torch.plan.pointlookup import optimize_point_lookups
     from cloudberry_tpu_torch.plan.prune import prune_plan
@@ -851,8 +870,40 @@ def _optimize(plan: N.PlanNode, session) -> N.PlanNode:
     plan = prune_plan(plan)
     apply_storage_scans(plan, session)
     annotate_pack_bits(plan, session.catalog)
-    optimize_point_lookups(plan, session)
+    if session.config.n_segments > 1 \
+            and session.config.planner.enable_direct_dispatch:
+        from cloudberry_tpu_torch.plan.distribute import (
+            apply_direct_dispatch, direct_dispatch_segment)
+
+        seg = direct_dispatch_segment(plan, session)
+        if seg is not None:
+            plan = apply_direct_dispatch(plan, session, seg)
+            # routed to ONE shard: the sorted sidecar then narrows the
+            # scan to the matching rows (index/block-directory analog)
+            optimize_point_lookups(plan, session)
+            _annotate_join_index(plan, session)
+            return plan
+    plan = _distribute(plan, session)
+    if session.config.n_segments <= 1:
+        optimize_point_lookups(plan, session)
+    _annotate_join_index(plan, session)
+    return plan
+
+
+def _annotate_join_index(plan: N.PlanNode, session) -> None:
+    """Stamp eligible joins with their sorted-build cache spec
+    (exec/joinindex.py) — runs LAST so the specs see final capacities,
+    motions, and the direct-dispatch rewrite."""
+    from cloudberry_tpu_torch.exec.joinindex import annotate_join_index
+
     annotate_join_index(plan, session)
+
+
+def _distribute(plan: N.PlanNode, session) -> N.PlanNode:
+    if session.config.n_segments > 1:
+        from cloudberry_tpu_torch.plan.distribute import distribute_plan
+
+        return distribute_plan(plan, session)
     return plan
 
 

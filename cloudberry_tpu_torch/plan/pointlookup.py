@@ -13,8 +13,9 @@ the scan re-bound to exactly those rows — the device program then
 touches O(matches) rows instead of the shard.
 
 Scope: equality conjuncts against literals, RAM-resident tables above a
-size floor, on the single-segment path (the port's only one; the JAX
-package's direct-dispatch shard branch is not carried). Stored
+size floor, on the single-program paths (one segment, or a
+direct-dispatched statement's shard; the multi-segment gang reads whole
+shards by construction — its point path IS direct dispatch). Stored
 (micro-partition) scans keep their own pruning (plan/scanprune.py:
 manifest min/max + blooms play the block-directory role there).
 
@@ -45,7 +46,11 @@ def optimize_point_lookups(plan: N.PlanNode, session) -> None:
     slices. Mutates scans in place (capacity, num_rows, _point_rows)."""
     if not getattr(session.config.planner, "enable_point_lookup", True):
         return
-    seg = None  # one segment: no direct dispatch
+    seg = getattr(plan, "_direct_segment", None)
+    if session.config.n_segments > 1 and seg is None:
+        # the multi-segment gang reads whole shards by construction: its
+        # point path IS direct dispatch
+        return
 
     def visit(node: N.PlanNode) -> None:
         if isinstance(node, N.PFilter):
@@ -118,8 +123,18 @@ def _lookup(session, tname: str, phys: str, seg, value):
     None when the column cannot index (shard below the floor, non-1d)."""
     table = session.catalog.table(tname)
     table.ensure_loaded()
-    col = np.asarray(table.data[phys])
-    valid = table.validity.get(phys)
+    if seg is None:
+        col = np.asarray(table.data[phys])
+        valid = table.validity.get(phys)
+    else:
+        st = session.sharded_table(tname)
+        nrows = int(st.counts[seg])
+        # the shard buffer is zero-padded past its count: padding rows
+        # must never match (a k = 0 probe would return phantom rows)
+        col = np.asarray(st.columns[phys][seg])[:nrows]
+        valid = st.columns.get(f"$nn:{phys}")
+        if valid is not None:
+            valid = valid[seg][:nrows]
     if col.ndim != 1 or len(col) < MIN_ROWS:
         return None
     version = getattr(table, "_version", 0)

@@ -37,10 +37,12 @@ and shared-subtree (PShare) topology. A cached plan also matches only the
 device it was built for (``sharedcache.device_token``): a CPU session and a
 CUDA session over one store root share a cache scope.
 
-One segment: the JAX package's ``dist`` kind (one program over the
-segment axis) waits for the distributed executor, and its dispatcher's
-stacked launch (``GenericPlan.rung_fn``, ``prepare_one``, ``run_batch``)
-for the micro-batch dispatcher; those names raise ``NotImplementedError``.
+Kinds: ``single`` (one program), ``direct`` (a plan the planner routed to
+one segment; a rebind feeds that statement's segment) and ``dist`` (the
+distributed gang, exec/dist_executor.py: every segment reads the
+``$params`` as replicated 0-d tensors). The dispatcher's stacked launch
+(``GenericPlan.rung_fn``, ``prepare_one``, ``run_batch``) waits for the
+micro-batch dispatcher; those names raise ``NotImplementedError``.
 The dispatcher's tokenize-only point-lookup rebind (``FastRebind``) comes
 with it too.
 
@@ -428,8 +430,8 @@ def device_bindings(bindings: dict, device) -> dict:
 class GenericPlan:
     """One Executable shared by every statement matching a (skeleton,
     signature) pair on one device — rebinding feeds new literals and
-    slices. One segment: kind ``single``, or ``direct`` for a plan the
-    planner routed to one segment."""
+    slices. Kind ``single``, ``direct`` (a plan the planner routed to one
+    segment) or ``dist`` (the distributed gang's runner)."""
 
     def __init__(self, session, skeleton: str, plan: N.PlanNode,
                  names, sig, bindings, keyed, slots):
@@ -459,9 +461,17 @@ class GenericPlan:
         # its tables (exec/joinindex.py) — rebinds re-feed them per table
         # version
         self.jix_keys = [s.key for s in jix_specs_of(plan)]
-        self.kind = "direct" if getattr(plan, "_direct_segment", None) \
-            is not None else "single"
-        self.exe = X.compile_plan(plan, session)
+        seg = getattr(plan, "_direct_segment", None)
+        if session.config.n_segments > 1 and seg is None:
+            from cloudberry_tpu_torch.exec import dist_executor as DX
+
+            self.kind = "dist"
+            self.fn = DX.compile_distributed(plan, session)
+            self.exe = None
+        else:
+            self.kind = "direct" if seg is not None else "single"
+            self.exe = X.compile_plan(plan, session)
+            self.fn = None
 
     def matches(self, session, sig, versions, ddlv) -> bool:
         from cloudberry_tpu_torch.sched import sharedcache
@@ -474,20 +484,22 @@ class GenericPlan:
 
     def bind_inputs(self, session, planB, keyedB, bindings) -> dict:
         """Assemble the Executable's inputs from a freshly bound plan:
-        table columns, keyed scan slices REMAPPED to the built plan's
-        input keys, and the literal bindings as the ``$params`` entry."""
+        table columns (under the rebind's direct-dispatch segment), keyed
+        scan slices REMAPPED to the built plan's input keys, and the
+        literal bindings as the ``$params`` entry."""
         from cloudberry_tpu_torch.exec import executor as X
 
-        tables = X.prepare_tables(self.table_names, session)
+        seg = getattr(planB, "_direct_segment", None)
+        tables = X.prepare_tables(self.table_names, session, segment=seg)
         if self.jix_keys:
             from cloudberry_tpu_torch.exec.joinindex import \
                 join_index_inputs
 
-            tables.update(join_index_inputs(self.plan, session))
+            tables.update(join_index_inputs(self.plan, session, seg))
         for key, s in zip(self.keyed_keys, keyedB):
             if hasattr(s, "_point_rows"):
                 tables[key] = X.point_scan_slice(
-                    s.table_name, s._point_rows, session)
+                    s.table_name, s._point_rows, session, seg)
             else:
                 tables[key] = X._load_store_scan(s, session)
         if bindings:
@@ -507,9 +519,30 @@ class GenericPlan:
         # (recorded by the session around the whole runner) already
         # contains this host work
         t_bind = _t.perf_counter()
+        if self.kind == "dist":
+            return self._run_dist(session, planB, bindings, t_bind)
         inputs = self.bind_inputs(session, planB, keyedB, bindings)
         OT.mark("param-bind", t_bind)
         return X.run_executable(self.exe, inputs)
+
+    def _run_dist(self, session, planB, bindings, t_bind):
+        """The ``dist`` kind's rebind: every segment's inputs carry the
+        same ``$params``; motion stats land on the built plan and its
+        observed bucket demands are copied onto the rebind's plan (the
+        growth loop grows THAT plan)."""
+        from cloudberry_tpu_torch.exec import dist_executor as DX
+        from cloudberry_tpu_torch.obs import trace as OT
+
+        inputs = DX.prepare_dist_inputs(planB, session)
+        if bindings:
+            params = device_bindings(bindings, session.device)
+            for d in inputs:
+                d["$params"] = params
+        OT.mark("param-bind", t_bind)
+        with OT.span("launch", mode="dist-generic"), \
+                OT.device_annotation("launch-dist"):
+            return DX.finish_run(self.plan, session, self.fn(inputs),
+                                 grows=planB)[0]
 
     def rung_fn(self, session, rung: int):
         raise NotImplementedError(

@@ -2,11 +2,13 @@
 
 The JAX package promotes three per-session caches (generic plans,
 capacity-rung executables, join indexes) to an engine-wide tier, plus the
-HBM buffer pool. This port carries the tier's scope machinery for the
-three caches it has: generic plans (sched/paramplan.py), the join-index
-cache (exec/joinindex.py) and the device buffer pool
-(exec/bufferpool.py). Capacity-rung executables belong to the
-distributed executor, which the port does not have yet.
+HBM buffer pool and the feedback store. This port carries the tier's
+scope machinery for generic plans (sched/paramplan.py), the join-index
+cache (exec/joinindex.py), the device buffer pool (exec/bufferpool.py)
+and the learned-stats store (plan/feedback.py). It has no rung cache:
+the reference caches a compiled program per capacity rung, while the
+port's distributed runner lowers its plan at every run, so there is
+nothing to compile ahead and the statement cache keeps the runner.
 
 - sessions over the same durable store root share ONE scope (the JAX
   package's ``sched.shared_cache`` at its default; the port has no
@@ -31,8 +33,8 @@ The invalidation contract is the signature discipline, not a protocol:
 - the UDF registry version stays in every plan epoch (``plan_epoch``):
   process-wide state baked into plans at bind time.
 
-At one segment there is no topology epoch: ``topology_token`` is a
-constant.
+The port has no topology epochs (no expand, shrink or failover of the
+segment layout): ``topology_token`` is a constant.
 """
 
 from __future__ import annotations
@@ -60,6 +62,10 @@ class CacheScope:
         # byte budget; anchored here so sessions over one store root
         # share residency
         self.bufferpool = None
+        # learned-stats store (plan/feedback.py), created lazily by
+        # feedback.store_for — sketches learned by one session serve every
+        # session over the same store root
+        self.feedback = None
 
     def clear(self) -> None:
         with self.generic_lock:
@@ -77,6 +83,9 @@ class CacheScope:
         pool = self.bufferpool
         if pool is not None:
             out["bufferpool"] = pool.snapshot()
+        fb = self.feedback
+        if fb is not None:
+            out["feedback"] = fb.snapshot()
         return out
 
 
@@ -198,8 +207,8 @@ def device_token(session) -> str:
 
 
 def topology_token(session) -> int:
-    """The topology-epoch token of the JAX package's shared keys. One
-    segment has one topology: a constant."""
+    """The topology-epoch token of the JAX package's shared keys. The
+    port's segment layout never changes under a session: a constant."""
     return 0
 
 

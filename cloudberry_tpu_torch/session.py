@@ -1,4 +1,4 @@
-"""Session — the QD (query dispatcher) analog, single segment.
+"""Session — the QD (query dispatcher) analog.
 
 ``sql()`` runs the statement pipeline: a statement-log entry with a
 lifecycle handle (deadline from ``statement_timeout_s``, trace, live
@@ -55,21 +55,57 @@ the device buffer pool and a per-session store-scan LRU
 (exec/executor.py). Every statement first picks up other sessions'
 commits (``_sync_store``). The store runs in autocommit mode.
 
-Not ported yet: more than one segment, the failure retry and its circuit
-breaker, transactions (BEGIN raises ``NotImplementedError``),
-materialized views and serving.
+Distributed execution: with ``config.n_segments > 1`` every SELECT is
+planned by the distribution pass (plan/distribute.py, the memo and the
+feedback store) and runs as a gang of segment lowerers on the session's
+one device (exec/dist_executor.py): partitioned tables are placed by the
+reference's hash (``sharded_table``) and uploaded as (nseg, capacity)
+tensors (``device_shards``). A point statement on the distribution key
+runs on its one segment (direct dispatch). An over-budget distributed
+plan raises ``NotImplementedError`` (the reference tiles it in
+exec/tiled_dist.py, not ported).
+
+Not ported yet: the failure retry and its circuit breaker, transactions
+(BEGIN raises ``NotImplementedError``), materialized views and serving.
 """
 
 from __future__ import annotations
 
 import itertools
 import threading
+from dataclasses import dataclass
 from typing import Any
 
 import numpy as np
 import torch
 
 from cloudberry_tpu_torch.config import Config, get_config
+
+
+@dataclass
+class ShardedTable:
+    """Host-side sharded layout: per-column (n_segments, capacity) arrays
+    padded to the largest shard, plus true per-segment row counts."""
+    columns: dict[str, np.ndarray]
+    counts: np.ndarray          # (n_segments,) int64
+    capacity: int
+    replicated: bool
+    version: int
+
+
+@dataclass
+class DeviceShards:
+    """A sharded table on the session's device: partitioned columns (and
+    ``$nn:<col>`` validity masks) as (nseg, capacity) tensors, replicated
+    ones whole; ``counts`` the per-segment row counts (a device tensor for
+    the scans, a host copy for planning-side reads)."""
+    columns: dict[str, torch.Tensor]
+    counts: torch.Tensor
+    counts_host: np.ndarray
+    capacity: int
+    replicated: bool
+    version: int
+    nseg: int
 
 
 class Session:
@@ -114,6 +150,12 @@ class Session:
         self._sync_lock = threading.Lock()
         # device copies of RAM tables: name -> (table version, columns)
         self._device_tables: dict[str, tuple[int, dict]] = {}
+        # distributed placement (n_segments > 1): the host shard layout
+        # per (table, nseg) with its version, a counts-only fast path for
+        # the planner, and the layout's device copy
+        self._shard_cache: dict[str, ShardedTable] = {}
+        self._shard_count_cache: dict = {}
+        self._device_shards: dict[str, DeviceShards] = {}
         # join-expansion buffers grown by statement retries
         self.growth_events = 0
         # the last tiled run's report (exec/tiled.py), None after one-shot
@@ -158,6 +200,15 @@ class Session:
         # the dict
         self._stmt_cache: dict = {}
         self._stmt_lock = threading.Lock()
+        # feedback-driven re-optimization (plan/feedback.py): learned
+        # per-(table, key-set) sketches folded from live motion stats.
+        # The store is scope-anchored; the VIEW is stamped on the catalog
+        # so cost/memo code that only sees the catalog can consult it.
+        from cloudberry_tpu_torch.plan import feedback as FB
+
+        fb_store = FB.store_for(self)
+        if fb_store is not None:
+            self.catalog._feedback = FB.FeedbackView(fb_store, self)
 
     # the generic-plan cache lives in the session's cache scope
     # (sched/sharedcache.py): shared by the sessions over one store root
@@ -427,12 +478,19 @@ class Session:
             self._drop_table_caches(stale)
 
     def _drop_table_caches(self, names) -> None:
-        """Forget the device copies and store-scan cache entries of
-        ``names`` (their versions moved)."""
+        """Forget the device copies, shard layouts and store-scan cache
+        entries of ``names`` (their versions moved)."""
         if not names:
             return
         for name in names:
             self._device_tables.pop(name, None)
+            # shard layouts are keyed by name and version, and a table
+            # re-registered cold may restart its version count
+            for cache in (self._device_shards, self._shard_cache):
+                for key in [k for k in cache if k.rsplit("@", 1)[0] == name]:
+                    del cache[key]
+            for key in [k for k in self._shard_count_cache if k[0] == name]:
+                del self._shard_count_cache[key]
         with self._store_scan_lock:
             for key in [k for k in self._store_scan_cache
                         if k[0] in names]:
@@ -497,18 +555,22 @@ class Session:
         if entry is None:
             return None
         from cloudberry_tpu_torch.exec.udf import registry_version
+        from cloudberry_tpu_torch.plan.feedback import feedback_gen
 
-        names, versions, cfg, ddlv, runner, cost, obs_bytes, _fbgen = \
+        names, versions, cfg, ddlv, runner, cost, obs_bytes, fbgen = \
             entry
         # ddlv pairs the catalog DDL version with the UDF registry
         # version: re-registering a function must drop plans that baked
         # its OLD results in at bind time. The config IDENTITY check is
-        # the config-epoch guard: any with_overrides swap replaces the
-        # frozen tree wholesale. _fbgen holds the place of the JAX
-        # package's feedback-store generation (plan/feedback.py, which
-        # comes with distributed execution): a constant 0 until then.
+        # the config-epoch guard: any with_overrides swap (n_segments,
+        # packed wire, ...) replaces the frozen tree wholesale. fbgen is
+        # the feedback-store generation the plan was built against: a
+        # MATERIAL sketch fold (plan/feedback.py) bumps it, so learned
+        # stats reach statements the cache would otherwise pin to their
+        # first plan.
         stale = (cfg is not self.config
-                 or ddlv != (self.catalog.ddl_version, registry_version()))
+                 or ddlv != (self.catalog.ddl_version, registry_version())
+                 or fbgen != feedback_gen(self))
         if not stale:
             try:
                 stale = self._table_versions(names) != versions
@@ -523,17 +585,31 @@ class Session:
     def _execute_and_cache(self, ckey: str, query: str, plan):
         """Build the statement's runner — the generic plan's rebind when
         the skeleton has one (sched/paramplan.py), else a fresh
-        Executable — cache it unless the plan opts out or reads
-        table-function rows, and run it as the statement's launch."""
+        Executable: one segment's shard under direct dispatch, the
+        distributed gang at ``n_segments > 1``, else the one-program
+        path — cache it unless the plan opts out or reads table-function
+        rows, and run it as the statement's launch."""
         from cloudberry_tpu_torch.exec import executor as X
         from cloudberry_tpu_torch.sched import paramplan
 
         names = sorted({s.table_name for s in X.scans_of(plan)})
+        seg = getattr(plan, "_direct_segment", None)
         prep = None
         if self.config.sched.generic_plans:
             prep = paramplan.lookup_or_build(self, query, plan)
         if prep is not None:
             runner = lambda: prep.run(self)  # noqa: E731
+        elif seg is not None:
+            exe = X.compile_plan(plan, self)
+            runner = lambda: X.run_executable(  # noqa: E731
+                exe, X.prepare_inputs(exe, self, segment=seg))
+        elif self.config.n_segments > 1:
+            from cloudberry_tpu_torch.exec.dist_executor import (
+                compile_distributed, execute_distributed)
+
+            fn = compile_distributed(plan, self)
+            runner = lambda: execute_distributed(  # noqa: E731
+                plan, self, fn)
         else:
             exe = X.compile_plan(plan, self)
             runner = lambda: X.run_executable(  # noqa: E731
@@ -564,13 +640,14 @@ class Session:
         capacity plane observes — tiled runners reserve the whole budget
         but measure their step working set."""
         from cloudberry_tpu_torch.exec.udf import registry_version
+        from cloudberry_tpu_torch.plan.feedback import feedback_gen
 
         entry = (
             names, self._table_versions(names), self.config,
             (self.catalog.ddl_version, registry_version()),
             runner, cost,
             cost if obs_bytes is None else int(obs_bytes),
-            0)  # the feedback generation's place (see _cached_statement)
+            feedback_gen(self))
         with self._stmt_lock:
             self._stmt_cache.pop(ckey, None)  # re-insert at the tail
             while len(self._stmt_cache) >= self._STMT_CACHE_MAX:
@@ -619,8 +696,7 @@ class Session:
         return self._execute_and_cache(ckey, query, plan)
 
     def explain(self, query: str) -> str:
-        """The plan text of a statement, without running it (one
-        segment: no distribution annotation)."""
+        """The plan text of a statement, without running it."""
         from cloudberry_tpu_torch.plan.planner import plan_statement
         from cloudberry_tpu_torch.sql.parser import parse_sql
 
@@ -629,6 +705,15 @@ class Session:
                                 explain_only=True)
         if result.is_ddl:
             return str(result.ddl_result)
+        if self.config.n_segments > 1 \
+                and getattr(result.plan, "_direct_segment", None) is None:
+            # stamp the verifier's DERIVED distribution on every node so
+            # the plan text shows sharding explicitly (``dist:``): the
+            # bracketed locus is what the distributor STAMPED, the dist:
+            # suffix what the rule table DERIVES
+            from cloudberry_tpu_torch.plan.verify import annotate_derived
+
+            annotate_derived(result.plan, self)
         return result.plan.explain()
 
     def explain_analyze(self, query: str) -> str:
@@ -678,3 +763,101 @@ class Session:
                 np.asarray(vm, dtype=np.bool_)).to(self.device)
         self._device_tables[name] = (version, cols)
         return cols
+
+    # ------------------------------------------------------- data placement
+
+    def sharded_table(self, name: str) -> ShardedTable:
+        """The table's host shard layout at ``n_segments``: rows placed by
+        ``Table.shard_assignment`` (stable within a segment), each column
+        an (nseg, capacity) array padded with zeros past the shard's
+        count; validity masks ride as ``$nn:<col>`` bool columns. A
+        replicated table stays whole. Cached per (table, nseg) and
+        version, so DML re-shards."""
+        t = self.catalog.table(name)
+        t.ensure_loaded()  # distributed placement needs whole arrays
+        nseg = self.config.n_segments
+        key = f"{name}@{nseg}"
+        cached = self._shard_cache.get(key)
+        version = getattr(t, "_version", t.stats.row_count)
+        if cached is not None and cached.version == version:
+            return cached
+        phys_cols = dict(t.data)
+        for cname, vm in t.validity.items():
+            phys_cols[f"$nn:{cname}"] = np.asarray(vm, dtype=np.bool_)
+        if t.policy.kind == "replicated":
+            st = ShardedTable(phys_cols, self.shard_counts(name),
+                              max(t.num_rows, 1), True, version)
+        else:
+            assign = t.shard_assignment(nseg)
+            counts = self.shard_counts(name, _assign=assign)
+            cap = max(int(counts.max()) if len(counts) else 0, 1)
+            cols = {}
+            order = np.argsort(assign, kind="stable") if len(assign) \
+                else assign
+            starts = np.concatenate([[0], np.cumsum(counts)])
+            for cname, arr in phys_cols.items():
+                buf = np.zeros((nseg, cap), dtype=arr.dtype)
+                sorted_arr = arr[order]
+                for s in range(nseg):
+                    n = counts[s]
+                    buf[s, :n] = sorted_arr[starts[s]:starts[s] + n]
+                cols[cname] = buf
+            st = ShardedTable(cols, counts, cap, False, version)
+        self._shard_cache[key] = st
+        return st
+
+    def shard_counts(self, name: str, _assign=None) -> np.ndarray:
+        """Per-segment row counts WITHOUT materializing the shard arrays
+        (the planner's capacities); ``sharded_table`` passes its row
+        assignment through ``_assign`` so rows hash once. One derivation
+        either way, so the two always agree."""
+        t = self.catalog.table(name)
+        t.ensure_loaded()
+        nseg = self.config.n_segments
+        version = getattr(t, "_version", t.stats.row_count)
+        key = (name, nseg)
+        hit = self._shard_count_cache.get(key)
+        if hit is not None and hit[0] == version:
+            return hit[1]
+        st = self._shard_cache.get(f"{name}@{nseg}")
+        if st is not None and st.version == version:
+            counts = st.counts
+        elif t.policy.kind == "replicated":
+            counts = np.full(nseg, t.num_rows, dtype=np.int64)
+        else:
+            assign = t.shard_assignment(nseg) if _assign is None \
+                else _assign
+            counts = np.bincount(assign, minlength=nseg).astype(np.int64)\
+                if len(assign) else np.zeros(nseg, dtype=np.int64)
+        self._shard_count_cache[key] = (version, counts)
+        return counts
+
+    def shard_capacity(self, name: str) -> int:
+        return max(int(self.shard_counts(name).max()), 1)
+
+    def device_shards(self, name: str) -> DeviceShards:
+        """``sharded_table`` on the session's device, uploaded once per
+        (table, nseg, version): a partitioned table's columns as (nseg,
+        capacity) tensors whose row views ``t[s]`` are segment s's shard;
+        a replicated table's whole columns (its ``$nrows`` a length-1
+        count, as in the reference)."""
+        from cloudberry_tpu_torch.exec.bufferpool import to_device
+
+        st = self.sharded_table(name)
+        key = f"{name}@{self.config.n_segments}"
+        hit = self._device_shards.get(key)
+        if hit is not None and hit.version == st.version:
+            return hit
+        dev = self.device
+        if st.replicated:
+            cols = self.device_table(name)
+            counts_host = np.full(1, int(st.counts[0]), dtype=np.int64)
+        else:
+            cols = {c: to_device(v, dev) for c, v in st.columns.items()}
+            counts_host = np.asarray(st.counts, dtype=np.int64)
+        ds = DeviceShards(cols, torch.from_numpy(counts_host.copy()).to(dev),
+                          counts_host, st.capacity, st.replicated,
+                          st.version, self.config.n_segments)
+        self._device_shards[key] = ds
+        return ds
+

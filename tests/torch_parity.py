@@ -12,9 +12,18 @@ of absolute values, bounds the prefix magnitude of every query here.
 """
 
 import numpy as np
+import torch
 
 from cloudberry_tpu_torch.catalog import carry
 from cloudberry_tpu_torch.catalog.catalog import DistributionPolicy
+
+# The suite runs in several worker processes on one machine's cores, and
+# JAX compiles in every one of them: torch's intra-op threads (one per core
+# in each worker) then oversubscribe the cores, and the small operators of
+# the port's CPU runs spend their time waiting for one another (the
+# distributed test files took 3.5x longer under six pytest-xdist workers).
+# One thread per worker; every test module of the port imports this one.
+torch.set_num_threads(1)
 
 # the Pallas function each port kernel replaces
 PALLAS_OF = {"dense_agg": "dense_agg_tiles_pallas",
