@@ -155,8 +155,8 @@ its Executable as before the caches existed; phase 11 measures the caches.
    also equal to the numpy oracle (Q1's averages in the two-stage
    finalize's order) and to an 8-segment CPU session of the port;
    TPC-DS q17/q25/q29 at scale 100 over 8 segments, each equal to phase
-   4's one-segment run; TPC-H SF4 (``--dist-sf``; BASELINE.md's config
-   is SF10, cut to fit the time limit) Q5 and Q9 over 4 segments, each
+   4's one-segment run; at SF4 (``--dist-sf``; BASELINE.md's config is
+   SF10, cut to fit the time limit) TPC-H Q5 and Q9 over 4 segments, each
    equal to a one-segment CUDA run at a 64 GiB budget and red line that
    admit it. The first 8-segment run of each statement holds every
    kernel call against its plain version; a counted run gives the
@@ -172,7 +172,36 @@ its Executable as before the caches existed; phase 11 measures the caches.
    on ``l_orderkey`` that direct dispatch routes to one segment, equal
    to numpy and one segment; EXPLAIN ANALYZE of Q3 and Q5 at 8 segments
    whose text (timings stripped) equals the 8-segment CPU run's;
-13. kernels: each kernel, on the inputs the TPC-H path gave it and on
+13. tiled distributed (an admission-refused statement at 8 segments tiled
+   over the gang, exec/tiled_dist.py), every statement with
+   ``debug.verify_plans`` on: ``verify_plan`` over phase 12's 22 TPC-H
+   plans at 8 segments (planning only) with no finding; TPC-H SF1 Q1,
+   Q3 and Q5 at per-segment budgets of 32, 96 and 48 MiB (scaled with
+   --sf; Q9 and Q18 refuse there in both engines), each with the
+   reference's mode, tile rows, tiles per segment (at least 4) and
+   accumulator at full size, equal to phase 12's one-shot 8-segment
+   result and to the numpy oracle (Q1's averages in the finalize's
+   order); TPC-DS TOPN_DS and SORT_DS at 16 MiB and WIN_DS at 256 MiB
+   (scale 100) at 8 segments, each equal to its one-segment run (WIN_DS
+   sorted by every column); the JAX package's tests/test_feedback.py
+   join-group shape (85 % of the fact rows on one join key, no
+   broadcast) at 4,000,000 fact rows and 32 MiB: exactly one
+   mid-statement replan that resumes from its checkpoint, and with the
+   ``tile_replan`` fault skipped no replan, both equal to the in-memory
+   run; the late accumulator overflow of tests/test_torch_dist_recovery.py
+   at 10x its rows (44,000,000; the late keys' domain and the modulus
+   10x too) at 32 MiB, a checkpoint every 2 tiles, windows 1 and 4: the
+   window-4 run must resume from a checkpoint and both equal numpy. The
+   first tiled run of each TPC-H/TPC-DS statement holds every kernel
+   call against its plain version; a counted run gives the launches,
+   and every kernel must launch in the phase. Per statement: the wall
+   (median of 3, beside the one-shot 8-segment run's), tiles per segment
+   and tile rows, the per-tile host ms (mean, p95), the exchange ms per
+   tile (every exchange timed between device synchronizations in one
+   extra run) and the peak device bytes, which less the buffer pool's
+   admissions must stay under budget x 8, with the blocks live at a
+   traced run's peak summed by allocating line;
+14. kernels: each kernel, on the inputs the TPC-H path gave it and on
    synthetic inputs at the main path's shapes plus edge cases (empty
    selection, ragged N, int64 wraparound, duplicate build keys, one hot
    cell, cell domains for each of dense_agg's modes, a skewed group, odd
@@ -189,8 +218,8 @@ its Executable as before the caches existed; phase 11 measures the caches.
    with torch.profiler (after a warm-up trace, and again where a counted
    launch left no device activity in its trace): it must be one device
    kernel;
-14. report: the card line, one JSON line of kernels (launches summed over
-   the counted runs of phases 3 to 12), and last the JSON line
+15. report: the card line, one JSON line of kernels (launches summed over
+   the counted runs of phases 3 to 13), and last the JSON line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -2511,8 +2540,7 @@ DIST_NSEG = 8            # BASELINE.md configs #4-#5: 8 segments
 DIST_BIG_NSEG = 4        # config #3: TPC-H Q5/Q9 over 4 segments
 # BASELINE.md config #3 is SF10; SF10's generation and load alone took
 # 220.9 s on one H100's machine, which the 1,200 s limit cannot hold
-# beside the earlier phases. SF4 is the largest that keeps the script
-# near 900 s (PERF.md §4).
+# beside the earlier phases; SF4 does (PERF.md §4).
 DIST_BIG_SF = 4.0
 # per-query budget and red line that admit the big Q5/Q9 (the reference's
 # 16 GiB red line refused Q9's 27 GiB per-segment estimate at SF10)
@@ -2658,6 +2686,8 @@ def distributed_phase(kit, raw, gpu, cpu, gds, args) -> dict:
                          f"{q} at {DIST_NSEG} segments vs one segment")
         rec = {"rows": res.num_rows(), "launches": counts,
                "float_err_vs_1seg": err}
+        if q in TD_TPCH:
+            kit.keep["results8"][q] = with_nulls(res)
         if q in DIST_ORACLE:
             t_cpu = time.perf_counter()
             got = physical(res)
@@ -2686,6 +2716,7 @@ def distributed_phase(kit, raw, gpu, cpu, gds, args) -> dict:
             + ("; equal to numpy and the CPU run" if q in DIST_ORACLE
                else ""))
     del c8
+    kit.keep["g8"] = g8
     out["tpch_s"] = time.perf_counter() - t_phase
     log(f"[dist] TPC-H SF{args.sf} part: {out['tpch_s']:.1f} s")
 
@@ -2891,6 +2922,468 @@ def distributed_phase(kit, raw, gpu, cpu, gds, args) -> dict:
     return out
 
 
+# ------------------------------------------ 13. tiled distributed
+
+
+# per-segment budgets in MiB that tile each statement at 8 segments with at
+# least 4 lock-step tiles, and the decisions the reference takes there at
+# full size (mode, tile rows, tiles per segment, accumulator capacity;
+# planned on the CPU through both engines): TPC-H SF1 and tpcds-lite
+# scale 100. Q3's two-stage finalize holds 8 x 752,288 accumulator rows,
+# so Q3 needs 96 MiB. In both engines Q9 refuses up to 256 MiB and first
+# tiles at 1 GiB in one tile per segment, and Q18 refuses until it is
+# admitted, so neither reaches 4 tiles.
+TD_TPCH = {"q1": (32, (None, 131_072, 6, 8)),
+           "q3": (96, (None, 65_536, 12, 752_288)),
+           "q5": (48, (None, 131_072, 6, 25))}
+# the smallest budgets in MiB that tile them at SF 0.05 (the quick check's
+# size); a reduced run takes the larger of these scaled by sf / 0.05 and
+# the full-size budget scaled by sf
+TD_TPCH_QUICK = {"q1": 1, "q3": 6, "q5": 2}
+TD_DS = {"TOPN_DS": (16, ("topn", 65_536, 6, 100)),
+         "SORT_DS": (16, ("sort", 65_536, 6, 0)),
+         "WIN_DS": (256, ("window", 65_536, 6, 0))}
+# the JAX package's tests/test_feedback.py replan shape at 10x its rows
+TD_HOT_ROWS = 4_000_000
+TD_HOT_BUDGET = 32 << 20
+TD_HOT_Q = ("SELECT g, sum(v) AS sv, count(*) AS c FROM fact JOIN dim "
+            "ON fact.d = dim.d GROUP BY g ORDER BY g")
+# tests/test_torch_dist_recovery.py's late overflow at 10x its rows: the
+# group estimate grows with the rows, so the late part's key domain and
+# the modulus grow 10x too (its groups must still outnumber the first
+# accumulator)
+TD_LATE_ROWS = (32_000_000, 12_000_000)
+TD_LATE_KEYS = (2_000, 300_000)
+TD_LATE_MOD = 200_000
+TD_LATE_BUDGET = 32 << 20
+
+
+def peak_owners(torch, fn, top=8) -> tuple:
+    """Run ``fn()`` with the CUDA caching allocator's history recorded and
+    replay it: (the most bytes allocated at once above the start, and the
+    blocks live at that moment, summed per allocating line of the port:
+    the innermost ``cloudberry_tpu_torch`` frame, ``top`` largest first).
+    Allocated bytes fall at a free's request, as
+    ``torch.cuda.memory_allocated`` counts them."""
+    torch.cuda.synchronize()
+    torch.cuda.memory._record_memory_history(
+        enabled="all", context="alloc", stacks="python",
+        max_entries=2_000_000)
+    try:
+        fn()
+        torch.cuda.synchronize()
+        trace = torch.cuda.memory._snapshot()["device_traces"][
+            torch.cuda.current_device()]
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    cur = peak = peak_at = 0
+    for i, ev in enumerate(trace):
+        if ev["action"] == "alloc":
+            cur += ev["size"]
+            if cur > peak:
+                peak, peak_at = cur, i + 1
+        elif ev["action"] == "free_requested":
+            cur -= ev["size"]
+    live = {}
+    for ev in trace[:peak_at]:
+        if ev["action"] == "alloc":
+            live[ev["addr"]] = ev
+        elif ev["action"] == "free_requested":
+            live.pop(ev["addr"], None)
+    owners: dict = {}
+    for ev in live.values():
+        where = next((f"{f['filename'].rsplit('cloudberry_tpu_torch/', 1)[-1]}"
+                      f":{f['line']} {f['name']}"
+                      for f in ev.get("frames", ())
+                      if "cloudberry_tpu_torch/" in f["filename"]),
+                     "outside the port")
+        owners[where] = owners.get(where, 0) + ev["size"]
+    ranked = sorted(owners.items(), key=lambda kv: -kv[1])
+    return peak, [[w, b] for w, b in ranked[:top]]
+
+
+def dist_tiled_run(kit, session, sql, budget, what, stream, runs=3,
+                   held=True) -> tuple:
+    """One statement tiled at ``budget`` per segment on an n-segment
+    session: (with ``held``) a run with every kernel call held against its
+    plain version, a counted run (launches, peak device bytes above the
+    resident baseline), ``runs`` timed runs (every tile's wall), a run
+    under the allocator's history (``peak_owners``), and one run with
+    every exchange (pack, route, exchange, unpack) timed between device
+    synchronizations. The streamed table must never reach the device
+    whole, and the peak less the buffer pool's admissions must stay under
+    budget x nseg. Returns (the counted run's result, row of readings)."""
+    from cloudberry_tpu_torch.exec import bufferpool as BUF
+    from cloudberry_tpu_torch.exec import dist_executor as DX
+    from cloudberry_tpu_torch.exec import tiled as TL
+
+    torch = kit.torch
+    nseg = session.config.n_segments
+    base_cfg = session.config
+    session.config = base_cfg.with_overrides(
+        **{"resource.query_mem_bytes": budget})
+    uploads = []
+    real_shards, real_table = session.device_shards, session.device_table
+    session.device_shards = lambda n: (uploads.append(n), real_shards(n))[1]
+    session.device_table = lambda n: (uploads.append(n), real_table(n))[1]
+    try:
+        if held:
+            kit.held(f"{what} (tiled, {nseg} segments, held)",
+                     lambda: session.sql(sql))
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        pool = BUF.pool_for(session)
+        pool0 = pool.snapshot()["bytes"] if pool is not None else 0
+        res, ms, counts = kit.counted_run(session, sql)
+        peak = torch.cuda.max_memory_allocated() - base
+        pooled = max((pool.snapshot()["bytes"] - pool0) if pool is not None
+                     else 0, 0)
+        rep = dict(session.last_tiled_report)
+        walls, tile_s = [], []
+        real_init = TL._TileTimer.__init__
+
+        class Recording:
+            """The timer's histogram, keeping every tile's wall too."""
+
+            def __init__(self, h):
+                self.h = h
+
+            def add(self, dt):
+                tile_s.append(dt)
+                self.h.add(dt)
+
+            def __getattr__(self, name):
+                return getattr(self.h, name)
+
+        def recording_init(self, sess):
+            real_init(self, sess)
+            self._h = Recording(self._h)
+
+        TL._TileTimer.__init__ = recording_init
+        try:
+            for _ in range(runs):
+                t0 = time.perf_counter()
+                session.sql(sql)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            TL._TileTimer.__init__ = real_init
+        gc.collect()
+        traced_peak, owners = peak_owners(torch, lambda: session.sql(sql))
+        ex_ms = []
+        real_ship = DX.Gang.ship
+
+        def timed_ship(self, node, parts):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real_ship(self, node, parts)
+            torch.cuda.synchronize()
+            ex_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        DX.Gang.ship = timed_ship
+        try:
+            session.sql(sql)
+        finally:
+            DX.Gang.ship = real_ship
+    finally:
+        session.config = base_cfg
+        del session.device_shards, session.device_table
+    check(rep is not None and rep["tiled"] and rep["distributed"],
+          f"{what}: did not tile on the segment axis")
+    check(stream not in uploads, f"{what}: the streamed table {stream} "
+          "was copied to the device whole")
+    n = rep["n_tiles"]
+    tt = rep.get("tile_time") or {}
+    row = {"ms": ms, "median_ms": round(float(np.median(walls)), 3),
+           "walls_ms": [round(w, 3) for w in walls],
+           "budget_bytes": budget, "nseg": nseg, "mode": rep.get("mode"),
+           "tile_rows": rep["tile_rows"], "n_tiles": n,
+           "n_chunks": rep.get("n_chunks"),
+           "acc_capacity": rep["acc_capacity"],
+           # over every tile of the timed runs; the report's own p95 is
+           # its histogram's power-of-two bucket bound
+           "tile_ms_mean": round(float(np.mean(tile_s)) * 1e3, 3),
+           "tile_ms_p95": round(float(np.percentile(tile_s, 95)) * 1e3, 3),
+           "tile_ms_p95_bucket_bound": round(tt.get("p95", 0.0) * 1e3, 3),
+           "exchanges": len(ex_ms),
+           "exchange_ms_per_tile": round(sum(ex_ms) / max(n, 1), 3),
+           "est_step_bytes": rep["est_step_bytes"],
+           "est_finalize_bytes": rep["est_finalize_bytes"],
+           "peak_above_resident": int(peak),
+           "budget_x_nseg": budget * nseg,
+           "peak_over_budget_x_nseg": round(peak / (budget * nseg), 4),
+           "pool_admitted_bytes": int(pooled),
+           "peak_less_pool_over_budget_x_nseg": round(
+               (peak - pooled) / (budget * nseg), 4),
+           "est_pipeline_bytes": rep["est_pipeline_bytes"],
+           "traced_peak": int(traced_peak), "peak_owners": owners,
+           "resumed_from_tile": rep.get("resumed_from_tile"),
+           "launches": counts,
+           "launches_per_tile": {k: round(v / n, 3)
+                                 for k, v in counts.items()}}
+    log(f"[tiled-dist] {what}: median {row['median_ms']:.3f} ms of {runs} "
+        f"(counted run {ms:.3f} ms), mode {row['mode'] or 'agg'}, {n} "
+        f"tiles of {rep['tile_rows']} rows per segment"
+        + (f", {row['n_chunks']} chunks" if row["n_chunks"] else "")
+        + f", acc {rep['acc_capacity']}; tile host ms mean "
+        f"{row['tile_ms_mean']} p95 {row['tile_ms_p95']} (over "
+        f"{len(tile_s)} tiles of {runs} runs); {len(ex_ms)} "
+        f"exchanges, {row['exchange_ms_per_tile']} ms per tile "
+        f"(device-synchronized); estimate step {rep['est_step_bytes']} "
+        f"finalize {rep['est_finalize_bytes']} bytes; peak {peak} bytes "
+        f"above the resident baseline against budget x {nseg} = "
+        f"{budget * nseg} ({row['peak_over_budget_x_nseg']}), "
+        f"{pooled} of them the buffer pool's admissions "
+        f"({row['peak_less_pool_over_budget_x_nseg']} without); pipeline "
+        f"estimate {rep['est_pipeline_bytes']} bytes; traced run's peak "
+        f"{traced_peak} bytes, live then by allocating line {owners}; "
+        f"launches {counts} ({row['launches_per_tile']} per tile)")
+    # admission charges each segment's step at the per-segment estimate and
+    # the gang's nseg working sets share the card; the buffer pool's device
+    # copies of hot feed tiles are bounded by bufferpool.max_bytes instead
+    # (the single-segment tiling phase's check, times nseg)
+    check(peak - pooled <= budget * nseg, f"{what}: peak {peak} bytes "
+          f"above the resident baseline ({pooled} of them pool admissions) "
+          f"exceeds budget x {nseg} = {budget * nseg}")
+    return res, row
+
+
+def tiled_dist_phase(kit, raw, gpu, gds, args) -> dict:
+    """Tiled distributed execution on one card (module docstring,
+    phase 13)."""
+    import cloudberry_tpu_torch as ct
+    from cloudberry_tpu_torch import tpcds, tpch
+    from cloudberry_tpu_torch.catalog import carry
+    from cloudberry_tpu_torch.catalog.catalog import DistributionPolicy
+    from cloudberry_tpu_torch.plan.planner import plan_statement
+    from cloudberry_tpu_torch.plan.verify import verify_plan
+    from cloudberry_tpu_torch.sql.parser import parse_sql
+    from cloudberry_tpu_torch.types import date_to_days as D
+    from cloudberry_tpu_torch.utils import faultinject as FI
+
+    torch = kit.torch
+    out = {"verify": {}, "tpch": {}, "tpcds": {}}
+    t_phase = time.perf_counter()
+    full_h = args.sf == 1.0
+    full_ds = args.ds_scale == DS_SCALE
+    nseg = DIST_NSEG
+
+    def mib(m, scale):
+        return max(int(m * scale), 1) << 20
+
+    def expect(what, row, want, full):
+        got = (row["mode"], row["tile_rows"], row["n_tiles"],
+               row["acc_capacity"])
+        check(row["n_tiles"] >= (4 if full else 2),
+              f"{what}: {row['n_tiles']} tiles per segment")
+        if full:
+            check(got == want, f"{what}: (mode, tile rows, tiles, "
+                  f"accumulator) {got}, the reference decides {want}")
+
+    # -------------------------------- the verify gate on 22 TPC-H plans
+    g8 = kit.keep["g8"]
+    for q in sorted(tpch.QUERIES, key=lambda q: int(q[1:])):
+        forget_feedback(g8)
+        plan = plan_statement(parse_sql(tpch.QUERIES[q]), g8, {}).plan
+        findings = verify_plan(plan, g8)
+        check(findings == [], f"TPC-H {q} at {nseg} segments: plan "
+              f"findings {[f.render() for f in findings]}")
+    out["verify"]["tpch_plans"] = len(tpch.QUERIES)
+    log(f"[tiled-dist] verify_plan over the {len(tpch.QUERIES)} TPC-H "
+        f"plans at {nseg} segments: no finding")
+
+    # ------------------------------------------ TPC-H SF1 at 8 segments
+    card = gpu.config
+    vcfg = card.with_overrides(n_segments=nseg,
+                               **{"debug.verify_plans": True})
+    names = ["region", "nation", "supplier", "customer", "orders",
+             "lineitem"]
+    t8 = ct.Session(vcfg)
+    copy_tables(gpu, t8, names)
+    for q, (m, want) in TD_TPCH.items():
+        sql = tpch.QUERIES[q]
+        forget_feedback(t8)
+        budget = mib(m, 1.0) if full_h else max(
+            mib(m, args.sf), mib(TD_TPCH_QUICK[q], args.sf / 0.05))
+        res, row = dist_tiled_run(kit, t8, sql, budget,
+                                  f"TPC-H {q} at {budget >> 20} MiB",
+                                  "lineitem")
+        expect(f"TPC-H {q}", row, want, full_h)
+        same_nulls(with_nulls(res), kit.keep["results8"][q],
+                   f"tiled {q} at {nseg} segments vs the one-shot "
+                   f"{nseg}-segment run")
+        same(physical(res), oracle(raw, q, D, tiled=(q == "q1")),
+             f"tiled {q} at {nseg} segments vs the numpy oracle")
+        one = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            g8.sql(sql)
+            torch.cuda.synchronize()
+            one.append((time.perf_counter() - t0) * 1e3)
+        row["one_shot_median_ms"] = round(float(np.median(one)), 3)
+        out["tpch"][q] = row
+        log(f"[tiled-dist] TPC-H {q}: equal to the one-shot {nseg}-segment "
+            f"run and the numpy oracle; tiled {row['median_ms']:.3f} ms "
+            f"against one-shot {row['one_shot_median_ms']:.3f} ms "
+            "(medians of 3)")
+    del t8
+
+    # --------------------------------- TPC-DS at 8 segments (scale 100)
+    d8 = ct.Session(gds.config.with_overrides(
+        n_segments=nseg, **{"debug.verify_plans": True}))
+    copy_tables(gds, d8, list(tpcds.SCHEMAS))
+    if not full_ds:
+        # at small scales these statements are admitted whole or refused
+        # at every budget: none of them tiles
+        log(f"[tiled-dist] TPC-DS part skipped at scale {args.ds_scale} "
+            f"(it runs at scale {DS_SCALE})")
+    for name, (m, want) in (TD_DS.items() if full_ds else ()):
+        sql = TILED_DS[name][0]
+        one = gds.sql(sql)
+        res, row = dist_tiled_run(kit, d8, sql,
+                                  mib(m, args.ds_scale / DS_SCALE),
+                                  f"{name} at {m} MiB x scale",
+                                  "store_sales")
+        expect(name, row, want, full_ds)
+        if name == "WIN_DS":
+            err = same_nulls(sorted_rows(with_nulls(res)),
+                             sorted_rows(with_nulls(one)),
+                             f"tiled {name} at {nseg} segments vs one "
+                             "segment (rows sorted by every column)")
+        else:
+            err = same_nulls(with_nulls(res), with_nulls(one),
+                             f"tiled {name} at {nseg} segments vs one "
+                             "segment")
+        row.update(rows=res.num_rows(), largest_float_difference=err)
+        out["tpcds"][name] = row
+        log(f"[tiled-dist] {name}: {res.num_rows()} rows equal to the "
+            f"one-segment run (largest float difference {err})")
+    del d8
+
+    # ------------------------------------------ the mid-statement replan
+    F = carry.field
+    rng = np.random.default_rng(3)
+    # at a reduced size, the CPU test's own shape (400,000 rows, 2 MiB)
+    n = TD_HOT_ROWS if full_h else 400_000
+    d = rng.integers(0, 500, n)
+    d[rng.random(n) < 0.85] = 7
+    fact = {"k": np.arange(n) % 997, "d": d, "v": rng.integers(0, 100, n)}
+    hot_cfg = card.with_overrides(n_segments=nseg, **{
+        "planner.broadcast_threshold": 0, "debug.verify_plans": True})
+
+    def hot_session(cfg):
+        s = ct.Session(cfg)
+        carry.load_encoded(s, "dim", [F("d", "int64", 0, False),
+                                      F("g", "int64", 0, False)],
+                           {"d": np.arange(500), "g": np.arange(500) % 9},
+                           policy=DistributionPolicy.hashed("g"))
+        carry.load_encoded(s, "fact", [F("k", "int64", 0, False),
+                                       F("d", "int64", 0, False),
+                                       F("v", "int64", 0, False)], fact,
+                           policy=DistributionPolicy.hashed("k"))
+        return s
+
+    want = with_nulls(hot_session(hot_cfg).sql(TD_HOT_Q))
+    hot_budget = TD_HOT_BUDGET if full_h else 2 << 20
+    rep_hot = {}
+    for skip in (False, True):
+        s = hot_session(hot_cfg.with_overrides(
+            **{"resource.query_mem_bytes": hot_budget}))
+        FI.reset_fault()
+        if skip:
+            FI.inject_fault("tile_replan", action="skip")
+        try:
+            if not skip:
+                kit.held("the replanned join-group (held)",
+                         lambda: s.sql(TD_HOT_Q))
+                s = hot_session(hot_cfg.with_overrides(
+                    **{"resource.query_mem_bytes": hot_budget}))
+            t0 = time.perf_counter()
+            res, ms, counts = kit.counted_run(s, TD_HOT_Q)
+        finally:
+            FI.reset_fault()
+        same_nulls(with_nulls(res), want, f"join-group, tile_replan "
+                   f"{'skipped' if skip else 'armed'}, vs in memory")
+        c = s.stmt_log.counter
+        rep = s.last_tiled_report
+        r = {"ms": ms, "launches": counts, "n_tiles": rep["n_tiles"],
+             "tile_rows": rep["tile_rows"],
+             "resumed_from_tile": rep.get("resumed_from_tile"),
+             **{k: c(k) for k in ("tile_replans", "adaptive_replans",
+                                  "tile_checkpoints", "tile_resumes",
+                                  "feedback_folds", "tile_stat_syncs")}}
+        if skip:
+            check(r["tile_replans"] == 0 and r["adaptive_replans"] == 0,
+                  f"replan with the tile_replan fault skipped: {r}")
+        else:
+            check(r["tile_replans"] == r["adaptive_replans"] == 1
+                  and r["tile_resumes"] >= 1
+                  and (r["resumed_from_tile"] or 0) > 0,
+                  f"the replan did not fire once and resume: {r}")
+        rep_hot["skipped" if skip else "armed"] = r
+        log(f"[tiled-dist] join-group, {n} fact rows, 85 % on one key, "
+            f"tile_replan {'skipped' if skip else 'armed'}: {ms:.3f} ms, "
+            f"{r}; equal to the in-memory run")
+    out["replan"] = rep_hot
+
+    # ---------------------------------------- checkpoint resume, 8 segments
+    # at a reduced size, the CPU test's own shape
+    (n1, n2), keys, mod, late_budget = (
+        (TD_LATE_ROWS, TD_LATE_KEYS, TD_LATE_MOD, TD_LATE_BUDGET) if full_h
+        else ((3_200_000, 1_200_000), (2_000, 30_000), 20_000, 4 << 20))
+    rng = np.random.default_rng(4)
+    k = np.concatenate([rng.integers(0, keys[0], n1),
+                        rng.integers(0, keys[1], n2)])
+    v = rng.integers(0, 100, len(k))
+    kk = k % mod
+    cnt = np.bincount(kk, minlength=mod)
+    sv = np.bincount(kk, weights=v, minlength=mod)
+    present = np.flatnonzero(cnt)[:50]
+    late_want = {"kk": present, "c": cnt[present],
+                 "sv": sv[present].astype(np.int64)}
+    late_q = (f"SELECT k % {mod} AS kk, count(*) AS c, sum(v) AS sv "
+              f"FROM fact GROUP BY k % {mod} ORDER BY kk LIMIT 50")
+    late = {}
+    for w in (1, 4):
+        s = ct.Session(card.with_overrides(n_segments=nseg, **{
+            "resource.query_mem_bytes": late_budget,
+            "recovery.checkpoint_every": 2, "feedback.enabled": False,
+            "tile_pipeline.inflight_tiles": w,
+            "debug.verify_plans": True}))
+        carry.load_encoded(s, "fact", [F("k", "int64", 0, False),
+                                       F("v", "int64", 0, False)],
+                           {"k": k, "v": v},
+                           policy=DistributionPolicy.hashed("k"))
+        res, ms, counts = kit.counted_run(s, late_q)
+        rep = s.last_tiled_report
+        c = s.stmt_log.counter
+        late[w] = {"ms": ms, "launches": counts, "n_tiles": rep["n_tiles"],
+                   "tile_rows": rep["tile_rows"],
+                   "acc_capacity": rep["acc_capacity"],
+                   "resumed_from_tile": rep.get("resumed_from_tile"),
+                   "result": physical(res),
+                   **{x: c(x) for x in (
+                       "tile_checkpoints", "tile_resumes", "tiles_replayed",
+                       "tile_deferred_overflows", "tile_window_replays")}}
+        same(late[w]["result"], late_want,
+             f"late overflow at {nseg} segments, window {w}, vs numpy")
+        del s
+    same(late[4].pop("result"), late[1].pop("result"),
+         "late overflow: window 4 vs window 1")
+    check(late[4]["tile_resumes"] >= 1
+          and (late[4]["resumed_from_tile"] or 0) > 0,
+          f"window 4 did not resume from a checkpoint: {late}")
+    out["checkpoint_resume"] = late
+    log(f"[tiled-dist] late overflow ({n1 + n2} rows, k % {mod}, "
+        f"a checkpoint every 2 tiles) at {nseg} segments: {late}; windows "
+        "1 and 4 equal to numpy")
+    out["s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=float, default=1.0)
@@ -2899,7 +3392,8 @@ def main() -> int:
                     "small scale makes a quick check)")
     ap.add_argument("--dist-sf", type=float, default=DIST_BIG_SF,
                     help="TPC-H scale of the distributed phase's 4-segment "
-                    "Q5/Q9 (BASELINE.md config #3 is SF10); 0 skips it")
+                    f"Q5/Q9 (BASELINE.md config #3 is SF10; {DIST_BIG_SF:g} "
+                    "fits the time limit); 0 skips it")
     ap.add_argument("--profile", action="store_true",
                     help="also trace TPC-H Q1/Q3/Q5, TPC-DS q36/q98 and the "
                     "window query with torch.profiler and write each "
@@ -3305,16 +3799,37 @@ def main() -> int:
     # ---------------------------------------------------- 12. distributed
     t0 = time.perf_counter()
     held_before = dict(held)
+    keep = {"results8": {}}
     with EmptyCaches(ct.Session):
         dist = distributed_phase(SimpleNamespace(
-            torch=torch, counted_run=counted_run, held=held_run),
-            raw, gpu, cpu, gds, args)
+            torch=torch, counted_run=counted_run, held=held_run,
+            keep=keep), raw, gpu, cpu, gds, args)
     dist["held"] = {k: held[k] - held_before[k] for k in held}
     log(f"[dist] kernel calls of the distributed runs held against their "
         f"plain versions: {dist['held']}; distributed phase: "
         f"{time.perf_counter() - t0:.1f} s")
 
-    # -------------------------------------------------------- 13. kernels
+    # -------------------------------------------- 13. tiled distributed
+    t0 = time.perf_counter()
+    held_before = dict(held)
+    launches_before = dict(launches)
+    with EmptyCaches(ct.Session):
+        tiled_dist = tiled_dist_phase(SimpleNamespace(
+            torch=torch, counted_run=counted_run, held=held_run,
+            keep=keep), raw, gpu, gds, args)
+    del keep
+    tiled_dist["held"] = {k: held[k] - held_before[k] for k in held}
+    tiled_dist["launches"] = {k: launches[k] - launches_before[k]
+                              for k in launches}
+    check(all(tiled_dist["launches"].values()),
+          f"a kernel never launched on the tiled distributed path: "
+          f"{tiled_dist['launches']}")
+    log(f"[tiled-dist] kernel calls of the tiled distributed runs held "
+        f"against their plain versions: {tiled_dist['held']}; launches of "
+        f"its counted runs {tiled_dist['launches']}; tiled distributed "
+        f"phase: {time.perf_counter() - t0:.1f} s")
+
+    # -------------------------------------------------------- 14. kernels
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     def rand_int(lo, hi, shape, dtype=torch.int64):
@@ -3756,7 +4271,7 @@ def main() -> int:
             "window_query": tpcds.WINDOW_QUERY.format(
                 where="d_year >= 1998")})
 
-    # --------------------------------------------------------- 14. report
+    # --------------------------------------------------------- 15. report
     kernels = [{
         "name": name, "route": "cuda",
         "source": f"cloudberry_tpu_torch/csrc/{CK.SOURCES[name]}",
@@ -3774,7 +4289,7 @@ def main() -> int:
                       "window": window, "growth": growth, "store": store,
                       "admission": admission, "tiling": tiling,
                       "telemetry": telemetry, "stmt_cache": stmt_cache,
-                      "distributed": dist,
+                      "distributed": dist, "tiled_distributed": tiled_dist,
                       "timer_floor_ms": timer_floor_ms, "sf": args.sf,
                       "tpcds_scale": args.ds_scale}))
     print(json.dumps({"ok": True, "device": {

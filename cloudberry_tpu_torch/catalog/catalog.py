@@ -310,16 +310,51 @@ class Table:
 
         Hash-distributed: jump_consistent_hash over the distribution keys —
         minimal movement on resize (gpexpand analog). Random ('Strewn' locus):
-        round-robin.
+        round-robin. The last assignment is kept per (table version, data
+        object, segment count): placement, the shard counts and a tiled
+        run's consumed-row masks all ask for it, and the hash is the
+        costly part. Callers must not write to the returned array.
         """
         if self.policy.kind == "replicated":
             return None
+        return self._placement(n_segments)[0]
+
+    def shard_layout(self, n_segments: int) -> Optional[tuple]:
+        """(row order, per-segment counts, starts) of the shard layout, None
+        for replicated tables: the stable order of ``shard_assignment``,
+        shard s owning sorted positions [starts[s], starts[s]+counts[s]).
+        Kept beside the assignment; callers must not write to it."""
+        if self.policy.kind == "replicated":
+            return None
+        entry = self._placement(n_segments)
+        if entry[1] is None:
+            assign = entry[0]
+            # segment ids as 16-bit keys: numpy's stable radix sort, the
+            # same order as the stable sort of the int32 ids
+            order = np.argsort(assign.astype(np.uint16), kind="stable")
+            counts = np.bincount(assign, minlength=n_segments).astype(
+                np.int64)
+            entry[1] = (order, counts,
+                        np.concatenate([[0], np.cumsum(counts)]))
+        return entry[1]
+
+    def _placement(self, n_segments: int) -> list:
+        """The cached [assignment, layout or None] of the last
+        (version, data object, segment count) asked for."""
+        key = (getattr(self, "_version", 0), id(self.data), n_segments)
+        hit = getattr(self, "_placement_cache", None)
+        if hit is not None and hit[0] == key:
+            return hit[1]
         n = self.stats.row_count
         if self.policy.kind == "random":
-            return (np.arange(n) % n_segments).astype(np.int32)
-        cols = [self.data[k] for k in self.policy.keys]
-        h = hashing.hash_columns_np([np.asarray(c) for c in cols])
-        return hashing.jump_consistent_hash_np(h, n_segments)
+            out = (np.arange(n) % n_segments).astype(np.int32)
+        else:
+            cols = [self.data[k] for k in self.policy.keys]
+            h = hashing.hash_columns_np([np.asarray(c) for c in cols])
+            out = hashing.jump_consistent_hash_np(h, n_segments)
+        entry = [out, None]
+        self._placement_cache = (key, entry)
+        return entry
 
 
 _VERSION_COUNTER = itertools.count(1)

@@ -10,7 +10,8 @@ device buffer pool, the join-index cache size, memory governance (the
 per-query budget, the concurrency slots, the engine-wide red line and the
 resource queue), the statement timeout, the observability plane and the
 tiled (out-of-core) path's scan pipeline, dispatch window and checkpoint
-store, and the statement scheduler's generic plans and shared cache tier. There is no counterpart
+store, the statement scheduler's generic plans and shared cache tier, and
+the plan verification gate (``debug.verify_plans``). There is no counterpart
 of the JAX package's ``exec.use_pallas``: the kernel gates are decided by
 the plan's shapes alone, and on a CUDA device the hand-written kernels
 always run.
@@ -222,9 +223,12 @@ class FeedbackConfig:
     version bumps and relevant config swaps invalidate by construction.
     The planner consumes them: the memo re-ranks join order / motion
     choice, the distributor seeds capacity rungs at the observed demand
-    rung, and the cost model clamps group counts. The mid-statement
-    adaptive replan and its fields belong to tiled distributed execution
-    (ROADMAP Queue A 7)."""
+    rung, and the cost model clamps group counts. A tiled distributed
+    statement (exec/tiled_dist.py) also watches its redistributes' per-tile
+    destination counts: when the cumulative skew crosses the alarm, the
+    skew sentinel (exec/tiled.py ``SkewSentinel``) checkpoints the carried
+    state and the session re-plans the rest of the statement, which
+    resumes from the checkpoint."""
 
     enabled: bool = True
     # Multiplier over observed per-destination demand when seeding a
@@ -233,6 +237,30 @@ class FeedbackConfig:
     # Persist sketches alongside ANALYZE stats (store-backed sessions
     # only) so fresh sessions inherit them.
     persist: bool = True
+    # Mid-statement adaptive replan for tiled distributed statements
+    # (reads only).
+    adaptive: bool = True
+    # Per-tile cumulative skew ratio (max/mean destination rows) that
+    # triggers the mid-statement replan; 0 = inherit obs.skew_ratio.
+    replan_skew_ratio: float = 0.0
+    # Tiles observed before the skew alarm may fire (one hot tile is
+    # noise; a sustained hot destination is a plan problem).
+    min_tiles: int = 2
+    # Mid-statement replans allowed per statement (the replan loop must
+    # terminate even if the replanned statement stays skewed).
+    max_replans: int = 1
+
+
+@dataclass(frozen=True)
+class DebugConfig:
+    """Engine self-checks. ``verify_plans`` is the plan verification gate
+    (plan/verify.py): every plan the planner or memo emits is verified —
+    derived vs required distribution properties, capacity-rung
+    discipline, param-slot and runtime-filter placement contracts —
+    right before it runs, and a finding raises ``PlanVerifyError``
+    instead of executing a plan whose sharding assumptions are wrong."""
+
+    verify_plans: bool = False
 
 
 @dataclass(frozen=True)
@@ -330,6 +358,7 @@ class Config:
     obs: ObsConfig = field(default_factory=ObsConfig)
     sched: SchedConfig = field(default_factory=SchedConfig)
     feedback: FeedbackConfig = field(default_factory=FeedbackConfig)
+    debug: DebugConfig = field(default_factory=DebugConfig)
 
     def with_overrides(self, **kv: Any) -> "Config":
         """Return a copy with dotted-path overrides, e.g.

@@ -299,3 +299,19 @@ def partition_key(session, table: str, part: dict, columns: tuple):
             sharedcache.topology_token(session),
             sharedcache.config_uid(session.config),
             sharedcache.device_token(session))
+
+
+def dist_tile_key(session, table: str, columns: tuple, nseg: int,
+                  tile_rows: int, off: int):
+    """Key for one packed (nseg, tile_rows) distributed feed tile
+    (exec/tiled_dist.py). ``table_key`` pins the content (store version,
+    or object uid + version for RAM tables); nseg and the tile geometry
+    pin the packing; the config and device tokens are the shared-tier
+    epoch discipline."""
+    from cloudberry_tpu_torch.sched import sharedcache
+
+    return ("dtile", sharedcache.table_key(session, table), columns,
+            int(nseg), int(tile_rows), int(off),
+            sharedcache.topology_token(session),
+            sharedcache.config_uid(session.config),
+            sharedcache.device_token(session))

@@ -123,8 +123,35 @@ class Gang:
         self._parts: dict = {}
 
     def run(self, plan: N.PlanNode):
+        """Lower ``plan`` on every segment: (segment 0's result columns,
+        its selection, the reduced checks, the stats)."""
+        outs, checks, stats = self.run_each(lambda low: low.lower(plan))
+        cols, sel = outs[0]
+        return ({f.name: cols[f.name] for f in plan.fields}, sel, checks,
+                stats)
+
+    def run_each(self, fn):
+        """``fn(lowerer)`` on every segment, in segment order: (the
+        per-segment results, the checks reduced to one flag each — any
+        segment tripped — and the stats). The tiled executors' preludes,
+        steps and finalizes run through here."""
         try:
-            return self._run(plan)
+            outs = [fn(low) for low in self.lowerers]
+            keys: dict = {}
+            for low in self.lowerers:
+                for k in low.checks:
+                    keys.setdefault(k, None)
+            checks = {k: torch.stack([
+                torch.as_tensor(low.checks[k]).reshape(-1).any()
+                for low in self.lowerers if k in low.checks]).any()
+                for k in keys}
+            for low in self.lowerers:
+                if hasattr(low, "node_counts"):
+                    low.flush_counts()
+            for k, parts in self._parts.items():
+                self.stats[k] = self.tx.psum(
+                    [parts[s] for s in sorted(parts)])
+            return outs, checks, dict(self.stats)
         finally:
             # the lowerers and the gang refer to each other: break the
             # cycle so a run's device tensors are freed when it returns,
@@ -133,26 +160,6 @@ class Gang:
                 low.gang = None
             self.lowerers = []
             self._cache.clear()
-
-    def _run(self, plan: N.PlanNode):
-        outs = [low.lower(plan) for low in self.lowerers]
-        cols, sel = outs[0]
-        out = {f.name: cols[f.name] for f in plan.fields}
-        # checks reduce to one flag each: any segment tripped
-        keys: dict = {}
-        for low in self.lowerers:
-            for k in low.checks:
-                keys.setdefault(k, None)
-        checks = {k: torch.stack([
-            torch.as_tensor(low.checks[k]).reshape(-1).any()
-            for low in self.lowerers if k in low.checks]).any()
-            for k in keys}
-        for low in self.lowerers:
-            if hasattr(low, "node_counts"):
-                low.flush_counts()
-        for k, parts in self._parts.items():
-            self.stats[k] = self.tx.psum([parts[s] for s in sorted(parts)])
-        return out, sel, checks, dict(self.stats)
 
     def add_stat(self, key: str, seg: int, value) -> None:
         """A segment's part of a psum'd stat."""

@@ -264,7 +264,7 @@ class ScanPipeline:
         self._staged = None      # consumer-only: next tile, upload started
         self._reader_leaked = False  # join timed out in close()
         self._thread = threading.Thread(target=self._reader, daemon=True,
-                                        name="cbtpu-scan-reader")
+                                        name="cbtpu_torch-scan-reader")
         self._thread.start()
 
     # ------------------------------------------------------------ producer
@@ -509,13 +509,20 @@ def stamp_report(report: dict, feed) -> None:
 _pool = None
 _pool_workers = 0
 _pool_lock = threading.Lock()
+# feeds currently holding each pool (id -> count), and the pools a larger
+# one replaced: a replaced pool shuts down once its last holder releases
+# it, so no feed ever submits to a shut-down executor
+_pool_holders: dict = {}
+_superseded: dict = {}
 
 
 def decode_pool(config):
-    """The shared column-decode thread pool (daemon workers, lazily
-    created, grown to the largest requested size). None when the pipeline
-    is off, decode_workers <= 1, or the host exposes a single usable core;
-    callers then decode serially on the reader thread."""
+    """The shared column-decode thread pool (daemon workers named
+    ``cbtpu_torch-scan-decode``, lazily created, grown to the largest
+    requested size), held by the caller until ``release_decode_pool``.
+    None when the pipeline is off, decode_workers <= 1, or the host
+    exposes a single usable core; callers then decode serially on the
+    reader thread."""
     global _pool, _pool_workers
     sp = getattr(config, "scan_pipeline", None)
     if sp is None or not sp.enabled or sp.decode_workers <= 1:
@@ -532,31 +539,57 @@ def decode_pool(config):
 
     with _pool_lock:
         if _pool is None or _pool_workers < sp.decode_workers:
-            # a superseded pool is not shut down: a concurrent feed may
-            # hold it, and submit() on a shut-down executor raises
+            if _pool is not None:
+                _retire(_pool)
             _pool = ThreadPoolExecutor(
                 max_workers=sp.decode_workers,
-                thread_name_prefix="cbtpu-scan-decode")
+                thread_name_prefix="cbtpu_torch-scan-decode")
             _pool_workers = sp.decode_workers
+        _pool_holders[id(_pool)] = _pool_holders.get(id(_pool), 0) + 1
         return _pool
+
+
+def release_decode_pool(pool) -> None:
+    """A feed is done with ``pool`` (from ``decode_pool``): a superseded
+    pool whose last holder this was shuts down."""
+    if pool is None:
+        return
+    with _pool_lock:
+        n = _pool_holders.get(id(pool), 0) - 1
+        if n > 0:
+            _pool_holders[id(pool)] = n
+            return
+        _pool_holders.pop(id(pool), None)
+        if _superseded.pop(id(pool), None) is not None:
+            pool.shutdown(wait=False)
+
+
+def _retire(pool) -> None:
+    """Called under ``_pool_lock`` when a larger pool replaces ``pool``:
+    shut it down now if no feed holds it, else at its last release."""
+    if _pool_holders.get(id(pool), 0) > 0:
+        _superseded[id(pool)] = pool
+    else:
+        pool.shutdown(wait=False)
 
 
 # --------------------------------------------------------- memory charge
 
 
-def tile_host_bytes(scan, tile_rows: int) -> int:
+def tile_host_bytes(scan, tile_rows: int, nseg: int = 1) -> int:
     """Host bytes one staged tile pins: every physical column at its dtype
-    width plus one bool per validity column, times the padded tile
-    shape."""
+    width plus one bool per validity column, times the padded tile shape
+    (``nseg`` rows of ``tile_rows`` on the distributed path)."""
     width = len(scan.mask_map) + sum(np.dtype(f.type.np_dtype).itemsize
                                      for f in scan.fields)
-    return width * int(tile_rows)
+    return width * int(tile_rows) * max(int(nseg), 1)
 
 
-def queue_charge_bytes(scan, tile_rows: int, config) -> int:
+def queue_charge_bytes(scan, tile_rows: int, config,
+                       nseg: int = 1) -> int:
     """The charge for the pipeline's staging memory: ``prefetch_tiles`` ×
     one tile's working set."""
     sp = getattr(config, "scan_pipeline", None)
     if sp is None or not sp.enabled or sp.prefetch_tiles < 1:
         return 0
-    return sp.prefetch_tiles * tile_host_bytes(scan, tile_rows)
+    return sp.prefetch_tiles * tile_host_bytes(scan, tile_rows, nseg)

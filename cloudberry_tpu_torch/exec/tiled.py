@@ -43,9 +43,13 @@ Telemetry: every step feeds the ``tile_seconds`` histogram, a
 summary (``_TileTimer``); drained tiles feed the statement's live
 progress (``TileTracker``); store decodes feed ``decode_seconds``.
 
-Not carried: the distributed tiler (exec/tiled_dist.py), the skew
-sentinel, the device-loss retry and the statement cache of tiled
-runners.
+A distributed plan (``n_segments > 1``) tiles in exec/tiled_dist.py over
+the gang of segment lowerers; ``SkewSentinel`` watches its redistributes'
+per-tile destination counts and asks the session for a mid-statement
+replan when the cumulative skew crosses the alarm.
+
+Not carried: the JAX package's device-loss retry (the ``tile_device_lost``
+seam and ``run_with_retry``).
 """
 
 from __future__ import annotations
@@ -75,6 +79,14 @@ from cloudberry_tpu_torch.utils.faultinject import fault_point
 
 _MAX_TILE = 1 << 22
 _MIN_TILE = 1 << 12
+
+# The tiled modes that snapshot carried state into the recovery store
+# (_TileShape.mode values whose tick() paths checkpoint).
+# exec/recovery.py REPLACEABLE must cover every entry: the plan verifier
+# (plan/verify.py recovery-mode-unreplaceable) holds the two tables
+# together both ways, so a new checkpointing mode cannot ship without a
+# re-placement rule.
+CHECKPOINT_MODES = ("agg", "topn", "sort", "window")
 
 class _AccLeaf(N.PlanNode):
     """Plan leaf standing for the accumulator in the finalize program."""
@@ -110,15 +122,13 @@ class _TileShape:
 def plan_tiled(plan: N.PlanNode, session) -> Optional["TiledExecutable"]:
     """Try to re-plan an admission-refused statement for tiled execution.
     Returns None when the plan shape or the budget cannot support it. A
-    distributed plan tiles in the reference's ``exec/tiled_dist.py``,
-    which the port does not have: it raises ``NotImplementedError`` rather
-    than tiling a multi-segment plan as one segment."""
+    distributed plan tiles over the segment gang (exec/tiled_dist.py)."""
     if not session.config.resource.enable_spill:
         return None
     if session.config.n_segments > 1:
-        raise NotImplementedError(
-            "tiled execution of a distributed plan (n_segments > 1): "
-            "exec/tiled_dist.py is not yet ported to cloudberry_tpu_torch")
+        from cloudberry_tpu_torch.exec.tiled_dist import plan_tiled_dist
+
+        return plan_tiled_dist(plan, session)
     if getattr(plan, "_direct_segment", None) is not None:
         return None
     from cloudberry_tpu_torch.exec.joinindex import (restore_join_index,
@@ -349,11 +359,11 @@ def _plan_window(shape: _TileShape,
     return WindowTiledExecutable(shape, session, tile_rows, budget)
 
 
-def _topn_bound(chain: list):
+def _topn_bound(chain: list, skip: tuple = ()):
     """Locate a topn-streamable post chain's bounding sort and LIMIT: the
     LOWEST sort, fed only by projections/filters, with a LIMIT above it
-    separated only by projections. Returns (sortnode, limit+offset) or
-    None."""
+    separated only by projections and ``skip`` nodes (gather motions, on
+    the distributed path). Returns (sortnode, limit+offset) or None."""
     sort_i = next((i for i in range(len(chain) - 1, -1, -1)
                    if isinstance(chain[i], N.PSort)), None)
     if sort_i is None:
@@ -363,7 +373,7 @@ def _topn_bound(chain: list):
         return None
     m = None
     for n in reversed(chain[:sort_i]):
-        if isinstance(n, N.PProject):
+        if isinstance(n, (N.PProject,) + skip):
             continue
         if isinstance(n, N.PLimit):
             m = n.limit + n.offset
@@ -632,6 +642,169 @@ def _progress_tracker(exe, n_base: int, skip: int):
                        rows_total=total)
 
 
+class SkewSentinel:
+    """Mid-statement adaptive-replan watcher for tiled distributed runs.
+
+    Each distributed step already sums every redistribute's
+    per-destination row counts over the segments (the gang's ``seg rows``
+    stat); the sentinel accumulates those vectors on the host across
+    tiles and, when the CUMULATIVE distribution crosses the skew alarm
+    (``config.feedback.replan_skew_ratio``, 0 = inherit
+    ``config.obs.skew_ratio``), asks the session to re-plan the rest of
+    the statement: it folds the observed counts into the feedback store
+    as a partial sketch, force-checkpoints the carried state
+    (exec/recovery.py) and raises ``TileReplan``. Correctness never
+    depends on it — an adaptation that cannot checkpoint disarms and the
+    run finishes on the static plan.
+
+    Guard rails, in check order: feature off / no recovery scope / too
+    few tiles seen (``min_tiles``) / statement replan budget spent
+    (``max_replans``) / no motion alarmed / ``tile_replan`` fault seam
+    armed / checkpoint save failed."""
+
+    def __init__(self, exe, motions, ctx):
+        cfg = getattr(exe.session.config, "feedback", None)
+        self.exe = exe
+        self.session = exe.session
+        self.motions = motions
+        self.ctx = ctx
+        self.min_tiles = cfg.min_tiles if cfg is not None else 2
+        self.max_replans = cfg.max_replans if cfg is not None else 0
+        self.threshold = float(
+            (cfg.replan_skew_ratio or exe.session.config.obs.skew_ratio)
+            if cfg is not None else 0.0)
+        # collect: accumulate telemetry for the end-of-run fold (the
+        # learning half works even with adaptation off); armed: the
+        # mid-statement replan trigger itself
+        self.collect = bool(cfg is not None and cfg.enabled and motions)
+        self.armed = bool(
+            self.collect and cfg.adaptive and ctx is not None
+            and self.threshold > 0.0)
+        self.cum = [np.zeros(exe.nseg, dtype=np.int64) for _ in motions]
+        self.demand = [0] * len(motions)
+
+    def observe(self, stats) -> None:
+        """Fold one tile's per-motion (required-bucket scalar, summed
+        per-destination row vector) pairs, host values in the order of
+        ``self.motions``."""
+        if not self.collect:
+            return
+        # one host fetch per tile, counted: when feedback is off (or the
+        # plan has no redistribute) the loop never passes stats in, so
+        # this stays 0
+        log = getattr(self.session, "stmt_log", None)
+        if log is not None:
+            log.bump("tile_stat_syncs")
+        for i, (bucket, rows) in enumerate(stats):
+            self.demand[i] = max(self.demand[i], int(np.asarray(bucket)))
+            self.cum[i] += np.asarray(rows, dtype=np.int64)
+
+    def _pin(self) -> bool:
+        """Stamp the cumulative observations onto the partial plan's
+        motions the way record_motion_stats does for the one-shot path;
+        True when anything flowed."""
+        any_rows = False
+        for m, c, d in zip(self.motions, self.cum, self.demand):
+            if int(c.sum()) > 0:
+                m._seg_rows = c.copy()
+                any_rows = True
+            if d > 0:
+                # per-TILE demand, not cumulative: the rung a re-seeded
+                # tiled run needs is the largest single-tile bucket
+                m._observed_bucket = max(
+                    d, getattr(m, "_observed_bucket", 0) or 0)
+        return any_rows
+
+    def fold_final(self) -> None:
+        """End-of-run fold: the one-shot distributed path folds in
+        ``dist_executor.finish_run``, the tiled stream folds here."""
+        if not self.collect:
+            return
+        from cloudberry_tpu_torch.plan import feedback as FB
+
+        if self._pin():
+            FB.fold_plan(self.session, self.exe.shape.partial_plan)
+
+    def _worst(self):
+        worst = None
+        for m, c in zip(self.motions, self.cum):
+            total = int(c.sum())
+            if total <= 0:
+                continue
+            ratio = float(c.max()) * len(c) / total
+            if ratio >= self.threshold and (worst is None
+                                            or ratio > worst[1]):
+                worst = (m, ratio)
+        return worst
+
+    def maybe_replan(self, tiles_local: int, payload_fn,
+                     settle=None) -> None:
+        """Raise TileReplan when the cumulative distribution alarms and the
+        adaptation can resume safely; no-op otherwise.
+
+        ``settle`` is the windowed-dispatch hook (exec/tilepipe.py): a
+        zero-arg callable that drains every in-flight tile (folding their
+        observations) and returns the new drained-tile count. The alarm
+        fires on DRAINED telemetry, but the snapshot must capture the
+        carried accumulator, which is the newest dispatched step's —
+        settling first makes every dispatched tile verified-clean, so
+        ``payload_fn`` (the live accumulator) and ``tiles_local`` agree
+        again. At window=1 the queue is already empty."""
+        import time as _t
+
+        from cloudberry_tpu_torch.exec import recovery as R
+        from cloudberry_tpu_torch.lifecycle import current_handle
+        from cloudberry_tpu_torch.obs import trace as OT
+
+        if not self.armed or tiles_local < self.min_tiles:
+            return
+        session = self.session
+        # the replan budget rides the STATEMENT handle (Session.sql
+        # re-dispatches under the same one), and only handles the session
+        # marked adaptation-safe (reads) may restart
+        handle = current_handle()
+        if handle is None or not getattr(handle, "adaptive_ok", False):
+            return
+        if getattr(handle, "tile_replans", 0) >= self.max_replans:
+            return
+        worst = self._worst()
+        if worst is None:
+            return
+        if fault_point("tile_replan"):
+            self.armed = False      # seam: suppress the adaptation
+            return
+        if settle is not None:
+            # drain the in-flight window: a check that fires here aborts
+            # the replan and rides the normal adaptive-retry path
+            tiles_local = settle()
+            worst = self._worst()
+            if worst is None:       # the tail un-alarmed the ratio
+                return
+        # publish what was seen BEFORE restarting: pin the cumulative
+        # counts on the partial plan's motions and fold a partial sketch —
+        # the re-planned statement prices against it
+        from cloudberry_tpu_torch.plan import feedback as FB
+
+        self._pin()
+        FB.fold_plan(session, self.exe.shape.partial_plan, partial=True)
+        # the replanned run must resume from HERE, not re-stream: a failed
+        # save disarms the sentinel and the static plan finishes
+        if not self.ctx.force_snapshot(tiles_local, payload_fn):
+            self.armed = False
+            return
+        handle.tile_replans = getattr(handle, "tile_replans", 0) + 1
+        log = getattr(session, "stmt_log", None)
+        if log is not None:
+            log.bump("tile_replans")
+        OT.mark("tile-replan", _t.perf_counter(),
+                tile=tiles_local, ratio=round(worst[1], 3))
+        raise R.TileReplan(
+            f"[tile {tiles_local}] cumulative redistribute skew "
+            f"{worst[1]:.2f}x crossed the adaptive replan alarm "
+            f"{self.threshold:.2f}x; carried state checkpointed",
+            tiles_done=tiles_local, ratio=worst[1])
+
+
 class AdaptiveTiledMixin:
     """The adaptive-retry discipline of the tiled executables: classify a
     detected overflow, grow the guilty buffer (accumulator / join pair
@@ -682,6 +855,11 @@ class AdaptiveTiledMixin:
                     # join when the budget allows, else halve the tile
                     if not (self._try_grow(msg)
                             or self._try_halve_tile()):
+                        raise
+                elif "redistribute overflow" in msg:
+                    # an estimate-sized bucket overflowed inside a tile:
+                    # smaller tiles shrink every per-tile send bound
+                    if not self._try_halve_tile():
                         raise
                 else:
                     raise
@@ -1508,6 +1686,18 @@ def _pool_chunk(scan: N.PScan, ent: dict) -> dict:
 
 def _store_tiles(scan: N.PScan, session, tile_rows: int,
                  skip_rows: int = 0, stats=None):
+    """``_decoded_tiles`` holding the shared decode pool for as long as the
+    generator lives (released when it finishes or is closed)."""
+    pool = SP.decode_pool(session.config)
+    try:
+        yield from _decoded_tiles(scan, session, tile_rows, skip_rows,
+                                  stats, pool)
+    finally:
+        SP.release_decode_pool(pool)
+
+
+def _decoded_tiles(scan: N.PScan, session, tile_rows: int, skip_rows: int,
+                   stats, pool):
     """Stream a pruned cold scan part by part, re-chunked to tile_rows: the
     out-of-core path — peak host memory is one partition + the pipeline's
     bounded staging. A resume's ``skip_rows`` drops whole consumed
@@ -1518,7 +1708,6 @@ def _store_tiles(scan: N.PScan, session, tile_rows: int,
     store = session.catalog.store
     needed = _phys_cols(scan)
     stats = stats if stats is not None else SP.ScanStats()
-    pool = SP.decode_pool(session.config)
     bpool = BUF.pool_for(session)
     cols_key = tuple(needed)
     log = session.stmt_log

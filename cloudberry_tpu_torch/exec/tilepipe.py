@@ -75,7 +75,7 @@ def effective_window(config, platform: str) -> int:
 
 
 def window_charge_bytes(scan, tile_rows: int, config,
-                        platform: str) -> int:
+                        platform: str, nseg: int = 1) -> int:
     """Charge for the dispatch window: beyond the first tile (already in
     est_step_bytes), each additional in-flight tile pins one tile's
     working set on the device until its flags drain."""
@@ -84,7 +84,7 @@ def window_charge_bytes(scan, tile_rows: int, config,
         return 0
     from cloudberry_tpu_torch.exec import scanpipe as SP
 
-    return (w - 1) * SP.tile_host_bytes(scan, tile_rows)
+    return (w - 1) * SP.tile_host_bytes(scan, tile_rows, nseg)
 
 
 class _HostCopy:

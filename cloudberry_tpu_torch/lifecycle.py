@@ -211,7 +211,7 @@ class Watchdog:
         if self._thread is None:
             self._stop.clear()
             self._thread = threading.Thread(target=self._loop, daemon=True,
-                                            name="cbtpu-watchdog")
+                                            name="cbtpu_torch-watchdog")
             self._thread.start()
         return self
 

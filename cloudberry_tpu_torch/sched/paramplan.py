@@ -442,6 +442,18 @@ class GenericPlan:
         self.skeleton = skeleton
         self.sig = sig
         self.config = session.config
+        if session.config.debug.verify_plans:
+            # the verification gate on the GENERIC-PLAN FORM: the
+            # rewritten plan (literals now $params slots, scan row counts
+            # $nrw inputs) must verify clean AND both slot families must
+            # agree with the signature — a desynced slot would bind a
+            # literal into the wrong predicate on every later rebind
+            from cloudberry_tpu_torch.plan.verify import check_plan
+
+            check_plan(plan, session, "paramplan",
+                       declared_slots=list(slots),
+                       declared_nrw=sum(1 for k in bindings
+                                        if k.startswith("$nrw")))
         # shared-tier guards (sched/sharedcache.py): content-stable table
         # version tokens + the plan epoch — store-scope entries match
         # across sessions, everything else stays private by construction;

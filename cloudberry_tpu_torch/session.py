@@ -24,9 +24,11 @@ re-checks admission and the red line and runs the statement again
 (``growth_events`` counts the growths); a grown plan over the budget is
 tiled, one that crosses the red line is terminated (``RunawayError``).
 The statement-log id keys the tiled executors' checkpoint store; its
-checkpoints are discarded when the statement ends. The JAX package's
-greedy re-plan of a refused plan needs its join-order memo, which the
-port lacks.
+checkpoints are discarded when the statement ends. When a refused plan
+cannot be tiled and ``planner.enable_memo`` is on, the statement is
+re-planned greedily (memo off: the memo may have put a big relation on a
+build side, and tiling streams the probe path only) and that plan is
+tiled instead.
 
 Statement cache: a repeated statement text (with the same user params)
 reuses its runner — one-shot or tiled — without parsing or planning,
@@ -62,8 +64,18 @@ one device (exec/dist_executor.py): partitioned tables are placed by the
 reference's hash (``sharded_table``) and uploaded as (nseg, capacity)
 tensors (``device_shards``). A point statement on the distribution key
 runs on its one segment (direct dispatch). An over-budget distributed
-plan raises ``NotImplementedError`` (the reference tiles it in
-exec/tiled_dist.py, not ported).
+plan is tiled over the gang (exec/tiled_dist.py). A tiled distributed
+READ whose redistributes turn skewed mid-stream may raise ``TileReplan``
+(the skew sentinel, exec/tiled.py): ``sql`` then evicts the statement's
+cache entry, owes the plan verifier one pass, re-plans under the same
+statement handle (the memo sees the fresh feedback sketch) and the new
+executable resumes from the sentinel's checkpoint — at most
+``feedback.max_replans`` times per statement.
+
+Plan verification: with ``debug.verify_plans`` on, every plan the
+planner or memo emits is checked by plan/verify.py right before it runs
+(the statement path, the greedy re-plan, the generic-plan build and
+EXPLAIN); a finding raises ``PlanVerifyError``.
 
 Not ported yet: the failure retry and its circuit breaker, transactions
 (BEGIN raises ``NotImplementedError``), materialized views and serving.
@@ -158,6 +170,9 @@ class Session:
         self._device_shards: dict[str, DeviceShards] = {}
         # join-expansion buffers grown by statement retries
         self.growth_events = 0
+        # plans owed a verification after a mid-statement replan, even
+        # with debug.verify_plans off (_verify_plan)
+        self._verify_next_plans = 0
         # the last tiled run's report (exec/tiled.py), None after one-shot
         self.last_tiled_report = None
         # statement history + active registry + the metrics registry, the
@@ -251,9 +266,43 @@ class Session:
         # discipline: the statements table aggregates the generic-hit
         # rate per skeleton from them (obs/statements.py)
         generic_before = log.counter("generic_hits")
+        from cloudberry_tpu_torch.exec.recovery import TileReplan
+        from cloudberry_tpu_torch.sql.classify import read_only
+
+        # mid-statement adaptive replan (exec/tiled.py SkewSentinel):
+        # reads only — a write's tiled subplan must never restart after a
+        # host-side mutation. The sentinel checks this flag (and its own
+        # per-handle replan budget) before raising TileReplan.
+        handle.adaptive_ok = read_only(query)
+        adaptations = 0
         try:
             with lifecycle.statement_scope(handle):
-                out = self._sql_once(query, **params)
+                while True:
+                    try:
+                        out = self._sql_once(query, **params)
+                        break
+                    except TileReplan as e:
+                        # NOT a failure: the sentinel already folded the
+                        # observed sketch and checkpointed the carried
+                        # state. Evict the cached statement so the
+                        # re-dispatch re-plans against the fresh sketch,
+                        # owe the verifier a pass on the new plan, and
+                        # re-run under the SAME handle — the new
+                        # executable resumes from the checkpoint
+                        adaptations += 1
+                        if adaptations > self.config.feedback\
+                                .max_replans + 1:
+                            raise  # belt over the sentinel's budget
+                        with self._stmt_lock:
+                            self._stmt_cache.pop(
+                                self._stmt_cache_key(query, params), None)
+                        self._verify_next_plans = max(
+                            self._verify_next_plans, 1)
+                        log.bump("adaptive_replans")
+                        log.set_state(log_id, "replanning")
+                        log.annotate(log_id,
+                                     adaptive_skew=round(e.ratio, 2),
+                                     replan_at_tile=e.tiles_done)
         except BaseException as e:
             # BaseException too: a Ctrl-C mid-statement must not leave a
             # phantom "running" entry in the active registry
@@ -345,6 +394,10 @@ class Session:
         OM.observe_stage(self.stmt_log, "plan", _t.perf_counter() - t1)
         if result.is_ddl:
             return result.ddl_result
+        # the verification gate (config.debug.verify_plans): every plan
+        # the planner or memo emitted is verified right before it runs —
+        # a finding is a refusal, not a silently wrong answer
+        self._verify_plan(result.plan, "session")
         # admission control: memory budget check + queue slot + vmem
         # reservation; an over-budget plan falls back to tiled
         # out-of-core execution (exec/tiled.py) first
@@ -354,6 +407,23 @@ class Session:
             from cloudberry_tpu_torch.exec.tiled import plan_tiled
 
             texe = plan_tiled(result.plan, self)
+            if texe is None and self.config.planner.enable_memo:
+                # the memo's joint order may have put a big relation on a
+                # BUILD side (spill-hostile: tiling streams the probe path
+                # only). Re-plan greedy — the fact side stays the stream —
+                # and tile that; a shallow session clone carries the
+                # greedy config so concurrent planners never observe it
+                import copy
+
+                clone = copy.copy(self)
+                clone.config = self.config.with_overrides(
+                    **{"planner.enable_memo": False})
+                result2 = plan_statement(stmt, clone, params)
+                self._verify_plan(result2.plan, "greedy-replan")
+                texe = plan_tiled(result2.plan, clone)
+                if texe is not None:
+                    # runs report (last_tiled_report) to the real session
+                    texe.session = self
             if texe is None:
                 raise
             texe.refresh_bufpool_charge()
@@ -695,6 +765,25 @@ class Session:
                     return self._run_cached_tiled(ckey, texe)
         return self._execute_and_cache(ckey, query, plan)
 
+    def _verify_plan(self, plan, context: str) -> None:
+        """The config.debug.verify_plans gate (plan/verify.py): verify a
+        freshly planned statement and raise PlanVerifyError with
+        node-path findings instead of running a broken plan. A plan
+        re-made after a mid-statement replan is verified once even with
+        the gate off (``_verify_next_plans``)."""
+        if plan is None:
+            return
+        owed = self._verify_next_plans
+        if not self.config.debug.verify_plans and owed <= 0:
+            return
+        if owed > 0:
+            # approximate decrement: an extra verification under a race
+            # costs wall clock, never correctness
+            self._verify_next_plans = owed - 1
+        from cloudberry_tpu_torch.plan.verify import check_plan
+
+        check_plan(plan, self, context)
+
     def explain(self, query: str) -> str:
         """The plan text of a statement, without running it."""
         from cloudberry_tpu_torch.plan.planner import plan_statement
@@ -710,10 +799,16 @@ class Session:
             # stamp the verifier's DERIVED distribution on every node so
             # the plan text shows sharding explicitly (``dist:``): the
             # bracketed locus is what the distributor STAMPED, the dist:
-            # suffix what the rule table DERIVES
-            from cloudberry_tpu_torch.plan.verify import annotate_derived
+            # suffix what the rule table DERIVES. The annotation walk IS a
+            # verification, so the gate rides it
+            from cloudberry_tpu_torch.plan.verify import (PlanVerifyError,
+                                                          annotate_derived)
 
-            annotate_derived(result.plan, self)
+            findings = annotate_derived(result.plan, self)
+            if findings and self.config.debug.verify_plans:
+                raise PlanVerifyError(findings, "explain")
+        else:
+            self._verify_plan(result.plan, "explain")
         return result.plan.explain()
 
     def explain_analyze(self, query: str) -> str:
@@ -788,13 +883,9 @@ class Session:
             st = ShardedTable(phys_cols, self.shard_counts(name),
                               max(t.num_rows, 1), True, version)
         else:
-            assign = t.shard_assignment(nseg)
-            counts = self.shard_counts(name, _assign=assign)
+            order, counts, starts = t.shard_layout(nseg)
             cap = max(int(counts.max()) if len(counts) else 0, 1)
             cols = {}
-            order = np.argsort(assign, kind="stable") if len(assign) \
-                else assign
-            starts = np.concatenate([[0], np.cumsum(counts)])
             for cname, arr in phys_cols.items():
                 buf = np.zeros((nseg, cap), dtype=arr.dtype)
                 sorted_arr = arr[order]
@@ -806,11 +897,11 @@ class Session:
         self._shard_cache[key] = st
         return st
 
-    def shard_counts(self, name: str, _assign=None) -> np.ndarray:
+    def shard_counts(self, name: str) -> np.ndarray:
         """Per-segment row counts WITHOUT materializing the shard arrays
-        (the planner's capacities); ``sharded_table`` passes its row
-        assignment through ``_assign`` so rows hash once. One derivation
-        either way, so the two always agree."""
+        (the planner's capacities): ``Table.shard_layout``'s, the one
+        derivation ``sharded_table`` places rows by, so the two always
+        agree."""
         t = self.catalog.table(name)
         t.ensure_loaded()
         nseg = self.config.n_segments
@@ -825,10 +916,7 @@ class Session:
         elif t.policy.kind == "replicated":
             counts = np.full(nseg, t.num_rows, dtype=np.int64)
         else:
-            assign = t.shard_assignment(nseg) if _assign is None \
-                else _assign
-            counts = np.bincount(assign, minlength=nseg).astype(np.int64)\
-                if len(assign) else np.zeros(nseg, dtype=np.int64)
+            counts = t.shard_layout(nseg)[1]
         self._shard_count_cache[key] = (version, counts)
         return counts
 

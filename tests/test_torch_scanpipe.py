@@ -60,7 +60,7 @@ def _clean_faults():
 def _no_orphan_readers(timeout=5.0) -> bool:
     end = time.monotonic() + timeout
     while time.monotonic() < end:
-        if not any(t.name.startswith("cbtpu-scan-reader")
+        if not any(t.name.startswith("cbtpu_torch-scan-reader")
                    and t.is_alive() for t in threading.enumerate()):
             return True
         time.sleep(0.05)

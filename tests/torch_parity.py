@@ -187,7 +187,68 @@ def same_tiled_report(ts, js) -> dict:
     assert tr["tiled"] and jr["tiled"]
     for k in TILED_KEYS:
         assert tr.get(k) == jr.get(k), (k, tr.get(k), jr.get(k))
+    retire_reference_decode_pool()
     return tr
+
+
+# the distributed report's decision keys; timings, the pipeline's and
+# the window's telemetry and the topology epoch (the port has no online
+# topology: its epoch is 0) are compared apart
+DIST_TILED_KEYS = TILED_KEYS + (
+    "tiled", "distributed", "n_segments", "stream_table",
+    "est_finalize_bytes", "est_pipeline_bytes", "budget_bytes",
+    "tile_window", "resumed_from_tile", "tiles_replayed", "n_chunks")
+
+
+def dist_pair(load, budget=None, nseg: int = 8, **overrides):
+    """A JAX session and a port session on the CPU at ``nseg`` segments,
+    generic plans off in the JAX package, the tables made by
+    ``load(session)`` in the JAX session and carried into the port's,
+    both under the same memory budget (None: the default 4 GiB) and the
+    same dotted ``overrides``."""
+    import cloudberry_tpu as cb
+    from cloudberry_tpu_torch import Config as TorchConfig
+    from cloudberry_tpu_torch import Session as TorchSession
+
+    ov = {"n_segments": nseg, **overrides}
+    if budget is not None:
+        ov["resource.query_mem_bytes"] = budget
+    js = cb.Session(cb.get_config().with_overrides(
+        **{"sched.generic_plans": False, **ov}))
+    load(js)
+    ts = TorchSession(TorchConfig().with_overrides(**ov), device="cpu")
+    carry_tables(js, ts)
+    return js, ts
+
+
+def same_dist_tiled_report(ts, js) -> dict:
+    """The port's last distributed tiled report, after holding its key set
+    and decision keys equal to the JAX session's (both must have tiled
+    on the segment axis)."""
+    tr, jr = ts.last_tiled_report, js.last_tiled_report
+    assert tr is not None and jr is not None, (tr, jr)
+    assert tr["tiled"] and tr["distributed"]
+    assert set(tr) == set(jr), sorted(set(tr) ^ set(jr))
+    for k in DIST_TILED_KEYS:
+        assert tr.get(k) == jr.get(k), (k, tr.get(k), jr.get(k))
+    assert tr["topology_epoch"] == 0
+    retire_reference_decode_pool()
+    return tr
+
+
+def retire_reference_decode_pool() -> None:
+    """Shut down the JAX package's process-wide column-decode pool, which
+    its store-backed tiled runs create and keep: its worker threads carry
+    the reference's ``cbtpu-`` prefix, and a JAX test that runs later in
+    the same worker process asserts that no such thread is alive. Called
+    between statements, when no reference feed holds the pool."""
+    from cloudberry_tpu.exec import scanpipe as JSP
+
+    with JSP._pool_lock:
+        if JSP._pool is not None:
+            JSP._pool.shutdown(wait=True)
+            JSP._pool = None
+            JSP._pool_workers = 0
 
 
 def sorted_rows(batch):
