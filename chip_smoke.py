@@ -201,7 +201,30 @@ its Executable as before the caches existed; phase 11 measures the caches.
    extra run) and the peak device bytes, which less the buffer pool's
    admissions must stay under budget x 8, with the blocks live at a
    traced run's peak summed by allocating line;
-14. kernels: each kernel, on the inputs the TPC-H path gave it and on
+14. recovery and topology, on phase 13's TPC-H tables and budgets at 8
+   segments with a checkpoint every 2 tiles and ``debug.verify_plans``
+   on: the health probe of the 8 segment slots on the card (its median
+   ms over 20, and 7 slots with ``probe_degraded``); a CUDA runtime error
+   and an out-of-memory error never re-dispatch; Q1, Q3 and Q5 tiled,
+   uninterrupted (every kernel call held against its plain version), then
+   killed through the ``tile_device_lost`` seam at tile 0, mid and last:
+   each counted run must recover once, replay at most K = 2 tiles
+   (``tiles_replayed``, the reference's bound) and resume from a
+   checkpoint wherever a drained one existed, and equal the uninterrupted
+   run; Q3 and Q5 killed mid-stream with ``probe_degraded`` armed must
+   finish on 7 segments equal to the uninterrupted 8-segment run — Q5
+   resuming from its checkpoint with the remaining rows re-sharded by the
+   placement hash, Q3 (a one-stage aggregate on the distribution key,
+   whose partials cannot re-place) declining the resume and re-running
+   fresh, as the reference does — and two clean probes then expand the
+   cluster back to 8; a planned online expand 8 -> 12
+   (``begin``/``rebalance``/``cutover``) and the shrink back, each moving
+   at most 1.25x the jump hash's minimal bound of rows, with Q5 at each
+   epoch equal to the 8-segment run. Per run: the wall against the
+   uninterrupted wall, the resume tile, tiles re-run, the recovery
+   counters and the launches; per resize: the rows moved against the
+   bound, the rebalance's seconds and the cutover's ms;
+15. kernels: each kernel, on the inputs the TPC-H path gave it and on
    synthetic inputs at the main path's shapes plus edge cases (empty
    selection, ragged N, int64 wraparound, duplicate build keys, one hot
    cell, cell domains for each of dense_agg's modes, a skewed group, odd
@@ -218,8 +241,8 @@ its Executable as before the caches existed; phase 11 measures the caches.
    with torch.profiler (after a warm-up trace, and again where a counted
    launch left no device activity in its trace): it must be one device
    kernel;
-15. report: the card line, one JSON line of kernels (launches summed over
-   the counted runs of phases 3 to 13), and last the JSON line
+16. report: the card line, one JSON line of kernels (launches summed over
+   the counted runs of phases 3 to 14), and last the JSON line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -3384,6 +3407,291 @@ def tiled_dist_phase(kit, raw, gpu, gds, args) -> dict:
     return out
 
 
+# the recovery phase (phase 14): phase 13's TPC-H statements and budgets,
+# a checkpoint every RC_K tiles, kills at tile 0, mid and last, 8 -> 7
+# degraded runs of Q3 and Q5, one planned online expand 8 -> 12 and back
+# with Q5 at each epoch
+RC_K = 2
+RC_EXPAND = 12
+RC_PROBES = 20
+
+
+def recovery_phase(kit, raw, gpu, args) -> dict:
+    """Failure retry, the degraded re-shard resume and the topology plane
+    on one card (module docstring, phase 14)."""
+    import cloudberry_tpu_torch as ct
+    from cloudberry_tpu_torch import tpch
+    from cloudberry_tpu_torch.parallel import health
+    from cloudberry_tpu_torch.types import date_to_days as D
+    from cloudberry_tpu_torch.utils import faultinject as FI
+
+    torch = kit.torch
+    out = {"kills": {}}
+    t_phase = time.perf_counter()
+    full_h = args.sf == 1.0
+    nseg = DIST_NSEG
+    names = ["region", "nation", "supplier", "customer", "orders",
+             "lineitem"]
+    counters = ("recoveries", "tile_resumes", "tiles_replayed",
+                "tile_checkpoints", "topo_resharded_resumes",
+                "tile_resume_declined", "epoch_flips")
+
+    def budget_of(q):
+        m = TD_TPCH[q][0]
+        if full_h:
+            return m << 20
+        return max(max(int(m * args.sf), 1) << 20,
+                   max(int(TD_TPCH_QUICK[q] * args.sf / 0.05), 1) << 20)
+
+    base = gpu.config.with_overrides(n_segments=nseg, **{
+        "recovery.checkpoint_every": RC_K, "health.backoff_s": 0.01,
+        "health.backoff_max_s": 0.05, "debug.verify_plans": True})
+    s = ct.Session(base)
+    copy_tables(gpu, s, names)
+
+    def with_budget(q):
+        s.config = s.config.with_overrides(
+            **{"resource.query_mem_bytes": budget_of(q)})
+
+    def snap():
+        return {k: s.stmt_log.counter(k) for k in counters}
+
+    def delta(before):
+        after = snap()
+        return {k: after[k] - before[k] for k in counters}
+
+    def wall(sql):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = s.sql(sql)
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    # ------------------------------------------------ the probe, on the card
+    health.probe(s)
+    probe_ms = []
+    for _ in range(RC_PROBES):
+        r = health.probe(s)
+        probe_ms.append(r.latency_s * 1e3)
+        check(r.ok and r.live == list(range(nseg)),
+              f"the probe of {nseg} slots on the card: {r}")
+    FI.inject_fault("probe_degraded", "skip")
+    r = health.probe(s)
+    FI.reset_fault()
+    check(r.live == list(range(nseg - 1)),
+          f"a probe that lost a slot reports {r.live}")
+    accel = getattr(torch, "AcceleratorError", None)
+    check(accel is None or not health.recoverable(
+        accel("CUDA error: an illegal memory access was encountered")),
+        "a CUDA runtime error must not re-dispatch")
+    check(not health.recoverable(torch.OutOfMemoryError("device_lost")),
+          "an out-of-memory error must not re-dispatch")
+    out["probe"] = {"median_ms": round(float(np.median(probe_ms)), 4),
+                    "max_ms": round(float(np.max(probe_ms)), 4),
+                    "slots": nseg,
+                    "accelerator_error": accel is not None}
+    log(f"[recovery] probe of {nseg} slots on the card: median "
+        f"{out['probe']['median_ms']} ms, max {out['probe']['max_ms']} ms "
+        f"over {RC_PROBES} (a fill and a reduction kernel, one host "
+        f"read); torch.AcceleratorError "
+        f"{'present' if accel is not None else 'absent'} and never "
+        "re-dispatched")
+
+    # ---------------------------------------- kill matrices at 8 segments
+    clean = {}
+    for q in ("q1", "q3", "q5"):
+        sql = tpch.QUERIES[q]
+        with_budget(q)
+        forget_feedback(s)
+        want = with_nulls(kit.held(f"TPC-H {q} (recovery, uninterrupted, "
+                                   "held)", lambda: s.sql(sql)))
+        s.sql(sql)  # a second run: the statement's feedback has settled
+        res, clean_ms = wall(sql)
+        same_nulls(with_nulls(res), want, f"{q}: uninterrupted runs")
+        if q != "q1":  # Q1's tiled averages differ from the oracle's order
+            same(physical(res), oracle(raw, q, D),
+                 f"{q} at {nseg} segments vs the numpy oracle")
+        rep = s.last_tiled_report
+        check(rep is not None and rep["tiled"] and rep["distributed"],
+              f"{q}: did not tile on the segment axis")
+        total, window = rep["n_tiles"], rep.get("tile_window", 1)
+        check(total >= (4 if full_h else 2), f"{q}: {total} tiles")
+        clean[q] = (want, clean_ms, total, window)
+        rows = []
+        for k in (0, total // 2, total - 1):
+            FI.reset_fault()
+            FI.inject_fault("tile_device_lost", "error", start_hit=k + 1,
+                            end_hit=k + 1)
+            before = snap()
+            try:
+                res, ms, counts = kit.counted_run(s, sql)
+            finally:
+                FI.reset_fault()
+            d = delta(before)
+            rep = s.last_tiled_report
+            err = same_nulls(with_nulls(res), want,
+                             f"{q} killed at tile {k} vs uninterrupted")
+            resumed_from = rep.get("resumed_from_tile") or 0
+            # an uninterrupted run after each kill: the paired wall, and a
+            # statement without recovery, which resets the breaker's
+            # consecutive-recovery streak (three kills in a row would trip
+            # it, as in the reference)
+            res2, clean_ms = wall(sql)
+            same_nulls(with_nulls(res2), want, f"{q}: uninterrupted runs")
+            row = {"kill_tile": k, "ms": round(ms, 3),
+                   "uninterrupted_ms": round(clean_ms, 3),
+                   "resumed_from_tile": resumed_from,
+                   "tiles_rerun": k - resumed_from if d["tile_resumes"]
+                   else k, "launches": counts,
+                   "largest_float_difference": err, **d}
+            check(d["recoveries"] == 1, f"{q} kill@{k}: {d}")
+            check(d["tiles_replayed"] <= RC_K,
+                  f"{q} kill@{k}: replayed {d['tiles_replayed']} tiles, "
+                  f"past K = {RC_K}")
+            check(d["tiles_replayed"] < total,
+                  f"{q} kill@{k}: replayed the whole stream")
+            if k >= RC_K + window - 1:  # a drained checkpoint
+                check(d["tile_resumes"] == 1 and resumed_from > 0,
+                      f"{q} kill@{k} did not resume: {row}")
+            check(s.config.n_segments == nseg and rep["n_tiles"] == total,
+                  f"{q} kill@{k}: {s.config.n_segments} segments, "
+                  f"{rep['n_tiles']} tiles")
+            rows.append(row)
+            log(f"[recovery] {q} killed at tile {k} of {total} (window "
+                f"{window}): {ms:.3f} ms against {clean_ms:.3f} ms "
+                f"uninterrupted (the next run); breaker "
+                f"{s._breaker.snapshot()['state']}; resumed from tile {resumed_from}, "
+                f"{row['tiles_rerun']} tiles re-run, counters {d} "
+                f"(reference bound: tiles_replayed <= K = {RC_K}); equal "
+                f"to the uninterrupted run; launches {counts}")
+        check(s._breaker.snapshot()["state"] == "closed",
+              f"the breaker after {q}'s kills: {s._breaker.snapshot()}")
+        out["kills"][q] = {"tiles": total, "window": window,
+                           "budget_bytes": budget_of(q), "runs": rows}
+
+    # -------------------------------------------- the 8 -> 7 degraded resumes
+    # Q3 groups on lineitem's distribution key: its one-stage partials
+    # cannot re-place on 7 segments, so the resume declines (counted) and
+    # the statement re-runs fresh on the survivors, as in the reference.
+    # Q5's two-stage partials re-place: it resumes from its checkpoint,
+    # the remaining rows re-sharded by the placement hash
+    out["degraded"] = {}
+    for q, resumes in (("q3", False), ("q5", True)):
+        sql = tpch.QUERIES[q]
+        want, clean_ms, total, window = clean[q]
+        with_budget(q)
+        # mid-stream, and late enough that a drained checkpoint exists
+        # (the window holds W - 1 tiles undrained)
+        k = min(total - 1, max(total // 2, RC_K + window - 1))
+        FI.inject_fault("probe_degraded", "skip")
+        FI.inject_fault("tile_device_lost", "error", start_hit=k + 1,
+                        end_hit=k + 1)
+        before = snap()
+        try:
+            res, ms, counts = kit.counted_run(s, sql)
+        finally:
+            FI.reset_fault()
+        d = delta(before)
+        rep = s.last_tiled_report
+        err = same_nulls(with_nulls(res), want, f"{q} after a slot loss on "
+                         "7 segments vs the uninterrupted 8-segment run")
+        ok = (s.config.n_segments == nseg - 1
+              and rep["n_segments"] == nseg - 1 and d["recoveries"] == 1
+              and d["tiles_replayed"] <= max(RC_K, k))
+        checkpointed = k >= RC_K + window - 1
+        if resumes and checkpointed:
+            ok = ok and d["tile_resumes"] == 1 \
+                and d["topo_resharded_resumes"] == 1 \
+                and d["tiles_replayed"] <= RC_K
+        else:
+            # declined where a checkpoint existed (a reduced size may
+            # kill before the first drained one)
+            ok = ok and d["tile_resumes"] == 0 \
+                and d["tile_resume_declined"] == int(checkpointed)
+        check(ok, f"the degraded run of {q}: {s.config.n_segments} "
+              f"segments, {d}")
+        topo = s._topology.snapshot()
+        row = {"kill_tile": k, "ms": round(ms, 3),
+               "uninterrupted_ms": round(clean_ms, 3),
+               "resumed_from_tile": rep.get("resumed_from_tile"),
+               "n_segments": rep["n_segments"], "n_tiles": rep["n_tiles"],
+               "launches": counts, "largest_float_difference": err,
+               "epoch": topo["epoch"], "reason": topo["reason"], **d}
+        log(f"[recovery] {q} killed at tile {k} with a slot lost: "
+            + (f"resumed on {rep['n_segments']} segments from tile "
+               f"{rep.get('resumed_from_tile')}" if d["tile_resumes"] else
+               ("resume declined, " if d["tile_resume_declined"] else
+                "no drained checkpoint yet, ")
+               + f"re-run fresh on {rep['n_segments']} segments")
+            + f" in {ms:.3f} ms against {clean_ms:.3f} ms uninterrupted at "
+            f"{nseg}; counters {d}; epoch {topo['epoch']} "
+            f"({topo['reason']}); equal to the uninterrupted {nseg}-segment "
+            f"run; launches {counts}")
+        # the slots come back: clean probes expand the cluster back to 8
+        for _ in range(s.config.topology.recover_after):
+            s._topology.probe_and_heal()
+        topo = s._topology.snapshot()
+        check(s.config.n_segments == nseg and topo["reason"] == "recover",
+              f"recovery expand back to {nseg}: {topo['nseg']} "
+              f"({topo['reason']})")
+        res = kit.held(f"TPC-H {q} after the recovery expand (held)",
+                       lambda: s.sql(sql))
+        same_nulls(with_nulls(res), want, f"{q} after the recovery expand")
+        row["recovered_epoch"] = topo["epoch"]
+        out["degraded"][q] = row
+
+    # ------------------------------------ the planned online expand and back
+    q = "q5"
+    sql = tpch.QUERIES[q]
+    want = clean[q][0]
+    with_budget(q)
+    out["resize"] = []
+    for target in (RC_EXPAND, nseg):
+        t0 = time.perf_counter()
+        state = s._topology.begin(target)
+        s._topology.rebalance()
+        reb_s = time.perf_counter() - t0
+        cut = s._topology.cutover()
+        reb = cut["rebalance"]
+        frac = reb["moved_rows"] / max(reb["total_rows"], 1)
+        check(s.config.n_segments == target and state.done
+              and frac <= 1.25 * reb["minimal_bound"],
+              f"resize to {target}: {s.config.n_segments} segments, "
+              f"moved {frac:.4f} of the rows against the bound "
+              f"{reb['minimal_bound']}")
+        res = kit.held(f"TPC-H {q} at {target} segments (held)",
+                       lambda: s.sql(sql))
+        same_nulls(with_nulls(res), want, f"{q} at {target} segments after "
+                   "the cutover vs the uninterrupted 8-segment run")
+        res, ms, counts = kit.counted_run(s, sql)
+        same_nulls(with_nulls(res), want, f"{q} at {target} segments")
+        rep = s.last_tiled_report
+        row = {"target_nseg": target, "epoch": cut["epoch"],
+               "reason": cut["reason"], "cutover_ms": cut["cutover_ms"],
+               "rebalance_s": round(reb_s, 3),
+               "moved_rows": reb["moved_rows"],
+               "total_rows": reb["total_rows"],
+               "moved_fraction": round(frac, 6),
+               "minimal_bound": reb["minimal_bound"],
+               "moved_bytes": reb["moved_bytes"], "chunks": reb["chunks"],
+               "q5_ms": round(ms, 3), "q5_tiles": rep["n_tiles"],
+               "q5_tiled": bool(rep["tiled"]), "launches": counts,
+               "topology_epoch": rep.get("topology_epoch")}
+        out["resize"].append(row)
+        log(f"[recovery] online {cut['reason']} to {target} segments: "
+            f"rebalance {reb_s:.3f} s over {reb['total_rows']} rows, "
+            f"{reb['moved_rows']} moved ({frac:.4f}; minimal bound "
+            f"{reb['minimal_bound']}), {reb['moved_bytes']} bytes in "
+            f"{reb['chunks']} chunks; cutover {cut['cutover_ms']} ms, "
+            f"epoch {cut['epoch']}; {q} {ms:.3f} ms in {rep['n_tiles']} "
+            f"tiles per segment, equal to the 8-segment run; launches "
+            f"{counts}")
+    out["verify_owed_after"] = s._verify_next_plans
+    out["s"] = time.perf_counter() - t_phase
+    del s
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=float, default=1.0)
@@ -3829,7 +4137,26 @@ def main() -> int:
         f"its counted runs {tiled_dist['launches']}; tiled distributed "
         f"phase: {time.perf_counter() - t0:.1f} s")
 
-    # -------------------------------------------------------- 14. kernels
+    # ----------------------------------------- 14. recovery and topology
+    t0 = time.perf_counter()
+    held_before = dict(held)
+    launches_before = dict(launches)
+    with EmptyCaches(ct.Session):
+        recovery = recovery_phase(SimpleNamespace(
+            torch=torch, counted_run=counted_run, held=held_run), raw, gpu,
+            args)
+    recovery["held"] = {k: held[k] - held_before[k] for k in held}
+    recovery["launches"] = {k: launches[k] - launches_before[k]
+                            for k in launches}
+    check(all(recovery["launches"].values()),
+          f"a kernel never launched on the recovery path: "
+          f"{recovery['launches']}")
+    log(f"[recovery] kernel calls of the recovery runs held against their "
+        f"plain versions: {recovery['held']}; launches of its counted runs "
+        f"{recovery['launches']}; recovery phase: "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # -------------------------------------------------------- 15. kernels
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     def rand_int(lo, hi, shape, dtype=torch.int64):
@@ -4271,7 +4598,7 @@ def main() -> int:
             "window_query": tpcds.WINDOW_QUERY.format(
                 where="d_year >= 1998")})
 
-    # --------------------------------------------------------- 15. report
+    # --------------------------------------------------------- 16. report
     kernels = [{
         "name": name, "route": "cuda",
         "source": f"cloudberry_tpu_torch/csrc/{CK.SOURCES[name]}",
@@ -4290,6 +4617,7 @@ def main() -> int:
                       "admission": admission, "tiling": tiling,
                       "telemetry": telemetry, "stmt_cache": stmt_cache,
                       "distributed": dist, "tiled_distributed": tiled_dist,
+                      "recovery": recovery,
                       "timer_floor_ms": timer_floor_ms, "sf": args.sf,
                       "tpcds_scale": args.ds_scale}))
     print(json.dumps({"ok": True, "device": {

@@ -346,8 +346,17 @@ class Table:
         if hit is not None and hit[0] == key:
             return hit[1]
         n = self.stats.row_count
+        # staged successor-epoch assignment (parallel/topology.py): the
+        # rebalancer pre-hashes the table at the pending epoch's segment
+        # count so cutover's first shard layout skips the re-hash;
+        # version and nseg key it, so a stale stage can never serve
+        staged = getattr(self, "_topo_assign", None)
         if self.policy.kind == "random":
             out = (np.arange(n) % n_segments).astype(np.int32)
+        elif staged is not None and staged[1] == n_segments \
+                and staged[0] == getattr(self, "_version", 0) \
+                and len(staged[2]) == n:
+            out = staged[2]
         else:
             cols = [self.data[k] for k in self.policy.keys]
             h = hashing.hash_columns_np([np.asarray(c) for c in cols])

@@ -10,8 +10,10 @@ device buffer pool, the join-index cache size, memory governance (the
 per-query budget, the concurrency slots, the engine-wide red line and the
 resource queue), the statement timeout, the observability plane and the
 tiled (out-of-core) path's scan pipeline, dispatch window and checkpoint
-store, the statement scheduler's generic plans and shared cache tier, and
-the plan verification gate (``debug.verify_plans``). There is no counterpart
+store, the statement scheduler's generic plans and shared cache tier,
+failure recovery (``health``: the retry, its breaker and the degrade) and
+the topology plane (``topology``), and the plan verification gate
+(``debug.verify_plans``). There is no counterpart
 of the JAX package's ``exec.use_pallas``: the kernel gates are decided by
 the plan's shapes alone, and on a CUDA device the hand-written kernels
 always run.
@@ -334,6 +336,79 @@ class SchedConfig:
 
 
 @dataclass(frozen=True)
+class HealthConfig:
+    """Failure detection / recovery knobs (the FTS analog, fts.c:118).
+
+    Segments are stateless (placement is recomputed from the tables), so
+    recovery is re-execution rather than mirror promotion: a failed
+    statement probes the segment slots (parallel/health.py) and
+    re-dispatches — on fewer segments when slots are gone (degraded
+    replanning: placement re-derives for any segment count)."""
+
+    # Re-dispatches of a statement that failed with a device/runtime error.
+    retries: int = 1
+    # Probe every segment slot before a retry (the FTS_MSG_PROBE analog).
+    probe_on_error: bool = True
+    # Shrink the segment count to the live slot count before retrying.
+    degrade: bool = True
+    # First-retry backoff; attempt n waits backoff_s·2^n plus up to 50%
+    # jitter, capped at backoff_max_s. The wait is interruptible:
+    # cancellation and the deadline cut it short (lifecycle.py).
+    backoff_s: float = 0.2
+    backoff_max_s: float = 5.0
+    # Per-statement retry budget in seconds: once this much wall clock
+    # has gone to failed attempts + backoff, the next recoverable
+    # failure is raised instead of retried. 0 = no budget (the
+    # statement deadline still bounds everything).
+    retry_budget_s: float = 0.0
+    # Admission circuit breaker (lifecycle.CircuitBreaker): this many
+    # CONSECUTIVE statements needing a device-loss recovery trip the
+    # engine to read-only-degraded — writes refuse with the retryable
+    # BreakerOpen until a health probe closes it. 0 disables.
+    breaker_threshold: int = 3
+    # Seconds the breaker stays open before a write may half-open it
+    # (one health probe decides).
+    breaker_cooldown_s: float = 30.0
+    # HealthMonitor probe-history ring size (bounded).
+    monitor_history: int = 256
+
+
+@dataclass(frozen=True)
+class TopologyConfig:
+    """Online topology changes (parallel/topology.py): epoch-versioned
+    placement, staged minimal-movement rebalance, breaker-guarded
+    cutover, and failover-as-shrink. Statements pin a TopologyEpoch at
+    dispatch; an expand/shrink creates a successor epoch and statements
+    keep serving on the old one until cutover."""
+
+    # Consecutive probe observations of the SAME survivor set before the
+    # per-statement degrade is promoted to a formal failover-shrink
+    # epoch (the FTS mark-down hysteresis; 1 = promote on first loss).
+    promote_after: int = 2
+    # Consecutive clean probes (slots back) before a failover-shrunk
+    # cluster expands back to its pre-failover segment count.
+    recover_after: int = 2
+    # Automatic expand-back on recovery (the symmetric half of
+    # failover-as-shrink). Off leaves the shrunken epoch serving until
+    # an operator resizes.
+    auto_recover: bool = True
+    # Seconds a planned cutover waits for statements pinned to the old
+    # epoch to finish before flipping anyway (stragglers stay correct —
+    # placement is derived — or resume through the degraded re-shard
+    # path). Failover promotion never waits.
+    cutover_wait_s: float = 5.0
+    # Rows hashed per rebalance chunk (the throttle/fault-seam unit for
+    # in-RAM staging; store-backed tables chunk per micro-partition).
+    rebalance_chunk_rows: int = 1 << 16
+    # Sleep between rebalance chunks — the background-rebalance throttle.
+    throttle_s: float = 0.0
+    # Fresh plans verified by the plan verification gate (plan/verify.py)
+    # right after an epoch adoption, even when config.debug.verify_plans
+    # is off. 0 disables.
+    verify_replans: int = 4
+
+
+@dataclass(frozen=True)
 class Config:
     # Segments of the distributed plan (the gang size). On one card every
     # segment is a set of row views of the same device's tensors.
@@ -354,8 +429,10 @@ class Config:
         default_factory=ScanPipelineConfig)
     tile_pipeline: TilePipelineConfig = field(
         default_factory=TilePipelineConfig)
+    health: HealthConfig = field(default_factory=HealthConfig)
     recovery: RecoveryConfig = field(default_factory=RecoveryConfig)
     obs: ObsConfig = field(default_factory=ObsConfig)
+    topology: TopologyConfig = field(default_factory=TopologyConfig)
     sched: SchedConfig = field(default_factory=SchedConfig)
     feedback: FeedbackConfig = field(default_factory=FeedbackConfig)
     debug: DebugConfig = field(default_factory=DebugConfig)

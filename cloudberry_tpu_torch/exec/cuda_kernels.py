@@ -83,12 +83,17 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 NVCC_BUILDS = 0
 
 
+class KernelBuildError(RuntimeError):
+    """A kernel library could not be built (no nvcc, or a compiler error).
+    Never a reason to re-dispatch a statement (parallel/health.py)."""
+
+
 def _nvcc() -> str:
     for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       "the kernels in cloudberry_tpu_torch/csrc")
+    raise KernelBuildError("nvcc not found: the CUDA toolkit is needed to "
+                           "build the kernels in cloudberry_tpu_torch/csrc")
 
 
 def _lib_path(name: str) -> Path:
@@ -136,7 +141,7 @@ def build(verbose: bool = False) -> dict[str, ctypes.CDLL]:
             print(f"[build] {SOURCES[name]}:\n{log.strip()}")
         os.replace(tmp, out)
     if errors:
-        raise RuntimeError("\n".join(errors))
+        raise KernelBuildError("\n".join(errors))
     for name in missing:
         lib = ctypes.CDLL(str(_lib_path(name)))
         fn_name, argtypes = _SIGNATURES[name]

@@ -87,11 +87,16 @@ def compile_distributed(plan: N.PlanNode, session, instrument=False):
     records per-node row counts into the stats (``node_rows_sum`` over
     the segments, ``node_rows_one`` segment 0's) through this same entry
     point."""
+    from cloudberry_tpu_torch.parallel.health import slot_count
     from cloudberry_tpu_torch.parallel.transport import make_transport
 
     nseg = session.config.n_segments
     ic = session.config.interconnect
-    tx = make_transport(ic.backend, nseg)
+    # a degraded session's survivor restriction is checked against its
+    # slot pool, as the reference's mesh checks it against its devices
+    tx = make_transport(ic.backend, nseg,
+                        getattr(session, "_live_device_ids", None),
+                        slot_count(session))
     packed = ic.packed_wire
     device = session.device
     lowerer_cls = _InstrumentedDistLowerer if instrument else DistLowerer

@@ -7,13 +7,13 @@ dimension tables identical across statements. This module runs that
 laid out as the build scan presents it, and caches its output — (stable
 sort order, sorted packed keys, packing ranges) — in an LRU of the
 session's cache scope (sched/sharedcache.py), keyed by (table version
-token, key columns, pack bits, device). The JAX package builds the same
-index with a numpy mirror on the host; the port's table already lives on
-the device, so it sorts there. The index rides next to the tables as an
-extra input (``$jix:…``), and the join lowering skips the build-side sort
-when it finds it: a repeated statement uploads nothing and sorts nothing.
-Any write bumps the table version, which changes the key — the version
-machinery IS the invalidation contract.
+token, key columns, pack bits, topology epoch, device). The JAX package
+builds the same index with a numpy mirror on the host; the port's table
+already lives on the device, so it sorts there. The index rides next to
+the tables as an extra input (``$jix:…``), and the join lowering skips
+the build-side sort when it finds it: a repeated statement uploads
+nothing and sorts nothing. Any write bumps the table version, which
+changes the key — the version machinery IS the invalidation contract.
 
 Eligible joins (``annotate_join_index``, stamped after distribution):
 the build subtree is a bare full-table scan of a RAM table (optionally
@@ -178,12 +178,15 @@ def _cache(session):
 def index_key(session, spec: JoinIndexSpec, segment=None) -> tuple:
     """The cache key of one spec's index in this session: the table's
     content-stable version token, the key layout (mode, segment count,
-    direct-dispatch segment), and the device the index tensors live on."""
+    direct-dispatch segment), the topology epoch (an index laid out under
+    a pre-cutover epoch can never serve after the flip), and the device
+    the index tensors live on."""
     from cloudberry_tpu_torch.sched import sharedcache
 
     return (sharedcache.table_key(session, spec.table), spec.phys,
             spec.bits, spec.capacity, spec.mode,
             session.config.n_segments, segment,
+            sharedcache.topology_token(session),
             sharedcache.device_token(session))
 
 

@@ -8,8 +8,12 @@ memory). Every K-th tile that drained clean is snapshotted to a
 host-side, statement-scoped checkpoint (``RecoveryStore``, keyed by the
 statement id of the lifecycle scope). A later attempt of the same
 statement resumes from the snapshot instead of re-streaming the whole
-table. Two paths reach a resume in the port:
+table. Three paths reach a resume:
 
+- the session's device-loss retry (parallel/health.py
+  ``run_with_retry``): a loss at a tile (the ``tile_device_lost`` seam)
+  re-dispatches the statement, possibly on fewer segments after a
+  degrade, and its new executable resumes from the last snapshot;
 - the adaptive retry after an overflow that drained late, behind newer
   in-flight tiles (exec/tilepipe.py), replaying at most W+K tiles;
 - the skew sentinel's mid-statement replan (exec/tiled.py
@@ -33,10 +37,8 @@ Resume is bit-identical to an uninterrupted run:
   host-side already; colocated one-stage agg partials would need the
   group-key hash to re-place, so a changed-nseg resume declines there.
 
-Not carried: the JAX package's device-loss retry (parallel/health.py
-``run_with_retry``) and the degraded mesh it resumes on; without them a
-port statement's segment count never changes between attempts, so the
-re-sharding branches run only in the tests.
+A resume at another segment count (a degrade, or a cutover that landed
+between attempts) counts ``topo_resharded_resumes``.
 """
 
 from __future__ import annotations

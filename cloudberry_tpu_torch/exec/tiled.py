@@ -48,8 +48,11 @@ the gang of segment lowerers; ``SkewSentinel`` watches its redistributes'
 per-tile destination counts and asks the session for a mid-statement
 replan when the cumulative skew crosses the alarm.
 
-Not carried: the JAX package's device-loss retry (the ``tile_device_lost``
-seam and ``run_with_retry``).
+Device loss: the ``tile_device_lost`` seam fires once per tile, beside
+``tile_step``. The session's retry (parallel/health.py ``run_with_retry``)
+re-dispatches the statement, and its new executable resumes from the
+last K-tile checkpoint (exec/recovery.py) — on fewer segments when the
+probe degraded them.
 """
 
 from __future__ import annotations
@@ -1115,6 +1118,7 @@ class TiledExecutable(AdaptiveTiledMixin):
         try:
             for tile, tile_n in feed:
                 fault_point("tile_step")
+                fault_point("tile_device_lost")
                 n_sub += 1
                 stage = (ctx is not None and pipe.window > 1
                          and ctx.snapshot_due(n_sub))
@@ -1325,6 +1329,7 @@ class SortTiledExecutable(TiledExecutable):
         try:
             for tile, tile_n in feed:
                 fault_point("tile_step")
+                fault_point("tile_device_lost")
                 n_sub += 1
                 with timer.step(n_base + n_sub - 1):
                     (pcols, psel, keys), checks = step_fn(

@@ -38,9 +38,12 @@ Each step's redistributes report their per-destination row counts (the
 gang's ``seg rows`` stat); with feedback on, the skew sentinel
 (exec/tiled.py ``SkewSentinel``) reads them once per drained tile
 (``tile_stat_syncs``) and may ask for a mid-statement replan, resuming
-from a forced checkpoint (exec/recovery.py). The report's
-``topology_epoch`` is the constant 0: the port has no online topology
-(its ``sharedcache.topology_token``).
+from a forced checkpoint (exec/recovery.py). A device loss at a tile
+(the ``tile_device_lost`` seam) rides the session's retry into a resume
+from the last checkpoint, at the degraded segment count when the probe
+lost a slot (the remaining rows re-shard by the placement hash). The
+report's ``topology_epoch`` is the topology epoch the executable was
+built under (``sharedcache.topology_token``).
 """
 
 from __future__ import annotations
@@ -550,6 +553,7 @@ class DistTiledExecutable(AdaptiveTiledMixin):
 
     def __init__(self, shape: _DistTileShape, session, tile_rows: int,
                  budget: int):
+        from cloudberry_tpu_torch.parallel.health import slot_count
         from cloudberry_tpu_torch.parallel.transport import make_transport
 
         self.shape = shape
@@ -560,7 +564,9 @@ class DistTiledExecutable(AdaptiveTiledMixin):
         self.device = session.device
         self._platform = session.device.type
         ic = session.config.interconnect
-        self._tx = make_transport(ic.backend, self.nseg)
+        self._tx = make_transport(
+            ic.backend, self.nseg,
+            getattr(session, "_live_device_ids", None), slot_count(session))
         # the steps' spine motions AND the finalize merge motion share the
         # packed wire format (kernels.wire_layout)
         self._packed = ic.packed_wire
@@ -819,6 +825,7 @@ class DistTiledExecutable(AdaptiveTiledMixin):
         try:
             for tile, tile_ns in stream:
                 fault_point("tile_step_dist")
+                fault_point("tile_device_lost")
                 n_sub += 1
                 stage = (ctx is not None and pipe.window > 1
                          and ctx.snapshot_due(n_sub))
@@ -1045,6 +1052,7 @@ class DistSortTiledExecutable(DistTiledExecutable):
         try:
             for tile, tile_ns in stream:
                 fault_point("tile_step_dist")
+                fault_point("tile_device_lost")
                 n_sub += 1
                 with timer.step(n_base + n_sub - 1):
                     (pcols, psel, keys), checks = self._sort_step(

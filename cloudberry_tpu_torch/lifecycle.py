@@ -1,5 +1,5 @@
-"""Statement lifecycle — the error taxonomy, cancellation tokens and the
-current-statement scope.
+"""Statement lifecycle — the error taxonomy, cancellation tokens, the
+current-statement scope and the admission circuit breaker.
 
 The taxonomy splits retryable failures from semantic ones (a storage write
 that fails at the OS layer is retryable, a checksum mismatch is not). Every
@@ -8,15 +8,18 @@ carries its id (the key of the tiled executors' checkpoint store,
 exec/recovery.py), a deadline and a cancel token; ``check_cancel`` is the
 poll point the tile loops and the scan pipeline's reader thread call.
 ``Watchdog`` cancels over-deadline statements through the statement log's
-active handles (exec/instrument.py). The JAX package's composite batch
-handles and admission circuit breaker are not carried.
+active handles (exec/instrument.py). ``CircuitBreaker`` trips the engine
+to read-only-degraded after K consecutive statements that needed a
+device-loss recovery (parallel/health.py) and half-opens through a health
+probe. The JAX package's composite batch handles belong to its
+dispatcher, which the port does not have.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 
 class StatementError(RuntimeError):
@@ -39,6 +42,13 @@ class StatementCancelled(StatementError):
 class StatementTimeout(StatementError):
     """Deadline/statement_timeout exceeded — transient: a retry under
     lighter load may fit."""
+
+    retryable = True
+
+
+class BreakerOpen(StatementError):
+    """The admission circuit breaker is open (read-only-degraded):
+    writes are refused until health probes close it."""
 
     retryable = True
 
@@ -125,6 +135,9 @@ class CancelToken:
                               StatementCancelled)
         raise exc(self.message or f"statement {self.reason}")
 
+    def wait(self, timeout: Optional[float] = None) -> bool:
+        return self._event.wait(timeout)
+
 
 class StatementHandle:
     """Identity + deadline + token for one executing statement.
@@ -137,6 +150,11 @@ class StatementHandle:
         self.deadline = deadline
         self.token = token if token is not None else CancelToken()
         self.started = time.monotonic()
+
+    def remaining(self) -> Optional[float]:
+        if self.deadline is None:
+            return None
+        return self.deadline - time.monotonic()
 
     def check(self) -> None:
         """The CHECK_FOR_INTERRUPTS analog: raise the taxonomy error when
@@ -243,3 +261,113 @@ class Watchdog:
                 self.stmt_log.bump("watchdog_timeouts")
                 n += 1
         return n
+
+
+# --------------------------------------------------------- circuit breaker
+
+
+class CircuitBreaker:
+    """Admission breaker over device-loss recoveries: K CONSECUTIVE
+    statements that needed a device-loss recovery trip it open — the
+    segments are flapping, and a write retried into a flap can neither be
+    replayed (DML is never re-dispatched) nor trusted to commit. Open
+    refuses WRITES with the retryable BreakerOpen (read-only-degraded:
+    re-executing a read cannot change state). After ``cooldown_s`` the
+    next write HALF-OPENS: one health probe decides — a clean probe lets
+    that write through, and its success closes the breaker; a dirty probe
+    re-arms the cooldown. ``probe_fn`` is the probe (the session passes
+    parallel/health.py ``probe`` over its own device and slots)."""
+
+    def __init__(self, threshold: int = 3, cooldown_s: float = 30.0,
+                 probe_fn: Optional[Callable] = None):
+        self.threshold = threshold
+        self.cooldown_s = cooldown_s
+        self._probe_fn = probe_fn
+        self._lock = threading.Lock()
+        self.state = "closed"            # closed | open | half-open
+        self.consecutive = 0
+        self.trips = 0
+        self._opened_at = 0.0
+
+    def _probe(self):
+        if self._probe_fn is not None:
+            return self._probe_fn()
+        from cloudberry_tpu_torch.parallel.health import probe
+
+        return probe()
+
+    def record_recovery(self) -> None:
+        """One statement needed a device-loss recovery — counted whether
+        it ultimately succeeded or exhausted its retries (a hard outage
+        must trip the breaker too)."""
+        with self._lock:
+            self.consecutive += 1
+            if self.state == "closed" and self.threshold \
+                    and self.consecutive >= self.threshold:
+                self.state = "open"
+                self._opened_at = time.monotonic()
+                self.trips += 1
+
+    def record_success(self) -> None:
+        """One statement completed without needing recovery. Resets the
+        streak when closed; a half-open breaker closes only on the trial
+        write's own success."""
+        with self._lock:
+            if self.state == "closed":
+                self.consecutive = 0
+
+    def check_write(self) -> bool:
+        """Admission gate for a write statement. Returns True when this
+        write is the half-open TRIAL: the caller owns the verdict and
+        MUST report it back via trial_succeeded()/trial_failed()."""
+        with self._lock:
+            if self.state == "closed":
+                return False
+            if self.state == "half-open":
+                raise BreakerOpen(
+                    "circuit breaker half-open: a trial write is in "
+                    "flight; retry shortly")
+            if time.monotonic() - self._opened_at < self.cooldown_s:
+                raise BreakerOpen(
+                    "circuit breaker open after "
+                    f"{self.consecutive} consecutive device-loss "
+                    "recoveries: engine is read-only-degraded; retry "
+                    f"after the {self.cooldown_s:.0f}s cooldown")
+            self.state = "half-open"
+        # a RAISING probe counts as a failed one: the half-open slot must
+        # always resolve (back open with a fresh cooldown)
+        try:
+            r = self._probe()
+            detail = getattr(r, "error", None)
+        except Exception as e:  # noqa: BLE001 — the probe IS the verdict
+            r, detail = None, f"probe raised {type(e).__name__}: {e}"
+        if getattr(r, "ok", False):
+            return True  # this write is the trial
+        with self._lock:
+            self.state = "open"
+            self._opened_at = time.monotonic()
+        raise BreakerOpen(
+            "circuit breaker: health probe failed during half-open "
+            f"({detail}); staying read-only-degraded")
+
+    def trial_succeeded(self) -> None:
+        with self._lock:
+            if self.state == "half-open":
+                self.state = "closed"
+                self.consecutive = 0
+
+    def trial_failed(self) -> None:
+        """The trial write failed for ANY reason: back to open with a
+        fresh cooldown."""
+        with self._lock:
+            if self.state == "half-open":
+                self.state = "open"
+                self._opened_at = time.monotonic()
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {"state": self.state,
+                    "consecutive_recoveries": self.consecutive,
+                    "trips": self.trips,
+                    "threshold": self.threshold,
+                    "cooldown_s": self.cooldown_s}

@@ -210,12 +210,13 @@ def refresh_gauges(session) -> dict:
     join-index cache and the buffer pool of the session's cache scope,
     the session's statement cache and store-scan cache, the recovery
     store's checkpoint pins, the trace and flight rings and the
-    statements table. ``*_bytes`` gauges are bytes measured from the
-    live arrays: device bytes for the join index, the pool and the scan
-    cache, host bytes for the checkpoint pins. The port has no rung
-    cache (sched/sharedcache.py); the JAX package's dispatcher, topology
-    and write plane gauges belong to modules the port does not have
-    yet."""
+    statements table; and the topology plane's epoch, segment count,
+    rebalance fraction (1.0 when no change is pending) and moved bytes.
+    ``*_bytes`` gauges are bytes measured from the live arrays: device
+    bytes for the join index, the pool and the scan cache, host bytes for
+    the checkpoint pins. The port has no rung cache
+    (sched/sharedcache.py); the JAX package's dispatcher and write plane
+    gauges belong to modules the port does not have yet."""
     log = getattr(session, "stmt_log", None)
     if log is None:
         return {}
@@ -253,6 +254,16 @@ def refresh_gauges(session) -> dict:
             entries = list(scan_cache.values())
         vals["mem_store_scan_bytes"] = nbytes_of(entries)
         vals["mem_store_scan_entries"] = len(entries)
+    # versioned topology (parallel/topology.py): the serving epoch, the
+    # in-flight rebalance's fraction and the bytes rebalances moved
+    topo = getattr(session, "_topology", None)
+    if topo is not None:
+        snap = topo.snapshot()
+        vals["topo_epoch"] = snap["epoch"]
+        vals["topo_nseg"] = snap["nseg"]
+        reb = snap.get("rebalance")
+        vals["topo_rebalance_fraction"] = reb["fraction"] if reb else 1.0
+        vals["topo_moved_bytes"] = float(log.counter("topo_moved_bytes"))
     for name, v in vals.items():
         log.registry.gauge(name, v)
     return vals

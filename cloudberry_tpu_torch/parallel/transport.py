@@ -53,14 +53,22 @@ def _not_ported(what: str):
         "Queue A: the ring and hierarchical transports)")
 
 
-def make_transport(backend: str, n_segments: int):
+def make_transport(backend: str, n_segments: int, device_ids=None,
+                   n_slots: int | None = None):
     """The transport named by ``interconnect.backend``: ``"xla"`` is the
     one-card exchange, flat as the reference's on a one-host layout;
     ``"ring"`` and a forced multi-host split (``CBTPU_FORCE_HOSTS``,
-    raised by ``mesh.host_topology``) are not ported."""
+    raised by ``mesh.host_topology``) are not ported. ``device_ids`` and
+    ``n_slots``: the session's survivor restriction and slot pool, checked
+    as the reference's segment mesh checks its devices — the survivors
+    must cover the segments."""
     from cloudberry_tpu_torch.parallel.mesh import host_topology
 
-    host_topology(n_segments)
+    host_topology(n_segments, device_ids, n_slots)
+    if device_ids is not None and len(device_ids) < n_segments:
+        raise RuntimeError(
+            f"config asks for {n_segments} segments but only "
+            f"{len(device_ids)} segment slots survive")
     if backend == "xla":
         return OneCardCollectives()
     if backend == "ring":

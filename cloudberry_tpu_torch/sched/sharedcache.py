@@ -33,8 +33,10 @@ The invalidation contract is the signature discipline, not a protocol:
 - the UDF registry version stays in every plan epoch (``plan_epoch``):
   process-wide state baked into plans at bind time.
 
-The port has no topology epochs (no expand, shrink or failover of the
-segment layout): ``topology_token`` is a constant.
+- the TOPOLOGY EPOCH is part of every key (``topology_token``, the
+  session's topology manager's epoch id, parallel/topology.py): a plan,
+  join index or pooled tile made under an earlier segment layout can
+  never serve after a cutover, even when every other component aliases.
 """
 
 from __future__ import annotations
@@ -207,9 +209,12 @@ def device_token(session) -> str:
 
 
 def topology_token(session) -> int:
-    """The topology-epoch token of the JAX package's shared keys. The
-    port's segment layout never changes under a session: a constant."""
-    return 0
+    """The session's current topology-epoch id (parallel/topology.py) —
+    carried by EVERY shared key so an entry made under an earlier epoch
+    can never serve after a cutover."""
+    from cloudberry_tpu_torch.parallel.topology import topology_token as _tt
+
+    return _tt(session)
 
 
 def plan_epoch(session) -> tuple:

@@ -75,10 +75,36 @@ executable resumes from the sentinel's checkpoint — at most
 Plan verification: with ``debug.verify_plans`` on, every plan the
 planner or memo emits is checked by plan/verify.py right before it runs
 (the statement path, the greedy re-plan, the generic-plan build and
-EXPLAIN); a finding raises ``PlanVerifyError``.
+EXPLAIN); a finding raises ``PlanVerifyError``. The first
+``topology.verify_replans`` fresh plans after a topology adoption are
+verified with the gate off too.
 
-Not ported yet: the failure retry and its circuit breaker, transactions
-(BEGIN raises ``NotImplementedError``), materialized views and serving.
+Failure recovery (the FTS consumption point, fts.c:118): a READ that
+fails with a recoverable error (parallel/health.py ``recoverable``: a
+device loss, never an out-of-memory error, a kernel build failure or a
+semantic error) is re-dispatched by ``run_with_retry`` up to
+``health.retries`` times with a backoff that waits on the statement's
+cancel token and deadline. Between attempts ``_recover_mesh`` probes the
+segment slots and, when slots are gone, ``degrade_mesh`` shrinks the
+segment count to the survivors (a 'degrade' topology epoch); a tiled
+statement's retry resumes from its last checkpoint, re-sharding the
+remaining rows by the placement hash at the smaller segment count
+(exec/recovery.py). DML, DDL and COPY are never re-dispatched. The
+admission circuit breaker (``lifecycle.CircuitBreaker``) counts the
+statements that needed a recovery and, past ``health.breaker_threshold``
+in a row, refuses writes with the retryable ``BreakerOpen`` until a
+health probe closes it. The recovered statement re-runs the same CUDA
+kernels; nothing gives way to a plain version.
+
+Topology (parallel/topology.py): every statement pins the current
+topology epoch; an online expand or shrink (``_topology.begin`` /
+``rebalance`` / ``cutover``) or a failover promotion makes a successor
+epoch, and the next pin adopts it (config swap, placement-derived caches
+cleared). A plan whose epoch moved between planning and execution
+raises ``TopologyRaceError`` and re-plans at the new epoch.
+
+Not ported yet: transactions (BEGIN raises ``NotImplementedError``),
+materialized views and serving.
 """
 
 from __future__ import annotations
@@ -224,6 +250,26 @@ class Session:
         fb_store = FB.store_for(self)
         if fb_store is not None:
             self.catalog._feedback = FB.FeedbackView(fb_store, self)
+        # admission circuit breaker (lifecycle.py): K consecutive
+        # device-loss recoveries trip writes to read-only-degraded; its
+        # half-open probe runs over this session's device and slots
+        from cloudberry_tpu_torch.lifecycle import CircuitBreaker
+        from cloudberry_tpu_torch.parallel.health import probe
+
+        self._breaker = CircuitBreaker(
+            self.config.health.breaker_threshold,
+            self.config.health.breaker_cooldown_s,
+            probe_fn=lambda: probe(self))
+        # versioned topology (parallel/topology.py): every statement pins
+        # the current TopologyEpoch; expand/shrink/failover make a
+        # successor epoch instead of mutating the layout in place. The
+        # survivor restriction of a degraded epoch (None: the first nseg
+        # slots) and the last epoch this session adopted
+        self._live_device_ids = None
+        self._topo_epoch_seen = None
+        from cloudberry_tpu_torch.parallel.topology import TopologyManager
+
+        self._topology = TopologyManager(self)
 
     # the generic-plan cache lives in the session's cache scope
     # (sched/sharedcache.py): shared by the sessions over one store root
@@ -238,11 +284,20 @@ class Session:
     def sql(self, query: str, **params: Any):
         """Run one statement: DDL/DML returns its status string, a SELECT
         its ColumnBatch. ``config.statement_timeout_s`` gives it a
-        deadline, checked at execution seams (and by a ``Watchdog``)."""
+        deadline, checked at execution seams (and by a ``Watchdog``). A
+        read that fails with a recoverable error is probed, optionally
+        degraded and re-dispatched (module docstring)."""
         import time as _t
 
         from cloudberry_tpu_torch import lifecycle
+        from cloudberry_tpu_torch.exec.recovery import TileReplan
+        from cloudberry_tpu_torch.parallel.health import (
+            never_redispatched, recoverable, run_with_retry)
+        from cloudberry_tpu_torch.parallel.topology import \
+            TopologyRaceError
+        from cloudberry_tpu_torch.sql.classify import read_only
 
+        h = self.config.health
         log = self.stmt_log
         log_id = log.begin(query, self._session_id)
         deadline = None
@@ -261,25 +316,103 @@ class Session:
             handle.progress = Progress()
         log.attach(log_id, handle)
         t_begin = _t.monotonic()
+        is_read = read_only(query)
+        # device-loss recoveries THIS statement needed — the breaker's
+        # consecutive-recovery signal; trial: this write is the half-open
+        # probe write and owns the breaker's verdict
+        recoveries = [0]
+        t_first_fail = [0.0]
+        trial = False
+        # the classifier's last verdict was epoch-motivated: counted in
+        # on_retry (a verdict on the FINAL attempt raises instead)
+        epoch_retry = [False]
+
+        def on_retry(e, backoff_s=0.0):
+            if epoch_retry[0]:
+                epoch_retry[0] = False
+                log.bump("topo_epoch_retries")
+            recoveries[0] += 1
+            if not t_first_fail[0]:
+                t_first_fail[0] = _t.monotonic()
+            if handle.trace is not None:
+                handle.trace.attempt = recoveries[0]
+            # the activity row shows the attempt count and the planned
+            # backoff, and reads 'recovering' (the watchdog still
+            # enforces the DEADLINE: recovery is liveness, not license)
+            log.bump("recoveries")
+            log.set_state(log_id, "recovering")
+            log.annotate(log_id, attempts=recoveries[0],
+                         backoff_s=round(backoff_s, 4),
+                         last_error=type(e).__name__)
+            if h.probe_on_error:
+                self._recover_mesh(e)
+            # the retry re-plans at the CURRENT epoch: one flip buys one
+            # re-dispatch
+            handle.topology_epoch = self._topology.current.epoch_id
+
+        def epoch_recoverable(e):
+            """Device loss as always — PLUS any non-semantic failure of a
+            read whose pinned topology epoch was cut over mid-flight: the
+            flip between plan and launch can surface as a shape error,
+            and re-dispatching at the new epoch IS the recovery."""
+            if isinstance(e, TileReplan):
+                return False  # the adaptive-replan loop below owns it
+            if recoverable(e) or isinstance(e, TopologyRaceError):
+                return True
+            if isinstance(e, lifecycle.StatementError) \
+                    or never_redispatched(e):
+                return False
+            ep = getattr(handle, "topology_epoch", None)
+            if ep is None or ep == self._topology.current.epoch_id:
+                return False
+            epoch_retry[0] = True
+            return True
+
         compiles_before = log.counter("compiles")
         # per-statement generic-plan hits, the compile counter's delta
         # discipline: the statements table aggregates the generic-hit
         # rate per skeleton from them (obs/statements.py)
         generic_before = log.counter("generic_hits")
-        from cloudberry_tpu_torch.exec.recovery import TileReplan
-        from cloudberry_tpu_torch.sql.classify import read_only
-
-        # mid-statement adaptive replan (exec/tiled.py SkewSentinel):
-        # reads only — a write's tiled subplan must never restart after a
-        # host-side mutation. The sentinel checks this flag (and its own
-        # per-handle replan budget) before raising TileReplan.
-        handle.adaptive_ok = read_only(query)
-        adaptations = 0
+        topo_epoch = None
         try:
+            # topology pin: the statement runs to completion against this
+            # epoch; pinning also ADOPTS a newer epoch into this session
+            # first (a flip it missed, or another session's committed
+            # resize over the same store)
+            topo_epoch = self._topology.pin(self)
+            handle.topology_epoch = topo_epoch.epoch_id
             with lifecycle.statement_scope(handle):
+                if not is_read:
+                    # read-only-degraded admission: an open breaker
+                    # refuses writes (retryable) while reads keep flowing
+                    trial = self._breaker.check_write()
+                # mid-statement adaptive replan (exec/tiled.py
+                # SkewSentinel): reads only — a write's tiled subplan
+                # must never restart after a host-side mutation. The
+                # sentinel checks this flag (and its own per-handle
+                # replan budget) before raising TileReplan.
+                handle.adaptive_ok = is_read
+                adaptations = 0
                 while True:
                     try:
-                        out = self._sql_once(query, **params)
+                        if h.retries <= 0 or not is_read:
+                            # DML/DDL/COPY are NOT re-dispatched: a
+                            # failure after the host-side mutation would
+                            # re-apply the statement
+                            out = self._sql_once(query, **params)
+                        else:
+                            def attempt():
+                                # a retried attempt is live again
+                                if recoveries[0]:
+                                    log.set_state(log_id, "running")
+                                return self._sql_once(query, **params)
+
+                            out = run_with_retry(
+                                attempt, retries=h.retries,
+                                backoff_s=h.backoff_s, on_retry=on_retry,
+                                max_backoff_s=h.backoff_max_s,
+                                budget_s=h.retry_budget_s,
+                                recoverable_fn=epoch_recoverable)
                         break
                     except TileReplan as e:
                         # NOT a failure: the sentinel already folded the
@@ -306,6 +439,14 @@ class Session:
         except BaseException as e:
             # BaseException too: a Ctrl-C mid-statement must not leave a
             # phantom "running" entry in the active registry
+            if trial:
+                # the half-open trial write failed (for any reason):
+                # re-arm the cooldown, never wedge
+                self._breaker.trial_failed()
+            elif recoveries[0]:
+                # recovery was attempted but the statement still failed:
+                # a hard outage counts toward the trip threshold too
+                self._breaker.record_recovery()
             if isinstance(e, lifecycle.StatementTimeout):
                 log.bump("statement_timeouts")
             elif isinstance(e, lifecycle.StatementCancelled):
@@ -326,11 +467,24 @@ class Session:
                 params=params, error=e, counters={
                     "compiles": log.counter("compiles") - compiles_before,
                     "generic_hits": log.counter("generic_hits")
-                    - generic_before})
+                    - generic_before,
+                    "recoveries": recoveries[0]})
             raise
         finally:
             # statement-scoped checkpoints die with their statement
             self._recovery.discard(log_id)
+            if topo_epoch is not None:
+                self._topology.unpin(topo_epoch)
+        if trial:
+            self._breaker.trial_succeeded()
+        if recoveries[0]:
+            self._breaker.record_recovery()
+            # recovery latency: wall clock from the first device-loss
+            # failure to the statement completing
+            log.bump("recovery_wall_ms",
+                     int((_t.monotonic() - t_first_fail[0]) * 1000))
+        else:
+            self._breaker.record_success()
         is_batch = hasattr(out, "num_rows")
         compiles_d = log.counter("compiles") - compiles_before
         generic_d = log.counter("generic_hits") - generic_before
@@ -342,8 +496,54 @@ class Session:
         OF.maybe_capture(
             self, query, "ok", _t.monotonic() - t_begin, handle,
             params=params, result=out if is_batch else None,
-            counters={"compiles": compiles_d, "generic_hits": generic_d})
+            counters={"compiles": compiles_d, "generic_hits": generic_d,
+                      "recoveries": recoveries[0]})
         return out
+
+    def _recover_mesh(self, e: Exception) -> None:
+        """Between-retry hook: probe the segment slots; when any are
+        gone, re-derive the segments over the SURVIVORS (nothing
+        promotes: placement is recomputed). A loss may leave a hole
+        mid-list, so the survivor indices matter, not just the count.
+        The probe result also feeds the topology manager's persistence
+        detector (failover-as-shrink), outside degrade_mesh's lock."""
+        from cloudberry_tpu_torch.parallel.health import probe
+
+        r = probe(self)
+        if self.config.health.degrade and r.live:
+            self.degrade_mesh(len(r.live), r.live)
+        self._topology.note_probe(r)
+
+    def degrade_mesh(self, n_devices: int, live_ids=None) -> bool:
+        """Shrink the segment count to ``n_devices`` (over the slots
+        ``live_ids`` when given) and invalidate every placement and plan
+        cache. Derived placement (the jump hash) makes this a pure
+        recompute. Versioned: the degrade MINTS a 'degrade' topology
+        epoch FIRST, then adopts it, so a statement pinning in the window
+        adopts the smaller layout and a statement that raced the swap
+        sees the moved epoch and re-dispatches."""
+        cur = self._topology.current
+        n = max(1, min(cur.nseg, n_devices))
+        ids = None
+        if live_ids is not None:
+            live = list(live_ids)
+            if len(live) > n:
+                # more survivors than segments: the first n suffice, and
+                # an unchanged prefix keeps caches valid
+                live = live[:n]
+            if live != list(range(n)):
+                ids = live  # a hole mid-list: skip the dead slots
+        ep = self._topology.note_degrade(n, ids)
+        if ep is not None:
+            self._topology._adopt(self, ep)
+            return True
+        # the epoch already reflects this loss: adopt the current epoch
+        # so the retry re-plans on the survivors
+        cur = self._topology.current
+        if cur.nseg == n and (cur.device_ids or None) == \
+                (tuple(ids) if ids else None):
+            return self._topology._adopt(self, cur)
+        return False
 
     @staticmethod
     def _stmt_cache_key(query: str, params: dict) -> str:
@@ -389,6 +589,12 @@ class Session:
             stmt = parse_sql(query)
         t1 = _t.perf_counter()
         OM.observe_stage(self.stmt_log, "parse", t1 - t0)
+        # the config this statement PLANS under: a topology cutover
+        # swapping it before execution makes the plan's capacities stale,
+        # and the executors below refuse with the retryable
+        # TopologyRaceError instead of running (or caching) a plan of
+        # another segment layout (_check_topology_race)
+        cfg_plan = self.config
         with OT.span("plan"):
             result = plan_statement(stmt, self, params)
         OM.observe_stage(self.stmt_log, "plan", _t.perf_counter() - t1)
@@ -434,7 +640,7 @@ class Session:
             with self._gate, self._admitted(
                     self.config.resource.query_mem_bytes):
                 self._obs_wait(t_wait)
-                return self._run_cached_tiled(ckey, texe)
+                return self._run_cached_tiled(ckey, texe, cfg_plan)
         # capacity plane: itemized device-byte estimate of the fresh plan
         OC.record_statement(self.stmt_log, result.plan, self, est=est)
         self.stmt_log.bump("dispatches")
@@ -442,15 +648,21 @@ class Session:
         t_wait = _t.perf_counter()
         with self._gate, self._admitted(est.peak_bytes) as sid:
             self._obs_wait(t_wait)
-            return self._run_with_growth(ckey, query, result.plan, sid)
+            return self._run_with_growth(ckey, query, result.plan, sid,
+                                         cfg_plan)
 
     @staticmethod
     def _dispatch_seams(fault_point) -> None:
-        """The seams every statement crosses before it launches: the
-        ``dispatch_start`` fault point and the cancel/deadline poll."""
+        """The seams every statement crosses before it launches:
+        ``dispatch_start`` (not re-dispatched), ``exec_device_lost`` (a
+        device loss: re-dispatched through health.recoverable — no slot
+        of one card can die alone, and this seam can) and the
+        cancel/deadline poll, after them, so an expired or cancelled
+        statement never launches."""
         from cloudberry_tpu_torch.lifecycle import check_cancel
 
         fault_point("dispatch_start")
+        fault_point("exec_device_lost")
         check_cancel()
 
     def _obs_wait(self, t0: float) -> None:
@@ -566,7 +778,22 @@ class Session:
                         if k[0] in names]:
                 del self._store_scan_cache[key]
 
-    def _run_cached_tiled(self, ckey: str, texe):
+    def _check_topology_race(self, cfg_plan) -> None:
+        """Refuse to run (or cache) a plan whose topology epoch moved
+        under it: its capacities no longer match the placement, and the
+        runner — or worse, a CACHED one serving later statements — would
+        mix shard shapes of two epochs. The epoch-race retry re-plans at
+        the new epoch."""
+        if cfg_plan is not None and cfg_plan is not self.config:
+            from cloudberry_tpu_torch.parallel.topology import \
+                TopologyRaceError
+
+            self.stmt_log.bump("topo_plan_races")
+            raise TopologyRaceError(
+                "topology epoch changed between plan and execute; "
+                "the statement re-plans at the new epoch")
+
+    def _run_cached_tiled(self, ckey: str, texe, cfg_plan=None):
         """Cache a tiled executable's runner under the statement's key
         (unless it reads table-function rows), then run it as the
         statement's launch; afterwards the dispatch window's in-flight
@@ -574,6 +801,7 @@ class Session:
         from cloudberry_tpu_torch.exec import executor as X
         from cloudberry_tpu_torch.obs import capacity as OC
 
+        self._check_topology_race(cfg_plan)
         names = sorted({s.table_name
                         for s in X.scans_of(texe._whole_plan())})
         if not self._any_external(names):
@@ -582,7 +810,8 @@ class Session:
                 ckey, names, texe.run,
                 self.config.resource.query_mem_bytes,
                 obs_bytes=max(int(report.get("est_step_bytes", 0)),
-                              int(report.get("est_finalize_bytes", 0))))
+                              int(report.get("est_finalize_bytes", 0))),
+                cfg=cfg_plan)
         out = self._obs_launch(texe.run)
         OC.record_tile_dispatch(self.stmt_log, texe.report)
         return out
@@ -652,7 +881,8 @@ class Session:
             return None
         return runner, cost, obs_bytes
 
-    def _execute_and_cache(self, ckey: str, query: str, plan):
+    def _execute_and_cache(self, ckey: str, query: str, plan,
+                           cfg_plan=None):
         """Build the statement's runner — the generic plan's rebind when
         the skeleton has one (sched/paramplan.py), else a fresh
         Executable: one segment's shard under direct dispatch, the
@@ -662,6 +892,7 @@ class Session:
         from cloudberry_tpu_torch.exec import executor as X
         from cloudberry_tpu_torch.sched import paramplan
 
+        self._check_topology_race(cfg_plan)
         names = sorted({s.table_name for s in X.scans_of(plan)})
         seg = getattr(plan, "_direct_segment", None)
         prep = None
@@ -690,7 +921,8 @@ class Session:
                 estimate_plan_memory
 
             self._cache_statement(ckey, names, runner,
-                                  estimate_plan_memory(plan).peak_bytes)
+                                  estimate_plan_memory(plan).peak_bytes,
+                                  cfg=cfg_plan)
         X.build_kernels(self)
         try:
             return self._obs_launch(runner)
@@ -704,16 +936,19 @@ class Session:
             raise
 
     def _cache_statement(self, ckey: str, names, runner, cost: int = 0,
-                         obs_bytes: int | None = None) -> None:
+                         obs_bytes: int | None = None, cfg=None) -> None:
         """``cost`` is the ADMISSION reservation for cache hits;
         ``obs_bytes`` (defaults to cost) is the device-byte estimate the
         capacity plane observes — tiled runners reserve the whole budget
-        but measure their step working set."""
+        but measure their step working set. ``cfg`` pins the entry to the
+        config the runner's plan was BUILT under: a topology flip between
+        plan and cache leaves an entry the identity guard rejects."""
         from cloudberry_tpu_torch.exec.udf import registry_version
         from cloudberry_tpu_torch.plan.feedback import feedback_gen
 
         entry = (
-            names, self._table_versions(names), self.config,
+            names, self._table_versions(names),
+            cfg if cfg is not None else self.config,
             (self.catalog.ddl_version, registry_version()),
             runner, cost,
             cost if obs_bytes is None else int(obs_bytes),
@@ -728,7 +963,7 @@ class Session:
             self._stmt_cache[ckey] = entry
 
     def _run_with_growth(self, ckey: str, query: str, plan,
-                         stmt_id: int = 0):
+                         stmt_id: int = 0, cfg_plan=None):
         """Execute; on a detected join-expansion overflow, grow the pair
         buffer (re-checking admission) and retry — adaptive capacity, never
         truncation (exec/executor.py:grow_expansion). Growth that blows the
@@ -744,7 +979,8 @@ class Session:
 
         for _ in range(6):
             try:
-                return self._execute_and_cache(ckey, query, plan)
+                return self._execute_and_cache(ckey, query, plan,
+                                               cfg_plan)
             except ExecError as e:
                 with self._stmt_lock:  # drop the failed runner
                     self._stmt_cache.pop(ckey, None)
@@ -762,15 +998,16 @@ class Session:
                     texe = plan_tiled(plan, self)  # the grown plan spills
                     if texe is None:
                         raise
-                    return self._run_cached_tiled(ckey, texe)
-        return self._execute_and_cache(ckey, query, plan)
+                    return self._run_cached_tiled(ckey, texe, cfg_plan)
+        return self._execute_and_cache(ckey, query, plan, cfg_plan)
 
     def _verify_plan(self, plan, context: str) -> None:
         """The config.debug.verify_plans gate (plan/verify.py): verify a
         freshly planned statement and raise PlanVerifyError with
         node-path findings instead of running a broken plan. A plan
-        re-made after a mid-statement replan is verified once even with
-        the gate off (``_verify_next_plans``)."""
+        re-made after a mid-statement replan, and the first
+        ``topology.verify_replans`` plans after a topology adoption, are
+        verified even with the gate off (``_verify_next_plans``)."""
         if plan is None:
             return
         owed = self._verify_next_plans

@@ -201,8 +201,10 @@ def test_unported_transports_raise(monkeypatch):
     monkeypatch.delenv("CBTPU_FORCE_HOSTS")
     topo = TM.host_topology(8)
     assert topo.n_hosts == 1 and topo.segs_by_host == (tuple(range(8)),)
+    # a survivor restriction is checked against the slot pool (the
+    # segment count by default), as the reference checks its devices
     with pytest.raises(TM.DeviceRestrictionError):
-        TM.host_topology(8, device_ids=[1])
+        TM.host_topology(8, device_ids=[8])
 
 
 def test_distributed_modules_import_no_jax():

@@ -54,6 +54,8 @@ def test_import_pulls_in_no_jax():
             "import cloudberry_tpu_torch.sched.paramplan\n"
             "import cloudberry_tpu_torch.sql.classify\n"
             "import cloudberry_tpu_torch.exec.instrument\n"
+            "import cloudberry_tpu_torch.parallel.health\n"
+            "import cloudberry_tpu_torch.parallel.topology\n"
             "import cloudberry_tpu_torch.session\n"
             "print('\\n'.join(sorted(sys.modules)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -191,13 +191,13 @@ def same_tiled_report(ts, js) -> dict:
     return tr
 
 
-# the distributed report's decision keys; timings, the pipeline's and
-# the window's telemetry and the topology epoch (the port has no online
-# topology: its epoch is 0) are compared apart
+# the distributed report's decision keys; timings and the pipeline's and
+# the window's telemetry are compared apart
 DIST_TILED_KEYS = TILED_KEYS + (
     "tiled", "distributed", "n_segments", "stream_table",
     "est_finalize_bytes", "est_pipeline_bytes", "budget_bytes",
-    "tile_window", "resumed_from_tile", "tiles_replayed", "n_chunks")
+    "tile_window", "resumed_from_tile", "tiles_replayed", "n_chunks",
+    "topology_epoch")
 
 
 def dist_pair(load, budget=None, nseg: int = 8, **overrides):
@@ -231,7 +231,6 @@ def same_dist_tiled_report(ts, js) -> dict:
     assert set(tr) == set(jr), sorted(set(tr) ^ set(jr))
     for k in DIST_TILED_KEYS:
         assert tr.get(k) == jr.get(k), (k, tr.get(k), jr.get(k))
-    assert tr["topology_epoch"] == 0
     retire_reference_decode_pool()
     return tr
 
@@ -348,3 +347,61 @@ EA_TEXTS = {
         ["q36", "q52", "q98"]),
 }
 EA_WINDOWED = ("q12", "q36", "q98")
+
+
+# ------------------------------------------------ fault seams, both engines
+
+
+def arm_both(name: str, action: str = "error", **kw) -> None:
+    """Arm the same fault point in the JAX package's and the port's
+    registries."""
+    from cloudberry_tpu.utils import faultinject as JFI
+    from cloudberry_tpu_torch.utils import faultinject as TFI
+
+    JFI.inject_fault(name, action, **kw)
+    TFI.inject_fault(name, action, **kw)
+
+
+def reset_both(name=None) -> None:
+    from cloudberry_tpu.utils import faultinject as JFI
+    from cloudberry_tpu_torch.utils import faultinject as TFI
+
+    JFI.reset_fault(name)
+    TFI.reset_fault(name)
+
+
+def fired_both(name: str) -> tuple:
+    """(hits, fired) of one armed seam in the JAX package and the port,
+    which must be equal; returns the port's."""
+    from cloudberry_tpu.utils import faultinject as JFI
+    from cloudberry_tpu_torch.utils import faultinject as TFI
+
+    j, t = JFI._registry.get(name), TFI._registry.get(name)
+    got = (t.hits, t.fired) if t is not None else None
+    want = (j.hits, j.fired) if j is not None else None
+    assert got == want, (name, got, want)
+    return got
+
+
+# HealthMonitors a test started, in either engine: the chaos fixture stops
+# them (their probe threads must not outlive the test)
+MONITORS: list = []
+
+
+def chaos_teardown() -> None:
+    """After a fault-injection case: disarm both engines' seams, stop
+    every HealthMonitor a test registered in MONITORS, and retire the
+    reference's decode pool, so no armed fault or ``cbtpu-`` thread
+    reaches a later test file on the same worker."""
+    reset_both()
+    while MONITORS:
+        MONITORS.pop().stop()
+    retire_reference_decode_pool()
+
+
+def same_counters(ts, js, names) -> dict:
+    """The named counters, equal in both engines; returns the port's."""
+    got = {k: ts.stmt_log.counter(k) for k in names}
+    want = {k: js.stmt_log.counter(k) for k in names}
+    assert got == want, (got, want)
+    return got
