@@ -155,13 +155,13 @@ its Executable as before the caches existed; phase 11 measures the caches.
    also equal to the numpy oracle (Q1's averages in the two-stage
    finalize's order) and to an 8-segment CPU session of the port;
    TPC-DS q17/q25/q29 at scale 100 over 8 segments, each equal to phase
-   4's one-segment run; at SF4 (``--dist-sf``; BASELINE.md's config is
+   4's one-segment run; at SF2 (``--dist-sf``; BASELINE.md's config is
    SF10, cut to fit the time limit) TPC-H Q5 and Q9 over 4 segments, each
    equal to a one-segment CUDA run at a 64 GiB budget and red line that
    admit it. The first 8-segment run of each statement holds every
    kernel call against its plain version; a counted run gives the
    launches. Per statement at 8 (4) segments and at one: the wall (median
-   of 5, 3 at SF4) and its host-time split, the peak device bytes
+   of 5, 3 at SF2) and its host-time split, the peak device bytes
    against the admission estimate times nseg, and per redistribute the
    bucket rung against the observed demand, the skew ratio, the wire
    bytes and the exchange's device-synchronized time. Motion behaviour:
@@ -224,7 +224,31 @@ its Executable as before the caches existed; phase 11 measures the caches.
    uninterrupted wall, the resume tile, tiles re-run, the recovery
    counters and the launches; per resize: the rows moved against the
    bound, the rebalance's seconds and the cutover's ms;
-15. kernels: each kernel, on the inputs the TPC-H path gave it and on
+15. SQL surface, at TPC-H SF1 (``sql_surface_phase``): (a) in RAM,
+   BEGIN, an INSERT … SELECT of about 100,000 lineitem rows and an UPDATE
+   of orders; Q1, Q3 and Q5 inside the transaction must equal the numpy
+   oracle on the changed data and, after ROLLBACK, the pre-transaction
+   results bit for bit; a dropped, re-created and filled nation rolls
+   back with its device copy dropped; (b) on a store, a COMMIT seen by a
+   second session, a conflicting rewrite refused with
+   ``SerializationError`` and two concurrent appends merged; (c) a plain
+   materialized view over lineitem grouped by (l_returnflag,
+   l_linestatus, l_shipdate) answers a Q1-shaped query (EXPLAIN shows
+   AQUMV) equal to the run with ``planner.enable_aqumv`` off, and an
+   INCREMENTAL view over a NOT NULL copy merges an INSERT of about
+   60,000 rows, an UPDATE and a DELETE with no refresh, equal to a fresh
+   REFRESH; (d) CLUSTER of store-backed orders by (o_orderdate,
+   o_custkey): a range on o_custkey reads fewer partitions after, with an
+   equal result; (e) a file:// external customer (its 150,000 rows and
+   10 bad lines under a reject limit) and a sqlite foreign supplier, each
+   joined to nation, equal to the RAM tables; a directory table's upload
+   and read under TDE; (f) at 8 segments, a parallel retrieve cursor over
+   about 100,000 filtered lineitem rows drained by 8 threads equals the
+   direct result, a join cursor likewise, an ORDER BY … LIMIT falls back
+   to one endpoint, and CLOSE releases the reservation. Each part's
+   statement walls are printed; some runs hold every kernel call against
+   its plain version, and the counted runs must launch all three kernels;
+16. kernels: each kernel, on the inputs the TPC-H path gave it and on
    synthetic inputs at the main path's shapes plus edge cases (empty
    selection, ragged N, int64 wraparound, duplicate build keys, one hot
    cell, cell domains for each of dense_agg's modes, a skewed group, odd
@@ -241,8 +265,8 @@ its Executable as before the caches existed; phase 11 measures the caches.
    with torch.profiler (after a warm-up trace, and again where a counted
    launch left no device activity in its trace): it must be one device
    kernel;
-16. report: the card line, one JSON line of kernels (launches summed over
-   the counted runs of phases 3 to 14), and last the JSON line
+17. report: the card line, one JSON line of kernels (launches summed over
+   the counted runs of phases 3 to 15), and last the JSON line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -2897,7 +2921,7 @@ def distributed_phase(kit, raw, gpu, cpu, gds, args) -> dict:
     out["motion_s"] = time.perf_counter() - t_part
     log(f"[dist] motion behaviour part: {out['motion_s']:.1f} s")
 
-    # ----------------------------- TPC-H SF4 Q5 and Q9 over 4 segments
+    # ---------------------- TPC-H --dist-sf Q5 and Q9 over 4 segments
     if args.dist_sf > 0:
         t0 = time.perf_counter()
         big = tpch.generate(args.dist_sf, SEED)
@@ -3692,6 +3716,567 @@ def recovery_phase(kit, raw, gpu, args) -> dict:
     return out
 
 
+# ------------------------------------------------- phase 15: SQL surface
+
+SQ_TXN_ROWS = 100_000    # lineitem rows the transaction appends
+SQ_IVM_ROWS = 60_000     # rows the incremental view's INSERT merges
+SQ_CURSOR_ROWS = 100_000  # rows of the parallel retrieve cursor
+SQ_BAD_LINES = 10        # malformed lines in the external customer file
+SQ_REJECT_LIMIT = 20
+SQ_CLUSTER_RPP = 32_768  # rows per micro-partition of the clustered orders
+SQ_NSEG = 8
+SQ_DIR_BYTES = 1 << 20
+SQ_Q1_VIEW = ("select l_returnflag, l_linestatus, sum(l_quantity) as "
+              "sum_qty, sum(l_extendedprice) as sum_base_price, "
+              "sum(l_discount) as sum_disc, count(*) as count_order from "
+              "lineitem where l_shipdate <= date '1998-09-02' group by "
+              "l_returnflag, l_linestatus order by l_returnflag, "
+              "l_linestatus")
+SQ_BY_NATION = ("select n_name, count(*) as c, sum({p}_acctbal) as s from "
+                "{t} join nation on {p}_nationkey = n_nationkey "
+                "group by n_name order by n_name")
+
+
+def first_keys_below(keys, n) -> int:
+    """The key K such that about n rows have a key below K."""
+    ks = np.sort(np.asarray(keys))
+    return int(ks[min(max(n, 1), len(ks) - 1)])
+
+
+def drained_rows(session, cursor, segments, threads) -> tuple:
+    """Every endpoint of a cursor drained by ``threads`` threads at once:
+    (sorted row tuples, rows per endpoint, wall ms)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(threads) as ex:
+        outs = list(ex.map(lambda g: session.retrieve(cursor, g),
+                           segments))
+    ms = (time.perf_counter() - t0) * 1e3
+    check(all(o["remaining"] == 0 for o in outs),
+          f"cursor {cursor}: an endpoint was not drained")
+    rows = sorted(tuple(r) for o in outs for r in o["rows"])
+    return rows, [len(o["rows"]) for o in outs], ms
+
+
+def batch_rows(batch) -> list:
+    """A result's rows as sorted tuples of decoded values (the form
+    ``Session.retrieve`` returns)."""
+    cols = batch.decoded_columns()
+    return sorted(zip(*[cols[k].tolist() for k in cols]))
+
+
+def sql_surface_phase(kit, raw, gpu, args) -> dict:
+    """The rest of the SQL surface on the card (module docstring, phase
+    15): transactions in RAM and on a store, materialized views with
+    AQUMV and IVM, CLUSTER, external, foreign and directory tables and
+    parallel retrieve cursors, each checked against a numpy oracle, the
+    same statement with a feature off, a fresh REFRESH or the RAM
+    tables, exactly."""
+    import hashlib
+    import shutil
+    import sqlite3
+    import tempfile
+
+    import cloudberry_tpu_torch as ct
+    from cloudberry_tpu_torch import tpch
+    from cloudberry_tpu_torch.plan import matview as MV
+    from cloudberry_tpu_torch.session import SerializationError
+    from cloudberry_tpu_torch.types import date_to_days as D
+
+    try:
+        import pandas  # noqa: F401 — the IVM merge runs on it
+    except ImportError:
+        check(False, "pandas is not importable: the incremental views' "
+              "merge needs it")
+    torch = kit.torch
+    sf = args.sf
+    out = {}
+    t_phase = time.perf_counter()
+    names = ["region", "nation", "supplier", "customer", "orders",
+             "lineitem"]
+    card = gpu.config
+    # no auto-ANALYZE after DML: its first run reads every row of the
+    # 6M-row tables on the host, which no check of the phase needs
+    quiet = card.with_overrides(**{"planner.autostats": "none"})
+    li = raw["lineitem"]
+
+    def scaled(n):
+        return max(int(n * sf), 100)
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    launches = {}
+
+    def counted(s, sql):
+        res, ms, counts = kit.counted_run(s, sql)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        return res, ms, counts
+
+    tmp = tempfile.mkdtemp(prefix="cb_sql_")
+    try:
+        # ------------------------------------------- (a) RAM transactions
+        s = ct.Session(quiet)
+        copy_tables(gpu, s, names)
+        before = {}
+        for q in ("q1", "q3", "q5"):
+            res, ms, _ = counted(s, tpch.QUERIES[q])
+            before[q] = physical(res)
+            same(before[q], oracle(raw, q, D), f"{q} before BEGIN")
+        k_ins = first_keys_below(li["l_orderkey"], scaled(SQ_TXN_ROWS))
+        m_ins = li["l_orderkey"] < k_ins
+        raw2 = dict(raw)
+        raw2["lineitem"] = {c: np.concatenate([v, v[m_ins]])
+                            for c, v in li.items()}
+        od = dict(raw["orders"])
+        prio = od["o_shippriority"].copy()
+        prio[od["o_orderkey"] % 5 == 0] = 1
+        od["o_shippriority"] = prio
+        raw2["orders"] = od
+        res, begin_ms = wall(lambda: s.sql("begin"))
+        check(res == "BEGIN", f"BEGIN: {res}")
+        st, ins_ms = wall(lambda: s.sql(
+            f"insert into lineitem select * from lineitem "
+            f"where l_orderkey < {k_ins}"))
+        check(st == f"INSERT {int(m_ins.sum())}", f"INSERT … SELECT: {st}")
+        st, upd_ms = wall(lambda: s.sql(
+            "update orders set o_shippriority = 1 "
+            "where o_orderkey % 5 = 0"))
+        check(st == f"UPDATE {int((od['o_orderkey'] % 5 == 0).sum())}",
+              f"UPDATE orders: {st}")
+        txn_ms = {}
+        for q in ("q1", "q3", "q5"):
+            if q == "q3":
+                res = kit.held("TPC-H q3 inside a transaction (held)",
+                               lambda: s.sql(tpch.QUERIES[q]))
+                same(physical(res), oracle(raw2, q, D),
+                     f"{q} inside the transaction (held run)")
+            res, txn_ms[q], counts = counted(s, tpch.QUERIES[q])
+            same(physical(res), oracle(raw2, q, D),
+                 f"{q} inside the transaction vs the oracle on the "
+                 "changed data")
+        res, rollback_ms = wall(lambda: s.sql("rollback"))
+        check(res == "ROLLBACK", f"ROLLBACK: {res}")
+        after_ms = {}
+        for q in ("q1", "q3", "q5"):
+            res, after_ms[q], _ = counted(s, tpch.QUERIES[q])
+            same(physical(res), before[q], f"{q} after ROLLBACK vs before "
+                 "BEGIN")
+        # trap: a table dropped, re-created and filled in the transaction
+        # leaves device copies under its name; the rollback drops them
+        s.sql("begin")
+        s.sql("drop table nation")
+        s.sql("create table nation (n_nationkey bigint, n_name text, "
+              "n_regionkey bigint, n_comment text)")
+        s.sql("insert into nation values (0, 'NOWHERE', 2, 'x'), "
+              "(1, 'ELSEWHERE', 2, 'y')")
+        n2 = s.sql("select n_nationkey, n_name from nation "
+                   "order by n_nationkey")
+        check(n2.num_rows() == 2, "the re-created nation inside the txn")
+        s.sql("rollback")
+        check("nation" not in s._device_tables,
+              "ROLLBACK kept the re-created nation's device copy")
+        res, _, _ = counted(s, tpch.QUERIES["q5"])
+        same(physical(res), before["q5"], "q5 after the rolled-back "
+             "drop-and-recreate of nation")
+        out["ram"] = {"begin_ms": begin_ms, "insert_select_ms": ins_ms,
+                      "inserted": int(m_ins.sum()), "update_ms": upd_ms,
+                      "in_txn_ms": txn_ms, "rollback_ms": rollback_ms,
+                      "after_rollback_ms": after_ms}
+        log(f"[sql] RAM transaction: BEGIN {begin_ms:.3f} ms, INSERT … "
+            f"SELECT of {int(m_ins.sum())} lineitem rows {ins_ms:.1f} ms, "
+            f"UPDATE orders {upd_ms:.1f} ms; Q1/Q3/Q5 inside "
+            f"{[round(txn_ms[q], 1) for q in txn_ms]} ms equal to the "
+            f"oracle on the changed data; ROLLBACK {rollback_ms:.3f} ms, "
+            f"then {[round(after_ms[q], 1) for q in after_ms]} ms equal to "
+            "the pre-transaction results bit for bit; the drop-and-"
+            "recreate of nation rolled back with its device copy dropped")
+
+        # --------------------------------------- (b) store transactions
+        sroot = {"storage.root": os.path.join(tmp, "occ")}
+        s1 = ct.Session(card.with_overrides(**sroot))
+        copy_tables(gpu, s1, ["customer"])
+        s2 = ct.Session(card.with_overrides(**sroot))
+        cu = raw["customer"]
+        n_cu = len(cu["c_custkey"])
+
+        def n_rows(sess, where="true"):
+            return int(np.asarray(sess.sql(
+                f"select count(*) as n from customer where {where}")
+                .columns["n"])[0])
+
+        k_app = min(1000, n_cu)
+        total = n_cu
+        add = n_rows(s1, f"c_custkey <= {k_app}")
+        s1.sql("begin")
+        s1.sql(f"insert into customer select * from customer "
+               f"where c_custkey <= {k_app}")
+        st, commit_ms = wall(lambda: s1.sql("commit"))
+        total += add
+        check(st == "COMMIT" and n_rows(s2) == total,
+              f"COMMIT seen by a second session: {st}, {n_rows(s2)}")
+        s1.sql("begin")
+        s1.sql("update customer set c_acctbal = c_acctbal + 1 "
+               "where c_nationkey = 3")
+        total += n_rows(s2, "c_custkey <= 10")
+        s2.sql("insert into customer select * from customer "
+               "where c_custkey <= 10")
+        t0 = time.perf_counter()
+        try:
+            s1.sql("commit")
+            check(False, "a conflicting rewrite committed")
+        except SerializationError:
+            pass
+        conflict_ms = (time.perf_counter() - t0) * 1e3
+        check(n_rows(s1) == total,
+              "the losing session did not sync to the winner's commit")
+        total += n_rows(s1, "c_custkey <= 5") + n_rows(s1, "c_custkey <= 7")
+        s1.sql("begin")
+        s2.sql("begin")
+        s1.sql("insert into customer select * from customer "
+               "where c_custkey <= 5")
+        s2.sql("insert into customer select * from customer "
+               "where c_custkey <= 7")
+        s2.sql("commit")
+        st, merge_ms = wall(lambda: s1.sql("commit"))
+        s3 = ct.Session(card.with_overrides(**sroot))
+        check(st == "COMMIT" and n_rows(s3) == total,
+              f"concurrent appends merge: {st}, {n_rows(s3)} rows, "
+              f"want {total}")
+        want = total
+        res, _, _ = counted(s3, "select c_nationkey, count(*) as c from "
+                            "customer group by c_nationkey")
+        check(int(np.asarray(res.columns["c"]).sum()) == want,
+              "the merged customer's rows by nation")
+        del s1, s2, s3
+        out["store"] = {"commit_ms": commit_ms, "conflict_ms": conflict_ms,
+                        "merge_commit_ms": merge_ms}
+        log(f"[sql] store transactions: COMMIT of {k_app} appended "
+            f"customer rows {commit_ms:.1f} ms, seen by a second session; "
+            f"a conflicting rewrite raised SerializationError in "
+            f"{conflict_ms:.1f} ms; concurrent appends merged "
+            f"({merge_ms:.1f} ms), {want} rows in a fresh session")
+
+        # ------------------------------------------- (c) views, AQUMV, IVM
+        view = ("create materialized view mv_li as select l_returnflag, "
+                "l_linestatus, l_shipdate, sum(l_quantity) as sum_qty, "
+                "sum(l_extendedprice) as sum_base_price, sum(l_discount) "
+                "as sum_disc, count(*) as count_order from lineitem group "
+                "by l_returnflag, l_linestatus, l_shipdate")
+        st, mat_ms, mat_counts = counted(s, view)
+        check(st == "CREATE MATERIALIZED VIEW mv_li", f"the view: {st}")
+        mv_rows = s.catalog.table("mv_li").num_rows
+        check("AQUMV: answered from materialized view mv_li"
+              in s.explain(SQ_Q1_VIEW), "EXPLAIN does not show AQUMV")
+        res = kit.held("Q1-shaped from the view (held)",
+                       lambda: s.sql(SQ_Q1_VIEW))
+        on, on_ms, on_counts = counted(s, SQ_Q1_VIEW)
+        on2, on2_ms, _ = counted(s, SQ_Q1_VIEW)
+        s.config = quiet.with_overrides(**{"planner.enable_aqumv": False})
+        check("AQUMV" not in s.explain(SQ_Q1_VIEW), "AQUMV off")
+        off, off_ms, off_counts = counted(s, SQ_Q1_VIEW)
+        off2, off2_ms, _ = counted(s, SQ_Q1_VIEW)
+        s.config = quiet
+        for r in (res, on, on2, off2):
+            same(physical(r), physical(off), "the Q1-shaped query from the "
+                 "view vs enable_aqumv off")
+        # the incremental view reads a NOT NULL copy of lineitem
+        k_ivm = first_keys_below(li["l_orderkey"], scaled(SQ_IVM_ROWS))
+        nn_cols = ("l_orderkey bigint not null, l_returnflag text not null,"
+                   " l_linestatus text not null, l_shipdate date not null, "
+                   "l_quantity decimal(15,2) not null, l_extendedprice "
+                   "decimal(15,2) not null")
+        sel = ("select l_orderkey, l_returnflag, l_linestatus, l_shipdate, "
+               "l_quantity, l_extendedprice from lineitem")
+        s.sql(f"create table li_nn ({nn_cols})")
+        _, copy_ms = wall(lambda: s.sql(
+            f"insert into li_nn {sel} where l_orderkey >= {k_ivm}"))
+        ivm = ("create incremental materialized view mv_nn as select "
+               "l_returnflag, l_linestatus, l_shipdate, sum(l_quantity) as "
+               "sq, sum(l_extendedprice) as se, count(*) as c from li_nn "
+               "group by l_returnflag, l_linestatus, l_shipdate")
+        _, ivm_ms, _ = counted(s, ivm)
+        merges, refreshes = [], []
+        real_app, real_dml = MV.maintain_on_append, MV.maintain_on_dml
+        real_refresh = MV.refresh_matview
+
+        def timed_merge(real):
+            def call(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return real(*a, **kw)
+                finally:
+                    merges.append((time.perf_counter() - t0) * 1e3)
+            return call
+
+        MV.maintain_on_append = timed_merge(real_app)
+        MV.maintain_on_dml = timed_merge(real_dml)
+        MV.refresh_matview = lambda *a: refreshes.append(a[1]) \
+            or real_refresh(*a)
+        try:
+            dml = {}
+            for what, q in (
+                    ("insert", f"insert into li_nn {sel} "
+                               f"where l_orderkey < {k_ivm}"),
+                    ("update", "update li_nn set l_quantity = l_quantity "
+                               "+ 1 where l_shipdate < date '1992-03-01'"),
+                    ("delete", "delete from li_nn where l_shipdate >= "
+                               "date '1998-11-01'")):
+                st, ms = wall(lambda: s.sql(q))
+                dml[what] = {"status": st, "statement_ms": ms,
+                             "merge_ms": merges[-1]}
+        finally:
+            MV.maintain_on_append, MV.maintain_on_dml = real_app, real_dml
+            MV.refresh_matview = real_refresh
+        check(not refreshes, f"the IVM merges refreshed {refreshes}")
+        view_sql = ("select l_returnflag, l_linestatus, l_shipdate, sq, se, "
+                    "c from mv_nn order by l_returnflag, l_linestatus, "
+                    "l_shipdate")
+        merged = physical(s.sql(view_sql))
+        st, refresh_ms = wall(lambda: s.sql(
+            "refresh materialized view mv_nn"))
+        same(merged, physical(s.sql(view_sql)), "the merged incremental "
+             "view vs a fresh REFRESH")
+        out["views"] = {"materialize_ms": mat_ms, "view_rows": mv_rows,
+                        "materialize_launches": mat_counts,
+                        "aqumv_on_ms": [on_ms, on2_ms],
+                        "aqumv_off_ms": [off_ms, off2_ms],
+                        "aqumv_on_launches": on_counts,
+                        "aqumv_off_launches": off_counts,
+                        "not_null_copy_ms": copy_ms,
+                        "incremental_materialize_ms": ivm_ms,
+                        "ivm": dml, "refresh_ms": refresh_ms}
+        log(f"[sql] the view over lineitem by (l_returnflag, l_linestatus, "
+            f"l_shipdate): {mv_rows} rows, materialized in {mat_ms:.1f} ms "
+            f"(launches {mat_counts}); the Q1-shaped query from it "
+            f"{on_ms:.3f} / {on2_ms:.3f} ms (launches {on_counts}) against "
+            f"{off_ms:.3f} / {off2_ms:.3f} ms with enable_aqumv off "
+            f"(launches {off_counts}), equal; incremental view over the "
+            f"NOT NULL copy ({copy_ms:.1f} ms to copy, {ivm_ms:.1f} ms to "
+            f"materialize): "
+            + ", ".join(f"{w} {d['status']} {d['statement_ms']:.1f} ms "
+                        f"(merge {d['merge_ms']:.1f} ms)"
+                        for w, d in dml.items())
+            + f", no refresh; equal to a fresh REFRESH ({refresh_ms:.1f} "
+            "ms)")
+        s.sql("drop materialized view mv_nn")
+        s.sql("drop table li_nn")
+
+        # ---------------------------------------------------- (d) CLUSTER
+        croot = {"storage.root": os.path.join(tmp, "cluster"),
+                 "storage.rows_per_partition": SQ_CLUSTER_RPP,
+                 "planner.autostats": "none"}
+        sc = ct.Session(card.with_overrides(**croot))
+        _, load_ms = wall(lambda: copy_tables(gpu, sc, ["orders"]))
+        k_cust = first_keys_below(raw["customer"]["c_custkey"],
+                                  len(raw["customer"]["c_custkey"]) // 32)
+        q_range = ("select count(*) as c, sum(o_totalprice) as s from "
+                   f"orders where o_custkey <= {k_cust}")
+
+        def fresh_report():
+            fresh = ct.Session(card.with_overrides(**croot))
+            return fresh, store_scan_reports(fresh, q_range)[0]
+
+        # before: the partitions the plan would read (the same range on
+        # the RAM orders gives the result); after: a cold read of them
+        rep0 = fresh_report()[1]
+        res0 = physical(gpu.sql(q_range))
+        st, cluster_ms = wall(lambda: sc.sql(
+            "cluster orders by (o_orderdate, o_custkey)"))
+        fresh, rep1 = fresh_report()
+        res, ms1, _ = counted(fresh, q_range)
+        res1 = physical(res)
+        same(res1, res0, "the range on o_custkey after CLUSTER vs the RAM "
+             "orders")
+        o = raw["orders"]
+        mo = o["o_custkey"] <= k_cust
+        check(int(res0["c"][0]) == int(mo.sum())
+              and int(res0["s"][0]) == int(_cents(o["o_totalprice"])[mo]
+                                           .sum()),
+              "the range on o_custkey vs the numpy oracle")
+        check(rep1["parts"] < rep0["parts"],
+              f"CLUSTER: {rep1['parts']} partitions read after, "
+              f"{rep0['parts']} before")
+        out["cluster"] = {"load_ms": load_ms, "cluster_s": cluster_ms / 1e3,
+                          "status": st, "parts_before": rep0["parts"],
+                          "parts_after": rep1["parts"],
+                          "candidates": rep0["candidates"],
+                          "range_ms_after": ms1}
+        log(f"[sql] CLUSTER orders by (o_orderdate, o_custkey): "
+            f"{cluster_ms / 1e3:.2f} s (writing orders to the store "
+            f"{load_ms / 1e3:.2f} s); o_custkey <= {k_cust} reads "
+            f"{rep1['parts']} of {rep1['candidates']} partitions after, "
+            f"{rep0['parts']} before; cold read after {ms1:.1f} ms, equal "
+            "to the RAM orders and the oracle")
+        del sc, fresh
+
+        # ------------------------- (e) external, foreign, directory tables
+        lines = tbl_lines(cu, tpch.SCHEMAS["customer"])
+        n_bad = SQ_BAD_LINES
+        step = max(len(lines) // (n_bad + 1), 1)
+        for i in range(n_bad):
+            lines.insert((i + 1) * step + i, f"bad{i}|" + "|".join(
+                ["x"] * (len(tpch.SCHEMAS["customer"].fields) - 1)))
+        path = os.path.join(tmp, "customer.tbl")
+        with open(path, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        s.sql(f"create external table customer_x "
+              f"({ddl_columns(tpch.SCHEMAS['customer'])}) "
+              f"location('file://{path}') segment reject limit "
+              f"{SQ_REJECT_LIMIT} log errors")
+        want = physical(s.sql(SQ_BY_NATION.format(p="c", t="customer")))
+        # every statement re-reads the file: one run times a re-read
+        res, ext_ms, ext_counts = counted(
+            s, SQ_BY_NATION.format(p="c", t="customer_x"))
+        same(physical(res), want, "external customer by nation vs the RAM "
+             "customer")
+        errors = len(s.copy_errors.get("customer_x", []))
+        check(errors == n_bad, f"external rejects: {errors}, want {n_bad}")
+        sup = raw["supplier"]
+        db = os.path.join(tmp, "supplier.db")
+        con = sqlite3.connect(db)
+        sfields = tpch.SCHEMAS["supplier"].fields
+        con.execute(f"create table supplier "
+                    f"({', '.join(f.name for f in sfields)})")
+        con.executemany(
+            f"insert into supplier values ({', '.join('?' * len(sfields))})",
+            zip(*[np.asarray(sup[f.name]).tolist() for f in sfields]))
+        con.commit()
+        con.close()
+        s.sql(f"create foreign table supplier_f "
+              f"({ddl_columns(tpch.SCHEMAS['supplier'])}) server sqlite "
+              f"options (database '{db}', table 'supplier')")
+        want = physical(s.sql(SQ_BY_NATION.format(p="s", t="supplier")))
+        res = kit.held("the foreign supplier joined to nation (held)",
+                       lambda: s.sql(SQ_BY_NATION.format(p="s",
+                                                         t="supplier_f")))
+        same(physical(res), want, "foreign supplier by nation (held run)")
+        res, fdw_ms, fdw_counts = counted(
+            s, SQ_BY_NATION.format(p="s", t="supplier_f"))
+        same(physical(res), want, "foreign supplier by nation vs the RAM "
+             "supplier")
+        droot = {"storage.root": os.path.join(tmp, "dir"),
+                 "storage.encryption_key": "phase-15-key"}
+        sd = ct.Session(card.with_overrides(**droot))
+        sd.sql("create directory table docs")
+        blob = np.random.default_rng(SEED).integers(
+            0, 256, SQ_DIR_BYTES, dtype=np.uint8).tobytes()
+        _, up_ms = wall(lambda: sd.dir_upload("docs", "a/blob.bin", blob))
+        sd.dir_upload("docs", "b.txt", b"hello")
+        meta = physical(sd.sql("select relative_path, size, md5 from docs "
+                               "order by relative_path"))
+        check(meta["relative_path"].tolist() == ["a/blob.bin", "b.txt"]
+              and meta["size"].tolist() == [SQ_DIR_BYTES, 5]
+              and meta["md5"][0] == hashlib.md5(blob).hexdigest(),
+              f"directory table rows: {meta}")
+        with open(os.path.join(droot["storage.root"], "_dirtab", "docs",
+                               "b.txt"), "rb") as f:
+            check(b"hello" not in f.read(), "TDE: the file is plaintext")
+        got, read_ms = wall(lambda: sd.dir_read("docs", "a/blob.bin"))
+        check(got == blob, "the directory table's read differs")
+        del sd
+        out["external"] = {"external_ms": ext_ms, "rejected": errors,
+                           "external_launches": ext_counts,
+                           "foreign_ms": fdw_ms,
+                           "foreign_launches": fdw_counts,
+                           "dir_upload_ms": up_ms, "dir_read_ms": read_ms}
+        log(f"[sql] file:// external customer ({len(cu['c_custkey'])} rows, "
+            f"{errors} bad lines rejected under a limit of "
+            f"{SQ_REJECT_LIMIT}) joined to nation, re-read per statement: "
+            f"{ext_ms:.1f} ms (launches {ext_counts}); "
+            f"sqlite foreign supplier joined to nation {fdw_ms:.1f} ms "
+            f"(launches {fdw_counts}); both equal to the RAM tables; "
+            f"directory table with TDE: upload of {SQ_DIR_BYTES} bytes "
+            f"{up_ms:.1f} ms, read {read_ms:.1f} ms, md5 equal")
+        del s
+
+        # -------------------------------- (f) parallel retrieve cursors
+        s8 = ct.Session(card.with_overrides(n_segments=SQ_NSEG))
+        copy_tables(gpu, s8, ["nation", "customer", "lineitem"])
+        k_cur = first_keys_below(li["l_orderkey"], scaled(SQ_CURSOR_ROWS))
+        q_cur = ("select l_orderkey, l_linenumber, l_quantity, "
+                 "l_extendedprice from lineitem where l_orderkey < "
+                 f"{k_cur}")
+        direct, direct_ms, _ = counted(s8, q_cur)    # shards on the card
+        want_rows = batch_rows(direct)
+        check(len(want_rows) == int((li["l_orderkey"] < k_cur).sum()),
+              "the cursor query's direct result vs numpy")
+        vmem0 = s8._vmem.used
+        alloc0 = torch.cuda.memory_allocated()
+        info, declare_ms, cur_counts = counted(
+            s8, f"declare cur parallel retrieve cursor for {q_cur}")
+        check(info["parallel"] and len(info["endpoints"]) == SQ_NSEG,
+              f"the cursor's endpoints: {info['parallel']}, "
+              f"{len(info['endpoints'])}")
+        held_bytes = s8._vmem.used - vmem0
+        check(held_bytes > 0, "the cursor reserves no vmem")
+        # the endpoints hold host rows: an open cursor holds no device
+        # bytes beyond what the session had cached before it
+        alloc_open = torch.cuda.memory_allocated()
+        check(alloc_open <= alloc0, f"device bytes with the cursor open "
+              f"{alloc_open} > before DECLARE {alloc0}")
+        rows, per_ep, drain_ms = drained_rows(s8, "cur", range(SQ_NSEG),
+                                              SQ_NSEG)
+        check(rows == want_rows, "the drained endpoints vs the direct "
+              "result")
+        s8.sql("close cur")
+        check(s8._vmem.used == vmem0, "CLOSE did not release the vmem")
+        alloc1 = torch.cuda.memory_allocated()
+        check(alloc1 <= alloc0, f"device bytes after CLOSE {alloc1} > "
+              f"before DECLARE {alloc0}")
+        qj = ("select c_custkey, c_acctbal, n_name from customer join "
+              "nation on c_nationkey = n_nationkey where c_mktsegment = "
+              "'BUILDING'")
+        info, join_ms, join_counts = counted(
+            s8, f"declare curj parallel retrieve cursor for {qj}")
+        check(info["parallel"], "the join cursor fell back to one endpoint")
+        rows, _, join_drain_ms = drained_rows(s8, "curj", range(SQ_NSEG),
+                                              SQ_NSEG)
+        check(rows == batch_rows(s8.sql(qj)), "the join cursor vs direct")
+        s8.sql("close curj")
+        qs = ("select l_orderkey, l_linenumber, l_extendedprice from "
+              "lineitem order by l_extendedprice desc, l_orderkey, "
+              "l_linenumber limit 10")
+        info = s8.sql(f"declare curs parallel retrieve cursor for {qs}")
+        check(not info["parallel"] and len(info["endpoints"]) == 1,
+              "ORDER BY … LIMIT did not fall back to one endpoint")
+        rows, _, _ = drained_rows(s8, "curs", [0], 1)
+        check(rows == batch_rows(s8.sql(qs)), "the ON_ENTRY endpoint vs "
+              "direct")
+        s8.sql("close curs")
+        check(s8._vmem.used == vmem0, "vmem after the last CLOSE")
+        out["cursor"] = {"rows": len(want_rows), "per_endpoint": per_ep,
+                         "declare_ms": declare_ms, "drain_ms": drain_ms,
+                         "direct_ms": direct_ms, "held_bytes": held_bytes,
+                         "device_bytes_before": alloc0,
+                         "device_bytes_open": alloc_open,
+                         "device_bytes_after_close": alloc1,
+                         "launches": cur_counts,
+                         "join_declare_ms": join_ms,
+                         "join_drain_ms": join_drain_ms,
+                         "join_launches": join_counts}
+        log(f"[sql] parallel retrieve cursor at {SQ_NSEG} segments over "
+            f"{len(want_rows)} lineitem rows: DECLARE {declare_ms:.1f} ms, "
+            f"{SQ_NSEG} threads drained {per_ep} rows in {drain_ms:.1f} ms "
+            f"(direct SELECT {direct_ms:.1f} ms), the union equal to it; "
+            f"{held_bytes} bytes reserved until CLOSE, released; device "
+            f"bytes {alloc0} before DECLARE, {alloc1} after CLOSE; the join "
+            f"cursor {join_ms:.1f} ms + drain {join_drain_ms:.1f} ms "
+            f"(launches {join_counts}); ORDER BY … LIMIT on one endpoint")
+        del s8
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = launches
+    out["s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=float, default=1.0)
@@ -4156,7 +4741,22 @@ def main() -> int:
         f"{recovery['launches']}; recovery phase: "
         f"{time.perf_counter() - t0:.1f} s")
 
-    # -------------------------------------------------------- 15. kernels
+    # ------------------------------------------------- 15. SQL surface
+    t0 = time.perf_counter()
+    held_before = dict(held)
+    sql_surface = sql_surface_phase(SimpleNamespace(
+        torch=torch, counted_run=counted_run, held=held_run), raw, gpu,
+        args)
+    sql_surface["held"] = {k: held[k] - held_before[k] for k in held}
+    check(all(sql_surface["launches"].get(k, 0) for k in CK.LAUNCHES),
+          f"a kernel never launched on the SQL-surface path: "
+          f"{sql_surface['launches']}")
+    log(f"[sql] kernel calls of the SQL-surface runs held against their "
+        f"plain versions: {sql_surface['held']}; launches of its counted "
+        f"runs {sql_surface['launches']}; SQL-surface phase: "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # -------------------------------------------------------- 16. kernels
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     def rand_int(lo, hi, shape, dtype=torch.int64):
@@ -4598,7 +5198,7 @@ def main() -> int:
             "window_query": tpcds.WINDOW_QUERY.format(
                 where="d_year >= 1998")})
 
-    # --------------------------------------------------------- 16. report
+    # --------------------------------------------------------- 17. report
     kernels = [{
         "name": name, "route": "cuda",
         "source": f"cloudberry_tpu_torch/csrc/{CK.SOURCES[name]}",
@@ -4617,7 +5217,7 @@ def main() -> int:
                       "admission": admission, "tiling": tiling,
                       "telemetry": telemetry, "stmt_cache": stmt_cache,
                       "distributed": dist, "tiled_distributed": tiled_dist,
-                      "recovery": recovery,
+                      "recovery": recovery, "sql_surface": sql_surface,
                       "timer_floor_ms": timer_floor_ms, "sf": args.sf,
                       "tpcds_scale": args.ds_scale}))
     print(json.dumps({"ok": True, "device": {

@@ -85,10 +85,25 @@ class Table:
     # stats become exact partition bounds — elimination needs no separate
     # partition catalog. ('range', col, start, end, every) | ('list', col)
     partition_spec: tuple | None = None
+    # readable external table source (access/external analog): {url,
+    # delimiter, header, reject_limit, reject_percent, log_errors}; data
+    # re-reads from the source at every statement (never stored)
+    external: dict | None = None
+    # foreign table (storage/fdw.py): {server, options}; directory table
+    # (storage/dirtable.py): {table}. Both re-read at every statement too
+    foreign: dict | None = None
+    directory: dict | None = None
 
     @property
     def num_rows(self) -> int:
         return self.stats.row_count
+
+    @property
+    def sourced(self) -> bool:
+        """Whether the rows are re-read from a source outside the engine
+        (an external, foreign or directory table) at every statement that
+        names the table."""
+        return bool(self.external or self.foreign or self.directory)
 
     def ensure_loaded(self) -> None:
         """Materialize a cold stored table into RAM (DML paths and
@@ -157,10 +172,17 @@ class Table:
                     self.stats.min_max[f.name] = (float(vals.min()),
                                                   float(vals.max()))
         # durable tables: every data change is a new atomic snapshot; an
-        # append-only change persists just the new tail partitions (the
-        # port runs the store in autocommit mode: no transactions yet)
+        # append-only change persists just the new tail partitions. Inside
+        # a transaction, writes defer to COMMIT (store.begin_txn).
         if self.backing is not None and not getattr(self, "_loading", False) \
                 and not no_change:
+            if not getattr(self.backing, "autocommit", True):
+                self.backing._txn_dirty[self.name] = self
+                # append-vs-rewrite note feeds the commit-time OCC merge
+                # decision (concurrent INSERTs both succeed)
+                self.backing.note_txn_write(self.name, appended)
+                self.cold = False
+                return
             if appended is not None and appended < n:
                 k = appended
                 # refresh persisted uniqueness incrementally: a previously
@@ -239,10 +261,16 @@ class Table:
         # (an ANALYZE must never abort a concurrent writer)
         self._stats_version = next(_VERSION_COUNTER)
         if self.backing is not None:
-            self._store_version = \
-                self.backing.save_stats(self.name, self.stats.ndv,
-                                        self.stats.hist,
-                                        self.stats.analyzed_rows)
+            if getattr(self.backing, "autocommit", True):
+                self._store_version = \
+                    self.backing.save_stats(self.name, self.stats.ndv,
+                                            self.stats.hist,
+                                            self.stats.analyzed_rows)
+            else:
+                # inside a transaction: a stats-only marker — COMMIT writes
+                # one manifest (save_stats), never a full data re-snapshot,
+                # and ROLLBACK discards it
+                self.backing._txn_stats[self.name] = self
         return dict(self.stats.ndv)
 
     def is_unique(self, col: str) -> bool:
@@ -387,8 +415,8 @@ class Catalog:
         # draw from one coordinator-owned number line. nextval never rolls
         # back (PostgreSQL semantics) — deliberately outside txn snapshots.
         self.sequences: dict[str, dict] = {}
-        # materialized views (not yet ported): always empty here, so the
-        # planner's maintenance hooks have nothing to do
+        # materialized views: name -> plan/matview.MatViewDef (the data
+        # lives in an ordinary table of the same name)
         self.matviews: dict[str, object] = {}
         # resource queues (resqueue.c analog); "default" always exists and
         # is unlimited — sessions pick one via config.resource.queue
@@ -508,8 +536,11 @@ class Catalog:
         t._version = next(_VERSION_COUNTER)
         if self.store is not None and durable:
             t.backing = self.store
-            # durable schema from CREATE on
-            t._store_version = self.store.save_table(t)
+            if self.store.autocommit:
+                # durable schema from CREATE on
+                t._store_version = self.store.save_table(t)
+            else:
+                self.store._txn_dirty[name] = t
         self.tables[name] = t
         if bump:
             # bump=False: transient tables (table functions) are invisible
@@ -524,7 +555,12 @@ class Catalog:
             return
         t = self.tables[name]
         if t.backing is not None:
-            t.backing.drop_table(name)
+            if t.backing.autocommit:
+                t.backing.drop_table(name)
+            else:
+                t.backing._txn_drops.append(name)
+                t.backing._txn_dirty.pop(name, None)
+                getattr(t.backing, "_txn_stats", {}).pop(name, None)
         del self.tables[name]
         self.bump_ddl()
 

@@ -53,8 +53,8 @@ class InterconnectConfig:
 @dataclass(frozen=True)
 class PlannerConfig:
     """Planner settings: motion choices (the cost-model analog of
-    cdbpath.c), the memo, direct dispatch, runtime filters, autostats and
-    point lookups."""
+    cdbpath.c), the memo, direct dispatch, runtime filters, the
+    materialized-view rewrite, autostats and point lookups."""
 
     # Broadcast the smaller join side instead of redistributing both when its
     # (estimated) row count is below this (reference: cdbpath_motion_for_join
@@ -77,6 +77,9 @@ class PlannerConfig:
     # plannodes.h:1638): immune to hash-space skew across destinations,
     # and cheaper than an all_to_all for small partials. 0 disables.
     gather_single_threshold: int = 8192
+    # Answer-query-using-matview rewrite (aqumv.c): SELECTs subsumed by a
+    # FRESH aggregate materialized view read the view instead.
+    enable_aqumv: bool = True
     # Auto-ANALYZE after DML (the gp_autostats_mode analog,
     # autostats.c:283): "none" | "on_no_stats" (first DML on an
     # unanalyzed table) | "on_change" (row count drifted more than

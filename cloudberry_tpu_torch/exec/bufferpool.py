@@ -216,6 +216,17 @@ class BufferPool:
                 self.bytes -= nb
         return len(dead)
 
+    def drop_tables(self, names) -> int:
+        """Drop every entry offered for one of the tables ``names``;
+        returns the count dropped."""
+        with self._lock:
+            dead = [k for k, (_, _, t) in self._entries.items()
+                    if t in names]
+            for k in dead:
+                _, nb, _ = self._entries.pop(k)
+                self.bytes -= nb
+        return len(dead)
+
     def clear(self) -> int:
         """Drop everything (scope invalidation — stale keys could never
         serve anyway, but the resident device bytes are freed eagerly).

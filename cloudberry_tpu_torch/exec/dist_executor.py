@@ -77,16 +77,9 @@ def prepare_dist_inputs(plan: N.PlanNode, session, names=None) -> list:
     return per
 
 
-def compile_distributed(plan: N.PlanNode, session, instrument=False):
-    """The gang's runner for ``plan`` (the Executable of a distributed
-    statement): ``fn(inputs)`` → (result cols, sel, checks, stats) with
-    the reference's check and stat keys. Reusable across calls — inputs
-    are re-prepared per call from the session's shard cache. A generic
-    plan's ``$params`` ride every segment's inputs (replicated 0-d
-    tensors). ``instrument=True`` (EXPLAIN ANALYZE's pipeline path)
-    records per-node row counts into the stats (``node_rows_sum`` over
-    the segments, ``node_rows_one`` segment 0's) through this same entry
-    point."""
+def _gang_factory(session, instrument=False):
+    """``make(inputs)`` → a Gang over the session's segments, transport
+    and lowerer (the setup that every distributed runner shares)."""
     from cloudberry_tpu_torch.parallel.health import slot_count
     from cloudberry_tpu_torch.parallel.transport import make_transport
 
@@ -101,9 +94,41 @@ def compile_distributed(plan: N.PlanNode, session, instrument=False):
     device = session.device
     lowerer_cls = _InstrumentedDistLowerer if instrument else DistLowerer
 
+    def make(inputs):
+        return Gang(inputs, nseg, device, tx, packed, lowerer_cls)
+
+    return make
+
+
+def compile_distributed(plan: N.PlanNode, session, instrument=False):
+    """The gang's runner for ``plan`` (the Executable of a distributed
+    statement): ``fn(inputs)`` → (result cols, sel, checks, stats) with
+    the reference's check and stat keys. Reusable across calls — inputs
+    are re-prepared per call from the session's shard cache. A generic
+    plan's ``$params`` ride every segment's inputs (replicated 0-d
+    tensors). ``instrument=True`` (EXPLAIN ANALYZE's pipeline path)
+    records per-node row counts into the stats (``node_rows_sum`` over
+    the segments, ``node_rows_one`` segment 0's) through this same entry
+    point."""
+    make = _gang_factory(session, instrument)
+
     def run(inputs):
-        gang = Gang(inputs, nseg, device, tx, packed, lowerer_cls)
-        return gang.run(plan)
+        return make(inputs).run(plan)
+
+    return run
+
+
+def compile_segments(plan: N.PlanNode, session):
+    """The gang's runner for a plan whose top gather was cut (the
+    parallel retrieve cursor's endpoints, exec/endpoint.py):
+    ``fn(inputs)`` → (every segment's (cols, sel), checks, stats)."""
+    make = _gang_factory(session)
+
+    def run(inputs):
+        outs, checks, stats = make(inputs).run_each(
+            lambda low: low.lower(plan))
+        return ([({f.name: c[f.name] for f in plan.fields}, sel)
+                 for c, sel in outs], checks, stats)
 
     return run
 

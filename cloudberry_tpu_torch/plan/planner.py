@@ -13,10 +13,17 @@ cdbllize analog) inserts Motion nodes per the Sharding algebra, or direct
 dispatch routes a point statement to one segment.
 ``_run_internal`` checks the memory budget and takes a statement slot
 (the session's concurrency gate) as the reference does. CREATE and DROP
-RESOURCE QUEUE edit the catalog's queues (exec/resource.py). Statements
-that need modules outside the port (transactions, matviews,
-external/foreign/directory tables, cursors, CLUSTER) raise
-``NotImplementedError``.
+RESOURCE QUEUE edit the catalog's queues (exec/resource.py).
+
+The rest of the SQL surface: BEGIN / COMMIT / ROLLBACK go to
+``Session.txn``; CREATE / REFRESH / DROP MATERIALIZED VIEW and the AQUMV
+rewrite of SELECT and EXPLAIN to plan/matview.py, whose incremental views
+DML maintains after every write (``_maintain``); CLUSTER rewrites a table
+in z-order (utils/zorder.py); external, foreign and directory tables are
+re-read at the start of every statement that names them
+(``_refresh_referenced_externals``; storage/fdw.py, storage/dirtable.py);
+DECLARE … PARALLEL RETRIEVE CURSOR and CLOSE go to exec/endpoint.py. Any
+other statement is the reference's ``BindError``.
 """
 from __future__ import annotations
 
@@ -40,11 +47,6 @@ class PlanResult:
     plan: Optional[N.PlanNode] = None
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not yet ported to "
-                              "cloudberry_tpu_torch")
-
-
 def plan_statement(stmt: ast.Node, session, params: dict,
                    explain_only: bool = False) -> PlanResult:
     catalog = session.catalog
@@ -53,6 +55,7 @@ def plan_statement(stmt: ast.Node, session, params: dict,
     from cloudberry_tpu_torch.exec import tablefunc as _tf
 
     _tf.begin_statement(catalog)
+    _refresh_referenced_externals(session, stmt)
 
     if isinstance(stmt, ast.CreateTable):
         if stmt.name.lower() in catalog.views:
@@ -74,6 +77,70 @@ def plan_statement(stmt: ast.Node, session, params: dict,
                              if_not_exists=stmt.if_not_exists,
                              partition_spec=stmt.partition)
         return PlanResult(is_ddl=True, ddl_result=f"CREATE TABLE {stmt.name}")
+
+    if isinstance(stmt, ast.CreateExternalTable):
+        if stmt.name.lower() in catalog.views:
+            raise BindError(f"{stmt.name!r} already exists as a view")
+        fields = []
+        for c in stmt.columns:
+            t = T.SQL_TYPE_MAP.get(c.type_name)
+            if t is None:
+                raise BindError(f"unknown type {c.type_name!r}")
+            if t.base == T.DType.DECIMAL and c.scale is not None:
+                t = T.DECIMAL(c.scale)
+            fields.append(Field(c.name, t, nullable=not c.not_null))
+        # external data is never stored: the catalog entry is ephemeral
+        # and every statement re-reads the LOCATION (external.c behavior)
+        tab = catalog.create_table(stmt.name, Schema(tuple(fields)),
+                                   DistributionPolicy.random(),
+                                   durable=False)
+        tab.external = {"url": stmt.url, "delimiter": stmt.delimiter,
+                        "header": stmt.header,
+                        "reject_limit": stmt.reject_limit,
+                        "reject_percent": stmt.reject_percent,
+                        "log_errors": stmt.log_errors}
+        return PlanResult(is_ddl=True,
+                          ddl_result=f"CREATE EXTERNAL TABLE {stmt.name}")
+
+    if isinstance(stmt, ast.CreateDirectoryTable):
+        from cloudberry_tpu_torch.storage import dirtable as DT
+
+        if stmt.name.lower() in catalog.views:
+            raise BindError(f"{stmt.name!r} already exists as a view")
+        try:
+            DT.create(session, stmt.name)
+        except DT.DirTableError as e:
+            raise BindError(str(e))
+        return PlanResult(is_ddl=True,
+                          ddl_result=f"CREATE DIRECTORY TABLE {stmt.name}")
+
+    if isinstance(stmt, ast.CreateForeignTable):
+        from cloudberry_tpu_torch.storage.fdw import known_servers
+
+        if stmt.name.lower() in catalog.views:
+            raise BindError(f"{stmt.name!r} already exists as a view")
+        if stmt.server.lower() not in known_servers():
+            raise BindError(
+                f"unknown foreign server {stmt.server!r} "
+                f"(known: {', '.join(known_servers())}); register one "
+                "with cloudberry_tpu_torch.storage.fdw.register_fdw")
+        fields = []
+        for c in stmt.columns:
+            ftype = T.SQL_TYPE_MAP.get(c.type_name)
+            if ftype is None:
+                raise BindError(f"unknown type {c.type_name!r}")
+            if ftype.base == T.DType.DECIMAL and c.scale is not None:
+                ftype = T.DECIMAL(c.scale)
+            fields.append(Field(c.name, ftype, nullable=not c.not_null))
+        # like external tables: ephemeral catalog entry, re-read per
+        # referencing statement — the foreign server owns the data
+        tab = catalog.create_table(stmt.name, Schema(tuple(fields)),
+                                   DistributionPolicy.random(),
+                                   durable=False)
+        tab.foreign = {"server": stmt.server.lower(),
+                       "options": dict(stmt.options)}
+        return PlanResult(is_ddl=True,
+                          ddl_result=f"CREATE FOREIGN TABLE {stmt.name}")
 
     if isinstance(stmt, ast.CreateTableAs):
         return PlanResult(is_ddl=True, ddl_result=_ctas(session, stmt))
@@ -130,6 +197,53 @@ def plan_statement(stmt: ast.Node, session, params: dict,
         return PlanResult(is_ddl=True,
                           ddl_result=f"DROP RESOURCE QUEUE {stmt.name}")
 
+    if isinstance(stmt, ast.DeclareParallelCursor):
+        from cloudberry_tpu_torch.exec import endpoint as EP
+
+        try:
+            return PlanResult(is_ddl=True,
+                              ddl_result=EP.declare(session, stmt.name,
+                                                    stmt.query))
+        except EP.CursorError as e:
+            raise BindError(str(e))
+
+    if isinstance(stmt, ast.CloseCursor):
+        from cloudberry_tpu_torch.exec import endpoint as EP
+
+        try:
+            return PlanResult(is_ddl=True,
+                              ddl_result=EP.close_cursor(session,
+                                                         stmt.name))
+        except EP.CursorError as e:
+            raise BindError(str(e))
+
+    if isinstance(stmt, ast.CreateMatView):
+        from cloudberry_tpu_torch.plan import matview as MV
+
+        try:
+            return PlanResult(is_ddl=True,
+                              ddl_result=MV.create_matview(session, stmt))
+        except MV.MatViewError as e:
+            raise BindError(str(e))
+
+    if isinstance(stmt, ast.DropMatView):
+        from cloudberry_tpu_torch.plan import matview as MV
+
+        try:
+            return PlanResult(is_ddl=True, ddl_result=MV.drop_matview(
+                session, stmt.name, stmt.if_exists))
+        except MV.MatViewError as e:
+            raise BindError(str(e))
+
+    if isinstance(stmt, ast.RefreshMatView):
+        from cloudberry_tpu_torch.plan import matview as MV
+
+        try:
+            return PlanResult(is_ddl=True, ddl_result=MV.refresh_matview(
+                session, stmt.name))
+        except MV.MatViewError as e:
+            raise BindError(str(e))
+
     if isinstance(stmt, ast.CreateView):
         if stmt.name.lower() in catalog.tables:
             raise BindError(f"{stmt.name!r} already exists as a table")
@@ -150,12 +264,23 @@ def plan_statement(stmt: ast.Node, session, params: dict,
         return PlanResult(is_ddl=True, ddl_result=f"DROP VIEW {stmt.name}")
 
     if isinstance(stmt, ast.DropTable):
+        deps = [n for n, d in catalog.matviews.items()
+                if getattr(d, "base_table", None) == stmt.name.lower()]
+        if deps:
+            raise BindError(
+                f"cannot drop table {stmt.name!r}: materialized view(s) "
+                f"{', '.join(sorted(deps))} depend on it")
+        if stmt.name.lower() in catalog.matviews:
+            raise BindError(
+                f"{stmt.name!r} is a materialized view — use DROP "
+                "MATERIALIZED VIEW")
         catalog.drop_table(stmt.name, if_exists=stmt.if_exists)
         return PlanResult(is_ddl=True, ddl_result=f"DROP TABLE {stmt.name}")
 
     if isinstance(stmt, ast.InsertValues):
+        _reject_matview_dml(catalog, stmt.table)
         res = _insert_values(catalog, stmt)
-        _maintain(session, stmt.table)
+        _maintain(session, stmt.table, appended=len(stmt.rows))
         return PlanResult(is_ddl=True, ddl_result=res)
 
     if isinstance(stmt, ast.Explain):
@@ -164,9 +289,19 @@ def plan_statement(stmt: ast.Node, session, params: dict,
             # plain EXPLAIN has no side effects: fold sequence calls to a
             # placeholder WITHOUT allocating (PostgreSQL semantics)
             inner = _fold_sequence_calls(catalog, inner, allocate=False)
+        aqumv_from = None
+        if isinstance(inner, ast.Select) \
+                and session.config.planner.enable_aqumv:
+            # EXPLAIN must show the plan that would EXECUTE — including
+            # the matview rewrite
+            from cloudberry_tpu_torch.plan import matview as MV
+
+            inner, aqumv_from = MV.aqumv_rewrite(session, inner)
         binder = Binder(catalog, session.config)
         plan = binder.bind_query(inner)
         plan = _optimize(plan, session)
+        if aqumv_from is not None:
+            plan._aqumv = aqumv_from
         return PlanResult(is_ddl=True, ddl_result=plan.explain())
 
     if isinstance(stmt, (ast.Select, ast.SetOp, ast.WithQuery)):
@@ -174,16 +309,29 @@ def plan_statement(stmt: ast.Node, session, params: dict,
         if isinstance(stmt, ast.Select) and not stmt.from_refs:
             # FROM-less sequence calls evaluate host-side at the QD — the
             # coordinator owns the number line (sequence.c '?' protocol).
+            # Session.explain() plans without executing, so it must not
+            # consume values (allocate=False placeholder fold).
             stmt2 = _fold_sequence_calls(catalog, stmt,
                                          allocate=not explain_only)
             folded = stmt2 is not stmt
             stmt = stmt2
+        aqumv_from = None
+        if isinstance(stmt, ast.Select) \
+                and session.config.planner.enable_aqumv:
+            from cloudberry_tpu_torch.plan import matview as MV
+
+            stmt, aqumv_from = MV.aqumv_rewrite(session, stmt)
         binder = Binder(catalog, session.config)
         plan = binder.bind_query(stmt)
         plan = _optimize(plan, session)
         if folded:
             # replaying a cached program would replay the SAME value —
             # sequence statements must re-plan every execution
+            plan._no_stmt_cache = True
+        if aqumv_from is not None:
+            plan._aqumv = aqumv_from
+            # view freshness is checked at PLAN time; a cached program
+            # would replay a possibly-stale view after base-table DML
             plan._no_stmt_cache = True
         return PlanResult(plan=plan)
 
@@ -194,40 +342,195 @@ def plan_statement(stmt: ast.Node, session, params: dict,
                           ddl_result=f"ANALYZE {stmt.table} "
                                      f"({len(ndv)} columns)")
 
+    if isinstance(stmt, ast.Cluster):
+        return PlanResult(is_ddl=True, ddl_result=_cluster(session, stmt))
+
     if isinstance(stmt, ast.TxnStmt):
-        _not_ported(f"transaction control ({stmt.kind.upper()})")
+        return PlanResult(is_ddl=True,
+                          ddl_result=session.txn(stmt.kind))
 
     if isinstance(stmt, ast.CopyFrom):
+        _reject_matview_dml(catalog, stmt.table)
         res = _copy_from(session, stmt)
-        _maintain(session, stmt.table)
+        _maintain(session, stmt.table, appended=int(res.split()[1]))
         return PlanResult(is_ddl=True, ddl_result=res)
 
     if isinstance(stmt, ast.CopyTo):
+        t = catalog.tables.get(stmt.table.lower())
+        if t is not None and t.external:
+            # CopyTo names its table as a plain string, invisible to the
+            # TableName walker — refresh explicitly so the export sees
+            # the source's current contents
+            refresh_external_table(session, t)
         return PlanResult(is_ddl=True, ddl_result=_copy_to(session, stmt))
 
     if isinstance(stmt, ast.Delete):
-        res = _delete(session, stmt)
-        _maintain(session, stmt.table)
+        _reject_matview_dml(catalog, stmt.table)
+        res, delta = _delete(session, stmt)
+        _maintain(session, stmt.table, appended=None, delta=delta)
         return PlanResult(is_ddl=True, ddl_result=res)
 
     if isinstance(stmt, ast.Update):
-        res = _update(session, stmt)
-        _maintain(session, stmt.table)
+        _reject_matview_dml(catalog, stmt.table)
+        res, delta = _update(session, stmt)
+        _maintain(session, stmt.table, appended=None, delta=delta)
         return PlanResult(is_ddl=True, ddl_result=res)
 
     if isinstance(stmt, ast.InsertSelect):
+        _reject_matview_dml(catalog, stmt.table)
         res = _insert_select(session, stmt)
-        _maintain(session, stmt.table)
+        _maintain(session, stmt.table, appended=int(res.split()[1]))
         return PlanResult(is_ddl=True, ddl_result=res)
 
-    _not_ported(f"statement {type(stmt).__name__}")
+    raise BindError(f"unsupported statement {type(stmt).__name__}")
 
 
-def _maintain(session, table_name: str) -> None:
-    """Post-DML hook: the autostats trigger point (autostats.c:283). The
-    reference also maintains materialized views here; the port has none
-    yet, so that part has nothing to do."""
+def _reject_matview_dml(catalog, name: str) -> None:
+    """Materialized views change only through REFRESH / maintenance, and
+    readable external tables only through their LOCATION — direct DML
+    would desynchronize both (the reference rejects it the same way)."""
+    if name.lower() in catalog.matviews:
+        raise BindError(
+            f"cannot change materialized view {name!r} (use REFRESH "
+            "MATERIALIZED VIEW)")
+    t = catalog.tables.get(name.lower())
+    if t is not None and t.external:
+        raise BindError(
+            f"cannot change readable external table {name!r}")
+
+
+def _stmt_table_names(node, catalog) -> set:
+    """Every table name referenced anywhere in a statement AST (joins,
+    subqueries, CTE bodies), with view definitions expanded."""
+    names: set = set()
+
+    def walk(x):
+        if isinstance(x, ast.TableName):
+            nm = x.name.lower()
+            if nm not in names:
+                names.add(nm)
+                v = catalog.views.get(nm)
+                if v is not None:
+                    walk(v)
+            return
+        if isinstance(x, ast.Node):
+            for val in vars(x).items():
+                walk(val[1])
+            return
+        if isinstance(x, (list, tuple)):
+            for item in x:
+                walk(item)
+
+    walk(node)
+    return names
+
+
+def _refresh_referenced_externals(session, stmt) -> None:
+    """Re-read an external/foreign table's source only when THIS statement
+    references it — an unreachable source must not fail unrelated
+    queries, and unrelated statements pay no fetch."""
+    cat = session.catalog
+    ext = {n for n, t in cat.tables.items() if t.sourced}
+    if not ext:
+        return
+    for name in _stmt_table_names(stmt, cat) & ext:
+        t = cat.tables[name]
+        if t.foreign:
+            from cloudberry_tpu_torch.storage.fdw import fetch_foreign
+
+            fetch_foreign(session, t)
+        elif t.directory:
+            from cloudberry_tpu_torch.storage import dirtable as DT
+
+            DT.refresh(session, t)
+        else:
+            refresh_external_table(session, t)
+
+
+def _cluster(session, stmt: ast.Cluster) -> str:
+    """CLUSTER t BY (cols): rewrite the table in z-order of the named
+    columns (zorder_clustering.cc role). The snapshot writer chunks rows
+    into micro-partition files in row order, so after the reorder each
+    file's manifest min/max is a tight bounding box — predicates on any
+    clustered column prune most files. A one-shot rewrite, like
+    PostgreSQL's CLUSTER: later appends are not re-ordered."""
+    import numpy as np
+
+    from cloudberry_tpu_torch.utils.zorder import zorder_key
+
+    t = session.catalog.table(stmt.table)
+    if t.external:
+        raise BindError("cannot CLUSTER an external table")
+    t.ensure_loaded()
+    cols = []
+    for c in stmt.columns:
+        name = c.lower()
+        arr = t.data.get(name)
+        if arr is None or name not in t.schema:
+            raise BindError(f"CLUSTER: unknown column {c!r}")
+        # schema type, not array dtype: string columns store int32
+        # dictionary CODES, whose order is insertion order, not collation
+        if t.schema.field(name).type.base == T.DType.STRING:
+            raise BindError(f"CLUSTER: column {c!r} is a string "
+                            "(dictionary codes order by insertion, "
+                            "not value — not supported)")
+        cols.append(arr)
+    if t.num_rows == 0:
+        return f"CLUSTER {stmt.table} (0 rows)"
+    order = np.argsort(zorder_key(cols), kind="stable")
+    data = {c: a[order] for c, a in t.data.items()}
+    validity = {c: np.asarray(v)[order] for c, v in t.validity.items()}
+    t.set_data(data, t.dicts, validity=validity)
+    return f"CLUSTER {stmt.table} ({t.num_rows} rows)"
+
+
+def _maintain(session, table_name: str, appended, delta=None) -> None:
+    """Post-DML materialized-view maintenance (the IMMV trigger analog):
+    appends merge incrementally; UPDATE/DELETE merge their captured
+    (subtract, add) delta frames when the DML path could capture them,
+    else force refresh/staleness. Also the autostats trigger point
+    (autostats.c:283 — the reference likewise hooks ANALYZE off DML
+    completion)."""
     _maybe_autostats(session, table_name)
+    if not session.catalog.matviews:
+        return
+    from cloudberry_tpu_torch.plan import matview as MV
+
+    if appended is not None:
+        MV.maintain_on_append(session, table_name, appended)
+    elif delta is not None:
+        MV.maintain_on_dml(session, table_name, delta[0], delta[1])
+    else:
+        MV.maintain_full(session, table_name)
+
+
+def _ivm_frames(session, table_name: str, table, mask,
+                new_data=None, new_dicts=None):
+    """Decoded delta frames of the DML-affected rows for incremental
+    views: (sub, add), or None when no incremental view watches the
+    table (the frames then never materialize). ``mask`` selects the
+    affected rows in the PRE-DML arrays; ``new_data`` (UPDATE) holds
+    the post-DML arrays the add-side reads."""
+    from cloudberry_tpu_torch.plan import matview as MV
+
+    need = MV.delta_columns(session, table_name)
+    if need is None:
+        return None
+    import pandas as pd
+
+    def frame(data, dicts):
+        out = {}
+        for c in need:
+            arr = np.asarray(data[c])[mask]
+            d = dicts.get(c)
+            if d is not None:
+                arr = np.asarray(d.values, dtype=object)[arr]
+            out[c] = arr
+        return pd.DataFrame(out)
+
+    sub = frame(table.data, table.dicts)
+    add = None if new_data is None else frame(new_data, new_dicts)
+    return (sub, add)
 
 
 def _maybe_autostats(session, table_name: str) -> None:
@@ -240,7 +543,7 @@ def _maybe_autostats(session, table_name: str) -> None:
     if mode == "none":
         return
     t = session.catalog.tables.get(table_name.lower())
-    if t is None or t.cold:
+    if t is None or t.cold or t.external:
         return
     ar = t.stats.analyzed_rows
     if ar < 0:
@@ -476,6 +779,70 @@ def _copy_from_sreh(session, table, stmt: ast.CopyFrom, buf: bytes,
     return f"COPY {n_rows}"
 
 
+def refresh_external_table(session, t) -> None:
+    """(Re)load an external table from its LOCATION — called at statement
+    start, so every query sees the source's current contents (external
+    scans in the reference read the URL per query, url_curl.c). cbfdist
+    URLs fetch one stripe per segment IN PARALLEL (the gpfdist scatter
+    protocol); file:// reads locally."""
+    from urllib.parse import urlparse
+
+    spec = t.external
+    parsed = urlparse(spec["url"])
+    if parsed.scheme == "file":
+        try:
+            with open(parsed.netloc + parsed.path, "rb") as fh:
+                buf = fh.read()
+        except OSError as e:
+            raise BindError(
+                f"external table {t.name!r}: cannot read source: {e}")
+    elif parsed.scheme == "cbfdist":
+        import urllib.request
+        from concurrent.futures import ThreadPoolExecutor
+
+        n = max(session.config.n_segments, 1)
+
+        def fetch(i: int) -> bytes:
+            u = (f"http://{parsed.netloc}{parsed.path}"
+                 f"?segment={i}&nseg={n}")
+            with urllib.request.urlopen(u, timeout=30) as r:
+                return r.read()
+
+        try:
+            with ThreadPoolExecutor(max_workers=min(n, 8)) as ex:
+                buf = b"".join(ex.map(fetch, range(n)))
+        except Exception as e:
+            raise BindError(
+                f"external table {t.name!r}: cbfdist fetch failed: {e}")
+    else:
+        raise BindError(
+            f"external table {t.name!r}: unsupported URL scheme "
+            f"{parsed.scheme!r} (use cbfdist:// or file://)")
+    if spec["header"]:
+        nl = buf.find(b"\n")
+        buf = buf[nl + 1:] if nl >= 0 else b""
+    # replace semantics: the table IS the file's current contents
+    t._loading = True
+    try:
+        t.set_data({f.name: np.zeros(0, dtype=f.type.np_dtype)
+                    for f in t.schema.fields}, t.dicts, validity={})
+    finally:
+        t._loading = False
+    db = spec["delimiter"].encode()
+    if spec["reject_limit"] is not None:
+        from types import SimpleNamespace
+
+        # the error log reflects the CURRENT read, not an accumulation
+        # over every statement's re-read
+        session.copy_errors.pop(t.name, None)
+        opts = SimpleNamespace(reject_limit=spec["reject_limit"],
+                               reject_percent=spec["reject_percent"],
+                               log_errors=spec["log_errors"], header=False)
+        _copy_from_sreh(session, t, opts, buf, db)
+    else:
+        _copy_from_text(t, buf, db)
+
+
 def _copy_from_text(table, buf: bytes, db: bytes) -> str:
     """COPY FROM host text path with NULL support: \\N is NULL everywhere;
     an empty field is NULL for non-string columns (empty string is a value
@@ -614,7 +981,7 @@ def _unpermute(arr: np.ndarray, order: np.ndarray) -> np.ndarray:
     return out
 
 
-def _delete(session, stmt: ast.Delete) -> str:
+def _delete(session, stmt: ast.Delete) -> tuple:
     """DELETE = keep the complement (delete-and-rewrite over immutable
     columns — the visimap-style store path lives in storage/table_store).
     Only the PREDICATE flows through the executor (nodeSplitUpdate.c's
@@ -628,9 +995,11 @@ def _delete(session, stmt: ast.Delete) -> str:
     table.ensure_loaded()
     before = table.num_rows
     if stmt.where is None:
+        delta = _ivm_frames(session, stmt.table, table,
+                            np.ones(before, dtype=bool))
         table.set_data({f.name: np.zeros(0, dtype=f.type.np_dtype)
                         for f in table.schema.fields}, table.dicts)
-        return f"DELETE {before}"
+        return f"DELETE {before}", delta
     # DELETE removes rows where the predicate is TRUE; a NULL predicate
     # KEEPS the row (3VL) — so keep NOT pred OR pred IS NULL
     keep_expr = ast.BinOp("or", ast.UnaryOp("not", stmt.where),
@@ -638,12 +1007,15 @@ def _delete(session, stmt: ast.Delete) -> str:
     cols, _, _ = _eval_aligned(session, stmt.table,
                                [ast.SelectItem(keep_expr, "keep")])
     keep = cols["keep"].astype(np.bool_)
+    # capture the deleted rows' key/arg columns BEFORE the rewrite:
+    # incremental views subtract exactly this contribution
+    delta = _ivm_frames(session, stmt.table, table, ~keep)
     new_data = {f.name: table.data[f.name][keep]
                 for f in table.schema.fields}
     new_valid = {c: np.asarray(v)[keep]
                  for c, v in table.validity.items()}
     table.set_data(new_data, table.dicts, validity=new_valid)
-    return f"DELETE {before - int(keep.sum())}"
+    return f"DELETE {before - int(keep.sum())}", delta
 
 
 _TYPE_NAME = {T.DType.BOOL: ("boolean", None), T.DType.INT32: ("integer", None),
@@ -652,7 +1024,7 @@ _TYPE_NAME = {T.DType.BOOL: ("boolean", None), T.DType.INT32: ("integer", None),
               T.DType.DATE: ("date", None), T.DType.STRING: ("text", None)}
 
 
-def _update(session, stmt: ast.Update) -> str:
+def _update(session, stmt: ast.Update) -> tuple:
     """UPDATE col = CASE WHEN pred THEN expr ELSE col END — but ONLY the
     SET columns (plus the predicate) flow through the executor; untouched
     columns pass to set_data as the SAME host arrays, copy-free (the
@@ -714,8 +1086,13 @@ def _update(session, stmt: ast.Update) -> str:
             new_valid[f.name] = vm
         else:
             new_valid.pop(f.name, None)  # column is now fully valid
+    # incremental views: subtract the affected rows' OLD contribution,
+    # add their NEW one — captured before set_data swaps the arrays
+    mask = upd if stmt.where is not None else np.ones(n, dtype=bool)
+    delta = _ivm_frames(session, stmt.table, table, mask,
+                        new_data=new_data, new_dicts=dicts)
     table.set_data(new_data, dicts, validity=new_valid)
-    return f"UPDATE {n_upd}"
+    return f"UPDATE {n_upd}", delta
 
 
 def _ctas(session, stmt: ast.CreateTableAs) -> str:

@@ -18,10 +18,11 @@ nothing to compile ahead and the statement cache keeps the runner.
 The invalidation contract is the signature discipline, not a protocol:
 
 - every shared key embeds content-stable TABLE VERSION tokens
-  (``table_key``): a store-backed table is pinned by its store version
-  (any commit bumps it); anything else — in-RAM tables — falls back to a
-  process-unique table uid + local version, making those entries
-  private-by-construction even inside a shared scope;
+  (``table_key``): a store-backed table outside a transaction is pinned
+  by its store version (any commit bumps it); anything else — in-RAM
+  tables, mid-transaction state — falls back to a process-unique table
+  uid + local version, making those entries private-by-construction even
+  inside a shared scope;
 - the config OBJECT IDENTITY is the config epoch (``config_uid``);
 - the DEVICE is part of every key (``device_token``). The JAX package has
   one default device per process; the port can hold a CPU session and a
@@ -185,13 +186,14 @@ def table_key(session, name: str):
         return (name, getattr(t, "_version", 0),
                 getattr(t, "_stats_version", 0))
     sv = getattr(t, "_store_version", None)
-    if sv is not None:
-        # store-backed (the port runs the store in autocommit mode): the
-        # store version IS the content (manifests are immutable; any
-        # commit — data, stats, recreate — publishes a new version)
+    if sv is not None and getattr(session, "_txn_snapshot", None) is None:
+        # store-backed outside a transaction: the store version IS the
+        # content (manifests are immutable; any commit — data, stats,
+        # recreate — publishes a new version). Inside one the store
+        # version stands still while the RAM table changes
         return (name, "sv", sv)
-    # in-RAM table: bind to this table OBJECT so the entry is private
-    # even in a shared scope
+    # in-RAM table / mid-transaction state: bind to this table OBJECT so
+    # the entry is private even in a shared scope
     return (name, "uid", _uid(t), getattr(t, "_version", 0),
             getattr(t, "_stats_version", 0))
 

@@ -103,8 +103,23 @@ epoch, and the next pin adopts it (config swap, placement-derived caches
 cleared). A plan whose epoch moved between planning and execution
 raises ``TopologyRaceError`` and re-plans at the new epoch.
 
-Not ported yet: transactions (BEGIN raises ``NotImplementedError``),
-materialized views and serving.
+Transactions (``txn``): BEGIN snapshots the catalog's tables, views and
+materialized-view definitions; a store-backed session defers its durable
+writes to COMMIT, which publishes them under the store lock with the
+reference's optimistic check (first committer wins for rewrites,
+concurrent appends merge; a lost race raises ``SerializationError``).
+ROLLBACK restores the snapshot and drops the device copies, shard layouts,
+store-scan, join-index and buffer-pool entries of every table it restores
+or removes. Inside a transaction the session does not pick up other
+sessions' commits, and store-backed tables key the shared caches by table
+object, not store version. Transaction control is exempt from the
+breaker.
+
+The rest of the SQL surface: materialized views (plan/matview.py, their
+definitions reloaded from the store at start and at every sync),
+parallel retrieve cursors (``parallel_cursors``, ``retrieve``;
+exec/endpoint.py) and directory tables (``dir_upload`` / ``dir_read`` /
+``dir_remove``; storage/dirtable.py). Serving is not ported yet.
 """
 
 from __future__ import annotations
@@ -118,6 +133,11 @@ import numpy as np
 import torch
 
 from cloudberry_tpu_torch.config import Config, get_config
+
+
+class SerializationError(RuntimeError):
+    """COMMIT lost the single-writer OCC race: another session committed a
+    conflicting table version after this transaction's BEGIN snapshot."""
 
 
 @dataclass
@@ -181,6 +201,9 @@ class Session:
                 self.store.register_cold(self.catalog, name)
             self.catalog.store = self.store
             self._seen_epoch = self.store.epoch()
+            from cloudberry_tpu_torch.plan.matview import load_defs
+
+            load_defs(self)
         # per-query pruned store reads as device tensors, keyed (table,
         # version, parts, cols, device) — an LRU under its own lock
         self._store_scan_cache: dict = {}
@@ -231,6 +254,11 @@ class Session:
         # COPY ... LOG ERRORS row rejects, per table (the error-log /
         # gp_read_error_log analog, cdbsreh.c)
         self.copy_errors: dict[str, list] = {}
+        # open parallel retrieve cursors (the endpoint registry analog,
+        # cdbendpoint.c EndpointTokenHash) — name -> ParallelCursor
+        self.parallel_cursors: dict[str, object] = {}
+        # the open transaction's BEGIN snapshot (None outside one)
+        self._txn_snapshot = None
         # the cache scope (sched/sharedcache.py): sessions over one store
         # root share the join-index cache and the buffer pool
         from cloudberry_tpu_torch.sched import sharedcache
@@ -280,6 +308,31 @@ class Session:
     @property
     def _generic_lock(self):
         return self._cache_scope.generic_lock
+
+    def retrieve(self, cursor: str, segment: int,
+                 limit: int | None = None, token: str | None = None):
+        """Drain rows from one endpoint of a PARALLEL RETRIEVE CURSOR
+        (the retrieve-mode connection analog, cdbendpointretrieve.c)."""
+        from cloudberry_tpu_torch.exec.endpoint import retrieve as _r
+
+        return _r(self, cursor, segment, limit, token)
+
+    def dir_upload(self, table: str, rel: str, data: bytes) -> str:
+        """Put a file into a DIRECTORY TABLE (the gpdirtableload role)."""
+        from cloudberry_tpu_torch.storage import dirtable as DT
+
+        return DT.upload(self, table, rel, data)
+
+    def dir_read(self, table: str, rel: str) -> bytes:
+        """Read one file's content from a DIRECTORY TABLE."""
+        from cloudberry_tpu_torch.storage import dirtable as DT
+
+        return DT.read(self, table, rel)
+
+    def dir_remove(self, table: str, rel: str) -> None:
+        from cloudberry_tpu_torch.storage import dirtable as DT
+
+        DT.remove(self, table, rel)
 
     def sql(self, query: str, **params: Any):
         """Run one statement: DDL/DML returns its status string, a SELECT
@@ -359,7 +412,8 @@ class Session:
                 return False  # the adaptive-replan loop below owns it
             if recoverable(e) or isinstance(e, TopologyRaceError):
                 return True
-            if isinstance(e, lifecycle.StatementError) \
+            if isinstance(e, (lifecycle.StatementError,
+                              SerializationError)) \
                     or never_redispatched(e):
                 return False
             ep = getattr(handle, "topology_epoch", None)
@@ -373,6 +427,9 @@ class Session:
         # discipline: the statements table aggregates the generic-hit
         # rate per skeleton from them (obs/statements.py)
         generic_before = log.counter("generic_hits")
+        head = query.lstrip()[:10].split(None, 1)
+        is_txn_control = bool(head) and head[0].lower() in (
+            "begin", "commit", "rollback", "abort", "start", "end")
         topo_epoch = None
         try:
             # topology pin: the statement runs to completion against this
@@ -382,9 +439,12 @@ class Session:
             topo_epoch = self._topology.pin(self)
             handle.topology_epoch = topo_epoch.epoch_id
             with lifecycle.statement_scope(handle):
-                if not is_read:
+                if not is_read and not is_txn_control:
                     # read-only-degraded admission: an open breaker
-                    # refuses writes (retryable) while reads keep flowing
+                    # refuses writes (retryable) while reads keep flowing.
+                    # Transaction control is exempt: it never reaches the
+                    # device, and a session must always be able to
+                    # ROLLBACK out of an open transaction
                     trial = self._breaker.check_write()
                 # mid-statement adaptive replan (exec/tiled.py
                 # SkewSentinel): reads only — a write's tiled subplan
@@ -721,13 +781,14 @@ class Session:
                             columns=["line", "errmsg", "rawdata"])
 
     def _sync_store(self) -> None:
-        """Pick up OTHER sessions' committed changes at statement start:
-        any table whose store version moved re-registers cold; new tables
-        appear, dropped ones vanish. The table's device copy
-        (``device_table``) and its store-scan cache entries are dropped
-        with the old version — they could never serve again, and they
-        hold device memory. Manifests ARE the catalog of record."""
-        if self.store is None:
+        """Pick up OTHER sessions' committed changes at statement start
+        (outside transactions): any table whose store version moved
+        re-registers cold; new tables appear, dropped ones vanish. The
+        table's device copy (``device_table``) and its store-scan cache
+        entries are dropped with the old version — they could never serve
+        again, and they hold device memory. Manifests ARE the catalog of
+        record, and the materialized-view definitions reload with them."""
+        if self.store is None or self._txn_snapshot is not None:
             return
         with self._sync_lock:
             from cloudberry_tpu_torch.utils.faultinject import fault_point
@@ -758,6 +819,12 @@ class Session:
             for name in sorted(names - set(self.catalog.tables)):
                 self.store.register_cold(self.catalog, name)
             self._drop_table_caches(stale)
+            # matview definitions are store state too (another session may
+            # have created/refreshed one)
+            from cloudberry_tpu_torch.plan.matview import load_defs
+
+            self.catalog.matviews = {}
+            load_defs(self)
 
     def _drop_table_caches(self, names) -> None:
         """Forget the device copies, shard layouts and store-scan cache
@@ -777,6 +844,166 @@ class Session:
             for key in [k for k in self._store_scan_cache
                         if k[0] in names]:
                 del self._store_scan_cache[key]
+
+    # ----------------------------------------------------- transactions
+    # Single-session transactions over the in-memory catalog: BEGIN
+    # snapshots every table's (immutable-once-set) data dict plus copies of
+    # the mutable string dictionaries and the view registries; ROLLBACK
+    # restores and bumps versions so statement caches invalidate. The
+    # durable-store analog is TableStore's snapshot manifests (atomic
+    # CURRENT commit); this is the session-surface counterpart.
+
+    def txn(self, kind: str) -> str:
+        from cloudberry_tpu_torch.columnar.dictionary import StringDictionary
+        from cloudberry_tpu_torch.plan.binder import BindError
+
+        snap = self._txn_snapshot
+        if kind == "begin":
+            if snap is not None:
+                raise BindError("already in a transaction")
+            import copy
+
+            self._txn_snapshot = {
+                "tables": {
+                    name: (t, t.data,
+                           {c: StringDictionary(d.values)
+                            for c, d in t.dicts.items()},
+                           t.policy, dict(t.validity), t.cold,
+                           copy.deepcopy(t.stats))
+                    for name, t in self.catalog.tables.items()},
+                "views": dict(self.catalog.views),
+                "matviews": dict(self.catalog.matviews),
+            }
+            if self.store is not None:
+                # durable writes defer to COMMIT; ROLLBACK never touches
+                # disk. The BEGIN snapshot's versions are the OCC base.
+                self.store.begin_txn()
+                self._txn_base = dict(self.store.pinned)
+            return "BEGIN"
+        if snap is None:
+            raise BindError(f"{kind.upper()}: no transaction in progress")
+        if kind == "commit":
+            if self.store is not None:
+                self._occ_commit(snap)
+            self._txn_snapshot = None
+            return "COMMIT"
+        # rollback: restore RAM state WITHOUT persisting (the store never
+        # saw the transaction's writes); cold tables restore to cold —
+        # their placeholder arrays must never overwrite stored data
+        self._restore_snapshot(snap)
+        return "ROLLBACK"
+
+    def _occ_commit(self, snap) -> None:
+        """OCC commit (the 2PC-role analog, cdbtm.c:883): first committer
+        wins for REWRITES; append-only writes merge onto the concurrent
+        snapshot instead of aborting. The store lock makes
+        check-then-publish atomic across processes, and since it is the
+        only commit-time lock and conflicts abort rather than wait, no
+        waits-for cycle can form (the no-deadlock argument that replaces
+        the reference's global deadlock detector, gdd/README.md)."""
+        from cloudberry_tpu_torch import lifecycle
+        from cloudberry_tpu_torch.utils.faultinject import fault_point
+
+        with self.store.lock():
+            # chaos seam inside the commit critical section: 'sleep'
+            # widens the conflict window, 'error' exercises cleanup
+            fault_point("occ_commit_window")
+            # a statement cancelled while waiting on (or wedged inside)
+            # the commit window aborts cleanly: nothing published, lock
+            # released, RAM state restored
+            try:
+                lifecycle.check_cancel()
+            except lifecycle.StatementError:
+                self._restore_snapshot(snap)
+                raise
+            base = getattr(self, "_txn_base", {})
+            conflicts = self.store.conflicting_tables(base)
+            if conflicts:
+                self._restore_snapshot(snap)
+                raise SerializationError(
+                    "could not serialize access: table(s) "
+                    f"{', '.join(conflicts)} were modified by another "
+                    "session after this transaction began")
+            merged = [n for n in list(self.store._txn_dirty)
+                      if self.store.txn_append_only(n)
+                      and self.store.current_version(n) != base.get(n, 0)]
+            self.store.commit_txn(base)
+        # a merged table's RAM copy is missing the other session's rows —
+        # drop it so the next statement reloads the merged snapshot
+        for name in merged:
+            self.catalog.tables.pop(name, None)
+            self.store.register_cold(self.catalog, name)
+            self.catalog.bump_ddl()
+        self._forget_tables(merged)
+        if getattr(self, "_matviews_dirty", False):
+            # definitions deferred during the transaction flush only after
+            # the data commit succeeded
+            from cloudberry_tpu_torch.plan.matview import _persist_defs
+
+            self._matviews_dirty = False
+            _persist_defs(self)
+
+    def _restore_snapshot(self, snap) -> None:
+        """Abort the store's transaction and put BEGIN's RAM state back."""
+        touched = self._txn_changed(snap)
+        if self.store is not None:
+            self.store.abort_txn()
+        self.catalog.tables = {}
+        for name, (t, data, dicts, policy, validity, cold, stats) in \
+                snap["tables"].items():
+            t.policy = policy
+            t._loading = True
+            try:
+                t.set_data(data, dicts, validity=validity)  # bumps version
+            finally:
+                t._loading = False
+            t.cold = cold
+            t.stats = stats  # manifest-derived stats survive (cold tables)
+            self.catalog.tables[name] = t
+        self.catalog.views = snap["views"]
+        self.catalog.matviews = snap.get("matviews", {})
+        # rolled-back DML may have advanced view contents/tokens — every
+        # view is conservatively stale until refreshed or re-maintained
+        from cloudberry_tpu_torch.plan.matview import invalidate_all
+
+        invalidate_all(self)
+        self._matviews_dirty = False  # deferred defs die with the rollback
+        self.catalog.bump_ddl()
+        self._txn_snapshot = None
+        self._forget_tables(touched)
+
+    def _txn_changed(self, snap) -> set:
+        """The tables the open transaction wrote, dropped or created: a
+        table dropped and re-created leaves device entries under its name
+        that the restored object must never be served. A table it never
+        wrote keeps its entries (those of a store-backed one are shared
+        with every session over the store)."""
+        cur = self.catalog.tables
+        changed = set(cur) ^ set(snap["tables"])
+        for name, (t, data, *_rest) in snap["tables"].items():
+            now = cur.get(name)
+            if now is not t or t.data is not data:
+                changed.add(name)
+        if self.store is not None:
+            changed |= set(self.store._txn_dirty) | set(self.store._txn_drops)
+        return changed
+
+    def _forget_tables(self, names) -> None:
+        """``_drop_table_caches`` plus the cache scope's join indexes and
+        buffer-pool chunks of ``names`` (a ROLLBACK or a merged COMMIT):
+        the device entries of a table whose contents moved outside the
+        store's versioning."""
+        names = set(names)
+        if not names:
+            return
+        self._drop_table_caches(names)
+        scope = self._cache_scope
+        with scope.joinindex_lock:
+            for key in [k for k in scope.joinindex if k[0][0] in names]:
+                del scope.joinindex[key]
+        pool = getattr(scope, "bufferpool", None)
+        if pool is not None:
+            pool.drop_tables(names)
 
     def _check_topology_race(self, cfg_plan) -> None:
         """Refuse to run (or cache) a plan whose topology epoch moved
@@ -818,12 +1045,14 @@ class Session:
 
     def _any_external(self, names) -> bool:
         """Whether any named table's rows change outside the versioning
-        that keys the caches — in the port, a table function's transient
-        table (exec/tablefunc.py), which re-runs its function at every
-        referencing statement. The JAX package's foreign, external and
-        directory tables count too; the port has none."""
-        return any(getattr(self.catalog.tables.get(n), "_tablefunc", None)
-                   for n in names)
+        that keys the caches: an external, foreign or directory table
+        (re-read from its source at every referencing statement) or a
+        table function's transient table (exec/tablefunc.py). A cached
+        runner would replay a stale read."""
+        tables = self.catalog.tables
+        return any(t is not None and (t.sourced
+                                      or getattr(t, "_tablefunc", None))
+                   for t in map(tables.get, names))
 
     # ------------------------------------------------- statement cache
     # The prepared-statement / plan-cache analog: a repeated query string

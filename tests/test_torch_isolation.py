@@ -57,6 +57,11 @@ def test_import_pulls_in_no_jax():
             "import cloudberry_tpu_torch.parallel.health\n"
             "import cloudberry_tpu_torch.parallel.topology\n"
             "import cloudberry_tpu_torch.session\n"
+            "import cloudberry_tpu_torch.plan.matview\n"
+            "import cloudberry_tpu_torch.storage.fdw\n"
+            "import cloudberry_tpu_torch.storage.dirtable\n"
+            "import cloudberry_tpu_torch.exec.endpoint\n"
+            "import cloudberry_tpu_torch.utils.zorder\n"
             "print('\\n'.join(sorted(sys.modules)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, check=True,
@@ -96,31 +101,60 @@ def test_session_without_cuda_raises(monkeypatch):
     assert ct.Session(device="cpu").device.type == "cpu"
 
 
-def test_unported_paths_raise():
-    import cloudberry_tpu_torch as ct
+def test_unported_paths_raise(tmp_path):
+    """The statements that raised ``NotImplementedError`` in the port
+    until the rest of the SQL surface was ported — transaction control,
+    materialized views, CLUSTER, external / foreign / directory tables and
+    parallel retrieve cursors — now run and give the JAX package's status
+    texts and results; an unknown function stays the reference's
+    BindError."""
+    import sqlite3
 
-    s = ct.Session(device="cpu")
-    s.sql("create table t (a int, b text)")
-    s.sql("insert into t values (1, 'x'), (2, 'y')")
-    with pytest.raises(NotImplementedError):
-        s.sql("begin")
-    # scalar UDFs are ported: an unknown function is the reference's
-    # BindError
-    from cloudberry_tpu_torch.plan.binder import BindError
+    from torch_parity import twin
 
-    with pytest.raises(BindError, match="unknown function"):
-        s.sql("select nosuchfunc(a) from t")
-    with pytest.raises(NotImplementedError):
-        s.sql("create materialized view mv as select a from t")
-    with pytest.raises(NotImplementedError):
-        s.sql("create external table ext (a int) location "
-              "('file:///nonexistent.csv')")
-    out = s.sql("select b, sum(a) as s from t group by b order by b")
-    assert out.decoded_columns()["s"].tolist() == [1, 2]
-    # window functions run in the port
-    out = s.sql("select a, row_number() over (order by a desc) as r from t "
-                "order by a")
-    assert out.decoded_columns()["r"].tolist() == [2, 1]
+    (tmp_path / "e.csv").write_text("1|x\n2|y\n")
+    db = str(tmp_path / "f.db")
+    con = sqlite3.connect(db)
+    con.execute("create table f (a integer)")
+    con.execute("insert into f values (1), (3)")
+    con.commit()
+    con.close()
+
+    def run(e):
+        s = e.session(**{"storage.root": e.root()})
+        s.sql("create table t (a int, b text)")
+        s.sql("insert into t values (1, 'x'), (2, 'y')")
+        for q in ("begin", "insert into t values (3, 'z')", "rollback",
+                  "begin", "commit",
+                  "create materialized view mv as select b, sum(a) as s "
+                  "from t group by b",
+                  "refresh materialized view mv",
+                  "cluster t by (a)",
+                  "create external table ext (a int, b text) location "
+                  f"('file://{tmp_path}/e.csv')",
+                  f"create foreign table ft (a int) server sqlite options "
+                  f"(database '{db}', table 'f')",
+                  "create directory table dt"):
+            e.keep(s.sql(q))
+        e.keep(s.sql("select b, s from mv order by b"))
+        e.keep(s.sql("select t.a, ext.b from t join ext on t.a = ext.a "
+                     "join ft on ft.a = t.a order by t.a"))
+        e.keep(s.sql("select count(*) as n from dt"))
+        info = s.sql("declare c parallel retrieve cursor for select a from t")
+        e.keep([x["rows"] for x in info["endpoints"]])
+        e.keep(s.retrieve("c", 0)["rows"])
+        e.keep(s.sql("close c"))
+        e.keep(s.sql("drop materialized view mv"))
+        e.error(s.sql, "select nosuchfunc(a) from t")
+        e.keep(s.sql("select b, sum(a) as s from t group by b order by b"))
+        e.keep(s.sql("select a, row_number() over (order by a desc) as r "
+                     "from t order by a"))
+    got = twin(run, tmp_path)
+    assert got[:5] == ["BEGIN", "INSERT 1", "ROLLBACK", "BEGIN", "COMMIT"]
+    assert got[11].decoded_columns()["s"].tolist() == [1, 2]
+    assert got[12].decoded_columns()["a"].tolist() == [1]
+    assert got[-3][0] == "BindError" and "unknown function" in got[-3][1]
+    assert got[-1].decoded_columns()["r"].tolist() == [2, 1]
 
 
 def test_paramplan_carries_normalize_only():

@@ -405,3 +405,99 @@ def same_counters(ts, js, names) -> dict:
     want = {k: js.stmt_log.counter(k) for k in names}
     assert got == want, (got, want)
     return got
+
+
+# ------------------------------------------- one scenario, both engines
+
+
+class Engine:
+    """One engine's side of a ``twin`` scenario: its package's modules,
+    sessions on the CPU (the JAX package at one segment unless asked,
+    generic plans off), a store root of its own under ``tmp``, and the
+    values the scenario keeps for comparison."""
+
+    def __init__(self, pkg: str, tmp=None):
+        self.pkg = pkg
+        self.tmp = tmp
+        self.out: list = []
+
+    @property
+    def is_port(self) -> bool:
+        return self.pkg == "cloudberry_tpu_torch"
+
+    def mod(self, name: str):
+        import importlib
+
+        return importlib.import_module(f"{self.pkg}.{name}")
+
+    @property
+    def BindError(self):
+        return self.mod("plan.binder").BindError
+
+    def root(self, name: str = "store") -> str:
+        return str(self.tmp / self.pkg / name)
+
+    def config(self, n_segments: int = 1, **overrides):
+        if self.is_port:
+            from cloudberry_tpu_torch import Config as TorchConfig
+
+            return TorchConfig(n_segments=n_segments).with_overrides(
+                **overrides)
+        import cloudberry_tpu as cb
+
+        return cb.config.Config(n_segments=n_segments).with_overrides(
+            **{"sched.generic_plans": False, **overrides})
+
+    def session(self, n_segments: int = 1, **overrides):
+        cfg = self.config(n_segments, **overrides)
+        if self.is_port:
+            from cloudberry_tpu_torch import Session as TorchSession
+
+            return TorchSession(cfg, device="cpu")
+        import cloudberry_tpu as cb
+
+        return cb.Session(cfg)
+
+    def keep(self, value):
+        """Keep a value (a result batch, a status text, a flag) for the
+        comparison; returns it."""
+        self.out.append(value)
+        return value
+
+    def error(self, fn, *args, **kw):
+        """Run ``fn`` expecting an exception; keeps and returns its type
+        name and message (package names made equal)."""
+        try:
+            fn(*args, **kw)
+        except Exception as e:  # noqa: BLE001 — the type is compared
+            msg = str(e).replace("cloudberry_tpu_torch", "cloudberry_tpu")
+            return self.keep((type(e).__name__, msg))
+        raise AssertionError(f"{fn} raised nothing")
+
+
+def _same_kept(got, want) -> None:
+    if hasattr(want, "num_rows"):
+        assert_same(got, want, allow_empty=True)
+    elif isinstance(want, (list, tuple)) and want \
+            and any(hasattr(w, "num_rows") for w in want):
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            _same_kept(g, w)
+    else:
+        assert got == want, (got, want)
+
+
+def twin(scenario, tmp=None) -> list:
+    """Run ``scenario(engine)`` in the JAX package, then in the port, and
+    hold every kept value equal (batches by ``assert_same``, anything else
+    exactly); returns the port's kept values."""
+    outs = []
+    for pkg in ("cloudberry_tpu", "cloudberry_tpu_torch"):
+        e = Engine(pkg, tmp)
+        scenario(e)
+        outs.append(e.out)
+    want, got = outs
+    assert len(got) == len(want), (len(got), len(want))
+    for g, w in zip(got, want):
+        _same_kept(g, w)
+    return got
