@@ -48,7 +48,15 @@ class StringDictionary:
         return code
 
     def encode(self, arr: Iterable[str]) -> np.ndarray:
-        return np.fromiter((self.add(v) for v in arr), dtype=np.int32)
+        """Codes of ``arr``'s values, unseen values appended in the order
+        they first appear (None included): the distinct values go through
+        ``add`` once each, then one lookup per value gives its code."""
+        if not isinstance(arr, (list, tuple, np.ndarray)):
+            arr = list(arr)
+        for v in dict.fromkeys(arr):
+            self.add(v)
+        return np.fromiter(map(self._index.__getitem__, arr),
+                           dtype=np.int32, count=len(arr))
 
     def decode(self, codes: np.ndarray) -> np.ndarray:
         vals = np.asarray(self.values, dtype=object)

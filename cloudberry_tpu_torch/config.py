@@ -10,9 +10,11 @@ device buffer pool, the join-index cache size, memory governance (the
 per-query budget, the concurrency slots, the engine-wide red line and the
 resource queue), the statement timeout, the observability plane and the
 tiled (out-of-core) path's scan pipeline, dispatch window and checkpoint
-store, the statement scheduler's generic plans and shared cache tier,
-failure recovery (``health``: the retry, its breaker and the degrade) and
-the topology plane (``topology``), and the plan verification gate
+store, the statement scheduler (generic plans and the micro-batch
+dispatcher), the serving front end (``serve``, ``tenancy``, ``ingest``;
+``compact`` keeps its fields but is unported), failure recovery
+(``health``: the retry, its breaker and the degrade) and the topology
+plane (``topology``), and the plan verification gate
 (``debug.verify_plans``). There is no counterpart
 of the JAX package's ``exec.use_pallas``: the kernel gates are decided by
 the plan's shapes alone, and on a CUDA device the hand-written kernels
@@ -321,12 +323,11 @@ class RecoveryConfig:
 
 @dataclass(frozen=True)
 class SchedConfig:
-    """Statement scheduler: generic plans (sched/paramplan.py; the
-    plan_cache.c analog). The JAX package's micro-batch dispatcher fields
-    (``enabled``, ``max_batch``, ``max_queue``, ``tick_s``,
-    ``deadline_s``) come with its dispatcher, which the port does not have
-    yet. Its ``max_variants`` and ``shared_cache`` are constants here
-    (``paramplan._MAX_VARIANTS``, ``sharedcache.scope_for``)."""
+    """Statement scheduler — generic plans + the micro-batch dispatcher
+    (sched/paramplan.py, sched/dispatcher.py; the plan_cache.c /
+    gang-dispatch analog). The JAX package's ``max_variants`` and
+    ``shared_cache`` are constants here (``paramplan._MAX_VARIANTS``,
+    ``sharedcache.scope_for``)."""
 
     # Parameterized generic plans: hoist constant literals out of repeated
     # statements so same-shape SQL shares ONE Executable with literals fed
@@ -334,8 +335,137 @@ class SchedConfig:
     # the port has no jit, so a generic hit saves only the construction of
     # an Executable (a closure) and pays the plan's signature walk, slower
     # than the plan-per-text path on the card. The exact-text statement
-    # cache serves repeats either way. Results are the same on or off.
+    # cache serves repeats either way. Results are the same on or off. The
+    # dispatcher stacks a batch only through a generic plan, so with this
+    # off ``enabled`` coalesces nothing and every request runs alone.
     generic_plans: bool = False
+    # Continuous micro-batch dispatcher in front of the server's session:
+    # coalesce same-skeleton statements per tick into one stacked launch.
+    # Off by default — the server opts in.
+    enabled: bool = False
+    # Statements coalesced into one stacked launch per skeleton per tick.
+    max_batch: int = 16
+    # Bounded request queue (backpressure): submits beyond this block
+    # briefly, then fail with SchedQueueFull.
+    max_queue: int = 256
+    # Coalescing window: after the first request arrives, wait this long
+    # for same-skeleton company before flushing.
+    tick_s: float = 0.002
+    # Default per-request deadline; expired requests fail without
+    # executing (SchedDeadline).
+    deadline_s: float = 30.0
+
+
+@dataclass(frozen=True)
+class TenantSpec:
+    """One declared workload tenant (the named-resource-group analog,
+    extended from admission to throughput scheduling)."""
+
+    name: str
+    # Deficit-weighted-round-robin share: under saturation a tenant's
+    # dispatch throughput is proportional to its weight.
+    weight: int = 1
+    # Concurrent statements of this tenant in flight (0 = unlimited).
+    max_concurrency: int = 0
+    # Bounded per-tenant request queue: submits beyond this depth refuse
+    # with the retryable TenantQueueFull (backpressure, never silent).
+    max_queue: int = 64
+
+
+@dataclass(frozen=True)
+class TenancyConfig:
+    """Per-tenant workload governance (sched/tenancy.py): tenants are
+    named resource groups picked in deficit-weighted-round-robin order
+    inside the dispatcher tick, with starvation-free aging and per-tenant
+    admission/backpressure."""
+
+    enabled: bool = False
+    # Declared tenants; requests carrying an unknown (or no) tenant name
+    # fall into an auto-created group with the defaults below.
+    tenants: tuple = ()          # tuple[TenantSpec, ...]
+    default_weight: int = 1
+    default_max_queue: int = 256
+    # DWRR quantum multiplier: each scheduling round a tenant's deficit
+    # grows by weight * quantum requests.
+    quantum: int = 1
+    # Starvation bound: a request waiting longer than this is picked
+    # ahead of deficit order (oldest first).
+    aging_s: float = 0.5
+    # Grace period a blocking submit waits for queue space / a
+    # concurrency slot before refusing with TenantQueueFull.
+    slot_wait_s: float = 0.25
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    """Serving front end (serve/server.py + serve/asyncore.py).
+
+    The default transport is the EVENT-LOOP core: a handful of I/O
+    threads multiplex every connection through selectors with
+    non-blocking newline-JSON framing, and parsed requests execute on a
+    bounded worker pool (dispatcher-bound reads complete asynchronously,
+    so a worker never blocks on a queued batch). ``threaded=True`` keeps
+    the thread-per-connection path."""
+
+    # Thread-per-connection transport (socketserver). The event loop is
+    # the default: thousands of connections on io_threads.
+    threaded: bool = False
+    # Accepted-connection cap across the whole server (0 = unlimited):
+    # past it, new connections get ONE retryable SERVER_BUSY refusal line
+    # and close.
+    max_connections: int = 4096
+    # listen(2) backlog for the accept socket.
+    listen_backlog: int = 512
+    # Event-loop I/O threads; connections are sharded across them.
+    io_threads: int = 2
+    # Worker threads executing parsed requests (0 = auto:
+    # max(4, resource.max_concurrency)).
+    workers: int = 0
+    # Per-connection pipelined-request cap: a client that streams
+    # requests without reading responses is paused once this many parsed
+    # requests are pending.
+    pipeline_depth: int = 64
+    # Longest accepted request line in bytes; oversized lines get one
+    # fatal error response, then the connection closes.
+    max_line_bytes: int = 64 << 20
+
+
+@dataclass(frozen=True)
+class IngestConfig:
+    """Streaming ingest plane (storage/ingest.py): per-(table, tenant)
+    buffers batching wire appends into group commits. Durability is
+    acknowledged only when the covering flush commits through the one SQL
+    write path."""
+
+    enabled: bool = True
+    # Pending rows that trip an immediate (size-threshold) flush.
+    flush_rows: int = 512
+    # Oldest-pending-row age (milliseconds) that trips an age flush.
+    flush_ms: float = 25.0
+    # Per-buffer pending-row cap; past it append refuses with the
+    # retryable IngestQueueFull (write backpressure, not data loss).
+    max_buffered_rows: int = 8192
+
+
+@dataclass(frozen=True)
+class CompactConfig:
+    """Background compaction (the JAX package's storage/compact.py, the
+    VACUUM analog). Not ported yet (ROADMAP Queue A 9b): the fields keep
+    the reference's defaults, and a server asked to compact
+    (``enabled=True``) raises ``NotImplementedError``."""
+
+    enabled: bool = False
+    interval_s: float = 2.0
+    throttle_s: float = 0.0
+    chunk_partitions: int = 8
+    max_delta_parts: int = 8
+    target_fill: float = 0.5
+
+    def __post_init__(self):
+        if self.enabled:
+            raise NotImplementedError(
+                "compact.enabled: background compaction is not ported yet "
+                "(ROADMAP Queue A 9b)")
 
 
 @dataclass(frozen=True)
@@ -438,6 +568,10 @@ class Config:
     topology: TopologyConfig = field(default_factory=TopologyConfig)
     sched: SchedConfig = field(default_factory=SchedConfig)
     feedback: FeedbackConfig = field(default_factory=FeedbackConfig)
+    serve: ServeConfig = field(default_factory=ServeConfig)
+    tenancy: TenancyConfig = field(default_factory=TenancyConfig)
+    ingest: IngestConfig = field(default_factory=IngestConfig)
+    compact: CompactConfig = field(default_factory=CompactConfig)
     debug: DebugConfig = field(default_factory=DebugConfig)
 
     def with_overrides(self, **kv: Any) -> "Config":

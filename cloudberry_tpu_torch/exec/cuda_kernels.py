@@ -21,6 +21,17 @@ plain version only for tensors that lie on the CPU (the tests); for CUDA
 tensors it launches its kernel or raises — there is no fallback and no
 switch. ``LAUNCHES`` counts kernel launches per kernel name; only a launch
 adds to it.
+
+Threads: the serving layer launches from worker threads torch never
+initialised. The one-time build and load run under ``_BUILD_LOCK`` (one
+nvcc per source per process, never two writers of one library file), the
+launch counters under ``_COUNT_LOCK``. A kernel goes to the calling
+thread's current stream (``_stream``): the default stream in every
+thread that never set one, the stream PyTorch's own operators and result
+copies of that thread use, so no launch races a copy of another thread.
+``sorted_seg`` picks its header set and launches under ``_SEG_LOCK``: the
+alternation between its two sets holds only if the calls reach a stream
+in the order they picked their sets.
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ import os
 import shutil
 import struct
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -78,6 +90,9 @@ _SIGNATURES = {
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_BUILD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+_SEG_LOCK = threading.Lock()
 # nvcc runs that built a library in this process (a library already on
 # disk under its source hash loads without one)
 NVCC_BUILDS = 0
@@ -113,7 +128,15 @@ def loaded() -> bool:
 
 def build(verbose: bool = False) -> dict[str, ctypes.CDLL]:
     """Compile every kernel source not yet built (one nvcc each, all in
-    parallel) and load the libraries. Raises on any compiler error."""
+    parallel) and load the libraries. Raises on any compiler error.
+    Thread-safe: a second thread waits for the first's build."""
+    if loaded():
+        return _LIBS
+    with _BUILD_LOCK:
+        return _build_locked(verbose)
+
+
+def _build_locked(verbose: bool) -> dict[str, ctypes.CDLL]:
     missing = [n for n in SOURCES if n not in _LIBS]
     if not missing:
         return _LIBS
@@ -158,7 +181,8 @@ def _launch(name: str, *args) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {err}")
-    LAUNCHES[name] += 1
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
@@ -386,16 +410,18 @@ def sorted_seg(vals: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
     out = torch.empty((1 + r, cap), dtype=torch.int64, device=dev)
     entries = torch.empty((2 * queue_cap,), dtype=torch.int64, device=dev)
     stream = _stream(vals)
-    header, spare = _seg_headers(dev, stream)
-    try:
-        _launch("sorted_seg", vals.data_ptr(), r, n, starts.data_ptr(),
-                ends.data_ptr(), n_groups.data_ptr(), cap, short_rows,
-                chunk_rows, out.data_ptr(), header.data_ptr(),
-                spare.data_ptr(), entries.data_ptr(), queue_cap,
-                chunk_blocks, stream)
-    except RuntimeError:
-        del _SEG_HEADERS[(dev.index, stream)]  # a set may be left dirty
-        raise
+    with _SEG_LOCK:
+        header, spare = _seg_headers(dev, stream)
+        try:
+            _launch("sorted_seg", vals.data_ptr(), r, n, starts.data_ptr(),
+                    ends.data_ptr(), n_groups.data_ptr(), cap, short_rows,
+                    chunk_rows, out.data_ptr(), header.data_ptr(),
+                    spare.data_ptr(), entries.data_ptr(), queue_cap,
+                    chunk_blocks, stream)
+        except RuntimeError:
+            # a set may be left dirty
+            del _SEG_HEADERS[(dev.index, stream)]
+            raise
     return out[0], out[1:]
 
 

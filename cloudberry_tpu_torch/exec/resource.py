@@ -23,9 +23,9 @@ plan time — so governance is:
 The estimate is the JAX package's, integer for integer: the tiled planner's
 tile size, mode and accumulator capacity all follow from it, so both
 engines take the same decisions on the same plan. The slots, queues and
-the red line are pure host threading, copied from the JAX package. Its
-per-tenant groups (``TenantGroup``, ``TenantQueueFull``) belong to the
-serving layer and are not carried.
+the red line are pure host threading, copied from the JAX package, as are
+the per-tenant groups (``TenantGroup``, ``TenantQueueFull``) the serving
+layer's tenancy scheduler (sched/tenancy.py) schedules with.
 """
 
 from __future__ import annotations
@@ -43,6 +43,44 @@ class ResourceError(RuntimeError):
 class RunawayError(ResourceError):
     """A RUNNING statement's adaptive growth crossed the vmem red line —
     it is terminated (runaway_cleaner.c), never spilled."""
+
+
+class TenantQueueFull(ResourceError):
+    """Per-tenant admission refusal: the tenant's bounded request queue
+    (or concurrency slot wait) stayed full past the grace period.
+    RETRYABLE by taxonomy name (lifecycle._RETRYABLE_NAMES) — the
+    refusal is about load, not the statement."""
+
+
+@dataclass
+class TenantGroup:
+    """One named workload tenant's resource-group record — the
+    resgroup.c analog extended from admission to THROUGHPUT scheduling
+    (sched/tenancy.py owns the deficit-weighted-round-robin pick order
+    and aging; this record is the declared shape plus the runtime
+    accounting it schedules with). All mutable fields are guarded by the
+    owning TenantScheduler's lock."""
+
+    name: str
+    weight: int = 1
+    max_concurrency: int = 0        # concurrent statements; 0 = unlimited
+    max_queue: int = 64             # bounded queue depth (backpressure)
+    # -- runtime state (TenantScheduler's lock) --
+    deficit: float = 0.0            # DWRR deficit counter, in requests
+    queued: int = 0                 # waiting in this tenant's QUEUE
+    waiting: int = 0                # direct-path slot() waiters (kept
+    # apart from queued: slot() increments, enqueue sets len(queue))
+    running: int = 0                # picked/admitted, not yet finished
+    last_pick_t: float = 0.0        # monotonic time of the last pick:
+    # aging serves only tenants the scheduler has NOT touched lately
+    # -- observability counters --
+    picks: int = 0                  # requests admitted by the scheduler
+    served: int = 0                 # requests finished (ok or error)
+    rejected: int = 0               # TenantQueueFull refusals
+    aged: int = 0                   # picks forced by the starvation bound
+    wait_sum_ms: float = 0.0        # queue-wait accumulation (picked)
+    wait_max_ms: float = 0.0
+    max_depth: int = 0              # peak queue depth observed
 
 
 @dataclass

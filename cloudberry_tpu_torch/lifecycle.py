@@ -11,8 +11,10 @@ poll point the tile loops and the scan pipeline's reader thread call.
 active handles (exec/instrument.py). ``CircuitBreaker`` trips the engine
 to read-only-degraded after K consecutive statements that needed a
 device-loss recovery (parallel/health.py) and half-opens through a health
-probe. The JAX package's composite batch handles belong to its
-dispatcher, which the port does not have.
+probe. ``CompositeHandle`` is the scope of the micro-batch dispatcher's
+stacked launch (sched/dispatcher.py): it polls every member's handle. The
+serving layer's refusals (``ServerDraining``, ``ServerBusy``,
+``IngestQueueFull``) live here so server and client share one taxonomy.
 """
 
 from __future__ import annotations
@@ -46,6 +48,33 @@ class StatementTimeout(StatementError):
     retryable = True
 
 
+class ServerDraining(StatementError):
+    """The server refused or abandoned the statement because it is
+    draining for shutdown — retry against the promoted standby."""
+
+    retryable = True
+
+
+class ServerBusy(StatementError):
+    """The accept-path connection cap refused the connection (one
+    SERVER_BUSY line, then close) — pure load shedding, retry after
+    backoff. The server writes this refusal as a dict literal at accept
+    time (no exception crosses the wire), but the class must exist so the
+    by-name contract round-trips: the client retries the etype
+    ``ServerBusy`` because this name is in the taxonomy."""
+
+    retryable = True
+
+
+class IngestQueueFull(StatementError):
+    """The streaming ingest buffer for a (table, tenant) is at its
+    ``config.ingest.max_buffered_rows`` cap — pure write backpressure,
+    the SchedQueueFull analog for the append plane: back off and retry
+    once a flush drains the buffer."""
+
+    retryable = True
+
+
 class BreakerOpen(StatementError):
     """The admission circuit breaker is open (read-only-degraded):
     writes are refused until health probes close it."""
@@ -73,8 +102,10 @@ class StorageCorruptionError(StatementError):
     retryable = False
 
 
-# errors raised OUTSIDE this module that belong to the retryable side
-# (the names the JAX package's serving layer exports on the wire)
+# errors raised OUTSIDE this module that belong to the retryable side:
+# the dispatcher's backpressure/deadline pair (sched/dispatcher.py) and
+# the per-tenant admission refusal (exec/resource.py TenantQueueFull) are
+# about load and WHEN the statement ran, not the statement itself
 _RETRYABLE_NAMES = frozenset({
     "StatementTimeout", "ServerDraining", "BreakerOpen",
     "SchedQueueFull", "SchedDeadline",
@@ -99,6 +130,7 @@ def is_retryable(err) -> bool:
 _REASON_EXC = {
     "cancelled": StatementCancelled,
     "timeout": StatementTimeout,
+    "drain": ServerDraining,
 }
 
 
@@ -150,6 +182,10 @@ class StatementHandle:
         self.deadline = deadline
         self.token = token if token is not None else CancelToken()
         self.started = time.monotonic()
+        # the statement's trace span collection (obs/trace.py) and live
+        # progress gauge (obs/progress.py), set by whoever begins it
+        self.trace = None
+        self.progress = None
 
     def remaining(self) -> Optional[float]:
         if self.deadline is None:
@@ -167,6 +203,29 @@ class StatementHandle:
                 f"{time.monotonic() - self.started:.2f}s "
                 "(deadline/statement_timeout exceeded)")
             self.token.raise_if_cancelled()
+
+
+class CompositeHandle:
+    """Scope handle polling several member handles: the dispatcher's
+    stacked batch executes under one scope, but every member keeps its own
+    token and deadline — cancelling any member aborts the launch, and the
+    dispatcher then re-routes the innocent batchmates through the
+    sequential path."""
+
+    def __init__(self, handles):
+        self.handles = list(handles)
+        # the batch head's trace records the stacked launch's spans (one
+        # launch, many statements — the compile counter attributes batch
+        # compiles the same way)
+        self.trace = next((h.trace for h in self.handles
+                           if getattr(h, "trace", None) is not None), None)
+        # stacked statements have no tile loop: no progress feed of the
+        # scope's own (each member's Progress completes at its finish)
+        self.progress = None
+
+    def check(self) -> None:
+        for h in self.handles:
+            h.check()
 
 
 # ------------------------------------------------- current-statement scope
@@ -201,7 +260,7 @@ def current_handle() -> Optional[StatementHandle]:
 
 def check_cancel() -> None:
     """Poll point for execution seams: a no-op outside a statement scope,
-    raises StatementCancelled/StatementTimeout inside one."""
+    raises StatementCancelled/StatementTimeout/ServerDraining inside one."""
     h = current_handle()
     if h is not None:
         h.check()

@@ -214,9 +214,13 @@ def refresh_gauges(session) -> dict:
     rebalance fraction (1.0 when no change is pending) and moved bytes.
     ``*_bytes`` gauges are bytes measured from the live arrays: device
     bytes for the join index, the pool and the scan cache, host bytes for
-    the checkpoint pins. The port has no rung cache
-    (sched/sharedcache.py); the JAX package's dispatcher and write plane
-    gauges belong to modules the port does not have yet."""
+    the checkpoint pins; the dispatcher's queue depth and the ingest
+    buffers' host bytes. The port has no rung cache (sched/sharedcache.py;
+    a stacked runner is a closure) and no compactor yet. Per-connection
+    server backends anchor on the SERVING session (``_obs_root``), so the
+    session-private holders (statement and store-scan caches) report
+    stable values, not whichever backend answered the meta request."""
+    session = getattr(session, "_obs_root", session)
     log = getattr(session, "stmt_log", None)
     if log is None:
         return {}
@@ -244,6 +248,12 @@ def refresh_gauges(session) -> dict:
     vals["mem_trace_ring_entries"] = rings["traces"]
     vals["mem_flight_ring_entries"] = rings["flights"]
     vals["mem_statement_rows"] = len(log.statements)
+    disp = getattr(session, "_dispatcher", None)
+    if disp is not None:
+        vals["mem_dispatcher_queue_depth"] = disp.queue_depth()
+    ing = getattr(session, "_ingest", None)
+    if ing is not None:
+        vals["mem_ingest_buffer_bytes"] = ing.buffered_bytes()
     stmt_cache = getattr(session, "_stmt_cache", None)
     if stmt_cache is not None:
         vals["mem_stmt_cache_entries"] = len(stmt_cache)

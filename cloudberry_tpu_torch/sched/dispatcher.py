@@ -1,0 +1,590 @@
+"""Continuous micro-batch dispatcher — the gang-dispatch analog.
+
+A bounded async request queue in front of a serving Session. Handler
+threads ``submit()`` statements and block on their result; ONE worker
+thread drains the queue each tick, groups requests by statement skeleton
+(sched/paramplan.normalize), and executes each group:
+
+- same-skeleton groups flush as ONE stacked launch through the group's
+  generic plan (paramplan.run_batch) — per-request host work is a
+  tokenize-only fast rebind (point lookups) or a host re-plan, and one
+  admission, one statement scope and one check read serve the batch
+  (the port's runner walks its lanes through the one Executable; the
+  reference's is one vmapped XLA program);
+- everything else (non-parameterizable statements, writes, shape drift
+  mid-batch) falls back to ordinary sequential ``session.sql``.
+
+Flow control mirrors the reference's interconnect discipline: the queue is
+BOUNDED (backpressure — a full queue rejects enqueues after a short wait,
+SchedQueueFull), every request carries a deadline (expired requests fail
+WITHOUT executing, SchedDeadline), and executions feed the session's
+existing admission gate (exec/resource.py) — the dispatcher adds
+coalescing, never a second admission authority.
+
+FAULT_POINTs at the three seams: ``sched_enqueue`` (request admission to
+the queue), ``sched_coalesce`` (group formation), ``sched_flush`` (the
+batched launch, armed inside paramplan.run_batch).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Any, Optional
+
+from cloudberry_tpu_torch.sched import paramplan
+
+
+class SchedQueueFull(RuntimeError):
+    """Backpressure: the bounded request queue stayed full past the
+    enqueue grace period."""
+
+
+class SchedDeadline(RuntimeError):
+    """The request's deadline expired before (or while) it executed."""
+
+
+@dataclass
+class _Request:
+    sql: str
+    deadline: float                  # monotonic absolute
+    # enqueue timestamp (perf_counter): the dispatch-queue-wait span /
+    # stage histogram measures pick-time minus this (obs/trace.py)
+    t_enq: float = field(default_factory=time.perf_counter)
+    done: threading.Event = field(default_factory=threading.Event)
+    result: Any = None
+    error: Optional[BaseException] = None
+    # async completion (event-loop serving, serve/asyncore.py): called
+    # exactly once with this request after result/error are set, from
+    # whichever thread finished it
+    on_done: Optional[Any] = None
+    # tenancy bookkeeping: the scheduler that picked this request and
+    # the TenantGroup charged for it (stamped at pick time)
+    _sched: Optional[Any] = None
+    _tenant_group: Optional[Any] = None
+    _finish_lock: threading.Lock = field(default_factory=threading.Lock)
+    _finished: bool = False
+
+    def finish(self, result=None, error=None):
+        with self._finish_lock:
+            # atomic test-and-set: stop()'s sweep and the enqueue/stop
+            # race may both reach a request — on_done must fire ONCE
+            if self._finished:
+                return
+            self._finished = True
+        self.result = result
+        self.error = error
+        self.done.set()
+        g, self._tenant_group = self._tenant_group, None
+        if g is not None and self._sched is not None:
+            self._sched.finish(g)
+        if self.on_done is not None:
+            try:
+                self.on_done(self)
+            except Exception:
+                pass  # a dead connection must not poison the worker
+
+
+class Dispatcher:
+    """One worker thread coalescing a session's read statements.
+
+    ``exec_scope`` (optional): a zero-argument callable returning a
+    context manager held around every execution — the server passes its
+    shared-session read-lock scope so dispatched reads keep excluding
+    concurrent catalog writers exactly like direct dispatch does.
+
+    ``tenancy`` (optional): a sched/tenancy.TenantScheduler. With it,
+    requests land in per-tenant bounded queues and each tick picks the
+    batch in deficit-weighted-round-robin order with starvation-free
+    aging — fair throughput under saturation instead of FIFO.
+    """
+
+    def __init__(self, session, exec_scope=None, tenancy=None):
+        self.session = session
+        cfg = session.config.sched
+        self.max_batch = max(1, cfg.max_batch)
+        self.max_queue = max(1, cfg.max_queue)
+        self.tick_s = max(0.0, cfg.tick_s)
+        self.deadline_s = cfg.deadline_s
+        self._exec_scope = exec_scope or contextlib.nullcontext
+        self.tenancy = tenancy
+        self._q: list[_Request] = []
+        self._cond = threading.Condition()
+        self._stop = False
+        self._busy = False          # worker mid-batch (drain observability)
+        self._thread: Optional[threading.Thread] = None
+        self.stats = {
+            "enqueued": 0, "rejected": 0, "expired": 0, "cancelled": 0,
+            "batches": 0, "batched_requests": 0, "singles": 0,
+            "seq_fallbacks": 0, "occupancy_sum": 0.0, "max_depth": 0,
+        }
+        # the serving layer reads queue/batch observability through the
+        # session (serve/meta.py "sched")
+        session._dispatcher = self
+
+    # ------------------------------------------------------------ control
+
+    def start(self) -> "Dispatcher":
+        if self._thread is None:
+            with self._cond:
+                # published under the lock: a submitter blocked on a
+                # stopped queue must never miss the restart flip
+                self._stop = False
+            self._thread = threading.Thread(target=self._loop,
+                                            daemon=True,
+                                            name="cbtpu_torch-dispatcher")
+            self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        with self._cond:
+            self._stop = True
+            self._cond.notify_all()
+        if self._thread is not None:
+            self._thread.join(timeout=10)
+            self._thread = None
+        # nothing may block forever on a dead worker: whatever drain()
+        # could not finish fails with the RETRYABLE drain error — an
+        # accepted request is answered or failed, never silently dropped
+        from cloudberry_tpu_torch.lifecycle import ServerDraining
+
+        for _ in range(2):  # second sweep closes the enqueue/stop race
+            with self._cond:
+                pending, self._q = self._q, []
+            if self.tenancy is not None:
+                pending += self.tenancy.pending()
+            if not pending:
+                break
+            for r in pending:
+                r.finish(error=ServerDraining(
+                    "dispatcher stopped while this request was queued; "
+                    "retry against the serving primary"))
+
+    def _bump(self, name: str, n=1) -> None:
+        """Worker-side stats updates take the lock too: handler threads
+        bump enqueued/rejected under _cond, and snapshot() copies under
+        it — a bare += here would be a racy read-modify-write. Counters
+        mirror onto the engine metrics registry (``disp_<name>``) so the
+        Prometheus exposition sees dispatcher traffic without a snapshot
+        call; the stats dict stays authoritative for snapshot()."""
+        with self._cond:
+            self.stats[name] += n
+        self.session.stmt_log.bump(f"disp_{name}", n)
+
+    def _mirror(self, name: str, n: int = 1) -> None:
+        """Registry mirror for counters whose stats-dict update happens
+        inline under _cond (enqueued/rejected/batches/...): the metric
+        plane must see queue traffic and backpressure, not just the
+        worker-side names _bump covers. The registry lock is a leaf
+        below _cond in the declared order, so calling under _cond is
+        safe."""
+        self.session.stmt_log.bump(f"disp_{name}", n)
+
+    def queue_depth(self) -> int:
+        with self._cond:
+            depth = len(self._q)
+        if self.tenancy is not None:
+            depth += self.tenancy.depth()
+        return depth
+
+    def drain(self, timeout_s: float) -> bool:
+        """Wait until the queue is empty AND the worker is idle — every
+        accepted request has been answered (the smart-shutdown wait).
+        Returns False when work remains at the timeout (the caller then
+        cancels stragglers; nothing is ever silently dropped — stop()
+        fails whatever is still queued)."""
+        end = time.monotonic() + max(0.0, timeout_s)
+        with self._cond:
+            while self._pending_depth() or self._busy:
+                left = end - time.monotonic()
+                if left <= 0:
+                    return False
+                self._cond.wait(timeout=min(left, 0.1))
+        return True
+
+    def _pending_depth(self) -> int:
+        """Queued requests across the global and tenant queues (callers
+        hold self._cond; the tenancy lock nests safely below it)."""
+        depth = len(self._q)
+        if self.tenancy is not None:
+            depth += self.tenancy.depth()
+        return depth
+
+    # ------------------------------------------------------------- submit
+
+    def _enqueue(self, req: _Request, tenant: Optional[str],
+                 wait_s: float) -> None:
+        """Admit one request (global or tenant queue), with the grace
+        wait and the retryable refusals. Raises SchedQueueFull /
+        TenantQueueFull / ServerDraining."""
+        from cloudberry_tpu_torch.utils.faultinject import fault_point
+
+        fault_point("sched_enqueue")
+        from cloudberry_tpu_torch.lifecycle import ServerDraining
+
+        if self.tenancy is not None:
+            with self._cond:
+                if self._stop:
+                    raise ServerDraining("dispatcher stopped")
+            req._sched = self.tenancy
+            try:
+                self.tenancy.enqueue(tenant, req, wait_s=wait_s)
+            except Exception:
+                with self._cond:
+                    self.stats["rejected"] += 1
+                self._mirror("rejected")
+                raise
+            self._mirror("enqueued")
+            with self._cond:
+                self.stats["enqueued"] += 1
+                self.stats["max_depth"] = max(self.stats["max_depth"],
+                                              self._pending_depth())
+                stopped = self._stop
+                self._cond.notify_all()
+            if stopped:
+                # raced a concurrent stop(): fail visibly (idempotent
+                # finish — stop()'s own sweep may also reach it)
+                req.finish(error=ServerDraining(
+                    "dispatcher stopped while this request was queued; "
+                    "retry against the serving primary"))
+            return
+        with self._cond:
+            end = time.monotonic() + wait_s
+            while len(self._q) >= self.max_queue and not self._stop:
+                left = end - time.monotonic()
+                if left <= 0:
+                    self.stats["rejected"] += 1
+                    self._mirror("rejected")
+                    raise SchedQueueFull(
+                        f"dispatcher queue full ({self.max_queue} "
+                        "requests waiting); retry or raise "
+                        "config.sched.max_queue")
+                self._cond.wait(timeout=left)
+            if self._stop:
+                raise ServerDraining("dispatcher stopped")
+            self._q.append(req)
+            self.stats["enqueued"] += 1
+            self.stats["max_depth"] = max(self.stats["max_depth"],
+                                          len(self._q))
+            self._cond.notify_all()
+        self._mirror("enqueued")
+
+    def submit(self, sql: str, deadline_s: Optional[float] = None,
+               enqueue_wait_s: float = 0.25,
+               tenant: Optional[str] = None):
+        """Run one statement through the dispatcher; blocks until its
+        result is ready. Raises SchedQueueFull / TenantQueueFull
+        (backpressure) or SchedDeadline; other execution errors re-raise
+        as-is."""
+        budget = self.deadline_s if deadline_s is None else deadline_s
+        req = _Request(sql, time.monotonic() + budget)
+        self._enqueue(req, tenant, enqueue_wait_s)
+        req.done.wait(timeout=budget + 60.0)
+        if not req.done.is_set():
+            raise SchedDeadline(f"request did not finish within "
+                                f"{budget + 60.0:.0f}s")
+        if req.error is not None:
+            raise req.error
+        return req.result
+
+    def submit_nowait(self, sql: str, deadline_s: Optional[float] = None,
+                      tenant: Optional[str] = None,
+                      on_done=None) -> _Request:
+        """Non-blocking submission for the event-loop front end: admit
+        (refusing IMMEDIATELY on a full queue — the caller's client
+        retries on the retryable taxonomy) and return; ``on_done(req)``
+        fires once when the request finishes, from the finishing
+        thread."""
+        budget = self.deadline_s if deadline_s is None else deadline_s
+        req = _Request(sql, time.monotonic() + budget, on_done=on_done)
+        self._enqueue(req, tenant, wait_s=0.0)
+        return req
+
+    # ------------------------------------------------------------- worker
+
+    def _loop(self) -> None:
+        while True:
+            with self._cond:
+                while not self._pending_depth() and not self._stop:
+                    self._cond.wait(timeout=0.5)
+                if self._stop:
+                    return
+            # coalescing window: give same-skeleton company a tick to
+            # arrive (continuous batching — the queue keeps filling while
+            # the previous batch executes, so a loaded server rarely
+            # actually sleeps here)
+            if self.tick_s:
+                with self._cond:
+                    deadline = time.monotonic() + self.tick_s
+                    while self._pending_depth() < self.max_batch \
+                            and not self._stop:
+                        left = deadline - time.monotonic()
+                        if left <= 0:
+                            break
+                        self._cond.wait(timeout=left)
+            if self.tenancy is not None:
+                # fair pick: deficit-weighted round robin with aging —
+                # WHOSE requests flush this tick is the tenancy policy,
+                # the skeleton grouping below stays workload-driven.
+                # _busy flips BEFORE the pick: pick() drains the tenant
+                # queues, and drain() must never observe depth==0 with
+                # an unprocessed batch in hand
+                with self._cond:
+                    self._busy = True
+                batch = self.tenancy.pick(self.max_batch)
+                with self._cond:
+                    self._busy = bool(batch)
+                    self._cond.notify_all()
+                if not batch:
+                    # queued tenants all at max_concurrency (direct-path
+                    # statements hold their slots): back off briefly
+                    time.sleep(min(0.02, self.tick_s or 0.02))
+                    continue
+            else:
+                with self._cond:
+                    batch, self._q = self._q, []
+                    self._busy = bool(batch)
+                    self._cond.notify_all()  # wake blocked submitters
+            if batch:
+                try:
+                    self._process(batch)
+                except BaseException as e:  # never kill the worker
+                    for r in batch:
+                        if not r.done.is_set():
+                            r.finish(error=e)
+                finally:
+                    with self._cond:
+                        self._busy = False
+                        self._cond.notify_all()  # wake drain waiters
+
+    def _groups(self, batch: list[_Request]):
+        """Group same-skeleton requests, preserving arrival order within
+        a group; non-parameterizable statements ride alone."""
+        groups: dict = {}
+        order: list = []
+        for r in batch:
+            norm = paramplan.normalize(r.sql)
+            key = (norm[0],) if norm is not None and norm[1] \
+                else ("solo", id(r))
+            if key not in groups:
+                groups[key] = []
+                order.append(key)
+            groups[key].append(r)
+        return [groups[k] for k in order]
+
+    def _process(self, batch: list[_Request]) -> None:
+        from cloudberry_tpu_torch.utils.faultinject import fault_point
+
+        fault_point("sched_coalesce")
+        for group in self._groups(batch):
+            live: list[_Request] = []
+            now = time.monotonic()
+            for r in group:
+                if now > r.deadline:
+                    self._bump("expired")
+                    r.finish(error=SchedDeadline(
+                        "deadline expired before dispatch"))
+                else:
+                    live.append(r)
+            if not live:
+                continue
+            while live:
+                chunk, live = live[:self.max_batch], live[self.max_batch:]
+                self._run_group(chunk)
+
+    def _flight(self, req: _Request, handle, status: str,
+                error=None, result=None) -> None:
+        """Flight-recorder seam for the batched path (obs/flightrec.py):
+        batched statements finish here, not in session.sql, so the
+        slow/error capture contract must fire here too. The wall is the
+        handle's own clock — pick-to-finish, the window the member's
+        deadline governs."""
+        from cloudberry_tpu_torch.obs import flightrec as OF
+
+        OF.maybe_capture(self.session, req.sql, status,
+                         time.monotonic() - handle.started, handle,
+                         error=error, result=result)
+
+    def _run_group(self, group: list[_Request]) -> None:
+        from cloudberry_tpu_torch import lifecycle
+
+        log = self.session.stmt_log
+        if len(group) > 1:
+            # every batched request gets its own lifecycle handle in the
+            # activity view (cancellable by id, watchdog-visible); the
+            # stacked launch runs under a composite scope polling all of
+            # them at the flush/tile seams. config.statement_timeout_s
+            # tightens each deadline here because run_batch bypasses
+            # session.sql — the two dispatcher paths must enforce the
+            # same limit for the same statement
+            timeout = self.session.config.statement_timeout_s
+            t_dl = (time.monotonic() + timeout) if timeout else None
+
+            def _dl(r):
+                return r.deadline if t_dl is None \
+                    else min(r.deadline, t_dl)
+
+            sids = [log.begin(r.sql) for r in group]
+            handles = [lifecycle.StatementHandle(sid, deadline=_dl(r))
+                       for sid, r in zip(sids, group)]
+            # topology epoch at batch formation (parallel/topology.py):
+            # a cutover/failover landing mid-launch is detected below
+            # and the batch re-routes sequentially instead of failing
+            # every member with a raw shape/device error
+            from cloudberry_tpu_torch.parallel.topology import topology_token
+
+            topo_tok = topology_token(self.session)
+            now = time.perf_counter()
+            from cloudberry_tpu_torch.obs import metrics as OM
+
+            from cloudberry_tpu_torch.obs.progress import Progress
+
+            for sid, h, r in zip(sids, handles, group):
+                log.attach(sid, h)
+                # batched statements bypass session.sql, so their traces
+                # start here; the queue wait each member just finished is
+                # its first span (recorded on the member's own trace).
+                # Each member gets its own Progress too — stacked point
+                # reads have no tile loop, but the 0→1 completion keeps
+                # meta "progress" rows uniform across dispatch paths
+                h.trace = log.start_trace(sid, r.sql)
+                if log.obs_enabled:
+                    h.progress = Progress()
+                if h.trace is not None:
+                    # ends exactly at the trace's root start, so the
+                    # wait renders as the root's sibling, never a
+                    # partial overlap
+                    h.trace.add("dispatch-queue-wait", r.t_enq,
+                                max(h.trace.t0 - r.t_enq, 0.0))
+                OM.observe_stage(log, "queue_wait", now - r.t_enq)
+            c0 = log.counter("compiles")
+            g0 = log.counter("generic_hits")
+            try:
+                with self._exec_scope(), lifecycle.statement_scope(
+                        lifecycle.CompositeHandle(handles)):
+                    out = paramplan.run_batch(self.session,
+                                              [r.sql for r in group])
+            except lifecycle.StatementError:
+                # a member's cancel/timeout aborted the stacked launch:
+                # that member fails with ITS verdict; innocent batchmates
+                # re-route through the sequential path below
+                survivors: list[_Request] = []
+                for r, sid, h in zip(group, sids, handles):
+                    err = None
+                    try:
+                        h.check()
+                    except lifecycle.StatementError as e:
+                        err = e
+                    if err is not None:
+                        self._bump("cancelled")
+                        log.finish(sid, "error",
+                                   error=f"{type(err).__name__}: {err}")
+                        self._flight(r, h, "error", error=err)
+                        r.finish(error=err)
+                    else:
+                        log.finish(sid, "requeued")
+                        survivors.append(r)
+                if survivors:
+                    # straight to sequential dispatch: this is a cancel
+                    # abort, not a generic-plan miss — it must not count
+                    # as (or re-log) a seq_fallback
+                    self._run_sequential(survivors)
+                return
+            except BaseException as e:
+                from cloudberry_tpu_torch.parallel.health import recoverable
+                from cloudberry_tpu_torch.parallel.topology import \
+                    TopologyRaceError
+
+                if recoverable(e) or isinstance(e, TopologyRaceError) \
+                        or topology_token(self.session) != topo_tok:
+                    # device loss, or a topology flip raced the stacked
+                    # launch: batched statements are READS, so re-route
+                    # them through session.sql, whose retry machinery
+                    # replans at the current epoch — the singles path
+                    # already survives the same flip, and a batch must
+                    # not drop every member where one statement would
+                    # have recovered
+                    self._bump("batch_reroutes")
+                    for sid in sids:
+                        log.finish(sid, "requeued")
+                    self._run_sequential(group)
+                    return
+                for r, sid, h in zip(group, sids, handles):
+                    log.finish(sid, "error",
+                               error=f"{type(e).__name__}: {e}")
+                    self._flight(r, h, "error", error=e)
+                    r.finish(error=e)
+                return
+            if out is not None:
+                with self._cond:
+                    self.stats["batches"] += 1
+                    self.stats["batched_requests"] += len(group)
+                    self.stats["occupancy_sum"] += \
+                        len(group) / paramplan._next_pow2(len(group))
+                self._mirror("batches")
+                self._mirror("batched_requests", len(group))
+                # a flush that built a generic plan or a new rung DID
+                # compile — attribute the delta to the batch head so the
+                # per-statement compiles= field never under-reports.
+                # generic_hits attribute the same way: every non-head
+                # member is exactly one reuse (fast or re-planned), the
+                # head gets the remainder (0 when it built the plan) —
+                # per-statement sums stay equal to the engine counter
+                compiled = log.counter("compiles") - c0
+                ghead = max(log.counter("generic_hits") - g0
+                            - (len(group) - 1), 0)
+                for i, (r, sid, h, batch) in enumerate(
+                        zip(group, sids, handles, out)):
+                    log.finish(sid, "ok", rows=batch.num_rows(),
+                               batch=len(group),
+                               compiles=compiled if i == 0 else 0,
+                               generic_hits=ghead if i == 0 else 1)
+                    self._flight(r, h, "ok", result=batch)
+                    r.finish(result=batch)
+                return
+            self._bump("seq_fallbacks")
+            for sid in sids:
+                log.finish(sid, "requeued")  # re-logged by session.sql
+        self._run_sequential(group)
+
+    def _run_sequential(self, group: list[_Request]) -> None:
+        """Ordinary dispatch, one statement at a time."""
+        from cloudberry_tpu_torch.obs import metrics as OM
+
+        for r in group:
+            if time.monotonic() > r.deadline:
+                self._bump("expired")
+                r.finish(error=SchedDeadline(
+                    "deadline expired before dispatch"))
+                continue
+            self._bump("singles")
+            OM.observe_stage(self.session.stmt_log, "queue_wait",
+                             time.perf_counter() - r.t_enq)
+            try:
+                with self._exec_scope():
+                    # the request's deadline governs EXECUTION too (the
+                    # session checks it at its cancel seams), not just
+                    # time-in-queue
+                    r.finish(result=self.session.sql(
+                        r.sql, _deadline=r.deadline))
+            except BaseException as e:
+                r.finish(error=e)
+
+    def snapshot(self) -> dict:
+        """Observability snapshot for serve/meta.py."""
+        with self._cond:
+            depth = len(self._q)
+            st = dict(self.stats)
+        occ = st.pop("occupancy_sum")
+        st["avg_occupancy"] = round(occ / st["batches"], 4) \
+            if st["batches"] else 0.0
+        if self.tenancy is not None:
+            depth += self.tenancy.depth()
+            st["tenants"] = self.tenancy.snapshot()
+            st["fairness_index"] = round(self.tenancy.fairness_index(), 4)
+        st["queue_depth"] = depth
+        st["max_batch"] = self.max_batch
+        st["max_queue"] = self.max_queue
+        return st

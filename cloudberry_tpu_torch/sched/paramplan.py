@@ -40,11 +40,24 @@ CUDA session over one store root share a cache scope.
 Kinds: ``single`` (one program), ``direct`` (a plan the planner routed to
 one segment; a rebind feeds that statement's segment) and ``dist`` (the
 distributed gang, exec/dist_executor.py: every segment reads the
-``$params`` as replicated 0-d tensors). The dispatcher's stacked launch
-(``GenericPlan.rung_fn``, ``prepare_one``, ``run_batch``) waits for the
-micro-batch dispatcher; those names raise ``NotImplementedError``.
-The dispatcher's tokenize-only point-lookup rebind (``FastRebind``) comes
-with it too.
+``$params`` as replicated 0-d tensors).
+
+The micro-batch dispatcher (sched/dispatcher.py) runs same-skeleton
+statements as one STACKED launch (``run_batch``): per-request host
+rebinding — tokenize-only for the canonical point lookup (``FastRebind``),
+else a host re-plan (``prepare_one``) — then one runner per (skeleton,
+signature, rung) (``GenericPlan.rung_fn``). The reference's runner is one
+jitted ``jax.vmap`` of the program over the batch padded to a power-of-two
+rung. The port's Executable is the Lowerer walk itself and its kernels are
+ctypes launches on raw pointers, which ``torch.func.vmap`` cannot trace:
+its runner uploads the shared tables and join indexes once (``shared``
+mode) and every lane's ``$params`` in ONE host→device copy, runs the k
+real lanes (never the padding) through the one Executable lane by lane,
+and ORs every lane's runtime checks. Admission, the counters
+(``batch_rung_compiles`` once per rung, ``dispatches`` once per batch,
+``batched_statements`` += k, ``fast_rebinds``, ``generic_hits``) and the
+fallback rule (any lane's ExecError or ResourceError returns None, and the
+dispatcher re-routes the batch sequentially) are the reference's.
 
 The port's generic plans are off by default (config.SchedConfig): a hit
 saves only the construction of an Executable, less than the signature
@@ -53,6 +66,7 @@ walk costs.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import Any, Optional
 
@@ -62,7 +76,7 @@ import torch
 from cloudberry_tpu_torch.plan import expr as ex
 from cloudberry_tpu_torch.plan import nodes as N
 from cloudberry_tpu_torch.sql.lexer import LexError, tokenize
-from cloudberry_tpu_torch.types import SqlType
+from cloudberry_tpu_torch.types import DType, SqlType
 
 
 class UnsupportedPlan(Exception):
@@ -427,6 +441,104 @@ def device_bindings(bindings: dict, device) -> dict:
             for k, v in bindings.items()}
 
 
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, (int(n) - 1).bit_length())
+
+
+def _text_converter(t: SqlType):
+    """Literal token text → physical value, matching the binder's typed
+    conversions (the fast-rebind contract is validated at build time:
+    converter(build text) must equal the plan's bound literal)."""
+    from cloudberry_tpu_torch.plan.planner import _exact_decimal
+    from cloudberry_tpu_torch.types import date_to_days
+
+    if t.base in (DType.INT32, DType.INT64):
+        return lambda s: int(s)
+    if t.base == DType.DECIMAL:
+        return lambda s, k=t.scale: _exact_decimal(s, k)
+    if t.base == DType.FLOAT64:
+        return lambda s: float(s)
+    if t.base == DType.DATE:
+        return lambda s: date_to_days(s)
+    return None
+
+
+@dataclass
+class FastRebind:
+    """Tokenize-only rebinding for the canonical point-lookup shape
+    (``WHERE k = ?`` on an indexed column): skip parse/bind/plan entirely
+    — convert the literal text, sidecar-search the rows, gather the scan
+    input, feed the value as the one parameter. The dispatcher's batch
+    path leans on this to keep per-request host work small."""
+
+    table: str
+    phys: str
+    sqltype: SqlType
+    expect_rows: int
+    input_key: str
+    param_key: Optional[str]
+    hashed_direct: bool          # multi-seg: route via the dist-key hash
+    dist_dtype: Optional[np.dtype]
+
+    def bind(self, session, text: str):
+        """(inputs, bindings) for one literal text, or None → caller
+        falls back to the full re-plan rebind."""
+        from cloudberry_tpu_torch.plan import pointlookup as PL
+
+        conv = _text_converter(self.sqltype)
+        try:
+            v = conv(text)
+        except (ValueError, TypeError, OverflowError):
+            return None
+        seg = None
+        if self.hashed_direct:
+            from cloudberry_tpu_torch.utils import hashing
+
+            nseg = session.config.n_segments
+            h = hashing.hash_columns_np(
+                [np.asarray([v], dtype=self.dist_dtype)])
+            seg = int(hashing.jump_consistent_hash_np(h, nseg)[0])
+        rows = PL._lookup(session, self.table, self.phys, seg, v)
+        if rows is None or len(rows) != self.expect_rows:
+            return None
+        from cloudberry_tpu_torch.exec import executor as X
+
+        inputs = {self.input_key: X.point_scan_slice(
+            self.table, rows, session, seg)}
+        bindings = {}
+        if self.param_key is not None:
+            bindings[self.param_key] = np.asarray(
+                v, dtype=self.sqltype.np_dtype)
+        return inputs, bindings
+
+
+def stack_params(lanes: list, keys, device) -> list:
+    """Every lane's ``$params`` for the stacked launch: the literal slots
+    of all lanes stacked per key and uploaded in ONE host→device copy
+    (one byte buffer, 8-byte aligned per key), each lane's slot a 0-d view
+    of its row — the dtype a Literal lowers to, as ``device_bindings``
+    gives it — and the scan row counts as Python ints."""
+    prm = [k for k in keys if k.startswith("$prm")]
+    if not prm:
+        return [{k: int(b[k]) for k in keys} for b in lanes]
+    arrays = [np.ascontiguousarray(np.stack([b[k] for b in lanes]))
+              for k in prm]
+    offsets, off = [], 0
+    for a in arrays:
+        offsets.append(off)
+        off += -(-a.nbytes // 8) * 8
+    buf = np.zeros(off, dtype=np.uint8)
+    for a, o in zip(arrays, offsets):
+        buf[o:o + a.nbytes] = a.view(np.uint8).reshape(-1)
+    dev = torch.from_numpy(buf).to(device)
+    stacked = {}
+    for k, a, o in zip(prm, arrays, offsets):
+        dt = torch.from_numpy(a[:0]).dtype
+        stacked[k] = dev[o:o + a.nbytes].view(dt)
+    return [{k: (stacked[k][i] if k.startswith("$prm") else int(b[k]))
+             for k in keys} for i, b in enumerate(lanes)]
+
+
 class GenericPlan:
     """One Executable shared by every statement matching a (skeleton,
     signature) pair on one device — rebinding feeds new literals and
@@ -437,6 +549,7 @@ class GenericPlan:
                  names, sig, bindings, keyed, slots):
         from cloudberry_tpu_torch.exec import executor as X
         from cloudberry_tpu_torch.exec.joinindex import jix_specs_of
+        from cloudberry_tpu_torch.exec.resource import estimate_plan_memory
         from cloudberry_tpu_torch.sched import sharedcache
 
         self.skeleton = skeleton
@@ -473,6 +586,8 @@ class GenericPlan:
         # its tables (exec/joinindex.py) — rebinds re-feed them per table
         # version
         self.jix_keys = [s.key for s in jix_specs_of(plan)]
+        # the stacked launch admits est_bytes x rung (shared mode)
+        self.est_bytes = estimate_plan_memory(plan).peak_bytes
         seg = getattr(plan, "_direct_segment", None)
         if session.config.n_segments > 1 and seg is None:
             from cloudberry_tpu_torch.exec import dist_executor as DX
@@ -484,6 +599,22 @@ class GenericPlan:
             self.kind = "direct" if seg is not None else "single"
             self.exe = X.compile_plan(plan, session)
             self.fn = None
+        # stacked-launch eligibility for the dispatcher (sched/dispatcher):
+        # "sliced"  — every scan is a keyed point slice: every lane binds
+        #             its own slices;
+        # "shared"  — no keyed scans, one program: the tables ride once,
+        #             only $params differ per lane.
+        if self.kind in ("single", "direct") and self.keyed_keys \
+                and not self.table_names:
+            self.stack_mode = "sliced"
+        elif self.kind == "single" and not self.keyed_keys \
+                and self.param_keys:
+            self.stack_mode = "shared"
+        else:
+            self.stack_mode = None
+        self.fast: Optional[FastRebind] = None
+        self._rungs: dict[int, Any] = {}
+        self._rung_lock = threading.Lock()
 
     def matches(self, session, sig, versions, ddlv) -> bool:
         from cloudberry_tpu_torch.sched import sharedcache
@@ -499,6 +630,16 @@ class GenericPlan:
         table columns (under the rebind's direct-dispatch segment), keyed
         scan slices REMAPPED to the built plan's input keys, and the
         literal bindings as the ``$params`` entry."""
+        tables = self.shared_inputs(session, planB)
+        tables.update(self.keyed_inputs(session, planB, keyedB))
+        if bindings:
+            tables["$params"] = device_bindings(bindings, session.device)
+        return tables
+
+    def shared_inputs(self, session, planB=None) -> dict:
+        """The RAM tables by name (the session's per-version device
+        copies) and the cached join indexes, under ``planB``'s
+        direct-dispatch segment."""
         from cloudberry_tpu_torch.exec import executor as X
 
         seg = getattr(planB, "_direct_segment", None)
@@ -508,14 +649,21 @@ class GenericPlan:
                 join_index_inputs
 
             tables.update(join_index_inputs(self.plan, session, seg))
+        return tables
+
+    def keyed_inputs(self, session, planB, keyedB) -> dict:
+        """The rebind's keyed scans (point slices, pruned store reads)
+        under the built plan's input keys."""
+        from cloudberry_tpu_torch.exec import executor as X
+
+        seg = getattr(planB, "_direct_segment", None)
+        tables = {}
         for key, s in zip(self.keyed_keys, keyedB):
             if hasattr(s, "_point_rows"):
                 tables[key] = X.point_scan_slice(
                     s.table_name, s._point_rows, session, seg)
             else:
                 tables[key] = X._load_store_scan(s, session)
-        if bindings:
-            tables["$params"] = device_bindings(bindings, session.device)
         return tables
 
     def run(self, session, planB, keyedB, bindings):
@@ -556,10 +704,37 @@ class GenericPlan:
             return DX.finish_run(self.plan, session, self.fn(inputs),
                                  grows=planB)[0]
 
+    # ----------------------------------------------------- stacked launch
+
     def rung_fn(self, session, rung: int):
-        raise NotImplementedError(
-            "GenericPlan.rung_fn: the dispatcher's stacked launch is not "
-            "yet ported")
+        """The stacked runner for a batch of up to ``rung`` lanes — kept
+        once per power-of-two rung (``batch_rung_compiles``), as the
+        reference compiles one vmapped program per rung. It takes the k
+        real lanes' inputs (the reference's padding lanes repeat the last
+        one) and runs each through the one Executable; it returns every
+        lane's (columns, selection) and the runtime checks ORed across
+        lanes."""
+        with self._rung_lock:
+            fn = self._rungs.get(rung)
+        if fn is not None:
+            return fn
+        session.stmt_log.bump("batch_rung_compiles")
+        exe = self.exe
+
+        def run(lanes: list):
+            outs, checks = [], {}
+            for inputs in lanes:
+                cols, sel, lane_checks = exe.fn(inputs)
+                outs.append((cols, sel))
+                for msg, v in lane_checks.items():
+                    flag = torch.as_tensor(v).reshape(-1).any()
+                    checks[msg] = flag if msg not in checks \
+                        else checks[msg] | flag
+            return outs, checks
+
+        with self._rung_lock:
+            fn = self._rungs.setdefault(rung, run)
+        return fn
 
 
 # ----------------------------------------------------- session-side cache
@@ -570,6 +745,58 @@ _GENERIC_CACHE_MAX = 32
 # capacity rungs, 0-vs-1 point matches) — the JAX package's
 # sched.max_variants at its default
 _MAX_VARIANTS = 4
+
+
+def _try_fast(session, gp: GenericPlan, plan, tok_params, bindings,
+              keyed, slots) -> Optional[FastRebind]:
+    """Attach the tokenize-only rebind template when the statement is the
+    canonical single-parameter point lookup."""
+    if len(tok_params) != 1 or len(slots) > 1 or len(keyed) != 1:
+        return None
+    if gp.kind == "dist" or gp.table_names:
+        return None
+    s = keyed[0]
+    if not hasattr(s, "_point_rows"):
+        return None
+    out_to_phys = {out: phys for phys, out in s.column_map.items()}
+    phys = out_to_phys.get(getattr(s, "_point_col", None))
+    if phys is None:
+        return None
+    t = session.catalog.table(s.table_name)
+    sqltype = t.schema.field(phys).type
+    conv = _text_converter(sqltype)
+    if conv is None:
+        return None
+    prm_keys = [k for k in gp.param_keys if k.startswith("$prm")]
+    if len(prm_keys) != len(gp.param_keys):
+        return None  # row-count params imply non-keyed scans — not fast
+    param_key = prm_keys[0] if prm_keys else None
+    try:
+        v = conv(tok_params[0])
+    except (ValueError, TypeError, OverflowError):
+        return None
+    # the converter must reproduce BOTH the bound literal (the $params
+    # value) and the sidecar probe value, or fast rebinding would diverge
+    # from the binder's typed folds — validate against the build's values
+    if param_key is not None:
+        bound = bindings[param_key]
+        if slots[0] != sqltype or not np.asarray(v, bound.dtype) == bound:
+            return None
+    hashed_direct = False
+    dist_dtype = None
+    if session.config.n_segments > 1:
+        if getattr(plan, "_direct_segment", None) is None:
+            return None
+        if t.policy.kind == "hashed":
+            if list(t.policy.keys) != [phys]:
+                return None
+            hashed_direct = True
+            dist_dtype = t.schema.field(phys).type.np_dtype
+        elif t.policy.kind != "replicated":
+            return None
+    return FastRebind(s.table_name, phys, sqltype, s.num_rows,
+                      gp.keyed_keys[0], param_key, hashed_direct,
+                      dist_dtype)
 
 
 def _eligible(session, query, plan) -> bool:
@@ -605,7 +832,7 @@ def lookup_or_build(session, query: str, plan) -> Optional[Prep]:
     norm = normalize(query)
     if norm is None or not norm[1]:
         return None
-    skeleton = norm[0]
+    skeleton, tok_params = norm
     names = sorted({s.table_name for s in X.scans_of(plan)})
     if session._any_external(names):
         return None
@@ -645,6 +872,8 @@ def lookup_or_build(session, query: str, plan) -> Optional[Prep]:
                          keyed2, slots2)
     OM.observe_stage(session.stmt_log, "compile",
                      _time.perf_counter() - t_build)
+    gp.fast = _try_fast(session, gp, plan, tok_params, bindings2, keyed2,
+                        slots2)
     session.stmt_log.bump("generic_builds")
     with lock:
         bucket = cache.setdefault(skeleton, [])
@@ -669,9 +898,110 @@ def forget(session, gp: GenericPlan) -> None:
                 del session._generic_cache[gp.skeleton]
 
 
-def __getattr__(name: str):
-    if name in ("prepare_one", "run_batch"):
-        raise NotImplementedError(
-            f"sched.paramplan.{name}: the dispatcher's stacked launch is "
-            "not yet ported")
-    raise AttributeError(name)
+# -------------------------------------------------------- batch execution
+
+
+def prepare_one(session, query: str) -> Optional[Prep]:
+    """Full host-side preparation of one statement for the dispatcher:
+    parse → bind/plan → generic lookup/build. None → not batchable."""
+    from cloudberry_tpu_torch.plan.planner import plan_statement
+    from cloudberry_tpu_torch.sql.parser import parse_sql
+
+    session._sync_store()
+    try:
+        stmt = parse_sql(query)
+        result = plan_statement(stmt, session, {})
+    except Exception:
+        return None
+    if result.is_ddl:
+        return None
+    return lookup_or_build(session, query, result.plan)
+
+
+def run_batch(session, sqls: list[str]):
+    """Execute same-skeleton statements as ONE stacked launch: per-request
+    host rebinding (tokenize-only when the fast template applies, else a
+    host re-plan), every lane's literals uploaded in one copy, the batch's
+    power-of-two rung admitted and its runner launched once, results split
+    per request.
+
+    Returns a list of ColumnBatch (one per statement) or None when the
+    group is not stackable — the dispatcher then falls back to sequential
+    dispatch. Builds a runner only once per (skeleton, signature, rung).
+    """
+    from cloudberry_tpu_torch.exec import executor as X
+    from cloudberry_tpu_torch.exec.resource import ResourceError
+    from cloudberry_tpu_torch.lifecycle import check_cancel
+    from cloudberry_tpu_torch.obs import trace as OT
+    from cloudberry_tpu_torch.utils.faultinject import fault_point
+
+    if len(sqls) < 2 or not session.config.sched.generic_plans:
+        return None
+    prep0 = prepare_one(session, sqls[0])
+    if prep0 is None or prep0.gp.stack_mode is None:
+        return None
+    gp = prep0.gp
+    shared = gp.stack_mode == "shared"
+    # shared mode: the tables and join indexes ride ONCE for every lane;
+    # sliced mode: each lane binds its own point slices
+    base = gp.shared_inputs(session) if shared else None
+    tabs = [{} if shared else gp.keyed_inputs(session, prep0.plan,
+                                              prep0.keyed)]
+    binds = [dict(prep0.bindings)]
+    for q in sqls[1:]:
+        bound = None
+        if gp.fast is not None:
+            norm = normalize(q)
+            if norm is None or norm[0] != gp.skeleton:
+                return None
+            fb = gp.fast.bind(session, norm[1][0])
+            if fb is not None:
+                bound = fb
+                session.stmt_log.bump("fast_rebinds")
+                # a fast rebind IS a generic-plan reuse (the tokenize-
+                # only subset): the hit counter must agree with the
+                # prepare_one path so per-statement attribution sums to
+                # the engine total
+                session.stmt_log.bump("generic_hits")
+        if bound is None:
+            p = prepare_one(session, q)
+            if p is None or p.gp is not gp:
+                return None  # shape drifted mid-batch — sequential path
+            bound = ({} if shared else gp.keyed_inputs(session, p.plan,
+                                                       p.keyed),
+                     dict(p.bindings))
+        tabs.append(bound[0])
+        binds.append(bound[1])
+    k = len(binds)
+    rung = _next_pow2(k)
+    lanes = []
+    for t, prm in zip(tabs, stack_params(binds, gp.param_keys,
+                                         session.device)):
+        inputs = dict(base) if shared else t
+        if prm:
+            inputs["$params"] = prm
+        lanes.append(inputs)
+    fn = gp.rung_fn(session, rung)
+    cost = gp.est_bytes * (rung if shared else 1)
+    try:
+        with session._gate, session._admitted(cost):
+            fault_point("sched_flush")
+            # cancel seam at the batched launch: a cancelled/expired
+            # member aborts the flush (StatementError is NOT part of the
+            # fallback catch below — the dispatcher re-routes survivors)
+            check_cancel()
+            session.stmt_log.bump("dispatches")
+            with OT.span("launch", mode="stacked", lanes=k), \
+                    OT.device_annotation("launch-stacked"):
+                outs, checks = fn(lanes)
+                X.raise_checks(checks)
+                batches = [X.make_batch(gp.plan, cols, sel)
+                           for cols, sel in outs]
+    except (ResourceError, X.ExecError):
+        # checks OR across lanes: ONE request's runtime check (subquery
+        # cardinality, expansion overflow, ...) must not error its
+        # batchmates — fall back to sequential dispatch, where each
+        # statement gets its own verdict and the grow-and-retry loop
+        return None
+    session.stmt_log.bump("batched_statements", k)
+    return batches

@@ -1,0 +1,546 @@
+"""Event-loop serving front end — thousands of connections, a few threads.
+
+The thread-per-connection transport spends an OS thread (stack, context
+switches, accept-time spawn) per client even though almost every
+connection is idle at any instant; at warehouse concurrency that is the
+first wall. This module replaces it as the DEFAULT transport (the old
+path stays behind ``config.serve.threaded``):
+
+- ``io_threads`` event loops (selectors over non-blocking sockets)
+  own every connection's framing: reads accumulate into a per-connection
+  buffer, complete newline-JSON lines queue as pending requests, writes
+  drain a per-connection output buffer under EVENT_WRITE interest;
+- parsed requests execute on a small bounded WORKER POOL through the
+  same request core the threaded path uses (Server._process_line) — one
+  request at a time per connection, so the wire protocol's strict
+  request→response order holds even for pipelining clients;
+- dispatcher-bound reads complete ASYNCHRONOUSLY
+  (Dispatcher.submit_nowait): the worker enqueues and returns, and the
+  response is rendered/written when the coalesced batch lands — a
+  thousand queued point lookups cost queue slots, not blocked threads;
+- flow control at every layer: the accept-path connection cap
+  (SERVER_BUSY, serve/server.py), per-connection pipelining caps (a
+  client that streams requests without reading responses leaves the
+  read set until its backlog drains), and the dispatcher/tenancy
+  backpressure taxonomy (SchedQueueFull / TenantQueueFull).
+
+Drain and lifecycle semantics are the Server's, unchanged: every
+accepted request holds the in-flight window until its response bytes are
+queued, so ``Server.stop(drain_s)`` keeps its never-silently-dropped
+contract, and a dropped connection still rolls its open wire transaction
+back (the backend-exit abort) once its in-flight request completes.
+"""
+
+from __future__ import annotations
+
+import itertools
+import json
+import queue
+import selectors
+import socket
+import threading
+from collections import deque
+from typing import Optional
+
+_RECV_CHUNK = 1 << 16
+
+
+class _WorkerPool:
+    """Minimal daemon-thread pool: a wedged statement can never block
+    interpreter exit (concurrent.futures workers are non-daemon), and
+    the watchdog converts genuine hangs to timeouts anyway."""
+
+    def __init__(self, n: int, name: str = "cbtpu_torch-serve"):
+        self._q: queue.SimpleQueue = queue.SimpleQueue()
+        self._threads = [
+            threading.Thread(target=self._run, daemon=True,
+                             name=f"{name}-w{i}")
+            for i in range(max(1, n))]
+        for t in self._threads:
+            t.start()
+
+    def submit(self, fn, *args) -> None:
+        self._q.put((fn, args))
+
+    def stop(self, timeout_s: float = 5.0) -> None:
+        for _ in self._threads:
+            self._q.put(None)
+        for t in self._threads:
+            t.join(timeout=timeout_s)
+
+    def _run(self) -> None:
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            fn, args = item
+            try:
+                fn(*args)
+            except Exception:
+                pass  # the request core already converts errors to wire
+
+
+class _Conn:
+    """One client connection's state. Framing buffers (rbuf) and
+    selector interest belong to the owning loop thread; ``wbuf``,
+    ``pending``, and ``busy`` are shared with worker threads under
+    ``lock``."""
+
+    __slots__ = ("sock", "addr", "loop", "rbuf", "wbuf", "lock",
+                 "pending", "busy", "authed", "session",
+                 "close_after_flush", "closed", "paused", "ended",
+                 "registered", "scanned")
+
+    def __init__(self, sock, addr, loop):
+        self.sock = sock
+        self.addr = addr
+        self.loop = loop
+        self.rbuf = bytearray()
+        self.wbuf = bytearray()
+        self.lock = threading.Lock()
+        self.pending: deque = deque()
+        self.busy = False
+        self.authed = False
+        self.session = None
+        self.close_after_flush = False
+        self.closed = False
+        self.paused = False
+        self.ended = False
+        self.registered = False
+        self.scanned = 0  # rbuf prefix already searched for newlines
+
+
+class _IOLoop:
+    """One selector thread. Cross-thread work (enabling write interest,
+    resuming reads, closing) arrives as tasks via ``call`` + a self-pipe
+    wake, so the selector is only ever touched by its own thread."""
+
+    def __init__(self, fe: "AsyncFrontEnd", name: str):
+        self.fe = fe
+        self.name = name
+        self.sel = selectors.DefaultSelector()
+        r, w = socket.socketpair()
+        r.setblocking(False)
+        w.setblocking(False)
+        self._wake_r, self._wake_w = r, w
+        self.sel.register(r, selectors.EVENT_READ, ("wake", None))
+        self._tasks: deque = deque()
+        self._tlock = threading.Lock()
+        self._stopping = False
+        self.conns: set = set()
+        self._thread: Optional[threading.Thread] = None
+
+    # ------------------------------------------------------ thread control
+
+    def start(self) -> None:
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name=self.name)
+        self._thread.start()
+
+    def stop(self) -> None:
+        with self._tlock:
+            self._stopping = True
+        self.wake()
+        if self._thread is not None:
+            self._thread.join(timeout=10)
+
+    def call(self, fn) -> None:
+        with self._tlock:
+            self._tasks.append(fn)
+        self.wake()
+
+    def wake(self) -> None:
+        try:
+            self._wake_w.send(b"\0")
+        except OSError:
+            pass
+
+    # -------------------------------------------------------------- loop
+
+    def _run(self) -> None:
+        while True:
+            try:
+                events = self.sel.select(timeout=0.5)
+            except OSError:
+                events = []
+            for key, mask in events:
+                kind, obj = key.data
+                if kind == "wake":
+                    try:
+                        while self._wake_r.recv(4096):
+                            pass
+                    except OSError:
+                        pass
+                elif kind == "accept":
+                    self.fe._accept()
+                elif kind == "conn":
+                    if mask & selectors.EVENT_READ:
+                        self._read(obj)
+                    if mask & selectors.EVENT_WRITE and not obj.closed:
+                        self._flush(obj)
+            while True:
+                with self._tlock:
+                    if not self._tasks:
+                        break
+                    fn = self._tasks.popleft()
+                try:
+                    fn()
+                except Exception:
+                    pass
+            with self._tlock:
+                if self._stopping:
+                    break
+        self._shutdown()
+
+    def _shutdown(self) -> None:
+        """Final flush: drain queued response bytes with a short blocking
+        budget per connection, then close — responses written before the
+        transport stopped are delivered, not dropped."""
+        for conn in list(self.conns):
+            try:
+                self.sel.unregister(conn.sock)
+            except (KeyError, ValueError, OSError):
+                pass
+            with conn.lock:
+                data = bytes(conn.wbuf)
+                conn.wbuf.clear()
+                conn.closed = True
+            if data:
+                try:
+                    conn.sock.settimeout(0.5)
+                    conn.sock.sendall(data)
+                except OSError:
+                    pass
+            try:
+                conn.sock.close()
+            except OSError:
+                pass
+            self.fe._conn_gone(conn)
+        self.conns.clear()
+        try:
+            self.sel.close()
+        except OSError:
+            pass
+
+    # ------------------------------------------------------- conn plumbing
+
+    def register_conn(self, conn: _Conn) -> None:
+        self.conns.add(conn)
+        self.sel.register(conn.sock, selectors.EVENT_READ, ("conn", conn))
+        conn.registered = True
+
+    def _update_interest(self, conn: _Conn) -> None:
+        """Re-derive this connection's selector interest from its state:
+        READ unless paused, WRITE while output is buffered; a fully idle
+        paused connection leaves the selector entirely (a writable
+        socket is ALWAYS ready — keeping it registered would spin)."""
+        if conn.closed:
+            return
+        mask = 0
+        if not conn.paused:
+            mask |= selectors.EVENT_READ
+        with conn.lock:
+            if conn.wbuf:
+                mask |= selectors.EVENT_WRITE
+        try:
+            if mask == 0:
+                if conn.registered:
+                    self.sel.unregister(conn.sock)
+                    conn.registered = False
+            elif conn.registered:
+                self.sel.modify(conn.sock, mask, ("conn", conn))
+            else:
+                self.sel.register(conn.sock, mask, ("conn", conn))
+                conn.registered = True
+        except (KeyError, ValueError, OSError):
+            pass
+
+    def _read(self, conn: _Conn) -> None:
+        try:
+            data = conn.sock.recv(_RECV_CHUNK)
+        except (BlockingIOError, InterruptedError):
+            return
+        except OSError:
+            self.close_conn(conn)
+            return
+        if not data:
+            self.close_conn(conn)
+            return
+        conn.rbuf += data
+        new = False
+        while True:
+            # resume the newline search where the last one stopped — a
+            # full rescan per recv would make large lines quadratic
+            i = conn.rbuf.find(b"\n", conn.scanned)
+            if i < 0:
+                conn.scanned = len(conn.rbuf)
+                if conn.scanned > self.fe.max_line_bytes:
+                    # framing-buffer bound: a newline-free byte stream
+                    # must not grow rbuf forever — one fatal error
+                    # line, then close
+                    conn.rbuf.clear()
+                    conn.scanned = 0
+                    self.fe._complete_oversized(conn)
+                break
+            line = bytes(conn.rbuf[:i]).strip()
+            del conn.rbuf[:i + 1]
+            conn.scanned = 0
+            if line:
+                with conn.lock:
+                    conn.pending.append(line)
+                new = True
+        with conn.lock:
+            backlog = len(conn.pending)
+        if backlog > self.fe.pipeline_depth and not conn.paused:
+            # pipelining cap: stop reading a client that streams requests
+            # without consuming responses; resumed when the backlog drains
+            conn.paused = True
+            self._update_interest(conn)
+        if new:
+            self.fe._pump(conn)
+
+    def enable_write(self, conn: _Conn) -> None:
+        if conn.closed:
+            return
+        self._flush(conn)
+
+    def maybe_resume(self, conn: _Conn) -> None:
+        if conn.closed or not conn.paused:
+            return
+        with conn.lock:
+            backlog = len(conn.pending)
+        if backlog * 2 <= self.fe.pipeline_depth:
+            conn.paused = False
+            self._update_interest(conn)
+
+    def _flush(self, conn: _Conn) -> None:
+        err = False
+        with conn.lock:
+            while conn.wbuf:
+                try:
+                    n = conn.sock.send(conn.wbuf)
+                except (BlockingIOError, InterruptedError):
+                    break
+                except OSError:
+                    err = True
+                    break
+                if n <= 0:
+                    break
+                del conn.wbuf[:n]
+            empty = not conn.wbuf
+        if err:
+            self.close_conn(conn)
+            return
+        if empty and conn.close_after_flush:
+            self.close_conn(conn)
+            return
+        self._update_interest(conn)
+
+    def close_conn(self, conn: _Conn) -> None:
+        if conn.closed:
+            return
+        conn.closed = True
+        try:
+            self.sel.unregister(conn.sock)
+        except (KeyError, ValueError, OSError):
+            pass
+        try:
+            conn.sock.close()
+        except OSError:
+            pass
+        self.conns.discard(conn)
+        self.fe._conn_gone(conn)
+
+
+class AsyncFrontEnd:
+    """The event-loop transport: accept + framing on ``io_threads``
+    selector loops, execution on a bounded worker pool, one in-order
+    request at a time per connection."""
+
+    def __init__(self, server, host: str, port: int):
+        self.server = server
+        cfg = server._config.serve
+        self.pipeline_depth = max(1, cfg.pipeline_depth)
+        self.max_line_bytes = max(1 << 16, cfg.max_line_bytes)
+        ls = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        ls.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        ls.bind((host, port))
+        ls.listen(max(16, cfg.listen_backlog))
+        ls.setblocking(False)
+        self._lsock = ls
+        self.host, self.port = ls.getsockname()[:2]
+        self._loops = [_IOLoop(self, f"cbtpu_torch-io{i}")
+                       for i in range(max(1, cfg.io_threads))]
+        self._next = itertools.count()
+        workers = cfg.workers or max(
+            4, server._config.resource.max_concurrency)
+        self._pool_size = workers
+        self._pool: Optional[_WorkerPool] = None
+        self._stopped = threading.Event()
+
+    # ------------------------------------------------------------- control
+
+    def start(self) -> None:
+        if self._pool is not None:
+            return  # idempotent: start() + serve_forever() compose
+        self._pool = _WorkerPool(self._pool_size)
+        for lp in self._loops:
+            lp.start()
+        lp0 = self._loops[0]
+        lp0.call(lambda: lp0.sel.register(
+            self._lsock, selectors.EVENT_READ, ("accept", None)))
+
+    def serve_forever(self) -> None:
+        self.start()
+        self._stopped.wait()
+
+    def stop(self) -> None:
+        try:
+            self._loops[0].call(
+                lambda: self._loops[0].sel.unregister(self._lsock))
+        except Exception:
+            pass
+        for lp in self._loops:
+            lp.stop()
+        try:
+            self._lsock.close()
+        except OSError:
+            pass
+        if self._pool is not None:
+            self._pool.stop()
+        self._stopped.set()
+
+    # -------------------------------------------------------------- accept
+
+    def _accept(self) -> None:
+        while True:
+            try:
+                sock, addr = self._lsock.accept()
+            except (BlockingIOError, InterruptedError):
+                return
+            except OSError:
+                return
+            if not self.server._try_admit_conn():
+                # the accept-path cap: one retryable SERVER_BUSY line
+                # (best-effort, NON-blocking — a stalled peer must not
+                # freeze this loop's established connections), then
+                # close — never an unbounded fd/thread pile-up
+                try:
+                    sock.setblocking(False)
+                    sock.send(self.server._busy_line())
+                except OSError:
+                    pass
+                try:
+                    sock.close()
+                except OSError:
+                    pass
+                continue
+            sock.setblocking(False)
+            try:
+                sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            except OSError:
+                pass
+            lp = self._loops[next(self._next) % len(self._loops)]
+            conn = _Conn(sock, addr[0], lp)
+            conn.authed = self.server.auth_token is None
+            # bind BOTH names: `lp` is reassigned on the next accept of
+            # this burst, and a late-binding closure would register the
+            # connection on a foreign loop's selector
+            lp.call(lambda c=conn, l=lp: l.register_conn(c))
+
+    # ----------------------------------------------------------- execution
+
+    def _pump(self, conn: _Conn) -> None:
+        """Start the next pending request unless one is in flight —
+        the per-connection ordering guarantee. Callable from loop and
+        worker threads. A connection marked fatal (close_after_flush)
+        stops here: pipelined lines behind a fatal response must not
+        execute (the threaded handler returns on fatal the same way)."""
+        with conn.lock:
+            if conn.busy or conn.closed or conn.close_after_flush \
+                    or not conn.pending:
+                return
+            line = conn.pending.popleft()
+            conn.busy = True
+        self._pool.submit(self._work, conn, line)
+
+    def _work(self, conn: _Conn, line: bytes) -> None:
+        srv = self.server
+        # in-flight window covers compute AND response enqueue: drain
+        # waits until every accepted request has its answer queued
+        srv._request_begin()
+        try:
+            if conn.session is None:
+                # lazy backend creation: accept stays cheap; the first
+                # request pays the (store-mode) catalog registration
+                conn.session = srv._connection_session()
+            resp, conn.authed = srv._process_line(
+                line, conn.session, conn.authed, conn.addr,
+                async_cb=lambda r: self._complete(conn, r))
+        except Exception as e:
+            resp = srv._error_resp(e)
+        if resp is None:
+            return  # async completion owns the response AND _request_end
+        self._complete(conn, resp)
+
+    def _complete_oversized(self, conn: _Conn) -> None:
+        """Refuse a request line past serve.max_line_bytes: write one
+        fatal error response and close after flush (loop thread)."""
+        data = json.dumps({
+            "ok": False, "etype": "ValueError", "retryable": False,
+            "fatal": True,
+            "error": "request line exceeds serve.max_line_bytes "
+                     f"({self.max_line_bytes} bytes)"}).encode() + b"\n"
+        with conn.lock:
+            conn.wbuf += data
+            conn.close_after_flush = True
+        conn.loop.enable_write(conn)
+
+    def _complete(self, conn: _Conn, resp: dict) -> None:
+        """Queue one response's bytes, release the in-flight window, and
+        pump the next pipelined request. Runs on worker threads and on
+        the dispatcher worker (async completions)."""
+        try:
+            data = json.dumps(resp).encode() + b"\n"
+        except (TypeError, ValueError) as e:
+            data = json.dumps(self.server._error_resp(e)).encode() + b"\n"
+        with conn.lock:
+            conn.wbuf += data
+            if resp.get("fatal"):
+                conn.close_after_flush = True
+        lp = conn.loop
+        lp.call(lambda c=conn: lp.enable_write(c))
+        self.server._request_end()
+        with conn.lock:
+            conn.busy = False
+            closed = conn.closed
+        if closed:
+            self._end_backend(conn)
+        else:
+            lp.call(lambda c=conn: lp.maybe_resume(c))
+            self._pump(conn)
+
+    # ------------------------------------------------------------ teardown
+
+    def _conn_gone(self, conn: _Conn) -> None:
+        """Socket closed (client drop, error, shutdown): release the
+        connection slot and, once no request is mid-flight, run the
+        backend exit (open wire transactions roll back)."""
+        self.server._conn_closed()
+        with conn.lock:
+            busy = conn.busy
+        if not busy:
+            self._end_backend(conn)
+        # else: _complete sees conn.closed and runs the backend exit
+
+    def _end_backend(self, conn: _Conn) -> None:
+        with conn.lock:
+            if conn.ended:
+                return
+            conn.ended = True
+            sess = conn.session
+        if sess is not None:
+            try:
+                self.server._end_connection(sess)
+            except Exception:
+                pass

@@ -119,7 +119,13 @@ The rest of the SQL surface: materialized views (plan/matview.py, their
 definitions reloaded from the store at start and at every sync),
 parallel retrieve cursors (``parallel_cursors``, ``retrieve``;
 exec/endpoint.py) and directory tables (``dir_upload`` / ``dir_read`` /
-``dir_remove``; storage/dirtable.py). Serving is not ported yet.
+``dir_remove``; storage/dirtable.py).
+
+Serving (serve/server.py): a ``Server`` over a store-backed session gives
+every connection its own Session over the store (the backend analog),
+sharing the server session's admission gate, resource queues, red line,
+statement log, breaker, topology manager, recovery store, retrieve
+endpoints and the dispatcher, tenancy and ingest services.
 """
 
 from __future__ import annotations
@@ -334,12 +340,19 @@ class Session:
 
         DT.remove(self, table, rel)
 
-    def sql(self, query: str, **params: Any):
+    def sql(self, query: str, _deadline: float | None = None,
+            **params: Any):
         """Run one statement: DDL/DML returns its status string, a SELECT
         its ColumnBatch. ``config.statement_timeout_s`` gives it a
         deadline, checked at execution seams (and by a ``Watchdog``). A
         read that fails with a recoverable error is probed, optionally
-        degraded and re-dispatched (module docstring)."""
+        degraded and re-dispatched (module docstring).
+
+        ``_deadline`` (monotonic absolute seconds, lifecycle.py): the
+        statement's cancellation deadline; ``statement_timeout_s``
+        tightens it. The dispatcher and the server pass their per-request
+        deadline here so it governs EXECUTION, not just queueing.
+        (Underscored so it never shadows a user bind parameter.)"""
         import time as _t
 
         from cloudberry_tpu_torch import lifecycle
@@ -353,10 +366,11 @@ class Session:
         h = self.config.health
         log = self.stmt_log
         log_id = log.begin(query, self._session_id)
-        deadline = None
+        deadline = _deadline
         timeout = self.config.statement_timeout_s
         if timeout:
-            deadline = _t.monotonic() + timeout
+            t_dl = _t.monotonic() + timeout
+            deadline = t_dl if deadline is None else min(deadline, t_dl)
         handle = lifecycle.StatementHandle(log_id, deadline=deadline)
         # statement trace (obs/trace.py): the span tree rides the handle,
         # so every thread serving this statement records against it

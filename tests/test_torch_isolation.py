@@ -62,6 +62,17 @@ def test_import_pulls_in_no_jax():
             "import cloudberry_tpu_torch.storage.dirtable\n"
             "import cloudberry_tpu_torch.exec.endpoint\n"
             "import cloudberry_tpu_torch.utils.zorder\n"
+            "import cloudberry_tpu_torch.sched\n"
+            "import cloudberry_tpu_torch.sched.dispatcher\n"
+            "import cloudberry_tpu_torch.sched.tenancy\n"
+            "import cloudberry_tpu_torch.storage.ingest\n"
+            "import cloudberry_tpu_torch.serve\n"
+            "import cloudberry_tpu_torch.serve.server\n"
+            "import cloudberry_tpu_torch.serve.asyncore\n"
+            "import cloudberry_tpu_torch.serve.client\n"
+            "import cloudberry_tpu_torch.serve.cron\n"
+            "import cloudberry_tpu_torch.serve.meta\n"
+            "import cloudberry_tpu_torch.mgmt.cli\n"
             "print('\\n'.join(sorted(sys.modules)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, check=True,
@@ -158,9 +169,10 @@ def test_unported_paths_raise(tmp_path):
 
 
 def test_paramplan_carries_normalize_only():
-    """``normalize`` equals the JAX package's; generic plans are ported
-    but for the dispatcher's stacked launch, whose names raise
-    NotImplementedError; any other unknown name is an AttributeError."""
+    """``normalize`` equals the JAX package's; generic plans and the
+    dispatcher's stacked launch (``prepare_one``, ``run_batch``,
+    ``GenericPlan.rung_fn``) are ported and no longer raise; an unknown
+    name is an AttributeError."""
     from cloudberry_tpu.sched import paramplan as JP
     from cloudberry_tpu_torch.sched import paramplan as TP
 
@@ -170,9 +182,8 @@ def test_paramplan_carries_normalize_only():
         assert TP.normalize(sql) == JP.normalize(sql)
     assert callable(TP.analyze) and callable(TP.lookup_or_build)
     for name in ("prepare_one", "run_batch"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            getattr(TP, name)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TP.GenericPlan.rung_fn(None, None, 2)
+        assert callable(getattr(TP, name))
+    assert callable(TP.GenericPlan.rung_fn)
+    assert TP._next_pow2(5) == JP._next_pow2(5) == 8
     with pytest.raises(AttributeError):
         TP.__wrapped__

@@ -88,3 +88,32 @@ def test_disabled_or_small_tables_keep_the_full_scan(sessions):
     small.sql("insert into s values (1, 2), (3, 4)")
     assert not hasattr(plan_scans(small, "select v from s where k = 3")[0],
                        "_point_rows")
+
+
+@pytest.mark.parametrize("existing", [(), ("b", "zz", "a")],
+                         ids=["fresh", "existing"])
+def test_bulk_dictionary_encode_equals_value_by_value(existing):
+    """An object column encodes to the same codes, and appends the same
+    values in the same order, as adding its values one at a time, also
+    where it holds None and where it comes as a generator."""
+    from cloudberry_tpu_torch.columnar import dictionary as D
+
+    rng = np.random.default_rng(7)
+    words = np.array([f"w{i}" for i in range(997)] + ["a", "b", "é", ""],
+                     dtype=object)
+    arr = words[rng.integers(0, len(words), 12_000)]
+    bulk, one = D.StringDictionary(existing), D.StringDictionary(existing)
+    got = bulk.encode(arr)
+    want = np.array([one.add(v) for v in arr], dtype=np.int32)
+    assert got.dtype == np.int32 and np.array_equal(got, want)
+    assert bulk.values == one.values
+    assert bulk._index == one._index
+    holed = arr.copy()
+    holed[5] = None
+    a, b = D.StringDictionary(existing), D.StringDictionary(existing)
+    assert np.array_equal(a.encode(holed),
+                          np.array([b.add(v) for v in holed], np.int32))
+    assert a.values == b.values and None in a.values
+    c = D.StringDictionary(existing)
+    assert np.array_equal(c.encode(v for v in holed), a.encode(holed))
+    assert c.values == a.values

@@ -501,3 +501,93 @@ def twin(scenario, tmp=None) -> list:
     for g, w in zip(got, want):
         _same_kept(g, w)
     return got
+
+
+# ------------------------------------------------ one scenario, two servers
+
+
+# wire fields that legitimately differ between two runs of one request
+# stream: statement ids, timings, random cursor tokens
+_VOLATILE = {"id", "statement_id", "token", "wall_s", "elapsed_s",
+             "started", "t0", "latency_ms"}
+
+
+def wire_safe(resp):
+    """A wire response with the volatile fields dropped (recursively) and
+    package names made equal — what two engines must agree on."""
+    if isinstance(resp, dict):
+        return {k: wire_safe(v) for k, v in resp.items()
+                if k not in _VOLATILE}
+    if isinstance(resp, list):
+        return [wire_safe(v) for v in resp]
+    if isinstance(resp, str):
+        return resp.replace("cloudberry_tpu_torch", "cloudberry_tpu")
+    return resp
+
+
+class WireEngine(Engine):
+    """One engine's side of a ``twin_servers`` scenario: an ``Engine``
+    whose servers (the package's ``Server``, on the CPU) and clients (the
+    package's ``Client``) stop and close when the scenario ends."""
+
+    def __init__(self, pkg: str, tmp=None):
+        super().__init__(pkg, tmp)
+        self._servers: list = []
+        self._clients: list = []
+
+    def server(self, session=None, config=None, start=True, **kw):
+        Server = self.mod("serve.server").Server
+        if session is None and self.is_port:
+            kw.setdefault("device", "cpu")
+        srv = Server(session=session, config=config, **kw)
+        self._servers.append(srv)
+        return srv.start() if start else srv
+
+    def client(self, srv, **kw):
+        c = self.mod("serve.client").Client(srv.host, srv.port, **kw)
+        self._clients.append(c)
+        return c
+
+    @property
+    def ServerError(self):
+        return self.mod("serve.client").ServerError
+
+    def wire(self, fn, *args, **kw):
+        """Run one client call; keeps and returns its response with the
+        volatile fields dropped, or the ServerError's (etype, retryable,
+        message)."""
+        try:
+            return self.keep(wire_safe(fn(*args, **kw)))
+        except self.ServerError as e:
+            return self.keep(("ServerError", e.etype, e.retryable,
+                              wire_safe(str(e))))
+
+    def close(self) -> None:
+        for c in self._clients:
+            try:
+                c.close()
+            except OSError:
+                pass
+        for srv in self._servers:
+            srv.stop()
+
+
+def twin_servers(scenario, tmp=None) -> list:
+    """Run ``scenario(engine)`` against a JAX package server on CPU JAX,
+    then against a port server on the CPU, each with its own clients and
+    store root (``engine.root()``), and hold every kept value equal;
+    every server stops and every client closes, however the scenario
+    ends. Returns the port's kept values."""
+    outs = []
+    for pkg in ("cloudberry_tpu", "cloudberry_tpu_torch"):
+        e = WireEngine(pkg, tmp)
+        try:
+            scenario(e)
+        finally:
+            e.close()
+        outs.append(e.out)
+    want, got = outs
+    assert len(got) == len(want), (len(got), len(want))
+    for g, w in zip(got, want):
+        _same_kept(g, w)
+    return got
