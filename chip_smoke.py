@@ -276,7 +276,29 @@ its Executable as before the caches existed; phase 11 measures the caches.
    lookup and at 1 and 8 for Q1; (h) ``python -m cloudberry_tpu_torch
    --store ROOT serve`` in a child process (started at the phase's
    start), queried once by ``sql --connect``, then drained by SIGINT;
-17. kernels: each kernel, on the inputs the TPC-H path gave it and on
+17. durability and management, over phase 9's store as phases 9 and 16
+   left it (``durability_phase``): (a) ``fsck --deep`` of the untouched
+   store is clean, and Q1, Q3 and Q5 from it equal the numpy oracle, every
+   kernel call held against its plain version; (b) one forced
+   compaction pass over lineitem (5,997,925 rows, every partition
+   carrying phase 9's delete vector) and the threshold pass over
+   ev_append's 25 group commits: rows, chunks, partitions before and
+   after and seconds, then Q1, Q3 and Q5 equal to (a) bit for bit and
+   ``fsck --deep`` clean again; (c) the crash-torture harness kills a
+   ``serve`` child on CUDA at ``compact_commit`` on a small store of its
+   own: no acknowledged write lost, fsck clean, the orphans collected,
+   the restart's time to first answer; (d) the port's cbfdist serves
+   customer's 150,000 lines to an external table at 8 segments, equal
+   to the same file through file://; (e) the MCP server answers
+   ``execute_query`` with Q1's text as ``Session.sql`` does and refuses
+   an UPDATE; (f) a Q3 flight bundle captured at 8 segments replays in a
+   fresh session to the same digest; (g) 8 wire clients send Q1, Q3, Q5
+   and point lookups to a 4-segment server over the SF1 tables in RAM
+   through ``online_resize(8)`` and a failover shrink to 7: none
+   dropped, every answer equal to the static 4-segment run, the cutover
+   ms and the rows moved against the bound. Every kernel must launch in
+   the phase's counted runs;
+18. kernels: each kernel, on the inputs the TPC-H path gave it and on
    synthetic inputs at the main path's shapes plus edge cases (empty
    selection, ragged N, int64 wraparound, duplicate build keys, one hot
    cell, cell domains for each of dense_agg's modes, a skewed group, odd
@@ -293,8 +315,8 @@ its Executable as before the caches existed; phase 11 measures the caches.
    with torch.profiler (after a warm-up trace, and again where a counted
    launch left no device activity in its trace): it must be one device
    kernel;
-18. report: the card line, one JSON line of kernels (launches summed over
-   the counted runs of phases 3 to 16), and last the JSON line
+19. report: the card line, one JSON line of kernels (launches summed over
+   the counted runs of phases 3 to 17), and last the JSON line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -4571,13 +4593,7 @@ def serving_phase(kit, raw, root) -> dict:
     out = {"timeouts_s": SERVE_TIMEOUT}
 
     # the data as phase 9 left it, and the oracle over it
-    li = raw["lineitem"]
-    keep = li["l_shipdate"] <= D(STORE_DELETED_AFTER)
-    after = dict(raw)
-    after["lineitem"] = {k: np.asarray(li[k])[keep] for k in (
-        "l_orderkey", "l_suppkey", "l_linenumber", "l_quantity",
-        "l_extendedprice", "l_discount", "l_tax", "l_returnflag",
-        "l_linestatus", "l_shipdate")}
+    after = store_after_dml(raw)
     base_cfg = ct.Config().with_overrides(**{
         "storage.root": root, "resource.query_mem_bytes": CARD_BUDGET,
         "resource.total_mem_bytes": 64 << 30,
@@ -5230,6 +5246,451 @@ def _serving_runs(kit, after, base_cfg, servers, port_h, up) -> dict:
     return out
 
 
+# ---------------------------------------- phase 17: durability and management
+
+DUR_NSEG = 8            # (d) the external table's and (f) the bundle's gang
+DUR_WIRE = (4, 8, 7)    # (g) the server's segments: start, expand, failover
+DUR_CLIENTS = 8         # (g) client threads
+DUR_ANSWERS = 16        # (g) answers each stage waits for
+DUR_POINT_KEYS = 8      # (g) lineitem orders the point lookups ask for
+DUR_TIMEOUT = 300       # every socket, join and wait of the phase
+DUR_SEAM = ("compact_commit", 1)   # (c) the crash-torture seam and hit
+# (a) the visimap delete pass: phase 9's SQL DELETE rewrote lineitem
+# (delete-and-rewrite over immutable columns, as the reference's DELETE
+# does), which leaves no delete vector; TableStore.delete_rows, the write
+# path of the reference's compaction tests, marks these rows in every
+# partition's delete vector instead
+DUR_DELETE_MOD = 37
+
+
+def store_after_dml(raw) -> dict:
+    """The TPC-H data as phase 9's DML left its store: the lineitem rows
+    shipped after STORE_DELETED_AFTER deleted (the Q1/Q3/Q5 oracle's
+    columns only)."""
+    from cloudberry_tpu_torch.types import date_to_days as D
+
+    li = raw["lineitem"]
+    keep = li["l_shipdate"] <= D(STORE_DELETED_AFTER)
+    after = dict(raw)
+    after["lineitem"] = {k: np.asarray(li[k])[keep] for k in (
+        "l_orderkey", "l_suppkey", "l_linenumber", "l_quantity",
+        "l_extendedprice", "l_discount", "l_tax", "l_returnflag",
+        "l_linestatus", "l_shipdate")}
+    return after
+
+
+def durability_phase(kit, raw, gpu, root) -> dict:
+    """Durability and management on the card (module docstring, phase
+    17), over phase 9's store at ``root`` as phases 9 and 16 left it;
+    ``gpu``: phase 3's session, whose SF1 tables (g) serves from RAM."""
+    import tempfile
+    import threading
+
+    import cloudberry_tpu_torch as ct
+    from cloudberry_tpu_torch import tpch
+    from cloudberry_tpu_torch.exec import cuda_kernels as CK
+    from cloudberry_tpu_torch.storage.compact import (CompactionService,
+                                                      delta_parts)
+    from cloudberry_tpu_torch.tools import crash_torture
+    from cloudberry_tpu_torch.storage.fsck import fsck
+    from cloudberry_tpu_torch.types import date_to_days as D
+
+    t_phase = time.perf_counter()
+    out = {"timeouts_s": DUR_TIMEOUT}
+    launches = {k: 0 for k in CK.LAUNCHES}
+
+    def counted(fn):
+        res, ms, counts = kit.counted(fn)
+        for k, v in counts.items():
+            launches[k] += v
+        return res, ms
+
+    after = store_after_dml(raw)
+    texts = {q: tpch.QUERIES[q] for q in ("q1", "q3", "q5")}
+    cfg = ct.Config().with_overrides(**{
+        "storage.root": root, "resource.query_mem_bytes": CARD_BUDGET,
+        "resource.total_mem_bytes": 64 << 30,
+        "bufferpool.max_bytes": 8 << 30})
+
+    def deep_fsck(what):
+        t0 = time.perf_counter()
+        rep = fsck(root, deep=True)
+        s = time.perf_counter() - t0
+        check(rep["clean"] and not rep["census_skipped"],
+              f"fsck --deep {what}: {rep['problems'][:3]}, census skipped "
+              f"{rep['census_skipped']}")
+        return {"s": s, "tables": len(rep["tables"]),
+                "partitions": sum(t["partitions"]
+                                  for t in rep["tables"].values()),
+                "checked": sum(t["checked"] for t in rep["tables"].values()),
+                "orphans": len(rep["orphans"])}
+
+    # (c) runs beside (a) and (b): its two `serve` children work on a
+    # store of their own while this process checks and compacts SF1
+    seam, hit = DUR_SEAM
+    torture = {}
+
+    def torture_run():
+        t0 = time.perf_counter()
+        try:
+            torture["rec"] = crash_torture.run_seam(seam, hit=hit,
+                                                    device=kit.device)
+        except BaseException as e:  # noqa: BLE001 — raised at (c)
+            torture["error"] = e
+        finally:
+            torture["s"] = time.perf_counter() - t0
+
+    torturer = threading.Thread(target=torture_run, name="smoke-torture")
+    torturer.start()
+
+    # --------------------------------------------- (a) the untouched store
+    out["fsck_before"] = deep_fsck("of the untouched store")
+    s = ct.Session(cfg)
+    t0 = time.perf_counter()
+    s.store.delete_rows("lineitem",
+                        lambda c: c["l_orderkey"] % DUR_DELETE_MOD == 0)
+    out["delete_pass_s"] = time.perf_counter() - t0
+    li = after["lineitem"]
+    keep = li["l_orderkey"] % DUR_DELETE_MOD != 0
+    after["lineitem"] = {k: v[keep] for k, v in li.items()}
+    results, out["a_ms"] = {}, {}
+    for q, sql in texts.items():
+        kit.held(f"{q} from the store before compaction",
+                 lambda sql=sql: s.sql(sql))
+        res, ms = counted(lambda sql=sql: s.sql(sql))
+        results[q] = physical(res)
+        same(results[q], oracle(after, q, D), f"(a) {q} from the untouched "
+             "store vs the numpy oracle")
+        out["a_ms"][q] = ms
+    log(f"[durable] (a) fsck --deep of phase 9's store: "
+        f"{out['fsck_before']['tables']} tables, "
+        f"{out['fsck_before']['checked']} partitions checksummed in "
+        f"{out['fsck_before']['s']:.2f} s, clean; the visimap delete of "
+        f"{int((~keep).sum())} lineitem rows (l_orderkey % "
+        f"{DUR_DELETE_MOD} = 0) {out['delete_pass_s']:.2f} s; Q1 / Q3 / Q5 "
+        f"from the store {out['a_ms']['q1']:.1f} / {out['a_ms']['q3']:.1f} "
+        f"/ {out['a_ms']['q5']:.1f} ms, equal to the oracle, every kernel "
+        "call held against its plain version")
+
+    # ----------------------------------------------------- (b) compaction
+    comp = CompactionService(s)
+    rpp = s.store.rows_per_partition
+
+    def census(name):
+        man = s.store.read_manifest(name)
+        return {"partitions": len(man["partitions"]),
+                "rows": sum(p["num_rows"] - len(p["deleted"])
+                            for p in man["partitions"]),
+                "dirty": sum(1 for p in man["partitions"] if p["deleted"]),
+                "delta_parts": delta_parts(man, rpp, comp.target_fill)}
+
+    passes = {}
+    ev_before = physical(s.sql("select count(*) as c, sum(k) as sk, "
+                               "sum(v) as sv from ev_append"))
+    for name, force in (("lineitem", True), ("ev_append", False)):
+        before = census(name)
+        check(before["delta_parts"] > (0 if force else comp.max_delta_parts),
+              f"(b) {name} has no debt to fold: {before}")
+        t0 = time.perf_counter()
+        res = comp.run_once(table=name, force=force)
+        sec = time.perf_counter() - t0
+        done = census(name)
+        # a chunk's output can be a small tail the next chunk merges
+        # again: the pass's rows count every row it wrote
+        check(res["tables"] == 1 and res["chunks"] >= 1
+              and done["delta_parts"] == 0 and done["dirty"] == 0
+              and done["rows"] == before["rows"] <= res["rows"],
+              f"(b) {name}: {before} → {done}, pass {res}")
+        passes[name] = {"before": before, "after": done, "pass": res,
+                        "s": sec, "rows_per_s": res["rows"] / sec}
+    check(passes["lineitem"]["pass"]["rows"]
+          == int(after["lineitem"]["l_orderkey"].shape[0]),
+          f"(b) lineitem rows rewritten: {passes['lineitem']['pass']}")
+    out["b"] = passes
+    out["b_ms"] = {}
+    for q, sql in texts.items():
+        res, ms = counted(lambda sql=sql: s.sql(sql))
+        same(physical(res), results[q], f"(b) {q} after compaction vs (a)")
+        out["b_ms"][q] = ms
+    same(physical(s.sql("select count(*) as c, sum(k) as sk, sum(v) as sv "
+                        "from ev_append")), ev_before,
+         "(b) ev_append after its pass")
+    out["fsck_after"] = deep_fsck("after compaction")
+    li, ev = passes["lineitem"], passes["ev_append"]
+    log(f"[durable] (b) compaction: lineitem {li['pass']['rows']} rows "
+        f"({li['before']['partitions']} partitions, {li['before']['dirty']} "
+        f"with delete vectors → {li['after']['partitions']} clean) in "
+        f"{li['pass']['chunks']} chunk(s), {li['s']:.2f} s "
+        f"({li['rows_per_s']:.0f} rows/s); ev_append's threshold pass "
+        f"{ev['before']['partitions']} → {ev['after']['partitions']} "
+        f"partitions ({ev['pass']['rows']} rows, {ev['s']:.3f} s); Q1 / Q3 "
+        f"/ Q5 then {out['b_ms']['q1']:.1f} / {out['b_ms']['q3']:.1f} / "
+        f"{out['b_ms']['q5']:.1f} ms, equal to (a) bit for bit; fsck "
+        f"--deep clean again ({out['fsck_after']['s']:.2f} s)")
+
+    # -------------------------------------------------- (c) crash torture
+    t0 = time.perf_counter()
+    torturer.join(timeout=DUR_TIMEOUT)
+    check(not torturer.is_alive(), "(c) the crash torture did not end in "
+          f"{DUR_TIMEOUT} s")
+    if "error" in torture:
+        raise torture["error"]
+    rec = torture["rec"]
+    check(rec["fired"] and rec["exit_code"] == 137 and not rec["problems"]
+          and rec["acked_lost"] == 0 and rec["fsck_clean"]
+          and rec["recovery_ms"] is not None,
+          f"(c) crash torture at {seam}@{hit}: {rec}")
+    out["c"] = {**rec, "s": torture["s"],
+                "wait_s": time.perf_counter() - t0}
+    log(f"[durable] (c) a `serve` child on {kit.device} killed at "
+        f"{seam}@{hit} (exit {rec['exit_code']}) after "
+        f"{rec['acked_inserts']} acknowledged inserts, none lost; restart "
+        f"to first answer {rec['recovery_ms']:.1f} ms; fsck clean, "
+        f"{rec['orphans']} orphan(s) collected by GC; {torture['s']:.1f} s "
+        f"beside (a) and (b), {out['c']['wait_s']:.1f} s waited for after "
+        "them")
+
+    # --------------------------------------------------------- (d) cbfdist
+    from cloudberry_tpu_torch.serve import fdist
+
+    tmp = tempfile.mkdtemp(prefix="cb_fdist_")
+    srv, port = None, None
+    try:
+        path = os.path.join(tmp, "customer.tbl")
+        lines = tbl_lines(raw["customer"], tpch.SCHEMAS["customer"])
+        with open(path, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        srv, port = fdist.serve(tmp)
+        g = ct.Session(ct.Config(n_segments=DUR_NSEG).with_overrides(**{
+            "resource.query_mem_bytes": CARD_BUDGET}))
+        tpch.load_tables(g, tpch.SCHEMAS, tpch.DIST_KEYS, raw, ["nation"])
+        cols = ddl_columns(tpch.SCHEMAS["customer"])
+        g.sql(f"create external table customer_d ({cols}) "
+              f"location('cbfdist://127.0.0.1:{port}/customer.tbl')")
+        g.sql(f"create external table customer_f ({cols}) "
+              f"location('file://{path}')")
+        got_d, ms_d = counted(lambda: g.sql(
+            SQ_BY_NATION.format(p="c", t="customer_d")))
+        got_f, ms_f = counted(lambda: g.sql(
+            SQ_BY_NATION.format(p="c", t="customer_f")))
+        same(physical(got_d), physical(got_f), "(d) customer by nation "
+             "through cbfdist:// vs file://")
+        full = "select c_custkey, c_name, c_acctbal, c_phone from {} " \
+               "order by c_custkey"
+        same(physical(g.sql(full.format("customer_d"))),
+             physical(g.sql(full.format("customer_f"))),
+             "(d) every customer row through cbfdist:// vs file://")
+        check(int(np.asarray(physical(got_d)["c"]).sum()) == len(lines),
+              "(d) the external customer's row count")
+        out["d"] = {"lines": len(lines), "cbfdist_ms": ms_d,
+                    "file_ms": ms_f, "segments": DUR_NSEG}
+        del g
+    finally:
+        if srv is not None:
+            srv.shutdown()
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[durable] (d) the port's cbfdist served customer's "
+        f"{out['d']['lines']} lines to an external table at {DUR_NSEG} "
+        f"segments: by nation {ms_d:.1f} ms through cbfdist://, "
+        f"{ms_f:.1f} ms through file://, every row equal")
+
+    # ------------------------------------------------------------- (e) MCP
+    from cloudberry_tpu_torch.serve.mcp import McpServer, SessionEngine
+
+    mcp = McpServer(SessionEngine(s))
+    req = {"jsonrpc": "2.0", "id": 1, "method": "tools/call",
+           "params": {"name": "execute_query",
+                      "arguments": {"sql": texts["q1"]}}}
+    resp, ms_e = counted(lambda: mcp.handle(req))
+    check(resp["result"]["isError"] is False,
+          f"(e) MCP execute_query: {str(resp)[:300]}")
+    body = json.loads(resp["result"]["content"][0]["text"])
+    res = s.sql(texts["q1"])
+    want = wire_expected(oracle(after, "q1", D), res.schema.fields)
+    check(body == want, f"(e) MCP Q1 vs Session.sql: {str(body)[:300]} vs "
+          f"{str(want)[:300]}")
+    refused = mcp.handle({"jsonrpc": "2.0", "id": 2, "method": "tools/call",
+                          "params": {"name": "execute_query", "arguments": {
+                              "sql": "update lineitem set l_tax = 0"}}})
+    check(refused.get("error", {}).get("code") == -32602
+          and "read-only" in refused["error"]["message"],
+          f"(e) MCP let an UPDATE through: {refused}")
+    out["e"] = {"ms": ms_e, "rows": body["rowcount"]}
+    log(f"[durable] (e) MCP execute_query with Q1's text answered in "
+        f"{ms_e:.1f} ms, equal to Session.sql's rows rendered for the "
+        "wire; an UPDATE refused as not read-only")
+
+    # ------------------------------------------------ (f) flight replay
+    from cloudberry_tpu_torch.tools import flight_replay
+
+    cfg8 = ct.Config(n_segments=DUR_NSEG).with_overrides(**{
+        "storage.root": root, "resource.query_mem_bytes": CARD_BUDGET,
+        "obs.slow_ms": 0.01})
+    f8 = ct.Session(cfg8)
+    res, ms_cap = counted(lambda: f8.sql(texts["q3"]))
+    same(physical(res), results["q3"], f"(f) Q3 at {DUR_NSEG} segments")
+    bundle = next((b for b in f8.stmt_log.flights(16)
+                   if b["sql"] == texts["q3"] and b.get("replayable")),
+                  None)
+    check(bundle is not None and bundle["n_segments"] == DUR_NSEG,
+          f"(f) no replayable Q3 bundle at {DUR_NSEG} segments: "
+          f"{None if bundle is None else bundle['n_segments']}")
+    bundle = json.loads(json.dumps(bundle))   # as exported over the wire
+    del f8
+    verdict, ms_rep = counted(lambda: flight_replay.replay(
+        bundle, device=kit.device))
+    check(verdict["ok"], f"(f) the replay's digest differs: {verdict}")
+    out["f"] = {"capture_ms": ms_cap, "replay_ms": ms_rep,
+                "n_segments": bundle["n_segments"],
+                "rows": verdict["got"]["rows"],
+                "sha256": verdict["got"]["sha256"]}
+    log(f"[durable] (f) Q3's flight bundle at {DUR_NSEG} segments "
+        f"({ms_cap:.1f} ms captured) replayed in a fresh session in "
+        f"{ms_rep:.1f} ms: sha256 {verdict['got']['sha256'][:16]}… equal")
+    del s
+
+    # --------------------------------- (g) online expand under wire load
+    out["g"] = _expand_under_load(kit, counted, raw, gpu)
+    out["launches"] = launches
+    check(all(launches.values()), f"a kernel never launched in phase 17: "
+          f"{launches}")
+    out["s"] = time.perf_counter() - t_phase
+    return out
+
+
+def _expand_under_load(kit, counted, raw, gpu) -> dict:
+    """Phase 17 (g): a 4-segment ``Server`` over phase 3's SF1 tables in
+    RAM, DUR_CLIENTS clients sending Q1, Q3, Q5 and point lookups, while
+    the server's session expands online to 8 segments and then shrinks to
+    7 by failover; every answer against the static 4-segment run's."""
+    import threading
+
+    import cloudberry_tpu_torch as ct
+    from cloudberry_tpu_torch import tpch
+    from cloudberry_tpu_torch.serve import Client, Server, ServerError
+    from cloudberry_tpu_torch.serve.server import _json_safe
+    from cloudberry_tpu_torch.utils import faultinject as FI
+
+    start, grown, failed = DUR_WIRE
+    names = ["region", "nation", "supplier", "customer", "orders",
+             "lineitem"]
+    s = ct.Session(ct.Config(n_segments=start).with_overrides(**{
+        "resource.query_mem_bytes": CARD_BUDGET,
+        "resource.total_mem_bytes": 64 << 30, "health.retries": 4,
+        "health.backoff_s": 0.01, "health.backoff_max_s": 0.05,
+        "topology.promote_after": 2}))
+    copy_tables(gpu, s, names)
+    rng = np.random.default_rng(SEED)
+    keys = rng.choice(np.unique(raw["lineitem"]["l_orderkey"]),
+                      DUR_POINT_KEYS, replace=False)
+    texts = [tpch.QUERIES[q] for q in ("q1", "q3", "q5")] + [
+        SERVE_POINT.format(int(k)) for k in keys]
+
+    def wire_rows(result):
+        arrays = list(result.decoded_columns().values())
+        n = len(arrays[0]) if arrays else 0
+        return [[_json_safe(a[i]) for a in arrays] for i in range(n)]
+
+    # the static run: each text once on the 4-segment session
+    static, _ = counted(lambda: {q: wire_rows(s.sql(q)) for q in texts})
+    answers: list = []
+    lock = threading.Lock()
+    errors: list = []
+    stop = threading.Event()
+
+    def client(srv, wid):
+        try:
+            with Client(srv.host, srv.port, timeout=DUR_TIMEOUT) as c:
+                i = wid
+                while not stop.is_set():
+                    q = texts[i % len(texts)]
+                    i += 1
+                    try:
+                        got = c.sql(q)
+                    except ServerError as e:
+                        if getattr(e, "retryable", False):
+                            continue
+                        raise
+                    with lock:
+                        answers.append((q, got.get("rows")))
+        except Exception as e:  # noqa: BLE001 — checked below
+            errors.append(f"{type(e).__name__}: {e}")
+
+    def answers_after(n, what):
+        deadline = time.perf_counter() + DUR_TIMEOUT
+        with lock:
+            target = len(answers) + n
+        while time.perf_counter() < deadline and not errors:
+            with lock:
+                if len(answers) >= target:
+                    return
+            time.sleep(0.01)
+        check(False, f"(g) no {n} answers {what}: {errors[:3]}")
+
+    def load():
+        rec = {}
+        with Server(session=s) as srv:
+            ths = [threading.Thread(target=client, args=(srv, i))
+                   for i in range(DUR_CLIENTS)]
+            for th in ths:
+                th.start()
+            try:
+                answers_after(DUR_ANSWERS, f"at {start} segments")
+                rec["expand"] = s._topology.online_resize(grown)
+                check(rec["expand"]["nseg"] == grown,
+                      f"(g) online_resize: {rec['expand']}")
+                answers_after(DUR_ANSWERS, f"at {grown} segments")
+                t0 = time.perf_counter()
+                FI.inject_fault("probe_degraded", "skip", end_hit=1 << 30)
+                FI.inject_fault("exec_device_lost", "error", start_hit=1,
+                                end_hit=2)
+                deadline = time.perf_counter() + DUR_TIMEOUT
+                while time.perf_counter() < deadline and \
+                        s._topology.snapshot()["reason"] != "failover":
+                    time.sleep(0.01)
+                FI.reset_fault()
+                rec["failover_s"] = time.perf_counter() - t0
+                rec["failover"] = s._topology.snapshot()
+                answers_after(DUR_ANSWERS, f"at {failed} segments")
+            finally:
+                stop.set()
+                for th in ths:
+                    th.join(timeout=DUR_TIMEOUT)
+                FI.reset_fault()
+        return rec
+
+    rec, ms = counted(load)
+    check(not errors, f"(g) dropped or failed requests: {errors[:3]}")
+    snap = rec["failover"]
+    check(snap["reason"] == "failover" and snap["nseg"] == failed,
+          f"(g) the failover shrink: {snap['reason']} at {snap['nseg']}")
+    bad = [q[:40] for q, rows in answers if rows != static[q]]
+    check(not bad, f"(g) {len(bad)} answers differ from the static "
+          f"{start}-segment run: {bad[:3]}")
+    reb = rec["expand"]["rebalance"]
+    flips = s.stmt_log.counter("epoch_flips")
+    out = {"answers": len(answers), "ms": ms,
+           "cutover_ms": rec["expand"]["cutover_ms"],
+           "moved_rows": reb["moved_rows"], "total_rows": reb["total_rows"],
+           "minimal_bound": reb["minimal_bound"],
+           "moved_fraction": reb["moved_rows"] / max(reb["total_rows"], 1),
+           "failover_s": rec["failover_s"], "epoch_flips": flips,
+           "promotions": s.stmt_log.counter("topo_promotions"),
+           "recoveries": s.stmt_log.counter("recoveries")}
+    check(flips >= 2 and out["promotions"] >= 1,
+          f"(g) flips {flips}, promotions {out['promotions']}")
+    log(f"[durable] (g) {DUR_CLIENTS} wire clients over a {start}-segment "
+        f"server in RAM: {len(answers)} answers, none dropped, each equal "
+        f"to the static run; online_resize({grown}) cut over in "
+        f"{out['cutover_ms']:.2f} ms moving {reb['moved_rows']} of "
+        f"{reb['total_rows']} rows ({out['moved_fraction']:.4f}, bound "
+        f"{reb['minimal_bound']:.4f}); the failover shrink to {failed} "
+        f"{out['failover_s']:.2f} s after the fault; {ms / 1e3:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=float, default=1.0)
@@ -5747,15 +6208,31 @@ def _main(args) -> int:
         serving = serving_phase(SimpleNamespace(
             torch=torch, counted=counted, held=held_run, device="cuda"),
             raw, store["root"])
+        serving["held"] = {k: held[k] - held_before[k] for k in held}
+        log(f"[serve] kernel calls of the served runs held against their "
+            f"plain versions: {serving['held']}; serving phase: "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        # ---------------------------- 17. durability and management
+        stamp("phase 17 (durability and management)")
+        t0 = time.perf_counter()
+        held_before = dict(held)
+        durable = durability_phase(SimpleNamespace(
+            torch=torch, counted=counted, held=held_run, device="cuda"),
+            raw, gpu, store["root"])
+        durable["held"] = {k: held[k] - held_before[k] for k in held}
+        check(all(durable["held"].values()),
+              f"a kernel was never held against its plain version in "
+              f"phase 17: {durable['held']}")
+        log(f"[durable] kernel calls held against their plain versions: "
+            f"{durable['held']}; launches of its counted runs "
+            f"{durable['launches']}; durability phase: "
+            f"{time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(store.pop("tmp"), ignore_errors=True)
-    serving["held"] = {k: held[k] - held_before[k] for k in held}
-    log(f"[serve] kernel calls of the served runs held against their "
-        f"plain versions: {serving['held']}; serving phase: "
-        f"{time.perf_counter() - t0:.1f} s")
 
-    # -------------------------------------------------------- 17. kernels
-    stamp("phase 17 (kernels)")
+    # -------------------------------------------------------- 18. kernels
+    stamp("phase 18 (kernels)")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     def rand_int(lo, hi, shape, dtype=torch.int64):
@@ -6197,8 +6674,8 @@ def _main(args) -> int:
             "window_query": tpcds.WINDOW_QUERY.format(
                 where="d_year >= 1998")})
 
-    # --------------------------------------------------------- 18. report
-    stamp("phase 18 (report)")
+    # --------------------------------------------------------- 19. report
+    stamp("phase 19 (report)")
     kernels = [{
         "name": name, "route": "cuda",
         "source": f"cloudberry_tpu_torch/csrc/{CK.SOURCES[name]}",
@@ -6218,7 +6695,7 @@ def _main(args) -> int:
                       "telemetry": telemetry, "stmt_cache": stmt_cache,
                       "distributed": dist, "tiled_distributed": tiled_dist,
                       "recovery": recovery, "sql_surface": sql_surface,
-                      "serving": serving,
+                      "serving": serving, "durability": durable,
                       "timer_floor_ms": timer_floor_ms, "sf": args.sf,
                       "tpcds_scale": args.ds_scale}))
     print(json.dumps({"ok": True, "device": {

@@ -11,8 +11,8 @@ per-query budget, the concurrency slots, the engine-wide red line and the
 resource queue), the statement timeout, the observability plane and the
 tiled (out-of-core) path's scan pipeline, dispatch window and checkpoint
 store, the statement scheduler (generic plans and the micro-batch
-dispatcher), the serving front end (``serve``, ``tenancy``, ``ingest``;
-``compact`` keeps its fields but is unported), failure recovery
+dispatcher), the serving front end (``serve``, ``tenancy``, ``ingest``,
+``compact``), failure recovery
 (``health``: the retry, its breaker and the degrade) and the topology
 plane (``topology``), and the plan verification gate
 (``debug.verify_plans``). There is no counterpart
@@ -449,23 +449,29 @@ class IngestConfig:
 
 @dataclass(frozen=True)
 class CompactConfig:
-    """Background compaction (the JAX package's storage/compact.py, the
-    VACUUM analog). Not ported yet (ROADMAP Queue A 9b): the fields keep
-    the reference's defaults, and a server asked to compact
-    (``enabled=True``) raises ``NotImplementedError``."""
+    """Background compaction service (storage/compact.py): the VACUUM
+    analog for store-backed tables — merges delta partitions (including
+    the rebalancer's destination-tagged ones), applies delete vectors,
+    re-sorts toward the table's partition column, and re-packs toward
+    rows_per_partition. OFF by default: a plain session/server pays
+    nothing; the ingest-heavy deployment opts in."""
 
     enabled: bool = False
+    # Seconds the worker sleeps between scans when nothing is due
+    # (commits wake it immediately via IngestService.on_commit).
     interval_s: float = 2.0
+    # Sleep between chunks — the background throttle (foreground reads
+    # outrank the rewrite).
     throttle_s: float = 0.0
+    # Source partitions merged per chunk (one OCC commit per chunk).
     chunk_partitions: int = 8
+    # The bounded-delta invariant: a table whose delta-partition count
+    # (dirty parts + mergeable small tails) exceeds this is compacted
+    # back toward 0 (hysteresis: once triggered, drive to clean).
     max_delta_parts: int = 8
+    # A clean partition counts as a mergeable small tail below
+    # target_fill * storage.rows_per_partition live rows.
     target_fill: float = 0.5
-
-    def __post_init__(self):
-        if self.enabled:
-            raise NotImplementedError(
-                "compact.enabled: background compaction is not ported yet "
-                "(ROADMAP Queue A 9b)")
 
 
 @dataclass(frozen=True)

@@ -6,24 +6,25 @@ Reference tools → subcommands (SURVEY §2.7):
 - gpstate      → ``state``     (topology, devices, health, tables)
 - FTS probe    → ``probe``     (one health probe round)
 - gpexpand /
-  gpshrink     → ``expand``    (resize topology offline; reports the
-                                moved-row fraction, which
+  gpshrink     → ``expand``    (resize topology, offline or ``--online``;
+                                reports the moved-row fraction, which
                                 jump_consistent_hash keeps ≈ delta/N — the
                                 gpexpand minimal-movement promise,
                                 cdbhash.c:55)
 - gpcheckcat   → ``check``     (storage/catalog consistency scan)
+- pg_checksums → ``fsck``      (store integrity + orphan GC)
 - psql -c      → ``sql``       (run a statement against the cluster
                                 store, in process or ``--connect`` to a
                                 running server)
 - postmaster   → ``serve``     (the socket server, serve/server.py)
+- gpfdist      → ``fdist``     (the scatter file server, serve/fdist.py)
+- mcp-server   → ``mcp``       (the AI-agent tool surface, serve/mcp.py)
 
 The "cluster" is a store directory plus ``cluster.json`` (the
 gp_segment_configuration analog). Segments are slots of one device, so
 start/stop are process-lifecycle no-ops; recovery is re-execution (see
 parallel/health.py). Every command that runs statements runs them on
-``--device`` (default ``cuda``; the CPU tests pass ``cpu``). ``fsck``,
-``fdist``, ``mcp`` and ``expand --online`` are not ported yet (ROADMAP
-Queue A 9b) and raise ``NotImplementedError``.
+``--device`` (default ``cuda``; the CPU tests pass ``cpu``).
 """
 
 from __future__ import annotations
@@ -183,11 +184,48 @@ def cmd_expand(args) -> int:
 
 
 def _expand_online(args, cfg: dict, old_n: int, new_n: int) -> int:
-    """The JAX package's online expand (the serving half of its topology
-    plane) is not ported yet: ROADMAP Queue A 9b."""
-    raise NotImplementedError(
-        "expand --online is not ported yet (ROADMAP Queue A 9b); run the "
-        "offline expand")
+    """The gpexpand-made-online path (parallel/topology.py): create a
+    successor epoch, move the jump-hash delta rows partition-by-
+    partition (OCC-committed chunks, journal-resumable, throttled), cut
+    over, and report the measured moved-row fraction against the
+    delta/N minimal-movement bound. A server process on the same store
+    adopts the new epoch at its next statement — no downtime. The
+    offline path (no --online) keeps working and lands on the identical
+    derived placement."""
+    import cloudberry_tpu_torch as cb
+
+    if new_n == old_n:
+        print(f"cluster already at {new_n} segments")
+        return 0
+    s = cb.Session(cluster_config(args.store), device=_DEVICE)
+    topo = s._topology
+    topo.begin(new_n)
+
+    def report(st):
+        frac = st.moved_rows / max(st.total_rows, 1)
+        print(f"  rebalance: {st.tables_done}/{st.tables_total} tables, "
+              f"{st.moved_rows} rows moved ({frac * 100:.1f}%)",
+              flush=True)
+
+    topo.rebalance(chunk_rows=args.chunk_rows or None,
+                   throttle_s=args.throttle_s, progress=report)
+    out = topo.cutover()
+    cfg["n_segments"] = new_n
+    with open(_cluster_path(args.store), "w") as f:
+        json.dump(cfg, f)
+    verb = "expanded" if new_n > old_n else "shrunk"
+    reb = out["rebalance"]
+    frac = reb["moved_rows"] / max(reb["total_rows"], 1)
+    bound = reb["minimal_bound"]
+    print(f"{verb} cluster {old_n} → {new_n} segments ONLINE "
+          f"(epoch {out['epoch']}, cutover {out['cutover_ms']:.1f} ms)")
+    if reb["total_rows"] and bound:
+        print(f"  moved {reb['moved_rows']} of {reb['total_rows']} rows "
+              f"({frac * 100:.1f}%) vs delta/N minimal-movement bound "
+              f"{bound * 100:.1f}% ({frac / bound:.2f}x)")
+    else:
+        print("  no hashed rows to move")
+    return 0
 
 
 def cmd_check(args) -> int:
@@ -226,9 +264,37 @@ def cmd_check(args) -> int:
 
 
 def cmd_fsck(args) -> int:
-    raise NotImplementedError(
-        "fsck is not ported yet (ROADMAP Queue A 9b); `check` scans the "
-        "store's partitions")
+    """Store integrity scan + orphan GC (pg_checksums / fsck analog):
+    manifest closure, store-JSON parse, optional deep checksum sweep,
+    and collection of crash residue (orphan partitions, stale tmp
+    files) past the grace window."""
+    from cloudberry_tpu_torch.storage.fsck import fsck
+    from cloudberry_tpu_torch.utils.tde import make_cipher
+
+    report = fsck(args.store, cipher=make_cipher(_enc_key()),
+                  deep=args.deep, grace_s=args.grace_s, gc=args.gc)
+    if args.json:
+        print(json.dumps(report, indent=2))
+    else:
+        for name, t in sorted(report["tables"].items()):
+            print(f"table {name}: v{t['version']}, {t['partitions']} "
+                  f"partitions, {t['rows']} live rows"
+                  + (f", {t['checked']} deep-checked" if args.deep else ""))
+        for p in report["problems"]:
+            print(f"PROBLEM {p}")
+        for o in report["orphans"]:
+            print(f"orphan {o['path']} (age {o['age_s']}s"
+                  f"{', collectable' if o['collectable'] else ''})")
+        for name in report["census_skipped"]:
+            print(f"census skipped for {name}: manifest chain unreadable "
+                  "or problems found — orphan GC disabled for this table")
+        for c in report["collected"]:
+            print(f"collected {c}")
+        print(f"fsck {'clean' if report['clean'] else 'NOT CLEAN'}: "
+              f"{len(report['problems'])} problem(s), "
+              f"{len(report['orphans'])} orphan(s), "
+              f"{len(report['collected'])} collected")
+    return 0 if report["clean"] else 1
 
 
 def cmd_serve(args) -> int:
@@ -308,14 +374,30 @@ def cmd_sql(args) -> int:
 
 
 def cmd_fdist(args) -> int:
-    raise NotImplementedError(
-        "fdist (the cbfdist file server) is not ported yet (ROADMAP Queue "
-        "A 9b)")
+    from cloudberry_tpu_torch.serve.fdist import main as fdist_main
+
+    fdist_main(args.root, args.port, args.host)
+    return 0
 
 
 def cmd_mcp(args) -> int:
-    raise NotImplementedError(
-        "mcp (the MCP stdio server) is not ported yet (ROADMAP Queue A 9b)")
+    """Run the MCP stdio server (the mcp-server analog): AI agents speak
+    JSON-RPC on stdin/stdout; the engine is this process's cluster store
+    (a session on ``--device``), or a running socket server via
+    --connect."""
+    from cloudberry_tpu_torch.serve.mcp import (McpServer, SessionEngine,
+                                                WireEngine)
+
+    if args.connect:
+        host, _, port = args.connect.rpartition(":")
+        engine = WireEngine(host or "127.0.0.1", int(port))
+    else:
+        import cloudberry_tpu_torch as cb
+
+        engine = SessionEngine(cb.Session(cluster_config(args.store),
+                                          device=_DEVICE))
+    McpServer(engine).serve_stdio()
+    return 0
 
 
 def main(argv=None) -> int:
@@ -347,8 +429,10 @@ def main(argv=None) -> int:
     pe = sub.add_parser("expand", help="resize segments (gpexpand/gpshrink)")
     pe.add_argument("--segments", type=int, required=True)
     pe.add_argument("--online", action="store_true",
-                    help="online resize (not ported yet: ROADMAP Queue "
-                         "A 9b)")
+                    help="epoch-versioned online resize: background "
+                         "minimal-delta rebalance + atomic cutover; a "
+                         "serving cluster adopts without downtime "
+                         "(resumable if interrupted)")
     pe.add_argument("--chunk-rows", type=int, default=0,
                     help="rows per rebalance chunk (0 = config default)")
     pe.add_argument("--throttle-s", type=float, default=None,

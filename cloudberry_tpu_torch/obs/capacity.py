@@ -216,7 +216,8 @@ def refresh_gauges(session) -> dict:
     bytes for the join index, the pool and the scan cache, host bytes for
     the checkpoint pins; the dispatcher's queue depth and the ingest
     buffers' host bytes. The port has no rung cache (sched/sharedcache.py;
-    a stacked runner is a closure) and no compactor yet. Per-connection
+    a stacked runner is a closure). The compactor's last pass gives the
+    worst per-table delta-partition count. Per-connection
     server backends anchor on the SERVING session (``_obs_root``), so the
     session-private holders (statement and store-scan caches) report
     stable values, not whichever backend answered the meta request."""
@@ -274,6 +275,11 @@ def refresh_gauges(session) -> dict:
         reb = snap.get("rebalance")
         vals["topo_rebalance_fraction"] = reb["fraction"] if reb else 1.0
         vals["topo_moved_bytes"] = float(log.counter("topo_moved_bytes"))
+    # the bounded-invariant needle (storage/compact.py): the worst
+    # per-table delta-partition count from the compactor's last pass
+    comp = getattr(session, "_compactor", None)
+    if comp is not None:
+        vals["compact_delta_parts_max"] = comp.delta_parts_gauge()
     for name, v in vals.items():
         log.registry.gauge(name, v)
     return vals

@@ -15,12 +15,13 @@ path captures a bounded debug bundle into the session's ring
   statements table without shipping user data;
 - per-statement counter deltas (kernel builds) and the shared-cache-tier
   occupancy at capture time;
-- the config epoch (sched/sharedcache.config_uid) + n_segments (1) +
-  storage root, and for successful reads a RESULT DIGEST (sha256 over
-  the decoded result columns of the host ColumnBatch) — the replay
-  contract: re-executing the bundle's sql against the same store must
-  reproduce the digest bit for bit. The JAX package's replay tool and
-  ``meta`` verbs are not ported.
+- the config epoch (sched/sharedcache.config_uid) + the session's
+  n_segments + storage root, and for successful reads a RESULT DIGEST
+  (sha256 over the decoded result columns of the host ColumnBatch) — the
+  replay contract: re-executing the bundle's sql against the same store
+  at the same segment count must reproduce the digest bit for bit
+  (``cloudberry_tpu_torch/tools/flight_replay.py``). ``meta "flight"``
+  exports the ring over the wire.
 
 Capture is exception-safe by contract: the recorder observes a
 statement that already finished — a capture failure is COUNTED
@@ -197,7 +198,7 @@ def build_bundle(session, query: str, status: str, wall_s: float,
         "wall_s": round(float(wall_s), 6),
         "captured_at": time.time(),
         "config_epoch": sharedcache.config_uid(cfg),
-        "n_segments": 1,
+        "n_segments": int(cfg.n_segments),
         "storage_root": cfg.storage.root,
         "cache_tier": sharedcache.tier_snapshot(session),
         "tiled_report": getattr(session, "last_tiled_report", None),

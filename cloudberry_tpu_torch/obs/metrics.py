@@ -21,7 +21,7 @@ registry drops new series and counts the drops on itself
 Snapshots read as a dict (``snapshot()``) and as a Prometheus-style
 text exposition (``exposition()``). The port's copy adds ``counter`` and
 ``snapshot`` to ``CounterView`` (its readers' names); the serving layer's
-``meta`` verbs are not ported.
+``meta "metrics"`` verb reads both.
 """
 
 from __future__ import annotations

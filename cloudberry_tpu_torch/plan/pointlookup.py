@@ -138,7 +138,12 @@ def _lookup(session, tname: str, phys: str, seg, value):
     if col.ndim != 1 or len(col) < MIN_ROWS:
         return None
     version = getattr(table, "_version", 0)
-    key = (tname, phys, seg, version)
+    # a shard's rows depend on the segment count: an online resize keeps
+    # the table's version, so the count keys the sidecar too (the
+    # reference's key lacks it, and its sidecar from the old layout then
+    # indexes the new shard: ROADMAP Queue C 49)
+    nseg = session.config.n_segments if seg is not None else None
+    key = (tname, phys, seg, version, nseg)
     cache = session.__dict__.setdefault("_point_index_cache", {})
     hit = cache.get(key)
     if hit is None:

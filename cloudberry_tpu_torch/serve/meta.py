@@ -4,8 +4,7 @@ The reference's MCP server answers metadata questions with catalog SQL
 (mcp-server/src/cbmcp/database.py: information_schema / pg_class joins);
 here the catalog IS in-process state, so metadata is read directly and
 shipped as JSON-safe dicts. Consumed by the wire protocol's {"meta": ...}
-request (serve/server.py); the JAX package's MCP analog, its other
-consumer, is not ported yet (ROADMAP Queue A 9b).
+request (serve/server.py) and by the MCP server (serve/mcp.py).
 """
 
 from __future__ import annotations
@@ -47,11 +46,7 @@ def describe(session, kind: str, arg=None):
     """One metadata answer. Kinds: tables | columns | stats | views |
     matviews | sequences | info | activity | sched | tenants |
     metrics | statements | trace | progress | flight | topology |
-    ingest | compaction | summary.
-
-    ``compaction`` answers ``{"enabled": False}``: the port has no
-    compactor yet (ROADMAP Queue A 9b), as the JAX package answers
-    without one."""
+    ingest | compaction | summary."""
     # metadata must see other sessions' committed DDL — a thin client may
     # only ever ask metadata questions, so sync here, not just in sql()
     session._sync_store()

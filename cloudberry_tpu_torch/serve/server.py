@@ -250,9 +250,19 @@ class Server:
             self.ingest = IngestService(self.session,
                                         exec_scope=self._locked)
             self.session._ingest = self.ingest
-        # background compaction is not ported (ROADMAP Queue A 9b):
-        # config.CompactConfig refuses enabled=True, and meta
-        # "compaction" answers {"enabled": False}
+        # background compaction (storage/compact.py): opt-in (a read-
+        # mostly server pays nothing) and store-backed only; committed
+        # ingest flushes poke it so write bursts fold promptly. Host work
+        # only: its thread never touches the device
+        self.compactor = None
+        if self._config.compact.enabled and self.session.store is not None:
+            from cloudberry_tpu_torch.storage.compact import \
+                CompactionService
+
+            self.compactor = CompactionService(self.session)
+            self.session._compactor = self.compactor
+            if self.ingest is not None:
+                self.ingest.on_commit = self.compactor.wake
 
     # -------------------------------------------------- lifecycle plumbing
 
@@ -441,6 +451,7 @@ class Server:
         # the write plane lives on the server session (group commit spans
         # backends); meta "ingest" answered by any backend must see it
         s._ingest = getattr(self.session, "_ingest", None)
+        s._compactor = getattr(self.session, "_compactor", None)
         # memory-gauge anchor (obs/capacity.refresh_gauges): session-
         # private holders (stmt/store-scan caches) report the SERVING
         # session's, not whichever backend answered meta "metrics" —
@@ -469,6 +480,8 @@ class Server:
             self.cron.start()
         if self.dispatcher is not None:
             self.dispatcher.start()
+        if self.compactor is not None and not self.read_only:
+            self.compactor.start()
         self.watchdog.start()
         return self
 
@@ -477,6 +490,11 @@ class Server:
             self.cron.start()  # foreground entry point runs jobs too
         if self.dispatcher is not None:
             self.dispatcher.start()
+        if self.compactor is not None and not self.read_only:
+            # parity with start(): the CLI serve path must run the
+            # background compactor too, or `--set compact.enabled=true`
+            # silently does nothing
+            self.compactor.start()
         self.watchdog.start()
         self._transport.serve_forever()
 
@@ -516,6 +534,8 @@ class Server:
             # still blocked commit now (their acks turn true), and the
             # append verb has been refusing since _draining flipped
             self.ingest.stop()
+        if self.compactor is not None:
+            self.compactor.stop()
         self.watchdog.stop()
         self._transport.stop()
 

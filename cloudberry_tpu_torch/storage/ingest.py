@@ -172,9 +172,8 @@ class IngestService:
         self._buffers: dict[tuple, _Buffer] = {}
         self._stop = False
         self._thread = None
-        # called (outside locks) with the table name after each committed
-        # flush — the reference's compaction wake-up; unset while
-        # compaction is unported (ROADMAP Queue A 9b)
+        # wired by the server: called (outside locks) with the table
+        # name after each committed flush — the compaction wake-up
         self.on_commit = None
 
     # ------------------------------------------------------------ lifecycle

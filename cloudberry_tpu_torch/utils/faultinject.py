@@ -62,10 +62,7 @@ class _Arm:
 
 # The seam contract of record: every fault_point() call site in the port,
 # by name. Chaos tests arm seams from this list; a CPU test holds it to
-# the port's call sites both ways and to the JAX package's inventory less
-# the seams of modules the port does not have yet (compaction's
-# compact_chunk, compact_commit and io_journal_write, cbfdist's
-# fdist_get; ROADMAP Queue A 9b).
+# the port's call sites both ways and to the JAX package's inventory.
 INVENTORY = frozenset({
     # planner/session dispatch
     "admission_check", "dispatch_start", "dist_execute_start",
@@ -75,7 +72,7 @@ INVENTORY = frozenset({
     # DML
     "dml_delete", "dml_insert_select", "dml_update",
     # serving / endpoints
-    "serve_handler", "endpoint_drain",
+    "serve_handler", "endpoint_drain", "fdist_get",
     # matviews
     "matview_maintain", "matview_refresh",
     # scheduler (sched/dispatcher.py, sched/paramplan.py run_batch)
@@ -95,15 +92,18 @@ INVENTORY = frozenset({
     "exec_device_lost", "probe_degraded",
     # online topology changes (parallel/topology.py)
     "topo_rebalance_chunk", "topo_cutover", "topo_promote",
-    # write path (storage/ingest.py): 'error' on ingest_flush fails the
-    # WHOLE batch before any statement commits
-    "ingest_flush",
+    # write path (storage/ingest.py, storage/compact.py): 'error' on
+    # ingest_flush fails the WHOLE batch before any statement commits;
+    # 'hang' on compact_chunk wedges the worker cooperatively
+    # (cancel-mid-chunk); 'error' on compact_commit dies inside the
+    # locked commit window AFTER the new files exist (journal resume)
+    "ingest_flush", "compact_chunk", "compact_commit",
     # faulty-IO seams (storage/iofault.py): each guards ONE durable write
     # primitive — arm an IO_ACTIONS action to corrupt that write, or
     # 'crash' to kill the process there
     "io_partition_write", "io_manifest_write",
     "storage_commit_after_current", "io_atomic_json",
-    "io_topology_write", "io_feedback_write",
+    "io_journal_write", "io_topology_write", "io_feedback_write",
 })
 
 

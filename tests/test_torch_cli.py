@@ -1,7 +1,8 @@
 """The port's management CLI (mgmt/cli.py, ``python -m
 cloudberry_tpu_torch``) against the JAX package's, driven in process
-through ``main(argv)`` with ``--device cpu``; the commands not ported yet
-(fsck, fdist, mcp, expand --online) raise. Mirrors tests/test_cli.py."""
+through ``main(argv)`` with ``--device cpu``; the commands that once
+raised in the port (fsck, fdist, mcp, expand --online) run and answer as
+the JAX package's do. Mirrors tests/test_cli.py."""
 
 import json
 import os
@@ -89,11 +90,80 @@ def test_check_detects_corruption(tmp_path, capsys):
                                   ["expand", "--segments", "3",
                                    "--online"]],
                          ids=["fsck", "fdist", "mcp", "expand-online"])
-def test_unported_commands_raise(tmp_path, argv):
-    store = str(tmp_path / "port")
-    TC.main(["--device", "cpu", "--store", store, "init"])
-    with pytest.raises(NotImplementedError, match="Queue A 9b"):
-        TC.main(["--device", "cpu", "--store", store, *argv])
+def test_unported_commands_raise(tmp_path, capsys, monkeypatch, argv):
+    """The four commands that raised ``NotImplementedError`` (ROADMAP
+    Queue A 9b) until they were ported now run in the port, with the JAX
+    package's output on the same request: fsck's report, the MCP stdio
+    server's answers, the online expand's printout (its cutover time
+    aside), and cbfdist's bytes from a ``python -m cloudberry_tpu_torch
+    fdist`` child."""
+    import io
+    import re
+    import urllib.request
+
+    _both(capsys, tmp_path, "init", "--segments", "2")
+    _both(capsys, tmp_path, "sql", "--save",
+          "create table m (k bigint, v bigint) distributed by (k)")
+    _both(capsys, tmp_path, "sql", "--save",
+          "insert into m values " + ",".join(
+              f"({i}, {i % 7})" for i in range(300)))
+    if argv[0] == "fdist":
+        (tmp_path / "f.csv").write_text("".join(
+            f"{i}|x\n" for i in range(10)))
+        with __import__("socket").socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "cloudberry_tpu_torch", "fdist",
+             "--root", str(tmp_path), "--port", str(port), "--host",
+             "127.0.0.1"], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True,
+            env={**os.environ, "PYTHONPATH": str(ROOT)})
+        try:
+            lines = queue.Queue()
+            threading.Thread(target=lambda: [lines.put(x)
+                                             for x in proc.stdout],
+                             daemon=True).start()
+            assert "cbfdist serving" in lines.get(timeout=120)
+            url = f"http://127.0.0.1:{port}/f.csv?segment=1&nseg=3"
+            with urllib.request.urlopen(url, timeout=30) as r:
+                assert r.read() == b"1|x\n4|x\n7|x\n"
+        finally:
+            proc.kill()
+            proc.wait(timeout=30)
+        return
+    if argv[0] == "mcp":
+        reqs = [{"jsonrpc": "2.0", "id": 1, "method": "initialize"},
+                {"jsonrpc": "2.0", "id": 2, "method": "tools/call",
+                 "params": {"name": "execute_query", "arguments": {
+                     "sql": "select v, count(*) as n from m group by v "
+                            "order by v"}}},
+                {"jsonrpc": "2.0", "id": 3, "method": "tools/call",
+                 "params": {"name": "execute_query",
+                            "arguments": {"sql": "delete from m"}}}]
+        text = "".join(json.dumps(r) + "\n" for r in reqs)
+        outs = []
+        for main, name, dev in ((JC.main, "jax", []),
+                                (TC.main, "port", ["--device", "cpu"])):
+            monkeypatch.setattr(sys, "stdin", io.StringIO(text))
+            assert main([*dev, "--store", str(tmp_path / name),
+                         *argv]) == 0
+            outs.append(capsys.readouterr().out)
+        assert outs[1] == outs[0]
+        resp = [json.loads(x) for x in outs[1].splitlines()]
+        assert json.loads(resp[1]["result"]["content"][0]["text"])[
+            "rowcount"] == 7
+        assert resp[2]["error"]["code"] == -32602
+        return
+    jr, jo, tr, to = _both(capsys, tmp_path, *argv)
+    assert (jr, tr) == (0, 0)
+    strip = re.compile(r"cutover [0-9.]+ ms")
+    assert strip.sub("", to) == strip.sub("", jo)
+    if argv[0] == "expand":
+        assert "2 → 3 segments ONLINE" in to and "minimal-movement" in to
+        assert TC.load_cluster(str(tmp_path / "port"))["n_segments"] == 3
+    else:
+        assert "fsck clean" in to
 
 
 def test_serve_subprocess_and_sql_connect(tmp_path, capsys):

@@ -4,8 +4,9 @@ against the JAX package, on the CPU — the cases of ``test_external.py``
 ``test_dirtable.py`` and the clustering cases of ``test_stats_hist.py``,
 each run in both engines (``torch_parity.twin``) with every result held
 equal: integers, DECIMAL and counts exactly, floats to rtol 1e-9, status
-texts, errors and pruning reports exactly. The cbfdist source is the JAX
-package's scatter file server, started by the test on localhost."""
+texts, errors and pruning reports exactly. The cbfdist source is the
+port's scatter file server (serve/fdist.py), started by the test on
+localhost; one case holds its bytes equal to the JAX package's server's."""
 
 import hashlib
 import sqlite3
@@ -25,7 +26,7 @@ def data_dir(tmp_path):
 
 @pytest.fixture
 def fdist(data_dir):
-    from cloudberry_tpu.serve.fdist import serve
+    from cloudberry_tpu_torch.serve.fdist import serve
 
     srv, port = serve(str(data_dir))
     yield port
@@ -111,8 +112,49 @@ def test_dml_into_external_rejected(data_dir, fdist):
     assert "external" in got[0][1] and "external" in got[1][1]
 
 
+def test_fdist_bytes_equal_jax(tmp_path):
+    """The port's cbfdist server and the JAX package's serve the same
+    bytes: every stripe (segment, nseg) for nseg <= 8, the whole file,
+    a file without its final newline, and a 404 for a missing file and
+    for a path that climbs out of the root."""
+    import urllib.error
+    import urllib.request
+
+    from cloudberry_tpu.serve.fdist import serve as jserve
+    from cloudberry_tpu_torch.serve.fdist import serve as tserve
+
+    (tmp_path / "t.csv").write_text(
+        "".join(f"{i}|{i * 10}|n{i % 3}\n" for i in range(101)))
+    (tmp_path / "nt.csv").write_bytes(b"1|10\n2|20\r\n3|30")
+    (tmp_path.parent / "secret.txt").write_text("outside the root\n")
+    servers = [jserve(str(tmp_path)), tserve(str(tmp_path))]
+
+    def get(port, path):
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/{path}", timeout=30) as r:
+                return r.status, r.read()
+        except urllib.error.HTTPError as e:
+            return e.code, None
+
+    try:
+        paths = ["t.csv", "nt.csv", "missing.csv", "../secret.txt",
+                 "%2e%2e/secret.txt"]
+        paths += [f"{f}?segment={i}&nseg={n}" for f in ("t.csv", "nt.csv")
+                  for n in range(1, 9) for i in range(n)]
+        for path in paths:
+            want, got = (get(port, path) for _, port in servers)
+            assert got == want, path
+        assert get(servers[1][1], "../secret.txt")[0] == 404
+        assert get(servers[1][1], "t.csv?segment=3&nseg=8")[1] == b"".join(
+            f"{i}|{i * 10}|n{i % 3}\n".encode() for i in range(3, 101, 8))
+    finally:
+        for srv, _ in servers:
+            srv.shutdown()
+
+
 def test_no_trailing_newline_never_merges_rows(tmp_path):
-    from cloudberry_tpu.serve.fdist import serve
+    from cloudberry_tpu_torch.serve.fdist import serve
 
     (tmp_path / "nt.csv").write_bytes(b"1|10\n2|20\n3|30")
     srv, port = serve(str(tmp_path))

@@ -114,19 +114,18 @@ def _call_sites() -> set:
 
 def test_fault_inventory_against_the_reference(capsys):
     """The port's INVENTORY names every fault_point call site in the
-    port and nothing else, and equals the JAX package's inventory less
-    the seams of modules not ported yet (compaction, cbfdist), which the
-    test prints."""
+    port and nothing else, and equals the JAX package's inventory (the
+    seams of compaction and cbfdist included), which the test prints."""
     from cloudberry_tpu.utils import faultinject as JF
     from cloudberry_tpu_torch.utils import faultinject as TF
 
     sites = _call_sites()
     assert sites == set(TF.INVENTORY), (sites ^ set(TF.INVENTORY))
-    unported = set(JF.INVENTORY) - set(TF.INVENTORY)
-    print(f"seams of unported modules: {sorted(unported)}")
-    assert unported == {"compact_chunk", "compact_commit",
-                        "io_journal_write", "fdist_get"}
-    assert set(TF.INVENTORY) <= set(JF.INVENTORY)
+    print(f"port seams: {sorted(TF.INVENTORY)}")
+    assert set(TF.INVENTORY) == set(JF.INVENTORY), (
+        set(TF.INVENTORY) ^ set(JF.INVENTORY))
+    assert {"compact_chunk", "compact_commit", "io_journal_write",
+            "fdist_get"} <= set(TF.INVENTORY)
     assert "compact_chunk" in capsys.readouterr().out
 
 

@@ -7,9 +7,11 @@ Each case drives both engines through the same resizes, probes and
 statements over the same seeded tables and holds the results, the epoch
 records, the rebalance totals (moved rows within 1.25x of the jump hash's
 minimal bound) and the counters equal. Store-backed cases give each engine
-a root of its own. The serving cases (a manager shared by server backends,
-``mgmt expand --online``, the ``meta topology`` verb) wait for the port's
-server (ROADMAP Queue A 9); the gauges that verb reads are compared here.
+a root of its own. The serving half: ``mgmt expand --online`` through the
+port's CLI lands where the offline expand and the JAX package's online
+expand land, and port wire clients keep sending through an online expand
+and a failover shrink with no request dropped, every answer equal to a
+static port session's.
 """
 
 import json
@@ -21,9 +23,9 @@ import numpy as np
 import pytest
 
 from cloudberry_tpu_torch.parallel.topology import TopologyError
-from torch_parity import (MONITORS, arm_both, assert_same, chaos_teardown,
-                          count_calls, dist_pair, reset_both,
-                          same_counters)
+from torch_parity import (MONITORS, arm_both, assert_same, carry_tables,
+                          chaos_teardown, count_calls, dist_pair,
+                          reset_both, same_counters)
 
 _Q = "select sum(v) as sv, count(*) as c from t"
 _BACKOFF = {"health.backoff_s": 0.01, "health.backoff_max_s": 0.05}
@@ -616,3 +618,234 @@ def test_adoption_verify_window_fires_without_debug_gate(monkeypatch):
     _resize(js, ts, 3)
     _both(js, ts, "select sum(v) as x from t where k < 100")
     assert calls["port"] == calls["jax"] and calls["port"]
+
+
+# ------------------------------------------------------------ mgmt CLI
+
+
+def _init_store(tmp_path, name, engine, nseg=4, n=3000):
+    """A cluster store (``mgmt init``) holding ``t`` in 500-row
+    partitions, written by ``engine``."""
+    import importlib
+
+    cli = importlib.import_module(
+        "cloudberry_tpu_torch.mgmt.cli" if engine == "port"
+        else "cloudberry_tpu.mgmt.cli")
+    root = os.path.join(str(tmp_path), name)
+    assert cli.main(["--store", root, "init", "--segments",
+                     str(nseg)]) == 0
+    _store_one(engine, root, nseg, n, 500)
+    return root
+
+
+def test_mgmt_expand_online_matches_offline_and_jax(tmp_path, capsys):
+    """``expand --online`` through the port's CLI reports the moved rows
+    against the delta/N bound exactly as the JAX package's CLI does, and
+    lands on the same placement and relation as the port's offline
+    expand and the JAX package's online expand."""
+    import re
+
+    import cloudberry_tpu as cb
+    import cloudberry_tpu_torch as ct
+    from cloudberry_tpu.mgmt import cli as JC
+    from cloudberry_tpu_torch.mgmt import cli as TC
+
+    roots = {k: _init_store(tmp_path, k, "jax" if k == "jax" else "port")
+             for k in ("jax", "on", "off")}
+    capsys.readouterr()
+    assert JC.main(["--store", roots["jax"], "expand", "--segments", "6",
+                    "--online"]) == 0
+    jout = capsys.readouterr().out
+    assert TC.main(["--device", "cpu", "--store", roots["on"], "expand",
+                    "--segments", "6", "--online"]) == 0
+    tout = capsys.readouterr().out
+    strip = re.compile(r"cutover [0-9.]+ ms")
+    assert strip.sub("", tout) == strip.sub("", jout)
+    assert "ONLINE" in tout and "minimal-movement bound" in tout
+    assert TC.main(["--device", "cpu", "--store", roots["off"], "expand",
+                    "--segments", "6"]) == 0
+    capsys.readouterr()
+    for r in roots.values():
+        assert json.load(open(os.path.join(r, "cluster.json")))[
+            "n_segments"] == 6
+    q = "select k, v from t order by k"
+    sess = {k: ct.Session(ct.Config(n_segments=6).with_overrides(
+        **{"storage.root": roots[k]}), device="cpu") for k in ("on", "off")}
+    js = cb.Session(cb.get_config().with_overrides(**{
+        "n_segments": 6, "storage.root": roots["jax"],
+        "sched.generic_plans": False}))
+    want = js.sql(q)
+    for k in ("on", "off"):
+        assert_same(sess[k].sql(q), want)
+
+    def placement(s):
+        t = s.catalog.table("t")
+        t.ensure_loaded()
+        return t.shard_assignment(6)[np.argsort(
+            np.asarray(t.data["k"]), kind="stable")]
+
+    assert np.array_equal(placement(sess["on"]), placement(sess["off"]))
+    assert np.array_equal(placement(sess["on"]), placement(js))
+    assert sess["on"]._topology.current.epoch_id \
+        == js._topology.current.epoch_id >= 2
+    assert sess["off"]._topology.current.epoch_id == 1
+
+
+# ------------------------------------------- cutover under wire load
+
+
+def _sql_for(i):
+    if i % 3 == 0:
+        return ("select sum(v) as sv, count(*) as c from t "
+                f"where k < {1000 + (i % 7) * 100}")
+    if i % 3 == 1:
+        return f"select k, v from pts where k = {(i * 37) % 2000}"
+    return ("select k % 5 as g, sum(v) as sv from t "
+            f"where v < {90 - (i % 4)} group by g order by g")
+
+
+def _port_session(nseg, **ov):
+    import cloudberry_tpu_torch as ct
+
+    s = ct.Session(ct.Config(n_segments=nseg).with_overrides(**ov),
+                   device="cpu")
+    _load(4000)(s)
+    s.sql("create table pts (k bigint, v bigint) distributed by (k)")
+    s.catalog.table("pts").set_data(
+        {"k": np.arange(2000, dtype=np.int64),
+         "v": (np.arange(2000, dtype=np.int64) * 11) % 1009}, {})
+    return s
+
+
+def test_cutover_under_wire_load_expand_and_failover_shrink():
+    """Port wire clients keep sending through ``online_resize(8)`` and a
+    failover shrink to 7 (a persistent slot loss the probes keep
+    reporting, two transient device losses) with no request dropped;
+    every recorded answer equals a static 4-segment port session's
+    (JAX ``tests/test_topology.py::
+    test_cutover_under_load_expand_and_failover_shrink``). Each step
+    waits for fresh answers under a deadline, never for a fixed time."""
+    from cloudberry_tpu_torch.serve import Client, Server, ServerError
+    from cloudberry_tpu_torch.serve.server import _json_safe
+    from cloudberry_tpu_torch.utils import faultinject as FI
+
+    # the reference's test settings (one statement at a time; the
+    # clients still send concurrently)
+    s = _port_session(4, **{"health.retries": 4, **_BACKOFF,
+                            "topology.promote_after": 2,
+                            "resource.max_concurrency": 1,
+                            "debug.verify_plans": True})
+    results: dict = {}
+    answered = [0]
+    lock = threading.Lock()
+    errors: list = []
+    stop = threading.Event()
+
+    def client(srv, wid):
+        try:
+            with Client(srv.host, srv.port, timeout=120) as c:
+                i = wid * 1009
+                while not stop.is_set():
+                    q = _sql_for(i)
+                    i += 1
+                    try:
+                        out = c.sql(q)
+                    except ServerError as e:
+                        if getattr(e, "retryable", False):
+                            continue
+                        raise
+                    with lock:
+                        results.setdefault(q, []).append(out.get("rows"))
+                        answered[0] += 1
+        except Exception as e:  # noqa: BLE001 — surfaced below
+            errors.append(f"{type(e).__name__}: {e}")
+
+    def answers_after(n, what):
+        deadline = time.monotonic() + 120
+        with lock:
+            target = answered[0] + n
+        while time.monotonic() < deadline and not errors:
+            with lock:
+                if answered[0] >= target:
+                    return
+            time.sleep(0.01)
+        raise AssertionError(f"no {n} answers {what}: {errors[:3]}")
+
+    with Server(session=s) as srv:
+        threads = [threading.Thread(target=client, args=(srv, i))
+                   for i in range(4)]
+        for t in threads:
+            t.start()
+        try:
+            answers_after(12, "before the expand")
+            assert s._topology.online_resize(8)["nseg"] == 8
+            answers_after(12, "after the expand")
+            FI.inject_fault("probe_degraded", "skip", end_hit=1 << 30)
+            FI.inject_fault("exec_device_lost", "error", start_hit=1,
+                            end_hit=2)
+            deadline = time.monotonic() + 60
+            while time.monotonic() < deadline and \
+                    s._topology.snapshot()["reason"] != "failover":
+                time.sleep(0.02)
+            FI.reset_fault()
+            snap = s._topology.snapshot()
+            assert snap["reason"] == "failover" and snap["nseg"] == 7
+            answers_after(12, "after the failover shrink")
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(timeout=120)
+    assert not errors, f"dropped/errored requests: {errors[:3]}"
+    assert s.stmt_log.counter("epoch_flips") >= 2
+    assert s.stmt_log.counter("topo_promotions") >= 1
+    static = _port_session(4)
+
+    def wire_rows(result):
+        arrays = list(result.decoded_columns().values())
+        n = len(arrays[0]) if arrays else 0
+        return [[_json_safe(a[i]) for a in arrays] for i in range(n)]
+
+    for q, answers in sorted(results.items()):
+        want = wire_rows(static.sql(q))
+        assert all(rows == want for rows in answers), \
+            f"divergent result for {q!r}"
+
+
+def test_point_lookup_after_a_resize_unlike_jax():
+    """A point lookup's sorted sidecar is derived from one segment's
+    shard, whose rows depend on the segment count; an online resize keeps
+    the table's version. The reference keys the sidecar by version alone,
+    so after 4 → 8 its direct-dispatched lookups index the new shard with
+    the old shard's rows and miss; the port keys it by the segment count
+    too and answers as a static 8-segment session does (ROADMAP Queue
+    C 49; shards above the sidecar's 32,768-row floor). The reference
+    runs at its defaults here, generic plans on: with them off its
+    lookups re-plan on the host and happen to miss the stale entry."""
+    import cloudberry_tpu as cb
+    import cloudberry_tpu_torch as ct
+
+    n = 300_000
+
+    def load(s):
+        s.sql("create table pts (k bigint, v bigint) distributed by (k)")
+        s.catalog.table("pts").set_data(
+            {"k": np.arange(n, dtype=np.int64),
+             "v": (np.arange(n, dtype=np.int64) * 11) % 1009}, {})
+
+    qs = [f"select k, v from pts where k = {k}"
+          for k in (5, 123, 39_999, 20_001, 777, 299_999)]
+    js = cb.Session(cb.get_config().with_overrides(n_segments=4))
+    load(js)
+    ts = ct.Session(ct.Config(n_segments=4), device="cpu")
+    carry_tables(js, ts)
+    before = [_both(js, ts, q) for q in qs]
+    _resize(js, ts, 8)
+    static = ct.Session(ct.Config(n_segments=8), device="cpu")
+    load(static)
+    missed = 0
+    for q, b in zip(qs, before):
+        got = ts.sql(q)
+        assert_same(got, b)
+        assert_same(got, static.sql(q))
+        missed += not np.asarray(js.sql(q).sel).any()
+    assert missed > 0, "the reference's stale sidecar no longer misses"
