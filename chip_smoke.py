@@ -298,7 +298,28 @@ its Executable as before the caches existed; phase 11 measures the caches.
    dropped, every answer equal to the static 4-segment run, the cutover
    ms and the rows moved against the bound. Every kernel must launch in
    the phase's counted runs;
-18. kernels: each kernel, on the inputs the TPC-H path gave it and on
+18. two-level and ring motion, at TPC-H SF1 over 8 segments (phase 12's
+   tables; phase 12's flat 8-segment results are the oracle, bit for
+   bit, floats included): (a) ``interconnect.backend="ring"`` on the 22
+   texts, and Q3 and Q9 with ``ring_chunks`` 4; (b) ``CBTPU_FORCE_HOSTS=4``
+   (4 simulated hosts of 2 segments) at the default ``hierarchical="auto"``
+   on the 22 texts with ``debug.verify_plans`` on: at least one
+   redistribute stamped and one merge motion host-combined; per text the
+   redistributes stamped and host-combined, the host rungs against the
+   observed host demand, the transport's permutations and the wall
+   against phase 12's flat wall; (c) ``CBTPU_FORCE_HOSTS=2`` with
+   ``hierarchical="on"`` on Q1, Q3, Q5, Q9 and Q18; (d) phase 12's skewed
+   redistribute under 4 hosts with ``hierarchical="on"`` records
+   ``host_skew_events`` and equals numpy; its largest uncombined two-level
+   redistribute, the host rung forced to 8 rows, overflows naming the
+   motion, grows to the observed demand's rung and re-runs equal to
+   numpy; (e)
+   tiled Q3 at phase 13's budget under 4 hosts (two-level transport)
+   equals the flat run and the numpy oracle; (f) the three two-level
+   mutation classes, each caught under its own rule on (b)'s plan. Each
+   text's first run holds every kernel call against its plain version,
+   and every kernel must launch in the phase's counted runs;
+19. kernels: each kernel, on the inputs the TPC-H path gave it and on
    synthetic inputs at the main path's shapes plus edge cases (empty
    selection, ragged N, int64 wraparound, duplicate build keys, one hot
    cell, cell domains for each of dense_agg's modes, a skewed group, odd
@@ -315,8 +336,8 @@ its Executable as before the caches existed; phase 11 measures the caches.
    with torch.profiler (after a warm-up trace, and again where a counted
    launch left no device activity in its trace): it must be one device
    kernel;
-19. report: the card line, one JSON line of kernels (launches summed over
-   the counted runs of phases 3 to 17), and last the JSON line
+20. report: the card line, one JSON line of kernels (launches summed over
+   the counted runs of phases 3 to 18), and last the JSON line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -2955,8 +2976,7 @@ def distributed_phase(kit, raw, gpu, cpu, gds, args) -> dict:
                          f"{q} at {DIST_NSEG} segments vs one segment")
         rec = {"rows": res.num_rows(), "launches": counts,
                "float_err_vs_1seg": err}
-        if q in TD_TPCH:
-            kit.keep["results8"][q] = with_nulls(res)
+        kit.keep["results8"][q] = with_nulls(res)
         if q in DIST_ORACLE:
             t_cpu = time.perf_counter()
             got = physical(res)
@@ -3020,27 +3040,9 @@ def distributed_phase(kit, raw, gpu, cpu, gds, args) -> dict:
     # ---------------------------------- motion behaviour, on phase 3's data
     t_part = time.perf_counter()
     F = carry.field
-    rng = np.random.default_rng(SEED)
     n = DIST_SKEW_ROWS
-    hot = np.where(np.arange(n) < (3 * n) // 4, 0, np.arange(n))
-    skew_cfg = seg8.with_overrides(**{
-        "planner.broadcast_threshold": 0,
-        "planner.runtime_filter_threshold": 0})
-    gsk = ct.Session(skew_cfg)
-    carry.load_encoded(gsk, "j1", [F("a", "int64", 0, False),
-                                   F("key", "int64", 0, False)],
-                       {"a": np.arange(n), "key": hot.astype(np.int64)},
-                       policy=DistributionPolicy.hashed("a"))
-    w = rng.integers(0, 1000, n).astype(np.int64)
-    carry.load_encoded(gsk, "j2", [F("b", "int64", 0, False),
-                                   F("key", "int64", 0, False),
-                                   F("w", "int64", 0, False)],
-                       {"b": np.arange(n), "key": np.arange(n), "w": w},
-                       policy=DistributionPolicy.hashed("b"))
-    sql = ("select sum(j2.w) as sw from (select key as kk from j1) x "
-           "join j2 on kk = j2.key")
+    gsk, sql, want = skew_join_session(seg8, n)
     res, ms, counts = kit.counted_run(gsk, sql)
-    want = int(w[0]) * ((3 * n) // 4) + int(w[(3 * n) // 4:].sum())
     check(physical(res)["sw"].tolist() == [want],
           f"skewed redistribute: {physical(res)} against numpy {want}")
     check(gsk.growth_events == 1,
@@ -5691,6 +5693,350 @@ def _expand_under_load(kit, counted, raw, gpu) -> dict:
     return out
 
 
+# ------------------------------------------ 18. two-level and ring motion
+
+
+HM_RING4 = ("q3", "q9")                 # (a)'s chunked ring texts
+HM_ON2 = ("q1", "q3", "q5", "q9", "q18")  # (c): 2 hosts of 4, "on"
+
+
+def identical(got: dict, want: dict, what: str) -> None:
+    """Bit-for-bit equality of two ``with_nulls`` results: the same
+    columns, NULL masks and values, floats by their bits."""
+    check(list(got) == list(want), f"{what}: columns {list(got)} vs "
+          f"{list(want)}")
+    for k, (w, wv) in want.items():
+        g, gv = got[k]
+        ok = g.shape == w.shape and np.array_equal(gv, wv)
+        if ok and (w.dtype == object or g.dtype == object):
+            ok = g.tolist() == w.tolist()
+        elif ok:
+            ok = g.dtype == w.dtype and np.array_equal(
+                np.ascontiguousarray(g).view(np.uint8),
+                np.ascontiguousarray(w).view(np.uint8))
+        check(ok, f"{what}: column {k} differs:\n got  {g[:10]}\n want "
+              f"{w[:10]}")
+
+
+class ForcedHosts:
+    """``CBTPU_FORCE_HOSTS`` set to ``n`` (a simulated host split) for a
+    block, restored after. Plans read it, so a session plans under it."""
+
+    def __init__(self, n: int):
+        self.n = n
+
+    def __enter__(self):
+        self.old = os.environ.get("CBTPU_FORCE_HOSTS")
+        os.environ["CBTPU_FORCE_HOSTS"] = str(self.n)
+        return self
+
+    def __exit__(self, *exc):
+        if self.old is None:
+            os.environ.pop("CBTPU_FORCE_HOSTS", None)
+        else:
+            os.environ["CBTPU_FORCE_HOSTS"] = self.old
+
+
+def skew_join_session(cfg, n):
+    """Phase 12's skewed redistribute: ``n`` probe rows, 75 % on one key
+    behind a projection (the join cannot size its bucket exactly). Returns
+    (session, sql, numpy's answer)."""
+    import cloudberry_tpu_torch as ct
+    from cloudberry_tpu_torch.catalog import carry
+    from cloudberry_tpu_torch.catalog.catalog import DistributionPolicy
+
+    F = carry.field
+    rng = np.random.default_rng(SEED)
+    hot = np.where(np.arange(n) < (3 * n) // 4, 0, np.arange(n))
+    s = ct.Session(cfg.with_overrides(**{
+        "planner.broadcast_threshold": 0,
+        "planner.runtime_filter_threshold": 0}))
+    carry.load_encoded(s, "j1", [F("a", "int64", 0, False),
+                                 F("key", "int64", 0, False)],
+                       {"a": np.arange(n), "key": hot.astype(np.int64)},
+                       policy=DistributionPolicy.hashed("a"))
+    w = rng.integers(0, 1000, n).astype(np.int64)
+    carry.load_encoded(s, "j2", [F("b", "int64", 0, False),
+                                 F("key", "int64", 0, False),
+                                 F("w", "int64", 0, False)],
+                       {"b": np.arange(n), "key": np.arange(n), "w": w},
+                       policy=DistributionPolicy.hashed("b"))
+    sql = ("select sum(j2.w) as sw from (select key as kk from j1) x "
+           "join j2 on kk = j2.key")
+    return s, sql, int(w[0]) * ((3 * n) // 4) + int(w[(3 * n) // 4:].sum())
+
+
+def hier_motion_phase(kit, raw, gpu, flat8, flat_ms, args) -> dict:
+    """The ring and two-level motion at 8 segments (module docstring,
+    phase 18): every result against phase 12's flat 8-segment run, bit
+    for bit."""
+    import cloudberry_tpu_torch as ct
+    from cloudberry_tpu_torch import tpch
+    from cloudberry_tpu_torch.exec import dist_executor as DX
+    from cloudberry_tpu_torch.exec import executor as X
+    from cloudberry_tpu_torch.parallel import transport as TT
+    from cloudberry_tpu_torch.plan import mutate as M
+    from cloudberry_tpu_torch.plan import nodes as N
+    from cloudberry_tpu_torch.plan.planner import plan_statement
+    from cloudberry_tpu_torch.plan.verify import verify_plan
+    from cloudberry_tpu_torch.sql.parser import parse_sql
+    from cloudberry_tpu_torch.types import date_to_days as D
+
+    torch = kit.torch
+    out = {}
+    t_phase = time.perf_counter()
+    all8 = list(tpch.SCHEMAS)
+    seg8 = gpu.config.with_overrides(n_segments=DIST_NSEG)
+    # the host tables every session of the phase copies (phase 3 loaded
+    # six of the eight; this session never runs a statement)
+    base = ct.Session(seg8)
+    have = [n for n in all8 if n in gpu.catalog.tables]
+    copy_tables(gpu, base, have)
+    tpch.load_tables(base, tpch.SCHEMAS, tpch.DIST_KEYS, raw,
+                     [n for n in all8 if n not in have])
+    texts = sorted(tpch.QUERIES, key=lambda q: int(q[1:]))
+    made, plans = [], []
+    real_make, real_record = TT.make_transport, DX.record_motion_stats
+
+    def spy_make(*a, **kw):
+        tx = real_make(*a, **kw)
+        made.append(tx)
+        return tx
+
+    def spy_record(plan, stats, session=None):
+        plans.append(plan)
+        return real_record(plan, stats, session=session)
+
+    def motions(plan):
+        return X._dedupe_nodes(m for m in X.all_nodes(plan)
+                               if isinstance(m, N.PMotion)
+                               and m.kind == "redistribute")
+
+    mem = {}
+
+    def session(part, **over):
+        """A fresh session for ``part`` over the eight tables, after the
+        last part's sessions are collected (each holds its own device
+        shards); the device bytes in use at its start are recorded."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        mem[part] = int(torch.cuda.memory_allocated())
+        s = ct.Session(seg8.with_overrides(**over))
+        copy_tables(base, s, all8)
+        return s
+
+    def run_texts(s, qs, label):
+        """Each text: a run with every kernel call held against its plain
+        version, then a counted run; both equal to phase 12's flat run bit
+        for bit. Per text: the wall against the flat wall, the launches,
+        the transport's permutations and the motions' stamps."""
+        recs = {}
+        for q in qs:
+            sql = tpch.QUERIES[q]
+            forget_feedback(s)
+            held = kit.held(f"{label} {q}", lambda: s.sql(sql))
+            identical(with_nulls(held), flat8[q],
+                      f"{label} {q} (held run) vs the flat run")
+            del made[:], plans[:]
+            base_bytes = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            res, ms, counts = kit.counted_run(s, sql)
+            peak = torch.cuda.max_memory_allocated() - base_bytes
+            identical(with_nulls(res), flat8[q],
+                      f"{label} {q} vs the flat 8-segment run")
+            tx = made[-1]
+            red = motions(plans[-1]) if plans else []
+            recs[q] = {
+                "ms": round(ms, 3), "flat_ms": flat_ms.get(q),
+                "peak_bytes": int(peak),
+                "launches": counts, "transport": tx.name,
+                "permutations": getattr(tx, "launches", None),
+                "redistributes": len(red),
+                "stamped": sum(m.hier_hosts > 0 for m in red),
+                "host_combined": sum(bool(m.host_combine) for m in red),
+                "host_rungs": [(int(m.host_bucket_cap),
+                                getattr(m, "_observed_host_bucket", None))
+                               for m in red if m.hier_hosts > 0]}
+        return recs
+
+    TT.make_transport, DX.record_motion_stats = spy_make, spy_record
+    try:
+        # (a) the ring, whole-block over the 22 texts, chunked on two
+        t0 = time.perf_counter()
+        s = session("ring", **{"interconnect.backend": "ring"})
+        out["ring"] = run_texts(s, texts, "ring")
+        check(all(r["transport"] == "ring" for r in out["ring"].values()),
+              "(a) a text did not run on the ring transport")
+        del s
+        s = session("ring4", **{"interconnect.backend": "ring",
+                                "interconnect.ring_chunks": 4})
+        out["ring4"] = run_texts(s, HM_RING4, "ring, 4 chunks")
+        del s
+        out["ring_s"] = time.perf_counter() - t0
+        log(f"[hier] (a) ring: the {len(texts)} texts and "
+            f"{'/'.join(HM_RING4)} with 4 chunks equal the flat run bit "
+            f"for bit; " + ", ".join(
+                f"{q} {r['ms']:.1f} ms (flat {r['flat_ms']})"
+                for q, r in out["ring"].items())
+            + f"; {out['ring_s']:.1f} s")
+
+        # (b) two levels at the default "auto" gate, 4 hosts of 2, the
+        # verify gate on (f)
+        t0 = time.perf_counter()
+        with ForcedHosts(4):
+            s = session("auto4", **{"debug.verify_plans": True})
+            out["auto4"] = run_texts(s, texts, "4 hosts, auto")
+            for q, r in out["auto4"].items():
+                log(f"[hier] (b) {q}: {r['stamped']} of "
+                    f"{r['redistributes']} redistributes stamped, "
+                    f"{r['host_combined']} host-combined, host rungs "
+                    f"(cap, observed) {r['host_rungs']}, {r['permutations']}"
+                    f" permutations, {r['ms']:.1f} ms against flat "
+                    f"{r['flat_ms']} ms, peak {r['peak_bytes']} B, launches "
+                    f"{r['launches']}")
+            check(all(r["transport"] == "hier"
+                      for r in out["auto4"].values()),
+                  "(b) a text did not run on the two-level transport")
+            stamped = sum(r["stamped"] for r in out["auto4"].values())
+            combined = sum(r["host_combined"]
+                           for r in out["auto4"].values())
+            check(stamped >= 1, "(b) no SF1 redistribute cleared the "
+                  "auto gate")
+            check(combined >= 1, "(b) no merge motion was host-combined")
+            # (f) the three two-level mutation classes on this card's plan
+            out["mutations"] = {}
+            for name in ("hier-wrong-host-grouping",
+                         "hier-inter-buffer-undersize",
+                         "hier-combine-forged"):
+                sql, fn, expected = M.MUTATIONS[name]
+                plan = plan_statement(parse_sql(sql), s, {}).plan
+                check(verify_plan(plan, s) == [],
+                      f"(f) {name}: the plan is dirty before mutation")
+                hit = fn(plan, s)
+                check(hit is not None, f"(f) {name}: no target")
+                rules = sorted({f.rule for f in verify_plan(hit[0], s)})
+                check(bool(set(rules) & expected),
+                      f"(f) {name}: rules {rules}, want {set(expected)}")
+                out["mutations"][name] = rules
+            del s
+        out["auto4_s"] = time.perf_counter() - t0
+        log(f"[hier] (b) 4 hosts, auto: the {len(texts)} texts equal the "
+            f"flat run bit for bit under the verify gate (no finding); "
+            f"{stamped} redistributes stamped, {combined} host-combined; "
+            f"(f) mutations caught: {out['mutations']}; "
+            f"{out['auto4_s']:.1f} s")
+
+        # (c) two levels forced on, 2 hosts of 4
+        t0 = time.perf_counter()
+        with ForcedHosts(2):
+            s = session("on2", **{"interconnect.hierarchical": "on"})
+            out["on2"] = run_texts(s, HM_ON2, "2 hosts, on")
+            del s
+        out["on2_s"] = time.perf_counter() - t0
+        log(f"[hier] (c) 2 hosts, on: " + ", ".join(
+            f"{q} {r['stamped']}/{r['redistributes']} stamped, "
+            f"{r['host_combined']} combined, {r['ms']:.1f} ms"
+            for q, r in out["on2"].items())
+            + f"; equal to the flat run; {out['on2_s']:.1f} s")
+
+        # (d) skew and the host rung, on phase 12's skewed redistribute
+        t0 = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        mem["skew"] = int(torch.cuda.memory_allocated())
+        with ForcedHosts(4):
+            s, sql, want = skew_join_session(
+                seg8.with_overrides(**{"interconnect.hierarchical": "on"}),
+                DIST_SKEW_ROWS)
+            res, ms, counts = kit.counted_run(s, sql)
+            check(physical(res)["sw"].tolist() == [want],
+                  f"(d) skewed redistribute: {physical(res)} against "
+                  f"numpy {want}")
+            hsk = s.counters.counter("host_skew_events")
+            check(hsk >= 1, "(d) the skewed redistribute recorded no "
+                  "host_skew_events")
+            out["skew"] = {"host_skew_events": hsk,
+                           "growth_events": s.growth_events, "ms": ms,
+                           "launches": counts}
+            # its largest uncombined two-level motion, host rung forced to
+            # 8 rows: a detected overflow naming the motion, one growth to
+            # the observed demand's rung, then the flat run's answer
+            plan = plan_statement(parse_sql(sql), s, {}).plan
+            plain = [m for m in motions(plan)
+                     if m.hier_hosts > 0 and not m.host_combine]
+            check(bool(plain), "(d) no uncombined two-level redistribute")
+            m = max(plain, key=lambda n: n.bucket_cap)
+            m.host_bucket_cap = 8
+            try:
+                DX.execute_distributed(plan, s)
+                check(False, "(d) an 8-row host rung did not overflow")
+            except X.ExecError as e:
+                msg = str(e)
+            check("host bucket overflow" in msg
+                  and f"(node {id(m)})" in msg,
+                  f"(d) the overflow names another node: {msg}")
+            observed = int(m._observed_host_bucket)
+            check(X.grow_expansion(plan, msg), "(d) no growth")
+            res, ms, counts = kit.counted(
+                lambda: DX.execute_distributed(plan, s))
+            check(physical(res)["sw"].tolist() == [want],
+                  f"(d) after the host rung's growth: {physical(res)} "
+                  f"against numpy {want}")
+            out["host_rung"] = {"observed": observed,
+                                "grown_to": int(m.host_bucket_cap),
+                                "ms": ms, "launches": counts}
+            del s
+        out["skew_s"] = time.perf_counter() - t0
+        log(f"[hier] (d) the skewed redistribute under 4 hosts: "
+            f"host_skew_events {out['skew']['host_skew_events']}, "
+            f"{out['skew']['growth_events']} growth(s), equal to numpy; "
+            f"its host rung forced to 8 overflowed, observed {observed} "
+            f"rows, grew to {out['host_rung']['grown_to']} and re-ran "
+            f"equal to numpy; {out['skew_s']:.1f} s")
+
+        # (e) tiled Q3 at phase 13's budget under 4 hosts
+        t0 = time.perf_counter()
+        m_q3 = TD_TPCH["q3"][0]
+        budget = (m_q3 << 20) if args.sf == 1.0 else max(
+            max(int(m_q3 * args.sf), 1) << 20,
+            max(int(TD_TPCH_QUICK["q3"] * args.sf / 0.05), 1) << 20)
+        with ForcedHosts(4):
+            s = session("tiled", **{"debug.verify_plans": True,
+                                    "resource.query_mem_bytes": budget})
+            sql = tpch.QUERIES["q3"]
+            held = kit.held("tiled q3, 4 hosts", lambda: s.sql(sql))
+            del made[:]
+            res, ms, counts = kit.counted_run(s, sql)
+            rep = s.last_tiled_report or {}
+            check(rep.get("tiled") and rep.get("distributed"),
+                  f"(e) Q3 at {budget >> 20} MiB did not tile: {rep}")
+            for r in (held, res):
+                identical(with_nulls(r), flat8["q3"],
+                          "(e) tiled Q3 under 4 hosts vs the flat run")
+            same(physical(res), oracle(raw, "q3", D),
+                 "(e) tiled Q3 under 4 hosts vs the numpy oracle")
+            hier = [t for t in made if t.name == "hier"]
+            check(bool(hier), "(e) the tiled runner is not two-level")
+            out["tiled_q3"] = {"budget_mib": budget >> 20, "ms": ms,
+                               "tiles": rep.get("n_tiles"),
+                               "permutations": sum(t.launches
+                                                   for t in hier),
+                               "launches": counts}
+            del s
+        out["tiled_s"] = time.perf_counter() - t0
+        log(f"[hier] (e) tiled Q3 at {budget >> 20} MiB under 4 hosts: "
+            f"{out['tiled_q3']['tiles']} tiles, "
+            f"{out['tiled_q3']['permutations']} permutations, "
+            f"{ms:.1f} ms, equal to the flat run and the numpy oracle; "
+            f"{out['tiled_s']:.1f} s")
+    finally:
+        TT.make_transport, DX.record_motion_stats = real_make, real_record
+    out["device_bytes_at_start"] = mem
+    log(f"[hier] device bytes allocated at each part's start: {mem}")
+    out["s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=float, default=1.0)
@@ -6152,6 +6498,7 @@ def _main(args) -> int:
         tiled_dist = tiled_dist_phase(SimpleNamespace(
             torch=torch, counted_run=counted_run, held=held_run,
             keep=keep), raw, gpu, gds, args)
+    flat8 = keep["results8"]    # phase 18's oracle
     del keep
     tiled_dist["held"] = {k: held[k] - held_before[k] for k in held}
     tiled_dist["launches"] = {k: launches[k] - launches_before[k]
@@ -6231,8 +6578,31 @@ def _main(args) -> int:
     finally:
         shutil.rmtree(store.pop("tmp"), ignore_errors=True)
 
-    # -------------------------------------------------------- 18. kernels
-    stamp("phase 18 (kernels)")
+    # ------------------------------------- 18. two-level and ring motion
+    stamp("phase 18 (two-level and ring motion)")
+    t0 = time.perf_counter()
+    held_before = dict(held)
+    launches_before = dict(launches)
+    with EmptyCaches(ct.Session):
+        hier = hier_motion_phase(SimpleNamespace(
+            torch=torch, counted=counted, counted_run=counted_run,
+            held=held_run), raw, gpu, flat8,
+            {q: r["seg8"]["median_ms"] for q, r in dist["tpch"].items()},
+            args)
+    del flat8
+    hier["held"] = {k: held[k] - held_before[k] for k in held}
+    hier["launches"] = {k: launches[k] - launches_before[k]
+                        for k in launches}
+    check(all(hier["launches"].values()) and all(hier["held"].values()),
+          f"a kernel never launched or was never held on the ring and "
+          f"two-level paths: launches {hier['launches']}, held "
+          f"{hier['held']}")
+    log(f"[hier] kernel calls held against their plain versions: "
+        f"{hier['held']}; launches of its counted runs {hier['launches']};"
+        f" two-level and ring phase: {time.perf_counter() - t0:.1f} s")
+
+    # -------------------------------------------------------- 19. kernels
+    stamp("phase 19 (kernels)")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     def rand_int(lo, hi, shape, dtype=torch.int64):
@@ -6674,8 +7044,8 @@ def _main(args) -> int:
             "window_query": tpcds.WINDOW_QUERY.format(
                 where="d_year >= 1998")})
 
-    # --------------------------------------------------------- 19. report
-    stamp("phase 19 (report)")
+    # --------------------------------------------------------- 20. report
+    stamp("phase 20 (report)")
     kernels = [{
         "name": name, "route": "cuda",
         "source": f"cloudberry_tpu_torch/csrc/{CK.SOURCES[name]}",
@@ -6696,6 +7066,7 @@ def _main(args) -> int:
                       "distributed": dist, "tiled_distributed": tiled_dist,
                       "recovery": recovery, "sql_surface": sql_surface,
                       "serving": serving, "durability": durable,
+                      "hier_motion": hier,
                       "timer_floor_ms": timer_floor_ms, "sf": args.sf,
                       "tpcds_scale": args.ds_scale}))
     print(json.dumps({"ok": True, "device": {

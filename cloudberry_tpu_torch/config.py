@@ -32,8 +32,9 @@ from typing import Any
 class InterconnectConfig:
     """Motion transport knobs (reference: gp_interconnect_* GUCs,
     contrib/interconnect/ic_modules.c:26-160 vtable selection). On one
-    card the segments share the device: a motion is an index transpose
-    of the segments' wire buffers (parallel/transport.py)."""
+    card the segments share the device: every transport is a set of index
+    permutations of the segments' stacked wire buffers
+    (parallel/transport.py)."""
 
     # Per-destination bucket capacity for hash redistribute, as a multiple of
     # fair share (local_rows / n_segments). The moral equivalent of the UDP
@@ -42,7 +43,11 @@ class InterconnectConfig:
     capacity_factor: float = 2.0
     # Motion transport (the ic_modules.c vtable selection). "xla" is the
     # one-card exchange (the JAX package's name for its native
-    # collectives, kept so configs carry over); "ring" is not ported.
+    # collectives, kept so configs carry over): an all_to_all is one
+    # transpose of the stacked buffers. "ring" composes every collective
+    # from segment-axis shifts (n-1 neighbour hops for all_gather and the
+    # reductions, one distance-k rotation per round for all_to_all) — a
+    # second, independent exchange with bit-identical results.
     backend: str = "xla"
     # Packed wire format (exec/kernels.py wire_layout): every motion
     # bitcasts ALL its columns plus the row-validity mask into one
@@ -50,6 +55,24 @@ class InterconnectConfig:
     # ONE buffer instead of one per column. False falls back to the
     # per-column exchange (results are bit-identical either way).
     packed_wire: bool = True
+    # Ring-transport pipelining: split each all_to_all block into this
+    # many slices along its row axis, one shift per (hop, slice). 1
+    # disables (whole-block hops); a count that does not divide the block
+    # rows falls back to whole blocks. Results never change.
+    ring_chunks: int = 1
+    # Topology-aware two-level motion (parallel/transport.py
+    # HierarchicalCollectives): collectives split into an intra-host hop
+    # and ONE aggregated inter-host hop, with rows re-bucketed by
+    # destination host between them (results stay bit-identical to
+    # flat). "auto" enables it on uniform multi-host layouts for motions
+    # whose blocks clear hier_min_block_bytes; "on" forces it wherever
+    # the topology allows; "off" keeps every motion flat. One card is one
+    # host, so only a simulated split (CBTPU_FORCE_HOSTS,
+    # parallel/mesh.py) ever selects it.
+    hierarchical: str = "auto"
+    # auto-mode per-motion floor: a redistribute whose per-destination
+    # block (bucket_cap x wire row bytes) is below this stays flat.
+    hier_min_block_bytes: int = 1 << 16
 
 
 @dataclass(frozen=True)

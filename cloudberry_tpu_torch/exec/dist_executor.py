@@ -77,20 +77,34 @@ def prepare_dist_inputs(plan: N.PlanNode, session, names=None) -> list:
     return per
 
 
-def _gang_factory(session, instrument=False):
-    """``make(inputs)`` → a Gang over the session's segments, transport
-    and lowerer (the setup that every distributed runner shares)."""
+def session_transport(session):
+    """The transport of a distributed run of ``session``: the two-level
+    exchange when the topology gate selects it (parallel/transport.py
+    ``hier_topology``, re-derived from the live layout at every build,
+    so a topology flip re-splits the motions), else the flat
+    ``interconnect.backend`` with its ``ring_chunks``. A degraded
+    session's survivor restriction is checked against its slot pool, as
+    the reference's mesh checks it against its devices."""
     from cloudberry_tpu_torch.parallel.health import slot_count
-    from cloudberry_tpu_torch.parallel.transport import make_transport
+    from cloudberry_tpu_torch.parallel.transport import (hier_topology,
+                                                         make_transport)
 
     nseg = session.config.n_segments
     ic = session.config.interconnect
-    # a degraded session's survivor restriction is checked against its
-    # slot pool, as the reference's mesh checks it against its devices
-    tx = make_transport(ic.backend, nseg,
-                        getattr(session, "_live_device_ids", None),
-                        slot_count(session))
-    packed = ic.packed_wire
+    live_ids = getattr(session, "_live_device_ids", None)
+    n_slots = slot_count(session)
+    topo = hier_topology(session.config, nseg, live_ids, n_slots)
+    return make_transport(ic.backend, nseg, chunks=ic.ring_chunks,
+                          topo=topo, device_ids=live_ids, n_slots=n_slots)
+
+
+def _gang_factory(session, instrument=False):
+    """``make(inputs)`` → a Gang over the session's segments, transport
+    and lowerer (the setup that every distributed runner shares; the
+    instrumented gang of EXPLAIN ANALYZE runs the same transport)."""
+    nseg = session.config.n_segments
+    tx = session_transport(session)
+    packed = session.config.interconnect.packed_wire
     device = session.device
     lowerer_cls = _InstrumentedDistLowerer if instrument else DistLowerer
 
@@ -226,8 +240,11 @@ class Gang:
                                .min())
                     his.append(torch.where(bsel, u, K._full(u, K._I64_MIN))
                                .max())
-                lo = self.tx.all_gather([x[None] for x in los]).min()
-                hi = self.tx.all_gather([x[None] for x in his]).max()
+                # biased u64 keys: the reference's unsigned payload
+                lo = self.tx.all_gather([x[None] for x in los],
+                                        unsigned=True).min()
+                hi = self.tx.all_gather([x[None] for x in his],
+                                        unsigned=True).max()
                 # hi - lo + 1 over raw u64 bits (biased difference = raw
                 # difference, wrapping like the reference's uint64)
                 ranges.append((lo, hi - lo + 1))
@@ -241,7 +258,8 @@ class Gang:
                 kbs.append(kb)
             if node.pack_bits == 32:
                 big = K._U32_MAX_B
-            kb_sorted = torch.sort(self.tx.all_gather(kbs)).values
+            kb_sorted = torch.sort(self.tx.all_gather(
+                kbs, unsigned=True)).values
             return ranges, kb_sorted, big
         return self._once(("rf", id(node)), build)
 
@@ -249,7 +267,10 @@ class Gang:
         """The digest filter's GLOBAL digest: per key the u64 [lo, hi]
         over every segment's selected build rows (biased int64), and the
         OR of the segments' bloom bitmaps. Min/max and OR are exact, so
-        this equals the reference's fold of the gathered digests."""
+        this equals the reference's fold of the gathered digests. Under
+        the two-level transport each host folds its segments' digests
+        (``_digest_fold``) and the hosts exchange ONE combined digest
+        each over the inter-host ring, as in the reference."""
         bits = K.bloom_bits_pow2(node.bloom_bits)
         kk = max(node.bloom_k, 1)
 
@@ -267,6 +288,11 @@ class Gang:
                     for u in bus]))
                 blooms.append(K.bloom_build([u ^ K._I64_MIN for u in bus],
                                             bsel, bits, kk))
+            topo = getattr(self.tx, "hier_topo", None)
+            if topo is not None and self.nseg // topo.n_hosts > 1:
+                return self._hier_digest(topo, torch.stack(los),
+                                         torch.stack(his),
+                                         torch.stack(blooms))
             bloom = blooms[0]
             for b in blooms[1:]:
                 bloom = bloom | b
@@ -274,6 +300,24 @@ class Gang:
                     bloom)
         glo, ghi, bloom = self._once(("rfd", id(node)), build)
         return glo, ghi, bloom, bits, kk
+
+    def _hier_digest(self, topo, los, his, blooms):
+        """The two-level digest: every segment's digest words gathered
+        within its host, folded per host, and the host digests exchanged
+        over the inter-host ring; segment 0's view folds to the global
+        (lo, hi, bloom)."""
+        S = self.nseg // topo.n_hosts
+        nkeys = los.shape[1]
+        words = torch.stack([los, his], dim=2).view(torch.int32)
+        digest = torch.cat([words.reshape(self.nseg, 4 * nkeys), blooms],
+                           dim=1)                       # (nseg, D)
+        D = digest.shape[1]
+        local = self.tx.intra_all_gather(digest).reshape(self.nseg, S, D)
+        hosts = self.tx.host_ring_exchange(_digest_fold(local, nkeys))
+        glob = _digest_fold(hosts[0], nkeys)
+        lohi = glob[:4 * nkeys].reshape(nkeys, 4).contiguous() \
+            .view(torch.int64)
+        return lohi[:, 0], lohi[:, 1], glob[4 * nkeys:]
 
     # ------------------------------------------------------------ motions
 
@@ -307,7 +351,8 @@ class Gang:
                 # validity mask rides ONE (cap, W) word buffer
                 layout = K.wire_layout({n: c.dtype for n, c in cols0.items()})
                 recv = self.tx.all_gather(
-                    [K.pack_wire(c, s, layout) for c, s in parts])
+                    [K.pack_wire(c, s, layout) for c, s in parts],
+                    unsigned=True)
                 res = K.unpack_wire(recv, layout)
             else:
                 res = ({n: self.tx.all_gather([c[n] for c, _ in parts])
@@ -318,7 +363,53 @@ class Gang:
             return self._redistribute(node, parts)
         raise X.ExecError(f"motion kind {node.kind}")
 
+    def _use_hier(self, node: N.PMotion) -> bool:
+        """Two-level exchange for this redistribute? Needs the
+        hierarchical transport (the topology gate passed at build), the
+        planner's host stamps for the live host count, the packed wire,
+        and slots addressable by non-negative int32 route words."""
+        topo = getattr(self.tx, "hier_topo", None)
+        return (self.packed and topo is not None
+                and node.host_bucket_cap > 0
+                and node.hier_hosts == topo.n_hosts
+                and self.nseg % topo.n_hosts == 0
+                and self.nseg * node.bucket_cap < 1 << 31)
+
+    def _host_combine(self, node: N.PMotion, parts: list) -> list:
+        """Host-local combine of agg partials before the two-level
+        exchange: gather each HOST's rows (packed wire), merge partials by
+        group key with the stamped order-insensitive-exact merges, and
+        keep the combined rows on the host's lane 0 only — the inter-host
+        hop then ships one partial per (host, group). The reference
+        computes the identical combine on every segment of a host; here
+        it runs once per host and the other lanes ship nothing, which
+        gives every segment the same received buffer."""
+        key_names, merges = node.combine_spec
+        cols0 = parts[0][0]
+        layout = K.wire_layout({n: c.dtype for n, c in cols0.items()})
+        hb = self.tx.intra_all_gather(torch.stack(
+            [K.pack_wire(c, s, layout) for c, s in parts]))
+        S = self.nseg // node.hier_hosts
+        specs = [K.AggSpec(func, name) for name, func in merges]
+        out = []
+        for h in range(node.hier_hosts):
+            hcols, hsel = K.unpack_wire(hb[h * S], layout)
+            keys, aggs, sel, _ = K.group_aggregate(
+                {k: hcols[k] for k in key_names},
+                {name: hcols[name] for name, _ in merges}, specs, hsel,
+                out_capacity=hb.shape[1])
+            comb = {**keys, **aggs}
+            # group_aggregate widens counts to int64; the motion's schema
+            # is the contract
+            comb = {n: v.to(cols0[n].dtype) for n, v in comb.items()}
+            out.append((comb, sel))
+            out += [(comb, torch.zeros_like(sel))] * (S - 1)
+        return out
+
     def _redistribute(self, node: N.PMotion, parts: list) -> list:
+        if self._use_hier(node) and node.host_combine \
+                and node.combine_spec and parts[0][0]:
+            parts = self._host_combine(node, parts)
         nseg, B = self.nseg, node.bucket_cap
         # every segment's routing in one hash call (the same per-row
         # values as one call per segment)
@@ -356,8 +447,26 @@ class Gang:
                 pbuf = K.pack_wire(cols, sel, layout)
                 send.append(K.scatter_slots(pbuf[order], slot, n_slots)
                             .reshape(nseg, B, layout.width))
+            if self._use_hier(node):
+                # two-level exchange: intra-host re-bucket by destination
+                # host, ONE aggregated inter-host hop at the host rung,
+                # intra-host scatter — a bit-identical received buffer
+                HB = node.host_bucket_cap
+                recv, hostdem = self.tx.hier_all_to_all(send, HB)
+                over = (hostdem > HB).any(1)
+                for s, low in enumerate(self.lowerers):
+                    low.checks[
+                        f"host bucket overflow: a host-pair block exceeded "
+                        f"capacity {HB} (node {id(node)}); the two-level "
+                        "retry promotes the host rung"] = over[s]
+                # observed host-pair demand: the host rung's one-retry
+                # promotion feed, like bucket_cap's
+                self.stats[f"required host bucket (node {id(node)})"] = \
+                    self.tx.pmax(list(hostdem.amax(1)))
+            else:
+                recv = self.tx.all_to_all(send)
             return [K.unpack_wire(r.reshape(n_slots, layout.width), layout)
-                    for r in self.tx.all_to_all(send)]
+                    for r in recv]
         recv_cols = [dict() for _ in range(nseg)]
         for name in cols0:
             recv = self.tx.all_to_all([
@@ -371,6 +480,22 @@ class Gang:
             for order, slot, valid in slots])
         return [(recv_cols[d], recv_sel[d].reshape(n_slots))
                 for d in range(nseg)]
+
+
+def _digest_fold(rows: torch.Tensor, nkeys: int) -> torch.Tensor:
+    """Fold (..., P, D) stacked runtime-filter digests into (..., D): per
+    key the [lo, hi] fold (min/max of the biased int64 word pairs) and
+    the OR of the bloom words. Order-insensitive and exact, so a
+    host-local fold gives the global digest the flat reduction gives."""
+    lead = rows.shape[:-2]
+    lohi = rows[..., :4 * nkeys].contiguous().view(torch.int64) \
+        .reshape(lead + (rows.shape[-2], nkeys, 2))
+    folded = torch.stack([lohi[..., 0].amin(-2), lohi[..., 1].amax(-2)],
+                         dim=-1).view(torch.int32)
+    bloom = rows[..., 0, 4 * nkeys:]
+    for p in range(1, rows.shape[-2]):
+        bloom = bloom | rows[..., p, 4 * nkeys:]
+    return torch.cat([folded.reshape(lead + (4 * nkeys,)), bloom], dim=-1)
 
 
 class DistLowerer(X.Lowerer):
@@ -496,9 +621,11 @@ def record_motion_stats(plan: N.PlanNode, stats: dict,
     straight to the rung that fits. Runtime-filter row counts pin the
     same way (``_jf_pre``/``_jf_post``), and the per-destination demand
     vector pins as ``_seg_rows`` with its derived max/mean
-    ``_skew_ratio``. With a ``session``, skew also feeds the registry
-    (histograms + ``skew_events`` past ``config.obs.skew_ratio``).
-    ``stats`` are host values (``stats_to_host``)."""
+    ``_skew_ratio``; a two-level motion's observed host-pair demand pins
+    as ``_observed_host_bucket`` (the host rung's promotion feed). With a
+    ``session``, skew also feeds the registry (histograms +
+    ``skew_events`` past ``config.obs.skew_ratio``). ``stats`` are host
+    values (``stats_to_host``)."""
     motions = {id(n): n for n in X.all_nodes(plan)
                if isinstance(n, N.PMotion) and n.kind == "redistribute"}
     filters = {id(n): n for n in X.all_nodes(plan)
@@ -509,6 +636,12 @@ def record_motion_stats(plan: N.PlanNode, stats: dict,
             node = motions.get(int(m.group(1)))
             if node is not None:
                 node._observed_bucket = int(np.asarray(v))
+            continue
+        m = re.search(r"required host bucket \(node (\d+)\)", key)
+        if m is not None:
+            node = motions.get(int(m.group(1)))
+            if node is not None:
+                node._observed_host_bucket = int(np.asarray(v))
             continue
         m = re.search(r"seg rows \(node (\d+)\)", key)
         if m is not None:
@@ -529,9 +662,11 @@ def _record_skew(motions, session) -> None:
     """Per-motion skew observability: from each redistribute's
     per-destination demand vector derive the max/mean skew ratio, record
     rows-per-segment and wire-bytes-per-segment histograms, and bump
-    ``skew_events`` when a shuffle crosses ``config.obs.skew_ratio``. One
-    card is one host, so the reference's per-host skew is never set
-    (``_host_skew_ratio`` None)."""
+    ``skew_events`` when a shuffle crosses ``config.obs.skew_ratio``.
+    Per-HOST skew sits beside it (``_host_rows``, ``_host_skew_ratio``,
+    ``host_skew_events``) on a multi-host layout: a host-skewed shuffle is
+    the case the two-level exchange makes worse (one host pair's rung
+    pads every host pair)."""
     from cloudberry_tpu_torch.obs.capacity import _wire_row_bytes
 
     log = getattr(session, "stmt_log", None) if session is not None \
@@ -548,7 +683,13 @@ def _record_skew(motions, session) -> None:
             continue
         ratio = float(rows.max() / (total / rows.shape[0]))
         node._skew_ratio = ratio
-        node._host_skew_ratio = None
+        hrows = _host_rows(rows, session)
+        if hrows is not None:
+            node._host_rows = hrows
+            node._host_skew_ratio = float(
+                hrows.max() / (total / hrows.shape[0]))
+        else:
+            node._host_skew_ratio = None
         if log is None or not log.obs_enabled:
             continue
         reg = log.registry
@@ -558,6 +699,34 @@ def _record_skew(motions, session) -> None:
                     int(rows.max()) * _wire_row_bytes(node))
         if threshold > 0 and ratio >= threshold:
             log.bump("skew_events")
+        if node._host_skew_ratio is not None:
+            reg.observe("motion_host_skew_ratio", node._host_skew_ratio)
+            reg.observe("motion_host_rows_max", int(hrows.max()))
+            if threshold > 0 and node._host_skew_ratio >= threshold:
+                log.bump("host_skew_events")
+
+
+def _host_rows(seg_rows: np.ndarray, session) -> np.ndarray | None:
+    """Per-destination-HOST row demand from the per-segment vector; None
+    on a one-host layout. Uses the host layout the motion layer splits
+    over (``CBTPU_FORCE_HOSTS`` included), so the telemetry describes the
+    links the bytes would cross."""
+    from cloudberry_tpu_torch.parallel.mesh import host_topology
+
+    try:
+        topo = host_topology(
+            seg_rows.shape[0],
+            getattr(session, "_live_device_ids", None)
+            if session is not None else None)
+    except Exception:
+        return None
+    if topo.n_hosts < 2:
+        return None
+    out = np.zeros(topo.n_hosts, dtype=np.int64)
+    for h, segs in enumerate(topo.segs_by_host):
+        out[h] = sum(int(seg_rows[s]) for s in segs
+                     if s < seg_rows.shape[0])
+    return out
 
 
 def record_jf_counters(stats: dict, log) -> None:
@@ -589,9 +758,10 @@ def finish_run(plan: N.PlanNode, session, out, grows=None):
     record_motion_stats(plan, stats, session=session)
     if grows is not None:
         for a, b in zip(_redistributes(plan), _redistributes(grows)):
-            ob = getattr(a, "_observed_bucket", None)
-            if ob is not None:
-                b._observed_bucket = ob
+            for attr in ("_observed_bucket", "_observed_host_bucket"):
+                ob = getattr(a, attr, None)
+                if ob is not None:
+                    setattr(b, attr, ob)
     X.raise_checks(checks)
     record_jf_counters(stats, getattr(session, "stmt_log", None))
     fold_plan(session, plan)

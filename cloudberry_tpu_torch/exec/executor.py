@@ -443,7 +443,9 @@ def grow_expansion(plan: N.PlanNode, message: str, factor: int = 4,
     join's pair buffer by ``factor`` and report success. The caller
     re-runs — results are never truncated. A skew-blown redistribute
     bucket recovers the same way, except it promotes to the next CAPACITY
-    RUNG that fits the observed demand (``factor`` does not apply there).
+    RUNG that fits the observed demand (``factor`` does not apply there);
+    so does a two-level motion's host-pair block (``host_bucket_cap``),
+    which also rises with every promotion of its segment rung.
 
     ``allow_fallback``: when the message's node id resolves nowhere in
     ``plan``, grow every candidate buffer instead of giving up (padding at
@@ -469,6 +471,25 @@ def grow_expansion(plan: N.PlanNode, message: str, factor: int = 4,
             # overflowed
             nd._min_out_cap = nd.out_capacity
         return True
+    if "host bucket overflow" in message:
+        m = re.search(r"\(node (\d+)\)", message)
+        nid = int(m.group(1)) if m is not None else -1
+        stamped = _dedupe_nodes(
+            nd for nd in all_nodes(plan)
+            if isinstance(nd, N.PMotion) and nd.kind == "redistribute"
+            and nd.host_bucket_cap > 0)
+        hits = [nd for nd in stamped if id(nd) == nid]
+        if not hits and allow_fallback:
+            hits = stamped
+        for nd in hits:
+            # the two-level host block climbs the SAME pow2 ladder as the
+            # per-segment rung, straight to the observed demand's rung
+            # (nothing re-derives host_bucket_cap on a live plan, so no
+            # _min_* floor is needed)
+            observed = getattr(nd, "_observed_host_bucket", 0)
+            nd.host_bucket_cap = K.rung_up(
+                max(nd.host_bucket_cap * 2, observed, 64))
+        return bool(hits)
     if "redistribute overflow" in message:
         m = re.search(r"\(node (\d+)\)", message)
         nid = int(m.group(1)) if m is not None else -1
@@ -492,6 +513,13 @@ def grow_expansion(plan: N.PlanNode, message: str, factor: int = 4,
             nd.bucket_cap = K.rung_up(max(nd.bucket_cap * 2, observed, 64))
             nd.out_capacity = nd.bucket_cap * nseg
             nd._min_bucket_cap = nd.bucket_cap
+            if nd.host_bucket_cap > 0:
+                # keep the two-level invariant host_bucket_cap >=
+                # bucket_cap and fold in the host demand this run already
+                # observed, or the retry is a certain host-rung overflow
+                nd.host_bucket_cap = K.rung_up(max(
+                    nd.host_bucket_cap, nd.bucket_cap,
+                    getattr(nd, "_observed_host_bucket", 0)))
         return bool(hits)
     return False
 

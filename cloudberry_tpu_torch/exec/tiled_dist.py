@@ -62,7 +62,8 @@ from cloudberry_tpu_torch.exec import kernels as K
 from cloudberry_tpu_torch.exec import scanpipe as SP
 from cloudberry_tpu_torch.exec import tilepipe as TP
 from cloudberry_tpu_torch.exec.dist_executor import (DistLowerer, Gang,
-                                                     prepare_dist_inputs)
+                                                     prepare_dist_inputs,
+                                                     session_transport)
 from cloudberry_tpu_torch.exec.expr_compile import torch_dtype
 from cloudberry_tpu_torch.exec.resource import estimate_plan_memory
 from cloudberry_tpu_torch.exec.tiled import (_MAX_TILE, _MIN_TILE, _AccLeaf,
@@ -553,9 +554,6 @@ class DistTiledExecutable(AdaptiveTiledMixin):
 
     def __init__(self, shape: _DistTileShape, session, tile_rows: int,
                  budget: int):
-        from cloudberry_tpu_torch.parallel.health import slot_count
-        from cloudberry_tpu_torch.parallel.transport import make_transport
-
         self.shape = shape
         self.session = session
         self.nseg = session.config.n_segments
@@ -564,9 +562,10 @@ class DistTiledExecutable(AdaptiveTiledMixin):
         self.device = session.device
         self._platform = session.device.type
         ic = session.config.interconnect
-        self._tx = make_transport(
-            ic.backend, self.nseg,
-            getattr(session, "_live_device_ids", None), slot_count(session))
+        # the SAME motion semantics as the in-memory distributed path: a
+        # plan whose motions carry two-level stamps (host_combine grew
+        # the rungs) must not pay the padding while shipping flat
+        self._tx = session_transport(session)
         # the steps' spine motions AND the finalize merge motion share the
         # packed wire format (kernels.wire_layout)
         self._packed = ic.packed_wire

@@ -31,9 +31,9 @@ Gauge writes live HERE by contract (the JAX package's graftlint
 ``obs-gauge-home`` rule): a point-in-time gauge scattered across the
 engine goes stale invisibly; one refresh site cannot.
 
-The wire and rung terms count the motions of distributed plans; the
-two-level exchange's staging (hierarchical motions) is not ported and
-raises if reached. Device bytes of tensors count through their storage
+The wire and rung terms count the motions of distributed plans, the
+two-level exchange's staging of hierarchical motions included. Device
+bytes of tensors count through their storage
 (``nbytes_of``).
 """
 
@@ -62,17 +62,28 @@ def _wire_row_bytes(node) -> int:
 
 
 def two_level_staging_bytes(node, row_bytes: int | None = None) -> int:
-    """Per-segment staging bytes of the TWO-LEVEL exchange (the JAX
-    package's parallel/transport.py hier_all_to_all); zero for unstamped
-    (flat) motions. Hierarchical motions come with the distributed
-    executor, which is not ported."""
+    """Per-segment staging bytes the TWO-LEVEL exchange adds on top of
+    the flat wire buffer (parallel/transport.py hier_all_to_all): the
+    hop-1/hop-3 lane buffers at the proven ceil(H/S)*S*B bound (send +
+    receive each) and the H host-pair blocks, every row carrying the two
+    route words. Zero for unstamped (flat) motions."""
     hh = int(getattr(node, "hier_hosts", 0) or 0)
     hb = int(getattr(node, "host_bucket_cap", 0) or 0)
     if hh < 2 or hb <= 0:
         return 0
-    raise NotImplementedError(
-        "two-level exchange staging: the distributed executor is not "
-        "yet ported")
+    nseg = max(int(node.out_capacity or 0)
+               // max(int(node.bucket_cap or 1), 1), 1)
+    if nseg % hh:
+        return 0
+    from cloudberry_tpu_torch.parallel.transport import two_level_lane_rows
+
+    S = nseg // hh
+    B = int(node.bucket_cap)
+    lane_rows = two_level_lane_rows(nseg, hh, B)
+    rb = (row_bytes if row_bytes is not None
+          else _wire_row_bytes(node)) + 8      # + dest/slot route words
+    # hop1 send + hop1 recv + hop3 send + hop3 recv, then the host blocks
+    return (4 * S * lane_rows + hh * hb) * rb
 
 
 def plan_device_bytes(plan, session=None) -> dict:

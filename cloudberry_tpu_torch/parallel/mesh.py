@@ -19,16 +19,22 @@ pool: the one card's stand-in for the visible device count that the
 reference's ``TopologyManager.begin`` refuses to expand past.
 
 ``HostTopology`` is the host → segment layout the motion layer's
-two-level gate consults. One card is one host, so the derivation always
-yields a single host: the two-level (hierarchical) motion never fires,
-as in the reference on a one-host mesh. ``CBTPU_FORCE_HOSTS`` (the
-reference's simulated multi-host split) and multi-host
-``init_distributed`` are not ported.
+two-level gate consults (parallel/transport.py ``hier_topology``). One
+card is one real host, so without a forced split the derivation yields a
+single host owning every segment, and the two-level (hierarchical) motion
+never fires, as in the reference on a one-host mesh.
+``CBTPU_FORCE_HOSTS=N`` partitions the segments into N simulated hosts
+(contiguous, uniform), the reference's stand-in for a multi-host split:
+every simulated host still lives in the one card's memory, so a
+cross-host hop is an index permutation of the segment dimension like any
+other. Multi-host ``init_distributed`` (processes that each own some
+segments) is not ported.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 from dataclasses import dataclass
 
 SEG_AXIS = "seg"
@@ -39,6 +45,11 @@ SEG_AXIS = "seg"
 # a 64-segment tile step already costs eight times the 8-segment one's
 # host dispatch. TopologyManager.begin refuses a larger epoch.
 MAX_SLOTS = 64
+
+# host-topology derivation cache (the key carries everything the
+# derivation reads)
+_topo_lock = threading.Lock()
+_topo_cache: dict = {}
 
 
 class DeviceRestrictionError(RuntimeError):
@@ -69,30 +80,12 @@ def _check_device_ids(device_ids, n_slots: int) -> None:
             "slot(s)")
 
 
-@dataclass(frozen=True)
-class HostTopology:
-    """Host → segment layout (immutable, derived)."""
-
-    n_segments: int
-    # host -> tuple of global segment indices it owns (ascending)
-    segs_by_host: tuple
-
-    @property
-    def n_hosts(self) -> int:
-        return len(self.segs_by_host)
-
-
-def host_topology(n_segments: int, device_ids=None,
-                  n_slots: int | None = None) -> HostTopology:
-    """The layout of ``n_segments`` segments on this process's card: one
-    host owning every segment. ``device_ids`` (a survivor restriction) is
-    checked against the slot pool ``n_slots`` (default: ``n_segments``)
-    as the reference checks it against its device list."""
-    if os.environ.get("CBTPU_FORCE_HOSTS"):
-        raise NotImplementedError(
-            "CBTPU_FORCE_HOSTS (a simulated multi-host split) is not yet "
-            "ported to cloudberry_tpu_torch (ROADMAP Queue A: the "
-            "hierarchical transport)")
+def check_segments(n_segments: int, device_ids=None,
+                   n_slots: int | None = None) -> None:
+    """The segment layout's own checks (the reference's ``segment_mesh``):
+    at most ``MAX_SLOTS`` segments on one card, and a survivor
+    restriction ``device_ids`` well formed against the slot pool
+    ``n_slots`` (default: ``n_segments``) and covering the segments."""
     if n_segments > MAX_SLOTS:
         raise RuntimeError(
             f"config asks for {n_segments} segments but one card hosts "
@@ -100,4 +93,118 @@ def host_topology(n_segments: int, device_ids=None,
     if device_ids is not None:
         _check_device_ids(device_ids,
                           n_segments if n_slots is None else n_slots)
-    return HostTopology(n_segments, (tuple(range(n_segments)),))
+        if len(device_ids) < n_segments:
+            raise RuntimeError(
+                f"config asks for {n_segments} segments but only "
+                f"{len(device_ids)} segment slots survive")
+
+
+@dataclass(frozen=True)
+class HostTopology:
+    """Host → segment layout. Immutable and DERIVED: rebuild it through
+    ``host_topology`` whenever the segment set may have changed."""
+
+    n_segments: int
+    # host -> tuple of global segment indices it owns (ascending)
+    segs_by_host: tuple
+    # True when the grouping came from CBTPU_FORCE_HOSTS (simulated
+    # hosts) rather than the real one-card layout
+    forced: bool = False
+
+    @property
+    def n_hosts(self) -> int:
+        return len(self.segs_by_host)
+
+    @property
+    def segs_per_host(self) -> int:
+        """Segments per host when UNIFORM, else 0 (the two-level path
+        requires uniformity)."""
+        sizes = {len(s) for s in self.segs_by_host}
+        return len(self.segs_by_host[0]) if len(sizes) == 1 else 0
+
+    def host_of(self, seg: int) -> int:
+        for h, segs in enumerate(self.segs_by_host):
+            if seg in segs:
+                return h
+        raise KeyError(seg)
+
+    def uniform_contiguous(self) -> bool:
+        """True when host h owns exactly segments [h*S, (h+1)*S) and the
+        hosts cover every segment — the layout the two-level transport's
+        static lane algebra relies on."""
+        S = self.segs_per_host
+        if S == 0 or S * self.n_hosts != self.n_segments:
+            return False
+        return all(tuple(segs) == tuple(range(h * S, (h + 1) * S))
+                   for h, segs in enumerate(self.segs_by_host))
+
+    def as_dict(self) -> dict:
+        return {
+            "n_segments": self.n_segments,
+            "n_hosts": self.n_hosts,
+            "segs_per_host": self.segs_per_host,
+            "uniform_contiguous": self.uniform_contiguous(),
+            "forced": self.forced,
+            "segments_by_host": {h: list(s)
+                                 for h, s in enumerate(self.segs_by_host)},
+        }
+
+
+def host_topology(n_segments: int, device_ids=None,
+                  n_slots: int | None = None) -> HostTopology:
+    """The host layout of ``n_segments`` segments.
+
+    ``CBTPU_FORCE_HOSTS=N`` yields N simulated contiguous uniform hosts
+    (the survivor restriction is not read, as in the reference) and
+    raises ``ValueError`` when N does not divide the segment count.
+    Otherwise the one card is one host owning every segment; a survivor
+    restriction ``device_ids`` is checked against the slot pool
+    ``n_slots`` (default: ``n_segments``) as the reference checks it
+    against its device list. Cached per (segments, restriction, pool,
+    forced count)."""
+    force = os.environ.get("CBTPU_FORCE_HOSTS")
+    key = (n_segments,
+           tuple(device_ids) if device_ids is not None else None,
+           n_slots, force)
+    with _topo_lock:
+        hit = _topo_cache.get(key)
+    if hit is not None:
+        return hit
+    if force:
+        n_hosts = max(int(force), 1)
+        if n_segments % n_hosts != 0:
+            raise ValueError(
+                f"CBTPU_FORCE_HOSTS={n_hosts} does not divide "
+                f"n_segments={n_segments} (simulated hosts are uniform "
+                "by construction)")
+        S = n_segments // n_hosts
+        topo = HostTopology(
+            n_segments,
+            tuple(tuple(range(h * S, (h + 1) * S))
+                  for h in range(n_hosts)),
+            forced=True)
+    else:
+        if device_ids is not None:
+            _check_device_ids(device_ids,
+                              n_segments if n_slots is None else n_slots)
+        topo = HostTopology(n_segments, (tuple(range(n_segments)),))
+    with _topo_lock:
+        if len(_topo_cache) >= 32:
+            _topo_cache.pop(next(iter(_topo_cache)))
+        _topo_cache[key] = topo
+    return topo
+
+
+def mesh_topology(n_segments: int) -> dict:
+    """Host → segment layout (the gp_segment_configuration view), a
+    rendering of ``host_topology``: the forced split applies here too,
+    so the view matches what the motion layer does. This process is
+    host 0 (one process drives the card)."""
+    topo = host_topology(n_segments)
+    return {
+        "n_segments": n_segments,
+        "n_hosts": topo.n_hosts,
+        "this_host": 0,
+        "segments_by_host": {h: list(s)
+                             for h, s in enumerate(topo.segs_by_host)},
+    }

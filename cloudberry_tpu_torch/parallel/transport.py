@@ -1,4 +1,4 @@
-"""The motion transport of one card — the ic_modules.c vtable analog.
+"""The motion transports of one card — the ic_modules.c vtable analog.
 
 The JAX package's motions are collectives over a device mesh
 (``all_gather`` / ``all_to_all`` / ``psum`` / ``pmax`` on the ``seg``
@@ -11,67 +11,554 @@ segment receives — with the reference's exact buffer layout:
   segment order; every segment receives the same tensor.
 - ``all_to_all`` (``split_axis=0, concat_axis=0, tiled=False``): source
   ``s`` sends ``x_s[d]`` to destination ``d``; destination ``d`` receives
-  the blocks of sources 0..nseg-1 in source order. On one card that is
-  an index transpose of the ``(src, dst, B, W)`` stack.
+  the blocks of sources 0..nseg-1 in source order.
 - ``psum`` / ``pmax``: the reduction, the same value for every segment.
 
 Unfilled slots stay all-zero and unpack as invalid (exec/kernels.py
 ``pack_wire``), so received buffers equal the reference's row for row —
 float sums after a motion add in the reference's order.
 
-Not ported (ROADMAP Queue A): the ring transport (``backend="ring"``),
-the hierarchical two-level transport, and ``CBTPU_FORCE_HOSTS``.
+Three transports implement that interface, as in the reference:
+
+- ``OneCardCollectives`` (``interconnect.backend="xla"``): an all_to_all
+  is one index transpose of the ``(src, dst, B, W)`` stack.
+- ``RingCollectives`` (``backend="ring"``): every collective composed
+  from shifts of the stacked ``(nseg, ...)`` tensor along the segment
+  axis, the reference's ``ppermute`` rings — a second, independent
+  exchange whose results must equal the first bit for bit.
+- ``HierarchicalCollectives``: the topology-aware two-level exchange over
+  a uniform contiguous ``HostTopology`` (parallel/mesh.py; on one card a
+  simulated split, ``CBTPU_FORCE_HOSTS``): an intra-host hop, ONE
+  aggregated inter-host hop at the host rung, an intra-host scatter.
+  Every ``ppermute`` of the reference is one permutation of the segment
+  dimension here, counted in ``launches``.
+
+Every per-segment branch of the reference (``axis_index``) is computed
+over the stacked segment dimension in one set of tensor ops; no
+transport loops over segments on the host.
 """
 
 from __future__ import annotations
 
+import threading
+
+import numpy as np
 import torch
 
 
-class OneCardCollectives:
-    """The segments' collectives as tensor ops on one device."""
+# the two-level transport's static index tables (segment ids, the
+# permutations, hop 1's lane layout), built once per (segments, hosts,
+# table, device) for every transport of that layout
+_TABLES: dict = {}
+_TABLES_LOCK = threading.Lock()
+_TABLES_MAX = 256
 
-    def all_gather(self, xs: list) -> torch.Tensor:
-        """Concatenation in segment order (every segment receives it)."""
+
+def _stack(xs) -> torch.Tensor:
+    return torch.stack([torch.as_tensor(x) for x in xs])
+
+
+class OneCardCollectives:
+    """The segments' collectives as tensor ops on one device (the
+    reference's XLA-native collectives)."""
+
+    name = "xla"
+
+    def all_gather(self, xs: list, unsigned: bool = False) -> torch.Tensor:
+        """Concatenation in segment order (every segment receives it).
+        ``unsigned``: the reference's payload is unsigned (the packed
+        wire, u64 keys); only the two-level transport reads it."""
         return torch.cat(list(xs))
 
     def all_to_all(self, xs: list) -> list:
         """xs[s]: (nseg, ...) blocks of source s by destination → one
         (nseg, ...) received buffer per destination, by source."""
-        return list(torch.stack(list(xs)).transpose(0, 1).contiguous())
+        return list(_stack(xs).transpose(0, 1).contiguous())
 
     def psum(self, xs: list) -> torch.Tensor:
-        return torch.stack([torch.as_tensor(x) for x in xs]).sum(0)
+        return _stack(xs).sum(0)
 
     def pmax(self, xs: list) -> torch.Tensor:
-        return torch.stack([torch.as_tensor(x) for x in xs]).amax(0)
+        return _stack(xs).amax(0)
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"{what} is not yet ported to cloudberry_tpu_torch (ROADMAP "
-        "Queue A: the ring and hierarchical transports)")
+class RingCollectives:
+    """Shift-composed collectives: all_gather, psum and pmax are true
+    rings (n−1 neighbour shifts with accumulation); all_to_all rotates
+    each round's blocks by distance k. A shift is ``torch.roll`` of the
+    stacked tensor along the segment axis: segment i sends to i+1.
+
+    ``chunks`` > 1 splits each all_to_all block along its ROW axis into
+    that many contiguous slices, one shift per (hop, slice) — the
+    reference's software-pipelined ring. An indivisible count falls back
+    to whole-block hops. Chunking never changes results."""
+
+    name = "ring"
+
+    def __init__(self, n: int, chunks: int = 1):
+        self.n = n
+        self.chunks = max(int(chunks), 1)
+
+    @staticmethod
+    def _shift(x: torch.Tensor, by: int = 1) -> torch.Tensor:
+        return torch.roll(x, shifts=by, dims=0)
+
+    def all_gather_each(self, xs: list) -> torch.Tensor:
+        """(nseg, nseg*rows, ...): every segment's gathered buffer. After
+        k hops segment i holds the block of segment (i−k) mod n and
+        places it at that segment's global slot."""
+        x = _stack(xs)
+        n, rows = self.n, x.shape[1]
+        seg = torch.arange(n, device=x.device)
+        out = x.new_zeros((n, n) + tuple(x.shape[1:]))
+        cur = x
+        for k in range(n):
+            out[seg, (seg - k) % n] = cur
+            if k + 1 < n:
+                cur = self._shift(cur)
+        return out.reshape((n, n * rows) + tuple(x.shape[2:]))
+
+    def all_gather(self, xs: list, unsigned: bool = False) -> torch.Tensor:
+        return self.all_gather_each(xs)[0]
+
+    def all_to_all(self, xs: list) -> list:
+        # round k: each segment i sends its block for destination i+k a
+        # distance of k; destination j receives source (j−k)'s block
+        x = _stack(xs)                         # (src, dst, B, ...)
+        n = self.n
+        seg = torch.arange(n, device=x.device)
+        out = torch.zeros_like(x)              # (dst, src, B, ...)
+        nch = self.chunks if (x.ndim > 2
+                               and x.shape[2] % self.chunks == 0) else 1
+        for k in range(n):
+            block = x[seg, (seg + k) % n]
+            if k == 0:
+                moved = block
+            elif nch > 1:
+                moved = torch.cat([self._shift(p, k)
+                                   for p in block.chunk(nch, dim=1)], dim=1)
+            else:
+                moved = self._shift(block, k)
+            out[seg, (seg - k) % n] = moved
+        return list(out)
+
+    def _ring_reduce(self, xs: list, op) -> torch.Tensor:
+        acc = cur = _stack(xs)
+        for _ in range(self.n - 1):
+            cur = self._shift(cur)
+            acc = op(acc, cur)
+        return acc[0]
+
+    def psum(self, xs: list) -> torch.Tensor:
+        return self._ring_reduce(xs, torch.add)
+
+    def pmax(self, xs: list) -> torch.Tensor:
+        return self._ring_reduce(xs, torch.maximum)
 
 
-def make_transport(backend: str, n_segments: int, device_ids=None,
-                   n_slots: int | None = None):
-    """The transport named by ``interconnect.backend``: ``"xla"`` is the
-    one-card exchange, flat as the reference's on a one-host layout;
-    ``"ring"`` and a forced multi-host split (``CBTPU_FORCE_HOSTS``,
-    raised by ``mesh.host_topology``) are not ported. ``device_ids`` and
-    ``n_slots``: the session's survivor restriction and slot pool, checked
-    as the reference's segment mesh checks its devices — the survivors
-    must cover the segments."""
+class HierarchicalCollectives:
+    """Topology-aware two-level collectives over a uniform contiguous
+    HostTopology (host h owns segments [h*S, (h+1)*S)): every exchange
+    splits into intra-host permutations (rotations within a host's
+    segment block) and inter-host permutations (rotations between hosts
+    along a lane), the reference's ppermute compositions.
+
+    - ``all_gather`` of an unsigned payload (``unsigned=True``: the packed
+      wire, u64 keys): host-root tree — intra-host ring gather, a ring
+      between the hosts' lane-0 segments only, intra-host broadcast by an
+      exact zero-fill sum. Other payloads delegate to the flat ``inner``.
+    - ``hier_all_to_all`` (hash redistribute): re-buckets rows by
+      destination HOST between the hops and ships one host-pair block at
+      the ``host_cap`` rung; two route words place every row at exactly
+      the flat all_to_all's slot.
+    - ``host_ring_exchange``: the inter-host ring of host-combined vectors
+      (the runtime-filter digest fold).
+    - ``psum`` / ``pmax`` / ``all_to_all`` delegate flat.
+
+    ``launches`` counts the permutations, one per reference ppermute."""
+
+    name = "hier"
+    is_hierarchical = True
+
+    def __init__(self, topo, inner=None):
+        self.inner = inner if inner is not None else OneCardCollectives()
+        self.hier_topo = topo
+        self.n = topo.n_segments
+        self.H = topo.n_hosts
+        self.S = topo.n_segments // max(topo.n_hosts, 1)
+        if not topo.uniform_contiguous() or self.H < 2:
+            raise ValueError(
+                "HierarchicalCollectives needs a uniform contiguous "
+                f"multi-host topology; got {topo.as_dict()}")
+        self.launches = 0
+
+    # ------------------------------------------------------ primitives
+
+    def _table(self, key, device, build):
+        k = (self.n, self.H, key, str(device))
+        with _TABLES_LOCK:
+            hit = _TABLES.get(k)
+        if hit is None:
+            hit = tuple(torch.as_tensor(a, device=device) for a in build())
+            with _TABLES_LOCK:
+                if len(_TABLES) >= _TABLES_MAX:
+                    _TABLES.pop(next(iter(_TABLES)))
+                _TABLES[k] = hit
+        return hit
+
+    def _ids(self, device):
+        """(segment, host, lane) index vectors."""
+        n, S = self.n, self.S
+
+        def build():
+            seg = np.arange(n, dtype=np.int64)
+            return seg, seg // S, seg % S
+        return self._table("ids", device, build)
+
+    def _pp(self, x: torch.Tensor, perm) -> torch.Tensor:
+        """One permutation of the segment dimension: segment ``dst``
+        receives segment ``src``'s value for every (src, dst) pair;
+        segments that receive nothing read zeros (ppermute's rule)."""
+        self.launches += 1
+        perm = tuple(perm)
+        src, dst = self._table(("pp", perm), x.device, lambda: (
+            np.asarray([p[0] for p in perm], dtype=np.int64),
+            np.asarray([p[1] for p in perm], dtype=np.int64)))
+        if len(perm) == self.n:
+            # every segment receives: one gather by the inverse map
+            inv = self._table(("inv", perm), x.device, lambda: (
+                np.argsort(np.asarray([p[1] for p in perm])),))[0]
+            return x.index_select(0, src[inv])
+        out = torch.zeros_like(x)
+        return out.index_copy_(0, dst, x.index_select(0, src))
+
+    def _intra_shift(self, x, by: int = 1):
+        """Rotate within each host's segment block."""
+        H, S = self.H, self.S
+        return self._pp(x, [(h * S + t, h * S + (t + by) % S)
+                            for h in range(H) for t in range(S)])
+
+    def _lane_shift(self, x, by: int = 1):
+        """Rotate between hosts along every lane."""
+        H, S = self.H, self.S
+        return self._pp(x, [(h * S + t, ((h + by) % H) * S + t)
+                            for h in range(H) for t in range(S)])
+
+    # --------------------------------------------------- intra helpers
+
+    def intra_all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """(nseg, rows, ...) -> (nseg, S*rows, ...): each segment gathers
+        its HOST's blocks in local order (S−1 intra shifts)."""
+        S = self.S
+        if S == 1:
+            return x
+        seg, _, t = self._ids(x.device)
+        rows = x.shape[1]
+        out = x.new_zeros((self.n, S) + tuple(x.shape[1:]))
+        cur = x
+        for k in range(S):
+            out[seg, (t - k) % S] = cur
+            if k + 1 < S:
+                cur = self._intra_shift(cur)
+        return out.reshape((self.n, S * rows) + tuple(x.shape[2:]))
+
+    def _intra_psum(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum over each host's segments, accumulated into ``x`` in place
+        (the caller's private buffer) — exact for the zero-filled tree
+        broadcast."""
+        cur = x
+        for _ in range(self.S - 1):
+            cur = self._intra_shift(cur)
+            x.add_(cur)
+        return x
+
+    def _intra_all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """(nseg, S, C, ...) per-local-destination blocks -> received,
+        within each host (the ring all_to_all's rotations, host-local)."""
+        S = self.S
+        if S == 1:
+            return x
+        seg, _, t = self._ids(x.device)
+        out = torch.zeros_like(x)
+        for k in range(S):
+            block = x[seg, (t + k) % S]
+            moved = block if k == 0 else self._intra_shift(block, by=k)
+            out[seg, (t - k) % S] = moved
+        return out
+
+    # ------------------------------------------------------- interface
+
+    def psum(self, xs: list) -> torch.Tensor:
+        return self.inner.psum(xs)
+
+    def pmax(self, xs: list) -> torch.Tensor:
+        return self.inner.pmax(xs)
+
+    def all_to_all(self, xs: list) -> list:
+        """Flat exchange (motions without host stamps); the two-level
+        one is ``hier_all_to_all``."""
+        return self.inner.all_to_all(xs)
+
+    def all_gather(self, xs: list, unsigned: bool = False) -> torch.Tensor:
+        """Host-root tree gather for unsigned payloads, bit-identical to
+        the flat gather; everything else delegates flat."""
+        if self.S == 1 or not unsigned:
+            return self.inner.all_gather(xs)
+        return self.tree_all_gather(_stack(xs))[0]
+
+    def tree_all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """(nseg, rows, ...) -> every segment's (nseg*rows, ...) gathered
+        buffer through the tree: intra-host gather, a lane-0 ring between
+        hosts, then the intra-host broadcast of lane 0's result."""
+        seg, h, t = self._ids(x.device)
+        H, S = self.H, self.S
+        hb = self.intra_all_gather(x)                 # (nseg, S*rows, ...)
+        full = hb.new_zeros((self.n, H) + tuple(hb.shape[1:]))
+        cur = hb
+        lane0 = [(g * S, ((g + 1) % H) * S) for g in range(H)]
+        for k in range(H):
+            full[seg, (h - k) % H] = cur
+            if k + 1 < H:
+                cur = self._pp(cur, lane0)            # lane 0 only
+        del cur, hb
+        full = full.reshape((self.n, H * S * x.shape[1])
+                            + tuple(x.shape[2:]))
+        # only lane 0 assembled its host's buffer: the other lanes feed
+        # zeros into the broadcast sum
+        full[t != 0] = 0
+        return self._intra_psum(full)
+
+    def host_ring_exchange(self, x: torch.Tensor) -> torch.Tensor:
+        """(nseg, D) per-segment HOST-COMBINED vectors -> (nseg, H, D):
+        each segment's host vectors in host order, via the all-lane
+        inter-host ring (H−1 shifts)."""
+        seg, h, _ = self._ids(x.device)
+        H = self.H
+        out = x.new_zeros((self.n, H) + tuple(x.shape[1:]))
+        cur = x
+        for k in range(H):
+            out[seg, (h - k) % H] = cur
+            if k + 1 < H:
+                cur = self._lane_shift(cur)
+        return out
+
+    # --------------------------------------------- two-level a2a (hash)
+
+    def _hop1_tables(self, B: int, device):
+        """Hop 1's static lane permutation of the (n*B) route rows: dest
+        host g rides lane g % S at host slot g // S, then dest-local
+        segment, then rank; pad rows past the last host."""
+        n, H, S = self.n, self.H, self.S
+
+        def build():
+            k_hosts = -(-H // S)
+            C1 = two_level_lane_rows(n, H, B)
+            gidx = np.zeros((S, C1), dtype=np.int64)
+            padm = np.zeros((S, C1), dtype=bool)
+            for lane in range(S):
+                pos = 0
+                for j in range(k_hosts):
+                    g = lane + j * S
+                    for s in range(S):
+                        if g < H:
+                            base = (g * S + s) * B
+                            gidx[lane, pos:pos + B] = np.arange(base,
+                                                                base + B)
+                        else:
+                            padm[lane, pos:pos + B] = True
+                        pos += B
+            return gidx, padm
+        return self._table(("hop1", B), device, build)
+
+    def _rebucket_each(self, rows, key, valid, n_buckets: int, cap: int):
+        """Every segment's ``kernels.wire_rebucket`` in one call: segment
+        i's keys offset by i*n_buckets keep the segments' buckets apart,
+        and the stable sort keeps each segment's rows in position order."""
+        from cloudberry_tpu_torch.exec import kernels as K
+
+        n, R, Wd = rows.shape
+        off = torch.arange(n, device=rows.device).view(n, 1) * n_buckets
+        buf, counts = K.wire_rebucket(
+            rows.reshape(n * R, Wd), (key.to(torch.int64) + off).reshape(-1),
+            valid.reshape(-1), n * n_buckets, cap)
+        return (buf.reshape(n, n_buckets, cap, Wd),
+                counts.reshape(n, n_buckets))
+
+    def hier_all_to_all(self, xs: list, host_cap: int):
+        """Two-level hash redistribute over packed wire blocks.
+
+        ``xs[s]``: (nseg, B, W) int32 per-destination-SEGMENT blocks of
+        source s — the flat all_to_all's exact input (word 0 bit 0 = row
+        validity). Returns ``(recv, host_demand)``: recv[d] (nseg, B, W)
+        BIT-IDENTICAL to the flat exchange's, and host_demand (nseg, H)
+        int32 — the rows each segment's host addressed to every
+        destination host, reported by the lane that owns it (others 0).
+
+        Hops: (1) an intra-host all_to_all routes rows to the lane that
+        owns their destination host (a static permutation); the lane
+        re-buckets its host's rows by destination host into host-pair
+        blocks at the ``host_cap`` rung; (2) one inter-host exchange of
+        those blocks (H−1 permutations); (3) an intra-host scatter to the
+        destination segment, then slot placement by the route words.
+        Hop-1/hop-3 capacities are the proven bound ceil(H/S)*S*B, so
+        only the host rung needs an overflow check. Every value stays
+        non-negative in int32 while nseg*B < 2^31 (the caller's guard)."""
+        x = _stack(xs)
+        n, H, S = self.n, self.H, self.S
+        B, W = int(x.shape[2]), int(x.shape[3])
+        # (each staging buffer is released once the next hop holds its
+        # rows: on one card every segment's staging coexists)
+        k_hosts = -(-H // S)                   # hosts per lane (ceil)
+        dev = x.device
+        seg, h, t = self._ids(dev)
+        i32 = torch.int32
+
+        flat = x.reshape(n, n * B, W)
+        slot = torch.arange(n * B, device=dev, dtype=i32)
+        destw = (slot // B).view(1, -1).expand(n, -1)
+        origw = seg.to(i32).view(n, 1) * B + (slot % B).view(1, -1)
+        rbuf = torch.cat([flat, destw[..., None], origw[..., None]],
+                         dim=2)                # (n, n*B, W+2)
+        del x, flat
+
+        # hop 1: static lane permutation + intra-host all_to_all
+        gidx, padm = self._hop1_tables(B, dev)
+        y = rbuf[:, gidx]                      # (n, S, C1, W+2)
+        del rbuf
+        y.masked_fill_(padm[None, :, :, None], 0)
+        zf = self._intra_all_to_all(y).reshape(n, -1, W + 2)
+        del y
+
+        # host combine: re-bucket the host's rows by destination host
+        valid = (zf[..., 0] & 1).to(torch.bool)
+        j_slot = (zf[..., W] // S) // S        # dest host's lane slot
+        buf2, counts_j = self._rebucket_each(zf, j_slot, valid, k_hosts,
+                                             host_cap)
+        del zf, valid, j_slot
+        lane_hosts = t.view(n, 1) + torch.arange(
+            k_hosts, device=dev).view(1, -1) * S
+        demand = torch.zeros((n, H + 1), dtype=i32, device=dev)
+        demand.scatter_(1, torch.where(lane_hosts < H, lane_hosts,
+                                       torch.full_like(lane_hosts, H)),
+                        counts_j)
+        host_demand = demand[:, :H]
+
+        # hop 2: ONE aggregated inter-host exchange (H−1 permutations,
+        # each moving every host's combined block for offset d)
+        def host_block(g):
+            blk = buf2[seg, (g // S).clamp(0, k_hosts - 1)]
+            return torch.where((g % S == t).view(n, 1, 1), blk,
+                               torch.zeros_like(blk))
+
+        out_dcn = buf2.new_zeros((n, H, host_cap, W + 2))
+        out_dcn[seg, h] = host_block(h)
+        for d in range(1, H):
+            recv = self._pp(host_block((h + d) % H), [
+                (hh * S + ((hh + d) % H) % S, ((hh + d) % H) * S + hh % S)
+                for hh in range(H)])
+            out_dcn[seg, (h - d) % H] = recv
+        del buf2, recv
+
+        # hop 3: intra-host scatter to the destination segment
+        f3 = out_dcn.reshape(n, H * host_cap, W + 2)
+        valid3 = (f3[..., 0] & 1).to(torch.bool)
+        C3 = two_level_lane_rows(n, H, B)      # proven bound, no check
+        buf3, _ = self._rebucket_each(f3, f3[..., W] % S, valid3, S, C3)
+        del out_dcn, f3, valid3
+        ff = self._intra_all_to_all(buf3).reshape(n, S * C3, W + 2)
+        del buf3
+
+        # final placement: the flat layout's exact slot (src*B + rank)
+        validf = (ff[..., 0] & 1).to(torch.bool)
+        slotf = torch.where(validf, ff[..., W + 1].to(torch.int64),
+                            torch.full_like(ff[..., W + 1], n * B,
+                                            dtype=torch.int64))
+        out = ff.new_zeros((n, n * B + 1, W))
+        out.view(-1, W)[(slotf + seg.view(n, 1) * (n * B + 1))
+                        .reshape(-1)] = ff[..., :W].reshape(-1, W)
+        return list(out[:, :n * B].reshape(n, n, B, W)), host_demand
+
+
+def two_level_lane_rows(nseg: int, n_hosts: int,
+                        bucket_cap: int) -> int:
+    """Rows one hop-1/hop-3 lane buffer holds: the PROVEN bound
+    ceil(H/S)·S·B (every per-segment-pair bucket is capped at B by the
+    caller's rank discipline). The one place the lane algebra lives: the
+    transport sizes its staging with it, obs/capacity itemizes it."""
+    S = nseg // n_hosts
+    return -(-n_hosts // S) * S * bucket_cap
+
+
+def two_level_wire_model(nseg: int, n_hosts: int, bucket_cap: int,
+                         host_bucket_cap: int, row_bytes: int) -> dict:
+    """Analytic per-redistribute byte split for the TWO-LEVEL exchange:
+    the inter-host hop carries one aggregated block per ordered host pair
+    at the host rung; the hop-1/hop-3 lane staging (send + receive each)
+    stays within hosts. Every row carries the two route words."""
+    S = nseg // n_hosts
+    rb2 = row_bytes + 8
+    lane = two_level_lane_rows(nseg, n_hosts, bucket_cap)
+    return {
+        "dcn_bytes": n_hosts * (n_hosts - 1) * host_bucket_cap * rb2,
+        "ici_bytes": 2 * nseg * (S - 1) * lane * rb2,
+    }
+
+
+def flat_wire_model(nseg: int, n_hosts: int, bucket_cap: int,
+                    row_bytes: int) -> dict:
+    """The FLAT all_to_all's byte split under the same host grouping:
+    every cross-host (source, destination) block crosses hosts padded to
+    the pair rung; same-host blocks stay within hosts."""
+    S = nseg // n_hosts
+    return {
+        "dcn_bytes": nseg * (nseg - S) * bucket_cap * row_bytes,
+        "ici_bytes": nseg * (S - 1) * bucket_cap * row_bytes,
+    }
+
+
+def hier_topology(cfg, n_segments: int, device_ids=None,
+                  n_slots: int | None = None):
+    """The two-level selection gate: the HostTopology motion splits
+    over, or None for flat. Flat when the feature is off, the transport
+    is not the packed one-card exchange, the layout is one host (always,
+    without a forced split), or the split does not fit the segments (a
+    forced count that does not divide a degraded segment count).
+    ``auto`` and ``on`` differ only in the distributor's per-motion size
+    gate (``interconnect.hier_min_block_bytes``)."""
+    ic = cfg.interconnect
+    if getattr(ic, "hierarchical", "off") not in ("auto", "on"):
+        return None
+    if ic.backend != "xla" or not ic.packed_wire:
+        return None
     from cloudberry_tpu_torch.parallel.mesh import host_topology
 
-    host_topology(n_segments, device_ids, n_slots)
-    if device_ids is not None and len(device_ids) < n_segments:
-        raise RuntimeError(
-            f"config asks for {n_segments} segments but only "
-            f"{len(device_ids)} segment slots survive")
+    try:
+        topo = host_topology(n_segments, device_ids, n_slots)
+    except Exception:
+        return None     # stale/odd restriction: the layout check reports
+    if topo.n_hosts < 2 or n_segments % topo.n_hosts != 0 \
+            or not topo.uniform_contiguous():
+        return None
+    return topo
+
+
+def make_transport(backend: str, n_segments: int, chunks: int = 1,
+                   topo=None, device_ids=None, n_slots: int | None = None):
+    """The transport for a run: ``topo`` (a HostTopology from
+    ``hier_topology``) selects the two-level exchange; else
+    ``interconnect.backend`` names the flat one (``"xla"``, ``"ring"``
+    with ``chunks``). ``device_ids`` and ``n_slots``: the session's
+    survivor restriction and slot pool, checked as the reference's
+    segment mesh checks its devices (parallel/mesh.py
+    ``check_segments``)."""
+    from cloudberry_tpu_torch.parallel.mesh import check_segments
+
+    check_segments(n_segments, device_ids, n_slots)
+    if topo is not None:
+        return HierarchicalCollectives(topo)
     if backend == "xla":
         return OneCardCollectives()
     if backend == "ring":
-        _not_ported("the ring transport (interconnect.backend='ring')")
+        return RingCollectives(n_segments, chunks=chunks)
     raise ValueError(f"unknown interconnect backend {backend!r} "
                      "(known: xla, ring)")

@@ -354,6 +354,7 @@ class Distributor:
                     min(est_rows, cap) / self.nseg * factor)), 64))
                 m.bucket_cap = min(m.bucket_cap, est_bucket)
             m.out_capacity = m.bucket_cap * self.nseg
+            self._stamp_hier(m, child, keys)
             return m, m.out_capacity
         # capacity-based flow control (the ic_udpifc.c:3018 analog): each
         # destination bucket holds factor × fair share; overflow is a
@@ -386,6 +387,7 @@ class Distributor:
         # from the live sketch (verify.py motion-rung-feedback-forged).
         self._feedback_seed(m, child, keys)
         m.out_capacity = m.bucket_cap * self.nseg
+        self._stamp_hier(m, child, keys)
         return m, m.out_capacity
 
     def _feedback_seed(self, m: N.PMotion, child: N.PlanNode,
@@ -413,6 +415,106 @@ class Distributor:
         m._feedback_seed = {"demand": sk.demand_max, "static": m.bucket_cap,
                             "rung": seeded, "src": src}
         m.bucket_cap = seeded
+
+    # ------------------------------------------------- two-level stamping
+
+    def _hier_topo(self):
+        """The session's two-level topology (None = flat), derived once
+        per Distributor walk. Epoch-aware: the derivation reads the live
+        device list + survivor restriction, both of which an epoch flip
+        changes — and a replan is exactly when this runs again."""
+        if not hasattr(self, "_hier_topo_cache"):
+            from cloudberry_tpu_torch.parallel.transport import hier_topology
+
+            self._hier_topo_cache = hier_topology(
+                self.cfg, self.nseg,
+                getattr(self.session, "_live_device_ids", None))
+        return self._hier_topo_cache
+
+    def _stamp_hier(self, m: N.PMotion, child: N.PlanNode, keys) -> None:
+        """Stamp the two-level caps on a redistribute when the topology
+        gate selects the hierarchical transport: host_bucket_cap sizes
+        the aggregated inter-host (DCN) block per (source host ->
+        destination host) pair — the exact host-granularity bound when
+        the subtree is a base scan, else the host's combined fair share
+        — and hier_hosts pins the grouping the caps assume. Flat
+        sessions (n_hosts == 1) never reach here: single-host plans are
+        byte-identical to pre-two-level plans by construction."""
+        topo = self._hier_topo()
+        if topo is None:
+            return
+        if self.cfg.interconnect.hierarchical == "auto" \
+                and m.bucket_cap * _wire_row_bytes(m) \
+                < self.cfg.interconnect.hier_min_block_bytes:
+            return      # blocks too small to amortize the extra launches
+        if m.out_capacity >= 1 << 31:
+            return      # route words address slots in u32 (transport)
+        n_hosts = topo.n_hosts
+        S = self.nseg // n_hosts
+        exact = self._exact_host_cap(child, keys, n_hosts)
+        if exact is not None:
+            m.host_bucket_cap = rung_up(max(exact, 8))
+        else:
+            # a host's S segments' per-destination shares combined; an
+            # under-estimate is a detected overflow that promotes the
+            # host rung and retries (executor.grow_expansion), never a
+            # wrong result — same ladder discipline as bucket_cap
+            m.host_bucket_cap = rung_up(max(S * m.bucket_cap, 8))
+        m.hier_hosts = n_hosts
+
+    def _exact_host_cap(self, child: N.PlanNode, keys,
+                        n_hosts: int) -> Optional[int]:
+        """Exact max rows any (source host, destination host) pair
+        exchanges — the host-granularity analog of _exact_bucket_cap
+        (contiguous uniform grouping: host = segment // S)."""
+        import numpy as np
+
+        from cloudberry_tpu_torch.utils import hashing
+
+        node = child
+        while isinstance(node, (N.PFilter, N.PRuntimeFilter)):
+            node = node.child
+        if not isinstance(node, N.PScan) or node.table_name == "$dual":
+            return None
+        try:
+            t = self.session.catalog.table(node.table_name)
+        except KeyError:
+            return None
+        if t.policy.kind == "replicated":
+            return None
+        rev = {out: phys for phys, out in node.column_map.items()}
+        phys = []
+        for k in keys:
+            p = rev.get(k.name) if isinstance(k, ex.ColumnRef) else None
+            if p is None:
+                return None
+            phys.append(p)
+        t.ensure_loaded()
+        if t.num_rows == 0:
+            return None
+        cache = getattr(self.session, "_bucket_cap_cache", None)
+        if cache is None:
+            cache = self.session._bucket_cap_cache = {}
+        key = ("host", node.table_name, getattr(t, "_version", 0),
+               tuple(phys), self.nseg, n_hosts)
+        hit = cache.get(key)
+        if hit is not None:
+            return hit
+        S = self.nseg // n_hosts
+        cols = [np.asarray(t.data[p]) for p in phys]
+        dst = hashing.jump_consistent_hash_np(
+            hashing.hash_columns_np(cols), self.nseg) // S
+        src = t.shard_assignment(self.nseg)
+        if src is None:
+            return None
+        counts = np.bincount(
+            (src.astype(np.int64) // S) * n_hosts + dst,
+            minlength=n_hosts * n_hosts)
+        out = int(counts.max())
+        if len(cache) >= 64:
+            cache.pop(next(iter(cache)))
+        cache[key] = out
+        return out
 
     def _exact_bucket_cap(self, child: N.PlanNode, keys) -> Optional[int]:
         """Exact max rows any (source, destination) bucket can receive,
@@ -681,6 +783,22 @@ class Distributor:
             key_refs = [_field_ref(partial, n) for n, _ in node.group_keys]
             motion, mcap = self.redistribute(partial, partial.capacity,
                                              key_refs)
+            if motion.hier_hosts:
+                spec = host_combine_spec(motion, partial, final_aggs)
+                if spec is not None:
+                    # host-local combine between the hops: DCN carries
+                    # one partial per (host, group). The combined rows
+                    # ship from one segment per host, which can see up
+                    # to S segments' worth of distinct groups — grow
+                    # the pair rung to that ceiling so the combine can
+                    # never manufacture an overflow the uncombined
+                    # motion would not have had.
+                    S = self.nseg // motion.hier_hosts
+                    motion.host_combine = True
+                    motion.combine_spec = spec
+                    motion.bucket_cap = rung_up(S * motion.bucket_cap)
+                    motion.out_capacity = motion.bucket_cap * self.nseg
+                    mcap = motion.out_capacity
             final_sharding = _rename_sharding(
                 Sharding.hashed(*(k.name for k in key_refs
                                   if isinstance(k, ex.ColumnRef))),
@@ -808,6 +926,56 @@ def _join_out_cap(node: N.PJoin, bcap: int, pcap: int,
         node.out_capacity = max(bcap + pcap, floor)
         return node.out_capacity
     return pcap
+
+
+def _wire_row_bytes(m: N.PMotion) -> int:
+    """Bytes one row costs on the motion's packed wire (fallback: raw
+    itemsize sum) — the auto-gate's block-size currency."""
+    import numpy as np
+
+    from cloudberry_tpu_torch.exec import kernels as K
+
+    dtypes = {f.name: f.type.np_dtype for f in m.fields}
+    try:
+        return K.wire_layout(dtypes).row_bytes()
+    except NotImplementedError:
+        return sum(np.dtype(d).itemsize for d in dtypes.values()) + 1
+
+
+def host_combine_spec(m: N.PMotion, partial: N.PAgg,
+                      final_aggs) -> Optional[tuple]:
+    """Combine-eligibility for a two-stage agg's merge motion (the
+    planner stamp the verifier's motion-host-combine rule checks).
+
+    Eligible only when every merge is ORDER-INSENSITIVE-EXACT — integer
+    sums (count partials are int64; DECIMAL rides int64 cents), min,
+    max — so host-combined partials merge to bit-identical finals no
+    matter how the combine regrouped them. A float sum partial (f64
+    rounding depends on add order) or a masked (nullable) key keeps the
+    motion combine-free. Returns (group key names, ((column, merge
+    func), ...)) or None."""
+    import numpy as np
+
+    if m.kind != "redistribute" or not partial.group_keys:
+        return None
+    by_name = {f.name: f for f in m.fields}
+    for f in m.fields:
+        if f.masks:
+            return None         # NULL semantics need the mask columns
+    merges = []
+    for name, call in final_aggs:
+        f = by_name.get(name)
+        if f is None or call.func not in ("sum", "min", "max"):
+            return None
+        if call.func == "sum" and not (
+                np.issubdtype(f.type.np_dtype, np.integer)
+                or f.type.np_dtype == np.bool_):
+            return None         # float sums are add-order-sensitive
+        merges.append((name, call.func))
+    keys = tuple(n for n, _ in partial.group_keys)
+    if not all(k in by_name for k in keys):
+        return None
+    return (keys, tuple(merges))
 
 
 # ---------------------------------------------------------------- agg split

@@ -17,10 +17,6 @@ These corruptions are what an incorrect planner CHANGE would produce:
 every class was chosen so that, had the verifier not existed, the
 mutated plan would run and return silently wrong rows (or blow up
 mid-exchange) at 8 segments.
-
-The JAX package's three classes that corrupt two-level (hierarchical)
-motion stamps are not carried: the port's verifier has no two-level
-rules (plan/verify.py), so nothing here could catch them.
 """
 
 from __future__ import annotations
@@ -416,6 +412,50 @@ def jix_forged(plan, session):
     return None
 
 
+def hier_wrong_host_grouping(plan, session):
+    """Stamp two-level caps for a host count that does not divide the
+    mesh: rows would route to a host lane that does not exist."""
+    from cloudberry_tpu_torch.exec.kernels import rung_up
+
+    for m in _motions(plan, "redistribute"):
+        m.hier_hosts = 3            # 8-segment corpus: 8 % 3 != 0
+        m.host_bucket_cap = rung_up(max(m.bucket_cap, 8))
+        return plan, "two-level stamps with hier_hosts=3 on 8 segments"
+    return None
+
+
+def hier_inter_buffer_undersize(plan, session):
+    """Undersize the aggregated inter-host block below one segment-pair
+    bucket: the DCN exchange cannot hold what the intra hop may legally
+    deliver — a guaranteed overflow stamped as a valid plan."""
+    for m in _motions(plan, "redistribute"):
+        if m.bucket_cap <= 8:
+            continue
+        m.hier_hosts = 2
+        m.host_bucket_cap = 8       # a valid rung, below bucket_cap
+        return plan, f"host_bucket_cap 8 < bucket_cap {m.bucket_cap}"
+    return None
+
+
+def hier_combine_forged(plan, session):
+    """Forge a host-combine stamp on a join redistribute (child is not
+    a partial aggregate): the 'combine' would grouped-aggregate
+    arbitrary join rows and silently drop data."""
+    from cloudberry_tpu_torch.exec.kernels import rung_up
+
+    for m in _motions(plan, "redistribute"):
+        if isinstance(m.child, N.PAgg):
+            continue
+        m.hier_hosts = 2
+        m.host_bucket_cap = rung_up(max(m.bucket_cap, 8))
+        m.host_combine = True
+        keys = tuple(k.name for k in m.hash_keys
+                     if isinstance(k, ex.ColumnRef))
+        m.combine_spec = (keys, tuple())
+        return plan, "host_combine forged on a join redistribute"
+    return None
+
+
 def expansion_no_capacity(plan, session):
     """Zero an expansion join's pair buffer."""
     j = _first(plan, lambda n: isinstance(n, N.PJoin)
@@ -524,4 +564,13 @@ MUTATIONS: dict[str, tuple[str, Callable, frozenset]] = {
     "expansion-no-capacity": (
         _Q_LEFT_EXPAND, expansion_no_capacity,
         frozenset({"join-out-capacity"})),
+    "hier-wrong-host-grouping": (
+        _Q_REDIST_JOIN, hier_wrong_host_grouping,
+        frozenset({"motion-host-grouping"})),
+    "hier-inter-buffer-undersize": (
+        _Q_REDIST_JOIN, hier_inter_buffer_undersize,
+        frozenset({"motion-host-capacity"})),
+    "hier-combine-forged": (
+        _Q_REDIST_JOIN, hier_combine_forged,
+        frozenset({"motion-host-combine"})),
 }

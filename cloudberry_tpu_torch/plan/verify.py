@@ -51,10 +51,11 @@ every generic-plan build is verified right before it runs), and the
 plan-mutation fuzzer (plan/mutate.py's corruption classes, each of which
 must be caught).
 
-Not carried: the JAX package's checks of the two-level (hierarchical)
-motion stamps and of host-combine stamps (its ``_check_two_level`` and
-``_check_host_combine``). The port's distributor stamps no two-level
-motion (ROADMAP Queue A 11), so those rules have no ids here.
+The two-level (hierarchical) motion stamps and host-combine stamps are
+checked whenever any is present, whatever the live host layout
+(``_check_two_level``, ``_check_host_combine``: rules
+``motion-host-grouping``, ``motion-host-rung``, ``motion-host-capacity``
+and ``motion-host-combine``).
 """
 
 from __future__ import annotations
@@ -433,6 +434,19 @@ class Verifier:
         try:
             return Distributor(self.session)._exact_bucket_cap(
                 child, keys)
+        except Exception:
+            return None
+
+    def exact_host_bound(self, child: N.PlanNode, keys,
+                         n_hosts: int) -> Optional[int]:
+        """The exact (source host, destination host) exchange bound for
+        a scan-rooted redistribute — the same computation the
+        distributor sized host_bucket_cap with (_exact_host_cap)."""
+        from cloudberry_tpu_torch.plan.distribute import Distributor
+
+        try:
+            return Distributor(self.session)._exact_host_cap(
+                child, keys, n_hosts)
         except Exception:
             return None
 
@@ -887,6 +901,9 @@ def _r_motion(v: Verifier, node: N.PMotion, kids, path) -> Props:
                    "runtime filter below to justify the undercut")
     if getattr(node, "_feedback_seed", None) is not None:
         _check_feedback_seed(v, node, path)
+    if node.host_bucket_cap or node.hier_hosts or node.host_combine \
+            or node.combine_spec is not None:
+        _check_two_level(v, node, path)
     names = tuple(k.name for k in node.hash_keys
                   if isinstance(k, ex.ColumnRef))
     d = Sharding.hashed(*names) if names and \
@@ -927,6 +944,116 @@ def _check_feedback_seed(v: Verifier, node: N.PMotion, path: str) -> None:
                f"{bound} justified by the observed demand "
                f"{sk.demand_max} — an undercut rung is a guaranteed "
                "overflow the sketch existed to prevent")
+
+
+def _check_two_level(v: Verifier, node: N.PMotion, path: str) -> None:
+    """The two-level (hierarchical) motion's capacity rules. Checked whenever ANY two-level
+    stamp is present, independent of the live topology: the stamps are
+    what the hierarchical transport will trust, so a forged or desynced
+    stamp must be a finding even on a session that would run it flat."""
+    from cloudberry_tpu_torch.exec.kernels import rung_up
+
+    hh = node.hier_hosts
+    hb = node.host_bucket_cap
+    if hh < 2 or v.nseg % hh != 0:
+        v.fail("motion-host-grouping", path,
+               f"two-level stamps with hier_hosts={hh} on a {v.nseg}-"
+               "segment plan — the hierarchical exchange requires a "
+               "uniform host grouping (hosts >= 2 dividing nseg); a "
+               "wrong grouping routes rows to the wrong host lane")
+        return
+    S = v.nseg // hh
+    if hb < 8 or rung_up(hb) != hb:
+        v.fail("motion-host-rung", path,
+               f"host_bucket_cap {hb} is not a capacity rung (power of "
+               "two >= 8) — the DCN block ladder shares the bounded-"
+               "recompile discipline of bucket_cap")
+    if hb < node.bucket_cap:
+        v.fail("motion-host-capacity", path,
+               f"host_bucket_cap {hb} < bucket_cap {node.bucket_cap}: "
+               "a single segment-pair bucket the intra hop may legally "
+               "deliver cannot fit the inter-host block — the "
+               "aggregated DCN exchange is undersized by construction")
+    elif hb > rung_up(S * S * node.bucket_cap):
+        v.fail("motion-host-capacity", path,
+               f"host_bucket_cap {hb} exceeds the proven host-pair "
+               f"ceiling rung {rung_up(S * S * node.bucket_cap)} "
+               f"(S^2 x bucket_cap, S={S}) — pure DCN padding no "
+               "demand can fill")
+    else:
+        exact = v.exact_host_bound(node.child, node.hash_keys, hh)
+        if exact is not None and hb < rung_up(max(exact, 8)) \
+                and _rf_below(node) is None and not node.host_combine:
+            v.fail("motion-host-capacity", path,
+                   f"host_bucket_cap {hb} < exact host-pair bound rung "
+                   f"{rung_up(max(exact, 8))} with nothing below to "
+                   "shrink the input — a guaranteed DCN-block overflow")
+    if node.host_combine or node.combine_spec is not None:
+        _check_host_combine(v, node, path)
+
+
+def _check_host_combine(v: Verifier, node: N.PMotion,
+                        path: str) -> None:
+    """Combine-stamp legality: only a two-stage agg's merge motion may
+    carry it, and every merge must be order-insensitive-exact — a
+    forged stamp would host-combine rows whose merge is not associative
+    - commutative-exact and silently change results."""
+    import numpy as np
+
+    spec = node.combine_spec
+    if not node.host_combine or spec is None:
+        v.fail("motion-host-combine", path,
+               "host_combine and combine_spec must be stamped together "
+               "(one without the other is a forged/half-applied stamp)")
+        return
+    child = node.child
+    if not (isinstance(child, N.PAgg)
+            and getattr(child, "mode", "") == "partial"
+            and child.group_keys):
+        v.fail("motion-host-combine", path,
+               "host_combine stamped on a motion whose child is not a "
+               "grouped PARTIAL aggregate — there are no partials to "
+               "merge; combining arbitrary rows drops data")
+        return
+    keys, merges = spec
+    want = tuple(n for n, _ in child.group_keys)
+    if tuple(keys) != want:
+        v.fail("motion-host-combine", path,
+               f"combine_spec keys {tuple(keys)} != the partial agg's "
+               f"group keys {want}")
+    hash_names = {k.name for k in node.hash_keys
+                  if isinstance(k, ex.ColumnRef)}
+    if hash_names != set(keys):
+        v.fail("motion-host-combine", path,
+               f"combine groups by {sorted(keys)} but the motion "
+               f"hashes {sorted(hash_names)} — combined groups would "
+               "not be colocated with their merge destination")
+    by_name = {f.name: f for f in node.fields}
+    for f in node.fields:
+        if f.masks:
+            v.fail("motion-host-combine", path,
+                   f"host-combine over masked (nullable) column "
+                   f"{f.name!r} — NULL grouping semantics need the "
+                   "mask columns the combine does not model")
+            break
+    for name, func in merges:
+        f = by_name.get(name)
+        if f is None:
+            v.fail("motion-host-combine", path,
+                   f"combine_spec merges column {name!r} the motion "
+                   "does not ship")
+            continue
+        if func not in ("sum", "min", "max"):
+            v.fail("motion-host-combine", path,
+                   f"merge func {func!r} for {name!r} is not an exact "
+                   "combine (count partials merge as sum)")
+        elif func == "sum" and not (
+                np.issubdtype(f.type.np_dtype, np.integer)
+                or np.dtype(f.type.np_dtype) == np.bool_):
+            v.fail("motion-host-combine", path,
+                   f"sum-merge of {name!r} ({f.type.np_dtype}) is add-"
+                   "order-sensitive — host-combined floats would not "
+                   "be bit-identical to the flat merge")
 
 
 def _rf_below(m: N.PMotion) -> Optional[N.PRuntimeFilter]:

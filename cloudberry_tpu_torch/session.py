@@ -172,6 +172,14 @@ class DeviceShards:
     nseg: int
 
 
+def _host_layout():
+    """The host split plans are stamped for: the forced simulated host
+    count (parallel/mesh.py), None on the card's one real host."""
+    import os
+
+    return os.environ.get("CBTPU_FORCE_HOSTS") or None
+
+
 class Session:
     def __init__(self, config: Config | None = None, device=None):
         from cloudberry_tpu_torch.catalog.catalog import Catalog
@@ -1099,8 +1107,8 @@ class Session:
         from cloudberry_tpu_torch.exec.udf import registry_version
         from cloudberry_tpu_torch.plan.feedback import feedback_gen
 
-        names, versions, cfg, ddlv, runner, cost, obs_bytes, fbgen = \
-            entry
+        names, versions, cfg, ddlv, runner, cost, obs_bytes, fbgen, \
+            hosts = entry
         # ddlv pairs the catalog DDL version with the UDF registry
         # version: re-registering a function must drop plans that baked
         # its OLD results in at bind time. The config IDENTITY check is
@@ -1109,10 +1117,13 @@ class Session:
         # the feedback-store generation the plan was built against: a
         # MATERIAL sketch fold (plan/feedback.py) bumps it, so learned
         # stats reach statements the cache would otherwise pin to their
-        # first plan.
+        # first plan. hosts is the host layout the plan's two-level stamps
+        # were derived for: a statement planned flat is never served under
+        # a forced host split, nor the reverse.
         stale = (cfg is not self.config
                  or ddlv != (self.catalog.ddl_version, registry_version())
-                 or fbgen != feedback_gen(self))
+                 or fbgen != feedback_gen(self)
+                 or hosts != _host_layout())
         if not stale:
             try:
                 stale = self._table_versions(names) != versions
@@ -1195,7 +1206,7 @@ class Session:
             (self.catalog.ddl_version, registry_version()),
             runner, cost,
             cost if obs_bytes is None else int(obs_bytes),
-            feedback_gen(self))
+            feedback_gen(self), _host_layout())
         with self._stmt_lock:
             self._stmt_cache.pop(ckey, None)  # re-insert at the tail
             while len(self._stmt_cache) >= self._STMT_CACHE_MAX:

@@ -190,14 +190,26 @@ def test_one_card_collectives_equal_the_mesh_collectives():
 
 
 def test_unported_transports_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ring"):
-        TT.make_transport("ring", 8)
+    """Every transport the reference names is built (the test keeps the
+    name it had while the ring and the forced split raised): "ring" with
+    its chunks, the two-level one under CBTPU_FORCE_HOSTS, an unknown
+    name still raises; the survivor restriction is still checked against
+    the slot pool, outside the forced layout's path."""
+    ring = TT.make_transport("ring", 8, chunks=4)
+    assert isinstance(ring, TT.RingCollectives) and ring.chunks == 4
     with pytest.raises(ValueError):
         TT.make_transport("carrier-pigeon", 8)
     assert isinstance(TT.make_transport("xla", 8), TT.OneCardCollectives)
     monkeypatch.setenv("CBTPU_FORCE_HOSTS", "2")
-    with pytest.raises(NotImplementedError, match="CBTPU_FORCE_HOSTS"):
-        TT.make_transport("xla", 8)
+    topo = TM.host_topology(8)
+    assert topo.forced and topo.segs_by_host == ((0, 1, 2, 3),
+                                                 (4, 5, 6, 7))
+    tx = TT.make_transport("xla", 8, topo=topo)
+    assert isinstance(tx, TT.HierarchicalCollectives) and tx.S == 4
+    with pytest.raises(ValueError, match="CBTPU_FORCE_HOSTS"):
+        TM.host_topology(6 + 1)
+    with pytest.raises(TM.DeviceRestrictionError):
+        TT.make_transport("xla", 8, device_ids=[8])
     monkeypatch.delenv("CBTPU_FORCE_HOSTS")
     topo = TM.host_topology(8)
     assert topo.n_hosts == 1 and topo.segs_by_host == (tuple(range(8)),)
@@ -205,6 +217,8 @@ def test_unported_transports_raise(monkeypatch):
     # segment count by default), as the reference checks its devices
     with pytest.raises(TM.DeviceRestrictionError):
         TM.host_topology(8, device_ids=[8])
+    with pytest.raises(RuntimeError, match="slots survive"):
+        TT.make_transport("xla", 8, device_ids=[0, 1], n_slots=8)
 
 
 def test_distributed_modules_import_no_jax():

@@ -6,8 +6,8 @@ counterparts of the JAX package's ``test_planverify.py``.
    both engines, with the same node count and rule rows hit.
 2. Seeded mutations: every ported corruption class is caught, with the
    same rule ids at the same node paths as the JAX package's on the same
-   statement. The port's corpus is the JAX package's minus its three
-   two-level (hierarchical) classes, whose rules the port does not have.
+   statement. The port's corpus is the JAX package's, its three
+   two-level (hierarchical) classes included.
 3. The ``debug.verify_plans`` session gate: clean statements run
    bit-identically with it on; a corrupt plan raises ``PlanVerifyError``
    on the statement path, and the gate covers the generic-plan build and
@@ -126,12 +126,15 @@ def test_mutation_caught_like_jax(dist, mutation):
 
 
 def test_mutation_corpus_size():
-    """24 of the JAX package's 27 classes: the three two-level classes
-    have no rule in the port."""
+    """The JAX package's 27 classes, the three two-level classes
+    included, each with the JAX package's statement and rule ids."""
     assert len(M.MUTATIONS) >= 15
-    assert set(JM.MUTATIONS) - set(M.MUTATIONS) == TWO_LEVEL
-    assert len(M.MUTATIONS) == len(JM.MUTATIONS) - len(TWO_LEVEL) == 24
-    assert not set(M.MUTATIONS) - set(JM.MUTATIONS)
+    assert set(M.MUTATIONS) == set(JM.MUTATIONS)
+    assert TWO_LEVEL <= set(M.MUTATIONS)
+    assert len(M.MUTATIONS) == len(JM.MUTATIONS) == 27
+    for name in TWO_LEVEL:
+        assert (M.MUTATIONS[name][0], M.MUTATIONS[name][2]) == \
+            (JM.MUTATIONS[name][0], JM.MUTATIONS[name][2])
 
 
 # --------------------------------------------------- the session gate
@@ -404,10 +407,11 @@ def test_verifier_local_mode_skips_distribution(single):
 
 @pytest.mark.parametrize("mutation", sorted(TWO_LEVEL))
 def test_two_level_stamps_have_no_rule_in_the_port(dist, mutation):
-    """The JAX package's two-level (hierarchical) motion checks are not
-    carried (the port's distributor stamps no two-level motion): its
-    mutation classes, applied to the port's plan, draw no finding, where
-    the JAX package's verifier catches them on its own plan."""
+    """The two-level (hierarchical) motion checks are carried: the JAX
+    package's mutated stamps, copied onto the port's plan motion for
+    motion, draw the same rule ids at the same node paths as the JAX
+    package's verifier finds on its own plan (the test keeps the name it
+    had while the port had no such rule)."""
     from cloudberry_tpu.exec.executor import all_nodes as j_all_nodes
     from cloudberry_tpu.plan import nodes as JN
     from cloudberry_tpu_torch.exec.executor import all_nodes
@@ -432,4 +436,6 @@ def test_two_level_stamps_have_no_rule_in_the_port(dist, mutation):
             setattr(b, f, getattr(a, f))
         stamped += bool(a.hier_hosts)
     assert stamped
-    assert V.verify_plan(tplan, ts) == []
+    tfind = V.verify_plan(tplan, ts)
+    assert any(f.rule in expected for f in tfind)
+    assert _rp(tfind) == _rp(JV.verify_plan(jplan, js))
