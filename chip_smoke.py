@@ -155,7 +155,7 @@ its Executable as before the caches existed; phase 11 measures the caches.
    also equal to the numpy oracle (Q1's averages in the two-stage
    finalize's order) and to an 8-segment CPU session of the port;
    TPC-DS q17/q25/q29 at scale 100 over 8 segments, each equal to phase
-   4's one-segment run; at SF2 (``--dist-sf``; BASELINE.md's config is
+   4's one-segment run; at SF4 (``--dist-sf``; BASELINE.md's config is
    SF10, cut to fit the time limit) TPC-H Q5 and Q9 over 4 segments, each
    equal to a one-segment CUDA run at a 64 GiB budget and red line that
    admit it. The first 8-segment run of each statement holds every
@@ -319,7 +319,26 @@ its Executable as before the caches existed; phase 11 measures the caches.
    mutation classes, each caught under its own rule on (b)'s plan. Each
    text's first run holds every kernel call against its plain version,
    and every kernel must launch in the phase's counted runs;
-19. kernels: each kernel, on the inputs the TPC-H path gave it and on
+19. the two-process cluster on the one card: two child processes
+   (``chip_smoke.py --cluster-child``) join one cluster through
+   ``init_distributed`` (CBTPU_COORDINATOR on 127.0.0.1, gloo), each
+   with ``Session(Config(n_segments=8), device="cuda")`` owning 4 of the
+   8 segments over phase 12's SF1 tables (pickled once by this process)
+   and tests/multihost_worker.py's tables; each runs that worker's three
+   statements and TPC-H Q1, Q3, Q5, Q9 and Q18 flat
+   (``hierarchical="off"``) and at ``hierarchical="on"`` over the two
+   real hosts (no CBTPU_FORCE_HOSTS), every result (the warm-up's and
+   the counted run's) equal bit for bit to phase 12's one-process
+   8-segment result (the worker's statements: to this process's), so
+   equal across the children and between flat and two-level; each
+   child must launch every kernel the one-process run of a text
+   launched, and the bytes both children hand to ``torch.distributed``
+   for each redistribute must equal ``flat_wire_model`` (flat) or
+   ``two_level_wire_model`` (two-level). Per text: each child's wall
+   against phase 12's flat wall, launches and bytes; per child its peak
+   device bytes. A child that fails or outlives its timeout fails the
+   phase;
+20. kernels: each kernel, on the inputs the TPC-H path gave it and on
    synthetic inputs at the main path's shapes plus edge cases (empty
    selection, ragged N, int64 wraparound, duplicate build keys, one hot
    cell, cell domains for each of dense_agg's modes, a skewed group, odd
@@ -336,8 +355,9 @@ its Executable as before the caches existed; phase 11 measures the caches.
    with torch.profiler (after a warm-up trace, and again where a counted
    launch left no device activity in its trace): it must be one device
    kernel;
-20. report: the card line, one JSON line of kernels (launches summed over
-   the counted runs of phases 3 to 18), and last the JSON line
+21. report: the card line, one JSON line of kernels (launches summed over
+   the counted runs of phases 3 to 19, the cluster children's included),
+   and last the JSON line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -5602,6 +5622,10 @@ def _expand_under_load(kit, counted, raw, gpu) -> dict:
     errors: list = []
     stop = threading.Event()
 
+    def epoch_of():
+        cur = s._topology.current
+        return cur.epoch_id, cur.nseg
+
     def client(srv, wid):
         try:
             with Client(srv.host, srv.port, timeout=DUR_TIMEOUT) as c:
@@ -5609,6 +5633,7 @@ def _expand_under_load(kit, counted, raw, gpu) -> dict:
                 while not stop.is_set():
                     q = texts[i % len(texts)]
                     i += 1
+                    before = epoch_of()
                     try:
                         got = c.sql(q)
                     except ServerError as e:
@@ -5616,7 +5641,8 @@ def _expand_under_load(kit, counted, raw, gpu) -> dict:
                             continue
                         raise
                     with lock:
-                        answers.append((q, got.get("rows")))
+                        answers.append((q, got.get("rows"), before,
+                                        epoch_of()))
         except Exception as e:  # noqa: BLE001 — checked below
             errors.append(f"{type(e).__name__}: {e}")
 
@@ -5668,9 +5694,21 @@ def _expand_under_load(kit, counted, raw, gpu) -> dict:
     snap = rec["failover"]
     check(snap["reason"] == "failover" and snap["nseg"] == failed,
           f"(g) the failover shrink: {snap['reason']} at {snap['nseg']}")
-    bad = [q[:40] for q, rows in answers if rows != static[q]]
+    bad = [(q, rows, before, after) for q, rows, before, after in answers
+           if rows != static[q]]
+    for q, rows, before, after in bad[:4]:
+        # where a wrong answer ran: the (epoch, segments) the topology
+        # held when the request was sent and when it was answered, and
+        # the rows it has that the static run has not, and the reverse
+        want, rows = static[q], rows or []
+        log(f"[durable] (g) differing answer to {q[:60]!r}: sent at "
+            f"(epoch, nseg) {before}, answered at {after}; {len(rows)} "
+            f"rows against {len(want)}; extra "
+            f"{[r for r in rows if r not in want][:5]}; missing "
+            f"{[r for r in want if r not in rows][:5]}")
     check(not bad, f"(g) {len(bad)} answers differ from the static "
-          f"{start}-segment run: {bad[:3]}")
+          f"{start}-segment run: {[b[0][:40] for b in bad[:3]]}, at "
+          f"(epoch, nseg) {[b[2:] for b in bad[:3]]}")
     reb = rec["expand"]["rebalance"]
     flips = s.stmt_log.counter("epoch_flips")
     out = {"answers": len(answers), "ms": ms,
@@ -6037,7 +6075,337 @@ def hier_motion_phase(kit, raw, gpu, flat8, flat_ms, args) -> dict:
     return out
 
 
+# the two-process cluster: each child process owns 4 of the 8 segments
+CLUSTER_PROCS = 2
+CLUSTER_TEXTS = ("q1", "q3", "q5", "q9", "q18")   # phase 18 (c)'s set
+CLUSTER_TIMEOUT_S = 600
+# tests/multihost_worker.py's statements and tables (seed 11)
+MULTIHOST_QUERIES = {
+    "mh_agg": ("SELECT g, sum(v) AS sv, count(*) AS c FROM fact "
+               "JOIN dim ON fact.k = dim.k GROUP BY g ORDER BY g"),
+    "mh_count": ("SELECT count(*) AS n FROM fact JOIN dim ON fact.k = "
+                 "dim.k WHERE g < 3"),
+    "mh_topn": "SELECT k, v FROM fact ORDER BY v DESC, k LIMIT 7",
+}
+
+
+def multihost_load(session) -> None:
+    """tests/multihost_worker.py's two tables, from its generator."""
+    rng = np.random.default_rng(11)
+    session.sql("CREATE TABLE dim (k BIGINT, g BIGINT) DISTRIBUTED BY (k)")
+    session.sql("CREATE TABLE fact (k BIGINT, v BIGINT) DISTRIBUTED BY (k)")
+    session.catalog.table("dim").set_data(
+        {"k": np.arange(400), "g": np.arange(400) % 6})
+    session.catalog.table("fact").set_data(
+        {"k": rng.integers(0, 400, 20_000),
+         "v": rng.integers(0, 1000, 20_000)})
+
+
+def cluster_child(argv) -> int:
+    """One process of phase 19's cluster (``chip_smoke.py
+    --cluster-child DATA OUT DEVICE``): join through ``init_distributed``
+    (CBTPU_* environment), load the TPC-H tables the parent pickled to
+    DATA, and run the multi-host statements and CLUSTER_TEXTS at 8
+    segments flat and at ``hierarchical="on"`` (one session, its config
+    swapped between the two, which the statement cache keys on); each
+    text after its feedback store is emptied, once to warm up and once
+    counted (the statement cache emptied first). Writes the results,
+    walls, launches, the bytes handed to torch.distributed per
+    redistribute, per-text peak device bytes and the child's seconds to
+    OUT (pickle)."""
+    import pickle
+
+    import torch
+
+    import cloudberry_tpu_torch as ct
+    from cloudberry_tpu_torch import tpch
+    from cloudberry_tpu_torch.catalog import carry
+    from cloudberry_tpu_torch.catalog.catalog import DistributionPolicy
+    from cloudberry_tpu_torch.exec import cuda_kernels as CK
+    from cloudberry_tpu_torch.parallel import mesh
+    from cloudberry_tpu_torch.parallel import transport as TT
+
+    data, out_path, device = argv
+    t_start = time.perf_counter()
+    mesh.init_distributed()
+    rank = mesh.process_index()
+    cuda = device == "cuda"
+    if cuda:
+        CK.build()
+    with open(data, "rb") as f:
+        enc = pickle.load(f)
+    budget = enc.pop("$budget")
+    cfg = ct.Config().with_overrides(**{
+        "n_segments": DIST_NSEG, "resource.query_mem_bytes": budget})
+    made = []
+    real_make = TT.make_transport
+
+    def spy(*a, **kw):
+        made.append(real_make(*a, **kw))
+        return made[-1]
+    TT.make_transport = spy
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def counted(s, sql):
+        sync()
+        for k in CK.LAUNCHES:
+            CK.LAUNCHES[k] = 0
+        del made[:]
+        t0 = time.perf_counter()
+        res = s.sql(sql)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        return res, ms, dict(CK.LAUNCHES), [
+            e for tx in made for e in tx.exchanges], sum(
+            tx.total_dist_bytes for tx in made)
+
+    out = {"rank": rank, "procs": mesh.process_count(),
+           "topology": mesh.mesh_topology(DIST_NSEG),
+           "local": list(mesh.local_segments(DIST_NSEG)), "texts": {},
+           "seconds": {"start": time.perf_counter() - t_start}}
+    peak = 0
+    s = ct.Session(cfg, device=device)
+    for name, schema in tpch.SCHEMAS.items():
+        keys = tpch.DIST_KEYS[name]
+        cols, dicts, (unique, ndv) = enc[name]
+        t = carry.load_encoded(
+            s, name, schema.fields, cols, None, dicts,
+            DistributionPolicy.replicated() if keys is None
+            else DistributionPolicy.hashed(*keys))
+        # the parent's uniqueness flags and distinct counts of the same
+        # values (``copy_tables``)
+        t.stats.unique, t.stats.ndv = unique, ndv
+    multihost_load(s)
+    texts = {**MULTIHOST_QUERIES,
+             **{q: tpch.QUERIES[q] for q in CLUSTER_TEXTS}}
+    for mode in ("off", "on"):
+        t_mode = time.perf_counter()
+        s.config = cfg.with_overrides(**{"interconnect.hierarchical": mode})
+        empty_caches(s)
+        for q, sql in texts.items():
+            forget_feedback(s)
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            warm = s.sql(sql)
+            empty_caches(s)
+            res, ms, counts, exchanges, nbytes = counted(s, sql)
+            text_peak = int(torch.cuda.max_memory_allocated()) if cuda \
+                else 0
+            peak = max(peak, text_peak)
+            out["texts"][(mode, q)] = {
+                "warm": with_nulls(warm), "result": with_nulls(res),
+                "ms": ms, "launches": counts, "exchanges": exchanges,
+                "dist_bytes": nbytes, "peak_bytes": text_peak}
+            print(f"[cluster child {rank}] {mode} {q}: {ms:.1f} ms, "
+                  f"launches {counts}, {nbytes} bytes to "
+                  f"torch.distributed, peak {text_peak} B", flush=True)
+        out["seconds"][mode] = time.perf_counter() - t_mode
+    out["peak_bytes"] = peak
+    out["s"] = time.perf_counter() - t_start
+    with open(out_path + ".part", "wb") as f:
+        pickle.dump(out, f, protocol=5)
+    os.replace(out_path + ".part", out_path)
+    return 0
+
+
+def cluster_phase(kit, gpu, raw, flat8, flat_ms, flat_launches) -> dict:
+    """The two-process cluster on the one card (module docstring, phase
+    19): two children of 4 segments each, every result equal bit for bit
+    across them, between flat and two-level, and to the one-process
+    8-segment runs (phase 12's for the TPC-H texts, this process's for
+    the multi-host statements), each child launching every kernel the
+    one-process run of a text launched."""
+    import pickle
+    import shutil
+    import tempfile
+
+    import cloudberry_tpu_torch as ct
+    from cloudberry_tpu_torch import tpch
+    from cloudberry_tpu_torch.parallel import transport as TT
+
+    torch = kit.torch
+    out = {"texts": {}}
+    t_phase = time.perf_counter()
+    # the multi-host statements' one-process 8-segment oracle and walls
+    one = ct.Session(gpu.config.with_overrides(n_segments=DIST_NSEG),
+                     device=kit.device)
+    multihost_load(one)
+    want = {q: flat8[q] for q in CLUSTER_TEXTS}
+    want_ms = {q: flat_ms[q] for q in CLUSTER_TEXTS}
+    want_fired = {q: {k for k, v in flat_launches[q].items() if v}
+                  for q in CLUSTER_TEXTS}
+    for q, sql in MULTIHOST_QUERIES.items():
+        one.sql(sql)
+        empty_caches(one)
+        res, ms, counts = kit.counted_run(one, sql)
+        want[q], want_ms[q] = with_nulls(res), ms
+        want_fired[q] = {k for k, v in counts.items() if v}
+    del one
+    # the TPC-H tables, encoded, for the children
+    base = ct.Session(gpu.config, device="cpu")
+    have = [n for n in tpch.SCHEMAS if n in gpu.catalog.tables]
+    copy_tables(gpu, base, have)
+    tpch.load_tables(base, tpch.SCHEMAS, tpch.DIST_KEYS, raw,
+                     [n for n in tpch.SCHEMAS if n not in have])
+    enc = {n: (t.data, {c: d.values for c, d in t.dicts.items()},
+               (t.stats.unique, t.stats.ndv))
+           for n, t in base.catalog.tables.items()}
+    enc["$budget"] = gpu.config.resource.query_mem_bytes
+    del base
+    gc.collect()
+    if kit.device == "cuda":
+        torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="cb_cluster_")
+    procs = []
+    try:
+        data = os.path.join(tmp, "tpch.pickle")
+        with open(data, "wb") as f:
+            pickle.dump(enc, f, protocol=5)
+        del enc
+        out["in_use_at_start"] = int(torch.cuda.memory_allocated()) \
+            if kit.device == "cuda" else 0
+        port = free_port()
+        t_spawn = time.perf_counter()
+        logs = [os.path.join(tmp, f"child{r}.log")
+                for r in range(CLUSTER_PROCS)]
+        for rank in range(CLUSTER_PROCS):
+            env = {k: v for k, v in os.environ.items()
+                   if not k.startswith("CBTPU_")}
+            env.update(CBTPU_COORDINATOR=f"127.0.0.1:{port}",
+                       CBTPU_NUM_PROCS=str(CLUSTER_PROCS),
+                       CBTPU_PROC_ID=str(rank))
+            # each child writes to a file of its own: no child blocks on
+            # a pipe that is not being read
+            with open(logs[rank], "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--cluster-child", data,
+                     os.path.join(tmp, f"child{rank}.pickle"), kit.device],
+                    cwd=os.path.dirname(os.path.abspath(__file__)),
+                    env=env, stdout=f, stderr=subprocess.STDOUT))
+
+        def said(rank):
+            with open(logs[rank], errors="replace") as f:
+                return f.read()
+
+        # wait for both against one deadline; the first child that fails
+        # is named at once (the other would only wait in a collective)
+        deadline = time.monotonic() + CLUSTER_TIMEOUT_S
+        while any(p.poll() is None for p in procs):
+            for rank, p in enumerate(procs):
+                check(p.poll() in (None, 0), f"cluster child {rank} "
+                      f"exited {p.returncode}:\n{said(rank)[-4000:]}")
+            check(time.monotonic() < deadline,
+                  "cluster children "
+                  f"{[r for r, p in enumerate(procs) if p.poll() is None]}"
+                  f" did not finish within {CLUSTER_TIMEOUT_S} s")
+            time.sleep(0.2)
+        for rank, p in enumerate(procs):
+            text = said(rank)
+            for line in text.splitlines():
+                if line.startswith("[cluster child"):
+                    log(line)
+            check(p.returncode == 0, f"cluster child {rank} exited "
+                  f"{p.returncode}:\n{text[-4000:]}")
+        out["children_s"] = time.perf_counter() - t_spawn
+        kids = []
+        for rank in range(CLUSTER_PROCS):
+            with open(os.path.join(tmp, f"child{rank}.pickle"), "rb") as f:
+                kids.append(pickle.load(f))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    for rank, kid in enumerate(kids):
+        topo = kid["topology"]
+        check(kid["rank"] == rank and kid["procs"] == CLUSTER_PROCS
+              and topo["n_hosts"] == CLUSTER_PROCS
+              and topo["this_host"] == rank
+              and kid["local"] == list(range(4 * rank, 4 * rank + 4)),
+              f"cluster child {rank}: topology {topo}, segments "
+              f"{kid['local']}")
+    fired = {k: [0] * CLUSTER_PROCS for k in kit.launch_names}
+    for q in want:
+        rec = {}
+        for mode in ("off", "on"):
+            got = [kid["texts"][(mode, q)] for kid in kids]
+            for rank, g in enumerate(got):
+                for what in ("warm", "result"):
+                    identical(g[what], want[q],
+                              f"cluster child {rank} {mode} {q} ({what}) "
+                              "vs the one-process 8-segment run")
+                for k, v in g["launches"].items():
+                    fired[k][rank] += v
+                check(want_fired[q] <= {k for k, v in g["launches"].items()
+                                        if v},
+                      f"cluster child {rank} {mode} {q}: launches "
+                      f"{g['launches']}, the one-process run launched "
+                      f"{sorted(want_fired[q])}")
+            # per redistribute: the bytes both children handed to
+            # torch.distributed against the wire models
+            ex = [g["exchanges"] for g in got]
+            check(len(ex[0]) == len(ex[1]),
+                  f"{mode} {q}: the children ran {len(ex[0])} and "
+                  f"{len(ex[1])} redistributes")
+            wire = []
+            for a, b in zip(*ex):
+                flat = TT.flat_wire_model(DIST_NSEG, CLUSTER_PROCS,
+                                          a["bucket_cap"],
+                                          a["row_bytes"])["dcn_bytes"]
+                w = {"op": a["op"], "bucket_cap": a["bucket_cap"],
+                     "row_bytes": a["row_bytes"],
+                     "bytes": a["bytes"] + b["bytes"], "flat_model": flat}
+                if a["op"] == "hier_all_to_all":
+                    w["host_bucket_cap"] = a["host_bucket_cap"]
+                    w["two_level_model"] = TT.two_level_wire_model(
+                        DIST_NSEG, CLUSTER_PROCS, a["bucket_cap"],
+                        a["host_bucket_cap"], a["row_bytes"])["dcn_bytes"]
+                    model = w["two_level_model"]
+                else:
+                    model = flat
+                check(w["bytes"] == model, f"{mode} {q}: {w['bytes']} "
+                      f"bytes crossed for a redistribute, model {model}")
+                wire.append(w)
+            rec[mode] = {"ms": [g["ms"] for g in got],
+                         "launches": [g["launches"] for g in got],
+                         "dist_bytes": [g["dist_bytes"] for g in got],
+                         "peak_bytes": [g["peak_bytes"] for g in got],
+                         "redistributes": wire}
+            log(f"[cluster] {mode} {q}: walls "
+                f"{[round(g['ms'], 3) for g in got]} ms against the "
+                f"one-process flat {want_ms[q]:.3f} ms; peaks "
+                f"{[g['peak_bytes'] for g in got]} B; launches "
+                f"{[g['launches'] for g in got]}; bytes to "
+                f"torch.distributed {[g['dist_bytes'] for g in got]}; "
+                f"redistributes {wire}; equal bit for bit")
+        rec["one_process_ms"] = want_ms[q]
+        out["texts"][q] = rec
+    check(all(all(v) for v in fired.values()),
+          f"a kernel did not launch in both cluster children: {fired}")
+    out["launches"] = {k: sum(v) for k, v in fired.items()}
+    out["peak_bytes"] = [kid["peak_bytes"] for kid in kids]
+    out["children_self_s"] = [kid["s"] for kid in kids]
+    out["children_split_s"] = [kid["seconds"] for kid in kids]
+    split = [{k: round(v, 1) for k, v in x.items()}
+             for x in out["children_split_s"]]
+    out["s"] = time.perf_counter() - t_phase
+    log(f"[cluster] launches per child {fired}; peak device bytes per "
+        f"child {out['peak_bytes']}; children {out['children_s']:.1f} s "
+        f"({[round(x, 1) for x in out['children_self_s']]} s each; "
+        f"start, flat and two-level: {split}); phase {out['s']:.1f} s")
+    return out
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--cluster-child"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return cluster_child(sys.argv[2:])
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=float, default=1.0)
     ap.add_argument("--ds-scale", type=float, default=DS_SCALE,
@@ -6589,7 +6957,6 @@ def _main(args) -> int:
             held=held_run), raw, gpu, flat8,
             {q: r["seg8"]["median_ms"] for q, r in dist["tpch"].items()},
             args)
-    del flat8
     hier["held"] = {k: held[k] - held_before[k] for k in held}
     hier["launches"] = {k: launches[k] - launches_before[k]
                         for k in launches}
@@ -6601,8 +6968,22 @@ def _main(args) -> int:
         f"{hier['held']}; launches of its counted runs {hier['launches']};"
         f" two-level and ring phase: {time.perf_counter() - t0:.1f} s")
 
-    # -------------------------------------------------------- 19. kernels
-    stamp("phase 19 (kernels)")
+    # ---------------------------------------- 19. the two-process cluster
+    stamp("phase 19 (the two-process cluster)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cluster = cluster_phase(SimpleNamespace(
+        torch=torch, counted_run=counted_run, device="cuda",
+        launch_names=list(CK.LAUNCHES)), gpu, raw, flat8,
+        {q: r["seg8"]["median_ms"] for q, r in dist["tpch"].items()},
+        {q: r["launches"] for q, r in dist["tpch"].items()})
+    del flat8
+    for k, v in cluster["launches"].items():
+        launches[k] += v
+    log(f"[cluster] two-process cluster phase: {cluster['s']:.1f} s")
+
+    # -------------------------------------------------------- 20. kernels
+    stamp("phase 20 (kernels)")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     def rand_int(lo, hi, shape, dtype=torch.int64):
@@ -7044,8 +7425,8 @@ def _main(args) -> int:
             "window_query": tpcds.WINDOW_QUERY.format(
                 where="d_year >= 1998")})
 
-    # --------------------------------------------------------- 20. report
-    stamp("phase 20 (report)")
+    # --------------------------------------------------------- 21. report
+    stamp("phase 21 (report)")
     kernels = [{
         "name": name, "route": "cuda",
         "source": f"cloudberry_tpu_torch/csrc/{CK.SOURCES[name]}",
@@ -7066,7 +7447,7 @@ def _main(args) -> int:
                       "distributed": dist, "tiled_distributed": tiled_dist,
                       "recovery": recovery, "sql_surface": sql_surface,
                       "serving": serving, "durability": durable,
-                      "hier_motion": hier,
+                      "hier_motion": hier, "cluster": cluster,
                       "timer_floor_ms": timer_floor_ms, "sf": args.sf,
                       "tpcds_scale": args.ds_scale}))
     print(json.dumps({"ok": True, "device": {

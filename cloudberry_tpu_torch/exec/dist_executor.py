@@ -28,6 +28,16 @@ destination d receives the blocks of sources 0..nseg-1 in source order,
 ``bucket_cap`` slots each; all_gather: segment order; unfilled slots
 all-zero), so sums after a motion add in the reference's order.
 
+In a cluster of processes (parallel/mesh.py ``init_distributed``) a
+process's gang holds lowerers for its own segments only
+(``mesh.local_segments``), fed from the local rows of each sharded
+table, and every collective crosses the process boundary
+(parallel/transport.py ``ProcessCollectives``). Every process issues the
+same collectives in the same order: the exchanges follow the plan walk,
+and everything the host reads after a run (the checks, the psum'd stat
+parts, the motion stats) is reduced over the processes first, so every
+process grows, retries or raises alike.
+
 Routing uses jump_consistent_hash over the same column hash as load-time
 placement (session.sharded_table), so scan-colocated joins need no motion —
 the planner relies on that (plan/distribute.py).
@@ -43,6 +53,7 @@ import torch
 from cloudberry_tpu_torch.exec import executor as X
 from cloudberry_tpu_torch.exec import kernels as K
 from cloudberry_tpu_torch.exec.expr_compile import compile_expr
+from cloudberry_tpu_torch.parallel.transport import cluster_sizes_agree
 from cloudberry_tpu_torch.plan import nodes as N
 from cloudberry_tpu_torch.utils import hashing
 
@@ -53,27 +64,27 @@ def prepare_dist_inputs(plan: N.PlanNode, session, names=None) -> list:
     replicated table whole with its one count; plus the cached join
     indexes ('shard'-mode split by segment, the others shared).
     ``names`` overrides the table set."""
-    nseg = session.config.n_segments
-    per = [dict() for _ in range(nseg)]
+    from cloudberry_tpu_torch.parallel.mesh import local_segments
+
+    segs = local_segments(session.config.n_segments)
+    per = [dict() for _ in segs]
     if plan is not None:
         from cloudberry_tpu_torch.exec.joinindex import \
             dist_join_index_inputs
 
-        for s, jix in enumerate(dist_join_index_inputs(plan, session)):
-            per[s].update(jix)
+        for i, jix in enumerate(dist_join_index_inputs(plan, session)):
+            per[i].update(jix)
     if names is None:
         names = sorted({s.table_name for s in X.scans_of(plan)})
     for name in names:
         ds = session.device_shards(name)
         if ds.replicated:
             ent = {"$cols": ds.columns, "$nrows": ds.counts[0]}
-            for s in range(nseg):
-                per[s][name] = ent
+            for i in range(len(segs)):
+                per[i][name] = ent
         else:
-            for s in range(nseg):
-                per[s][name] = {
-                    "$cols": {c: v[s] for c, v in ds.columns.items()},
-                    "$nrows": ds.counts[s]}
+            for i, s in enumerate(segs):
+                per[i][name] = {"$cols": ds.shard(s), "$nrows": ds.counts[s]}
     return per
 
 
@@ -135,7 +146,12 @@ def compile_distributed(plan: N.PlanNode, session, instrument=False):
 def compile_segments(plan: N.PlanNode, session):
     """The gang's runner for a plan whose top gather was cut (the
     parallel retrieve cursor's endpoints, exec/endpoint.py):
-    ``fn(inputs)`` → (every segment's (cols, sel), checks, stats)."""
+    ``fn(inputs)`` → (every segment's (cols, sel), checks, stats). Not
+    ported across processes: an endpoint of another process's segment
+    cannot be read here."""
+    from cloudberry_tpu_torch.parallel.mesh import require_one_process
+
+    require_one_process("a parallel retrieve cursor's endpoints")
     make = _gang_factory(session)
 
     def run(inputs):
@@ -148,37 +164,45 @@ def compile_segments(plan: N.PlanNode, session):
 
 
 class Gang:
-    """The segments of one distributed run: one lowerer per segment, the
+    """The segments of one distributed run: one lowerer per segment of
+    this process (``inputs`` holds theirs, in segment order), the
     node-keyed cache of exchanged blocks and global values, and the
     per-segment parts of the stats."""
 
     def __init__(self, inputs: list, nseg: int, device, tx, packed: bool,
                  lowerer_cls):
+        from cloudberry_tpu_torch.parallel.mesh import (local_segments,
+                                                        process_count)
+
         self.nseg = nseg
+        segs = local_segments(nseg)
+        self.lo, self.nl = segs.start, len(segs)
+        self.procs = process_count()
         self.device = torch.device(device)
         self.tx = tx
         self.packed = packed
-        self.lowerers = [lowerer_cls(inputs[s], self.device, self, s,
-                                     params=inputs[s].get("$params"))
-                         for s in range(nseg)]
+        self.lowerers = [lowerer_cls(inputs[i], self.device, self, s,
+                                     params=inputs[i].get("$params"))
+                         for i, s in enumerate(segs)]
         self._cache: dict = {}
         self.stats: dict = {}
         # psum'd per-segment stat parts: key -> {segment: value}
         self._parts: dict = {}
 
     def run(self, plan: N.PlanNode):
-        """Lower ``plan`` on every segment: (segment 0's result columns,
-        its selection, the reduced checks, the stats)."""
+        """Lower ``plan`` on every segment: (the first local segment's
+        result columns, its selection, the reduced checks, the stats). A
+        plan's top gather replicates its result to every segment."""
         outs, checks, stats = self.run_each(lambda low: low.lower(plan))
         cols, sel = outs[0]
         return ({f.name: cols[f.name] for f in plan.fields}, sel, checks,
                 stats)
 
     def run_each(self, fn):
-        """``fn(lowerer)`` on every segment, in segment order: (the
+        """``fn(lowerer)`` on every local segment, in segment order: (the
         per-segment results, the checks reduced to one flag each — any
-        segment tripped — and the stats). The tiled executors' preludes,
-        steps and finalizes run through here."""
+        segment of any process tripped — and the stats). The tiled
+        executors' preludes, steps and finalizes run through here."""
         try:
             outs = [fn(low) for low in self.lowerers]
             keys: dict = {}
@@ -192,9 +216,10 @@ class Gang:
             for low in self.lowerers:
                 if hasattr(low, "node_counts"):
                     low.flush_counts()
-            for k, parts in self._parts.items():
-                self.stats[k] = self.tx.psum(
-                    [parts[s] for s in sorted(parts)])
+            cluster_sizes_agree((len(checks), len(self._parts)),
+                                "run checks and stat parts")
+            checks = _cluster_checks(checks)
+            self.stats.update(_cluster_parts(self._parts))
             return outs, checks, dict(self.stats)
         finally:
             # the lowerers and the gang refer to each other: break the
@@ -218,7 +243,8 @@ class Gang:
     # ------------------------------------------------- node-keyed values
 
     def global_any(self, node, fn) -> torch.Tensor:
-        """psum of every segment's local any() > 0, once per node."""
+        """psum of every segment's local any() > 0, once per node (the
+        node's collective, in plan order on every process)."""
         return self._once(("any", id(node)), lambda: self.tx.psum(
             [fn(low).to(torch.int32) for low in self.lowerers]) > 0)
 
@@ -293,6 +319,14 @@ class Gang:
                 return self._hier_digest(topo, torch.stack(los),
                                          torch.stack(his),
                                          torch.stack(blooms))
+            if self.procs > 1:
+                # every process's segments' digests, folded as one
+                nkeys = len(node.build_keys)
+                words = _digest_words(torch.stack(los), torch.stack(his),
+                                      torch.stack(blooms))
+                glob = _digest_fold(self.tx.all_gather(list(words)).reshape(
+                    self.nseg, -1), nkeys)
+                return _digest_unfold(glob, nkeys)
             bloom = blooms[0]
             for b in blooms[1:]:
                 bloom = bloom | b
@@ -308,16 +342,11 @@ class Gang:
         (lo, hi, bloom)."""
         S = self.nseg // topo.n_hosts
         nkeys = los.shape[1]
-        words = torch.stack([los, his], dim=2).view(torch.int32)
-        digest = torch.cat([words.reshape(self.nseg, 4 * nkeys), blooms],
-                           dim=1)                       # (nseg, D)
+        digest = _digest_words(los, his, blooms)        # (local segs, D)
         D = digest.shape[1]
-        local = self.tx.intra_all_gather(digest).reshape(self.nseg, S, D)
+        local = self.tx.intra_all_gather(digest).reshape(self.nl, S, D)
         hosts = self.tx.host_ring_exchange(_digest_fold(local, nkeys))
-        glob = _digest_fold(hosts[0], nkeys)
-        lohi = glob[:4 * nkeys].reshape(nkeys, 4).contiguous() \
-            .view(torch.int64)
-        return lohi[:, 0], lohi[:, 1], glob[4 * nkeys:]
+        return _digest_unfold(_digest_fold(hosts[0], nkeys), nkeys)
 
     # ------------------------------------------------------------ motions
 
@@ -325,7 +354,7 @@ class Gang:
         """Segment ``seg``'s received (cols, sel) of ``node``; the first
         call runs the exchange for every segment."""
         return self._once(("motion", id(node)),
-                          lambda: self._exchange(node))[seg]
+                          lambda: self._exchange(node))[seg - self.lo]
 
     def _exchange(self, node: N.PMotion) -> list:
         """Lower the motion's child on every segment, then ship."""
@@ -358,7 +387,7 @@ class Gang:
                 res = ({n: self.tx.all_gather([c[n] for c, _ in parts])
                         for n in cols0},
                        self.tx.all_gather([s for _, s in parts]))
-            return [res] * self.nseg
+            return [res] * self.nl
         if node.kind == "redistribute":
             return self._redistribute(node, parts)
         raise X.ExecError(f"motion kind {node.kind}")
@@ -382,8 +411,9 @@ class Gang:
         keep the combined rows on the host's lane 0 only — the inter-host
         hop then ships one partial per (host, group). The reference
         computes the identical combine on every segment of a host; here
-        it runs once per host and the other lanes ship nothing, which
-        gives every segment the same received buffer."""
+        it runs once per host, on the process that owns the host's lane
+        0, and the other lanes ship nothing, which gives every segment
+        the same received buffer."""
         key_names, merges = node.combine_spec
         cols0 = parts[0][0]
         layout = K.wire_layout({n: c.dtype for n, c in cols0.items()})
@@ -391,20 +421,40 @@ class Gang:
             [K.pack_wire(c, s, layout) for c, s in parts]))
         S = self.nseg // node.hier_hosts
         specs = [K.AggSpec(func, name) for name, func in merges]
+        cap = hb.shape[1]
         out = []
-        for h in range(node.hier_hosts):
-            hcols, hsel = K.unpack_wire(hb[h * S], layout)
-            keys, aggs, sel, _ = K.group_aggregate(
-                {k: hcols[k] for k in key_names},
-                {name: hcols[name] for name, _ in merges}, specs, hsel,
-                out_capacity=hb.shape[1])
-            comb = {**keys, **aggs}
-            # group_aggregate widens counts to int64; the motion's schema
-            # is the contract
-            comb = {n: v.to(cols0[n].dtype) for n, v in comb.items()}
-            out.append((comb, sel))
-            out += [(comb, torch.zeros_like(sel))] * (S - 1)
+        comb = None
+        for i in range(self.nl):
+            if (self.lo + i) % S == 0:
+                hcols, hsel = K.unpack_wire(hb[i], layout)
+                keys, aggs, sel, _ = K.group_aggregate(
+                    {k: hcols[k] for k in key_names},
+                    {name: hcols[name] for name, _ in merges}, specs, hsel,
+                    out_capacity=cap)
+                comb = {**keys, **aggs}
+                # group_aggregate widens counts to int64; the motion's
+                # schema is the contract
+                comb = {n: v.to(cols0[n].dtype) for n, v in comb.items()}
+                out.append((comb, sel))
+            else:
+                if comb is None:
+                    # this process's first lanes belong to a host whose
+                    # lane 0 another process owns: they ship nothing
+                    comb = {n: torch.zeros((cap,), dtype=c.dtype,
+                                           device=self.device)
+                            for n, c in cols0.items()}
+                out.append((comb, torch.zeros((cap,), dtype=torch.bool,
+                                              device=self.device)))
         return out
+
+    def _stamp_exchanges(self, n0: int, **plan) -> None:
+        """Stamp the plan's rungs and row width on the exchange records
+        the transport appended since ``n0`` (across processes; its
+        records hold only the bytes it handed to torch.distributed), so
+        the wire models are held to the plan, not to the shipped
+        tensor's shape."""
+        for rec in getattr(self.tx, "exchanges", ())[n0:]:
+            rec.update(plan)
 
     def _redistribute(self, node: N.PMotion, parts: list) -> list:
         if self._use_hier(node) and node.host_combine \
@@ -447,6 +497,7 @@ class Gang:
                 pbuf = K.pack_wire(cols, sel, layout)
                 send.append(K.scatter_slots(pbuf[order], slot, n_slots)
                             .reshape(nseg, B, layout.width))
+            n0 = len(getattr(self.tx, "exchanges", ()))
             if self._use_hier(node):
                 # two-level exchange: intra-host re-bucket by destination
                 # host, ONE aggregated inter-host hop at the host rung,
@@ -463,23 +514,82 @@ class Gang:
                 # promotion feed, like bucket_cap's
                 self.stats[f"required host bucket (node {id(node)})"] = \
                     self.tx.pmax(list(hostdem.amax(1)))
+                self._stamp_exchanges(n0, bucket_cap=B,
+                                      row_bytes=layout.width * 4,
+                                      host_bucket_cap=HB)
             else:
                 recv = self.tx.all_to_all(send)
+                self._stamp_exchanges(n0, bucket_cap=B,
+                                      row_bytes=layout.width * 4)
             return [K.unpack_wire(r.reshape(n_slots, layout.width), layout)
                     for r in recv]
-        recv_cols = [dict() for _ in range(nseg)]
+        recv_cols = [dict() for _ in range(self.nl)]
         for name in cols0:
+            n0 = len(getattr(self.tx, "exchanges", ()))
             recv = self.tx.all_to_all([
                 K.scatter_slots(cols[name][order], slot, n_slots)
                 .reshape(nseg, B)
                 for (cols, _), (order, slot, _) in zip(parts, slots)])
-            for d in range(nseg):
+            self._stamp_exchanges(n0, bucket_cap=B,
+                                  row_bytes=cols0[name].element_size())
+            for d in range(self.nl):
                 recv_cols[d][name] = recv[d].reshape(n_slots)
+        n0 = len(getattr(self.tx, "exchanges", ()))
         recv_sel = self.tx.all_to_all([
             K.scatter_slots(valid, slot, n_slots).reshape(nseg, B)
             for order, slot, valid in slots])
+        self._stamp_exchanges(n0, bucket_cap=B, row_bytes=1)
         return [(recv_cols[d], recv_sel[d].reshape(n_slots))
-                for d in range(nseg)]
+                for d in range(self.nl)]
+
+
+def _cluster_checks(checks: dict) -> dict:
+    """Every check flag OR-ed over the cluster's processes, lined up by
+    position (every process records the same checks in the same plan
+    order; their keys name the node by its local id)."""
+    from cloudberry_tpu_torch.parallel.transport import cluster_reduce
+
+    if not checks:
+        return checks
+    flags = cluster_reduce(torch.stack(
+        [v.reshape(()) for v in checks.values()]).to(torch.uint8), "max")
+    return {k: flags[i].bool() for i, k in enumerate(checks)}
+
+
+def _cluster_parts(parts: dict) -> dict:
+    """The psum'd stat parts: each key's local sum over this process's
+    segments, then ONE sum over the processes for every key (lined up by
+    position, as the checks are)."""
+    from cloudberry_tpu_torch.parallel.transport import cluster_reduce
+
+    if not parts:
+        return {}
+    local = [torch.stack([torch.as_tensor(p[s]) for s in sorted(p)]).sum(0)
+             for p in parts.values()]
+    flat = cluster_reduce(torch.cat(
+        [v.reshape(-1).to(torch.int64) for v in local]), "sum")
+    out, i = {}, 0
+    for k, v in zip(parts, local):
+        n = v.numel()
+        out[k] = flat[i:i + n].reshape(v.shape).to(v.dtype)
+        i += n
+    return out
+
+
+def _digest_words(los, his, blooms) -> torch.Tensor:
+    """(segments, D) runtime-filter digest rows: per key the biased int64
+    [lo, hi] pair as int32 words, then the bloom words."""
+    nkeys = los.shape[1]
+    words = torch.stack([los, his], dim=2).view(torch.int32)
+    return torch.cat([words.reshape(los.shape[0], 4 * nkeys), blooms],
+                     dim=1)
+
+
+def _digest_unfold(glob: torch.Tensor, nkeys: int):
+    """A folded digest row → (lo, hi, bloom)."""
+    lohi = glob[:4 * nkeys].reshape(nkeys, 4).contiguous() \
+        .view(torch.int64)
+    return lohi[:, 0], lohi[:, 1], glob[4 * nkeys:]
 
 
 def _digest_fold(rows: torch.Tensor, nkeys: int) -> torch.Tensor:

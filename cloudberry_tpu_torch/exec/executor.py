@@ -153,8 +153,7 @@ def prepare_tables(table_names: list[str], session,
         if segment is None or t.policy.kind == "replicated":
             tables[name] = session.device_table(name)
         else:
-            ds = session.device_shards(name)
-            tables[name] = {c: v[segment] for c, v in ds.columns.items()}
+            tables[name] = session.device_shards(name).shard(segment)
     return tables
 
 

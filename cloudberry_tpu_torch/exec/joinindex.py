@@ -40,6 +40,7 @@ from dataclasses import dataclass
 import torch
 
 from cloudberry_tpu_torch.plan import expr as ex
+from cloudberry_tpu_torch.parallel.mesh import local_segments
 from cloudberry_tpu_torch.plan import nodes as N
 
 
@@ -242,15 +243,16 @@ def _build_index(session, spec: JoinIndexSpec, t, segment=None):
         cap = ds.capacity
         ar = torch.arange(cap, device=session.device)
         if spec.mode == "shard":
-            return [_sorted_index([ds.columns[p][s] for p in spec.phys],
+            # this process's segments (every segment in one process)
+            return [_sorted_index([ds.shard(s)[p] for p in spec.phys],
                                   ar < int(ds.counts_host[s]), spec.bits)
-                    for s in range(ds.nseg)]
+                    for s in local_segments(ds.nseg)]
         if spec.mode == "gathered":
             sel = torch.cat([ar < int(ds.counts_host[s])
                              for s in range(ds.nseg)])
-            return _sorted_index([ds.columns[p].reshape(-1)
-                                  for p in spec.phys], sel, spec.bits)
-        return _sorted_index([ds.columns[p][segment] for p in spec.phys],
+            return _sorted_index([ds.whole(p) for p in spec.phys], sel,
+                                 spec.bits)
+        return _sorted_index([ds.shard(segment)[p] for p in spec.phys],
                              ar < int(ds.counts_host[segment]), spec.bits)
     data = session.device_table(spec.table)
     cap = max(spec.capacity, t.num_rows, 1)
@@ -276,13 +278,14 @@ def join_index_inputs(plan: N.PlanNode, session, segment=None) -> dict:
 
 
 def dist_join_index_inputs(plan: N.PlanNode, session) -> list:
-    """Per-segment {input key: index tensors} for the distributed gang:
-    'shard'-mode indexes split by segment, 'table'/'gathered' ones shared
-    by every segment (the reference's replicated inputs)."""
-    nseg = session.config.n_segments
-    out = [dict() for _ in range(nseg)]
+    """Per-segment {input key: index tensors} for the distributed gang's
+    segments of this process: 'shard'-mode indexes split by segment,
+    'table'/'gathered' ones shared by every segment (the reference's
+    replicated inputs)."""
+    nl = len(local_segments(session.config.n_segments))
+    out = [dict() for _ in range(nl)]
     for spec in jix_specs_of(plan):
         arrs = _cached_index(session, spec, None)
-        for s in range(nseg):
-            out[s][spec.key] = arrs[s] if spec.mode == "shard" else arrs
+        for i in range(nl):
+            out[i][spec.key] = arrs[i] if spec.mode == "shard" else arrs
     return out

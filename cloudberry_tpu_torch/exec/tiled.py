@@ -440,7 +440,8 @@ def _analyze(plan: N.PlanNode) -> Optional[_TileShape]:
     spine: list[N.PlanNode] = []
     builds: list[N.PlanNode] = []
     cur = spine_top
-    while True:  # bounded plan-tree descent, one step per node
+    # graftlint: ignore[seam-loop] bounded plan-tree descent (one step per node, no blocking calls) — terminates with the tree, never a tile/retry loop
+    while True:
         if isinstance(cur, (N.PFilter, N.PProject)):
             spine.append(cur)
             cur = cur.child

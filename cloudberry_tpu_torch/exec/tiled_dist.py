@@ -117,6 +117,9 @@ def plan_tiled_dist(plan: N.PlanNode, session):
         return None
     if getattr(plan, "_direct_segment", None) is not None:
         return None
+    from cloudberry_tpu_torch.parallel.mesh import require_one_process
+
+    require_one_process("tiled distributed execution")
     shape = _analyze_dist(plan, session)
     if shape is None:
         return None
@@ -383,7 +386,8 @@ def _walk_spine(top: N.PlanNode, session):
     builds: list[N.PlanNode] = []
     seen: set[int] = set()
     cur = top
-    while True:  # bounded plan-tree descent, one step per node
+    # graftlint: ignore[seam-loop] bounded plan-tree descent (one step per node; catalog lookups only) — terminates with the tree, never a tile/retry loop
+    while True:
         if isinstance(cur, (N.PFilter, N.PProject)):
             spine.append(cur)
             cur = cur.child

@@ -27,15 +27,27 @@ never fires, as in the reference on a one-host mesh.
 (contiguous, uniform), the reference's stand-in for a multi-host split:
 every simulated host still lives in the one card's memory, so a
 cross-host hop is an index permutation of the segment dimension like any
-other. Multi-host ``init_distributed`` (processes that each own some
-segments) is not ported.
+other.
+
+``init_distributed`` joins a cluster of processes over
+``torch.distributed`` (the ``gloo`` backend: one card cannot give each
+rank a device of its own, which NCCL wants, and gloo runs on the CPU
+too). In a group of P processes, process p owns the contiguous segments
+``[p*S, (p+1)*S)`` with S = n_segments / P (``local_segments``), the
+order in which the reference's ``jax.devices()`` lists a cluster's
+devices, and each process is one real host of ``host_topology``. A
+segment slot is then a global segment id: every process sees the
+cluster's slot pool and lowers only the slots it owns.
 """
 
 from __future__ import annotations
 
+import datetime
 import os
 import threading
 from dataclasses import dataclass
+
+import torch.distributed as dist
 
 SEG_AXIS = "seg"
 
@@ -50,6 +62,80 @@ MAX_SLOTS = 64
 # derivation reads)
 _topo_lock = threading.Lock()
 _topo_cache: dict = {}
+
+
+# how long a collective (and the rendezvous) may wait for the other
+# processes before it fails the statement: a rank that never arrives or a
+# peer that died must fail a run, not hang it
+DIST_TIMEOUT_S = 120.0
+
+_dist_lock = threading.Lock()
+
+
+def init_distributed(coordinator: str | None = None,
+                     num_processes: int | None = None,
+                     process_id: int | None = None) -> None:
+    """Join (or start) a multi-process cluster. Arguments default to the
+    CBTPU_COORDINATOR (``host:port``) / CBTPU_NUM_PROCS / CBTPU_PROC_ID
+    environment, as in the reference. Idempotent; without a coordinator
+    a no-op. The group is ``torch.distributed``'s default group over
+    ``gloo``, rendezvous at ``tcp://<coordinator>``; a rank that does not
+    arrive within ``DIST_TIMEOUT_S`` fails the join (no quiet fallback
+    to one process)."""
+    with _dist_lock:
+        if dist.is_available() and dist.is_initialized():
+            return
+        coordinator = coordinator or os.environ.get("CBTPU_COORDINATOR")
+        if coordinator is None:
+            return
+        num_processes = int(num_processes
+                            or os.environ.get("CBTPU_NUM_PROCS", "1"))
+        process_id = int(process_id if process_id is not None
+                         else os.environ.get("CBTPU_PROC_ID", "0"))
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://{coordinator}",
+            world_size=num_processes, rank=process_id,
+            timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+
+
+def _group_live() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def process_count() -> int:
+    """Processes in the cluster (1 without a group)."""
+    return dist.get_world_size() if _group_live() else 1
+
+
+def process_index() -> int:
+    """This process's rank (0 without a group)."""
+    return dist.get_rank() if _group_live() else 0
+
+
+def local_segments(n_segments: int) -> range:
+    """The segments this process owns: ``[p*S, (p+1)*S)`` in a group of
+    P processes, S = n_segments / P; every segment alone. Every process
+    must own at least one segment, and the port's processes own equal
+    contiguous blocks, so P must divide the segment count."""
+    P = process_count()
+    if P == 1:
+        return range(n_segments)
+    if n_segments < P or n_segments % P != 0:
+        raise RuntimeError(
+            f"n_segments={n_segments} cannot be split over {P} processes: "
+            "every process owns an equal contiguous block of at least one "
+            f"segment, so {P} must divide {n_segments}")
+    S = n_segments // P
+    p = process_index()
+    return range(p * S, (p + 1) * S)
+
+
+def require_one_process(what: str) -> None:
+    """Refuse a path that is not ported across processes."""
+    if process_count() > 1:
+        raise NotImplementedError(
+            f"{what} across processes is not ported: it runs in a "
+            f"one-process cluster only ({process_count()} processes)")
 
 
 class DeviceRestrictionError(RuntimeError):
@@ -157,15 +243,19 @@ def host_topology(n_segments: int, device_ids=None,
     ``CBTPU_FORCE_HOSTS=N`` yields N simulated contiguous uniform hosts
     (the survivor restriction is not read, as in the reference) and
     raises ``ValueError`` when N does not divide the segment count.
-    Otherwise the one card is one host owning every segment; a survivor
+    Otherwise each process of the cluster is one host owning its
+    ``local_segments`` (a segment count the process count does not
+    divide raises ``RuntimeError``), and one process is one host owning
+    every segment; a survivor
     restriction ``device_ids`` is checked against the slot pool
     ``n_slots`` (default: ``n_segments``) as the reference checks it
     against its device list. Cached per (segments, restriction, pool,
     forced count)."""
     force = os.environ.get("CBTPU_FORCE_HOSTS")
+    procs = process_count()
     key = (n_segments,
            tuple(device_ids) if device_ids is not None else None,
-           n_slots, force)
+           n_slots, force, procs)
     with _topo_lock:
         hit = _topo_cache.get(key)
     if hit is not None:
@@ -177,17 +267,17 @@ def host_topology(n_segments: int, device_ids=None,
                 f"CBTPU_FORCE_HOSTS={n_hosts} does not divide "
                 f"n_segments={n_segments} (simulated hosts are uniform "
                 "by construction)")
-        S = n_segments // n_hosts
-        topo = HostTopology(
-            n_segments,
-            tuple(tuple(range(h * S, (h + 1) * S))
-                  for h in range(n_hosts)),
-            forced=True)
     else:
         if device_ids is not None:
             _check_device_ids(device_ids,
                               n_segments if n_slots is None else n_slots)
-        topo = HostTopology(n_segments, (tuple(range(n_segments)),))
+        local_segments(n_segments)      # the processes divide the segments
+        n_hosts = procs
+    S = n_segments // n_hosts
+    topo = HostTopology(
+        n_segments,
+        tuple(tuple(range(h * S, (h + 1) * S)) for h in range(n_hosts)),
+        forced=bool(force))
     with _topo_lock:
         if len(_topo_cache) >= 32:
             _topo_cache.pop(next(iter(_topo_cache)))
@@ -198,13 +288,13 @@ def host_topology(n_segments: int, device_ids=None,
 def mesh_topology(n_segments: int) -> dict:
     """Host → segment layout (the gp_segment_configuration view), a
     rendering of ``host_topology``: the forced split applies here too,
-    so the view matches what the motion layer does. This process is
-    host 0 (one process drives the card)."""
+    so the view matches what the motion layer does. ``this_host`` is
+    this process's index."""
     topo = host_topology(n_segments)
     return {
         "n_segments": n_segments,
         "n_hosts": topo.n_hosts,
-        "this_host": 0,
+        "this_host": process_index(),
         "segments_by_host": {h: list(s)
                              for h, s in enumerate(topo.segs_by_host)},
     }

@@ -355,8 +355,10 @@ class TopologyManager:
               device_ids=None) -> RebalanceState:
         """Create the successor epoch (state: rebalancing). Statements
         keep pinning the CURRENT epoch until cutover()."""
-        from cloudberry_tpu_torch.parallel.mesh import MAX_SLOTS
+        from cloudberry_tpu_torch.parallel.mesh import (MAX_SLOTS,
+                                                        require_one_process)
 
+        require_one_process("a topology change")
         new_nseg = int(new_nseg)
         if new_nseg < 1:
             raise TopologyError(f"invalid segment count {new_nseg}")

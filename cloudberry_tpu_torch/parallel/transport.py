@@ -36,6 +36,23 @@ Three transports implement that interface, as in the reference:
 Every per-segment branch of the reference (``axis_index``) is computed
 over the stacked segment dimension in one set of tensor ops; no
 transport loops over segments on the host.
+
+In a cluster of processes (parallel/mesh.py ``init_distributed``) each
+process owns a contiguous block of segments, and the contract becomes
+"this process's segments in, this process's segments out": the lists
+hold the local segments' values in segment order, and every value a
+segment receives is the one it would receive in one process. In one
+process local means all and nothing changes. ``ProcessCollectives`` is
+the flat exchange across processes (``torch.distributed`` over gloo, CUDA
+blocks staged through pinned host memory); the two-level transport's
+permutations cross the process boundary where a (source, destination)
+pair does, and stay index operations where both segments are local.
+Every transport counts the bytes it hands to ``torch.distributed`` for
+other processes in ``dist_bytes``, and appends each redistribute's to
+``exchanges`` (the executor stamps the record with the plan's rungs and
+row width), the reading ``two_level_wire_model`` and
+``flat_wire_model`` describe. The ring
+transport is not ported across processes.
 """
 
 from __future__ import annotations
@@ -44,6 +61,7 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 # the two-level transport's static index tables (segment ids, the
@@ -56,6 +74,126 @@ _TABLES_MAX = 256
 
 def _stack(xs) -> torch.Tensor:
     return torch.stack([torch.as_tensor(x) for x in xs])
+
+
+# ------------------------------------------------- across processes
+
+def _wire_view(x: torch.Tensor):
+    """(a gloo-ready host tensor, the function that brings a received
+    host tensor back): bool rides as uint8, and a CUDA tensor is staged
+    through pinned host memory."""
+    back_dtype = x.dtype
+    if x.dtype == torch.bool:
+        x = x.to(torch.uint8)
+    x = x.contiguous()
+    if x.device.type != "cpu":
+        dev = x.device
+        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        host.copy_(x)
+    else:
+        dev = None
+        host = x
+
+    def back(h: torch.Tensor) -> torch.Tensor:
+        if dev is not None:
+            h = h.to(dev)
+        return h.to(back_dtype) if back_dtype == torch.bool else h
+    return host, back
+
+
+def cluster_reduce(t: torch.Tensor, op: str) -> torch.Tensor:
+    """``t`` reduced over the cluster's processes (``"sum"`` or
+    ``"max"``); ``t`` itself in one process."""
+    from cloudberry_tpu_torch.parallel.mesh import process_count
+
+    if process_count() == 1:
+        return t
+    host, back = _wire_view(t)
+    host = host.clone() if host.data_ptr() == t.data_ptr() else host
+    dist.all_reduce(host, op=dist.ReduceOp.SUM if op == "sum"
+                    else dist.ReduceOp.MAX)
+    return back(host)
+
+
+def cluster_sizes_agree(sizes: tuple, what: str) -> None:
+    """Raise unless every process reports the same ``sizes`` (the counts
+    of values batched reductions are about to line up by position)."""
+    from cloudberry_tpu_torch.parallel.mesh import process_count
+
+    if process_count() == 1:
+        return
+    mine = torch.tensor(list(sizes), dtype=torch.int64)
+    every = [torch.empty_like(mine) for _ in range(process_count())]
+    dist.all_gather(every, mine)
+    got = [tuple(int(x) for x in v) for v in every]
+    if len(set(got)) != 1:
+        raise RuntimeError(
+            f"the processes disagree on the number of {what}: {got}")
+
+
+class ProcessCollectives:
+    """The flat exchange of a cluster of P processes, each owning S =
+    nseg / P contiguous segments (process p: ``[p*S, (p+1)*S)``): the
+    lists in and out hold the local segments' values.
+
+    - ``all_gather``: ``dist.all_gather`` of the local concatenation
+      (every block has the same capacity, so the sizes are fixed);
+    - ``all_to_all``: the local (S, nseg, B, ...) stack by destination
+      goes through ``dist.all_to_all_single`` with equal splits, then is
+      rearranged to one buffer per local destination, by source;
+    - ``psum`` / ``pmax``: the local reduction, then ``dist.all_reduce``.
+    """
+
+    name = "xla"
+
+    def __init__(self, n: int, procs: int, rank: int):
+        self.n = n
+        self.P = procs
+        self.S = n // procs
+        self.lo = rank * self.S
+        # bytes handed to torch.distributed for the other processes
+        self.dist_bytes = 0
+        # one record per all_to_all: its bytes for other processes (the
+        # executor adds the plan's rung and row width)
+        self.exchanges: list = []
+
+    @property
+    def total_dist_bytes(self) -> int:
+        return self.dist_bytes
+
+    def all_gather(self, xs: list, unsigned: bool = False) -> torch.Tensor:
+        host, back = _wire_view(torch.cat(list(xs)))
+        parts = [torch.empty_like(host) for _ in range(self.P)]
+        dist.all_gather(parts, host)
+        self.dist_bytes += host.numel() * host.element_size() * (self.P - 1)
+        return back(torch.cat(parts))
+
+    def all_to_all(self, xs: list) -> list:
+        x = _stack(xs)                         # (S_src, nseg_dst, ...)
+        S, P = self.S, self.P
+        tail = tuple(x.shape[2:])
+        send, back = _wire_view(x.transpose(0, 1))
+        recv = torch.empty_like(send)          # (P*S_dst, S_src, ...)
+        dist.all_to_all_single(recv, send)
+        # the blocks handed over for other processes' destinations
+        nbytes = sum(b.numel() * b.element_size()
+                     for b in (send[:self.lo], send[self.lo + S:]))
+        self.dist_bytes += nbytes
+        self.exchanges.append({"op": "all_to_all", "bytes": nbytes})
+        out = back(recv).reshape((P, S, S) + tail).transpose(0, 1) \
+            .reshape((S, P * S) + tail)
+        return list(out)
+
+    def _reduce(self, local: torch.Tensor, op: str) -> torch.Tensor:
+        self.dist_bytes += local.numel() * local.element_size() \
+            * (self.P - 1)
+        return cluster_reduce(local, op)
+
+    def psum(self, xs: list) -> torch.Tensor:
+        return self._reduce(_stack(xs).sum(0), "sum")
+
+    def pmax(self, xs: list) -> torch.Tensor:
+        return self._reduce(_stack(xs).amax(0), "max")
 
 
 class OneCardCollectives:
@@ -175,7 +313,14 @@ class HierarchicalCollectives:
       (the runtime-filter digest fold).
     - ``psum`` / ``pmax`` / ``all_to_all`` delegate flat.
 
-    ``launches`` counts the permutations, one per reference ppermute."""
+    ``launches`` counts the permutations, one per reference ppermute.
+
+    Across processes (``inner`` a ``ProcessCollectives``) the stacked
+    dimension holds this process's segments only: a permutation moves
+    the pairs whose segments are both local by index and the others
+    through one ``dist.all_to_all_single`` (skipped, on every process
+    alike, when no pair crosses), so ``launches`` is the one-process
+    count and a host that is a process keeps its intra-host hops local."""
 
     name = "hier"
     is_hierarchical = True
@@ -190,12 +335,26 @@ class HierarchicalCollectives:
             raise ValueError(
                 "HierarchicalCollectives needs a uniform contiguous "
                 f"multi-host topology; got {topo.as_dict()}")
+        # this process's segments [lo, lo + nl) and the process count
+        self.P = getattr(self.inner, "P", 1)
+        self.lo = getattr(self.inner, "lo", 0)
+        self.nl = self.n // self.P
         self.launches = 0
+        # this transport's bytes to torch.distributed (its flat inner
+        # exchange counts its own), and one list of redistributes with
+        # the inner exchange's, in order
+        self.dist_bytes = 0
+        self.exchanges: list = getattr(self.inner, "exchanges", [])
+
+    @property
+    def total_dist_bytes(self) -> int:
+        """This transport's and its flat inner exchange's bytes."""
+        return self.dist_bytes + getattr(self.inner, "dist_bytes", 0)
 
     # ------------------------------------------------------ primitives
 
     def _table(self, key, device, build):
-        k = (self.n, self.H, key, str(device))
+        k = (self.n, self.H, self.lo, self.nl, key, str(device))
         with _TABLES_LOCK:
             hit = _TABLES.get(k)
         if hit is None:
@@ -207,30 +366,79 @@ class HierarchicalCollectives:
         return hit
 
     def _ids(self, device):
-        """(segment, host, lane) index vectors."""
-        n, S = self.n, self.S
+        """(local index, host, lane, global segment) vectors of this
+        process's segments (every segment in one process)."""
+        S = self.S
 
         def build():
-            seg = np.arange(n, dtype=np.int64)
-            return seg, seg // S, seg % S
+            loc = np.arange(self.nl, dtype=np.int64)
+            seg = loc + self.lo
+            return loc, seg // S, seg % S, seg
         return self._table("ids", device, build)
 
     def _pp(self, x: torch.Tensor, perm) -> torch.Tensor:
         """One permutation of the segment dimension: segment ``dst``
         receives segment ``src``'s value for every (src, dst) pair;
-        segments that receive nothing read zeros (ppermute's rule)."""
+        segments that receive nothing read zeros (ppermute's rule). Across
+        processes the pairs that cross the process boundary go through
+        one ``all_to_all_single``, which every process issues (or skips,
+        when no pair crosses) alike."""
         self.launches += 1
         perm = tuple(perm)
+        nl, me = self.nl, self.lo // self.nl
+        if all(s // nl == d // nl for s, d in perm):
+            return self._pp_local(x, perm, tuple(
+                (s - self.lo, d - self.lo) for s, d in perm
+                if s // nl == me))
+        return self._pp_procs(x, perm)
+
+    def _pp_local(self, x: torch.Tensor, perm: tuple,
+                  pairs: tuple) -> torch.Tensor:
+        """``_pp`` of the pairs whose segments are both this process's,
+        in local indices (every pair, in one process)."""
         src, dst = self._table(("pp", perm), x.device, lambda: (
-            np.asarray([p[0] for p in perm], dtype=np.int64),
-            np.asarray([p[1] for p in perm], dtype=np.int64)))
-        if len(perm) == self.n:
+            np.asarray([p[0] for p in pairs], dtype=np.int64),
+            np.asarray([p[1] for p in pairs], dtype=np.int64)))
+        if len(pairs) == self.nl:
             # every segment receives: one gather by the inverse map
             inv = self._table(("inv", perm), x.device, lambda: (
-                np.argsort(np.asarray([p[1] for p in perm])),))[0]
+                np.argsort(np.asarray([p[1] for p in pairs])),))[0]
             return x.index_select(0, src[inv])
         out = torch.zeros_like(x)
         return out.index_copy_(0, dst, x.index_select(0, src))
+
+    def _pp_procs(self, x: torch.Tensor, perm: tuple) -> torch.Tensor:
+        """``_pp`` of a permutation some of whose pairs cross the process
+        boundary: this process's local pairs by index, then one
+        ``all_to_all_single`` of the rows it sends (ordered by
+        destination process, then by the pair's place in ``perm``) and
+        receives (likewise by source)."""
+        lo, nl, P = self.lo, self.nl, self.P
+        me = lo // nl
+        send = sorted((d // nl, k, s - lo) for k, (s, d) in enumerate(perm)
+                      if s // nl == me and d // nl != me)
+        recv = sorted((s // nl, k, d - lo) for k, (s, d) in enumerate(perm)
+                      if d // nl == me and s // nl != me)
+        loc = [(s - lo, d - lo) for s, d in perm
+               if s // nl == me and d // nl == me]
+        lsrc, ldst, sidx, ridx = self._table(("ppx", perm), x.device, lambda: (
+            np.asarray([a for a, _ in loc], dtype=np.int64),
+            np.asarray([b for _, b in loc], dtype=np.int64),
+            np.asarray([i for _, _, i in send], dtype=np.int64),
+            np.asarray([i for _, _, i in recv], dtype=np.int64)))
+        out = torch.zeros_like(x)
+        if loc:
+            out.index_copy_(0, ldst, x.index_select(0, lsrc))
+        scnt = np.bincount([q for q, _, _ in send], minlength=P).tolist()
+        rcnt = np.bincount([q for q, _, _ in recv], minlength=P).tolist()
+        host, back = _wire_view(x.index_select(0, sidx))
+        got = torch.empty((len(recv),) + tuple(host.shape[1:]),
+                          dtype=host.dtype)
+        dist.all_to_all_single(got, host, rcnt, scnt)
+        self.dist_bytes += host.numel() * host.element_size()
+        if recv:
+            out.index_copy_(0, ridx, back(got))
+        return out
 
     def _intra_shift(self, x, by: int = 1):
         """Rotate within each host's segment block."""
@@ -252,15 +460,15 @@ class HierarchicalCollectives:
         S = self.S
         if S == 1:
             return x
-        seg, _, t = self._ids(x.device)
+        loc, _, t, _ = self._ids(x.device)
         rows = x.shape[1]
-        out = x.new_zeros((self.n, S) + tuple(x.shape[1:]))
+        out = x.new_zeros((self.nl, S) + tuple(x.shape[1:]))
         cur = x
         for k in range(S):
-            out[seg, (t - k) % S] = cur
+            out[loc, (t - k) % S] = cur
             if k + 1 < S:
                 cur = self._intra_shift(cur)
-        return out.reshape((self.n, S * rows) + tuple(x.shape[2:]))
+        return out.reshape((self.nl, S * rows) + tuple(x.shape[2:]))
 
     def _intra_psum(self, x: torch.Tensor) -> torch.Tensor:
         """Sum over each host's segments, accumulated into ``x`` in place
@@ -278,12 +486,12 @@ class HierarchicalCollectives:
         S = self.S
         if S == 1:
             return x
-        seg, _, t = self._ids(x.device)
+        loc, _, t, _ = self._ids(x.device)
         out = torch.zeros_like(x)
         for k in range(S):
-            block = x[seg, (t + k) % S]
+            block = x[loc, (t + k) % S]
             moved = block if k == 0 else self._intra_shift(block, by=k)
-            out[seg, (t - k) % S] = moved
+            out[loc, (t - k) % S] = moved
         return out
 
     # ------------------------------------------------------- interface
@@ -310,18 +518,18 @@ class HierarchicalCollectives:
         """(nseg, rows, ...) -> every segment's (nseg*rows, ...) gathered
         buffer through the tree: intra-host gather, a lane-0 ring between
         hosts, then the intra-host broadcast of lane 0's result."""
-        seg, h, t = self._ids(x.device)
+        loc, h, t, _ = self._ids(x.device)
         H, S = self.H, self.S
         hb = self.intra_all_gather(x)                 # (nseg, S*rows, ...)
-        full = hb.new_zeros((self.n, H) + tuple(hb.shape[1:]))
+        full = hb.new_zeros((self.nl, H) + tuple(hb.shape[1:]))
         cur = hb
         lane0 = [(g * S, ((g + 1) % H) * S) for g in range(H)]
         for k in range(H):
-            full[seg, (h - k) % H] = cur
+            full[loc, (h - k) % H] = cur
             if k + 1 < H:
                 cur = self._pp(cur, lane0)            # lane 0 only
         del cur, hb
-        full = full.reshape((self.n, H * S * x.shape[1])
+        full = full.reshape((self.nl, H * S * x.shape[1])
                             + tuple(x.shape[2:]))
         # only lane 0 assembled its host's buffer: the other lanes feed
         # zeros into the broadcast sum
@@ -332,12 +540,12 @@ class HierarchicalCollectives:
         """(nseg, D) per-segment HOST-COMBINED vectors -> (nseg, H, D):
         each segment's host vectors in host order, via the all-lane
         inter-host ring (H−1 shifts)."""
-        seg, h, _ = self._ids(x.device)
+        loc, h, _, _ = self._ids(x.device)
         H = self.H
-        out = x.new_zeros((self.n, H) + tuple(x.shape[1:]))
+        out = x.new_zeros((self.nl, H) + tuple(x.shape[1:]))
         cur = x
         for k in range(H):
-            out[seg, (h - k) % H] = cur
+            out[loc, (h - k) % H] = cur
             if k + 1 < H:
                 cur = self._lane_shift(cur)
         return out
@@ -404,19 +612,20 @@ class HierarchicalCollectives:
         only the host rung needs an overflow check. Every value stays
         non-negative in int32 while nseg*B < 2^31 (the caller's guard)."""
         x = _stack(xs)
-        n, H, S = self.n, self.H, self.S
+        n, H, S, nl = self.n, self.H, self.S, self.nl
         B, W = int(x.shape[2]), int(x.shape[3])
+        bytes0 = self.dist_bytes
         # (each staging buffer is released once the next hop holds its
         # rows: on one card every segment's staging coexists)
         k_hosts = -(-H // S)                   # hosts per lane (ceil)
         dev = x.device
-        seg, h, t = self._ids(dev)
+        loc, h, t, seg = self._ids(dev)
         i32 = torch.int32
 
-        flat = x.reshape(n, n * B, W)
+        flat = x.reshape(nl, n * B, W)
         slot = torch.arange(n * B, device=dev, dtype=i32)
-        destw = (slot // B).view(1, -1).expand(n, -1)
-        origw = seg.to(i32).view(n, 1) * B + (slot % B).view(1, -1)
+        destw = (slot // B).view(1, -1).expand(nl, -1)
+        origw = seg.to(i32).view(nl, 1) * B + (slot % B).view(1, -1)
         rbuf = torch.cat([flat, destw[..., None], origw[..., None]],
                          dim=2)                # (n, n*B, W+2)
         del x, flat
@@ -426,7 +635,7 @@ class HierarchicalCollectives:
         y = rbuf[:, gidx]                      # (n, S, C1, W+2)
         del rbuf
         y.masked_fill_(padm[None, :, :, None], 0)
-        zf = self._intra_all_to_all(y).reshape(n, -1, W + 2)
+        zf = self._intra_all_to_all(y).reshape(nl, -1, W + 2)
         del y
 
         # host combine: re-bucket the host's rows by destination host
@@ -435,9 +644,9 @@ class HierarchicalCollectives:
         buf2, counts_j = self._rebucket_each(zf, j_slot, valid, k_hosts,
                                              host_cap)
         del zf, valid, j_slot
-        lane_hosts = t.view(n, 1) + torch.arange(
+        lane_hosts = t.view(nl, 1) + torch.arange(
             k_hosts, device=dev).view(1, -1) * S
-        demand = torch.zeros((n, H + 1), dtype=i32, device=dev)
+        demand = torch.zeros((nl, H + 1), dtype=i32, device=dev)
         demand.scatter_(1, torch.where(lane_hosts < H, lane_hosts,
                                        torch.full_like(lane_hosts, H)),
                         counts_j)
@@ -446,26 +655,26 @@ class HierarchicalCollectives:
         # hop 2: ONE aggregated inter-host exchange (H−1 permutations,
         # each moving every host's combined block for offset d)
         def host_block(g):
-            blk = buf2[seg, (g // S).clamp(0, k_hosts - 1)]
-            return torch.where((g % S == t).view(n, 1, 1), blk,
+            blk = buf2[loc, (g // S).clamp(0, k_hosts - 1)]
+            return torch.where((g % S == t).view(nl, 1, 1), blk,
                                torch.zeros_like(blk))
 
-        out_dcn = buf2.new_zeros((n, H, host_cap, W + 2))
-        out_dcn[seg, h] = host_block(h)
+        out_dcn = buf2.new_zeros((nl, H, host_cap, W + 2))
+        out_dcn[loc, h] = host_block(h)
         for d in range(1, H):
             recv = self._pp(host_block((h + d) % H), [
                 (hh * S + ((hh + d) % H) % S, ((hh + d) % H) * S + hh % S)
                 for hh in range(H)])
-            out_dcn[seg, (h - d) % H] = recv
+            out_dcn[loc, (h - d) % H] = recv
         del buf2, recv
 
         # hop 3: intra-host scatter to the destination segment
-        f3 = out_dcn.reshape(n, H * host_cap, W + 2)
+        f3 = out_dcn.reshape(nl, H * host_cap, W + 2)
         valid3 = (f3[..., 0] & 1).to(torch.bool)
         C3 = two_level_lane_rows(n, H, B)      # proven bound, no check
         buf3, _ = self._rebucket_each(f3, f3[..., W] % S, valid3, S, C3)
         del out_dcn, f3, valid3
-        ff = self._intra_all_to_all(buf3).reshape(n, S * C3, W + 2)
+        ff = self._intra_all_to_all(buf3).reshape(nl, S * C3, W + 2)
         del buf3
 
         # final placement: the flat layout's exact slot (src*B + rank)
@@ -473,10 +682,13 @@ class HierarchicalCollectives:
         slotf = torch.where(validf, ff[..., W + 1].to(torch.int64),
                             torch.full_like(ff[..., W + 1], n * B,
                                             dtype=torch.int64))
-        out = ff.new_zeros((n, n * B + 1, W))
-        out.view(-1, W)[(slotf + seg.view(n, 1) * (n * B + 1))
+        out = ff.new_zeros((nl, n * B + 1, W))
+        out.view(-1, W)[(slotf + loc.view(nl, 1) * (n * B + 1))
                         .reshape(-1)] = ff[..., :W].reshape(-1, W)
-        return list(out[:, :n * B].reshape(n, n, B, W)), host_demand
+        if self.P > 1:
+            self.exchanges.append({"op": "hier_all_to_all",
+                                   "bytes": self.dist_bytes - bytes0})
+        return list(out[:, :n * B].reshape(nl, n, B, W)), host_demand
 
 
 def two_level_lane_rows(nseg: int, n_hosts: int,
@@ -551,14 +763,27 @@ def make_transport(backend: str, n_segments: int, chunks: int = 1,
     survivor restriction and slot pool, checked as the reference's
     segment mesh checks its devices (parallel/mesh.py
     ``check_segments``)."""
-    from cloudberry_tpu_torch.parallel.mesh import check_segments
+    from cloudberry_tpu_torch.parallel.mesh import (check_segments,
+                                                    local_segments,
+                                                    process_count,
+                                                    process_index,
+                                                    require_one_process)
 
     check_segments(n_segments, device_ids, n_slots)
+    procs = process_count()
+    if procs > 1:
+        local_segments(n_segments)          # the divisibility rule
+        if device_ids is not None:
+            require_one_process("a degraded segment layout")
+        flat = ProcessCollectives(n_segments, procs, process_index())
+    else:
+        flat = OneCardCollectives()
     if topo is not None:
-        return HierarchicalCollectives(topo)
+        return HierarchicalCollectives(topo, inner=flat)
     if backend == "xla":
-        return OneCardCollectives()
+        return flat
     if backend == "ring":
+        require_one_process("the ring transport")
         return RingCollectives(n_segments, chunks=chunks)
     raise ValueError(f"unknown interconnect backend {backend!r} "
                      "(known: xla, ring)")

@@ -78,8 +78,7 @@ class Scheduler:
         if path is not None and os.path.exists(path):
             with open(path) as f:
                 for d in json.load(f):
-                    # startup only: load() runs before start() spawns
-                    # the tick thread
+                    # graftlint: ignore[lock-unguarded] startup-only: load() runs before start() spawns the tick thread
                     self.jobs[d["name"]] = Job(d["name"], d["interval_s"],
                                                d["sql"])
         return self

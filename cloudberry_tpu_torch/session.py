@@ -132,7 +132,7 @@ from __future__ import annotations
 
 import itertools
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 import numpy as np
@@ -160,9 +160,12 @@ class ShardedTable:
 @dataclass
 class DeviceShards:
     """A sharded table on the session's device: partitioned columns (and
-    ``$nn:<col>`` validity masks) as (nseg, capacity) tensors, replicated
-    ones whole; ``counts`` the per-segment row counts (a device tensor for
-    the scans, a host copy for planning-side reads)."""
+    ``$nn:<col>`` validity masks) as (local segments, capacity) tensors —
+    the rows of this process's segments ``lo, lo+1, ...`` (every segment
+    in one process) — replicated ones whole; ``counts`` the per-segment
+    row counts of EVERY segment (a device tensor for the scans, a host
+    copy for planning-side reads). ``host`` is the host layout, which
+    every process holds whole."""
     columns: dict[str, torch.Tensor]
     counts: torch.Tensor
     counts_host: np.ndarray
@@ -170,6 +173,35 @@ class DeviceShards:
     replicated: bool
     version: int
     nseg: int
+    lo: int = 0
+    host: Any = None
+    _remote: dict = field(default_factory=dict)
+
+    def shard(self, seg: int) -> dict:
+        """Segment ``seg``'s columns: row views of the local block, or,
+        for a segment another process owns (a direct-dispatched
+        statement runs on every process alike), its host rows uploaded
+        once."""
+        i = seg - self.lo
+        cols = self.columns
+        first = next(iter(cols.values()), None)
+        if first is None or 0 <= i < first.shape[0]:
+            return {c: v[i] for c, v in cols.items()}
+        hit = self._remote.get(seg)
+        if hit is None:
+            from cloudberry_tpu_torch.exec.bufferpool import to_device
+
+            hit = self._remote[seg] = {
+                c: to_device(v[seg], first.device)
+                for c, v in self.host.columns.items()}
+        return hit
+
+    def whole(self, col: str) -> torch.Tensor:
+        """Every segment's rows of ``col``, segment-major."""
+        v = self.columns[col]
+        if self.lo == 0 and v.shape[0] == self.nseg:
+            return v.reshape(-1)
+        return torch.cat([self.shard(s)[col] for s in range(self.nseg)])
 
 
 def _host_layout():
@@ -590,7 +622,9 @@ class Session:
         The probe result also feeds the topology manager's persistence
         detector (failover-as-shrink), outside degrade_mesh's lock."""
         from cloudberry_tpu_torch.parallel.health import probe
+        from cloudberry_tpu_torch.parallel.mesh import require_one_process
 
+        require_one_process("the degraded re-dispatch")
         r = probe(self)
         if self.config.health.degrade and r.live:
             self.degrade_mesh(len(r.live), r.live)
@@ -604,6 +638,9 @@ class Session:
         epoch FIRST, then adopts it, so a statement pinning in the window
         adopts the smaller layout and a statement that raced the swap
         sees the moved epoch and re-dispatches."""
+        from cloudberry_tpu_torch.parallel.mesh import require_one_process
+
+        require_one_process("a degraded segment layout")
         cur = self._topology.current
         n = max(1, min(cur.nseg, n_devices))
         ids = None
@@ -1416,11 +1453,15 @@ class Session:
 
     def device_shards(self, name: str) -> DeviceShards:
         """``sharded_table`` on the session's device, uploaded once per
-        (table, nseg, version): a partitioned table's columns as (nseg,
-        capacity) tensors whose row views ``t[s]`` are segment s's shard;
-        a replicated table's whole columns (its ``$nrows`` a length-1
-        count, as in the reference)."""
+        (table, nseg, version): a partitioned table's columns as (local
+        segments, capacity) tensors whose row views are the shards of
+        this process's segments (``parallel/mesh.py local_segments``;
+        every segment in one process) — the capacity comes from the whole
+        table, which every process holds, so every process's blocks have
+        the same size; a replicated table's whole columns (its ``$nrows``
+        a length-1 count, as in the reference)."""
         from cloudberry_tpu_torch.exec.bufferpool import to_device
+        from cloudberry_tpu_torch.parallel.mesh import local_segments
 
         st = self.sharded_table(name)
         key = f"{name}@{self.config.n_segments}"
@@ -1428,15 +1469,22 @@ class Session:
         if hit is not None and hit.version == st.version:
             return hit
         dev = self.device
+        lo = 0
         if st.replicated:
             cols = self.device_table(name)
             counts_host = np.full(1, int(st.counts[0]), dtype=np.int64)
         else:
-            cols = {c: to_device(v, dev) for c, v in st.columns.items()}
+            segs = local_segments(self.config.n_segments)
+            lo = segs.start
+            if len(segs) == self.config.n_segments:
+                cols = {c: to_device(v, dev) for c, v in st.columns.items()}
+            else:
+                cols = {c: to_device(v[segs.start:segs.stop], dev)
+                        for c, v in st.columns.items()}
             counts_host = np.asarray(st.counts, dtype=np.int64)
         ds = DeviceShards(cols, torch.from_numpy(counts_host.copy()).to(dev),
                           counts_host, st.capacity, st.replicated,
-                          st.version, self.config.n_segments)
+                          st.version, self.config.n_segments, lo, st)
         self._device_shards[key] = ds
         return ds
 
