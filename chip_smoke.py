@@ -155,7 +155,7 @@ its Executable as before the caches existed; phase 11 measures the caches.
    also equal to the numpy oracle (Q1's averages in the two-stage
    finalize's order) and to an 8-segment CPU session of the port;
    TPC-DS q17/q25/q29 at scale 100 over 8 segments, each equal to phase
-   4's one-segment run; at SF4 (``--dist-sf``; BASELINE.md's config is
+   4's one-segment run; at SF2 (``--dist-sf``; BASELINE.md's config is
    SF10, cut to fit the time limit) TPC-H Q5 and Q9 over 4 segments, each
    equal to a one-segment CUDA run at a 64 GiB budget and red line that
    admit it. The first 8-segment run of each statement holds every
@@ -272,7 +272,7 @@ its Executable as before the caches existed; phase 11 measures the caches.
    stacked QPS over 5 rounds of 16 against one connection's sequential
    QPS over as many; (c) 12 connections per tenant of point lookups,
    every result right, the share reported; closed-loop QPS with p50/p99
-   over 1,000 requests each, at 1, 8 and 32 connections for a point
+   over 400 requests each, at 1, 8 and 32 connections for a point
    lookup and at 1 and 8 for Q1; (h) ``python -m cloudberry_tpu_torch
    --store ROOT serve`` in a child process (started at the phase's
    start), queried once by ``sql --connect``, then drained by SIGINT;
@@ -336,8 +336,24 @@ its Executable as before the caches existed; phase 11 measures the caches.
    for each redistribute must equal ``flat_wire_model`` (flat) or
    ``two_level_wire_model`` (two-level). Per text: each child's wall
    against phase 12's flat wall, launches and bytes; per child its peak
-   device bytes. A child that fails or outlives its timeout fails the
-   phase;
+   device bytes. Each child has 4 local slots (CBTPU_LOCAL_SLOTS), and
+   the same two children then run, flat: (a) the ring
+   (``interconnect.backend="ring"``) over the same texts, each result
+   equal bit for bit to phase 12's (which phase 18's one-process ring
+   run equals), every redistribute's gloo bytes equal to
+   ``flat_wire_model``; (b) TPC-H Q1 and Q3 tiled at phase 13's budgets,
+   each report ``tiled`` and ``distributed`` with more than one tile,
+   equal to phase 12's one-shot result as phase 13 holds its tiled runs
+   (floats within FLOAT_RTOL) and equal bit for bit across the
+   children; (c) ``degrade_mesh(7, [0, 1, 2, 4, 5, 6, 7])`` (3 + 4
+   segments), then Q1, Q3 and Q5, each equal bit for bit to this
+   process's 7-segment run over the same survivors; (d) a session
+   started at 6 segments (4 + 2) and expanded online to 8 (4 + 4), Q5
+   before equal to this process's static 6-segment run and after to
+   phase 12's, the children's ``moved_rows`` summed against the
+   minimal-movement bound. Per part: its wall, each child's peak device
+   bytes, launches and bytes to gloo. A child that fails or outlives its
+   timeout fails the phase;
 20. kernels: each kernel, on the inputs the TPC-H path gave it and on
    synthetic inputs at the main path's shapes plus edge cases (empty
    selection, ragged N, int64 wraparound, duplicate build keys, one hot
@@ -2847,8 +2863,9 @@ DIST_RUNS = 1            # timed runs per statement at 8 (4) and 1 segment
 DIST_BIG_NSEG = 4        # config #3: TPC-H Q5/Q9 over 4 segments
 # BASELINE.md config #3 is SF10; SF10's generation and load alone took
 # 220.9 s on one H100's machine, which the 1,200 s limit cannot hold
-# beside the earlier phases; SF4 does (PERF.md §4).
-DIST_BIG_SF = 4.0
+# beside the earlier phases; SF2 leaves room for phase 19's cluster parts
+# (SF4 took 78.0 s; PERF.md §4)
+DIST_BIG_SF = 2.0
 # per-query budget and red line that admit the big Q5/Q9 (the reference's
 # 16 GiB red line refused Q9's 27 GiB per-segment estimate at SF10)
 DIST_BIG_BUDGET = 64 << 30
@@ -3236,6 +3253,18 @@ TD_TPCH = {"q1": (32, (None, 131_072, 6, 8)),
 # size); a reduced run takes the larger of these scaled by sf / 0.05 and
 # the full-size budget scaled by sf
 TD_TPCH_QUICK = {"q1": 1, "q3": 6, "q5": 2}
+
+
+def td_budget(q: str, sf: float) -> int:
+    """Phase 13's budget in bytes for TPC-H ``q`` at scale ``sf``: the
+    full-size budget at SF1, else the larger of it scaled by ``sf`` and
+    the quick check's scaled by sf / 0.05."""
+    def mib(m, scale):
+        return max(int(m * scale), 1) << 20
+    m = TD_TPCH[q][0]
+    if sf == 1.0:
+        return mib(m, 1.0)
+    return max(mib(m, sf), mib(TD_TPCH_QUICK[q], sf / 0.05))
 TD_DS = {"TOPN_DS": (16, ("topn", 65_536, 6, 100)),
          "SORT_DS": (16, ("sort", 65_536, 6, 0)),
          "WIN_DS": (256, ("window", 65_536, 6, 0))}
@@ -3502,8 +3531,7 @@ def tiled_dist_phase(kit, raw, gpu, gds, args) -> dict:
     for q, (m, want) in TD_TPCH.items():
         sql = tpch.QUERIES[q]
         forget_feedback(t8)
-        budget = mib(m, 1.0) if full_h else max(
-            mib(m, args.sf), mib(TD_TPCH_QUICK[q], args.sf / 0.05))
+        budget = td_budget(q, args.sf)
         res, row = dist_tiled_run(kit, t8, sql, budget,
                                   f"TPC-H {q} at {budget >> 20} MiB",
                                   "lineitem")
@@ -4545,7 +4573,9 @@ SERVE_TENANT_REQS = 10      # (c): requests per connection
 # (it read as Q1 at 8 in every run)
 SERVE_QPS = (("point", 1), ("point", 8), ("point", 32), ("q1", 1),
              ("q1", 8))
-SERVE_QPS_REQS = 1000
+# 400 leaves the script room for phase 19's cluster parts on a slow
+# machine (1,000 took about 29 s more); a p99 still has 400 samples
+SERVE_QPS_REQS = 400
 SERVE_P99_MIN = 100         # fewer samples report a max, not a p99
 SERVE_STACK_ROUNDS = 5      # (b): stacked batches and sequential passes
 # the point lookup of (b), (c) and the QPS readings: a lineitem order by
@@ -6079,6 +6109,11 @@ def hier_motion_phase(kit, raw, gpu, flat8, flat_ms, args) -> dict:
 CLUSTER_PROCS = 2
 CLUSTER_TEXTS = ("q1", "q3", "q5", "q9", "q18")   # phase 18 (c)'s set
 CLUSTER_TIMEOUT_S = 600
+CLUSTER_LOCAL_SLOTS = 4                 # each child's segment slots
+CLUSTER_TILED = ("q1", "q3")            # (b), at phase 13's budgets
+CLUSTER_SURVIVORS = [0, 1, 2, 4, 5, 6, 7]   # (c): slot 3 lost, 3 + 4
+CLUSTER_DEGRADED = ("q1", "q3", "q5")   # (c)'s texts
+CLUSTER_RESIZE = (6, 8)                 # (d): 4 + 2 -> 4 + 4, Q5
 # tests/multihost_worker.py's statements and tables (seed 11)
 MULTIHOST_QUERIES = {
     "mh_agg": ("SELECT g, sum(v) AS sv, count(*) AS c FROM fact "
@@ -6127,7 +6162,7 @@ def cluster_child(argv) -> int:
 
     data, out_path, device = argv
     t_start = time.perf_counter()
-    mesh.init_distributed()
+    mesh.init_distributed()         # CBTPU_LOCAL_SLOTS: 4 slots each
     rank = mesh.process_index()
     cuda = device == "cuda"
     if cuda:
@@ -6135,6 +6170,7 @@ def cluster_child(argv) -> int:
     with open(data, "rb") as f:
         enc = pickle.load(f)
     budget = enc.pop("$budget")
+    td = enc.pop("$tiled")
     cfg = ct.Config().with_overrides(**{
         "n_segments": DIST_NSEG, "resource.query_mem_bytes": budget})
     made = []
@@ -6167,17 +6203,21 @@ def cluster_child(argv) -> int:
            "local": list(mesh.local_segments(DIST_NSEG)), "texts": {},
            "seconds": {"start": time.perf_counter() - t_start}}
     peak = 0
+
+    def load_tpch(session):
+        for name, schema in tpch.SCHEMAS.items():
+            keys = tpch.DIST_KEYS[name]
+            cols, dicts, (unique, ndv) = enc[name]
+            t = carry.load_encoded(
+                session, name, schema.fields, cols, None, dicts,
+                DistributionPolicy.replicated() if keys is None
+                else DistributionPolicy.hashed(*keys))
+            # the parent's uniqueness flags and distinct counts of the
+            # same values (``copy_tables``)
+            t.stats.unique, t.stats.ndv = unique, ndv
+
     s = ct.Session(cfg, device=device)
-    for name, schema in tpch.SCHEMAS.items():
-        keys = tpch.DIST_KEYS[name]
-        cols, dicts, (unique, ndv) = enc[name]
-        t = carry.load_encoded(
-            s, name, schema.fields, cols, None, dicts,
-            DistributionPolicy.replicated() if keys is None
-            else DistributionPolicy.hashed(*keys))
-        # the parent's uniqueness flags and distinct counts of the same
-        # values (``copy_tables``)
-        t.stats.unique, t.stats.ndv = unique, ndv
+    load_tpch(s)
     multihost_load(s)
     texts = {**MULTIHOST_QUERIES,
              **{q: tpch.QUERIES[q] for q in CLUSTER_TEXTS}}
@@ -6203,7 +6243,83 @@ def cluster_child(argv) -> int:
                   f"launches {counts}, {nbytes} bytes to "
                   f"torch.distributed, peak {text_peak} B", flush=True)
         out["seconds"][mode] = time.perf_counter() - t_mode
-    out["peak_bytes"] = peak
+
+    # (a)-(d), flat, one counted run per text
+    flat = cfg.with_overrides(**{"interconnect.hierarchical": "off"})
+    parts = out["parts"] = {}
+
+    def part(name, session, sqls, over=None):
+        """Counted runs of ``sqls`` ({text: sql}) on ``session``, under
+        ``over`` config overrides when given; the part's wall, peak
+        device bytes, launches and gloo bytes accumulate."""
+        rec = parts.setdefault(name, {"texts": {}, "s": 0.0,
+                                      "peak_bytes": 0})
+        t_part = time.perf_counter()
+        if over is not None:
+            session.config = flat.with_overrides(**over)
+        empty_caches(session)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        for q, sql in sqls.items():
+            forget_feedback(session)
+            res, ms, counts, exchanges, nbytes = counted(session, sql)
+            rep = session.last_tiled_report
+            rec["texts"][q] = {
+                "result": with_nulls(res), "ms": ms, "launches": counts,
+                "exchanges": exchanges, "dist_bytes": nbytes,
+                "shifts": sum(getattr(tx, "launches", 0) for tx in made),
+                "tiled": None if rep is None else {
+                    k: rep.get(k) for k in ("tiled", "distributed",
+                                            "n_segments", "n_tiles",
+                                            "tile_rows", "acc_capacity")}}
+            print(f"[cluster child {rank}] ({name}) {q}: {ms:.1f} ms, "
+                  f"launches {counts}, {nbytes} bytes to "
+                  f"torch.distributed", flush=True)
+        if cuda:
+            rec["peak_bytes"] = max(rec["peak_bytes"], int(
+                torch.cuda.max_memory_allocated()))
+        rec["s"] += time.perf_counter() - t_part
+        return rec
+
+    part("ring", s, texts, {"interconnect.backend": "ring"})
+    for q in CLUSTER_TILED:
+        part("tiled", s, {q: tpch.QUERIES[q]},
+             {"resource.query_mem_bytes": td[q]})
+    s.config = flat
+    empty_caches(s)
+    t0 = time.perf_counter()
+    s.degrade_mesh(len(CLUSTER_SURVIVORS), CLUSTER_SURVIVORS)
+    degrade_s = time.perf_counter() - t0
+    rec = part("degrade", s, {q: tpch.QUERIES[q]
+                              for q in CLUSTER_DEGRADED})
+    rec["degrade_s"] = degrade_s
+    rec["local"] = list(mesh.session_segments(s))
+    rec["epoch"] = s._topology.current.epoch_id
+    del s
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    s6 = ct.Session(flat.with_overrides(n_segments=CLUSTER_RESIZE[0]),
+                    device=device)
+    load_tpch(s6)
+    q5 = {"q5": tpch.QUERIES["q5"]}
+    before = part("resize_before", s6, q5)
+    before["local"] = list(mesh.session_segments(s6))
+    t_resize = time.perf_counter()
+    rz = s6._topology.online_resize(CLUSTER_RESIZE[1])
+    resize_s = time.perf_counter() - t_resize
+    after = part("resize", s6, q5)
+    after["local"] = list(mesh.session_segments(s6))
+    after.update(epoch=rz["epoch"], reason=rz["reason"],
+                 rebalance=rz["rebalance"], resize_s=resize_s,
+                 start_s=time.perf_counter() - t0)
+    print(f"[cluster child {rank}] (resize) {CLUSTER_RESIZE[0]} -> "
+          f"{CLUSTER_RESIZE[1]} in {resize_s:.2f} s: {rz['rebalance']}",
+          flush=True)
+    del s6
+    out["peak_bytes"] = max([peak] + [r["peak_bytes"]
+                                      for r in parts.values()])
     out["s"] = time.perf_counter() - t_start
     with open(out_path + ".part", "wb") as f:
         pickle.dump(out, f, protocol=5)
@@ -6211,13 +6327,17 @@ def cluster_child(argv) -> int:
     return 0
 
 
-def cluster_phase(kit, gpu, raw, flat8, flat_ms, flat_launches) -> dict:
+def cluster_phase(kit, gpu, raw, flat8, flat_ms, flat_launches,
+                  sf: float = 1.0) -> dict:
     """The two-process cluster on the one card (module docstring, phase
     19): two children of 4 segments each, every result equal bit for bit
     across them, between flat and two-level, and to the one-process
     8-segment runs (phase 12's for the TPC-H texts, this process's for
     the multi-host statements), each child launching every kernel the
-    one-process run of a text launched."""
+    one-process run of a text launched; then (a) the ring, (b) tiled Q1
+    and Q3 at phase 13's budgets for scale ``sf``, (c) the degrade to
+    3 + 4 segments and (d) the online resize 6 -> 8 across the same
+    children, each against its one-process counterpart."""
     import pickle
     import shutil
     import tempfile
@@ -6244,6 +6364,26 @@ def cluster_phase(kit, gpu, raw, flat8, flat_ms, flat_launches) -> dict:
         want[q], want_ms[q] = with_nulls(res), ms
         want_fired[q] = {k for k, v in counts.items() if v}
     del one
+    # (c)'s one-process oracle: 8 segments degraded over the same
+    # survivors; (d)'s: the static 6-segment Q5
+    names = ["region", "nation", "supplier", "customer", "orders",
+             "lineitem"]
+    t_oracle = time.perf_counter()
+    want7 = {}
+    d7 = ct.Session(gpu.config.with_overrides(n_segments=DIST_NSEG),
+                    device=kit.device)
+    copy_tables(gpu, d7, names)
+    d7.degrade_mesh(len(CLUSTER_SURVIVORS), CLUSTER_SURVIVORS)
+    for q in CLUSTER_DEGRADED:
+        forget_feedback(d7)
+        want7[q] = with_nulls(d7.sql(tpch.QUERIES[q]))
+    del d7
+    d6 = ct.Session(gpu.config.with_overrides(
+        n_segments=CLUSTER_RESIZE[0]), device=kit.device)
+    copy_tables(gpu, d6, names)
+    want6 = with_nulls(d6.sql(tpch.QUERIES["q5"]))
+    del d6
+    out["oracle_s"] = time.perf_counter() - t_oracle
     # the TPC-H tables, encoded, for the children
     base = ct.Session(gpu.config, device="cpu")
     have = [n for n in tpch.SCHEMAS if n in gpu.catalog.tables]
@@ -6254,6 +6394,7 @@ def cluster_phase(kit, gpu, raw, flat8, flat_ms, flat_launches) -> dict:
                (t.stats.unique, t.stats.ndv))
            for n, t in base.catalog.tables.items()}
     enc["$budget"] = gpu.config.resource.query_mem_bytes
+    enc["$tiled"] = {q: td_budget(q, sf) for q in CLUSTER_TILED}
     del base
     gc.collect()
     if kit.device == "cuda":
@@ -6276,7 +6417,8 @@ def cluster_phase(kit, gpu, raw, flat8, flat_ms, flat_launches) -> dict:
                    if not k.startswith("CBTPU_")}
             env.update(CBTPU_COORDINATOR=f"127.0.0.1:{port}",
                        CBTPU_NUM_PROCS=str(CLUSTER_PROCS),
-                       CBTPU_PROC_ID=str(rank))
+                       CBTPU_PROC_ID=str(rank),
+                       CBTPU_LOCAL_SLOTS=str(CLUSTER_LOCAL_SLOTS))
             # each child writes to a file of its own: no child blocks on
             # a pipe that is not being read
             with open(logs[rank], "w") as f:
@@ -6386,6 +6528,7 @@ def cluster_phase(kit, gpu, raw, flat8, flat_ms, flat_launches) -> dict:
                 f"redistributes {wire}; equal bit for bit")
         rec["one_process_ms"] = want_ms[q]
         out["texts"][q] = rec
+    out["parts"] = cluster_parts(kids, want, want7, want6, flat8, fired)
     check(all(all(v) for v in fired.values()),
           f"a kernel did not launch in both cluster children: {fired}")
     out["launches"] = {k: sum(v) for k, v in fired.items()}
@@ -6399,6 +6542,101 @@ def cluster_phase(kit, gpu, raw, flat8, flat_ms, flat_launches) -> dict:
         f"child {out['peak_bytes']}; children {out['children_s']:.1f} s "
         f"({[round(x, 1) for x in out['children_self_s']]} s each; "
         f"start, flat and two-level: {split}); phase {out['s']:.1f} s")
+    return out
+
+
+def cluster_parts(kids, want, want7, want6, flat8, fired) -> dict:
+    """Phase 19's parts (a)-(d) of both children against their
+    one-process counterparts; each part's walls, peaks, launches and
+    gloo bytes, logged. ``fired`` gains the parts' launches."""
+    from cloudberry_tpu_torch.parallel import transport as TT
+
+    out = {}
+    for name in ("ring", "tiled", "degrade", "resize_before", "resize"):
+        recs = [kid["parts"][name] for kid in kids]
+        rows = {}
+        for q in recs[0]["texts"]:
+            got = [r["texts"][q] for r in recs]
+            identical(got[1]["result"], got[0]["result"],
+                      f"({name}) {q}: the children's results")
+            what = f"cluster ({name}) {q}"
+            if name == "ring":
+                identical(got[0]["result"], want[q],
+                          f"{what} vs the one-process 8-segment run")
+                for a, b in zip(*[g["exchanges"] for g in got]):
+                    model = TT.flat_wire_model(
+                        DIST_NSEG, CLUSTER_PROCS, a["bucket_cap"],
+                        a["row_bytes"])["dcn_bytes"]
+                    check(a["bytes"] + b["bytes"] == model,
+                          f"{what}: {a['bytes'] + b['bytes']} bytes "
+                          f"crossed for a redistribute, model {model}")
+            elif name == "tiled":
+                rep = got[0]["tiled"]
+                check(rep is not None and rep["tiled"]
+                      and rep["distributed"] and rep["n_tiles"] > 1
+                      and got[1]["tiled"] == rep,
+                      f"{what}: tiled reports {[g['tiled'] for g in got]}")
+                same_nulls(got[0]["result"], flat8[q],
+                           f"{what} vs the one-shot 8-segment run")
+            elif name == "degrade":
+                identical(got[0]["result"], want7[q],
+                          f"{what} vs the one-process 7-segment run over "
+                          "the same survivors")
+            elif name == "resize_before":
+                identical(got[0]["result"], want6,
+                          f"{what} vs the static {CLUSTER_RESIZE[0]}-"
+                          "segment run")
+            else:
+                identical(got[0]["result"], flat8[q],
+                          f"{what} vs the static 8-segment run")
+            for rank, g in enumerate(got):
+                for k, v in g["launches"].items():
+                    fired[k][rank] += v
+            rows[q] = {"ms": [g["ms"] for g in got],
+                       "launches": [g["launches"] for g in got],
+                       "dist_bytes": [g["dist_bytes"] for g in got],
+                       "shifts": [g["shifts"] for g in got],
+                       "tiled": got[0]["tiled"]}
+        out[name] = {"texts": rows, "s": [r["s"] for r in recs],
+                     "peak_bytes": [r["peak_bytes"] for r in recs]}
+        launched = {k: sum(sum(c[k] for c in r["launches"])
+                           for r in rows.values()) for k in fired}
+        texts = "; ".join(
+            f"{q} {[round(x, 2) for x in r['ms']]} ms, {r['dist_bytes']} B "
+            f"to gloo" + (f", {r['shifts']} shifts" if name == "ring"
+                          else "")
+            + (f", {r['tiled']['n_tiles']} tiles of {r['tiled']['tile_rows']}"
+               if r["tiled"] else "") for q, r in rows.items())
+        log(f"[cluster] ({name}) {[round(x, 2) for x in out[name]['s']]} s "
+            f"per child; peaks {out[name]['peak_bytes']} B; launches "
+            f"{launched}; {texts}; equal")
+    deg = [kid["parts"]["degrade"] for kid in kids]
+    check([d["local"] for d in deg] == [[0, 1, 2], [3, 4, 5, 6]]
+          and {d["epoch"] for d in deg} == {2},
+          f"(degrade) layouts {[d['local'] for d in deg]}, epochs "
+          f"{[d['epoch'] for d in deg]}")
+    out["degrade"]["degrade_s"] = [d["degrade_s"] for d in deg]
+    bef = [kid["parts"]["resize_before"]["local"] for kid in kids]
+    aft = [kid["parts"]["resize"] for kid in kids]
+    check(bef == [[0, 1, 2, 3], [4, 5]]
+          and [a["local"] for a in aft] == [[0, 1, 2, 3], [4, 5, 6, 7]]
+          and {(a["epoch"], a["reason"]) for a in aft} == {(2, "expand")},
+          f"(resize) layouts {bef} -> {[a['local'] for a in aft]}")
+    moved = sum(a["rebalance"]["moved_rows"] for a in aft)
+    total = sum(a["rebalance"]["total_rows"] for a in aft)
+    bound = aft[0]["rebalance"]["minimal_bound"]
+    out["resize"].update(
+        moved_rows=[a["rebalance"]["moved_rows"] for a in aft],
+        total_rows=[a["rebalance"]["total_rows"] for a in aft],
+        moved_fraction=moved / max(total, 1), minimal_bound=bound,
+        resize_s=[a["resize_s"] for a in aft])
+    check(moved > 0 and abs(moved / max(total, 1) - bound) < 0.02,
+          f"(resize) moved {moved} of {total} rows, bound {bound}")
+    log(f"[cluster] (resize) {CLUSTER_RESIZE[0]} -> {CLUSTER_RESIZE[1]}: "
+        f"moved_rows {out['resize']['moved_rows']} of "
+        f"{out['resize']['total_rows']} ({moved / max(total, 1):.4f}, "
+        f"bound {bound:.4f}); resize "
+        f"{[round(x, 2) for x in out['resize']['resize_s']]} s")
     return out
 
 
@@ -6976,7 +7214,7 @@ def _main(args) -> int:
         torch=torch, counted_run=counted_run, device="cuda",
         launch_names=list(CK.LAUNCHES)), gpu, raw, flat8,
         {q: r["seg8"]["median_ms"] for q, r in dist["tpch"].items()},
-        {q: r["launches"] for q, r in dist["tpch"].items()})
+        {q: r["launches"] for q, r in dist["tpch"].items()}, sf=args.sf)
     del flat8
     for k, v in cluster["launches"].items():
         launches[k] += v

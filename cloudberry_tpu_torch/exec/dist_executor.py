@@ -30,7 +30,8 @@ all-zero), so sums after a motion add in the reference's order.
 
 In a cluster of processes (parallel/mesh.py ``init_distributed``) a
 process's gang holds lowerers for its own segments only
-(``mesh.local_segments``), fed from the local rows of each sharded
+(``mesh.session_segments``: a contiguous range whose size may differ
+between processes), fed from the local rows of each sharded
 table, and every collective crosses the process boundary
 (parallel/transport.py ``ProcessCollectives``). Every process issues the
 same collectives in the same order: the exchanges follow the plan walk,
@@ -64,9 +65,9 @@ def prepare_dist_inputs(plan: N.PlanNode, session, names=None) -> list:
     replicated table whole with its one count; plus the cached join
     indexes ('shard'-mode split by segment, the others shared).
     ``names`` overrides the table set."""
-    from cloudberry_tpu_torch.parallel.mesh import local_segments
+    from cloudberry_tpu_torch.parallel.mesh import session_segments
 
-    segs = local_segments(session.config.n_segments)
+    segs = session_segments(session)
     per = [dict() for _ in segs]
     if plan is not None:
         from cloudberry_tpu_torch.exec.joinindex import \
@@ -171,11 +172,12 @@ class Gang:
 
     def __init__(self, inputs: list, nseg: int, device, tx, packed: bool,
                  lowerer_cls):
-        from cloudberry_tpu_torch.parallel.mesh import (local_segments,
-                                                        process_count)
+        from cloudberry_tpu_torch.parallel.mesh import process_count
 
         self.nseg = nseg
-        segs = local_segments(nseg)
+        # this process's segments: the transport's layout (every segment
+        # in one process)
+        segs = getattr(tx, "local", range(nseg))
         self.lo, self.nl = segs.start, len(segs)
         self.procs = process_count()
         self.device = torch.device(device)

@@ -40,7 +40,7 @@ from dataclasses import dataclass
 import torch
 
 from cloudberry_tpu_torch.plan import expr as ex
-from cloudberry_tpu_torch.parallel.mesh import local_segments
+from cloudberry_tpu_torch.parallel.mesh import session_segments
 from cloudberry_tpu_torch.plan import nodes as N
 
 
@@ -246,7 +246,7 @@ def _build_index(session, spec: JoinIndexSpec, t, segment=None):
             # this process's segments (every segment in one process)
             return [_sorted_index([ds.shard(s)[p] for p in spec.phys],
                                   ar < int(ds.counts_host[s]), spec.bits)
-                    for s in local_segments(ds.nseg)]
+                    for s in session_segments(session)]
         if spec.mode == "gathered":
             sel = torch.cat([ar < int(ds.counts_host[s])
                              for s in range(ds.nseg)])
@@ -282,7 +282,7 @@ def dist_join_index_inputs(plan: N.PlanNode, session) -> list:
     segments of this process: 'shard'-mode indexes split by segment,
     'table'/'gathered' ones shared by every segment (the reference's
     replicated inputs)."""
-    nl = len(local_segments(session.config.n_segments))
+    nl = len(session_segments(session))
     out = [dict() for _ in range(nl)]
     for spec in jix_specs_of(plan):
         arrs = _cached_index(session, spec, None)

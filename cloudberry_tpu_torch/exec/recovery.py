@@ -108,6 +108,8 @@ class TileCheckpoint:
     g_cap: int = 0            # accumulator capacity at snapshot
     nseg: int = 1             # segment count the snapshot was made at
     tile_rows: int = 0        # tile size at snapshot time (telemetry)
+    segs: tuple = ()          # (first, end) of the segments the payload
+                              # holds (this process's; every one alone)
 
 
 class RecoveryStore:
@@ -298,15 +300,18 @@ class _ResumedDistFeed:
     sharded by the placement hash at the current segment count. With an
     unchanged nseg this is exactly the suffix of the original feed; at
     another nseg every plan invariant re-derives, because the sharding
-    rule is the same jump hash placement uses."""
+    rule is the same jump hash placement uses. It yields the rows of the
+    segments ``segs`` (this process's; every segment by default), at the
+    cluster's lock-step tile count."""
 
     def __init__(self, scan, session, tile_rows: int,
-                 consumed_mask: np.ndarray, nseg: int):
+                 consumed_mask: np.ndarray, nseg: int, segs=None):
         t = session.catalog.table(scan.table_name)
         t.ensure_loaded()
         self.base_mask = consumed_mask
         self.tile_rows = tile_rows
         self.nseg = nseg
+        self.segs = range(nseg) if segs is None else segs
         remaining = np.flatnonzero(~consumed_mask)
         assign = t.shard_assignment(nseg)
         a = assign[remaining]
@@ -326,16 +331,17 @@ class _ResumedDistFeed:
         self._cols = cols
 
     def __iter__(self):
-        nseg, tile_rows = self.nseg, self.tile_rows
+        segs, tile_rows = self.segs, self.tile_rows
         max_rows = int(self.counts.max()) if len(self.counts) else 0
         lanes = np.arange(tile_rows)
         for off in range(0, max_rows, tile_rows):
-            idx = np.zeros((nseg, tile_rows), dtype=np.int64)
-            tile_ns = np.clip(self.counts - off, 0, tile_rows)
-            for s in range(nseg):
-                n_s = int(tile_ns[s])
+            idx = np.zeros((len(segs), tile_rows), dtype=np.int64)
+            tile_ns = np.clip(self.counts[segs.start:segs.stop] - off, 0,
+                              tile_rows)
+            for i, s in enumerate(segs):
+                n_s = int(tile_ns[i])
                 lo = int(self.starts[s]) + off
-                idx[s, :n_s] = self.rsorted[lo:lo + n_s]
+                idx[i, :n_s] = self.rsorted[lo:lo + n_s]
             pad = lanes[None, :] >= tile_ns[:, None]
             tile = {}
             for name, arr in self._cols.items():
@@ -496,16 +502,22 @@ class RecoveryCtx:
     # ------------------------------------------------------- acceptance
 
     def _accept(self, ckpt: TileCheckpoint) -> bool:
+        from cloudberry_tpu_torch.parallel.mesh import process_count
+
         exe, shape = self.exe, self.exe.shape
         mode = shape.mode
         spec = REPLACEABLE.get(mode)
         if spec is None:
             return False  # no declared re-placement rule: never resume
+        if self.dist and process_count() > 1 and mode not in ("agg", "topn"):
+            # a cluster's host run stores hold each process's segments
+            # only: its sort and window runs restart fresh
+            return False
         if spec["placement_free"]:
             return True  # host run stores need no re-placement
         cur_cap = self._current_cap()
         if self.dist:
-            if ckpt.nseg == exe.nseg:
+            if not self._relayout(ckpt):
                 return ckpt.g_cap <= cur_cap
             # changed segment count: only placement-free partials re-shard
             if mode == "agg":
@@ -521,6 +533,12 @@ class RecoveryCtx:
                            for e, _ in shape.sortnode.keys)
             return False
         return ckpt.g_cap <= cur_cap
+
+    def _relayout(self, ckpt: TileCheckpoint) -> bool:
+        """True when the checkpoint's payload was made for other segments
+        than this run's: another segment count, or (in a cluster) another
+        range of them on this process. Its partials then re-shard."""
+        return ckpt.nseg != self.exe.nseg or ckpt.segs != _seg_span(self.exe)
 
     def _current_cap(self) -> int:
         shape = self.exe.shape
@@ -552,31 +570,43 @@ class RecoveryCtx:
         chose)."""
         if not (self.resumed and self.dist):
             return
+        exe, shape, ckpt = self.exe, self.exe.shape, self.ckpt
+        # this process's segments: the payload holds their accumulators,
+        # and the re-shard places their pooled partials on them
+        segs = getattr(exe, "segs", range(exe.nseg))
+        reshard = self._relayout(ckpt) and shape.mode in ("agg", "topn")
+        need, failed = 0, False
         try:
-            exe, shape, ckpt = self.exe, self.exe.shape, self.ckpt
-            nseg = exe.nseg
             self._feed = _ResumedDistFeed(
                 shape.stream, self.session, exe.tile_rows, ckpt.consumed,
-                nseg)
-            if ckpt.nseg == nseg or shape.mode not in ("agg", "topn"):
-                return
-            rows, n_rows = _pooled_rows(ckpt.payload)
-            if shape.mode == "topn":
-                hit = _host_topn(rows, n_rows, shape.sortnode.keys,
-                                 shape.g_cap)
-                if hit is None:  # non-ColumnRef key slipped acceptance
-                    raise ValueError("topn keys not host-sortable")
-                rows, n_rows = hit
-            need = -(-n_rows // nseg) if n_rows else 0  # ceil
-            if shape.mode == "agg" and need > shape.g_cap:
-                shape.g_cap = need
-                exe._compiled = None
-                exe._refresh_report()
-            cap = self._current_cap()
-            self._restored_acc = _round_robin_acc(
-                rows, n_rows, shape.partial_plan.fields, nseg, cap)
+                exe.nseg, segs)
+            if reshard:
+                rows, n_rows = _pooled_rows(ckpt.payload)
+                if shape.mode == "topn":
+                    hit = _host_topn(rows, n_rows, shape.sortnode.keys,
+                                     shape.g_cap)
+                    if hit is None:  # non-ColumnRef key slipped acceptance
+                        raise ValueError("topn keys not host-sortable")
+                    rows, n_rows = hit
+                need = -(-n_rows // len(segs)) if n_rows else 0  # ceil
         except Exception:  # noqa: BLE001 — degrade to a fresh run
+            failed = True
+        if reshard:
+            # every process of a cluster sizes its accumulator alike, or
+            # every one declines
+            need, failed = _cluster_max(need, failed)
+        if failed:
             self._decline()
+            return
+        if not reshard:
+            return
+        if shape.mode == "agg" and need > shape.g_cap:
+            shape.g_cap = need
+            exe._compiled = None
+            exe._refresh_report()
+        self._restored_acc = _round_robin_acc(
+            rows, n_rows, shape.partial_plan.fields, len(segs),
+            self._current_cap())
 
     def restore_acc(self, acc):
         """Initial accumulator from the checkpoint (agg/topn modes), as
@@ -688,13 +718,47 @@ class RecoveryCtx:
             signature=self.sig, mode=exe.shape.mode, nseg=nseg,
             tile_rows=exe.tile_rows, tiles_done=tiles_total,
             consumed=consumed, payload=payload,
-            g_cap=self._current_cap()))
+            g_cap=self._current_cap(),
+            segs=_seg_span(exe) if self.dist else ()))
         self._last_snapshot = tiles_total
         self.log.bump("tile_checkpoints")
 
     def stamp_report(self, report: dict) -> None:
         report["resumed_from_tile"] = self.tiles_base
         report["tiles_replayed"] = self.replayed
+
+
+def _seg_span(exe) -> tuple:
+    """(first, end) of a distributed executable's segments on this
+    process."""
+    segs = getattr(exe, "segs", range(exe.nseg))
+    return (segs.start, segs.stop)
+
+
+def _cluster_max(need: int, failed: bool):
+    """(the largest ``need``, whether any process failed) over a
+    cluster's processes; the arguments in one process."""
+    import torch
+
+    from cloudberry_tpu_torch.parallel.transport import cluster_reduce
+
+    v = cluster_reduce(torch.tensor([need, int(failed)], dtype=torch.int64),
+                       "max")
+    return int(v[0]), bool(v[1])
+
+
+def agree_resume(ctx: Optional[RecoveryCtx]) -> bool:
+    """Whether this distributed run resumes, the same on every process
+    of a cluster: a process that has no checkpoint (or declined one)
+    makes every process decline. Called by every process at the same
+    points of a run (``ctx`` None: no recovery context here)."""
+    from cloudberry_tpu_torch.parallel.transport import cluster_all
+
+    resumed = ctx is not None and ctx.resumed
+    agreed = cluster_all(resumed)
+    if resumed and not agreed:
+        ctx._decline()
+    return agreed
 
 
 def begin(exe, dist: bool = False) -> Optional[RecoveryCtx]:

@@ -73,6 +73,7 @@ from cloudberry_tpu_torch.exec import scanpipe as SP
 from cloudberry_tpu_torch.exec import tilepipe as TP
 from cloudberry_tpu_torch.exec.expr_compile import torch_dtype
 from cloudberry_tpu_torch.exec.resource import estimate_plan_memory
+from cloudberry_tpu_torch.parallel.transport import cluster_all
 from cloudberry_tpu_torch.plan import expr as ex
 from cloudberry_tpu_torch.plan import nodes as N
 from cloudberry_tpu_torch.plan.distribute import (_all_exprs,
@@ -774,7 +775,11 @@ class SkewSentinel:
         worst = self._worst()
         if worst is None:
             return
-        if fault_point("tile_replan"):
+        # the alarm reads the cluster's reduced telemetry, so every
+        # process of a cluster reaches this point alike; what follows is
+        # local (the seam, the snapshot save) and is agreed before a
+        # process acts on it
+        if not cluster_all(not fault_point("tile_replan")):
             self.armed = False      # seam: suppress the adaptation
             return
         if settle is not None:
@@ -793,7 +798,8 @@ class SkewSentinel:
         FB.fold_plan(session, self.exe.shape.partial_plan, partial=True)
         # the replanned run must resume from HERE, not re-stream: a failed
         # save disarms the sentinel and the static plan finishes
-        if not self.ctx.force_snapshot(tiles_local, payload_fn):
+        if not cluster_all(self.ctx.force_snapshot(tiles_local,
+                                                   payload_fn)):
             self.armed = False
             return
         handle.tile_replans = getattr(handle, "tile_replans", 0) + 1
@@ -867,6 +873,7 @@ class AdaptiveTiledMixin:
                         raise
                 else:
                     raise
+                self._agree_retry()
                 if getattr(self, "_deferred_fail", False):
                     # the failed check had been outrun by newer in-flight
                     # steps (exec/tilepipe.py): this retry IS the
@@ -890,6 +897,10 @@ class AdaptiveTiledMixin:
 
     def _over_budget(self) -> bool:
         return self.report["est_step_bytes"] > self.budget
+
+    def _agree_retry(self) -> None:
+        """Hook: line a retry's sizes up across processes (the
+        distributed executables; nothing in one process)."""
 
     def _try_grow(self, msg: str) -> bool:
         """Grow the overflowing spine join's pair buffer if the grown step

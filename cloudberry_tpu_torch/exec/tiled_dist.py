@@ -117,9 +117,6 @@ def plan_tiled_dist(plan: N.PlanNode, session):
         return None
     if getattr(plan, "_direct_segment", None) is not None:
         return None
-    from cloudberry_tpu_torch.parallel.mesh import require_one_process
-
-    require_one_process("tiled distributed execution")
     shape = _analyze_dist(plan, session)
     if shape is None:
         return None
@@ -570,6 +567,12 @@ class DistTiledExecutable(AdaptiveTiledMixin):
         # plan whose motions carry two-level stamps (host_combine grew
         # the rungs) must not pay the padding while shipping flat
         self._tx = session_transport(session)
+        # this process's segments (every segment in one process): its
+        # tiles, accumulators and checkpoints index these; every decision
+        # that changes the collective sequence is reduced over the
+        # processes first (``_agree_retry``, the sentinel, the resume)
+        self.segs = getattr(self._tx, "local", range(self.nseg))
+        self.lo, self.nl = self.segs.start, len(self.segs)
         # the steps' spine motions AND the finalize merge motion share the
         # packed wire format (kernels.wire_layout)
         self._packed = ic.packed_wire
@@ -614,6 +617,16 @@ class DistTiledExecutable(AdaptiveTiledMixin):
     def _groups_ceiling(self) -> int:
         return self.shape.max_groups
 
+    def _agree_retry(self) -> None:
+        """A retry's accumulator and tile size, the same on every process
+        of a cluster (the largest accumulator, the smallest tile): the
+        next attempt's collectives must line up."""
+        from cloudberry_tpu_torch.parallel.transport import cluster_reduce
+
+        v = cluster_reduce(torch.tensor(
+            [self.shape.g_cap, -self.tile_rows], dtype=torch.int64), "max")
+        self.shape.g_cap, self.tile_rows = int(v[0]), -int(v[1])
+
     # ------------------------------------------------------------ programs
 
     def _whole_plan(self) -> N.PlanNode:
@@ -633,29 +646,30 @@ class DistTiledExecutable(AdaptiveTiledMixin):
         (cols, sel) in ``shape.builds`` order."""
         builds = self.shape.builds
         if not builds:
-            return [[] for _ in range(self.nseg)]
+            return [[] for _ in range(self.nl)]
         outs, checks, _ = self._gang(resident, DistLowerer).run_each(
             lambda low: [low.lower_shared(b) for b in builds])
         X.raise_checks(checks)
         return outs
 
     def _step_gang(self, resident, prelude, tile, tile_ns) -> Gang:
-        """The gang of one step: segment s reads row s of the tile and its
-        own prelude builds."""
+        """The gang of one step: this process's i-th segment reads row i
+        of the (local) tile and its own prelude builds."""
         shape = self.shape
         inputs = []
-        for s in range(self.nseg):
-            t = dict(resident[s])
-            t["$tile"] = {k: v[s] for k, v in tile.items()}
+        for i in range(self.nl):
+            t = dict(resident[i])
+            t["$tile"] = {k: v[i] for k, v in tile.items()}
             inputs.append(t)
-        replaces = [{id(b): prelude[s][i] for i, b in enumerate(shape.builds)}
-                    for s in range(self.nseg)]
+        replaces = [{id(b): prelude[i][j] for j, b in enumerate(shape.builds)}
+                    for i in range(self.nl)]
         ns = [int(n) for n in np.asarray(tile_ns)]
+        lo = self.lo
 
         def make(tables, device, gang, seg, params=None):
             return _DistTileLowerer(tables, device, gang, seg,
-                                    replaces[seg], shape.stream, ns[seg],
-                                    params=params)
+                                    replaces[seg - lo], shape.stream,
+                                    ns[seg - lo], params=params)
 
         return self._gang(inputs, make)
 
@@ -680,7 +694,7 @@ class DistTiledExecutable(AdaptiveTiledMixin):
 
         def seg_fn(low):
             pcols, psel = low.lower(shape.partial_plan)
-            s = low.seg
+            s = low.seg - self.lo
             agg_vals = {sp.out_name: torch.cat(
                 [acc_cols[sp.out_name][s], pcols[sp.out_name]])
                 for sp in specs}
@@ -717,7 +731,7 @@ class DistTiledExecutable(AdaptiveTiledMixin):
             shape.final_agg.capacity = max(shape.g_cap * self.nseg, 1)
 
     def _init_acc(self):
-        shape, dev, nseg = self.shape, self.device, self.nseg
+        shape, dev, nseg = self.shape, self.device, self.nl
         g_cap = shape.g_cap
         if shape.group_names:
             cols = {f.name: torch.zeros(
@@ -748,13 +762,14 @@ class DistTiledExecutable(AdaptiveTiledMixin):
         acc_cols, acc_sel = acc
 
         def make(tables, device, gang, seg, params=None):
-            hit = ({n: c[seg] for n, c in acc_cols.items()}, acc_sel[seg])
+            i = seg - self.lo
+            hit = ({n: c[i] for n, c in acc_cols.items()}, acc_sel[i])
             return _DistReplacingLowerer(tables, device, gang, seg,
                                          {id(shape.replace_node): hit},
                                          params=params)
 
         cols, sel, checks, _ = self._gang(
-            [{} for _ in range(self.nseg)], make).run(shape.root)
+            [{} for _ in range(self.nl)], make).run(shape.root)
         X.raise_checks(checks)
         return X.make_batch(shape.root, cols, sel)
 
@@ -777,6 +792,7 @@ class DistTiledExecutable(AdaptiveTiledMixin):
         # re-sharded partials, so it runs BEFORE the retile/refinalize
         # chain fixes the shapes
         ctx = R.begin(self, dist=True)
+        R.agree_resume(ctx)
         if ctx is not None:
             ctx.prepare_dist()
         _retile_dist(self.shape, self.tile_rows, self.nseg)
@@ -787,9 +803,12 @@ class DistTiledExecutable(AdaptiveTiledMixin):
         acc = self._init_acc()
         if ctx is not None:
             acc = ctx.restore_acc(acc)
+        had = ctx is not None and ctx.resumed
+        if not R.agree_resume(ctx) and had:
+            acc = self._init_acc()   # another process declined its restore
         feed = (ctx.feed() if ctx is not None else None) \
             or _dist_tile_feed(self.shape.stream, self.session,
-                               self.tile_rows)
+                               self.tile_rows, self.segs)
         n_base = ctx.tiles_base if ctx is not None else 0
         n_local = 0
         n_sub = 0
@@ -866,9 +885,9 @@ class DistTiledExecutable(AdaptiveTiledMixin):
         n_tiles = n_base + n_local
         if n_tiles == 0:  # empty stream: one all-masked tile seeds the acc
             tile = _empty_dist_tile(self.shape.stream, self.tile_rows,
-                                    self.nseg, self.device)
+                                    self.nl, self.device)
             acc, checks, _ = self._step(resident, prelude, tile,
-                                        np.zeros((self.nseg,), np.int64),
+                                        np.zeros((self.nl,), np.int64),
                                         acc)
             _raise_tile_checks(checks, 0)
             n_tiles = 1
@@ -917,7 +936,7 @@ class DistTopNTiledExecutable(DistTiledExecutable):
                 node.out_capacity = shape.g_cap * self.nseg
 
     def _init_acc(self):
-        shape, dev, nseg = self.shape, self.device, self.nseg
+        shape, dev, nseg = self.shape, self.device, self.nl
         cols = {f.name: torch.zeros((nseg, shape.g_cap),
                                     dtype=torch_dtype(f.type.np_dtype),
                                     device=dev)
@@ -937,7 +956,7 @@ class DistTopNTiledExecutable(DistTiledExecutable):
 
         def seg_fn(low):
             pcols, psel = low.lower(shape.partial_plan)
-            s = low.seg
+            s = low.seg - self.lo
             n = psel.shape[0]
             ccols = {nm: torch.cat([acc_cols[nm][s],
                                     X._as_column(pcols[nm], n)])
@@ -1009,6 +1028,7 @@ class DistSortTiledExecutable(DistTiledExecutable):
         from cloudberry_tpu_torch.lifecycle import check_cancel
 
         ctx = R.begin(self, dist=True)
+        R.agree_resume(ctx)
         if ctx is not None:
             ctx.prepare_dist()
         shape = self.shape
@@ -1020,7 +1040,8 @@ class DistSortTiledExecutable(DistTiledExecutable):
         if ctx is not None:
             runs, key_runs = ctx.restore_runs(runs, key_runs)
         feed = (ctx.feed() if ctx is not None else None) \
-            or _dist_tile_feed(shape.stream, self.session, self.tile_rows)
+            or _dist_tile_feed(shape.stream, self.session, self.tile_rows,
+                               self.segs)
         n_base = ctx.tiles_base if ctx is not None else 0
         n_local = 0
         n_sub = 0
@@ -1041,7 +1062,7 @@ class DistSortTiledExecutable(DistTiledExecutable):
             tracker.step(tile_k)
             host = rows.wait()
             sel = host[len(names)].numpy()
-            for s in range(self.nseg):
+            for s in range(self.nl):
                 m = sel[s]
                 for i, nm in enumerate(names):
                     runs.setdefault(nm, []).append(host[i][s].numpy()[m])
@@ -1076,6 +1097,7 @@ class DistSortTiledExecutable(DistTiledExecutable):
         SP.stamp_report(self.report, stream)
         timer.stamp(self.report)
         pipe.stamp(self.report)
+        runs, key_runs = _pool_cluster_runs(runs, key_runs, self.nl)
 
         fault_point("tiled_finalize")
         check_cancel()
@@ -1142,6 +1164,35 @@ class DistWindowTiledExecutable(DistSortTiledExecutable):
         return _host_batch(shape.root, final)
 
 
+def _pool_cluster_runs(runs: dict, key_runs: list, nl: int):
+    """Every process's host runs, in the one-process order (tile by tile,
+    segment by segment), on every process of a cluster; the arguments in
+    one process. Each process appended ``nl`` runs per drained tile, and
+    every process drained the same tiles."""
+    from cloudberry_tpu_torch.parallel.mesh import process_count
+
+    if process_count() == 1:
+        return runs, key_runs
+    import torch.distributed as dist
+
+    every = [None] * process_count()
+    dist.all_gather_object(every, (runs, key_runs, nl))
+
+    def interleave(lists):
+        # lists[p]: process p's runs, tile-major
+        n_tiles = len(lists[0]) // max(every[0][2], 1)
+        return [r for t in range(n_tiles)
+                for (_, _, n), runs_p in zip(every, lists)
+                for r in runs_p[t * n:(t + 1) * n]]
+
+    names = list(every[0][0])
+    pooled = {nm: interleave([e[0].get(nm, []) for e in every])
+              for nm in names}
+    keys = [interleave([e[1][i] for e in every])
+            for i in range(len(key_runs))]
+    return pooled, keys
+
+
 # -------------------------------------------------------------- tile feed
 
 
@@ -1184,20 +1235,24 @@ def _dist_progress_tracker(exe, feed, n_base: int):
                        base_rows=base_rows, rows_total=total)
 
 
-def _dist_tile_feed(scan: N.PScan, session, tile_rows: int):
-    """Yield (tile dict of (nseg, tile_rows) columns, per-segment valid
-    counts). All segments step in lock-step; a segment whose shard ran dry
-    contributes masked rows. A packed feed tile resident in the buffer
-    pool (exec/bufferpool.py, keyed by tile offset and the table's
-    content token) is served from its device copy; a hot miss is
-    admitted."""
+def _dist_tile_feed(scan: N.PScan, session, tile_rows: int, segs: range):
+    """Yield (tile dict of (local segments, tile_rows) columns, their
+    valid counts) for this process's segments ``segs`` (every segment in
+    one process). All segments of the cluster step in lock-step (the
+    longest shard of the whole table, which every process holds, sets
+    the tile count); a segment whose shard ran dry contributes masked
+    rows. A packed feed tile resident in the buffer pool
+    (exec/bufferpool.py, keyed by tile offset, the segments and the
+    table's content token) is served from its device copy; a hot miss
+    is admitted."""
     st = session.sharded_table(scan.table_name)
     nseg, shard_cap = len(st.counts), st.capacity
+    lo, hi = segs.start, segs.stop
     bpool = BUF.pool_for(session)
     cols_key = (tuple(sorted(scan.column_map)),
-                tuple(sorted(scan.mask_map)))
+                tuple(sorted(scan.mask_map)), (lo, hi))
     log = getattr(session, "stmt_log", None)
-    counts = np.asarray(st.counts)
+    counts = np.asarray(st.counts)[lo:hi]
     cols: Optional[dict] = None  # built lazily: an all-hit feed never
     max_rows = int(st.counts.max()) if len(st.counts) else 0
     for off in range(0, max(max_rows, 0), tile_rows):
@@ -1218,19 +1273,19 @@ def _dist_tile_feed(scan: N.PScan, session, tile_rows: int):
         if cols is None:
             cols = {}
             for phys in scan.column_map:
-                cols[phys] = np.asarray(st.columns[phys])
+                cols[phys] = np.asarray(st.columns[phys])[lo:hi]
             for phys in scan.mask_map:
                 vm = st.columns.get(f"$nn:{phys}")
                 cols[f"$nn:{phys}"] = (
-                    np.asarray(vm) if vm is not None
-                    else np.ones((nseg, shard_cap), dtype=np.bool_))
+                    np.asarray(vm)[lo:hi] if vm is not None
+                    else np.ones((hi - lo, shard_cap), dtype=np.bool_))
         tile = {}
         for name, arr in cols.items():
             sl = arr[:, off:off + n]
             if n < tile_rows:
                 sl = np.concatenate(
-                    [sl, np.zeros((nseg, tile_rows - n), dtype=arr.dtype)],
-                    axis=1)
+                    [sl, np.zeros((hi - lo, tile_rows - n),
+                                  dtype=arr.dtype)], axis=1)
             tile[name] = np.ascontiguousarray(sl)
         if key is not None:
             bpool.offer(key, {"tile": tile}, table=scan.table_name,

@@ -21,7 +21,11 @@ count before a degrade or failover shrank it, so that slots can come
 back). A probe whose reduction runs reports every slot live; the
 ``probe_degraded`` seam drops the last one, as the reference's drops its
 last device, so an 8-segment session degrades to 7 segments, not to 1.
-The slot pool is at most ``mesh.MAX_SLOTS``.
+The slot pool is at most ``mesh.MAX_SLOTS``. In a cluster whose processes
+gave local slot counts the pool is the cluster's (``mesh.cluster_slots``):
+each process probes its own slots and the live masks are gathered, so a
+lost slot mid-pool (process 0's last of two processes' 4 + 4) degrades
+every process to the same survivors, the reference's ragged 3 + 4.
 
 Which failures re-dispatch (``recoverable``): the ``device_lost`` text of
 the fault seams (``exec_device_lost``, ``tile_device_lost``), as in the
@@ -57,8 +61,15 @@ class ProbeResult:
 
 
 def slot_count(session) -> int:
-    """The segment slots of the session's cluster: the healthy epoch's
-    segment count (parallel/topology.py ``healthy_nseg``)."""
+    """The segment slots of the session's cluster: the cluster's slot
+    pool when its processes gave local slot counts (parallel/mesh.py
+    ``cluster_slots``), else the healthy epoch's segment count
+    (parallel/topology.py ``healthy_nseg``)."""
+    from cloudberry_tpu_torch.parallel.mesh import cluster_slots
+
+    pool = cluster_slots()
+    if pool is not None:
+        return pool
     mgr = getattr(session, "_topology", None)
     if mgr is None:
         return session.config.n_segments
@@ -69,32 +80,56 @@ def probe(session=None) -> ProbeResult:
     """One health probe: a reduction over a (slots, 8) tensor of ones on
     the session's device (on the card: a fill and a reduction kernel),
     each slot's row checked on the host. Without a session, the probe
-    runs on the default device (CUDA when available) with one slot."""
+    runs on the default device (CUDA when available) with one slot.
+
+    In a cluster of processes every process probes the slots of the pool
+    it owns (parallel/mesh.py ``segment_owners``; the seam drops this
+    process's last slot), and the live masks are gathered, so every
+    process reports the same survivors: the probe is a collective, which
+    every process calls together (the session's retry hook does)."""
     import torch
 
+    from cloudberry_tpu_torch.parallel.mesh import (process_count,
+                                                    slot_layout)
     from cloudberry_tpu_torch.utils.faultinject import fault_point
 
     t0 = time.time()
+    cluster = session is not None and process_count() > 1
     if session is None:
         device = torch.device("cuda" if torch.cuda.is_available()
                               else "cpu")
+        pool = 1
         slots = list(range(1))
     else:
         device = session.device
-        slots = list(range(slot_count(session)))
+        pool = slot_count(session)
+        slots = list(slot_layout(session, pool)[1])
     if fault_point("probe_degraded"):
         # chaos seam: report the last slot lost ('skip' action) — no slot
         # of one card can die alone, so degraded recovery is provoked
         # deterministically (faultinjector.c role)
         slots = slots[:-1]
+    error = None
     try:
         x = torch.ones((len(slots), 8), dtype=torch.float32, device=device)
         sums = x.sum(dim=1).cpu().tolist()
     except Exception as e:  # noqa: BLE001 — the runtime itself is gone
-        return ProbeResult(False, 0, time.time() - t0, str(e), live=[])
+        error, sums = str(e), [0.0] * len(slots)
     live = [i for i, v in zip(slots, sums) if v == 8.0]
     errors = [f"slot {i}: bad probe sum" for i, v in zip(slots, sums)
-              if v != 8.0]
+              if v != 8.0] if error is None else [error]
+    if cluster:
+        from cloudberry_tpu_torch.parallel.transport import cluster_reduce
+
+        mask = torch.zeros((pool + 1,), dtype=torch.int64)
+        mask[live] = 1
+        mask[pool] = len(errors)
+        mask = cluster_reduce(mask, "sum")
+        live = [i for i in range(pool) if int(mask[i])]
+        if int(mask[pool]) and not errors:
+            errors = ["another process's slots failed the probe"]
+    if error is not None and not live:
+        return ProbeResult(False, 0, time.time() - t0, error, live=[])
     return ProbeResult(not errors, len(live), time.time() - t0,
                        "; ".join(errors) or None, live=live)
 

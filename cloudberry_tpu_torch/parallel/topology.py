@@ -51,6 +51,17 @@ Cross-process: a store-backed cluster persists its current epoch (and any
 in-progress rebalance journal) in ``_TOPOLOGY.json`` under the store root;
 another session over the root adopts a newer epoch at its next statement
 pin (mtime check).
+
+A cluster of processes (parallel/mesh.py ``init_distributed``): every
+process runs the same change with the same arguments and mints the same
+epoch; each re-derives its own range of the successor's segments from
+the whole tables it holds, and a rebalance counts the rows of the old
+segments a process owned, so the processes' ``moved_rows`` sum to the
+one-process run's. Before a statement attempt's first collective the
+processes check that they hold the same (epoch, segment count, survivor
+restriction) (``agree``), and raise ``ClusterLayoutError`` otherwise.
+Store-backed tables are not rebalanced across processes (every process
+would rewrite the same partitions): ``begin`` refuses them there.
 """
 
 from __future__ import annotations
@@ -70,6 +81,12 @@ from cloudberry_tpu_torch.utils.faultinject import fault_point
 class TopologyError(RuntimeError):
     """A topology change could not proceed (pending change in flight,
     breaker open, target larger than the slot pool)."""
+
+
+class ClusterLayoutError(RuntimeError):
+    """The processes of a cluster hold different (epoch, segment count,
+    layout) at a statement's start: its collectives would pair unrelated
+    blocks or hang, so the statement raises instead."""
 
 
 class TopologyRaceError(RuntimeError):
@@ -356,18 +373,32 @@ class TopologyManager:
         """Create the successor epoch (state: rebalancing). Statements
         keep pinning the CURRENT epoch until cutover()."""
         from cloudberry_tpu_torch.parallel.mesh import (MAX_SLOTS,
-                                                        require_one_process)
+                                                        cluster_slots,
+                                                        process_count,
+                                                        slot_layout)
 
-        require_one_process("a topology change")
         new_nseg = int(new_nseg)
         if new_nseg < 1:
             raise TopologyError(f"invalid segment count {new_nseg}")
         # the reference refuses past its visible device count; one card
-        # hosts at most MAX_SLOTS segment slots (parallel/mesh.py)
-        if device_ids is None and new_nseg > MAX_SLOTS:
+        # hosts at most MAX_SLOTS segment slots (parallel/mesh.py), and a
+        # cluster whose processes gave local slot counts its pool
+        pool = cluster_slots()
+        limit = MAX_SLOTS if pool is None else min(pool, MAX_SLOTS)
+        if device_ids is None and new_nseg > limit:
             raise TopologyError(
-                f"cannot expand to {new_nseg} segments: one card hosts at "
-                f"most {MAX_SLOTS} segment slots")
+                f"cannot expand to {new_nseg} segments: the cluster hosts "
+                f"at most {limit} segment slots")
+        if process_count() > 1:
+            if any(getattr(t, "backing", None) is not None
+                   for t in self._session.catalog.tables.values()):
+                raise TopologyError(
+                    "a topology change across processes moves in-RAM "
+                    "tables only: every process would rewrite the store's "
+                    "partitions")
+            # the successor layout must leave every process a segment
+            # (raises before the epoch is created)
+            slot_layout(self._session, new_nseg, device_ids)
         with self._lock:
             if self.pending is not None:
                 raise TopologyError(
@@ -477,7 +508,12 @@ class TopologyManager:
             return  # already staged by an interrupted earlier run
         new_assign = np.zeros(n, dtype=np.int32)
         cols = [np.asarray(t.data[k]) for k in t.policy.keys]
+        # every process stages the whole assignment (each holds the whole
+        # table) but counts the rows of the old segments it owns, so the
+        # cluster's counts sum to the one-process run's
+        mine = self._old_local_segments(old_nseg)
         moved = 0
+        counted = 0
         nbytes_row = sum(a.dtype.itemsize for a in t.data.values()) or 1
         for lo in range(0, max(n, 1), max(chunk_rows, 1)):
             hi = min(lo + chunk_rows, n)
@@ -487,14 +523,52 @@ class TopologyManager:
             a_old = hashing.jump_consistent_hash_np(h, old_nseg)
             a_new = hashing.jump_consistent_hash_np(h, new_nseg)
             new_assign[lo:hi] = a_new
-            moved += int((a_old != a_new).sum())
+            ours = (a_old >= mine.start) & (a_old < mine.stop)
+            moved += int(((a_old != a_new) & ours).sum())
+            counted += int(ours.sum())
             self._chunk_seam(state, throttle_s)
         t._topo_assign = (version, new_nseg, new_assign)
-        state.total_rows += n
+        state.total_rows += counted
         state.moved_rows += moved
         state.moved_bytes += moved * nbytes_row
         self._bump("topo_moved_rows", moved)
         self._bump("topo_moved_bytes", moved * nbytes_row)
+
+    def _old_local_segments(self, old_nseg: int) -> range:
+        """This process's segments of the current epoch (every segment in
+        one process)."""
+        from cloudberry_tpu_torch.parallel.mesh import slot_layout
+
+        ids = self.current.device_ids
+        return slot_layout(self._session, old_nseg,
+                           list(ids) if ids else None)[1]
+
+    def agree(self, session) -> None:
+        """Raise ``ClusterLayoutError`` unless every process of the
+        cluster holds the same (epoch, segment count, survivor
+        restriction) for ``session``: called before a statement attempt's
+        first collective. One process: nothing to agree."""
+        from cloudberry_tpu_torch.parallel.mesh import process_count
+
+        if process_count() == 1:
+            return
+        import zlib
+
+        import torch
+        import torch.distributed as dist
+
+        ids = getattr(session, "_live_device_ids", None)
+        mine = torch.tensor([getattr(session, "_topo_epoch_seen", None) or 0,
+                             session.config.n_segments,
+                             zlib.crc32(repr(ids).encode())],
+                            dtype=torch.int64)
+        every = [torch.empty_like(mine) for _ in range(process_count())]
+        dist.all_gather(every, mine)
+        got = [tuple(int(x) for x in v) for v in every]
+        if len(set(got)) != 1:
+            raise ClusterLayoutError(
+                "the processes pinned different (epoch, segment count, "
+                f"layout) for one statement: {got}")
 
     def _rebalance_store_table(self, name: str, state: RebalanceState,
                                chunk_rows: int,

@@ -38,21 +38,21 @@ over the stacked segment dimension in one set of tensor ops; no
 transport loops over segments on the host.
 
 In a cluster of processes (parallel/mesh.py ``init_distributed``) each
-process owns a contiguous block of segments, and the contract becomes
+process owns a contiguous range of segments, whose size may differ
+between processes (``mesh.segment_owners``), and the contract becomes
 "this process's segments in, this process's segments out": the lists
 hold the local segments' values in segment order, and every value a
 segment receives is the one it would receive in one process. In one
 process local means all and nothing changes. ``ProcessCollectives`` is
 the flat exchange across processes (``torch.distributed`` over gloo, CUDA
-blocks staged through pinned host memory); the two-level transport's
-permutations cross the process boundary where a (source, destination)
-pair does, and stay index operations where both segments are local.
-Every transport counts the bytes it hands to ``torch.distributed`` for
-other processes in ``dist_bytes``, and appends each redistribute's to
-``exchanges`` (the executor stamps the record with the plan's rungs and
-row width), the reading ``two_level_wire_model`` and
-``flat_wire_model`` describe. The ring
-transport is not ported across processes.
+blocks staged through pinned host memory); the ring's shifts and the
+two-level transport's permutations cross the process boundary where a
+(source, destination) pair does (``_permute``), and stay index
+operations where both segments are local. Every transport counts the
+bytes it hands to ``torch.distributed`` for other processes in
+``dist_bytes``, and appends each redistribute's to ``exchanges`` (the
+executor stamps the record with the plan's rungs and row width), the
+reading ``two_level_wire_model`` and ``flat_wire_model`` describe.
 """
 
 from __future__ import annotations
@@ -115,6 +115,17 @@ def cluster_reduce(t: torch.Tensor, op: str) -> torch.Tensor:
     return back(host)
 
 
+def cluster_all(flag: bool) -> bool:
+    """``flag`` held on every process of the cluster (``flag`` itself
+    in one process): a local decision agreed before any process acts on
+    it."""
+    from cloudberry_tpu_torch.parallel.mesh import process_count
+
+    if process_count() == 1:
+        return flag
+    return bool(cluster_reduce(torch.tensor([int(not flag)]), "max") == 0)
+
+
 def cluster_sizes_agree(sizes: tuple, what: str) -> None:
     """Raise unless every process reports the same ``sizes`` (the counts
     of values batched reductions are about to line up by position)."""
@@ -131,26 +142,109 @@ def cluster_sizes_agree(sizes: tuple, what: str) -> None:
             f"the processes disagree on the number of {what}: {got}")
 
 
+class _PermPlan:
+    """One permutation's moves for one process: the local pairs by index
+    (``full``: every local segment receives, one gather), the rows sent
+    to and received from other processes in ``all_to_all_single`` order,
+    and their per-process counts; ``cross``: some pair of the cluster
+    crosses a process boundary (every process then issues the call)."""
+
+    def __init__(self, perm: tuple, owners: tuple, rank: int, device):
+        from cloudberry_tpu_torch.parallel.mesh import owner_ranges
+
+        rngs = owner_ranges(owners)
+        lo, nl, P = rngs[rank].start, len(rngs[rank]), len(rngs)
+        mine = [(s - lo, d - lo) for s, d in perm
+                if owners[s] == rank and owners[d] == rank]
+        send = sorted((owners[d], k, s - lo) for k, (s, d) in enumerate(perm)
+                      if owners[s] == rank and owners[d] != rank)
+        recv = sorted((owners[s], k, d - lo) for k, (s, d) in enumerate(perm)
+                      if owners[d] == rank and owners[s] != rank)
+
+        def t(v):
+            return torch.as_tensor(np.asarray(v, dtype=np.int64),
+                                   device=device)
+        self.cross = any(owners[s] != owners[d] for s, d in perm)
+        self.full = len(mine) == nl and not self.cross
+        if self.full:
+            # every segment receives: one gather by the inverse map
+            inv = np.argsort(np.asarray([d for _, d in mine]))
+            self.gather = t(np.asarray([s for s, _ in mine])[inv])
+        self.lsrc, self.ldst = t([a for a, _ in mine]), t([b for _, b in mine])
+        self.n_local = len(mine)
+        self.sidx = t([i for _, _, i in send])
+        self.ridx = t([i for _, _, i in recv])
+        self.n_recv = len(recv)
+        self.scnt = np.bincount([q for q, _, _ in send], minlength=P).tolist()
+        self.rcnt = np.bincount([q for q, _, _ in recv], minlength=P).tolist()
+
+
+_PLANS: dict = {}
+
+
+def _permute(x: torch.Tensor, perm, owners: tuple, rank: int):
+    """One permutation of the segment dimension: segment ``dst`` receives
+    segment ``src``'s value for every (src, dst) pair of ``perm`` (global
+    segment ids); segments that receive nothing read zeros (ppermute's
+    rule). ``x`` holds the segments ``owners`` gives process ``rank``
+    (every segment in one process). Pairs whose segments are both local
+    move by index; the others go through ONE ``all_to_all_single``, which
+    every process issues (or skips, when no pair crosses) alike. Returns
+    (the received values, the bytes handed to torch.distributed)."""
+    perm = tuple(perm)
+    key = (perm, owners, rank, str(x.device))
+    with _TABLES_LOCK:
+        plan = _PLANS.get(key)
+    if plan is None:
+        plan = _PermPlan(perm, owners, rank, x.device)
+        with _TABLES_LOCK:
+            if len(_PLANS) >= _TABLES_MAX:
+                _PLANS.pop(next(iter(_PLANS)))
+            _PLANS[key] = plan
+    if plan.full:
+        return x.index_select(0, plan.gather), 0
+    out = torch.zeros_like(x)
+    if plan.n_local:
+        out.index_copy_(0, plan.ldst, x.index_select(0, plan.lsrc))
+    if not plan.cross:
+        return out, 0
+    host, back = _wire_view(x.index_select(0, plan.sidx))
+    got = torch.empty((plan.n_recv,) + tuple(host.shape[1:]),
+                      dtype=host.dtype)
+    dist.all_to_all_single(got, host, plan.rcnt, plan.scnt)
+    if plan.n_recv:
+        out.index_copy_(0, plan.ridx, back(got))
+    return out, host.numel() * host.element_size()
+
+
 class ProcessCollectives:
-    """The flat exchange of a cluster of P processes, each owning S =
-    nseg / P contiguous segments (process p: ``[p*S, (p+1)*S)``): the
+    """The flat exchange of a cluster of P processes, process p owning the
+    contiguous segment range ``owners`` gives it (sizes may differ): the
     lists in and out hold the local segments' values.
 
-    - ``all_gather``: ``dist.all_gather`` of the local concatenation
-      (every block has the same capacity, so the sizes are fixed);
+    - ``all_gather``: ``dist.all_gather`` of the local concatenation, each
+      process's block padded to the largest process's (gloo gathers equal
+      tensors) and trimmed on arrival;
     - ``all_to_all``: the local (S, nseg, B, ...) stack by destination
-      goes through ``dist.all_to_all_single`` with equal splits, then is
-      rearranged to one buffer per local destination, by source;
+      goes through ``dist.all_to_all_single`` with per-process split sizes
+      (destination process, then local source), then is rearranged to one
+      buffer per local destination, by source;
     - ``psum`` / ``pmax``: the local reduction, then ``dist.all_reduce``.
     """
 
     name = "xla"
 
-    def __init__(self, n: int, procs: int, rank: int):
-        self.n = n
-        self.P = procs
-        self.S = n // procs
-        self.lo = rank * self.S
+    def __init__(self, owners: tuple, rank: int):
+        from cloudberry_tpu_torch.parallel.mesh import owner_ranges
+
+        rngs = owner_ranges(owners)
+        self.owners = tuple(owners)
+        self.rank = rank
+        self.n = len(owners)
+        self.P = len(rngs)
+        self.sizes = [len(r) for r in rngs]
+        self.local = rngs[rank]
+        self.lo, self.nl = self.local.start, len(self.local)
         # bytes handed to torch.distributed for the other processes
         self.dist_bytes = 0
         # one record per all_to_all: its bytes for other processes (the
@@ -163,25 +257,34 @@ class ProcessCollectives:
 
     def all_gather(self, xs: list, unsigned: bool = False) -> torch.Tensor:
         host, back = _wire_view(torch.cat(list(xs)))
+        per = host.shape[0] // self.nl          # rows of one segment
+        most = max(self.sizes) * per
+        if host.shape[0] < most:
+            host = torch.cat([host, host.new_zeros(
+                (most - host.shape[0],) + tuple(host.shape[1:]))])
         parts = [torch.empty_like(host) for _ in range(self.P)]
         dist.all_gather(parts, host)
         self.dist_bytes += host.numel() * host.element_size() * (self.P - 1)
-        return back(torch.cat(parts))
+        return back(torch.cat([p[:n * per]
+                               for p, n in zip(parts, self.sizes)]))
 
     def all_to_all(self, xs: list) -> list:
         x = _stack(xs)                         # (S_src, nseg_dst, ...)
-        S, P = self.S, self.P
+        nl, sizes = self.nl, self.sizes
         tail = tuple(x.shape[2:])
-        send, back = _wire_view(x.transpose(0, 1))
-        recv = torch.empty_like(send)          # (P*S_dst, S_src, ...)
-        dist.all_to_all_single(recv, send)
+        send, back = _wire_view(x.transpose(0, 1))   # (nseg_dst, S_src, ...)
+        send = send.reshape(self.n * nl, -1)
+        recv = torch.empty((nl * self.n, send.shape[1]), dtype=send.dtype)
+        dist.all_to_all_single(recv, send, [nl * c for c in sizes],
+                               [c * nl for c in sizes])
         # the blocks handed over for other processes' destinations
-        nbytes = sum(b.numel() * b.element_size()
-                     for b in (send[:self.lo], send[self.lo + S:]))
+        nbytes = (self.n - nl) * nl * send.shape[1] * send.element_size()
         self.dist_bytes += nbytes
         self.exchanges.append({"op": "all_to_all", "bytes": nbytes})
-        out = back(recv).reshape((P, S, S) + tail).transpose(0, 1) \
-            .reshape((S, P * S) + tail)
+        # from process q: (local destination, q's source) blocks
+        out = torch.cat([blk.reshape((nl, c) + tail) for blk, c in
+                         zip(back(recv).split([nl * c for c in sizes]),
+                             sizes)], dim=1)
         return list(out)
 
     def _reduce(self, local: torch.Tensor, op: str) -> torch.Tensor:
@@ -223,38 +326,73 @@ class OneCardCollectives:
 class RingCollectives:
     """Shift-composed collectives: all_gather, psum and pmax are true
     rings (n−1 neighbour shifts with accumulation); all_to_all rotates
-    each round's blocks by distance k. A shift is ``torch.roll`` of the
-    stacked tensor along the segment axis: segment i sends to i+1.
+    each round's blocks by distance k. A shift is one permutation of the
+    stacked tensor along the segment axis (``_permute``, the two-level
+    transport's too): segment i sends to i+by.
 
     ``chunks`` > 1 splits each all_to_all block along its ROW axis into
     that many contiguous slices, one shift per (hop, slice) — the
     reference's software-pipelined ring. An indivisible count falls back
-    to whole-block hops. Chunking never changes results."""
+    to whole-block hops. Chunking never changes results. ``launches``
+    counts the shifts, one per reference ``ppermute``.
+
+    Across processes (``owners`` of the segment layout, this process
+    ``rank``) the stacked dimension holds this process's segments only:
+    a shift moves the pairs inside a process by index and the ones that
+    cross a block's edge through one ``all_to_all_single``;
+    a reduction's replicated value is segment 0's accumulation, as in one
+    process, broadcast from its owner."""
 
     name = "ring"
 
-    def __init__(self, n: int, chunks: int = 1):
+    def __init__(self, n: int, chunks: int = 1, owners=None,
+                 rank: int = 0):
+        from cloudberry_tpu_torch.parallel.mesh import owner_ranges
+
         self.n = n
         self.chunks = max(int(chunks), 1)
+        self.owners = tuple(owners) if owners is not None else (0,) * n
+        self.rank = rank
+        rngs = owner_ranges(self.owners)
+        self.P = len(rngs)
+        self.local = rngs[rank]
+        self.launches = 0
+        # bytes handed to torch.distributed for the other processes, and
+        # one record per all_to_all (the executor stamps rungs and width)
+        self.dist_bytes = 0
+        self.exchanges: list = []
 
-    @staticmethod
-    def _shift(x: torch.Tensor, by: int = 1) -> torch.Tensor:
-        return torch.roll(x, shifts=by, dims=0)
+    @property
+    def total_dist_bytes(self) -> int:
+        return self.dist_bytes
+
+    def _shift(self, x: torch.Tensor, by: int = 1) -> torch.Tensor:
+        self.launches += 1
+        n = self.n
+        out, nbytes = _permute(x, tuple((s, (s + by) % n) for s in range(n)),
+                               self.owners, self.rank)
+        self.dist_bytes += nbytes
+        return out
+
+    def _seg(self, device) -> torch.Tensor:
+        return torch.arange(self.local.start, self.local.stop,
+                            device=device)
 
     def all_gather_each(self, xs: list) -> torch.Tensor:
-        """(nseg, nseg*rows, ...): every segment's gathered buffer. After
-        k hops segment i holds the block of segment (i−k) mod n and
-        places it at that segment's global slot."""
+        """(local segs, nseg*rows, ...): every local segment's gathered
+        buffer. After k hops segment i holds the block of segment
+        (i−k) mod n and places it at that segment's global slot."""
         x = _stack(xs)
         n, rows = self.n, x.shape[1]
-        seg = torch.arange(n, device=x.device)
-        out = x.new_zeros((n, n) + tuple(x.shape[1:]))
+        seg = self._seg(x.device)
+        loc = seg - self.local.start
+        out = x.new_zeros((x.shape[0], n) + tuple(x.shape[1:]))
         cur = x
         for k in range(n):
-            out[seg, (seg - k) % n] = cur
+            out[loc, (seg - k) % n] = cur
             if k + 1 < n:
                 cur = self._shift(cur)
-        return out.reshape((n, n * rows) + tuple(x.shape[2:]))
+        return out.reshape((x.shape[0], n * rows) + tuple(x.shape[2:]))
 
     def all_gather(self, xs: list, unsigned: bool = False) -> torch.Tensor:
         return self.all_gather_each(xs)[0]
@@ -264,12 +402,14 @@ class RingCollectives:
         # distance of k; destination j receives source (j−k)'s block
         x = _stack(xs)                         # (src, dst, B, ...)
         n = self.n
-        seg = torch.arange(n, device=x.device)
+        seg = self._seg(x.device)
+        loc = seg - self.local.start
         out = torch.zeros_like(x)              # (dst, src, B, ...)
         nch = self.chunks if (x.ndim > 2
                                and x.shape[2] % self.chunks == 0) else 1
+        bytes0 = self.dist_bytes
         for k in range(n):
-            block = x[seg, (seg + k) % n]
+            block = x[loc, (seg + k) % n]
             if k == 0:
                 moved = block
             elif nch > 1:
@@ -277,7 +417,10 @@ class RingCollectives:
                                    for p in block.chunk(nch, dim=1)], dim=1)
             else:
                 moved = self._shift(block, k)
-            out[seg, (seg - k) % n] = moved
+            out[loc, (seg - k) % n] = moved
+        if self.P > 1:
+            self.exchanges.append({"op": "all_to_all",
+                                   "bytes": self.dist_bytes - bytes0})
         return list(out)
 
     def _ring_reduce(self, xs: list, op) -> torch.Tensor:
@@ -285,7 +428,18 @@ class RingCollectives:
         for _ in range(self.n - 1):
             cur = self._shift(cur)
             acc = op(acc, cur)
-        return acc[0]
+        if self.P == 1:
+            return acc[0]
+        # segment 0's accumulation (its order of the float adds), from
+        # the process that owns it
+        host, back = _wire_view(acc[0])
+        if self.rank != self.owners[0]:
+            host = torch.empty_like(host)
+        else:
+            self.dist_bytes += host.numel() * host.element_size() \
+                * (self.P - 1)
+        dist.broadcast(host, src=self.owners[0])
+        return back(host)
 
     def psum(self, xs: list) -> torch.Tensor:
         return self._ring_reduce(xs, torch.add)
@@ -335,10 +489,13 @@ class HierarchicalCollectives:
             raise ValueError(
                 "HierarchicalCollectives needs a uniform contiguous "
                 f"multi-host topology; got {topo.as_dict()}")
-        # this process's segments [lo, lo + nl) and the process count
+        # the segment layout (every segment on process 0 in one
+        # process): this process's segments [lo, lo + nl)
+        self.owners = getattr(self.inner, "owners", (0,) * self.n)
+        self.rank = getattr(self.inner, "rank", 0)
+        self.local = getattr(self.inner, "local", range(self.n))
         self.P = getattr(self.inner, "P", 1)
-        self.lo = getattr(self.inner, "lo", 0)
-        self.nl = self.n // self.P
+        self.lo, self.nl = self.local.start, len(self.local)
         self.launches = 0
         # this transport's bytes to torch.distributed (its flat inner
         # exchange counts its own), and one list of redistributes with
@@ -377,67 +534,12 @@ class HierarchicalCollectives:
         return self._table("ids", device, build)
 
     def _pp(self, x: torch.Tensor, perm) -> torch.Tensor:
-        """One permutation of the segment dimension: segment ``dst``
-        receives segment ``src``'s value for every (src, dst) pair;
-        segments that receive nothing read zeros (ppermute's rule). Across
-        processes the pairs that cross the process boundary go through
-        one ``all_to_all_single``, which every process issues (or skips,
-        when no pair crosses) alike."""
+        """One permutation of the segment dimension (``_permute``):
+        segment ``dst`` receives segment ``src``'s value for every
+        (src, dst) pair; segments that receive nothing read zeros."""
         self.launches += 1
-        perm = tuple(perm)
-        nl, me = self.nl, self.lo // self.nl
-        if all(s // nl == d // nl for s, d in perm):
-            return self._pp_local(x, perm, tuple(
-                (s - self.lo, d - self.lo) for s, d in perm
-                if s // nl == me))
-        return self._pp_procs(x, perm)
-
-    def _pp_local(self, x: torch.Tensor, perm: tuple,
-                  pairs: tuple) -> torch.Tensor:
-        """``_pp`` of the pairs whose segments are both this process's,
-        in local indices (every pair, in one process)."""
-        src, dst = self._table(("pp", perm), x.device, lambda: (
-            np.asarray([p[0] for p in pairs], dtype=np.int64),
-            np.asarray([p[1] for p in pairs], dtype=np.int64)))
-        if len(pairs) == self.nl:
-            # every segment receives: one gather by the inverse map
-            inv = self._table(("inv", perm), x.device, lambda: (
-                np.argsort(np.asarray([p[1] for p in pairs])),))[0]
-            return x.index_select(0, src[inv])
-        out = torch.zeros_like(x)
-        return out.index_copy_(0, dst, x.index_select(0, src))
-
-    def _pp_procs(self, x: torch.Tensor, perm: tuple) -> torch.Tensor:
-        """``_pp`` of a permutation some of whose pairs cross the process
-        boundary: this process's local pairs by index, then one
-        ``all_to_all_single`` of the rows it sends (ordered by
-        destination process, then by the pair's place in ``perm``) and
-        receives (likewise by source)."""
-        lo, nl, P = self.lo, self.nl, self.P
-        me = lo // nl
-        send = sorted((d // nl, k, s - lo) for k, (s, d) in enumerate(perm)
-                      if s // nl == me and d // nl != me)
-        recv = sorted((s // nl, k, d - lo) for k, (s, d) in enumerate(perm)
-                      if d // nl == me and s // nl != me)
-        loc = [(s - lo, d - lo) for s, d in perm
-               if s // nl == me and d // nl == me]
-        lsrc, ldst, sidx, ridx = self._table(("ppx", perm), x.device, lambda: (
-            np.asarray([a for a, _ in loc], dtype=np.int64),
-            np.asarray([b for _, b in loc], dtype=np.int64),
-            np.asarray([i for _, _, i in send], dtype=np.int64),
-            np.asarray([i for _, _, i in recv], dtype=np.int64)))
-        out = torch.zeros_like(x)
-        if loc:
-            out.index_copy_(0, ldst, x.index_select(0, lsrc))
-        scnt = np.bincount([q for q, _, _ in send], minlength=P).tolist()
-        rcnt = np.bincount([q for q, _, _ in recv], minlength=P).tolist()
-        host, back = _wire_view(x.index_select(0, sidx))
-        got = torch.empty((len(recv),) + tuple(host.shape[1:]),
-                          dtype=host.dtype)
-        dist.all_to_all_single(got, host, rcnt, scnt)
-        self.dist_bytes += host.numel() * host.element_size()
-        if recv:
-            out.index_copy_(0, ridx, back(got))
+        out, nbytes = _permute(x, perm, self.owners, self.rank)
+        self.dist_bytes += nbytes
         return out
 
     def _intra_shift(self, x, by: int = 1):
@@ -717,14 +819,18 @@ def two_level_wire_model(nseg: int, n_hosts: int, bucket_cap: int,
 
 
 def flat_wire_model(nseg: int, n_hosts: int, bucket_cap: int,
-                    row_bytes: int) -> dict:
+                    row_bytes: int, sizes=None) -> dict:
     """The FLAT all_to_all's byte split under the same host grouping:
     every cross-host (source, destination) block crosses hosts padded to
-    the pair rung; same-host blocks stay within hosts."""
-    S = nseg // n_hosts
+    the pair rung; same-host blocks stay within hosts. ``sizes``: each
+    host's segment count where they differ (a ragged cluster, whose
+    host h sends |h|·(nseg − |h|) blocks across); default uniform."""
+    if sizes is None:
+        sizes = [nseg // n_hosts] * n_hosts
+    blk = bucket_cap * row_bytes
     return {
-        "dcn_bytes": nseg * (nseg - S) * bucket_cap * row_bytes,
-        "ici_bytes": nseg * (S - 1) * bucket_cap * row_bytes,
+        "dcn_bytes": sum(c * (nseg - c) for c in sizes) * blk,
+        "ici_bytes": sum(c * (c - 1) for c in sizes) * blk,
     }
 
 
@@ -762,20 +868,18 @@ def make_transport(backend: str, n_segments: int, chunks: int = 1,
     with ``chunks``). ``device_ids`` and ``n_slots``: the session's
     survivor restriction and slot pool, checked as the reference's
     segment mesh checks its devices (parallel/mesh.py
-    ``check_segments``)."""
+    ``check_segments``); across processes they place the segments on
+    the processes (``segment_owners``)."""
     from cloudberry_tpu_torch.parallel.mesh import (check_segments,
-                                                    local_segments,
                                                     process_count,
                                                     process_index,
-                                                    require_one_process)
+                                                    segment_owners)
 
     check_segments(n_segments, device_ids, n_slots)
-    procs = process_count()
-    if procs > 1:
-        local_segments(n_segments)          # the divisibility rule
-        if device_ids is not None:
-            require_one_process("a degraded segment layout")
-        flat = ProcessCollectives(n_segments, procs, process_index())
+    owners = None
+    if process_count() > 1:
+        owners = segment_owners(n_segments, device_ids, n_slots)
+        flat = ProcessCollectives(owners, process_index())
     else:
         flat = OneCardCollectives()
     if topo is not None:
@@ -783,7 +887,7 @@ def make_transport(backend: str, n_segments: int, chunks: int = 1,
     if backend == "xla":
         return flat
     if backend == "ring":
-        require_one_process("the ring transport")
-        return RingCollectives(n_segments, chunks=chunks)
+        return RingCollectives(n_segments, chunks=chunks, owners=owners,
+                               rank=process_index())
     raise ValueError(f"unknown interconnect backend {backend!r} "
                      "(known: xla, ring)")

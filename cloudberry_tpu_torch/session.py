@@ -622,9 +622,9 @@ class Session:
         The probe result also feeds the topology manager's persistence
         detector (failover-as-shrink), outside degrade_mesh's lock."""
         from cloudberry_tpu_torch.parallel.health import probe
-        from cloudberry_tpu_torch.parallel.mesh import require_one_process
 
-        require_one_process("the degraded re-dispatch")
+        # in a cluster the probe gathers every process's live slots, so
+        # every process degrades to the same survivors and epoch
         r = probe(self)
         if self.config.health.degrade and r.live:
             self.degrade_mesh(len(r.live), r.live)
@@ -637,10 +637,11 @@ class Session:
         recompute. Versioned: the degrade MINTS a 'degrade' topology
         epoch FIRST, then adopts it, so a statement pinning in the window
         adopts the smaller layout and a statement that raced the swap
-        sees the moved epoch and re-dispatches."""
-        from cloudberry_tpu_torch.parallel.mesh import require_one_process
-
-        require_one_process("a degraded segment layout")
+        sees the moved epoch and re-dispatches. In a cluster every process
+        calls it with the same arguments (the retry hook's gathered probe
+        gives them) and mints the same epoch; ``live_ids`` name slots of
+        the cluster's pool, and each process re-derives its own range of
+        the surviving segments (parallel/mesh.py ``segment_owners``)."""
         cur = self._topology.current
         n = max(1, min(cur.nseg, n_devices))
         ids = None
@@ -652,6 +653,11 @@ class Session:
                 live = live[:n]
             if live != list(range(n)):
                 ids = live  # a hole mid-list: skip the dead slots
+        from cloudberry_tpu_torch.parallel.mesh import slot_layout
+
+        # across processes the survivors must leave every process a
+        # contiguous range of segments (raises before any epoch moves)
+        slot_layout(self, n, ids)
         ep = self._topology.note_degrade(n, ids)
         if ep is not None:
             self._topology._adopt(self, ep)
@@ -686,6 +692,8 @@ class Session:
         from cloudberry_tpu_torch.utils.faultinject import fault_point
 
         self._sync_store()
+        # a cluster's processes run this attempt on one layout, or none
+        self._topology.agree(self)
         self.last_tiled_report = None  # set again by a tiled run
         ckey = self._stmt_cache_key(query, params)
         cached = self._cached_statement(ckey)
@@ -1455,13 +1463,13 @@ class Session:
         """``sharded_table`` on the session's device, uploaded once per
         (table, nseg, version): a partitioned table's columns as (local
         segments, capacity) tensors whose row views are the shards of
-        this process's segments (``parallel/mesh.py local_segments``;
+        this process's segments (``parallel/mesh.py session_segments``;
         every segment in one process) — the capacity comes from the whole
         table, which every process holds, so every process's blocks have
         the same size; a replicated table's whole columns (its ``$nrows``
         a length-1 count, as in the reference)."""
         from cloudberry_tpu_torch.exec.bufferpool import to_device
-        from cloudberry_tpu_torch.parallel.mesh import local_segments
+        from cloudberry_tpu_torch.parallel.mesh import session_segments
 
         st = self.sharded_table(name)
         key = f"{name}@{self.config.n_segments}"
@@ -1474,7 +1482,7 @@ class Session:
             cols = self.device_table(name)
             counts_host = np.full(1, int(st.counts[0]), dtype=np.int64)
         else:
-            segs = local_segments(self.config.n_segments)
+            segs = session_segments(self)
             lo = segs.start
             if len(segs) == self.config.n_segments:
                 cols = {c: to_device(v, dev) for c, v in st.columns.items()}

@@ -3,19 +3,27 @@
 
 Two port processes (``tests/torch_multihost_worker.py``) join one cluster
 through ``parallel/mesh.py init_distributed`` (``torch.distributed`` over
-gloo on 127.0.0.1), own 4 of 8 segments each on ``device="cpu"``, and
-run the JAX package's multi-host statements over a gang whose motions
-cross the process boundary. Results must equal across the processes, the
-port's one-process 8-segment run and the JAX package's one-process
-8-segment run exactly (every column is an integer or a COUNT); the
+gloo on 127.0.0.1) with 4 local slots each, own 4 of 8 segments each on
+``device="cpu"``, and run the JAX package's multi-host statements over a
+gang whose motions cross the process boundary. Results must equal across
+the processes, the port's one-process run and the JAX package's
+one-process run exactly (every column is an integer or a COUNT); the
 collectives on fixed inputs must equal the one-process transports', with
 the same ``launches``; the bytes handed to ``torch.distributed`` for each
 redistribute must equal ``flat_wire_model`` / ``two_level_wire_model``;
 a redistribute that overflows on one process's segments only grows and
-retries on both; and the paths not ported across processes raise a named
-``NotImplementedError``.
+retries on both. Across the process boundary also: the ring transport,
+tiled distributed execution in its four modes, a degrade 8 -> 7 over
+``[0, 1, 2, 4, 5, 6, 7]`` (the JAX package's ragged 3 + 4 layout), a
+device-lost re-dispatch that degrades alike, an online resize 6 -> 8
+(4 + 2 -> 4 + 4), the tiled recovery paths (a resume re-sharded onto
+the 3 + 4 ranges, an accumulator overflow's retry, the skew sentinel's
+replan) and the collectives over a ragged layout; processes
+that pin different layouts raise ``ClusterLayoutError``; and a parallel
+retrieve cursor raises a named ``NotImplementedError`` (the JAX package
+fails there too).
 
-Both workers run once per module (about 5 s here); every wait is
+Both workers run once per module (about 20 s alone here); every wait is
 bounded: the workers by ``WORKER_TIMEOUT_S``, each collective by
 ``mesh.DIST_TIMEOUT_S``.
 """
@@ -33,9 +41,13 @@ from cloudberry_tpu_torch import Config as TorchConfig
 from cloudberry_tpu_torch import Session as TorchSession
 from cloudberry_tpu_torch.parallel import mesh as TM
 from cloudberry_tpu_torch.parallel import transport as TT
-from torch_multihost_worker import (DIRECT_QUERY, HOST_CAP, NSEG, QUERIES,
-                                    SKEW_QUERY, collective_inputs, load,
-                                    rows, skew_load)
+from torch_multihost_worker import (B, DIRECT_QUERY, HOST_CAP,
+                                    LOCAL_SLOTS, NSEG, QUERIES, RAGGED,
+                                    RESIZE, SKEW_QUERY, SPILL_BUDGET,
+                                    SPILL_QUERY, SURVIVORS, TILED, W,
+                                    collective_inputs, load, pipe_load,
+                                    ragged_inputs, recovery_runs, rows,
+                                    skew_load, spill_load, tiled_report)
 from torch_parity import strip_timings
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -61,6 +73,7 @@ def cluster():
         env["CBTPU_COORDINATOR"] = f"127.0.0.1:{port}"
         env["CBTPU_NUM_PROCS"] = "2"
         env["CBTPU_PROC_ID"] = str(pid)
+        env["CBTPU_LOCAL_SLOTS"] = str(LOCAL_SLOTS)
         procs.append(subprocess.Popen(
             [sys.executable, WORKER], env=env, cwd=REPO,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -80,11 +93,29 @@ def cluster():
     return sorted(outs, key=lambda o: o["host"])
 
 
-def _port(**over):
-    s = TorchSession(TorchConfig(n_segments=NSEG).with_overrides(**over),
+def _port(loader=None, nseg=NSEG, **over):
+    s = TorchSession(TorchConfig(n_segments=nseg).with_overrides(**over),
                      device="cpu")
-    load(s)
+    (loader or load)(s)
     return s
+
+
+def _jax(loader=None, nseg=NSEG, **over):
+    import cloudberry_tpu as cb
+    from cloudberry_tpu.config import get_config
+
+    s = cb.Session(get_config().with_overrides(n_segments=nseg, **over))
+    (loader or load)(s)
+    return s
+
+
+def _jax_rows(s, q) -> dict:
+    df = s.sql(q).to_pandas()
+    return {c: df[c].tolist() for c in df.columns}
+
+
+def _sorted_rows(r: dict) -> list:
+    return sorted(zip(*r.values()))
 
 
 def test_mesh_topology_reports_the_process_hosts(cluster):
@@ -112,9 +143,17 @@ def test_init_distributed_is_a_noop_without_a_coordinator(monkeypatch,
 
 
 def test_a_segment_count_the_processes_do_not_divide_raises(cluster):
+    """3 segments over two processes of 4 local slots leave process 1
+    without a segment: the reference's rule and wording. Without local
+    slot counts the pool splits evenly and 2 must divide it."""
     for o in cluster:
         msg = o["indivisible"]
-        assert "n_segments=3" in msg and "2 processes" in msg, msg
+        assert msg == ("n_segments=3 covers only hosts [0] of 2; every host "
+                       "must own at least one segment (raise n_segments "
+                       "or shrink the cluster)"), msg
+    with pytest.raises(RuntimeError, match="n_segments=3 cannot be split "
+                       "over 2 processes"):
+        TM.segment_owners(3, procs=2)
 
 
 def test_two_processes_equal_each_other_flat_and_two_level(cluster):
@@ -263,9 +302,336 @@ def test_direct_dispatch_equals_the_one_process_run(cluster):
         assert o["direct"] == want
 
 
-@pytest.mark.parametrize("path", ["ring", "cursor", "topology", "degrade",
-                                  "tiled"])
+@pytest.mark.parametrize("path", ["cursor"])
 def test_paths_not_ported_across_processes_raise(cluster, path):
+    """A parallel retrieve cursor's endpoints stay one-process: the JAX
+    package fails there too ("Fetching value for jax.Array that spans
+    non-addressable devices is not possible")."""
     for o in cluster:
         msg = o["refusals"][path]
         assert "across processes is not ported" in msg, msg
+
+
+# ------------------------------------------------- ragged ownership
+
+
+class _Device:
+    def __init__(self, process_index):
+        self.process_index = process_index
+
+
+def _jax_host_topology(monkeypatch, n, ids):
+    """The JAX package's ``host_topology`` over 8 stand-in devices of two
+    processes of 4 (``jax.devices`` patched here; the package itself is
+    not touched)."""
+    import jax
+
+    from cloudberry_tpu.parallel import mesh as JM
+
+    monkeypatch.setattr(jax, "devices",
+                        lambda: [_Device(p) for p in (0,) * 4 + (1,) * 4])
+    monkeypatch.setattr(JM, "_topo_cache", {})
+    monkeypatch.delenv("CBTPU_FORCE_HOSTS", raising=False)
+    return JM.host_topology(n, ids).as_dict()
+
+
+@pytest.mark.parametrize("n,ids", [
+    (NSEG, None), (RESIZE[0], None), (7, SURVIVORS),
+    (7, [1, 2, 3, 4, 5, 6, 7]), (5, [0, 4, 5, 6, 7])],
+    ids=["8", "6", "7-hole-3", "7-hole-0", "5-hole-1-2-3"])
+def test_segment_owners_follow_the_jax_device_order(monkeypatch, n, ids):
+    """Segment s lives on the s-th surviving slot of the pool of two
+    processes' 4 local slots, as the JAX package meshes it over devices."""
+    want = _jax_host_topology(monkeypatch, n, ids)
+    owners = TM.segment_owners(n, ids, procs=2, local_slots=(4, 4))
+    got = {h: list(r) for h, r in enumerate(TM.owner_ranges(owners))}
+    assert got == want["segments_by_host"]
+
+
+def test_a_process_without_segments_raises_like_jax(monkeypatch):
+    """The JAX package's ``segment_mesh`` refuses a layout that leaves a
+    host without a segment; the port raises the same words."""
+    import jax
+
+    from cloudberry_tpu.parallel import mesh as JM
+
+    monkeypatch.setattr(jax, "devices",
+                        lambda: [_Device(p) for p in (0,) * 4 + (1,) * 4])
+    monkeypatch.setattr(jax, "process_count", lambda: 2)
+    with pytest.raises(RuntimeError) as want:
+        JM.segment_mesh(3)
+    with pytest.raises(RuntimeError) as got:
+        TM.segment_owners(3, procs=2, local_slots=(4, 4))
+    assert str(got.value) == str(want.value)
+
+
+# ------------------------------------------------------------ the ring
+
+
+def test_ring_equals_the_one_process_ring_and_jax(monkeypatch, cluster):
+    """The ring's shifts cross the process boundary at the blocks'
+    edges; results equal the port's and the JAX package's one-process
+    ring runs, and each statement counts the one-process ring's shifts."""
+    made = []
+    real = TT.make_transport
+    monkeypatch.setattr(TT, "make_transport", lambda *a, **kw: (
+        made.append(real(*a, **kw)), made[-1])[1])
+    one = _port(**{"interconnect.backend": "ring"})
+    want, launches = [], []
+    for q in QUERIES:
+        made.clear()
+        want.append(rows(one.sql(q)))
+        launches.append(sum(tx.launches for tx in made))
+    assert all(launches)
+    js = _jax(**{"interconnect.backend": "ring"})
+    assert [_jax_rows(js, q) for q in QUERIES] == want
+    for o in cluster:
+        assert o["ring"]["results"] == want == o["results"]
+        assert o["ring"]["launches"] == launches
+
+
+def test_ring_redistributes_hand_gloo_the_flat_model(cluster):
+    """A ring all_to_all moves each block straight from its source to its
+    destination: summed over both processes, each redistribute's bytes
+    are the flat exchange's cross-host bytes."""
+    seen = 0
+    for ex0, ex1 in zip(*[o["ring"]["exchanges"] for o in cluster]):
+        for a, b in zip(ex0, ex1):
+            model = TT.flat_wire_model(NSEG, 2, a["bucket_cap"],
+                                       a["row_bytes"])
+            assert a["bytes"] + b["bytes"] == model["dcn_bytes"], (a, b)
+            seen += 1
+    assert seen
+
+
+# ------------------------------------------- tiled distributed execution
+
+
+def test_tiled_spill_query_equals_the_jax_tiled_run(cluster):
+    """``test_spill_dist.py``'s join-group query, over budget: both
+    processes stream their segments' tiles and equal the JAX package's
+    one-process tiled run, with its decisions."""
+    js = _jax(spill_load, **{"planner.broadcast_threshold": 0,
+                             "resource.query_mem_bytes": SPILL_BUDGET})
+    want = _jax_rows(js, SPILL_QUERY)
+    jrep = js.last_tiled_report
+    assert jrep["tiled"] and jrep["distributed"] and jrep["n_tiles"] > 1
+    for o in cluster:
+        assert o["spill"]["rows"] == want
+        rep = o["spill"]["report"]
+        assert rep["tiled"] and rep["distributed"]
+        assert rep["n_segments"] == NSEG
+        for k in ("n_tiles", "tile_rows", "acc_capacity"):
+            assert rep[k] == jrep[k], k
+
+
+@pytest.mark.parametrize("mode", list(TILED))
+def test_tiled_modes_equal_the_one_process_run(cluster, mode):
+    """Each tiled mode across the processes equals the port's
+    one-process tiled run (itself held to the JAX package by
+    ``test_torch_tiled_dist.py::test_dist8_modes_match_jax``), with the
+    same decisions; a window's rows compare in sorted order."""
+    q, budget, n_fact, n_groups = TILED[mode]
+    one = _port(pipe_load(n_fact, n_groups),
+                **{"resource.query_mem_bytes": budget})
+    want = rows(one.sql(q))
+    rep = tiled_report(one.last_tiled_report)
+    assert rep["tiled"] and rep["n_tiles"] > 1
+    for o in cluster:
+        got = o["tiled"][mode]
+        assert got["report"] == rep
+        if mode == "window":
+            assert _sorted_rows(got["rows"]) == _sorted_rows(want)
+        else:
+            assert got["rows"] == want
+
+
+# ------------------------------------------ tiled recovery across processes
+
+
+@pytest.fixture(scope="module")
+def one_process_recovery():
+    """``recovery_runs`` in this one process, the workers' counterpart
+    (itself held to the JAX package by ``test_torch_dist_recovery.py``
+    and ``test_torch_dist_adaptive.py``)."""
+    return recovery_runs()
+
+
+RESUME_COUNTERS = ("tile_resumes", "topo_resharded_resumes",
+                   "tiles_replayed", "tile_resume_declined", "recoveries")
+
+
+def test_degraded_resume_reshards_onto_the_ragged_ranges(
+        cluster, one_process_recovery):
+    """A device loss mid-stream on both processes, whose probe loses
+    process 0's last slot: both resume from their checkpoints on 3 + 4,
+    each re-sharding its partials onto its new range (process 0 from
+    [0, 4) to [0, 3), process 1 from [4, 8) to [3, 7)), and answer as
+    the clean run and the one-process degraded resume do, with its
+    resume decisions."""
+    one = one_process_recovery["resume"]
+    assert one["counters"]["topo_resharded_resumes"] == 1
+    assert one["rows"] == one["clean"]
+    for p, o in enumerate(cluster):
+        r = o["recovery"]["resume"]
+        assert r["rows"] == r["clean"] == one["rows"]
+        lay = r["layout"]
+        assert (lay["epoch"], lay["nseg"], lay["live"]) == (2, 7, SURVIVORS)
+        assert lay["local"] == [[0, 1, 2], [3, 4, 5, 6]][p]
+        assert r["report"] == one["report"]
+        assert r["report"]["resumed_from_tile"] > 0
+        for k in RESUME_COUNTERS:
+            assert r["counters"][k] == one["counters"][k], k
+
+
+def test_accumulator_overflow_retries_alike_on_every_process(
+        cluster, one_process_recovery):
+    """A late accumulator overflow: both processes grow the accumulator
+    to the same capacity, retry and resume from the same checkpoint, as
+    the one-process run does."""
+    one = one_process_recovery["overflow"]
+    assert one["report"]["resumed_from_tile"] > 0
+    for o in cluster:
+        r = o["recovery"]["overflow"]
+        assert r["rows"] == one["rows"]
+        assert r["report"] == one["report"]
+        assert r["counters"] == one["counters"]
+
+
+@pytest.mark.parametrize("case", ["fires", "seam_on_one"])
+def test_skew_replan_is_agreed_across_processes(cluster,
+                                                one_process_recovery, case):
+    """The skew sentinel's mid-statement replan fires on both processes
+    and resumes from the same tile as in one process; with its seam
+    skipped on process 1 alone, neither process replans. The rows equal
+    the one-process run's either way."""
+    one = one_process_recovery["fires"]
+    assert one["counters"]["tile_replans"] == 1
+    for o in cluster:
+        r = o["recovery"][case]
+        assert r["rows"] == one["rows"]
+        if case == "fires":
+            assert r["report"] == one["report"]
+            for k in ("tile_replans", "tile_resumes"):
+                assert r["counters"][k] == one["counters"][k] == 1, k
+        else:
+            assert r["counters"]["tile_replans"] == 0
+            assert r["counters"]["tile_resumes"] == 0
+            assert r["report"]["resumed_from_tile"] == 0
+
+
+# ------------------------------------- degrade and topology changes
+
+
+def test_degrade_gives_the_jax_ragged_layout(monkeypatch, cluster):
+    want = _jax_host_topology(monkeypatch, 7, SURVIVORS)
+    assert want["segments_by_host"] == {0: [0, 1, 2], 1: [3, 4, 5, 6]}
+    for p, o in enumerate(cluster):
+        lay = o["degrade"]["layout"]
+        assert (lay["epoch"], lay["nseg"], lay["live"]) == (2, 7, SURVIVORS)
+        assert {int(h): v for h, v in lay["hosts"]["segments_by_host"]
+                .items()} == want["segments_by_host"]
+        assert not lay["hosts"]["uniform_contiguous"]
+        assert lay["local"] == want["segments_by_host"][p]
+
+
+def test_degrade_results_equal_jax(cluster):
+    js = _jax()
+    js.sql(QUERIES[0])
+    js.degrade_mesh(len(SURVIVORS), SURVIVORS)
+    want = [_jax_rows(js, q) for q in QUERIES]
+    for o in cluster:
+        assert o["degrade"]["results"] == want
+
+
+def test_device_lost_redispatch_degrades_every_process_alike(cluster):
+    """A device-lost statement on both processes, whose probe loses
+    process 0's last slot: the gathered probe gives both the same
+    survivors, both mint epoch 2 at 3 + 4, and the retry answers as the
+    one-process run does."""
+    want = rows(_port().sql(QUERIES[0]))
+    lays = [o["redispatch"]["layout"] for o in cluster]
+    for p, (o, lay) in enumerate(zip(cluster, lays)):
+        assert o["redispatch"]["rows"] == want
+        assert o["redispatch"]["recoveries"] == 1
+        assert (lay["epoch"], lay["nseg"], lay["live"]) == (2, 7, SURVIVORS)
+        assert lay["local"] == [[0, 1, 2], [3, 4, 5, 6]][p]
+
+
+def test_online_resize_6_to_8_moves_the_one_process_rows(cluster):
+    """4 + 2 -> 4 + 4: epoch 2, and each process counts the moved rows
+    of the segments it owned, so their sum is the one-process run's."""
+    one = _port(nseg=RESIZE[0])
+    rec = one._topology.online_resize(RESIZE[1])
+    for p, o in enumerate(cluster):
+        r = o["resize"]
+        assert (r["epoch"], r["reason"]) == (rec["epoch"], "expand") \
+            == (2, "expand")
+        assert r["before"]["layout"]["local"] == [[0, 1, 2, 3], [4, 5]][p]
+        assert r["after"]["layout"]["local"] == [[0, 1, 2, 3],
+                                                 [4, 5, 6, 7]][p]
+        assert o["local_6"] == r["before"]["layout"]["local"]
+    for k in ("moved_rows", "total_rows"):
+        assert sum(o["resize"][k] for o in cluster) \
+            == rec["rebalance"][k] > 0, k
+
+
+def test_online_resize_results_equal_jax(cluster):
+    js = _jax(nseg=RESIZE[0])
+    before = [_jax_rows(js, q) for q in QUERIES]
+    assert js._topology.online_resize(RESIZE[1])["epoch"] == 2
+    after = [_jax_rows(js, q) for q in QUERIES]
+    for o in cluster:
+        assert o["resize"]["before"]["results"] == before
+        assert o["resize"]["after"]["results"] == after
+
+
+def test_processes_that_pin_different_layouts_raise(cluster):
+    """One process degraded alone: the next statement's agreement check
+    raises on both instead of pairing unrelated blocks."""
+    for o in cluster:
+        assert o["mismatch"].startswith(
+            "the processes pinned different (epoch, segment count, "
+            "layout)"), o["mismatch"]
+
+
+# -------------------------------------- collectives over a ragged layout
+
+
+@pytest.mark.parametrize("tx", ["flat", "ring"])
+@pytest.mark.parametrize("name", ["all_gather", "all_to_all", "psum",
+                                  "pmax"])
+def test_ragged_collectives_equal_the_one_card_exchange(cluster, tx, name):
+    """Over 4 + 2 segments, ``ProcessCollectives`` and the ring deliver
+    what ``OneCardCollectives`` delivers on the stacked inputs."""
+    ints, wire = ragged_inputs()
+    one = TT.OneCardCollectives()
+    xs = list(torch.from_numpy(ints))
+    want = {"all_gather": one.all_gather(xs), "psum": one.psum(xs),
+            "pmax": one.pmax(xs),
+            "all_to_all": torch.stack(one.all_to_all(
+                list(torch.from_numpy(wire))))}[name]
+    for rng, o in zip(TM.owner_ranges(RAGGED), cluster):
+        got = o["ragged"][tx][name]
+        if name == "all_to_all":
+            assert got == want[rng.start:rng.stop].tolist()
+        else:
+            assert got == want.tolist()
+
+
+def test_ragged_all_to_all_bytes_equal_the_extended_wire_model(cluster):
+    """The flat model of a ragged layout: host h sends |h|·(nseg − |h|)
+    blocks across. The ring moves the same blocks, and counts the
+    one-process ring's shifts."""
+    model = TT.flat_wire_model(len(RAGGED), 2, B, W * 4, sizes=[4, 2])
+    assert model["dcn_bytes"] == 16 * B * W * 4
+    ring = TT.RingCollectives(len(RAGGED))
+    ints, wire = ragged_inputs()
+    xs = list(torch.from_numpy(ints))
+    ring.all_gather(xs), ring.psum(xs), ring.pmax(xs)
+    ring.all_to_all(list(torch.from_numpy(wire)))
+    for tx in ("flat", "ring"):
+        assert sum(o["ragged"][tx]["a2a_bytes"] for o in cluster) \
+            == model["dcn_bytes"], tx
+    for o in cluster:
+        assert o["ragged"]["ring"]["launches"] == ring.launches

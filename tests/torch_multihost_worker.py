@@ -2,7 +2,8 @@
 ``tests/multihost_worker.py``.
 
 Each worker is one "host": it joins the cluster through the port's
-``parallel/mesh.py init_distributed`` (CBTPU_* environment), owns 4 of the
+``parallel/mesh.py init_distributed`` (CBTPU_* environment; the spawner
+gives each process 4 local slots, ``CBTPU_LOCAL_SLOTS``), owns 4 of the
 8 segments on ``device="cpu"``, and runs the SAME statements as the JAX
 package's worker over an 8-segment gang whose motions cross the process
 boundary (``torch.distributed`` over gloo on 127.0.0.1). It prints one
@@ -11,9 +12,16 @@ against the port's one-process run and against the JAX package's.
 
 Beside the three statements it records: the transport's launches and the
 bytes it handed to ``torch.distributed`` per statement, the collectives
-on fixed stacked inputs, a redistribute that overflows on this cluster's
-first process only, EXPLAIN ANALYZE, a direct-dispatched statement, and
-the paths that refuse to run across processes.
+on fixed stacked inputs (the 4 + 4 layout, and a ragged 4 + 2 one), a
+redistribute that overflows on this cluster's first process only,
+EXPLAIN ANALYZE, a direct-dispatched statement, the ring transport,
+tiled distributed execution in its four modes, a degrade 8 -> 7 over
+``[0, 1, 2, 4, 5, 6, 7]`` (ragged 3 + 4), a device-lost re-dispatch
+that degrades the same way, an online resize 6 -> 8 (4 + 2 -> 4 + 4),
+the tiled recovery paths (a resume re-sharded onto the 3 + 4 ranges, an
+accumulator overflow's retry, the skew sentinel's replan and its seam
+on one process), the refused cursor, and a statement whose processes
+disagree on the layout.
 
 The spawner provides the environment; this module imports no JAX and
 must not change ``os.environ`` (the test imports ``QUERIES``, ``load``,
@@ -40,6 +48,53 @@ SKEW_QUERY = ("SELECT sum(j2.w) AS sw, count(*) AS c FROM "
               "(SELECT key AS kk FROM j1) x JOIN j2 ON kk = j2.key")
 DIRECT_QUERY = "SELECT k, v FROM fact WHERE k = 17 ORDER BY v"
 NSEG = 8
+LOCAL_SLOTS = 4
+SURVIVORS = [0, 1, 2, 4, 5, 6, 7]   # slot 3 of the 8-slot pool lost
+RESIZE = (6, 8)                   # online_resize: 4 + 2 -> 4 + 4
+# tests/test_spill_dist.py's join-group query, on a smaller fact table
+# with a budget that still tiles it (the probe side redistributes)
+SPILL_QUERY = ("SELECT g, sum(v) AS sv, count(*) AS c "
+               "FROM fact JOIN dim ON fact.d = dim.d "
+               "GROUP BY g ORDER BY g")
+SPILL_FACT, SPILL_BUDGET = 100_000, 1 << 20
+# the four tiled modes (tests/test_torch_tiled_dist.py's dist8 shapes):
+# name -> (query, budget, fact rows, groups)
+TILED = {
+    "agg": ("SELECT g, sum(v) AS sv, count(*) AS c FROM fact JOIN dim "
+            "ON fact.k = dim.k GROUP BY g ORDER BY g", 1 << 20, 120_000, 9),
+    "topn": ("SELECT fact.k AS k, v, g FROM fact JOIN dim ON fact.k = "
+             "dim.k WHERE v < 90 ORDER BY v, fact.k, g LIMIT 25", 1 << 20,
+             120_000, 9),
+    "sort": ("SELECT g, v FROM fact JOIN dim ON fact.k = dim.k "
+             "WHERE v < 50 ORDER BY g, v DESC, fact.k", 1 << 20, 120_000,
+             9),
+    "window": ("SELECT g, v, rank() over (partition by g order by v desc)"
+               " AS r, sum(v) over (partition by g) AS sv "
+               "FROM fact JOIN dim ON fact.k = dim.k", 4 << 20, 240_000,
+               300),
+}
+# recovery across the process boundary: the statements of
+# tests/test_torch_dist_recovery.py and tests/test_torch_dist_adaptive.py
+# on the flat exchange (the decisions under test are the processes'
+# agreement on a resume, a retry and a replan, not the transport)
+RECOVERY = {"resource.query_mem_bytes": 2 << 20,
+            "recovery.checkpoint_every": 2,
+            "planner.broadcast_threshold": 0, "health.backoff_s": 0.01,
+            "health.backoff_max_s": 0.02,
+            "interconnect.hierarchical": "off"}
+RESUME_FACT, HOT_FRAC = 400_000, 0.85
+OVERFLOW = {"resource.query_mem_bytes": 4 << 20,
+            "recovery.checkpoint_every": 2, "feedback.enabled": False,
+            "interconnect.hierarchical": "off"}
+LATE_Q = ("SELECT k % 20000 AS kk, count(*) AS c, sum(v) AS sv "
+          "FROM fact GROUP BY k % 20000 ORDER BY kk LIMIT 50")
+REPLAN = {"resource.query_mem_bytes": 2 << 20,
+          "planner.broadcast_threshold": 0,
+          "interconnect.hierarchical": "off"}
+RECOVERY_COUNTERS = ("tile_replans", "tile_resumes", "tile_checkpoints",
+                     "topo_resharded_resumes", "tiles_replayed",
+                     "tile_resume_declined", "recoveries")
+RAGGED = (0, 0, 0, 0, 1, 1)       # the collectives' 4 + 2 layout
 B, W = 4, 3
 HOST_CAP = 4 * 4 * B      # a host pair's most rows: no host rung overflow
 
@@ -71,6 +126,69 @@ def skew_load(session):
     t.set_data({"a": a, "key": np.where(seg < NSEG // 2, 0, a)})
     session.catalog.table("j2").set_data(
         {"b": a, "key": a, "w": a})
+
+
+def spill_load(session, n_fact=SPILL_FACT, hot_frac=0.0):
+    """tests/test_spill_dist.py's tables (seed 3): dim placed by g, so the
+    join on d redistributes the probe side. ``hot_frac``: that share of
+    the fact rows carries join key 7 (tests/test_torch_dist_adaptive.py's
+    ``_load_hot``)."""
+    rng = np.random.default_rng(3)
+    session.sql("CREATE TABLE dim (d BIGINT, g BIGINT) DISTRIBUTED BY (g)")
+    session.sql("CREATE TABLE fact (k BIGINT, d BIGINT, v BIGINT) "
+                "DISTRIBUTED BY (k)")
+    session.catalog.table("dim").set_data(
+        {"d": np.arange(500), "g": np.arange(500) % 9})
+    d = rng.integers(0, 500, n_fact)
+    if hot_frac:
+        d[rng.random(n_fact) < hot_frac] = 7
+    session.catalog.table("fact").set_data(
+        {"k": np.arange(n_fact) % 997, "d": d,
+         "v": rng.integers(0, 100, n_fact)})
+
+
+def late_load(session):
+    """tests/test_torch_dist_recovery.py's late overflow (seed 4): the
+    first 3.2M rows hold 2,000 keys, the last 1.2M rows 30,000, so every
+    segment's accumulator overflows behind two checkpoints."""
+    rng = np.random.default_rng(4)
+    session.sql("CREATE TABLE fact (k BIGINT, v BIGINT) DISTRIBUTED BY (k)")
+    k = np.concatenate([rng.integers(0, 2_000, 3_200_000),
+                        rng.integers(0, 30_000, 1_200_000)])
+    session.catalog.table("fact").set_data(
+        {"k": k, "v": rng.integers(0, 100, len(k))})
+
+
+def pipe_load(n_fact, n_groups):
+    """The dist8 mode shapes' tables (seed 3)."""
+    def load(session):
+        rng = np.random.default_rng(3)
+        session.sql("CREATE TABLE dim (k BIGINT, g BIGINT) "
+                    "DISTRIBUTED BY (k)")
+        session.sql("CREATE TABLE fact (k BIGINT, v BIGINT) "
+                    "DISTRIBUTED BY (k)")
+        session.catalog.table("dim").set_data(
+            {"k": np.arange(500), "g": np.arange(500) % n_groups})
+        session.catalog.table("fact").set_data(
+            {"k": rng.integers(0, 500, n_fact),
+             "v": rng.integers(0, 100, n_fact)})
+    return load
+
+
+def tiled_report(rep) -> dict:
+    """The parts of ``last_tiled_report`` the cluster test compares."""
+    keys = ("tiled", "distributed", "n_segments", "mode", "n_tiles",
+            "tile_rows", "acc_capacity", "topology_epoch")
+    return {k: rep.get(k) for k in keys}
+
+
+def ragged_inputs():
+    """Fixed stacked inputs of the 6 segments of ``RAGGED``: (ints (6, 5),
+    packed wire blocks (6, 6, B, W) int32)."""
+    rng = np.random.default_rng(9)
+    n = len(RAGGED)
+    return (rng.integers(-1000, 1000, (n, 5)),
+            rng.integers(0, 1 << 20, (n, n, B, W)).astype(np.int32))
 
 
 def collective_inputs():
@@ -120,14 +238,113 @@ def _refuses(fn) -> str:
     return ""
 
 
-def _loaded(**over):
-    """A CPU session of 8 segments holding ``load``'s tables."""
+def _loaded(loader=None, nseg=NSEG, **over):
+    """A CPU session of ``nseg`` segments holding ``loader``'s tables
+    (``load``'s by default)."""
     import cloudberry_tpu_torch as ct
 
-    s = ct.Session(ct.Config().with_overrides(n_segments=NSEG, **over),
+    s = ct.Session(ct.Config().with_overrides(n_segments=nseg, **over),
                    device="cpu")
-    load(s)
+    (loader or load)(s)
     return s
+
+
+def _layout(s) -> dict:
+    """The session's epoch, segment count, survivors, this process's
+    segments and the host layout."""
+    from cloudberry_tpu_torch.parallel.health import slot_count
+    from cloudberry_tpu_torch.parallel.mesh import (host_topology,
+                                                    session_segments)
+
+    ids = s._live_device_ids
+    return {"epoch": s._topology.current.epoch_id,
+            "nseg": s.config.n_segments, "live": ids,
+            "local": list(session_segments(s)),
+            "hosts": host_topology(s.config.n_segments, ids,
+                                   slot_count(s)).as_dict()}
+
+
+def _recovered(s, q) -> dict:
+    """``q``'s rows on ``s``, its tiled report's recovery keys and the
+    session's recovery counters."""
+    got = rows(s.sql(q))
+    rep = s.last_tiled_report
+    return {"rows": got,
+            "report": {k: rep.get(k) for k in (
+                "n_segments", "n_tiles", "acc_capacity", "tile_rows",
+                "resumed_from_tile")},
+            "counters": {k: s.stmt_log.counter(k)
+                         for k in RECOVERY_COUNTERS}}
+
+
+def recovery_runs(rank=None) -> dict:
+    """The tiled recovery paths whose decisions a cluster's processes
+    must agree on. ``rank``: this process of a cluster (None: one
+    process, where every arm applies).
+
+    - ``resume``: a device loss mid-stream whose retry's probe loses slot
+      3 (process 0's last): the statement resumes on the survivors from
+      its checkpoint, each process's partials re-sharded onto its new
+      range (3 + 4);
+    - ``overflow``: a late accumulator overflow retries with a grown
+      accumulator and resumes from a checkpoint;
+    - ``fires`` / ``seam_on_one``: the skew sentinel's mid-statement
+      replan, and its seam skipped on process 1 alone, which disarms it
+      on every process."""
+    from cloudberry_tpu_torch.utils import faultinject as FI
+
+    out = {}
+    s = _loaded(lambda x: spill_load(x, RESUME_FACT), **RECOVERY)
+    clean = rows(s.sql(SPILL_QUERY))
+    kill = max(s.last_tiled_report["n_tiles"] // 2, 2)
+    FI.inject_fault("tile_device_lost", "error", start_hit=kill + 1,
+                    end_hit=kill + 1)
+    if rank in (None, 0):
+        FI.inject_fault("probe_degraded", "skip", start_hit=1, end_hit=1)
+    try:
+        out["resume"] = _recovered(s, SPILL_QUERY)
+    finally:
+        FI.reset_fault()
+    out["resume"].update(clean=clean, layout=_layout(s))
+    out["overflow"] = _recovered(_loaded(late_load, **OVERFLOW), LATE_Q)
+    for name, seam_on in (("fires", None), ("seam_on_one", 1)):
+        s = _loaded(lambda x: spill_load(x, RESUME_FACT, HOT_FRAC),
+                    **REPLAN)
+        if rank is not None and rank == seam_on:
+            FI.inject_fault("tile_replan", "skip")
+        try:
+            out[name] = _recovered(s, SPILL_QUERY)
+        finally:
+            FI.reset_fault()
+    return out
+
+
+def _ragged_collectives() -> dict:
+    """``ProcessCollectives`` and the ring over the 4 + 2 layout on this
+    process's rows of fixed inputs."""
+    from cloudberry_tpu_torch.parallel.mesh import (owner_ranges,
+                                                    process_index)
+    from cloudberry_tpu_torch.parallel.transport import (ProcessCollectives,
+                                                         RingCollectives)
+
+    ints, wire = ragged_inputs()
+    rank = process_index()
+    mine = owner_ranges(RAGGED)[rank]
+    xs = list(torch.from_numpy(ints[mine.start:mine.stop]))
+    ws = list(torch.from_numpy(wire[mine.start:mine.stop]))
+    out = {}
+    for name, tx in (("flat", ProcessCollectives(RAGGED, rank)),
+                     ("ring", RingCollectives(len(RAGGED), owners=RAGGED,
+                                              rank=rank))):
+        got = {"all_gather": tx.all_gather(xs).tolist(),
+               "psum": tx.psum(xs).tolist(),
+               "pmax": tx.pmax(xs).tolist()}
+        before = tx.dist_bytes
+        got["all_to_all"] = torch.stack(tx.all_to_all(ws)).tolist()
+        got["a2a_bytes"] = tx.dist_bytes - before
+        got["launches"] = getattr(tx, "launches", 0)
+        out[name] = got
+    return out
 
 
 def _collectives() -> dict:
@@ -179,7 +396,8 @@ def main():
     topo = mesh_topology(NSEG)
     out = {"host": topo["this_host"], "topology": topo,
            "procs": process_count(),
-           "local": list(local_segments(NSEG))}
+           "local": list(local_segments(NSEG)),
+           "local_6": list(local_segments(RESIZE[0]))}
     try:
         local_segments(3)
         out["indivisible"] = ""
@@ -203,16 +421,67 @@ def main():
     out["explain"] = s.explain_analyze(QUERIES[0])
     out["direct"] = rows(s.sql(DIRECT_QUERY))
     out["refusals"] = {
-        "ring": _refuses(lambda: _loaded(**{
-            "interconnect.backend": "ring"}).sql(QUERIES[1])),
         "cursor": _refuses(lambda: s.sql(
             "DECLARE c PARALLEL RETRIEVE CURSOR FOR SELECT k, v FROM fact")),
-        "topology": _refuses(lambda: s._topology.begin(4)),
-        "degrade": _refuses(lambda: s.degrade_mesh(7)),
-        # over budget: the one-process gang tiles it
-        "tiled": _refuses(lambda: _loaded(**{
-            "resource.query_mem_bytes": 1 << 16}).sql(QUERIES[0])),
     }
+
+    # the ring transport across the process boundary
+    ring = [_statement(_loaded(**{"interconnect.backend": "ring"}), q,
+                       made) for q in QUERIES]
+    out["ring"] = {"results": [r[0] for r in ring],
+                   "launches": [r[1] for r in ring],
+                   "bytes": [r[2] for r in ring],
+                   "exchanges": [r[3] for r in ring]}
+
+    # tiled distributed execution: the spill query and the four modes
+    sp = _loaded(spill_load, **{"planner.broadcast_threshold": 0,
+                                "resource.query_mem_bytes": SPILL_BUDGET})
+    out["spill"] = {"rows": rows(sp.sql(SPILL_QUERY)),
+                    "report": tiled_report(sp.last_tiled_report)}
+    out["tiled"] = {}
+    for name, (q, budget, n_fact, n_groups) in TILED.items():
+        ts = _loaded(pipe_load(n_fact, n_groups),
+                     **{"resource.query_mem_bytes": budget})
+        out["tiled"][name] = {"rows": rows(ts.sql(q)),
+                              "report": tiled_report(ts.last_tiled_report)}
+
+    # a degrade 8 -> 7 over the survivors: 3 + 4
+    dg = _loaded()
+    dg.sql(QUERIES[0])
+    dg.degrade_mesh(len(SURVIVORS), SURVIVORS)
+    out["degrade"] = {"layout": _layout(dg),
+                      "results": [rows(dg.sql(q)) for q in QUERIES]}
+
+    # a device-lost statement on both processes, whose probe loses this
+    # cluster's slot 3 (process 0's last): the retry degrades to 3 + 4
+    from cloudberry_tpu_torch.parallel.mesh import process_index
+    from cloudberry_tpu_torch.utils import faultinject as FI
+
+    rd = _loaded(**{"health.retries": 2, "health.backoff_s": 0.001,
+                    "health.backoff_max_s": 0.002})
+    FI.inject_fault("exec_device_lost", "error", start_hit=1, end_hit=1)
+    if process_index() == 0:
+        FI.inject_fault("probe_degraded", "skip", start_hit=1, end_hit=1)
+    try:
+        got = rows(rd.sql(QUERIES[0]))
+    finally:
+        FI.reset_fault()
+    out["redispatch"] = {"rows": got, "layout": _layout(rd),
+                         "recoveries": rd.stmt_log.counter("recoveries")}
+
+    # an online resize 6 -> 8: 4 + 2 -> 4 + 4
+    rz = _loaded(nseg=RESIZE[0])
+    before = {"layout": _layout(rz),
+              "results": [rows(rz.sql(q)) for q in QUERIES]}
+    rec = rz._topology.online_resize(RESIZE[1])
+    out["resize"] = {"before": before, "after": {
+        "layout": _layout(rz),
+        "results": [rows(rz.sql(q)) for q in QUERIES]},
+        "epoch": rec["epoch"], "reason": rec["reason"],
+        "moved_rows": rec["rebalance"]["moved_rows"],
+        "total_rows": rec["rebalance"]["total_rows"]}
+
+    out["recovery"] = recovery_runs(process_index())
 
     sk = ct.Session(ct.Config().with_overrides(**{
         "n_segments": NSEG, "planner.broadcast_threshold": 0,
@@ -221,6 +490,20 @@ def main():
     out["skew"] = {"rows": rows(sk.sql(SKEW_QUERY)),
                    "growth_events": sk.growth_events}
     out["collectives"] = _collectives()
+    out["ragged"] = _ragged_collectives()
+
+    # last: the processes disagree on the layout (process 1 alone
+    # degrades), and the next statement raises on both
+    from cloudberry_tpu_torch.parallel.topology import ClusterLayoutError
+
+    mm = _loaded()
+    if process_index() == 1:
+        mm.degrade_mesh(len(SURVIVORS), SURVIVORS)
+    try:
+        mm.sql(QUERIES[1])
+        out["mismatch"] = ""
+    except ClusterLayoutError as e:
+        out["mismatch"] = str(e)
     print("RESULT " + json.dumps(out), flush=True)
     return 0
 
