@@ -103,7 +103,7 @@ its Executable as before the caches existed; phase 11 measures the caches.
    range partitions do not line up with the tiles: some tile must hold
    pooled and decoded rows in one column (assembled on the device), and
    the result must equal the numpy oracle. DML last, each
-   against numpy: COPY FROM of the
+   against numpy: COPY FROM of the first COPY_ROWS (500,000)
    SF1 orders as a '|'-delimited file, COPY TO (the same bytes) and back,
    COPY with SEGMENT REJECT LIMIT and LOG ERRORS over four bad lines,
    CREATE TABLE AS of Q3's join, INSERT ... SELECT, UPDATE orders and
@@ -155,7 +155,7 @@ its Executable as before the caches existed; phase 11 measures the caches.
    also equal to the numpy oracle (Q1's averages in the two-stage
    finalize's order) and to an 8-segment CPU session of the port;
    TPC-DS q17/q25/q29 at scale 100 over 8 segments, each equal to phase
-   4's one-segment run; at SF2 (``--dist-sf``; BASELINE.md's config is
+   4's one-segment run; at SF1 (``--dist-sf``; BASELINE.md's config is
    SF10, cut to fit the time limit) TPC-H Q5 and Q9 over 4 segments, each
    equal to a one-segment CUDA run at a 64 GiB budget and red line that
    admit it. The first 8-segment run of each statement holds every
@@ -189,8 +189,8 @@ its Executable as before the caches existed; phase 11 measures the caches.
    mid-statement replan that resumes from its checkpoint, and with the
    ``tile_replan`` fault skipped no replan, both equal to the in-memory
    run; the late accumulator overflow of tests/test_torch_dist_recovery.py
-   at 10x its rows (44,000,000; the late keys' domain and the modulus
-   10x too) at 32 MiB, a checkpoint every 2 tiles, windows 1 and 4: the
+   at 5x its rows (22,000,000; the late keys' domain and the modulus
+   5x too) at 16 MiB, a checkpoint every 2 tiles, windows 1 and 4: the
    window-4 run must resume from a checkpoint and both equal numpy. The
    first tiled run of each TPC-H/TPC-DS statement holds every kernel
    call against its plain version; a counted run gives the launches,
@@ -272,7 +272,7 @@ its Executable as before the caches existed; phase 11 measures the caches.
    stacked QPS over 5 rounds of 16 against one connection's sequential
    QPS over as many; (c) 12 connections per tenant of point lookups,
    every result right, the share reported; closed-loop QPS with p50/p99
-   over 400 requests each, at 1, 8 and 32 connections for a point
+   over 100 requests each, at 1, 8 and 32 connections for a point
    lookup and at 1 and 8 for Q1; (h) ``python -m cloudberry_tpu_torch
    --store ROOT serve`` in a child process (started at the phase's
    start), queried once by ``sql --connect``, then drained by SIGINT;
@@ -978,6 +978,10 @@ STORE_TIERS = ("cold", "pool admits", "pool-served", "scan cache")
 PART_START, PART_END, PART_EVERY = "1992-01-01", "1999-01-01", 365
 BLOOM_RPP = 512       # rows per micro-partition of the point-lookup table
 SREH_ROWS = 100_000   # orders lines of the reject-limit load
+# orders lines of the COPY round trip: the first 500,000 of SF1's 1.5M
+# (all of them took 57 s of COPY FROM, TO and back on one H100's
+# machine; phase 19's store part needs the room)
+COPY_ROWS = 500_000
 _DDL_TYPE = {"bool": "boolean", "int32": "integer", "int64": "bigint",
              "float64": "double", "date": "date", "string": "text"}
 
@@ -1435,6 +1439,7 @@ def _storage_dml(kit, raw, cfg, root) -> dict:
     od, li = raw["orders"], raw["lineitem"]
     oschema = tpch.SCHEMAS["orders"]
     n_ord = len(od["o_orderkey"])
+    n_copy = min(COPY_ROWS, n_ord)
     # no auto-ANALYZE after the DML: its runs read every row of the
     # 6M- and 1.5M-row tables on the host, which no check here needs
     s = ct.Session(cfg.with_overrides(**{"planner.autostats": "none"}))
@@ -1457,30 +1462,31 @@ def _storage_dml(kit, raw, cfg, root) -> dict:
         return {k: v.tolist()[0] for k, v in got.items()}
 
     tmp = os.path.dirname(root)
-    lines = tbl_lines(od, oschema)
+    lines = tbl_lines({k: v[:n_copy] for k, v in od.items()}, oschema)
     path_in = os.path.join(tmp, "orders.tbl")
     with open(path_in, "w") as fh:
         fh.write("\n".join(lines) + "\n")
     cols = ddl_columns(oschema)
     every = ", ".join(f.name for f in oschema.fields)
     want_orders = physical_of(od, oschema.fields)
+    want_copy = physical_of(od, oschema.fields, rows=np.arange(n_copy))
 
     # COPY FROM, COPY TO, and back
     run(f"create table orders_load ({cols})")
     run(f"copy orders_load from '{path_in}' with delimiter '|'",
-        f"COPY {n_ord}")
-    same(physical(s.sql(f"select {every} from orders_load")), want_orders,
+        f"COPY {n_copy}")
+    same(physical(s.sql(f"select {every} from orders_load")), want_copy,
          "orders_load after COPY FROM vs numpy")
     path_out = os.path.join(tmp, "orders_out.tbl")
     run(f"copy orders_load to '{path_out}' with delimiter '|'",
-        f"COPY {n_ord}")
+        f"COPY {n_copy}")
     with open(path_in, "rb") as a, open(path_out, "rb") as b:
         check(a.read() == b.read(), "COPY TO wrote other bytes than the "
               "loaded file")
     run(f"create table orders_back ({cols})")
     run(f"copy orders_back from '{path_out}' with delimiter '|'",
-        f"COPY {n_ord}")
-    same(physical(s.sql(f"select {every} from orders_back")), want_orders,
+        f"COPY {n_copy}")
+    same(physical(s.sql(f"select {every} from orders_back")), want_copy,
          "orders_back after COPY TO and FROM vs numpy")
 
     # single-row error handling: four bad lines among SREH_ROWS good ones
@@ -1490,7 +1496,7 @@ def _storage_dml(kit, raw, cfg, root) -> dict:
            "|".join(lines[2].split("|")[:-1]),                 # short row
            "|".join(lines[3].split("|")[:4] + ["1995-13-45"]
                     + lines[3].split("|")[5:])]               # bad date
-    n_sreh = min(SREH_ROWS, n_ord // 2)
+    n_sreh = min(SREH_ROWS, n_copy // 2)
     sreh = lines[:n_sreh // 2] + bad[:2] + lines[n_sreh // 2:n_sreh] \
         + bad[2:]
     bad_lines = {n_sreh // 2 + 1, n_sreh // 2 + 2, n_sreh + 3, n_sreh + 4}
@@ -1556,8 +1562,8 @@ def _storage_dml(kit, raw, cfg, root) -> dict:
     want_after = {
         "orders": {"c": n_ord, "s": int(new_price.sum())},
         "lineitem": want_li,
-        "orders_load": {"c": n_ord, "s": int(price.sum())},
-        "orders_back": {"c": n_ord, "s": int(price.sum())},
+        "orders_load": {"c": n_copy, "s": int(price[:n_copy].sum())},
+        "orders_back": {"c": n_copy, "s": int(price[:n_copy].sum())},
         "orders_rej": {"c": n_sreh, "s": int(price[:n_sreh].sum())},
         "q3_all": {"c": len(want_q3["l_orderkey"]),
                    "s": int(want_q3["revenue"].sum())},
@@ -2863,9 +2869,9 @@ DIST_RUNS = 1            # timed runs per statement at 8 (4) and 1 segment
 DIST_BIG_NSEG = 4        # config #3: TPC-H Q5/Q9 over 4 segments
 # BASELINE.md config #3 is SF10; SF10's generation and load alone took
 # 220.9 s on one H100's machine, which the 1,200 s limit cannot hold
-# beside the earlier phases; SF2 leaves room for phase 19's cluster parts
-# (SF4 took 78.0 s; PERF.md §4)
-DIST_BIG_SF = 2.0
+# beside the earlier phases; SF1 leaves room for phase 19's cluster parts
+# and its store part (SF4 took 78.0 s, SF2 34.8-39.8 s; PERF.md §4)
+DIST_BIG_SF = 1.0
 # per-query budget and red line that admit the big Q5/Q9 (the reference's
 # 16 GiB red line refused Q9's 27 GiB per-segment estimate at SF10)
 DIST_BIG_BUDGET = 64 << 30
@@ -3273,14 +3279,17 @@ TD_HOT_ROWS = 4_000_000
 TD_HOT_BUDGET = 32 << 20
 TD_HOT_Q = ("SELECT g, sum(v) AS sv, count(*) AS c FROM fact JOIN dim "
             "ON fact.d = dim.d GROUP BY g ORDER BY g")
-# tests/test_torch_dist_recovery.py's late overflow at 10x its rows: the
-# group estimate grows with the rows, so the late part's key domain and
-# the modulus grow 10x too (its groups must still outnumber the first
-# accumulator)
-TD_LATE_ROWS = (32_000_000, 12_000_000)
-TD_LATE_KEYS = (2_000, 300_000)
-TD_LATE_MOD = 200_000
-TD_LATE_BUDGET = 32 << 20
+# tests/test_torch_dist_recovery.py's late overflow at 5x its rows (at
+# 10x both windows took 65 s of the script on one H100): the group
+# estimate grows with the rows, so the late part's key domain and the
+# modulus grow 5x too (its groups must still outnumber the first
+# accumulator), and a 16 MiB budget keeps 6 tiles a segment, the
+# resumes from tile 2 and window 4's deferred overflows (a CPU run of
+# this shape: 6 tiles of 524,288 rows, 2 resumes, 2 replays, 2 deferred)
+TD_LATE_ROWS = (16_000_000, 6_000_000)
+TD_LATE_KEYS = (2_000, 150_000)
+TD_LATE_MOD = 100_000
+TD_LATE_BUDGET = 16 << 20
 
 
 def peak_owners(torch, fn, top=8) -> tuple:
@@ -4573,9 +4582,10 @@ SERVE_TENANT_REQS = 10      # (c): requests per connection
 # (it read as Q1 at 8 in every run)
 SERVE_QPS = (("point", 1), ("point", 8), ("point", 32), ("q1", 1),
              ("q1", 8))
-# 400 leaves the script room for phase 19's cluster parts on a slow
-# machine (1,000 took about 29 s more); a p99 still has 400 samples
-SERVE_QPS_REQS = 400
+# 100 leaves the script room for phase 19's cluster and store parts on
+# a slow machine (1,000 took about 29 s more than 400, 400 48 s in all);
+# a p99 still has SERVE_P99_MIN samples
+SERVE_QPS_REQS = 100
 SERVE_P99_MIN = 100         # fewer samples report a max, not a p99
 SERVE_STACK_ROUNDS = 5      # (b): stacked batches and sequential passes
 # the point lookup of (b), (c) and the QPS readings: a lineitem order by
@@ -5303,7 +5313,7 @@ def _serving_runs(kit, after, base_cfg, servers, port_h, up) -> dict:
 DUR_NSEG = 8            # (d) the external table's and (f) the bundle's gang
 DUR_WIRE = (4, 8, 7)    # (g) the server's segments: start, expand, failover
 DUR_CLIENTS = 8         # (g) client threads
-DUR_ANSWERS = 16        # (g) answers each stage waits for
+DUR_ANSWERS = 8         # (g) answers each stage waits for
 DUR_POINT_KEYS = 8      # (g) lineitem orders the point lookups ask for
 DUR_TIMEOUT = 300       # every socket, join and wait of the phase
 DUR_SEAM = ("compact_commit", 1)   # (c) the crash-torture seam and hit
@@ -5612,11 +5622,13 @@ def durability_phase(kit, raw, gpu, root) -> dict:
     return out
 
 
-def _expand_under_load(kit, counted, raw, gpu) -> dict:
+def _expand_under_load(kit, counted, raw, gpu, seed=SEED,
+                       clients=DUR_CLIENTS) -> dict:
     """Phase 17 (g): a 4-segment ``Server`` over phase 3's SF1 tables in
-    RAM, DUR_CLIENTS clients sending Q1, Q3, Q5 and point lookups, while
-    the server's session expands online to 8 segments and then shrinks to
-    7 by failover; every answer against the static 4-segment run's."""
+    RAM, ``clients`` clients sending Q1, Q3, Q5 and point lookups (the
+    lookups' order keys drawn with ``seed``), while the server's session
+    expands online to 8 segments and then shrinks to 7 by failover; every
+    answer against the static 4-segment run's."""
     import threading
 
     import cloudberry_tpu_torch as ct
@@ -5634,7 +5646,7 @@ def _expand_under_load(kit, counted, raw, gpu) -> dict:
         "health.backoff_s": 0.01, "health.backoff_max_s": 0.05,
         "topology.promote_after": 2}))
     copy_tables(gpu, s, names)
-    rng = np.random.default_rng(SEED)
+    rng = np.random.default_rng(seed)
     keys = rng.choice(np.unique(raw["lineitem"]["l_orderkey"]),
                       DUR_POINT_KEYS, replace=False)
     texts = [tpch.QUERIES[q] for q in ("q1", "q3", "q5")] + [
@@ -5691,7 +5703,7 @@ def _expand_under_load(kit, counted, raw, gpu) -> dict:
         rec = {}
         with Server(session=s) as srv:
             ths = [threading.Thread(target=client, args=(srv, i))
-                   for i in range(DUR_CLIENTS)]
+                   for i in range(clients)]
             for th in ths:
                 th.start()
             try:
@@ -5751,13 +5763,82 @@ def _expand_under_load(kit, counted, raw, gpu) -> dict:
            "recoveries": s.stmt_log.counter("recoveries")}
     check(flips >= 2 and out["promotions"] >= 1,
           f"(g) flips {flips}, promotions {out['promotions']}")
-    log(f"[durable] (g) {DUR_CLIENTS} wire clients over a {start}-segment "
+    log(f"[durable] (g) {clients} wire clients over a {start}-segment "
         f"server in RAM: {len(answers)} answers, none dropped, each equal "
         f"to the static run; online_resize({grown}) cut over in "
         f"{out['cutover_ms']:.2f} ms moving {reb['moved_rows']} of "
         f"{reb['total_rows']} rows ({out['moved_fraction']:.4f}, bound "
         f"{reb['minimal_bound']:.4f}); the failover shrink to {failed} "
         f"{out['failover_s']:.2f} s after the fault; {ms / 1e3:.1f} s")
+    return out
+
+
+LOAD_LOOP_CLIENTS = (8, 4, 16)   # expand_load_loop: clients, by run
+
+
+def expand_load_loop(runs: int = 24, sf: float = 1.0) -> dict:
+    """Phase 17 (g)'s load ``runs`` times on the card (ROADMAP C 59),
+    outside the script's phases: TPC-H at ``sf`` (seed SEED) in a CUDA
+    session, then ``_expand_under_load`` again and again, the client
+    count cycling through LOAD_LOOP_CLIENTS and the point lookups' keys
+    drawn with seed SEED + run. A run whose answers differ logs them (the
+    (epoch, segment count) at send and at answer, the rows each side
+    lacks) and counts as failed; the loop goes on. Writes the runs to
+    chiprun_out/expand_load_loop.json and returns them. Run it with
+    ``python3 -c "import chip_smoke as c; c.expand_load_loop()"``."""
+    import torch
+
+    import cloudberry_tpu_torch as ct
+    from cloudberry_tpu_torch import tpch
+    from cloudberry_tpu_torch.exec import cuda_kernels as CK
+
+    check(torch.cuda.is_available(), "expand_load_loop needs a CUDA card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(f"[loop] {torch.cuda.get_device_name(0)} | nvidia-smi: {smi}")
+    t0 = time.perf_counter()
+    CK.build()
+    raw = tpch.generate(sf, SEED)
+    names = ["region", "nation", "supplier", "customer", "orders",
+             "lineitem"]
+    gpu = ct.Session(ct.Config().with_overrides(
+        **{"resource.query_mem_bytes": CARD_BUDGET}))
+    tpch.load_tables(gpu, tpch.SCHEMAS, tpch.DIST_KEYS, raw, names)
+    out = {"device": smi, "sf": sf, "setup_s": time.perf_counter() - t0,
+           "runs": []}
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t) * 1e3
+
+    for i in range(runs):
+        clients = LOAD_LOOP_CLIENTS[i % len(LOAD_LOOP_CLIENTS)]
+        rec = {"run": i, "clients": clients, "seed": SEED + i}
+        t = time.perf_counter()
+        try:
+            rec.update(_expand_under_load(None, counted, raw, gpu,
+                                          seed=SEED + i, clients=clients))
+            rec["ok"] = True
+        except AssertionError as e:
+            rec.update(ok=False, error=str(e)[:2000])
+            log(f"[loop] run {i} failed: {str(e)[:400]}")
+        rec["s"] = time.perf_counter() - t
+        out["runs"].append(rec)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["failed"] = [r["run"] for r in out["runs"] if not r["ok"]]
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "expand_load_loop.json"),
+              "w") as f:
+        json.dump(out, f, indent=1, default=str)
+    log(f"[loop] {runs} runs, failed {out['failed']}, answers "
+        f"{sum(r.get('answers', 0) for r in out['runs'])}, "
+        f"{sum(r['s'] for r in out['runs']):.1f} s")
     return out
 
 
@@ -6114,6 +6195,24 @@ CLUSTER_TILED = ("q1", "q3")            # (b), at phase 13's budgets
 CLUSTER_SURVIVORS = [0, 1, 2, 4, 5, 6, 7]   # (c): slot 3 lost, 3 + 4
 CLUSTER_DEGRADED = ("q1", "q3", "q5")   # (c)'s texts
 CLUSTER_RESIZE = (6, 8)                 # (d): 4 + 2 -> 4 + 4, Q5
+# (e): phase 9's store as a 6-segment cluster (4 + 2), resized to 8
+CLUSTER_STORE = ("q1", "q3", "q5")
+CLUSTER_STORE_CFG = {"planner.autostats": "none",
+                     "bufferpool.max_bytes": 4 << 30}
+CLUSTER_INSERT = (
+    "INSERT INTO orders VALUES "
+    "(6000001, 1, 'O', 100.25, date '1998-08-02', '1-URGENT', "
+    "'Clerk#000000001', 0, 'smoke one'), "
+    "(6000002, 2, 'O', 200.50, date '1998-08-02', '2-HIGH', "
+    "'Clerk#000000002', 0, 'smoke two'), "
+    "(6000003, 3, 'F', 300.75, date '1998-08-02', '5-LOW', "
+    "'Clerk#000000003', 0, 'smoke three')")
+CLUSTER_INSERTED = 3
+STORE_GATE = "store_ready"   # written beside DATA once (e)'s oracle is read
+# a few hundred orders after Q3's and Q5's date windows (Q1 reads
+# lineitem alone): their answers stay those of (e)'s first reads
+CLUSTER_DELETED = ("o_orderdate >= date '1998-07-20' AND "
+                   "o_orderkey % 25 = 0")
 # tests/multihost_worker.py's statements and tables (seed 11)
 MULTIHOST_QUERIES = {
     "mh_agg": ("SELECT g, sum(v) AS sv, count(*) AS c FROM fact "
@@ -6136,15 +6235,173 @@ def multihost_load(session) -> None:
          "v": rng.integers(0, 1000, 20_000)})
 
 
+def holding_kernels(torch, CK, held: dict):
+    """A context in which every kernel call also runs the kernel and its
+    plain version on the same inputs (a probe join on fresh flag slots)
+    and must agree: integer outputs exactly, float outputs within 1e-9
+    of the largest magnitude, as phase 20 holds them; ``held`` counts the
+    calls per kernel."""
+    import contextlib
+
+    originals = {k: getattr(CK, k) for k in CK.LAUNCHES}
+    plains = {"dense_agg": CK.dense_agg_plain,
+              "probe_join": CK.probe_join_plain,
+              "sorted_seg": CK.sorted_seg_plain}
+
+    def outputs(name, fn, a):
+        if name != "probe_join":
+            return fn(*a)
+        dev = next(x for x in a if torch.is_tensor(x)).device
+        flag = torch.zeros(1, dtype=torch.int32, device=dev)
+        matched, out = fn(*a[:5], flag)
+        return (matched, *out, flag)
+
+    def wrap(name):
+        def wrapped(*a):
+            out = originals[name](*a)
+            got = outputs(name, originals[name], a)
+            want = outputs(name, plains[name], a)
+            for g, w in zip(got, want):
+                err = max_abs_err(torch, [g], [w])
+                tol = 1e-9 * max(1.0, float(w.abs().max())) \
+                    if w.dtype.is_floating_point and w.numel() else 0.0
+                check(err <= tol, f"{name}: the kernel differs from its "
+                      f"plain version on a main-path input (max abs err "
+                      f"{err}, tolerance {tol})")
+            held[name] += 1
+            return out
+        return wrapped
+
+    @contextlib.contextmanager
+    def ctx():
+        for k in originals:
+            setattr(CK, k, wrap(k))
+        try:
+            yield held
+        finally:
+            for k, fn in originals.items():
+                setattr(CK, k, fn)
+    return ctx()
+
+
+def cluster_store_oracle(kit, cfg, root) -> dict:
+    """Phase 19 (e)'s oracle in this process: CLUSTER_STORE over
+    ``root``'s store at 6 segments (results and counted walls) and the
+    orders counts before the DML."""
+    import cloudberry_tpu_torch as ct
+    from cloudberry_tpu_torch import tpch
+
+    one = ct.Session(cfg.with_overrides(
+        n_segments=CLUSTER_RESIZE[0],
+        **{"storage.root": root, **CLUSTER_STORE_CFG}), device=kit.device)
+    want = {"results": {}, "ms": {}}
+    for q in CLUSTER_STORE:
+        forget_feedback(one)
+        one.sql(tpch.QUERIES[q])
+        empty_caches(one)
+        res, ms, _ = kit.counted_run(one, tpch.QUERIES[q])
+        want["results"][q] = with_nulls(res)
+        want["ms"][q] = ms
+    for key, where in (("orders", ""),
+                       ("deleted", f" WHERE {CLUSTER_DELETED}")):
+        want[key] = int(one.sql(f"SELECT count(*) AS n FROM orders{where}")
+                        .decoded_columns()["n"][0])
+    return want
+
+
+def cluster_store_child(cfg, root, device, counted) -> dict:
+    """Phase 19 (e) in one child: ``root``'s store as a 6-segment cluster
+    (4 + 2). (a) CLUSTER_STORE from the store, each once to warm up with
+    every kernel call held against its plain version, then counted; (b)
+    CLUSTER_INSERT and the DELETE of CLUSTER_DELETED orders, each
+    statement's status, seconds and manifest versions added, the orders
+    counted before and after; (c) ``online_resize(8)``, its seconds and
+    counts, then (a)'s texts again. ``counted(session, sql)``: the
+    child's counted run."""
+    import torch
+
+    import cloudberry_tpu_torch as ct
+    from cloudberry_tpu_torch import tpch
+    from cloudberry_tpu_torch.exec import cuda_kernels as CK
+    from cloudberry_tpu_torch.parallel import mesh
+    from cloudberry_tpu_torch.storage.table_store import TableStore
+
+    cuda = device == "cuda"
+    t_part = time.perf_counter()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    s = ct.Session(cfg.with_overrides(
+        n_segments=CLUSTER_RESIZE[0],
+        **{"storage.root": root, **CLUSTER_STORE_CFG}), device=device)
+    store = TableStore(root)
+    out = {"held": {k: 0 for k in CK.LAUNCHES},
+           "local": list(mesh.session_segments(s))}
+
+    def reads(tag):
+        got = out[tag] = {}
+        for q in CLUSTER_STORE:
+            sql = tpch.QUERIES[q]
+            forget_feedback(s)
+            t0 = time.perf_counter()
+            if tag == "a":
+                with holding_kernels(torch, CK, out["held"]):
+                    s.sql(sql)
+            else:
+                s.sql(sql)
+            warm_ms = (time.perf_counter() - t0) * 1e3
+            empty_caches(s)
+            res, ms, counts, _, nbytes = counted(s, sql)
+            got[q] = {"result": with_nulls(res), "ms": ms,
+                      "warm_ms": warm_ms, "launches": counts,
+                      "dist_bytes": nbytes}
+            print(f"[cluster child {mesh.process_index()}] (e{tag}) {q} "
+                  f"from the store: {ms:.1f} ms (first {warm_ms:.1f} ms), "
+                  f"launches {counts}", flush=True)
+
+    def count(where=""):
+        b = s.sql(f"SELECT count(*) AS n FROM orders{where}")
+        return int(b.decoded_columns()["n"][0])
+
+    reads("a")
+    dml = out["b"] = {"orders_before": count(),
+                      "deleted_match": count(f" WHERE {CLUSTER_DELETED}"),
+                      "statements": []}
+    for sql in (CLUSTER_INSERT, f"DELETE FROM orders WHERE "
+                f"{CLUSTER_DELETED}"):
+        v0 = store.current_version("orders")
+        t0 = time.perf_counter()
+        status = str(s.sql(sql))
+        dml["statements"].append({
+            "status": status, "s": time.perf_counter() - t0,
+            "added": store.current_version("orders") - v0})
+    dml["orders_after"] = count()
+    t0 = time.perf_counter()
+    rz = s._topology.online_resize(CLUSTER_RESIZE[1])
+    out["c_resize"] = {"s": time.perf_counter() - t0,
+                       "epoch": rz["epoch"], "reason": rz["reason"],
+                       "rebalance": rz["rebalance"],
+                       "local": list(mesh.session_segments(s))}
+    print(f"[cluster child {mesh.process_index()}] (ec) online_resize("
+          f"{CLUSTER_RESIZE[1]}) over the store in "
+          f"{out['c_resize']['s']:.2f} s: {rz['rebalance']}", flush=True)
+    reads("c")
+    out["peak_bytes"] = int(torch.cuda.max_memory_allocated()) if cuda \
+        else 0
+    out["s"] = time.perf_counter() - t_part
+    return out
+
+
 def cluster_child(argv) -> int:
     """One process of phase 19's cluster (``chip_smoke.py
-    --cluster-child DATA OUT DEVICE``): join through ``init_distributed``
+    --cluster-child DATA OUT DEVICE ROOT``): join through ``init_distributed``
     (CBTPU_* environment), load the TPC-H tables the parent pickled to
     DATA, and run the multi-host statements and CLUSTER_TEXTS at 8
     segments flat and at ``hierarchical="on"`` (one session, its config
     swapped between the two, which the statement cache keys on); each
     text after its feedback store is emptied, once to warm up and once
-    counted (the statement cache emptied first). Writes the results,
+    counted (the statement cache emptied first); then parts (a)-(d) and,
+    unless ROOT is "-", (e) over the store at ROOT
+    (``cluster_store_child``). Writes the results,
     walls, launches, the bytes handed to torch.distributed per
     redistribute, per-text peak device bytes and the child's seconds to
     OUT (pickle)."""
@@ -6160,7 +6417,7 @@ def cluster_child(argv) -> int:
     from cloudberry_tpu_torch.parallel import mesh
     from cloudberry_tpu_torch.parallel import transport as TT
 
-    data, out_path, device = argv
+    data, out_path, device, root = argv
     t_start = time.perf_counter()
     mesh.init_distributed()         # CBTPU_LOCAL_SLOTS: 4 slots each
     rank = mesh.process_index()
@@ -6318,6 +6575,18 @@ def cluster_child(argv) -> int:
           f"{CLUSTER_RESIZE[1]} in {resize_s:.2f} s: {rz['rebalance']}",
           flush=True)
     del s6
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    if root != "-":
+        # the parent reads the store for (e)'s oracle meanwhile
+        gate = os.path.join(os.path.dirname(data), STORE_GATE)
+        deadline = time.monotonic() + CLUSTER_TIMEOUT_S
+        while not os.path.exists(gate):
+            check(time.monotonic() < deadline, "the parent's store oracle "
+                  f"did not finish within {CLUSTER_TIMEOUT_S} s")
+            time.sleep(0.1)
+        out["store"] = cluster_store_child(flat, root, device, counted)
     out["peak_bytes"] = max([peak] + [r["peak_bytes"]
                                       for r in parts.values()])
     out["s"] = time.perf_counter() - t_start
@@ -6328,7 +6597,7 @@ def cluster_child(argv) -> int:
 
 
 def cluster_phase(kit, gpu, raw, flat8, flat_ms, flat_launches,
-                  sf: float = 1.0) -> dict:
+                  sf: float = 1.0, root=None) -> dict:
     """The two-process cluster on the one card (module docstring, phase
     19): two children of 4 segments each, every result equal bit for bit
     across them, between flat and two-level, and to the one-process
@@ -6337,7 +6606,10 @@ def cluster_phase(kit, gpu, raw, flat8, flat_ms, flat_launches,
     one-process run of a text launched; then (a) the ring, (b) tiled Q1
     and Q3 at phase 13's budgets for scale ``sf``, (c) the degrade to
     3 + 4 segments and (d) the online resize 6 -> 8 across the same
-    children, each against its one-process counterpart."""
+    children, each against its one-process counterpart; with ``root``
+    (phase 9's store, of which this phase is the last user), (e) that
+    store as a 6-segment cluster (``cluster_store_child``) against this
+    process's one-process 6-segment run over it."""
     import pickle
     import shutil
     import tempfile
@@ -6425,13 +6697,27 @@ def cluster_phase(kit, gpu, raw, flat8, flat_ms, flat_launches,
                 procs.append(subprocess.Popen(
                     [sys.executable, os.path.abspath(__file__),
                      "--cluster-child", data,
-                     os.path.join(tmp, f"child{rank}.pickle"), kit.device],
+                     os.path.join(tmp, f"child{rank}.pickle"), kit.device,
+                     root or "-"],
                     cwd=os.path.dirname(os.path.abspath(__file__)),
                     env=env, stdout=f, stderr=subprocess.STDOUT))
 
         def said(rank):
             with open(logs[rank], errors="replace") as f:
                 return f.read()
+
+        # (e)'s oracle while the children run (a)-(d), which touch no
+        # store: the children start (e) when STORE_GATE appears
+        store_want = None
+        if root is not None:
+            t0 = time.perf_counter()
+            store_want = cluster_store_oracle(kit, gpu.config, root)
+            gc.collect()
+            if kit.device == "cuda":
+                torch.cuda.empty_cache()
+            with open(os.path.join(tmp, STORE_GATE), "w") as f:
+                f.write("ready")
+            out["store_oracle_s"] = time.perf_counter() - t0
 
         # wait for both against one deadline; the first child that fails
         # is named at once (the other would only wait in a collective)
@@ -6529,6 +6815,8 @@ def cluster_phase(kit, gpu, raw, flat8, flat_ms, flat_launches,
         rec["one_process_ms"] = want_ms[q]
         out["texts"][q] = rec
     out["parts"] = cluster_parts(kids, want, want7, want6, flat8, fired)
+    if store_want is not None:
+        out["store"] = cluster_store_checks(kids, store_want, fired)
     check(all(all(v) for v in fired.values()),
           f"a kernel did not launch in both cluster children: {fired}")
     out["launches"] = {k: sum(v) for k, v in fired.items()}
@@ -6622,21 +6910,123 @@ def cluster_parts(kids, want, want7, want6, flat8, fired) -> dict:
           and [a["local"] for a in aft] == [[0, 1, 2, 3], [4, 5, 6, 7]]
           and {(a["epoch"], a["reason"]) for a in aft} == {(2, "expand")},
           f"(resize) layouts {bef} -> {[a['local'] for a in aft]}")
-    moved = sum(a["rebalance"]["moved_rows"] for a in aft)
-    total = sum(a["rebalance"]["total_rows"] for a in aft)
+    # every child reports the cluster's move (the mover's counts)
+    moved = aft[0]["rebalance"]["moved_rows"]
+    total = aft[0]["rebalance"]["total_rows"]
     bound = aft[0]["rebalance"]["minimal_bound"]
     out["resize"].update(
         moved_rows=[a["rebalance"]["moved_rows"] for a in aft],
         total_rows=[a["rebalance"]["total_rows"] for a in aft],
         moved_fraction=moved / max(total, 1), minimal_bound=bound,
         resize_s=[a["resize_s"] for a in aft])
-    check(moved > 0 and abs(moved / max(total, 1) - bound) < 0.02,
-          f"(resize) moved {moved} of {total} rows, bound {bound}")
+    check(moved > 0 and abs(moved / max(total, 1) - bound) < 0.02
+          and all(a["rebalance"]["moved_rows"] == moved
+                  and a["rebalance"]["total_rows"] == total for a in aft),
+          f"(resize) moved {[a['rebalance']['moved_rows'] for a in aft]} "
+          f"of {[a['rebalance']['total_rows'] for a in aft]} rows, bound "
+          f"{bound}")
     log(f"[cluster] (resize) {CLUSTER_RESIZE[0]} -> {CLUSTER_RESIZE[1]}: "
         f"moved_rows {out['resize']['moved_rows']} of "
         f"{out['resize']['total_rows']} ({moved / max(total, 1):.4f}, "
         f"bound {bound:.4f}); resize "
         f"{[round(x, 2) for x in out['resize']['resize_s']]} s")
+    return out
+
+
+def cluster_store_checks(kids, want, fired) -> dict:
+    """Phase 19 (e) of both children against the one-process 6-segment
+    run over the same store (``want``: its results, walls and orders
+    counts): (a) and (c) equal bit for bit across the children and to
+    the one-process results (floats within FLOAT_RTOL), (c) after the
+    resize equal to (a) since (b) touched no order they read; (b)'s
+    statuses and counts, one manifest version per statement; the moved
+    fraction against the jump-hash bound; every kernel launched in both
+    children's counted runs and held against its plain version in both.
+    ``fired`` gains the part's launches."""
+    recs = [kid["store"] for kid in kids]
+    out = {"one_process_ms": want["ms"]}
+    launched = {k: [0] * len(recs) for k in fired}
+    for tag in ("a", "c"):
+        rows = out[tag] = {}
+        for q in CLUSTER_STORE:
+            got = [r[tag][q] for r in recs]
+            identical(got[1]["result"], got[0]["result"],
+                      f"(e{tag}) {q} from the store: the children's "
+                      "results")
+            same_nulls(got[0]["result"], want["results"][q],
+                       f"(e{tag}) {q} from the store vs the one-process "
+                       f"{CLUSTER_RESIZE[0]}-segment run")
+            for rank, g in enumerate(got):
+                for k, v in g["launches"].items():
+                    fired[k][rank] += v
+                    launched[k][rank] += v
+            rows[q] = {"ms": [g["ms"] for g in got],
+                       "first_ms": [g["warm_ms"] for g in got],
+                       "launches": [g["launches"] for g in got],
+                       "dist_bytes": [g["dist_bytes"] for g in got]}
+            log(f"[cluster] (e{tag}) {q} from the store: walls "
+                f"{[round(x, 2) for x in rows[q]['ms']]} ms (first "
+                f"{[round(x, 1) for x in rows[q]['first_ms']]} ms) against "
+                f"the one-process {CLUSTER_RESIZE[0]}-segment "
+                f"{want['ms'][q]:.2f} ms; launches {rows[q]['launches']}; "
+                "equal")
+    check(all(all(r["held"].values()) for r in recs),
+          f"(e) a kernel was not held against its plain version in both "
+          f"children: {[r['held'] for r in recs]}")
+    check([r["local"] for r in recs] == [[0, 1, 2, 3], [4, 5]],
+          f"(e) layouts {[r['local'] for r in recs]}")
+    dml = [r["b"] for r in recs]
+    counts = [(d["orders_before"], d["deleted_match"], d["orders_after"])
+              for d in dml]
+    expect = (want["orders"], want["deleted"],
+              want["orders"] + CLUSTER_INSERTED - want["deleted"])
+    check(want["deleted"] > 0 and counts == [expect] * len(recs),
+          f"(eb) orders before, matching the DELETE and after: {counts}, "
+          f"the one-process run's {expect}")
+    statuses = [[st["status"] for st in d["statements"]] for d in dml]
+    added = [[st["added"] for st in d["statements"]] for d in dml]
+    check(statuses[0] == statuses[1] == [f"INSERT {CLUSTER_INSERTED}",
+                                         f"DELETE {want['deleted']}"]
+          and added == [[1, 1]] * len(recs),
+          f"(eb) statuses {statuses}, manifest versions added {added}")
+    out["b"] = {"statuses": statuses[0], "orders": [
+        dml[0]["orders_before"], dml[0]["orders_after"]],
+        "deleted": want["deleted"],
+        "s": [[st["s"] for st in d["statements"]] for d in dml]}
+    rz = [r["c_resize"] for r in recs]
+    reb = rz[0]["rebalance"]
+    frac = reb["moved_rows"] / max(reb["total_rows"], 1)
+    check(all(r["rebalance"] == reb for r in rz)
+          and {(r["epoch"], r["reason"]) for r in rz} == {(2, "expand")}
+          and [r["local"] for r in rz] == [[0, 1, 2, 3], [4, 5, 6, 7]]
+          and abs(frac - reb["minimal_bound"]) < 0.01,
+          f"(ec) the resize on each child: {rz}")
+    for q in CLUSTER_STORE:
+        same_nulls(recs[0]["c"][q]["result"], recs[0]["a"][q]["result"],
+                   f"(ec) {q} after the resize vs before it")
+    out["c_resize"] = {"s": [r["s"] for r in rz], "moved_rows":
+                       reb["moved_rows"], "total_rows": reb["total_rows"],
+                       "moved_bytes": reb["moved_bytes"],
+                       "moved_fraction": frac,
+                       "minimal_bound": reb["minimal_bound"]}
+    out["peak_bytes"] = [r["peak_bytes"] for r in recs]
+    out["held"] = [r["held"] for r in recs]
+    out["launches"] = launched
+    out["s"] = [r["s"] for r in recs]
+    log(f"[cluster] (e) the store as a {CLUSTER_RESIZE[0]}-segment "
+        f"cluster: {out['b']['statuses']} on orders "
+        f"({out['b']['orders'][0]} -> {out['b']['orders'][1]} rows, one "
+        f"manifest version per statement, "
+        f"{[[round(x, 2) for x in d] for d in out['b']['s']]} s); "
+        f"online_resize({CLUSTER_RESIZE[1]}) moved {reb['moved_rows']} of "
+        f"{reb['total_rows']} rows ({frac:.4f}, bound "
+        f"{reb['minimal_bound']:.4f}, {reb['moved_bytes']} B) in "
+        f"{[round(x, 2) for x in out['c_resize']['s']]} s; peaks "
+        f"{out['peak_bytes']} B; held {out['held']}; launches {launched}; "
+        f"part {[round(x, 1) for x in out['s']]} s per child")
+    check(all(all(v) for v in launched.values()),
+          f"(e) a kernel did not launch in both children's counted runs "
+          f"from the store: {launched}")
     return out
 
 
@@ -7181,8 +7571,9 @@ def _main(args) -> int:
             f"{durable['held']}; launches of its counted runs "
             f"{durable['launches']}; durability phase: "
             f"{time.perf_counter() - t0:.1f} s")
-    finally:
+    except BaseException:
         shutil.rmtree(store.pop("tmp"), ignore_errors=True)
+        raise
 
     # ------------------------------------- 18. two-level and ring motion
     stamp("phase 18 (two-level and ring motion)")
@@ -7210,11 +7601,16 @@ def _main(args) -> int:
     stamp("phase 19 (the two-process cluster)")
     gc.collect()
     torch.cuda.empty_cache()
-    cluster = cluster_phase(SimpleNamespace(
-        torch=torch, counted_run=counted_run, device="cuda",
-        launch_names=list(CK.LAUNCHES)), gpu, raw, flat8,
-        {q: r["seg8"]["median_ms"] for q, r in dist["tpch"].items()},
-        {q: r["launches"] for q, r in dist["tpch"].items()}, sf=args.sf)
+    try:
+        # phase 9's store: phase 19 is its last user
+        cluster = cluster_phase(SimpleNamespace(
+            torch=torch, counted_run=counted_run, device="cuda",
+            launch_names=list(CK.LAUNCHES)), gpu, raw, flat8,
+            {q: r["seg8"]["median_ms"] for q, r in dist["tpch"].items()},
+            {q: r["launches"] for q, r in dist["tpch"].items()},
+            sf=args.sf, root=store["root"])
+    finally:
+        shutil.rmtree(store.pop("tmp"), ignore_errors=True)
     del flat8
     for k, v in cluster["launches"].items():
         launches[k] += v

@@ -55,13 +55,17 @@ pin (mtime check).
 A cluster of processes (parallel/mesh.py ``init_distributed``): every
 process runs the same change with the same arguments and mints the same
 epoch; each re-derives its own range of the successor's segments from
-the whole tables it holds, and a rebalance counts the rows of the old
-segments a process owned, so the processes' ``moved_rows`` sum to the
-one-process run's. Before a statement attempt's first collective the
-processes check that they hold the same (epoch, segment count, survivor
-restriction) (``agree``), and raise ``ClusterLayoutError`` otherwise.
-Store-backed tables are not rebalanced across processes (every process
-would rewrite the same partitions): ``begin`` refuses them there.
+the whole tables it holds. Process 0 is the cluster's one writer
+(parallel/writer.py): it alone moves the stored tables' delta
+partitions and writes ``_TOPOLOGY.json`` (journal and epoch), while the
+others stage their in-RAM tables and wait for its outcome; an error on
+any process raises on every process, and every process's
+``RebalanceState`` then reports process 0's counts, the cluster's move.
+The moved tables re-register at the next statement's agreed snapshot.
+Before a statement attempt's first collective the processes check that
+they hold the same (epoch, segment count, survivor restriction) and the
+same store snapshot (``agree``), and raise ``ClusterLayoutError``
+otherwise.
 """
 
 from __future__ import annotations
@@ -87,6 +91,12 @@ class ClusterLayoutError(RuntimeError):
     """The processes of a cluster hold different (epoch, segment count,
     layout) at a statement's start: its collectives would pair unrelated
     blocks or hang, so the statement raises instead."""
+
+
+class ClusterSnapshotError(ClusterLayoutError):
+    """The processes of a store-backed cluster registered different table
+    versions for one statement: its answer would mix two snapshots, so
+    the statement raises on every process instead."""
 
 
 class TopologyRaceError(RuntimeError):
@@ -390,12 +400,6 @@ class TopologyManager:
                 f"cannot expand to {new_nseg} segments: the cluster hosts "
                 f"at most {limit} segment slots")
         if process_count() > 1:
-            if any(getattr(t, "backing", None) is not None
-                   for t in self._session.catalog.tables.values()):
-                raise TopologyError(
-                    "a topology change across processes moves in-RAM "
-                    "tables only: every process would rewrite the store's "
-                    "partitions")
             # the successor layout must leave every process a segment
             # (raises before the epoch is created)
             slot_layout(self._session, new_nseg, device_ids)
@@ -451,7 +455,11 @@ class TopologyManager:
                   progress=None) -> RebalanceState:
         """Move the minimal micro-partition delta for the pending epoch.
         Safe to call again after an interruption — the store journal (and
-        idempotent RAM staging) resumes where the last run stopped."""
+        idempotent RAM staging) resumes where the last run stopped. In a
+        cluster process 0 alone moves the stored tables (module
+        docstring)."""
+        from cloudberry_tpu_torch.parallel import writer
+
         state = self.rebalance_state
         if state is None:
             raise TopologyError("no topology change in flight")
@@ -459,28 +467,60 @@ class TopologyManager:
         chunk_rows = chunk_rows or tcfg.rebalance_chunk_rows
         throttle_s = tcfg.throttle_s if throttle_s is None else throttle_s
         session = self._session
-        session._sync_store()
+        session._sync_store(session._cluster_snapshot())
         tables = [t for t in session.catalog.tables.values()
                   if t.policy.kind == "hashed"]
         state.tables_total = len(tables)
         state.tables_done = 0
-        for t in tables:
-            if session.store is not None \
-                    and getattr(t, "backing", None) is not None:
-                self._rebalance_store_table(t.name, state, chunk_rows,
-                                            throttle_s)
-                # the moved snapshot re-registers cold at the next sync;
-                # staged RAM assignments would be stale by construction
-            else:
-                self._rebalance_ram_table(t, state, chunk_rows,
-                                          throttle_s)
-            state.tables_done += 1
+        err = None
+        try:
+            for t in tables:
+                if session.store is not None \
+                        and getattr(t, "backing", None) is not None:
+                    # the moved snapshot re-registers cold at the next
+                    # sync; staged RAM assignments would be stale by
+                    # construction
+                    if writer.leads():
+                        self._rebalance_store_table(t.name, state,
+                                                    chunk_rows, throttle_s)
+                else:
+                    self._rebalance_ram_table(t, state, chunk_rows,
+                                              throttle_s)
+                state.tables_done += 1
+                self._journal(state)
+                if progress is not None:
+                    progress(state)
+            state.done = True
             self._journal(state)
-            if progress is not None:
-                progress(state)
-        state.done = True
-        self._journal(state)
+        except Exception as e:  # noqa: BLE001 — raised on every process
+            err = e
+        self._agree_rebalance(state, err)
         return state
+
+    _MOVER_FIELDS = ("total_rows", "moved_rows", "moved_bytes", "chunks",
+                     "tables_done", "done", "done_files")
+
+    def _agree_rebalance(self, state: RebalanceState, err) -> None:
+        """Raise ``err``; in a cluster, first exchange every process's
+        outcome, raise the first error of any process on every process,
+        and give every process the mover's (process 0's) counts."""
+        from cloudberry_tpu_torch.parallel.mesh import process_count
+
+        if process_count() > 1:
+            import torch.distributed as dist
+
+            from cloudberry_tpu_torch.parallel.writer import _portable
+
+            mine = (None if err is None else _portable(err),
+                    {k: getattr(state, k) for k in self._MOVER_FIELDS})
+            every = [None] * process_count()
+            dist.all_gather_object(every, mine)
+            for k, v in every[0][1].items():
+                setattr(state, k, v)
+            if err is None:
+                err = next((e for e, _ in every if e is not None), None)
+        if err is not None:
+            raise err
 
     def _chunk_seam(self, state: RebalanceState,
                     throttle_s: float) -> None:
@@ -508,12 +548,9 @@ class TopologyManager:
             return  # already staged by an interrupted earlier run
         new_assign = np.zeros(n, dtype=np.int32)
         cols = [np.asarray(t.data[k]) for k in t.policy.keys]
-        # every process stages the whole assignment (each holds the whole
-        # table) but counts the rows of the old segments it owns, so the
-        # cluster's counts sum to the one-process run's
-        mine = self._old_local_segments(old_nseg)
+        # every process stages and counts the whole table (each holds it
+        # whole): the cluster's move, as the one-process run counts it
         moved = 0
-        counted = 0
         nbytes_row = sum(a.dtype.itemsize for a in t.data.values()) or 1
         for lo in range(0, max(n, 1), max(chunk_rows, 1)):
             hi = min(lo + chunk_rows, n)
@@ -523,31 +560,22 @@ class TopologyManager:
             a_old = hashing.jump_consistent_hash_np(h, old_nseg)
             a_new = hashing.jump_consistent_hash_np(h, new_nseg)
             new_assign[lo:hi] = a_new
-            ours = (a_old >= mine.start) & (a_old < mine.stop)
-            moved += int(((a_old != a_new) & ours).sum())
-            counted += int(ours.sum())
+            moved += int((a_old != a_new).sum())
             self._chunk_seam(state, throttle_s)
         t._topo_assign = (version, new_nseg, new_assign)
-        state.total_rows += counted
+        state.total_rows += n
         state.moved_rows += moved
         state.moved_bytes += moved * nbytes_row
         self._bump("topo_moved_rows", moved)
         self._bump("topo_moved_bytes", moved * nbytes_row)
 
-    def _old_local_segments(self, old_nseg: int) -> range:
-        """This process's segments of the current epoch (every segment in
-        one process)."""
-        from cloudberry_tpu_torch.parallel.mesh import slot_layout
-
-        ids = self.current.device_ids
-        return slot_layout(self._session, old_nseg,
-                           list(ids) if ids else None)[1]
-
     def agree(self, session) -> None:
         """Raise ``ClusterLayoutError`` unless every process of the
         cluster holds the same (epoch, segment count, survivor
-        restriction) for ``session``: called before a statement attempt's
-        first collective. One process: nothing to agree."""
+        restriction) for ``session``, and ``ClusterSnapshotError`` unless
+        they registered the same store versions: called before a
+        statement attempt's first collective. One process: nothing to
+        agree."""
         from cloudberry_tpu_torch.parallel.mesh import process_count
 
         if process_count() == 1:
@@ -560,15 +588,21 @@ class TopologyManager:
         ids = getattr(session, "_live_device_ids", None)
         mine = torch.tensor([getattr(session, "_topo_epoch_seen", None) or 0,
                              session.config.n_segments,
-                             zlib.crc32(repr(ids).encode())],
+                             zlib.crc32(repr(ids).encode()),
+                             session._snapshot_digest()],
                             dtype=torch.int64)
         every = [torch.empty_like(mine) for _ in range(process_count())]
         dist.all_gather(every, mine)
         got = [tuple(int(x) for x in v) for v in every]
-        if len(set(got)) != 1:
+        if len({g[:3] for g in got}) != 1:
             raise ClusterLayoutError(
                 "the processes pinned different (epoch, segment count, "
-                f"layout) for one statement: {got}")
+                f"layout) for one statement: {[g[:3] for g in got]}")
+        if len({g[3] for g in got}) != 1:
+            raise ClusterSnapshotError(
+                "the processes pinned different store snapshots (table "
+                "versions) for one statement: digests "
+                f"{[g[3] for g in got]}")
 
     def _rebalance_store_table(self, name: str, state: RebalanceState,
                                chunk_rows: int,
@@ -904,6 +938,13 @@ class TopologyManager:
             self._adopt(self._session, self.current)
 
     def _persist_current(self) -> None:
+        """Write the current epoch to ``_TOPOLOGY.json``. In a cluster
+        process 0 writes and the others wait for it (a planned change,
+        which every process makes together): a process that ran ahead
+        would read the old epoch line back at its next pin and adopt it
+        as a newer change."""
+        from cloudberry_tpu_torch.parallel import writer
+
         store = self._session.store
         if store is None:
             return
@@ -912,6 +953,12 @@ class TopologyManager:
             # regained) devices — another process over the same store
             # has its own device pool and must not adopt the shrink
             return
+        writer.run(lambda: self._write_current(store), lockstep=True)
+        with self._lock:
+            self._store_epoch_seen = max(self._store_epoch_seen,
+                                         self.current.epoch_id)
+
+    def _write_current(self, store) -> None:
         with store.lock():
             rec = _read_topology(store) or {}
             old = rec.get("current") or {}
@@ -926,8 +973,6 @@ class TopologyManager:
             return
         with self._lock:
             self._store_mtime = mtime
-            self._store_epoch_seen = max(self._store_epoch_seen,
-                                         self.current.epoch_id)
 
     def _journal(self, state: Optional[RebalanceState]) -> None:
         """Persist the in-flight rebalance (resume journal). No-op for
@@ -935,8 +980,10 @@ class TopologyManager:
         read-modify-write runs under the store lock: an unlocked update
         racing _persist_current (this process or another) could
         re-publish a stale 'current' epoch line over a committed flip."""
+        from cloudberry_tpu_torch.parallel import writer
+
         store = self._session.store
-        if store is None:
+        if store is None or not writer.leads():
             return
         with store.lock():
             self._journal_locked(store, state)
@@ -963,14 +1010,14 @@ class TopologyManager:
         _write_topology(store, rec)
 
     def _restore_journal(self, state: RebalanceState) -> None:
-        store = self._session.store
-        if store is None:
+        from cloudberry_tpu_torch.parallel import writer
+
+        if self._session.store is None:
             return
-        rec = _read_topology(store) or {}
-        pend = rec.get("pending")
-        if not pend or int(pend.get("nseg", -1)) != state.target.nseg \
-                or int(pend.get("old_nseg", -1)) != state.old_nseg:
-            self._journal(state)
+        # a cluster resumes from the journal process 0 reads
+        pend = writer.run(lambda: self._pending_record(state),
+                          lockstep=True)
+        if not pend:
             return
         # resume: a prior run's movement is already on disk — keep its
         # totals and skip its processed files
@@ -980,6 +1027,17 @@ class TopologyManager:
         state.chunks = int(pend.get("chunks", 0))
         state.done_files = {k: list(v) for k, v in
                             (pend.get("done_files") or {}).items()}
+
+    def _pending_record(self, state: RebalanceState) -> Optional[dict]:
+        """The journal's record of an interrupted move to ``state``'s
+        target, else None after journaling ``state`` as the new one."""
+        store = self._session.store
+        pend = (_read_topology(store) or {}).get("pending")
+        if not pend or int(pend.get("nseg", -1)) != state.target.nseg \
+                or int(pend.get("old_nseg", -1)) != state.old_nseg:
+            self._journal(state)
+            return None
+        return pend
 
     # ---------------------------------------------------- observability
 

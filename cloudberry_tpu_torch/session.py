@@ -216,6 +216,8 @@ class Session:
     def __init__(self, config: Config | None = None, device=None):
         from cloudberry_tpu_torch.catalog.catalog import Catalog
 
+        # the config a statement attempt runs under, per thread (config)
+        self._attempt_cfg = threading.local()
         self.config = config or get_config()
         if device is None:
             if not torch.cuda.is_available():
@@ -347,6 +349,25 @@ class Session:
 
     # the generic-plan cache lives in the session's cache scope
     # (sched/sharedcache.py): shared by the sessions over one store root
+    @property
+    def config(self) -> Config:
+        """The session's config. While a statement attempt runs on this
+        thread (``_sql_once``), the config it started under: a topology
+        cutover or degrade that another thread adopts meanwhile swaps the
+        session's config, and an attempt that read its plan under one
+        segment count and its shard layouts under another would index a
+        segment that is not there, or drop the rows of one that is. The
+        attempt finishes on its own layout (placement is derived); the
+        next one starts on the new config."""
+        local = self.__dict__.get("_attempt_cfg")
+        pinned = getattr(local, "value", None) if local is not None \
+            else None
+        return self._config if pinned is None else pinned
+
+    @config.setter
+    def config(self, cfg: Config) -> None:
+        self._config = cfg
+
     @property
     def _generic_cache(self) -> dict:
         return self._cache_scope.generic
@@ -680,6 +701,36 @@ class Session:
         return query + "\x00" + repr(sorted(params.items()))
 
     def _sql_once(self, query: str, **params: Any):
+        from cloudberry_tpu_torch.parallel import writer
+
+        # the attempt runs on one config (the ``config`` property)
+        local = self._attempt_cfg
+        outer = getattr(local, "value", None)
+        local.value = self._config
+        try:
+            # a cluster's processes read one snapshot of the store:
+            # process 0's, registered on every process and pinned for
+            # the attempt
+            agreed = self._cluster_snapshot()
+            self._sync_store(agreed)
+            # a cluster's processes run this attempt on one layout and
+            # one snapshot, or none
+            self._topology.agree(self)
+            # every process runs the attempt in the same order, so its
+            # store commits go through the one writer (parallel/writer.py)
+            with writer.lockstep():
+                if agreed is None:
+                    return self._run_statement(query, params)
+                self._agreed = agreed
+                try:
+                    with self.store.snapshot(agreed[1]):
+                        return self._run_statement(query, params)
+                finally:
+                    self._agreed = None
+        finally:
+            local.value = outer
+
+    def _run_statement(self, query: str, params: dict):
         import time as _t
 
         from cloudberry_tpu_torch.exec.resource import (ResourceError,
@@ -691,9 +742,6 @@ class Session:
         from cloudberry_tpu_torch.sql.parser import parse_sql
         from cloudberry_tpu_torch.utils.faultinject import fault_point
 
-        self._sync_store()
-        # a cluster's processes run this attempt on one layout, or none
-        self._topology.agree(self)
         self.last_tiled_report = None  # set again by a tiled run
         ckey = self._stmt_cache_key(query, params)
         cached = self._cached_statement(ckey)
@@ -749,6 +797,7 @@ class Session:
                 import copy
 
                 clone = copy.copy(self)
+                clone._attempt_cfg = threading.local()
                 clone.config = self.config.with_overrides(
                     **{"planner.enable_memo": False})
                 result2 = plan_statement(stmt, clone, params)
@@ -847,27 +896,38 @@ class Session:
         return pd.DataFrame(self.copy_errors.get(table.lower(), []),
                             columns=["line", "errmsg", "rawdata"])
 
-    def _sync_store(self) -> None:
+    def _sync_store(self, agreed=None) -> None:
         """Pick up OTHER sessions' committed changes at statement start
         (outside transactions): any table whose store version moved
         re-registers cold; new tables appear, dropped ones vanish. The
         table's device copy (``device_table``) and its store-scan cache
         entries are dropped with the old version — they could never serve
         again, and they hold device memory. Manifests ARE the catalog of
-        record, and the materialized-view definitions reload with them."""
+        record, and the materialized-view definitions reload with them.
+        ``agreed``: a cluster's snapshot (``_cluster_snapshot``), whose
+        versions every table registers at; the ``sync_store`` seam's
+        'skip' holds the session on the snapshot it has."""
         if self.store is None or self._txn_snapshot is not None:
             return
         with self._sync_lock:
             from cloudberry_tpu_torch.utils.faultinject import fault_point
 
-            fault_point("sync_store")
-            # fast path: one epoch read; the per-table walk only runs when
-            # SOMETHING changed since this session last looked
-            epoch = self.store.epoch()
-            if epoch == getattr(self, "_seen_epoch", None):
+            if fault_point("sync_store"):
                 return
+            if agreed is None:
+                # fast path: one epoch read; the per-table walk only runs
+                # when SOMETHING changed since this session last looked
+                epoch = self.store.epoch()
+                if epoch == getattr(self, "_seen_epoch", None):
+                    return
+                versions = {n: self.store.current_version(n)
+                            for n in self.store.table_names()}
+            else:
+                # a cluster walks every time: a table this process did not
+                # write itself (process 0 wrote it alone) re-registers
+                epoch, versions = agreed
             self._seen_epoch = epoch
-            names = set(self.store.table_names())
+            names = set(versions)
             stale = set()
             for name in list(self.catalog.tables):
                 t = self.catalog.tables[name]
@@ -878,13 +938,13 @@ class Session:
                     self.catalog.bump_ddl()
                     stale.add(name)
                     continue
-                v = self.store.current_version(name)
-                if v != getattr(t, "_store_version", None):
+                if versions[name] != getattr(t, "_store_version", None):
                     del self.catalog.tables[name]
-                    self.store.register_cold(self.catalog, name)
+                    self.store.register_cold(self.catalog, name,
+                                             versions[name])
                     stale.add(name)
             for name in sorted(names - set(self.catalog.tables)):
-                self.store.register_cold(self.catalog, name)
+                self.store.register_cold(self.catalog, name, versions[name])
             self._drop_table_caches(stale)
             # matview definitions are store state too (another session may
             # have created/refreshed one)
@@ -892,6 +952,40 @@ class Session:
 
             self.catalog.matviews = {}
             load_defs(self)
+
+    def _cluster_snapshot(self):
+        """A store-backed cluster's snapshot for one statement: (store
+        epoch, {table: version}) as process 0 reads them, broadcast to
+        every process. None in one process, without a store and inside a
+        transaction (which reads BEGIN's agreed snapshot)."""
+        from cloudberry_tpu_torch.parallel.mesh import (process_count,
+                                                        process_index)
+
+        if self.store is None or self._txn_snapshot is not None \
+                or process_count() == 1:
+            return None
+        import torch.distributed as dist
+
+        snap = [None]
+        if process_index() == 0:
+            snap[0] = (self.store.epoch(),
+                       {n: self.store.current_version(n)
+                        for n in self.store.table_names()})
+        dist.broadcast_object_list(snap, src=0)
+        return snap[0]
+
+    def _snapshot_digest(self) -> int:
+        """A checksum of the store versions this session's tables are
+        registered at (0 without a store): ``TopologyManager.agree``
+        holds a cluster's processes to one."""
+        if self.store is None:
+            return 0
+        import zlib
+
+        return zlib.crc32(repr(sorted(
+            (n, getattr(t, "_store_version", None))
+            for n, t in self.catalog.tables.items()
+            if t.backing is not None)).encode())
 
     def _drop_table_caches(self, names) -> None:
         """Forget the device copies, shard layouts and store-scan cache
@@ -943,8 +1037,10 @@ class Session:
             }
             if self.store is not None:
                 # durable writes defer to COMMIT; ROLLBACK never touches
-                # disk. The BEGIN snapshot's versions are the OCC base.
-                self.store.begin_txn()
+                # disk. The BEGIN snapshot's versions are the OCC base
+                # (a cluster's: the statement's agreed snapshot)
+                agreed = getattr(self, "_agreed", None)
+                self.store.begin_txn(agreed and agreed[1])
                 self._txn_base = dict(self.store.pinned)
             return "BEGIN"
         if snap is None:
@@ -968,6 +1064,36 @@ class Session:
         only commit-time lock and conflicts abort rather than wait, no
         waits-for cycle can form (the no-deadlock argument that replaces
         the reference's global deadlock detector, gdd/README.md)."""
+        from cloudberry_tpu_torch.parallel import writer
+
+        # in a cluster process 0 alone checks and publishes; the others
+        # take its outcome, and roll back with it when it fails
+        try:
+            merged = writer.run(lambda: self._occ_publish(snap)) or []
+        except BaseException:
+            if writer.follows():
+                self._restore_snapshot(snap)
+            raise
+        if writer.follows():
+            self.store.abort_txn()   # nothing of it was written here
+        # a merged table's RAM copy is missing the other session's rows —
+        # drop it so the next statement reloads the merged snapshot
+        for name in merged:
+            self.catalog.tables.pop(name, None)
+            self.store.register_cold(self.catalog, name)
+            self.catalog.bump_ddl()
+        self._forget_tables(merged)
+        if getattr(self, "_matviews_dirty", False):
+            # definitions deferred during the transaction flush only after
+            # the data commit succeeded
+            from cloudberry_tpu_torch.plan.matview import _persist_defs
+
+            self._matviews_dirty = False
+            _persist_defs(self)
+
+    def _occ_publish(self, snap) -> list:
+        """The locked check-then-publish of ``_occ_commit``; returns the
+        tables whose appends merged onto another session's commit."""
         from cloudberry_tpu_torch import lifecycle
         from cloudberry_tpu_torch.utils.faultinject import fault_point
 
@@ -995,20 +1121,7 @@ class Session:
                       if self.store.txn_append_only(n)
                       and self.store.current_version(n) != base.get(n, 0)]
             self.store.commit_txn(base)
-        # a merged table's RAM copy is missing the other session's rows —
-        # drop it so the next statement reloads the merged snapshot
-        for name in merged:
-            self.catalog.tables.pop(name, None)
-            self.store.register_cold(self.catalog, name)
-            self.catalog.bump_ddl()
-        self._forget_tables(merged)
-        if getattr(self, "_matviews_dirty", False):
-            # definitions deferred during the transaction flush only after
-            # the data commit succeeded
-            from cloudberry_tpu_torch.plan.matview import _persist_defs
-
-            self._matviews_dirty = False
-            _persist_defs(self)
+        return merged
 
     def _restore_snapshot(self, snap) -> None:
         """Abort the store's transaction and put BEGIN's RAM state back."""
@@ -1325,7 +1438,7 @@ class Session:
         from cloudberry_tpu_torch.plan.planner import plan_statement
         from cloudberry_tpu_torch.sql.parser import parse_sql
 
-        self._sync_store()
+        self._sync_store(self._cluster_snapshot())
         result = plan_statement(parse_sql(query), self, {},
                                 explain_only=True)
         if result.is_ddl:
@@ -1362,7 +1475,7 @@ class Session:
         from cloudberry_tpu_torch.plan.planner import plan_statement
         from cloudberry_tpu_torch.sql.parser import parse_sql
 
-        self._sync_store()
+        self._sync_store(self._cluster_snapshot())
         stmt = parse_sql(query)
         result = plan_statement(stmt, self, {})
         if result.is_ddl:

@@ -64,6 +64,7 @@ import uuid
 import numpy as np
 
 from cloudberry_tpu_torch import lifecycle
+from cloudberry_tpu_torch.parallel import writer
 from cloudberry_tpu_torch.storage import iofault
 from cloudberry_tpu_torch.utils.faultinject import fault_point
 
@@ -260,7 +261,8 @@ class CompactionService:
                     and getattr(breaker, "state", "closed") == "open":
                 continue
             try:
-                self.run_once()
+                # in a cluster, process 0's service alone commits
+                writer.run(self._pass, lockstep=False)
             except lifecycle.StatementCancelled:
                 continue  # an operator cancelled one pass, not the service
             except Exception:  # noqa: BLE001 — the worker must survive
@@ -273,7 +275,12 @@ class CompactionService:
                  force: bool = False) -> dict:
         """One full pass: every table over the invariant threshold
         (``force`` compacts regardless) is driven to a clean manifest.
-        Returns the pass's counters; safe to call directly in tests."""
+        Returns the pass's counters; safe to call directly in tests. In a
+        cluster every process calls it, process 0 alone compacts and the
+        others return its counters (parallel/writer.py)."""
+        return writer.run(lambda: self._pass(table, force), lockstep=True)
+
+    def _pass(self, table: str | None = None, force: bool = False) -> dict:
         store = getattr(self.session, "store", None)
         out = {"tables": 0, "chunks": 0, "rows": 0, "parts_merged": 0,
                "delta_parts_max": 0}
@@ -495,13 +502,17 @@ class CompactionService:
         store._atomic_json(self._journal_path(store), rec)
 
     def restore(self) -> None:
-        """Crash recovery, run at construction: a pending record names
+        """Crash recovery, run at construction (by process 0 alone in a
+        cluster): a pending record names
         replacement files whose commit may or may not have happened —
         files absent from the table's CURRENT manifest are orphans from
         a pre-commit crash and are deleted; files present committed
         (the crash was after) and stay. Either way the store is clean
         and the next pass re-derives its work from the manifest —
         resumability without replaying anything."""
+        writer.run(self._restore, lockstep=False)
+
+    def _restore(self) -> None:
         store = getattr(self.session, "store", None)
         if store is None:
             return

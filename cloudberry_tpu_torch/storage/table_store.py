@@ -20,6 +20,7 @@ Layout:
 
 from __future__ import annotations
 
+import contextlib
 import fcntl
 import json
 import os
@@ -32,6 +33,7 @@ from typing import Optional
 import numpy as np
 
 from cloudberry_tpu_torch.columnar.dictionary import StringDictionary
+from cloudberry_tpu_torch.parallel.writer import one_writer
 from cloudberry_tpu_torch.storage import iofault
 from cloudberry_tpu_torch.storage import micropartition as mp
 from cloudberry_tpu_torch.types import DType, Schema
@@ -87,10 +89,27 @@ class TableStore:
         # threads) serialize here first
         self._tlock = threading.Lock()
         self._lock_owner: Optional[int] = None
+        # a cluster statement's agreed snapshot (Session._cluster_snapshot):
+        # this thread's reads resolve to these versions while it runs
+        self._stmt = threading.local()
+
+    @contextlib.contextmanager
+    def snapshot(self, versions: dict):
+        """Resolve this thread's manifest reads to ``versions`` (table ->
+        version) — one cluster statement's agreed snapshot. Writes build
+        on CURRENT regardless (``_head``)."""
+        prev = getattr(self._stmt, "pins", None)
+        self._stmt.pins = versions
+        try:
+            yield
+        finally:
+            self._stmt.pins = prev
 
     # ------------------------------------------------- session transactions
 
-    def begin_txn(self) -> None:
+    def begin_txn(self, versions: Optional[dict] = None) -> None:
+        """Defer writes to COMMIT and pin every table's version:
+        ``versions`` (a cluster's agreed snapshot), else CURRENT's."""
         self.autocommit = False
         self._txn_dirty = {}
         self._txn_stats: dict[str, object] = {}
@@ -102,8 +121,8 @@ class TableStore:
         # src/backend/utils/gdd/README.md)
         self._txn_appends: dict[str, int] = {}
         self._txn_rewrites: set[str] = set()
-        self.pinned = {name: self.current_version(name)
-                       for name in self.table_names()}
+        self.pinned = dict(versions) if versions is not None else {
+            name: self.current_version(name) for name in self.table_names()}
 
     def note_txn_write(self, name: str, appended: Optional[int]) -> None:
         """Record whether a deferred in-transaction write was an append
@@ -120,6 +139,7 @@ class TableStore:
                 and name not in getattr(self, "_txn_rewrites", set())
                 and name not in self._txn_drops)
 
+    @one_writer
     def commit_txn(self, base: Optional[dict] = None) -> None:
         self.pinned = {}  # commit writes against CURRENT, not the snapshot
         base = base or {}
@@ -184,7 +204,7 @@ class TableStore:
         tail = {c: np.asarray(v)[-k:] for c, v in t.data.items()}
         validity = {c: np.asarray(v)[-k:] for c, v in t.validity.items()
                     if len(v)}
-        man = self.read_manifest(name)
+        man = self._head(name)
         stored_dicts = {c: StringDictionary(v)
                         for c, v in man.get("dicts", {}).items()}
         dicts = {}
@@ -227,6 +247,8 @@ class TableStore:
                       version: Optional[int] = None) -> dict:
         if version is None:
             version = self.pinned.get(table)
+        if version is None:
+            version = (getattr(self._stmt, "pins", None) or {}).get(table)
         v = self.current_version(table) if version is None else version
         if v == 0:
             return {"version": 0, "schema": None, "partitions": [],
@@ -242,6 +264,13 @@ class TableStore:
                                "storage.encryption_key configured")
             raw = self.cipher.decrypt(raw[8:])
         return json.loads(raw)
+
+    def _head(self, table: str) -> dict:
+        """The manifest a write builds on: the open transaction's pinned
+        version, else CURRENT (never a cluster statement's snapshot)."""
+        v = self.pinned.get(table)
+        return self.read_manifest(
+            table, self.current_version(table) if v is None else v)
 
     def _commit(self, table: str, manifest: dict) -> int:
         """Atomically publish a new snapshot (single-coordinator commit).
@@ -379,6 +408,7 @@ class TableStore:
 
     # -------------------------------------------------------------- writes
 
+    @one_writer
     def append(self, table: str, data: dict[str, np.ndarray], schema: Schema,
                dicts: dict[str, StringDictionary] | None = None,
                rows_per_partition: int = 1 << 20,
@@ -394,7 +424,7 @@ class TableStore:
         tdir = os.path.join(self.root, table)
         os.makedirs(tdir, exist_ok=True)
         self._check_quota(table)
-        man = self.read_manifest(table)
+        man = self._head(table)
         if replace:
             man["partitions"] = []
         n = len(next(iter(data.values()))) if data else 0
@@ -508,6 +538,7 @@ class TableStore:
                 f"{self.quota_bytes} quota bytes; writes to {table!r} "
                 "refused (DELETE / DROP TABLE to reclaim)")
 
+    @one_writer
     def delete_rows(self, table: str, pred) -> int:
         """Mark rows deleted (visimap-style) where pred(columns)->bool mask;
         pred receives decoded per-partition columns. Returns new version.
@@ -519,7 +550,7 @@ class TableStore:
         side's partitions are silently dropped (last-writer-wins on the
         whole manifest was a lost-update bug under the write plane)."""
         for _ in range(50):
-            man = self.read_manifest(table)
+            man = self._head(table)
             tdir = os.path.join(self.root, table)
             for part in man["partitions"]:
                 cols = mp.read_columns(os.path.join(tdir, part["file"]),
@@ -689,6 +720,7 @@ class TableStore:
     def _write_sequences(self, seqs: dict) -> None:
         self._atomic_json(self._seq_path(), seqs)
 
+    @one_writer
     def create_sequence(self, name: str, start: int = 1, increment: int = 1,
                         if_not_exists: bool = False) -> None:
         if increment == 0:
@@ -702,6 +734,7 @@ class TableStore:
             seqs[name] = {"next": int(start), "inc": int(increment)}
             self._write_sequences(seqs)
 
+    @one_writer
     def drop_sequence(self, name: str, if_exists: bool = False) -> None:
         with self.lock():
             seqs = self._read_sequences()
@@ -712,6 +745,7 @@ class TableStore:
             del seqs[name]
             self._write_sequences(seqs)
 
+    @one_writer
     def sequence_alloc(self, name: str) -> int:
         """Reserve and return the next value."""
         with self.lock():
@@ -724,6 +758,7 @@ class TableStore:
             self._write_sequences(seqs)
             return base
 
+    @one_writer
     def sequence_setval(self, name: str, value: int) -> None:
         with self.lock():
             seqs = self._read_sequences()
@@ -738,6 +773,7 @@ class TableStore:
 
     # --------------------------------------------------- matview definitions
 
+    @one_writer
     def save_matviews(self, defs: dict) -> None:
         """Persist materialized-view definitions (full DDL text) — the
         gp_matview_aux catalog analog."""
@@ -754,6 +790,7 @@ class TableStore:
 
     # ------------------------------------------------------ session bridge
 
+    @one_writer
     def save_table(self, t, rows_per_partition: int = 1 << 20) -> int:
         """Persist a catalog Table's current data as a fresh snapshot
         (one atomic commit). Records per-column uniqueness so cold
@@ -772,6 +809,7 @@ class TableStore:
                                 t.stats.analyzed_rows)
         return v
 
+    @one_writer
     def drop_table(self, name: str) -> None:
         import shutil
 
@@ -788,6 +826,7 @@ class TableStore:
                 out.append(name)
         return out
 
+    @one_writer
     def save_stats(self, name: str, ndv: dict[str, int],
                    hist: dict | None = None,
                    analyzed_rows: int | None = None) -> int:
@@ -796,7 +835,7 @@ class TableStore:
         equi-depth histogram bounds per column (pg_statistic
         histogram_bounds role); ``analyzed_rows``: row count at ANALYZE
         time (the autostats change baseline)."""
-        man = self.read_manifest(name)
+        man = self._head(name)
         man["ndv"] = {k: int(v) for k, v in ndv.items()}
         if hist is not None:
             man["hist"] = {k: [float(x) for x in v]
@@ -805,16 +844,18 @@ class TableStore:
             man["analyzed_rows"] = int(analyzed_rows)
         return self._commit(name, man)
 
-    def register_cold(self, catalog, name: str):
+    def register_cold(self, catalog, name: str,
+                      version: Optional[int] = None):
         """Register a stored table WITHOUT loading data: schema, policy,
         dictionaries, nullability, row count, per-column min/max and
-        uniqueness all come from the manifest, so the planner can bind and
+        uniqueness all come from the manifest (``version``'s, else the
+        pinned or current one), so the planner can bind and
         prune scans against the cold table (the reference analog: catalog
         entries + pg_statistic exist without touching segment files)."""
         from cloudberry_tpu_torch.catalog.catalog import DistributionPolicy
         from cloudberry_tpu_torch.types import Field as TField
 
-        man = self.read_manifest(name)
+        man = self.read_manifest(name, version)
         if man["schema"] is None:
             return None
         nullable = set(man.get("nullable", []))

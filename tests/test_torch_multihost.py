@@ -23,13 +23,27 @@ that pin different layouts raise ``ClusterLayoutError``; and a parallel
 retrieve cursor raises a named ``NotImplementedError`` (the JAX package
 fails there too).
 
-Both workers run once per module (about 20 s alone here); every wait is
-bounded: the workers by ``WORKER_TIMEOUT_S``, each collective by
+The same workers then run a store-backed cluster (6 segments, 4 + 2)
+over copies of one store: its reads, DML and transaction commit, a
+compaction pass and an online resize 6 -> 8 that moves stored
+partitions, each equal to one port process (and the JAX package's one
+process) over another copy, with exactly one manifest version per
+written table and statement, since process 0 alone commits
+(parallel/writer.py; the JAX package commits on every process, ROADMAP
+C 62); an INSERT whose process 0 is held between its manifest read and
+its commit still commits once; a process held on an older snapshot
+raises ``ClusterSnapshotError`` on every process; a resize interrupted
+by a chunk fault on process 0 resumes from the journal on every
+process; a failover shrink over the store.
+
+Both workers run once per module (the module about 75 s alone here);
+every wait is bounded: the workers by ``WORKER_TIMEOUT_S``, each collective by
 ``mesh.DIST_TIMEOUT_S``.
 """
 
 import json
 import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -41,13 +55,18 @@ from cloudberry_tpu_torch import Config as TorchConfig
 from cloudberry_tpu_torch import Session as TorchSession
 from cloudberry_tpu_torch.parallel import mesh as TM
 from cloudberry_tpu_torch.parallel import transport as TT
-from torch_multihost_worker import (B, DIRECT_QUERY, HOST_CAP,
-                                    LOCAL_SLOTS, NSEG, QUERIES, RAGGED,
-                                    RESIZE, SKEW_QUERY, SPILL_BUDGET,
-                                    SPILL_QUERY, SURVIVORS, TILED, W,
-                                    collective_inputs, load, pipe_load,
-                                    ragged_inputs, recovery_runs, rows,
-                                    skew_load, spill_load, tiled_report)
+from torch_multihost_worker import (B, COPY_FILE, DIRECT_QUERY,
+                                    HOST_CAP, LOCAL_SLOTS, NSEG, QUERIES,
+                                    RACE_INSERT, RAGGED, RESIZE,
+                                    SKEW_QUERY, SPILL_BUDGET, SPILL_QUERY,
+                                    STORE_CFG, STORE_DML, STORE_QUERIES,
+                                    SURVIVORS, TILED, W, collective_inputs,
+                                    live_by_seg, load, pipe_load,
+                                    ragged_inputs, recovery_runs,
+                                    resume_run, rows, skew_load,
+                                    spill_load, store_answers, store_copies,
+                                    store_dml, store_session, tiled_report,
+                                    versions)
 from torch_parity import strip_timings
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -62,7 +81,16 @@ def _free_port() -> int:
 
 
 @pytest.fixture(scope="module")
-def cluster():
+def stores(tmp_path_factory):
+    """The directory of the store copies the workers use; its ``base``
+    is the untouched store the one-process runs copy."""
+    top = tmp_path_factory.mktemp("cluster_stores")
+    store_copies(str(top))
+    return top
+
+
+@pytest.fixture(scope="module")
+def cluster(stores):
     """Both workers' RESULT objects, by process index."""
     port = _free_port()
     procs = []
@@ -75,7 +103,7 @@ def cluster():
         env["CBTPU_PROC_ID"] = str(pid)
         env["CBTPU_LOCAL_SLOTS"] = str(LOCAL_SLOTS)
         procs.append(subprocess.Popen(
-            [sys.executable, WORKER], env=env, cwd=REPO,
+            [sys.executable, WORKER, str(stores)], env=env, cwd=REPO,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     outs = []
     try:
@@ -559,8 +587,8 @@ def test_device_lost_redispatch_degrades_every_process_alike(cluster):
 
 
 def test_online_resize_6_to_8_moves_the_one_process_rows(cluster):
-    """4 + 2 -> 4 + 4: epoch 2, and each process counts the moved rows
-    of the segments it owned, so their sum is the one-process run's."""
+    """4 + 2 -> 4 + 4: epoch 2, and every process reports the cluster's
+    move: the one-process run's counts."""
     one = _port(nseg=RESIZE[0])
     rec = one._topology.online_resize(RESIZE[1])
     for p, o in enumerate(cluster):
@@ -571,9 +599,8 @@ def test_online_resize_6_to_8_moves_the_one_process_rows(cluster):
         assert r["after"]["layout"]["local"] == [[0, 1, 2, 3],
                                                  [4, 5, 6, 7]][p]
         assert o["local_6"] == r["before"]["layout"]["local"]
-    for k in ("moved_rows", "total_rows"):
-        assert sum(o["resize"][k] for o in cluster) \
-            == rec["rebalance"][k] > 0, k
+        for k in ("moved_rows", "total_rows"):
+            assert r[k] == rec["rebalance"][k] > 0, k
 
 
 def test_online_resize_results_equal_jax(cluster):
@@ -635,3 +662,208 @@ def test_ragged_all_to_all_bytes_equal_the_extended_wire_model(cluster):
             == model["dcn_bytes"], tx
     for o in cluster:
         assert o["ragged"]["ring"]["launches"] == ring.launches
+
+
+# ------------------------------------------------ the store-backed cluster
+
+
+def _copy(stores, tmp_path, name="one") -> str:
+    """A fresh copy of the untouched store under ``tmp_path``."""
+    dst = str(tmp_path / name)
+    shutil.copytree(str(stores / "base"), dst)
+    return dst
+
+
+def _jax_store(root, nseg=6):
+    import cloudberry_tpu as cb
+    from cloudberry_tpu.config import get_config
+
+    return cb.Session(get_config().with_overrides(
+        n_segments=nseg, **{"storage.root": root, **STORE_CFG}))
+
+
+def _store(cluster, name) -> list:
+    """Both processes' record of one store scenario, which must have run."""
+    recs = [o["store"][name] for o in cluster]
+    for r in recs:
+        assert "error" not in r, r["error"]
+    return recs
+
+
+def test_store_reads_equal_one_process_and_jax(cluster, stores, tmp_path):
+    """Each process answers from the store as one port process does (the
+    stored values, DECIMAL sums included, bit for bit) and as the JAX
+    package's one process does."""
+    one = store_answers(store_session(_copy(stores, tmp_path)))
+    js = _jax_store(_copy(stores, tmp_path, "jax"))
+    jax = [_jax_rows(js, q) for q in STORE_QUERIES]
+    for p, r in enumerate(_store(cluster, "reads")):
+        assert r["answers"] == one
+        assert [a["rows"] for a in r["answers"]] == jax
+        assert r["layout"]["local"] == [[0, 1, 2, 3], [4, 5]][p]
+
+
+def test_store_failover_shrink_over_a_store(cluster):
+    """A device loss on a store-backed 8-segment cluster promotes to a
+    failover epoch of 7 segments (3 + 4) on both processes, answering as
+    before."""
+    want = _store(cluster, "reads")[0]["answers"][0]
+    for p, r in enumerate(_store(cluster, "reads")):
+        f = r["failover"]
+        assert f["answer"] == want
+        assert f["reason"] == "failover"
+        assert (f["layout"]["nseg"], f["layout"]["live"]) == (7, SURVIVORS)
+        assert f["layout"]["local"] == [[0, 1, 2], [3, 4, 5, 6]][p]
+
+
+@pytest.fixture(scope="module")
+def one_dml(stores, tmp_path_factory):
+    """STORE_DML, its answers and a compaction pass in one port process
+    over a copy of the store."""
+    from cloudberry_tpu_torch.storage.compact import CompactionService
+
+    root = _copy(stores, tmp_path_factory.mktemp("one_dml"))
+    s = store_session(root)
+    rec = {"statements": store_dml(s, root, str(stores / COPY_FILE)),
+           "answers": store_answers(s)}
+    before = versions(root)["t"]
+    rec["compact"] = CompactionService(s).run_once(force=True)
+    rec["compact_added"] = versions(root)["t"] - before
+    rec["after_compact"] = store_answers(s)
+    return rec
+
+
+@pytest.mark.parametrize("i", range(len(STORE_DML)))
+def test_store_dml_commits_once_on_process_0(cluster, one_dml, i):
+    """Each statement's status equals the one-process run's, and adds
+    exactly one manifest version to each table it writes (the COMMIT to
+    both of its tables; none inside the transaction): one commit, by
+    process 0, not one per process."""
+    want = one_dml["statements"][i]
+    q = STORE_DML[i].split()[0].upper()
+    written = {"COMMIT": {"t": 1, "d": 1}, "BEGIN": {}}.get(q, {"t": 1})
+    in_txn = 4 < i < 7
+    assert want["added"] == {n: (0 if in_txn else written.get(n, 0))
+                             for n in ("d", "t")}
+    for r in _store(cluster, "dml"):
+        assert r["statements"][i] == want
+
+
+def test_store_dml_results_equal_one_process_and_jax(cluster, one_dml,
+                                                     stores, tmp_path):
+    """After the DML and the transaction, each process answers as the
+    one port process and the JAX package's one process over copies of
+    the store; so does each process after a compaction pass that process
+    0 alone committed."""
+    js = _jax_store(_copy(stores, tmp_path, "jax"))
+    for q in STORE_DML:
+        js.sql(q.format(copy=str(stores / COPY_FILE)))
+    jax = [_jax_rows(js, q) for q in STORE_QUERIES]
+    assert [a["rows"] for a in one_dml["answers"]] == jax
+    for r in _store(cluster, "dml"):
+        assert r["answers"] == one_dml["answers"]
+        assert r["compact"] == one_dml["compact"]
+        assert r["compact_added"] == one_dml["compact_added"] > 0
+        assert r["after_compact"] == one_dml["answers"]
+
+
+def test_store_insert_held_between_read_and_commit_commits_once(
+        cluster, stores, tmp_path):
+    """Process 0 sleeps between its manifest read and its commit: without
+    one writer the other process commits meanwhile and the INSERT makes
+    two manifest versions; with it, one, and the rows are the one-process
+    run's."""
+    root = _copy(stores, tmp_path)
+    s = store_session(root)
+    status = str(s.sql(RACE_INSERT))
+    want = store_answers(s)
+    for r in _store(cluster, "race"):
+        assert (r["status"], r["added"]) == (status, 1)
+        assert r["answers"] == want
+
+
+def test_store_commit_error_on_process_0_raises_on_every_process(cluster):
+    """Process 0's manifest write fails: the INSERT raises the same error
+    on both processes, and neither keeps its rows."""
+    for r in _store(cluster, "race"):
+        assert r["failed"] == "fault injected at 'io_manifest_write'"
+        assert r["after_failed"] == r["answers"][0]
+
+
+def test_store_snapshot_agreement_raises_on_every_process(cluster, stores,
+                                                          tmp_path):
+    """Process 0 commits outside a statement and process 1 is held on the
+    older snapshot: the next statement raises on both instead of
+    answering from two versions, and the one after answers from the new
+    version on both."""
+    root = _copy(stores, tmp_path)
+    s = store_session(root)
+    first = store_answers(s)[0]
+    s.store.delete_rows("d", lambda c: c["g"] == 11)
+    after = store_answers(s)[2]
+    for r in _store(cluster, "held"):
+        assert r["first"] == first
+        assert r["raised"].startswith(
+            "the processes pinned different store snapshots"), r["raised"]
+        assert r["next"] == after
+
+
+@pytest.fixture(scope="module")
+def one_resize(stores, tmp_path_factory):
+    """The one-process port's and the JAX package's resize 6 -> 8 over
+    copies of the store."""
+    top = tmp_path_factory.mktemp("one_resize")
+    root = _copy(stores, top)
+    s = store_session(root)
+    rec = s._topology.online_resize(8)["rebalance"]
+    out = {"port": {"rebalance": rec, "live": live_by_seg(root, 8),
+                    "answers": store_answers(s)}}
+    jroot = _copy(stores, top, "jax")
+    js = _jax_store(jroot)
+    jrec = js._topology.online_resize(8)["rebalance"]
+    out["jax"] = {"rebalance": jrec, "live": live_by_seg(jroot, 8),
+                  "answers": [_jax_rows(js, q) for q in STORE_QUERIES]}
+    return out
+
+
+def test_store_resize_moves_the_one_process_partitions(cluster,
+                                                       one_resize):
+    """Process 0 alone moves the stored delta: the same live rows per
+    destination segment in the partitions tagged for 8 segments, and the
+    same live total, as one port process's resize and the JAX package's;
+    every process reports the mover's counts (the JAX package reports
+    each process's own)."""
+    port, jax = one_resize["port"], one_resize["jax"]
+    assert port["live"] == jax["live"]
+    assert port["rebalance"]["moved_rows"] \
+        == jax["rebalance"]["moved_rows"] > 0
+    for p, r in enumerate(_store(cluster, "resize")):
+        assert r["live"] == port["live"]
+        for k in ("moved_rows", "total_rows", "moved_bytes"):
+            assert r[k] == port["rebalance"][k], k
+        assert (r["epoch"], r["reason"]) == (2, "expand")
+        assert r["layout"]["local"] == [[0, 1, 2, 3], [4, 5, 6, 7]][p]
+
+
+def test_store_resize_results_equal_one_process_and_jax(cluster,
+                                                        one_resize):
+    want = one_resize["port"]["answers"]
+    assert [a["rows"] for a in want] == one_resize["jax"]["answers"]
+    for r in _store(cluster, "resize"):
+        assert r["before"] == want == r["answers"]
+
+
+def test_store_resize_resumes_from_the_journal_on_every_process(
+        cluster, one_resize, stores, tmp_path):
+    """A chunk fault on process 0 fails the resize on both processes; a
+    fresh session resumes it from ``_TOPOLOGY.json`` on both, leaving the
+    store as the uninterrupted resize does and reporting the counts of one
+    port process's resume after the same fault."""
+    one = resume_run(_copy(stores, tmp_path))
+    assert one["failed"] and one["live"] == one_resize["port"]["live"]
+    for r in _store(cluster, "resume"):
+        assert r["failed"] == one["failed"]
+        assert r["live"] == one["live"]
+        assert r["answers"] == one_resize["port"]["answers"]
+        for k in ("epoch", "moved_rows", "total_rows", "moved_bytes"):
+            assert r[k] == one[k], k

@@ -471,6 +471,40 @@ def test_stale_nseg_plan_never_serves_after_cutover(tmp_path, monkeypatch):
     assert calls["c"] >= 1 and js.stmt_log.counter("compiles") > c1
 
 
+def test_a_statement_straddling_a_cutover_answers_on_its_own_layout():
+    """A cached 4-segment statement held at its dispatch seam while
+    another thread cuts the session over to 8 segments (no drain wait)
+    finishes on the layout it started under: every row counted, and no
+    re-dispatch. Its runner used to read the shard layouts of the new
+    config, 8 segments for a 4-segment gang, and dropped the rows of
+    segments 4-7 (a wrong answer with no error, ROADMAP C 59)."""
+    from cloudberry_tpu_torch import Config, Session
+    from cloudberry_tpu_torch.utils import faultinject as FI
+
+    s = Session(Config(n_segments=4).with_overrides(**_BACKOFF),
+                device="cpu")
+    _load(20000)(s)
+    want = s.sql(_Q).decoded_columns()
+    out = []
+    FI.inject_fault("dispatch_start", "hang", sleep_s=30)
+    th = threading.Thread(target=lambda: out.append(
+        s.sql(_Q).decoded_columns()))
+    th.start()
+    deadline = time.monotonic() + 30
+    while FI.list_faults()["armed"]["dispatch_start"]["fired"] < 1:
+        assert time.monotonic() < deadline, "the statement never dispatched"
+        time.sleep(0.005)
+    rec = s._topology.online_resize(8, wait_s=0)
+    assert rec["stragglers"] == 1 and s.config.n_segments == 8
+    FI.reset_fault()
+    th.join(timeout=30)
+    assert not th.is_alive() and len(out) == 1
+    assert {k: v.tolist() for k, v in out[0].items()} \
+        == {k: v.tolist() for k, v in want.items()}
+    assert s.stmt_log.counter("recoveries") == 0
+    assert s.sql(_Q).decoded_columns()["c"].tolist() == [20000]
+
+
 def test_join_index_key_carries_epoch_token(tmp_path):
     from cloudberry_tpu_torch.sched import sharedcache as TSC
 

@@ -23,9 +23,17 @@ accumulator overflow's retry, the skew sentinel's replan and its seam
 on one process), the refused cursor, and a statement whose processes
 disagree on the layout.
 
+With a directory argument (``store_copies`` made it), the store-backed
+cluster too (``store_runs``): 6 segments (4 + 2) over copies of one
+store, its reads, DML, a transaction and a compaction pass committed by
+process 0 alone, an INSERT whose process 0 is held between its manifest
+read and its commit, a process held on an older snapshot, an online
+resize 6 -> 8 that moves stored partitions, its journal resume after a
+chunk fault on process 0, and a failover shrink.
+
 The spawner provides the environment; this module imports no JAX and
 must not change ``os.environ`` (the test imports ``QUERIES``, ``load``,
-``collective_inputs`` and ``skew_load`` from it).
+``collective_inputs``, ``skew_load`` and the store helpers from it).
 """
 
 import json
@@ -97,6 +105,37 @@ RECOVERY_COUNTERS = ("tile_replans", "tile_resumes", "tile_checkpoints",
 RAGGED = (0, 0, 0, 0, 1, 1)       # the collectives' 4 + 2 layout
 B, W = 4, 3
 HOST_CAP = 4 * 4 * B      # a host pair's most rows: no host rung overflow
+# the store-backed cluster: t (5,000 rows in 5 micro-partitions, hashed
+# by k, a DECIMAL column) and d (12 rows), 6 segments (4 + 2)
+STORE_ROWS, STORE_RPP, STORE_NSEG = 5000, 1000, 6
+STORE_CFG = {"storage.rows_per_partition": STORE_RPP,
+             "planner.autostats": "none"}
+STORE_QUERIES = [
+    "SELECT count(*) AS n, sum(k) AS sk, sum(v) AS sv FROM t",
+    "SELECT g, count(*) AS c, sum(v) AS sv FROM t GROUP BY g ORDER BY g",
+    ("SELECT w, count(*) AS c, sum(t.v) AS sv FROM t JOIN d ON t.g = d.g "
+     "WHERE t.k % 7 = 1 GROUP BY w ORDER BY w"),
+]
+STORE_COPIES = ("reads", "dml", "race", "held", "resize", "resume")
+COPY_FILE = "copy.txt"          # COPY's input, beside the copies
+STORE_DML = [
+    "INSERT INTO t VALUES (100000, 1.25, 3), (100001, 2.50, 4)",
+    "DELETE FROM t WHERE k < 300",
+    "UPDATE t SET v = v + 1 WHERE g = 2",
+    "COPY t FROM '{copy}'",
+    "BEGIN",
+    "INSERT INTO t VALUES (100002, 7.75, 5)",
+    "UPDATE d SET w = w + 1 WHERE g = 1",
+    "COMMIT",
+    # two small tails for the compaction pass to merge
+    "INSERT INTO t VALUES (100003, 0.01, 6)",
+    "INSERT INTO t VALUES (100004, 0.02, 7)",
+]
+RACE_INSERT = "INSERT INTO t VALUES (200000, 9.99, 1)"
+RACE_SLEEP_S = 1.0
+FAILED_INSERT = "INSERT INTO t VALUES (200001, 1.00, 2)"
+RESUME_HIT = 3                  # the chunk fault's hit on process 0
+TOPOLOGY_LAG_S = 0.2            # process 0's topology writes, delayed
 
 
 def load(session):
@@ -173,6 +212,253 @@ def pipe_load(n_fact, n_groups):
             {"k": rng.integers(0, 500, n_fact),
              "v": rng.integers(0, 100, n_fact)})
     return load
+
+
+def store_load(session):
+    """The store-backed cluster's tables (seed 13)."""
+    rng = np.random.default_rng(13)
+    session.sql("CREATE TABLE t (k BIGINT, v DECIMAL(12,2), g BIGINT) "
+                "DISTRIBUTED BY (k)")
+    session.sql("CREATE TABLE d (g BIGINT, w BIGINT) DISTRIBUTED BY (g)")
+    session.catalog.table("t").set_data(
+        {"k": np.arange(STORE_ROWS),
+         "v": rng.integers(-100_000, 100_000, STORE_ROWS),
+         "g": rng.integers(0, 12, STORE_ROWS)})
+    session.catalog.table("d").set_data(
+        {"g": np.arange(12), "w": np.arange(12) % 5})
+
+
+def store_copies(root) -> str:
+    """A base store under ``root`` (written by a one-process port
+    session), a copy per ``STORE_COPIES`` name and COPY's input file;
+    returns the base's path."""
+    import os
+    import shutil
+
+    import cloudberry_tpu_torch as ct
+
+    base = os.path.join(root, "base")
+    store_load(ct.Session(ct.Config(n_segments=STORE_NSEG).with_overrides(
+        **{"storage.root": base, **STORE_CFG}), device="cpu"))
+    for name in STORE_COPIES:
+        shutil.copytree(base, os.path.join(root, name))
+    with open(os.path.join(root, COPY_FILE), "w") as f:
+        f.write("".join(f"{300_000 + i}|{i * 1.25:.2f}|{i % 12}\n"
+                        for i in range(40)))
+    return base
+
+
+def store_session(root, nseg=STORE_NSEG, **over):
+    """A CPU session of ``nseg`` segments over the store at ``root``."""
+    import cloudberry_tpu_torch as ct
+
+    return ct.Session(ct.Config(n_segments=nseg).with_overrides(
+        **{"storage.root": root, **STORE_CFG, **over}), device="cpu")
+
+
+def physical(batch) -> dict:
+    """Selected rows of every column as stored (DECIMALs as integers)."""
+    sel = np.asarray(batch.sel)
+    return {f.name: np.asarray(batch.columns[f.name])[sel].tolist()
+            for f in batch.schema.fields}
+
+
+def versions(root) -> dict:
+    """Each stored table's CURRENT manifest version."""
+    from cloudberry_tpu_torch.storage.table_store import TableStore
+
+    ts = TableStore(root)
+    return {n: ts.current_version(n) for n in ts.table_names()}
+
+
+def live_by_seg(root, nseg) -> dict:
+    """Live rows per destination segment of ``t``'s partitions tagged for
+    ``nseg`` segments, and ``t``'s live rows in all."""
+    from cloudberry_tpu_torch.storage.table_store import TableStore
+
+    man = TableStore(root).read_manifest("t")
+    segs: dict = {}
+    total = 0
+    for p in man["partitions"]:
+        n = p["num_rows"] - len(p["deleted"])
+        total += n
+        if p.get("seg_nseg") == nseg:
+            segs[str(p["seg"])] = segs.get(str(p["seg"]), 0) + n
+    return {"segs": segs, "total": total}
+
+
+def store_answers(s) -> list:
+    """STORE_QUERIES on ``s``: (decoded rows, physical rows) each."""
+    out = []
+    for q in STORE_QUERIES:
+        b = s.sql(q)
+        out.append({"rows": rows(b), "physical": physical(b)})
+    return out
+
+
+def store_dml(s, root, copy) -> list:
+    """STORE_DML on ``s`` over ``root``: each statement's status and the
+    manifest versions it added per table."""
+    out = []
+    for q in STORE_DML:
+        before = versions(root)
+        status = s.sql(q.format(copy=copy))
+        after = versions(root)
+        out.append({"status": str(status), "added": {
+            n: after[n] - before.get(n, 0) for n in after}})
+    return out
+
+
+def resized(s, root) -> dict:
+    """``online_resize`` to 8 on ``s``: the record's counts, the layout
+    and the store's live rows per destination segment."""
+    rec = s._topology.online_resize(8)
+    reb = rec["rebalance"]
+    return {"epoch": rec["epoch"], "reason": rec["reason"],
+            "moved_rows": reb["moved_rows"], "total_rows": reb["total_rows"],
+            "moved_bytes": reb["moved_bytes"], "layout": _layout(s),
+            "live": live_by_seg(root, 8)}
+
+
+def resume_run(root, rank=None) -> dict:
+    """An online resize 6 -> 8 whose chunk seam fails at RESUME_HIT on
+    process 0 (``rank`` None: the only process), then a fresh session over
+    the same root resuming it from ``_TOPOLOGY.json``'s journal."""
+    from cloudberry_tpu_torch.utils import faultinject as FI
+
+    s = store_session(root)
+    if rank in (None, 0):
+        FI.inject_fault("topo_rebalance_chunk", "error",
+                        start_hit=RESUME_HIT, end_hit=RESUME_HIT)
+    try:
+        s._topology.online_resize(8)
+        failed = ""
+    except FI.InjectedFault as e:
+        failed = str(e)
+    finally:
+        FI.reset_fault()
+    s = store_session(root)
+    out = resized(s, root)
+    out.update(failed=failed, answers=store_answers(s))
+    return out
+
+
+def store_runs(top) -> dict:
+    """The store-backed cluster's scenarios over the copies under
+    ``top`` (module docstring). An error in one is recorded, not
+    raised, so that the others still report."""
+    import os
+
+    from cloudberry_tpu_torch.parallel.mesh import process_index
+    from cloudberry_tpu_torch.parallel.topology import ClusterSnapshotError
+    from cloudberry_tpu_torch.storage.compact import CompactionService
+    from cloudberry_tpu_torch.utils import faultinject as FI
+
+    rank = process_index()
+    at = {n: os.path.join(top, n) for n in STORE_COPIES}
+    out = {}
+
+    def scenario(name, fn):
+        try:
+            out[name] = fn()
+        except Exception as e:  # noqa: BLE001 — the test names it
+            out[name] = {"error": f"{type(e).__name__}: {e}"}
+        finally:
+            FI.reset_fault()
+
+    def reads():
+        s = store_session(at["reads"])
+        rec = {"answers": store_answers(s), "layout": _layout(s)}
+        # a device loss whose probe loses slot 3 (process 0's last): the
+        # retry degrades to 3 + 4 and the loss promotes to a failover
+        # epoch at once, over the same store
+        f = store_session(at["reads"], 8, **{
+            "health.retries": 2, "health.backoff_s": 0.001,
+            "health.backoff_max_s": 0.002, "topology.promote_after": 1})
+        FI.inject_fault("exec_device_lost", "error", start_hit=1,
+                        end_hit=1)
+        if rank == 0:
+            FI.inject_fault("probe_degraded", "skip", start_hit=1,
+                            end_hit=1)
+        rec["failover"] = {"answer": store_answers(f)[0],
+                           "layout": _layout(f),
+                           "reason": f._topology.current.reason}
+        return rec
+
+    def dml():
+        s = store_session(at["dml"])
+        rec = {"statements": store_dml(s, at["dml"],
+                                       os.path.join(top, COPY_FILE))}
+        rec["answers"] = store_answers(s)
+        before = versions(at["dml"])
+        rec["compact"] = CompactionService(s).run_once(force=True)
+        rec["compact_added"] = versions(at["dml"])["t"] - before["t"]
+        rec["after_compact"] = store_answers(s)
+        rec["live"] = live_by_seg(at["dml"], 8)["total"]
+        return rec
+
+    def race():
+        s = store_session(at["race"])
+        before = versions(at["race"])
+        if rank == 0:
+            # process 0 waits between its manifest read and its commit
+            FI.inject_fault("store_lock_acquire", "sleep",
+                            sleep_s=RACE_SLEEP_S)
+        status = str(s.sql(RACE_INSERT))
+        FI.reset_fault()
+        rec = {"status": status,
+               "added": versions(at["race"])["t"] - before["t"],
+               "answers": store_answers(s)}
+        # process 0's commit fails: the statement raises on both
+        if rank == 0:
+            FI.inject_fault("io_manifest_write", "error", start_hit=1,
+                            end_hit=1)
+        try:
+            s.sql(FAILED_INSERT)
+            rec["failed"] = ""
+        except FI.InjectedFault as e:
+            rec["failed"] = str(e)
+        FI.reset_fault()
+        rec["after_failed"] = store_answers(s)[0]
+        return rec
+
+    def held():
+        s = store_session(at["held"])
+        first = store_answers(s)[0]
+        # a commit outside any statement (process 0's alone), then a
+        # statement whose process 1 is held on the older snapshot
+        s.store.delete_rows("d", lambda c: c["g"] == 11)
+        if rank == 1:
+            FI.inject_fault("sync_store", "skip", start_hit=1, end_hit=1)
+        try:
+            store_answers(s)
+            err = ""
+        except ClusterSnapshotError as e:
+            err = str(e)
+        FI.reset_fault()
+        return {"first": first, "raised": err,
+                "next": store_answers(s)[2]}
+
+    def resize():
+        s = store_session(at["resize"])
+        before = store_answers(s)
+        if rank == 0:
+            # process 0's topology writes lag: the others must not run
+            # ahead of its epoch line
+            FI.inject_fault("io_topology_write", "sleep",
+                            sleep_s=TOPOLOGY_LAG_S)
+        rec = resized(s, at["resize"])
+        FI.reset_fault()
+        rec.update(before=before, answers=store_answers(s))
+        return rec
+
+    scenario("reads", reads)
+    scenario("dml", dml)
+    scenario("race", race)
+    scenario("held", held)
+    scenario("resize", resize)
+    scenario("resume", lambda: resume_run(at["resume"], rank))
+    return out
 
 
 def tiled_report(rep) -> dict:
@@ -504,6 +790,8 @@ def main():
         out["mismatch"] = ""
     except ClusterLayoutError as e:
         out["mismatch"] = str(e)
+    if len(sys.argv) > 1:
+        out["store"] = store_runs(sys.argv[1])
     print("RESULT " + json.dumps(out), flush=True)
     return 0
 
