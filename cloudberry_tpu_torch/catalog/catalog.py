@@ -286,6 +286,8 @@ class Table:
             if arr is None or arr.dtype.kind not in "iuf" \
                     or col in self.validity:
                 cached = False  # nullable columns never count as PKs
+            elif arr.dtype.kind in "iu":
+                cached = _all_distinct_ints(arr)
             else:
                 cached = bool(len(np.unique(arr)) == len(arr))
             self.stats.unique[col] = cached
@@ -569,3 +571,25 @@ class Catalog:
         if t is None:
             raise KeyError(f"unknown table {name!r}")
         return t
+
+
+def _all_distinct_ints(arr: np.ndarray) -> bool:
+    """Whether an integer column holds no value twice, as ``np.unique``
+    would say, without its sort where the value range allows: a range
+    narrower than the row count must repeat a value, and a range up to 4x
+    the rows is checked with one mark per possible value."""
+    n = len(arr)
+    if n < 2:
+        return True
+    lo, hi = int(arr.min()), int(arr.max())
+    span = hi - lo + 1
+    if span < n:
+        return False
+    if span <= 4 * n:
+        seen = np.zeros(span, dtype=np.bool_)
+        # offsets in a type that holds the span (int8 - int8 wraps)
+        off = arr - arr.dtype.type(lo) if arr.dtype.kind == "u" \
+            else arr.astype(np.int64) - lo
+        seen[off.astype(np.intp)] = True
+        return int(np.count_nonzero(seen)) == n
+    return bool(len(np.unique(arr)) == n)

@@ -26,11 +26,21 @@ class StringDictionary:
     a rank table (see ``rank_table``).
     """
 
-    __slots__ = ("values", "_index")
+    __slots__ = ("values", "_idx")
 
     def __init__(self, values: Iterable[str] = ()):
         self.values: list[str] = list(values)
-        self._index: dict[str, int] = {v: i for i, v in enumerate(self.values)}
+        # value -> code, built at the first lookup: a copied or stored
+        # dictionary (a comment column's holds a value per row) is often
+        # only decoded and never asked for a code
+        self._idx: dict[str, int] | None = None
+
+    @property
+    def _index(self) -> dict[str, int]:
+        idx = self._idx
+        if idx is None:
+            idx = self._idx = {v: i for i, v in enumerate(self.values)}
+        return idx
 
     def __len__(self) -> int:
         return len(self.values)

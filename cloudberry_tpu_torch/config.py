@@ -2,23 +2,13 @@
 
 The reference keeps ~6k lines of GUCs (``src/backend/utils/misc/guc_gp.c``).
 Here configuration is a typed, immutable dataclass tree; a session carries
-one, and ``with_overrides`` produces a modified copy. This port carries the
-fields its slices read: the segment count and the motion transport, the
-planner's (motion choices, the memo, direct dispatch, runtime filters),
-the runtime join-filter digests, feedback, durable storage, the
-device buffer pool, the join-index cache size, memory governance (the
-per-query budget, the concurrency slots, the engine-wide red line and the
-resource queue), the statement timeout, the observability plane and the
-tiled (out-of-core) path's scan pipeline, dispatch window and checkpoint
-store, the statement scheduler (generic plans and the micro-batch
-dispatcher), the serving front end (``serve``, ``tenancy``, ``ingest``,
-``compact``), failure recovery
-(``health``: the retry, its breaker and the degrade) and the topology
-plane (``topology``), and the plan verification gate
-(``debug.verify_plans``). There is no counterpart
-of the JAX package's ``exec.use_pallas``: the kernel gates are decided by
-the plan's shapes alone, and on a CUDA device the hand-written kernels
-always run.
+one, and ``with_overrides`` produces a modified copy. This port carries
+every field of the JAX package's tree at the same path and with the same
+default, except ``sched.generic_plans`` (off here; see its comment) and
+``exec.use_pallas``, which has no counterpart: it picks the JAX
+package's plain path over its kernels, while here the kernel gates are
+decided by the plan's shapes alone and on a CUDA device the hand-written
+kernels always run.
 """
 
 from __future__ import annotations
@@ -153,6 +143,10 @@ class BufferPoolConfig:
     the config epoch and the device, so results are bit-identical pool
     on/off by construction and stale entries can never serve."""
 
+    # False turns the pool off: it admits nothing, and every scan reads,
+    # decodes and uploads its partitions (the session's store-scan cache
+    # keeps its own ``max_bytes`` budget).
+    enabled: bool = True
     # Resident budget in device bytes: the pool's chunks (per cache
     # scope — sessions over the same store root share one pool) plus a
     # session's assembled store scans (exec/executor.py). Admission
@@ -178,10 +172,26 @@ class StorageConfig:
     # Rows per micro-partition file — smaller means finer pruning
     # granularity, more files (the AO blocksize / PAX partition-size knob).
     rows_per_partition: int = 1 << 20
+    # Dynamic partition elimination (nodePartitionSelector.c analog): when
+    # an inner/semi join probes a PARTITION BY table on its partition
+    # column and the build side is at most this many rows, the build side
+    # runs host-side first and its key values prune probe partitions
+    # before any fact-table IO. 0 disables.
+    partition_selector_max_build: int = 1 << 17
+    # Store-wide disk quota in bytes (the diskquota extension analog):
+    # once on-disk usage reaches the quota, further writes are refused
+    # with QuotaError (reads, deletes, and drops still work — the way
+    # out). 0 = unlimited.
+    quota_bytes: int = 0
     # TDE cluster key (utils/tde.py): when set, micro-partition files and
     # manifests encrypt at rest (Fernet: AES-CBC + HMAC). Needs the
     # `cryptography` package; None = plaintext storage.
     encryption_key: str | None = None
+    # Verify column-blob content checksums at decode (pg_checksums
+    # analog): a mismatch raises StorageCorruptionError instead of
+    # decoding garbage into an answer. crc32 over the compressed blob;
+    # `fsck --deep` verifies them whatever this says.
+    verify_checksums: bool = True
 
 
 @dataclass(frozen=True)
@@ -348,9 +358,7 @@ class RecoveryConfig:
 class SchedConfig:
     """Statement scheduler — generic plans + the micro-batch dispatcher
     (sched/paramplan.py, sched/dispatcher.py; the plan_cache.c /
-    gang-dispatch analog). The JAX package's ``max_variants`` and
-    ``shared_cache`` are constants here (``paramplan._MAX_VARIANTS``,
-    ``sharedcache.scope_for``)."""
+    gang-dispatch analog)."""
 
     # Parameterized generic plans: hoist constant literals out of repeated
     # statements so same-shape SQL shares ONE Executable with literals fed
@@ -377,6 +385,15 @@ class SchedConfig:
     # Default per-request deadline; expired requests fail without
     # executing (SchedDeadline).
     deadline_s: float = 30.0
+    # Generic-plan variants kept per statement skeleton (distinct plan
+    # shapes: capacity rungs, 0-vs-1 point matches, per-segment counts).
+    max_variants: int = 4
+    # Process-wide shared cache tier (sched/sharedcache.py): sessions over
+    # the SAME durable store share one generic-plan / join-index / buffer
+    # pool / store-scan cache scope. Store table VERSIONs key every entry
+    # and the config object identity is the config epoch. False keeps
+    # every session's caches private.
+    shared_cache: bool = True
 
 
 @dataclass(frozen=True)

@@ -277,10 +277,11 @@ _create_lock = threading.Lock()
 def pool_for(session) -> Optional[BufferPool]:
     """The session's buffer pool, anchored on its cache scope
     (sched/sharedcache.py — per store root when shared, per session
-    otherwise), lazily created. None when ``bufferpool.max_bytes`` is 0:
-    every consumer then takes its pre-pool path unchanged."""
+    otherwise), lazily created. None when ``bufferpool.enabled`` is
+    False or ``bufferpool.max_bytes`` is 0: every consumer then takes its
+    pre-pool path unchanged."""
     bp = getattr(getattr(session, "config", None), "bufferpool", None)
-    if bp is None or bp.max_bytes <= 0:
+    if bp is None or not bp.enabled or bp.max_bytes <= 0:
         return None
     from cloudberry_tpu_torch.sched import sharedcache
 

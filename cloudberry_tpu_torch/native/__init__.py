@@ -15,11 +15,15 @@ import ctypes
 import os
 import subprocess
 import tempfile
+import threading
 
 import numpy as np
 
 _lib = None
 _tried = False
+# the first call builds and loads; callers on other threads (a parallel
+# write's column encoders, the scan pipeline's decoders) wait for it
+_load_lock = threading.Lock()
 
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -29,6 +33,13 @@ BUILD_DIR = os.path.join(os.path.dirname(_HERE), "build")
 
 def load_native():
     """Build (once) and load libcbcodec; None if no toolchain."""
+    if _lib is not None or _tried:
+        return _lib
+    with _load_lock:
+        return _load_locked()
+
+
+def _load_locked():
     global _lib, _tried
     if _lib is not None or _tried:
         return _lib
@@ -63,12 +74,30 @@ def load_native():
     lib.cb_parse_int64_column.argtypes = [
         ctypes.c_char_p, ctypes.c_int64, ctypes.c_char, ctypes.c_int32,
         ctypes.c_void_p, ctypes.c_int64]
+    lib.cb_jump_hash.restype = None
+    lib.cb_jump_hash.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
     lib.cb_parse_decimal_column.restype = ctypes.c_int64
     lib.cb_parse_decimal_column.argtypes = [
         ctypes.c_char_p, ctypes.c_int64, ctypes.c_char, ctypes.c_int32,
         ctypes.c_int32, ctypes.c_void_p, ctypes.c_int64]
     _lib = lib
     return _lib
+
+
+# ---------------------------------------------------------- placement hash
+
+
+def jump_hash(keys: np.ndarray, n_buckets: int):
+    """``utils/hashing.jump_consistent_hash_np`` in C (int32 bucket per
+    uint64 key, bit-identical); None without the native library."""
+    lib = load_native()
+    if lib is None:
+        return None
+    k = np.ascontiguousarray(keys, dtype=np.uint64)
+    out = np.empty(k.shape, dtype=np.int32)
+    lib.cb_jump_hash(k.ctypes.data, k.size, int(n_buckets), out.ctypes.data)
+    return out
 
 
 # ----------------------------------------------------------------- varint

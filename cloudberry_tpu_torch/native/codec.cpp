@@ -4,8 +4,8 @@
 // headers in src/backend/cdb/cdbappendonlystorageformat.c; PAX's C++
 // encoding stack in contrib/pax_storage). Here the hot byte-level work —
 // delta+zigzag+LEB128 varint for int64 key/date columns, plus a fast CSV
-// field splitter for parallel ingest (the gpfdist-class loader path) — is
-// C++ behind a C ABI, loaded via ctypes (no pybind11 in the image).
+// field splitter for parallel ingest (the gpfdist-class loader path) and
+// the jump hash that places rows on segments — is C++ behind a C ABI, loaded via ctypes (no pybind11 in the image).
 //
 // Build: g++ -O3 -march=native -shared -fPIC codec.cpp -o libcbcodec.so
 
@@ -152,6 +152,27 @@ int64_t cb_parse_decimal_column(const char* buf, int64_t nbytes, char delim,
         p++;
     }
     return rows;
+}
+
+// ------------------------------------------------------- placement hash
+
+// Lamping-Veach jump consistent hash of each key into [0, n_buckets), -1
+// when n_buckets <= 0: the host's data placement. utils/hashing.py's
+// jump_consistent_hash_np is the same arithmetic in numpy, bit for bit.
+void cb_jump_hash(const uint64_t* keys, int64_t n, int64_t n_buckets,
+                  int32_t* out) {
+    for (int64_t i = 0; i < n; i++) {
+        uint64_t key = keys[i];
+        int64_t b = -1, j = 0;
+        while (j < n_buckets) {
+            b = j;
+            key = key * 2862933555777941757ULL + 1;
+            double denom = static_cast<double>((key >> 33) + 1);
+            j = static_cast<int64_t>(static_cast<double>(b + 1) *
+                                     (2147483648.0 / denom));
+        }
+        out[i] = static_cast<int32_t>(b);
+    }
 }
 
 }  // extern "C"

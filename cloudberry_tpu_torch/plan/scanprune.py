@@ -20,10 +20,6 @@ from cloudberry_tpu_torch.types import DType
 
 _RANGE_TYPES = (DType.INT32, DType.INT64, DType.DECIMAL, DType.DATE,
                 DType.FLOAT64)
-# dynamic partition elimination runs a join's build side first only when
-# the build holds at most this many rows (the JAX package's
-# storage.partition_selector_max_build default)
-PARTITION_SELECTOR_MAX_BUILD = 1 << 17
 
 
 def apply_storage_scans(plan: N.PlanNode, session) -> None:
@@ -115,7 +111,8 @@ def _dynamic_eliminate(join: N.PJoin, session, store) -> None:
     is plan time: the build subtree compiles and runs as its own small
     program, exactly like the reference runs the selector subtree before
     the dynamic scan."""
-    if join.kind not in ("inner", "semi"):
+    limit = session.config.storage.partition_selector_max_build
+    if limit <= 0 or join.kind not in ("inner", "semi"):
         return
     # probe side: PFilter chains preserve field names; anything else stops
     scan = join.probe
@@ -137,7 +134,7 @@ def _dynamic_eliminate(join: N.PJoin, session, store) -> None:
         return
     from cloudberry_tpu_torch.plan.binder import _plan_capacity
 
-    if _plan_capacity(join.build) > PARTITION_SELECTOR_MAX_BUILD:
+    if _plan_capacity(join.build) > limit:
         return
     values = _eval_build_keys(join.build, join.build_keys[key_i], session)
     if values is None:

@@ -741,10 +741,6 @@ class GenericPlan:
 
 
 _GENERIC_CACHE_MAX = 32
-# generic-plan variants kept per statement skeleton (distinct plan shapes:
-# capacity rungs, 0-vs-1 point matches) — the JAX package's
-# sched.max_variants at its default
-_MAX_VARIANTS = 4
 
 
 def _try_fast(session, gp: GenericPlan, plan, tok_params, bindings,
@@ -878,7 +874,7 @@ def lookup_or_build(session, query: str, plan) -> Optional[Prep]:
     with lock:
         bucket = cache.setdefault(skeleton, [])
         bucket.append(gp)
-        del bucket[:-_MAX_VARIANTS]
+        del bucket[:-session.config.sched.max_variants]
         while len(cache) > _GENERIC_CACHE_MAX:
             cache.pop(next(iter(cache)))
     return Prep(gp, plan, keyed2, bindings2, built=True)

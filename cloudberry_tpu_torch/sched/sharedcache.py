@@ -10,9 +10,8 @@ the reference caches a compiled program per capacity rung, while the
 port's distributed runner lowers its plan at every run, so there is
 nothing to compile ahead and the statement cache keeps the runner.
 
-- sessions over the same durable store root share ONE scope (the JAX
-  package's ``sched.shared_cache`` at its default; the port has no
-  switch);
+- sessions over the same durable store root share ONE scope while
+  ``sched.shared_cache`` is on (the default);
 - every other session gets a private scope.
 
 The invalidation contract is the signature discipline, not a protocol:
@@ -104,12 +103,14 @@ _uid_counter = itertools.count(1)
 
 def scope_for(session) -> CacheScope:
     """The session's cache scope, created on first use. Store-backed
-    sessions share the per-root scope; everything else is private. Sessions cache the result
+    sessions with ``config.sched.shared_cache`` share the per-root scope;
+    everything else is private. Sessions cache the result
     (``session._cache_scope``) — Session.__init__ calls this once."""
     scope = getattr(session, "_cache_scope", None)
     if scope is not None:
         return scope
-    if getattr(session, "store", None) is not None:
+    if getattr(session, "store", None) is not None \
+            and session.config.sched.shared_cache:
         root = str(session.config.storage.root)
         with _tier_lock:
             scope = _store_scopes.pop(root, None)

@@ -52,6 +52,11 @@ from cloudberry_tpu_torch.sql.classify import read_only as _is_read
 
 _TXN_STARTERS = ("begin", "commit", "rollback", "abort", "start", "end")
 
+# how long a graceful stop waits, after the drain budget, for the answers
+# of cancelled stragglers and of requests its own flush or dispatcher stop
+# released, before the transport closes the sockets
+_CLOSE_GRACE_S = 2.0
+
 
 def _first_word(sql: str) -> str:
     s = sql.lstrip()
@@ -504,40 +509,54 @@ class Server:
         while accepted in-flight work (handler threads AND the
         dispatcher queue) finishes; whatever is still running at the
         budget's end is CANCELLED with the same retryable drain error —
-        every accepted request gets an answer, never a silent drop."""
+        every accepted request gets an answer, never a silent drop: the
+        ingest flush releases blocked appenders before the grace wait,
+        and the transport closes only once the answers are written (on
+        the event loop, queued for its final flush) or a bounded wait
+        ends."""
         import time as _t
 
         self._draining = True
         if drain_s > 0:
             end = _t.monotonic() + drain_s
-            with self._inflight_cond:
-                while self._inflight and _t.monotonic() < end:
-                    self._inflight_cond.wait(
-                        timeout=min(0.1, max(end - _t.monotonic(), 0.01)))
+            self._wait_idle(end)
             if self.dispatcher is not None:
                 self.dispatcher.drain(max(0.0, end - _t.monotonic()))
+            if self.ingest is not None:
+                # drain flush-on-stop: buffered rows whose appenders are
+                # still blocked commit now (their acks turn true), and
+                # the append verb has been refusing since _draining
+                # flipped; only this flush can release those appenders
+                self.ingest.stop()
             # stragglers past the budget: cancel cooperatively so their
             # handlers write the retryable drain error before we close
             for _sid, h in self.session.stmt_log.active_handles():
                 h.token.cancel(
                     "drain", "statement abandoned by server drain; "
                     "retry against the serving primary")
-            with self._inflight_cond:
-                grace = _t.monotonic() + 2.0
-                while self._inflight and _t.monotonic() < grace:
-                    self._inflight_cond.wait(timeout=0.1)
+            self._wait_idle(_t.monotonic() + _CLOSE_GRACE_S)
         self.cron.stop()
         if self.dispatcher is not None:
             self.dispatcher.stop()
         if self.ingest is not None:
-            # drain flush-on-stop: buffered rows whose appenders are
-            # still blocked commit now (their acks turn true), and the
-            # append verb has been refusing since _draining flipped
             self.ingest.stop()
         if self.compactor is not None:
             self.compactor.stop()
         self.watchdog.stop()
+        if drain_s > 0:
+            # the answers that the dispatcher's stop just wrote
+            self._wait_idle(_t.monotonic() + _CLOSE_GRACE_S)
         self._transport.stop()
+
+    def _wait_idle(self, deadline: float) -> None:
+        """Wait until no accepted request is in flight, or ``deadline``
+        (monotonic) passes."""
+        import time as _t
+
+        with self._inflight_cond:
+            while self._inflight and _t.monotonic() < deadline:
+                self._inflight_cond.wait(
+                    timeout=min(0.1, max(deadline - _t.monotonic(), 0.01)))
 
     def __enter__(self):
         return self.start()

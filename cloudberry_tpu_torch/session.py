@@ -240,6 +240,9 @@ class Session:
             self.store = TableStore(self.config.storage.root)
             self.store.rows_per_partition = \
                 self.config.storage.rows_per_partition
+            self.store.quota_bytes = self.config.storage.quota_bytes
+            self.store.verify_checksums = \
+                self.config.storage.verify_checksums
             if self.config.storage.encryption_key:
                 from cloudberry_tpu_torch.utils.tde import make_cipher
 

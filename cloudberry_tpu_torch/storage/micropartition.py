@@ -30,14 +30,13 @@ import numpy as np
 
 try:
     import zstandard as _zstd
-
-    _ZC = _zstd.ZstdCompressor(level=3)
 except Exception:  # pragma: no cover
     _zstd = None
 
-# Decompression contexts are PER THREAD: the zstd context is stateful
-# and not safe for concurrent decompress calls, and the scan pipeline
-# (exec/scanpipe.py) decodes columns in parallel across a reader pool.
+# zstd contexts are PER THREAD: a context is stateful and not safe for
+# concurrent calls, the scan pipeline (exec/scanpipe.py) decodes columns
+# in parallel across a reader pool, and a large write encodes its
+# columns in parallel (write_micropartition).
 # The native codecs (zstd, zlib, the dvarint C path) all release the
 # GIL on big blocks, so per-thread contexts are what actually lets the
 # pool overlap — a single shared context would serialize right back.
@@ -49,6 +48,13 @@ def _zstd_dctx():
     if d is None:
         d = _TLS.zd = _zstd.ZstdDecompressor()
     return d
+
+
+def _zstd_cctx():
+    c = getattr(_TLS, "zc", None)
+    if c is None:
+        c = _TLS.zc = _zstd.ZstdCompressor(level=3)
+    return c
 
 from cloudberry_tpu_torch.columnar.dictionary import StringDictionary
 from cloudberry_tpu_torch.lifecycle import StorageCorruptionError
@@ -77,7 +83,7 @@ _verified: dict[tuple, bool] = {}
 
 def _compress(raw: bytes, codec: str) -> bytes:
     if codec == "zstd":
-        return _ZC.compress(raw)
+        return _zstd_cctx().compress(raw)
     if codec == "zlib":
         return zlib.compress(raw, 6)
     return raw
@@ -128,6 +134,59 @@ def _rle_decode(raw: bytes, n_runs: int, dtype: np.dtype, n: int) -> np.ndarray:
     return np.repeat(values, lengths)[:n]
 
 
+# A partition of at least this many rows encodes its columns on a
+# thread pool: compression, checksums, the delta-varint codec and the
+# numpy passes release the GIL, and the bytes written are the same.
+PARALLEL_ENCODE_ROWS = 1 << 16
+
+
+def _encode_column(f: Field, arr: np.ndarray, codec: str,
+                   dicts: dict[str, StringDictionary]) -> tuple[dict, bytes]:
+    """One column's footer entry and stored blob."""
+    enc: dict = {"name": f.name, "codec": codec}
+    rle = _rle_encode(arr)
+    dv = None
+    if rle is None and arr.dtype == np.int64 and len(arr):
+        # delta varint (native codec) wins on keys/sorted-ish int64
+        from cloudberry_tpu_torch import native
+
+        dv = native.dvarint_encode(arr)
+        if len(dv) * 2 > arr.nbytes:
+            dv = None  # not worth it
+    if rle is not None:
+        raw, n_runs = rle
+        enc["encoding"] = "rle"
+        enc["n_runs"] = n_runs
+    elif dv is not None:
+        raw = dv
+        enc["encoding"] = "dvarint"
+    else:
+        raw = arr.tobytes()
+        enc["encoding"] = "raw"
+    blob = _compress(raw, codec)
+    if len(blob) >= len(raw) and enc["encoding"] == "raw":
+        blob = raw
+        enc["codec"] = "none"
+    enc["offset"] = None  # set by the writer, in column order
+    enc["length"] = len(blob)
+    # content checksum of the stored blob (the pg_checksums analog):
+    # verified at decode behind TableStore.verify_checksums and by the
+    # JAX package's `mgmt fsck` — a flipped bit is a typed
+    # StorageCorruptionError, never a wrong answer
+    enc["cksum"] = iofault.content_hash(blob)
+    if f.dtype != DType.STRING and len(arr) and arr.dtype.kind in "iuf":
+        enc["min"] = _json_num(arr.min())
+        enc["max"] = _json_num(arr.max())
+        if arr.dtype.kind in "iu":
+            # bloom filter for equality pruning (PAX
+            # micro_partition_stats.cc bloom move): point predicates
+            # skip files min/max can't exclude
+            enc["bloom"] = _bloom_build(arr)
+    if f.dtype == DType.STRING and f.name in dicts:
+        enc["dictionary"] = dicts[f.name].values
+    return enc, blob
+
+
 def write_micropartition(path: str, data: dict[str, np.ndarray],
                          schema: Schema,
                          dicts: dict[str, StringDictionary] | None = None,
@@ -141,52 +200,26 @@ def write_micropartition(path: str, data: dict[str, np.ndarray],
     dicts = dicts or {}
     codec = codec or ("zstd" if _zstd is not None else "zlib")
     n = len(next(iter(data.values()))) if data else 0
+    fields = list(schema.fields)
+
+    def one(f):
+        return _encode_column(f, np.ascontiguousarray(data[f.name]), codec,
+                              dicts)
+
+    if n >= PARALLEL_ENCODE_ROWS and len(fields) > 1:
+        from concurrent.futures import ThreadPoolExecutor
+
+        workers = min(len(fields), os.cpu_count() or 1)
+        with ThreadPoolExecutor(workers,
+                                thread_name_prefix="cbtpu_torch-encode") as ex:
+            encoded = list(ex.map(one, fields))
+    else:
+        encoded = [one(f) for f in fields]
     columns = []
     blobs = []
     offset = len(MAGIC)
-    for f in schema.fields:
-        arr = np.ascontiguousarray(data[f.name])
-        enc: dict = {"name": f.name, "codec": codec}
-        rle = _rle_encode(arr)
-        dv = None
-        if rle is None and arr.dtype == np.int64 and len(arr):
-            # delta varint (native codec) wins on keys/sorted-ish int64
-            from cloudberry_tpu_torch import native
-
-            dv = native.dvarint_encode(arr)
-            if len(dv) * 2 > arr.nbytes:
-                dv = None  # not worth it
-        if rle is not None:
-            raw, n_runs = rle
-            enc["encoding"] = "rle"
-            enc["n_runs"] = n_runs
-        elif dv is not None:
-            raw = dv
-            enc["encoding"] = "dvarint"
-        else:
-            raw = arr.tobytes()
-            enc["encoding"] = "raw"
-        blob = _compress(raw, codec)
-        if len(blob) >= len(raw) and enc["encoding"] == "raw":
-            blob = raw
-            enc["codec"] = "none"
+    for enc, blob in encoded:
         enc["offset"] = offset
-        enc["length"] = len(blob)
-        # content checksum of the stored blob (the pg_checksums analog):
-        # verified at decode behind TableStore.verify_checksums and by the
-        # JAX package's `mgmt fsck` — a flipped bit is a typed
-        # StorageCorruptionError, never a wrong answer
-        enc["cksum"] = iofault.content_hash(blob)
-        if f.dtype != DType.STRING and n and arr.dtype.kind in "iuf":
-            enc["min"] = _json_num(arr.min())
-            enc["max"] = _json_num(arr.max())
-            if arr.dtype.kind in "iu":
-                # bloom filter for equality pruning (PAX
-                # micro_partition_stats.cc bloom move): point predicates
-                # skip files min/max can't exclude
-                enc["bloom"] = _bloom_build(arr)
-        if f.dtype == DType.STRING and f.name in dicts:
-            enc["dictionary"] = dicts[f.name].values
         offset += len(blob)
         columns.append(enc)
         blobs.append(blob)

@@ -70,13 +70,15 @@ class TableStore:
         self.cipher = None
         # content-checksum verification at decode (pg_checksums analog):
         # column blobs carry a crc in the footer; a mismatch raises
-        # StorageCorruptionError instead of decoding garbage (on — crc32
-        # is cheap next to decompression).
+        # StorageCorruptionError instead of decoding garbage. Config:
+        # storage.verify_checksums (default on — crc32 is cheap next to
+        # decompression).
         self.verify_checksums = True
         # disk quota (diskquota extension analog): enforced at write time
-        # against real on-disk usage; 0 = unlimited. Like the reference's,
-        # enforcement is a hard stop once usage REACHES the quota — the
-        # write that crosses it succeeds, the next one is refused.
+        # against real on-disk usage; 0 = unlimited. Config:
+        # storage.quota_bytes. Like the reference's, enforcement is a hard
+        # stop once usage REACHES the quota — the write that crosses it
+        # succeeds, the next one is refused.
         self.quota_bytes = 0
         # snapshot pinning: while a session transaction is open, every read
         # through read_manifest resolves to the version current at BEGIN —
@@ -423,11 +425,16 @@ class TableStore:
         Returns the new snapshot version."""
         tdir = os.path.join(self.root, table)
         os.makedirs(tdir, exist_ok=True)
-        self._check_quota(table)
         man = self._head(table)
+        n = len(next(iter(data.values()))) if data else 0
+        live = sum(p["num_rows"] - len(p["deleted"])
+                   for p in man["partitions"])
+        if not (replace and n < live):
+            # a rewrite that only removes rows (SQL DELETE, TRUNCATE) is
+            # a way out past the quota, as the refusal's words promise
+            self._check_quota(table)
         if replace:
             man["partitions"] = []
-        n = len(next(iter(data.values()))) if data else 0
         phys_schema = schema
         phys_data = data
         if validity:

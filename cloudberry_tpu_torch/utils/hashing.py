@@ -132,7 +132,14 @@ def jump_consistent_hash_np(keys: np.ndarray, n_buckets: int) -> np.ndarray:
 
     Used for data placement so a resize from N to N+1 buckets relocates only
     ~1/(N+1) of rows (reference: cdbhash.c:55, gpexpand minimal movement).
+    The native codec's loop runs it where the library loads; these numpy
+    rounds are the same arithmetic.
     """
+    from cloudberry_tpu_torch import native
+
+    got = native.jump_hash(keys, n_buckets)
+    if got is not None:
+        return got
     keys = keys.astype(np.uint64)
     b = np.full(keys.shape, -1, dtype=np.int64)
     j = np.zeros(keys.shape, dtype=np.int64)

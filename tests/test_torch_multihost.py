@@ -790,6 +790,21 @@ def test_store_commit_error_on_process_0_raises_on_every_process(cluster):
         assert r["after_failed"] == r["answers"][0]
 
 
+def test_store_insert_past_the_quota_raises_on_every_process(cluster):
+    """A cluster over a store past its disk quota: process 0 refuses the
+    INSERT at its commit, the ``QuotaError`` raises on both processes, no
+    manifest version is written, and both still answer the table's rows
+    as before."""
+    runs = _store(cluster, "quota")
+    for r in runs:
+        assert r["raised"].startswith("disk quota exceeded: store uses"), r
+        assert r["raised"].endswith("quota bytes; writes to 't' refused "
+                                    "(DELETE / DROP TABLE to reclaim)")
+        assert set(r["added"].values()) == {0}, r["added"]
+        assert r["after"] == r["first"]
+    assert runs[0]["raised"] == runs[1]["raised"]
+
+
 def test_store_snapshot_agreement_raises_on_every_process(cluster, stores,
                                                           tmp_path):
     """Process 0 commits outside a statement and process 1 is held on the

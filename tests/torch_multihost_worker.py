@@ -29,7 +29,8 @@ store, its reads, DML, a transaction and a compaction pass committed by
 process 0 alone, an INSERT whose process 0 is held between its manifest
 read and its commit, a process held on an older snapshot, an online
 resize 6 -> 8 that moves stored partitions, its journal resume after a
-chunk fault on process 0, and a failover shrink.
+chunk fault on process 0, a failover shrink, and an INSERT past the
+store's disk quota.
 
 The spawner provides the environment; this module imports no JAX and
 must not change ``os.environ`` (the test imports ``QUERIES``, ``load``,
@@ -116,7 +117,8 @@ STORE_QUERIES = [
     ("SELECT w, count(*) AS c, sum(t.v) AS sv FROM t JOIN d ON t.g = d.g "
      "WHERE t.k % 7 = 1 GROUP BY w ORDER BY w"),
 ]
-STORE_COPIES = ("reads", "dml", "race", "held", "resize", "resume")
+STORE_COPIES = ("reads", "dml", "race", "held", "resize", "resume",
+               "quota")
 COPY_FILE = "copy.txt"          # COPY's input, beside the copies
 STORE_DML = [
     "INSERT INTO t VALUES (100000, 1.25, 3), (100001, 2.50, 4)",
@@ -134,6 +136,7 @@ STORE_DML = [
 RACE_INSERT = "INSERT INTO t VALUES (200000, 9.99, 1)"
 RACE_SLEEP_S = 1.0
 FAILED_INSERT = "INSERT INTO t VALUES (200001, 1.00, 2)"
+QUOTA_INSERT = "INSERT INTO t VALUES (200002, 3.00, 3)"
 RESUME_HIT = 3                  # the chunk fault's hit on process 0
 TOPOLOGY_LAG_S = 0.2            # process 0's topology writes, delayed
 
@@ -352,6 +355,7 @@ def store_runs(top) -> dict:
     from cloudberry_tpu_torch.parallel.mesh import process_index
     from cloudberry_tpu_torch.parallel.topology import ClusterSnapshotError
     from cloudberry_tpu_torch.storage.compact import CompactionService
+    from cloudberry_tpu_torch.storage.table_store import QuotaError
     from cloudberry_tpu_torch.utils import faultinject as FI
 
     rank = process_index()
@@ -452,12 +456,29 @@ def store_runs(top) -> dict:
         rec.update(before=before, answers=store_answers(s))
         return rec
 
+    def quota():
+        # a quota of one byte: the store is past it, so process 0 refuses
+        # the INSERT at its commit and both processes raise
+        s = store_session(at["quota"], **{"storage.quota_bytes": 1})
+        first = store_answers(s)[0]
+        before = versions(at["quota"])
+        try:
+            s.sql(QUOTA_INSERT)
+            err = ""
+        except QuotaError as e:
+            err = str(e)
+        after = versions(at["quota"])
+        return {"raised": err, "first": first,
+                "added": {n: after[n] - before.get(n, 0) for n in after},
+                "after": store_answers(s)[0]}
+
     scenario("reads", reads)
     scenario("dml", dml)
     scenario("race", race)
     scenario("held", held)
     scenario("resize", resize)
     scenario("resume", lambda: resume_run(at["resume"], rank))
+    scenario("quota", quota)
     return out
 
 
